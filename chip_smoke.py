@@ -11,19 +11,27 @@ Phases (any failure raises and exits non-zero, with no result line):
 1. the card's name and power limit (``nvidia-smi``), torch and CUDA
    versions;
 2. build every kernel under ``src/repro_torch/kernels/csrc`` with nvcc
-   into the git-ignored ``build/`` directory;
+   (one process per source, all at once) into the git-ignored ``build/``
+   directory;
 3. hold each kernel against its plain PyTorch version on the card (the
-   main path's shape and edge cases) and time kernel, plain version and
-   a one-call library yardstick;
-4. the main path: ``run_scenario`` at full width (250 nodes, 200
+   main paths' shapes, the sweeps of ``tests/test_kernels.py``, ragged
+   lengths and edge cases) and time kernel, plain version and a one-call
+   library yardstick;
+4. the simulation path: ``run_scenario`` at full width (250 nodes, 200
    replicas per app, 1000 requests, 8 seeds x 32 trials) on baseline,
    stale-predictions and churn with the four default policies and the
    oracle, counting kernel launches; then a profiled full-width pass
    cut to 100 requests (device busy share, largest kernels and host
    ops), outside the launch count;
-5. the same entry point on CUDA and on the CPU at a mid shape; summary
-   stats must agree within 1e-5 relative;
-6. a ``kernels`` JSON line, then the result line.
+5. the serving path: ``ServingEngine`` with qwen2-vl-7b at full width
+   (28 layers, bf16, random weights from a seeded generator), 3 waves of
+   8 requests (prompts of 256-1024 tokens, 32 new tokens each), counting
+   the attention kernels' launches; then a profiled decode step outside
+   the count;
+6. CUDA against the CPU: the campaign at a mid shape (summary stats
+   within 1e-5 relative) and the serving path at qwen2-vl-7b's smoke
+   config in f32 (logits within 1e-4 relative, identical tokens);
+7. a ``kernels`` JSON line, the card's line, then the result line.
 """
 from __future__ import annotations
 
@@ -37,10 +45,11 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-#: published H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth and the
-#: FP64 / FP32 rates outside the tensor cores
+#: published H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, the
+#: FP64 / FP32 rates outside the tensor cores and the dense bf16 rate
 PEAK_BYTES_S = 3.35e12
-PEAK_OPS_S = {"torch.float64": 34e12, "torch.float32": 67e12}
+PEAK_OPS_S = {"torch.float64": 34e12, "torch.float32": 67e12,
+              "torch.bfloat16": 989e12}
 
 LARGE = dict(n_nodes=250, n_replicas_per_app=200, n_requests=1000)
 LARGE_SEEDS, LARGE_TRIALS = tuple(range(8)), 32
@@ -50,6 +59,26 @@ MAIN_SCENARIOS = ("baseline", "stale-predictions", "churn")
 KERNEL_SCENARIOS = ("stale-predictions", "churn")
 PARITY_SCENARIOS = ("stale-predictions", "churn")
 PARITY_RTOL = 1e-5
+
+#: the serving path: qwen2-vl-7b at full width, 3 waves of 8 requests
+ARCH = "qwen2-vl-7b"
+SERVE = dict(max_batch=8, max_seq=2048)
+WAVES, NEW_TOKENS, PROMPT_LEN = 3, 32, (256, 1024)
+ATTN_TOL = {"torch.float32": 2e-5, "torch.bfloat16": 2e-2}
+SERVE_PARITY_RTOL = 1e-4
+
+
+def wave_prompts(vocab: int):
+    """The serving waves' prompts, seeded: WAVES x max_batch token
+    arrays of lengths drawn in PROMPT_LEN."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    n = WAVES * SERVE["max_batch"]
+    lens = rng.integers(PROMPT_LEN[0], PROMPT_LEN[1] + 1, size=n)
+    prompts = [rng.integers(0, vocab, size=int(m)).astype(np.int32)
+               for m in lens]
+    B = SERVE["max_batch"]
+    return [prompts[w * B:(w + 1) * B] for w in range(WAVES)]
 
 
 def card_line() -> str:
@@ -195,6 +224,152 @@ def check_segment_sum(dev) -> dict:
             "library_ms": library_ms}
 
 
+def _randn(shape, dtype, dev, seed):
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+
+def _attn_err(got, want, dtype) -> float:
+    """Fail unless ``got`` is within the dtype's tolerance of ``want``;
+    returns the largest absolute difference."""
+    import torch
+    tol = ATTN_TOL[str(dtype)]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    return float((got.float() - want.float()).abs().max())
+
+
+def _bound(nbytes: float, ops: float, dtype) -> tuple:
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = ops / PEAK_OPS_S[str(dtype)] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def _timed(name: str, timed: dict, inner: int) -> dict:
+    dev_ms = {k: device_ms(f, repeats=7, inner=inner)
+              for k, f in timed.items()}
+    print(f"{name} device time per call (CUDA graph replay): "
+          + ", ".join(f"{k} {v * 1e3:.2f} us" for k, v in dev_ms.items()))
+    return dev_ms
+
+
+def check_flash(dev, S: int) -> dict:
+    """Hold the flash-attention kernel against its plain version (the
+    serving path's prefill shape at padded length ``S``, the sweep of
+    tests/test_kernels.py, ragged lengths, head dim 256); time it at the
+    path shape.  Returns its ``kernels`` entry."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+
+    def case(B, Sq, H, KV, D, dtype, causal, seed=0):
+        q = _randn((B, Sq, H, D), dtype, dev, seed)
+        k = _randn((B, Sq, KV, D), dtype, dev, seed + 1)
+        v = _randn((B, Sq, KV, D), dtype, dev, seed + 2)
+        got = flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        err = _attn_err(got, flash_attention_plain(q, k, v, causal), dtype)
+        print(f"flash ({B},{Sq},{H}/{KV},{D}) {str(dtype)[6:]} causal="
+              f"{causal}: max_abs_err {err:.3e} "
+              f"(tol {ATTN_TOL[str(dtype)]})")
+        return q, k, v, err
+
+    B, H, KV, D = SERVE["max_batch"], 28, 4, 128
+    q, k, v, path_err = case(B, S, H, KV, D, torch.bfloat16, True)
+    for shape in ((1, 128, 4, 4, 32), (2, 256, 8, 2, 64), (1, 128, 8, 1, 16),
+                  (1, 777, 28, 4, 128), (2, 1000, 8, 2, 64),
+                  (1, 300, 4, 2, 256), (3, 100, 6, 3, 16)):
+        for dtype in (torch.float32, torch.bfloat16):
+            for causal in (True, False):
+                case(*shape, dtype, causal, seed=3)
+
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    timed = {
+        "kernel": lambda: flash_attention(q, k, v, causal=True),
+        "plain": lambda: flash_attention_plain(q, k, v, True),
+        "library": lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)}
+    lib = timed["library"]().transpose(1, 2)
+    print(f"flash library (SDPA) vs kernel at the path shape: max_abs_diff "
+          f"{float((lib.float() - flash_attention(q, k, v).float()).abs().max()):.3e}")
+    dev_ms = _timed("flash_attention", timed, inner=10)
+    nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
+    ops = 2 * B * H * (S * (S + 1) // 2) * (D + D)
+    bound_ms, bound_by = _bound(nbytes, ops, q.dtype)
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:80",
+            "launches": 0, "max_abs_err": path_err, "ms": dev_ms["kernel"],
+            "plain_ms": dev_ms["plain"], "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": dev_ms["library"]}
+
+
+def check_decode(dev, plen: int) -> dict:
+    """Hold the flash-decoding kernel against its plain version (the
+    serving path's decode shape, mid-wave at kv_len = plen + 16 of a
+    max_seq cache, the sweep of tests/test_kernels.py, every kv_len from
+    1 to S, ragged S, head dim 256); time it at the path shape.  Returns
+    its ``kernels`` entry."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      decode_attention_plain)
+
+    def case(B, S, H, KV, D, dtype, lens, seed=0):
+        q = _randn((B, 1, H, D), dtype, dev, seed)
+        k = _randn((B, S, KV, D), dtype, dev, seed + 1)
+        v = _randn((B, S, KV, D), dtype, dev, seed + 2)
+        lens = torch.as_tensor(lens, dtype=torch.int32, device=dev)
+        got = decode_attention(q, k, v, lens)
+        torch.cuda.synchronize()
+        err = _attn_err(got, decode_attention_plain(q, k, v, lens), dtype)
+        print(f"decode ({B},{S},{H}/{KV},{D}) {str(dtype)[6:]} kv_len "
+              f"{int(lens.min())}..{int(lens.max())}: max_abs_err "
+              f"{err:.3e} (tol {ATTN_TOL[str(dtype)]})")
+        return q, k, v, lens, err
+
+    B, S, H, KV, D = SERVE["max_batch"], SERVE["max_seq"], 28, 4, 128
+    kv = plen + NEW_TOKENS // 2
+    q, k, v, lens, path_err = case(B, S, H, KV, D, torch.bfloat16, [kv] * B)
+    for (b, s, h, g, d) in ((2, 128, 4, 4, 32), (1, 256, 8, 2, 64),
+                            (3, 64, 8, 1, 16)):
+        for dtype in (torch.float32, torch.bfloat16):
+            sweep = [min((i + 1) * (s // 2), s) for i in range(b)]
+            case(b, s, h, g, d, dtype, sweep, seed=5)
+            case(b, s, h, g, d, dtype, [1] * b, seed=5)
+            case(b, s, h, g, d, dtype, [s] * b, seed=5)
+    for dtype in (torch.float32, torch.bfloat16):
+        case(100, 100, 4, 2, 32, dtype, list(range(1, 101)), seed=7)
+        case(4, 777, 28, 4, 128, dtype, [1, 64, 65, 777], seed=7)
+        case(2, 300, 8, 1, 256, dtype, [299, 300], seed=7)
+
+    mask = (torch.arange(S, device=dev)[None, :] < lens[:, None])
+    mask = mask[:, None, None, :]
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    timed = {
+        "kernel": lambda: decode_attention(q, k, v, lens),
+        "plain": lambda: decode_attention_plain(q, k, v, lens),
+        "library": lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=True)}
+    lib = timed["library"]().transpose(1, 2)
+    print(f"decode library (SDPA) vs kernel at the path shape: "
+          f"max_abs_diff {float((lib.float() - decode_attention(q, k, v, lens).float()).abs().max()):.3e}")
+    dev_ms = _timed("decode_attention", timed, inner=50)
+    used = int(lens.sum())
+    nbytes = (2 * (q.numel() * 2 + used * KV * (D + D))
+              + 4 * lens.numel())
+    ops = 2 * H * used * (D + D)
+    bound_ms, bound_by = _bound(nbytes, ops, q.dtype)
+    return {"name": "decode_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+            "replaces": "src/repro/kernels/decode_attention.py:65",
+            "launches": 0, "max_abs_err": path_err, "ms": dev_ms["kernel"],
+            "plain_ms": dev_ms["plain"], "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": dev_ms["library"]}
+
+
 def sync_cost_us(dev) -> float:
     """Cost of one expiry-round host sync: ``bool(mask.any())`` on a
     (256, 1000) bool mask, CUDA launch and device-to-host copy included."""
@@ -248,6 +423,207 @@ def profile_pass(scenario: str, policy: str, n_requests: int) -> None:
               f"{e.count:7d} x  {e.key[:80]}")
 
 
+def serve_full_width(dev) -> dict:
+    """The serving path: qwen2-vl-7b at full width, weights from the
+    port's own ``init_params`` with a seeded generator on the card, 3
+    waves of 8 requests through ``ServingEngine``.  Checks tokens and
+    logits, and that each wave launched the flash kernel once per layer
+    and the decode kernel once per layer and decode step.  Returns the
+    launch counts, the engine and the first wave's prompts."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import model
+    from repro_torch.serving.engine import Request, ServingEngine
+
+    cfg = get_config(ARCH).resolve(tp=1)
+    L, V = cfg.num_layers, cfg.vocab_size
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"serve {cfg.name}: {L} layers, {n_params} parameters "
+          f"({cfg.param_count()} by param_count), init "
+          f"{time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card")
+    eng = ServingEngine(cfg, params, device=dev, **SERVE)
+    finite = torch.ones((), dtype=torch.bool, device=dev)
+    spent = {}
+
+    def checked(name, fn):
+        """``fn`` timed to its end on the card (the engine waits for its
+        tokens right after anyway), its logits checked on the card."""
+        def run(*args):
+            nonlocal finite
+            t0 = time.perf_counter()
+            logits, cache = fn(*args)
+            torch.cuda.synchronize()
+            spent[name] = spent.get(name, 0.0) + time.perf_counter() - t0
+            finite = finite & torch.isfinite(logits[:, :V]).all()
+            return logits, cache
+        return run
+
+    eng._prefill = checked("prefill", eng._prefill)
+    eng._decode = checked("decode", eng._decode)
+    waves = wave_prompts(V)
+    flash_attention.launches = decode_attention.launches = 0
+    for w, prompts in enumerate(waves):
+        before = (flash_attention.launches, decode_attention.launches)
+        for i, p in enumerate(prompts):
+            eng.submit(Request(rid=w * len(prompts) + i, tokens=p,
+                               max_new_tokens=NEW_TOKENS))
+        spent.clear()
+        t0 = time.perf_counter()
+        done = eng.step_wave()
+        wall = time.perf_counter() - t0
+        n_flash = flash_attention.launches - before[0]
+        n_decode = decode_attention.launches - before[1]
+        assert n_flash == L, f"wave {w}: {n_flash} flash launches, not {L}"
+        assert n_decode == L * (NEW_TOKENS - 1), \
+            f"wave {w}: {n_decode} decode launches"
+        out = np.stack([r.output for r in done])
+        assert out.shape == (len(prompts), NEW_TOKENS), out.shape
+        assert ((out >= 0) & (out < V)).all(), "token outside the vocab"
+        plen = max(len(p) for p in prompts)
+        print(f"wave {w}: padded prompt {plen}, prefill "
+              f"{spent['prefill'] * 1e3:.1f} ms, decode "
+              f"{spent['decode'] / (NEW_TOKENS - 1) * 1e3:.2f} ms/step, "
+              f"{out.size / wall:.1f} tokens/s, wall {wall:.3f} s, "
+              f"launches flash {n_flash} decode {n_decode}")
+        print(f"  rtt s: " + " ".join(f"{r.rtt:.3f}" for r in done))
+    assert bool(finite), "a logit is not finite"
+    launches = {"flash_attention": flash_attention.launches,
+                "decode_attention": decode_attention.launches}
+    print(f"serving path launches: {launches}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    return {"launches": launches, "engine": eng, "prompts": waves[0]}
+
+
+def _to(tree, dev):
+    return {k: _to(v, dev) if isinstance(v, dict) else v.to(dev)
+            for k, v in tree.items()}
+
+
+def _leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
+
+
+def profile_decode(eng, prompts) -> None:
+    """One decode step at full width under torch.profiler (a prefill of
+    the first wave's prompts and one warm-up step first): kernel
+    launches per step, the device's busy share of the step, and the
+    largest kernels."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import model
+    cfg, dev = eng.cfg, eng.device
+    plen = max(len(p) for p in prompts)
+    toks = np.zeros((len(prompts), plen), np.int32)
+    for i, p in enumerate(prompts):
+        toks[i, -len(p):] = p
+    batch = {"tokens": torch.as_tensor(toks, device=dev),
+             "vision_embeds": torch.zeros(
+                 (len(prompts), cfg.num_frontend_tokens, cfg.d_model),
+                 dtype=torch.bfloat16, device=dev)}
+    logits, cache = model.prefill(eng.params, cfg, batch,
+                                  cache_len=eng.max_seq)
+    tok = logits[:, :cfg.vocab_size].argmax(-1, keepdim=True)
+    logits, cache = model.decode_step(eng.params, cfg, cache, tok)
+    tok = logits[:, :cfg.vocab_size].argmax(-1, keepdim=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.decode_step(eng.params, cfg, cache, tok)
+    torch.cuda.synchronize()
+    unprofiled = time.perf_counter() - t0
+    logits, cache = model.decode_step(eng.params, cfg, cache, tok)
+    tok = logits[:, :cfg.vocab_size].argmax(-1, keepdim=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model.decode_step(eng.params, cfg, cache, tok)
+        torch.cuda.synchronize()
+        step = time.perf_counter() - t0
+    events = prof.key_averages()
+    on_device = [e for e in events if str(e.device_type).endswith("CUDA")]
+    kernels = [e for e in on_device if not e.key.startswith("Mem")]
+    kern_us = sum(e.self_device_time_total for e in kernels)
+    n_kernels = sum(e.count for e in kernels)
+    launches = sum(e.count for e in events
+                   if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
+                                "cudaLaunchKernelExC"))
+    print(f"profile decode step (B={len(prompts)}, kv_len {plen + 2}): "
+          f"{unprofiled * 1e3:.2f} ms unprofiled, {step * 1e3:.2f} ms "
+          f"profiled; {n_kernels} kernels on the device, {launches} launch "
+          f"calls; kernels busy {kern_us / 1e3:.2f} ms = "
+          f"{kern_us / 1e6 / step * 100:.1f} % of the step")
+    if kern_us == 0:
+        print("profile: no device time recorded (not measured)")
+    for e in sorted(on_device, key=lambda e: -e.self_device_time_total)[:10]:
+        print(f"  device {e.self_device_time_total / 1e3:8.3f} ms "
+              f"{e.count:5d} x  {e.key[:90]}")
+
+
+def serving_parity(dev) -> None:
+    """The serving path on CUDA and on the CPU at the smoke config in
+    f32: prefill and 4 decode steps' logits within SERVE_PARITY_RTOL of
+    the largest value, identical greedy tokens, and an engine wave with
+    identical outputs."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model
+    from repro_torch.serving.engine import Request, ServingEngine
+
+    cfg = dataclasses.replace(get_config(ARCH, smoke=True),
+                              dtype="float32").resolve(tp=1)
+    params = model.init_params(cfg, torch.Generator().manual_seed(0),
+                               device="cpu")
+    rng = np.random.default_rng(1)
+    toks = rng.integers(0, cfg.vocab_size, size=(4, 24)).astype(np.int32)
+    runs = {}
+    for name in ("cuda", "cpu"):
+        p = _to(params, name)
+        batch = {"tokens": torch.as_tensor(toks, device=name)}
+        logits, cache = model.prefill(p, cfg, batch, cache_len=32)
+        seq = [logits.cpu()]
+        for _ in range(4):
+            tok = logits[:, :cfg.vocab_size].argmax(-1, keepdim=True)
+            logits, cache = model.decode_step(p, cfg, cache, tok)
+            seq.append(logits.cpu())
+        runs[name] = seq
+    worst = 0.0
+    for a, b in zip(runs["cuda"], runs["cpu"]):
+        V = cfg.vocab_size
+        rel = float((a[:, :V] - b[:, :V]).abs().max() / b[:, :V].abs().max())
+        worst = max(worst, rel)
+        assert rel <= SERVE_PARITY_RTOL, f"logits differ by {rel}"
+        assert torch.equal(a[:, :V].argmax(-1), b[:, :V].argmax(-1))
+    outs = {}
+    for name in ("cuda", "cpu"):
+        eng = ServingEngine(cfg, params, device=name, max_batch=4,
+                            max_seq=32)
+        for i in range(4):
+            eng.submit(Request(rid=i, tokens=toks[i, : 9 + 4 * i],
+                               max_new_tokens=6))
+        outs[name] = [r.output for r in eng.step_wave()]
+    for a, b in zip(outs["cuda"], outs["cpu"]):
+        np.testing.assert_array_equal(a, b)
+    print(f"serving parity cuda vs cpu ({cfg.name}, f32): worst logit "
+          f"drift {worst:.3e} of the largest (limit {SERVE_PARITY_RTOL}), "
+          f"greedy tokens identical")
+
+
 def finite_stats(res, stats) -> None:
     import numpy as np
     for pol, r in res.items():
@@ -289,8 +665,15 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
 
-    # phase 3: kernels against their plain versions, timed
-    kernels = [check_segment_sum(dev)]
+    # phase 3: kernels against their plain versions, timed, at the main
+    # paths' shapes (the serving waves' padded prompt lengths)
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    plens = [max(len(p) for p in w)
+             for w in wave_prompts(get_config(ARCH).vocab_size)]
+    kernels = [check_segment_sum(dev), check_flash(dev, max(plens)),
+               check_decode(dev, max(plens))]
     for k in kernels:
         print(f"{k['name']}: {k['ms'] * 1e3:.2f} us kernel, "
               f"{k['plain_ms'] * 1e3:.2f} us plain, "
@@ -299,8 +682,9 @@ def main() -> int:
     sync_us = sync_cost_us(dev)
     print(f"host sync (bool(mask.any()) on (256, 1000)): {sync_us:.1f} us")
 
-    # phase 4: the main path at full width
-    segment_sum.launches = 0
+    # phase 4: the simulation path at full width
+    segment_sum.launches = flash_attention.launches = 0
+    decode_attention.launches = 0
     per_scen = {}
     torch.cuda.reset_peak_memory_stats()
     for scen in MAIN_SCENARIOS:
@@ -337,7 +721,18 @@ def main() -> int:
     profile_pass("stale-predictions", "perf_aware", 100)
     profile_pass("stale-predictions", "least_conn", 100)
 
-    # phase 5: CUDA against the CPU at the mid shape
+    # phase 5: the serving path at full width
+    segment_sum.launches = 0
+    served = serve_full_width(dev)
+    assert segment_sum.launches == 0
+    for k in kernels[1:]:
+        k["launches"] = served["launches"][k["name"]]
+        assert k["launches"] > 0, f"{k['name']} never launched"
+    profile_decode(served["engine"], served["prompts"])
+    del served
+    torch.cuda.empty_cache()
+
+    # phase 6: CUDA against the CPU: the campaign at the mid shape
     worst = 0.0
     for scen in PARITY_SCENARIOS:
         kw = dict(seeds=MID_SEEDS, n_trials=MID_TRIALS, **MID)
@@ -365,8 +760,10 @@ def main() -> int:
               f"{t2 - t1:.1f} s")
     print(f"parity cuda vs cpu: worst relative drift {worst:.3e} "
           f"(limit {PARITY_RTOL})")
+    serving_parity(dev)
 
     print(json.dumps({"kernels": kernels}))
+    print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))
     return 0

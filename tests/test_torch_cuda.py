@@ -1,5 +1,6 @@
 """The port on the CUDA card: each hand-written kernel against its plain
-PyTorch version, and the campaign on CUDA against the CPU.
+PyTorch version, and the campaign and the serving path on CUDA against
+the CPU.
 
 Every test here is marked ``cuda`` and skips without a card.  The file
 imports neither jax nor the JAX package, so it also runs where those are
@@ -10,14 +11,25 @@ not installed (the repository's ``conftest.py`` imports jax; skip it)::
 Tolerances: 0/1 masks are integer sums, exact; other values 1e-12
 relative in f64 and 1e-5 in f32 (shared-memory atomics add in a
 run-dependent order); campaign stats 1e-5 relative (the reference's own
-contract between backends).
+contract between backends).  Attention kernels 2e-5 in f32 and 2e-2 in
+bf16 (tests/test_kernels.py's); the model's logits at f32 1e-4 relative
+to their largest value, with identical greedy tokens.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs.base import get_config
 from repro_torch.core.campaign import SUMMARY_STATS, run_scenario
+from repro_torch.kernels.decode_attention import (decode_attention,
+                                                  decode_attention_plain)
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_plain)
 from repro_torch.kernels.segment_sum import segment_sum, segment_sum_plain
+from repro_torch.models import model
+from repro_torch.serving.engine import Request, ServingEngine
 
 pytestmark = pytest.mark.cuda
 
@@ -72,3 +84,74 @@ def test_campaign_cuda_matches_cpu(cuda, name):
                                        rtol=1e-5, atol=1e-7,
                                        err_msg=f"{name}/{pol}/{k}")
         assert got.n_hedged == want.n_hedged
+
+
+ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+def _randn(shape, dtype, device, seed):
+    g = torch.Generator().manual_seed(seed)
+    return torch.randn(shape, generator=g).to(dtype=dtype, device=device)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,S,H,KV,D", [
+    (1, 128, 4, 4, 32), (2, 256, 8, 2, 64), (1, 128, 8, 1, 16),
+    (2, 100, 4, 2, 32), (1, 777, 28, 4, 128), (1, 130, 4, 2, 256)])
+def test_flash_kernel_matches_plain(cuda, B, S, H, KV, D, causal, dtype):
+    q = _randn((B, S, H, D), dtype, cuda, 0)
+    k = _randn((B, S, KV, D), dtype, cuda, 1)
+    v = _randn((B, S, KV, D), dtype, cuda, 2)
+    launches = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == launches + 1
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(),
+                               flash_attention_plain(q, k, v, causal).float(),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,KV,D", [
+    (2, 128, 4, 4, 32), (1, 256, 8, 2, 64), (3, 64, 8, 1, 16),
+    (8, 2048, 28, 4, 128), (100, 100, 4, 2, 32), (2, 70, 4, 1, 256)])
+def test_decode_kernel_matches_plain(cuda, B, S, H, KV, D, dtype):
+    q = _randn((B, 1, H, D), dtype, cuda, 3)
+    k = _randn((B, S, KV, D), dtype, cuda, 4)
+    v = _randn((B, S, KV, D), dtype, cuda, 5)
+    lens = (torch.arange(B) * 37 % S + 1).to(torch.int32).to(cuda)
+    lens[0] = S
+    launches = decode_attention.launches
+    got = decode_attention(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == launches + 1
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(),
+                               decode_attention_plain(q, k, v, lens).float(),
+                               rtol=tol, atol=tol)
+
+
+def test_serving_cuda_matches_cpu(cuda):
+    cfg = dataclasses.replace(get_config("qwen2-vl-7b", smoke=True),
+                              dtype="float32").resolve(tp=1)
+    params = model.init_params(cfg, torch.Generator().manual_seed(0),
+                               device="cpu")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab_size, size=n).astype(np.int32)
+               for n in (9, 17, 12)]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        eng = ServingEngine(cfg, params, device=dev, max_batch=3,
+                            max_seq=32)
+        for i, p in enumerate(prompts):
+            eng.submit(Request(rid=i, tokens=p, max_new_tokens=5))
+        before = (flash_attention.launches, decode_attention.launches)
+        out[dev] = [r.output for r in eng.step_wave()]
+        if dev == "cuda":
+            assert flash_attention.launches - before[0] == cfg.num_layers
+            assert decode_attention.launches - before[1] == \
+                cfg.num_layers * 4
+    for got, want in zip(out["cuda"], out["cpu"]):
+        np.testing.assert_array_equal(got, want)

@@ -61,9 +61,15 @@ def _entry_points():
     from repro_torch.core import campaign, simcore
     from repro_torch.core.scenarios import get_scenario
     from repro_torch.core.simulator import _build_cluster
+    from repro_torch.configs.base import get_config
     from repro_torch.device import resolve_device
+    from repro_torch.interop import params_from_reference
+    from repro_torch.models import model
+    from repro_torch.serving.engine import ServingEngine
     small = dict(n_trials=2, n_requests=10)
     cfg = get_scenario("baseline").compile(seed=0, **small)
+    arch = get_config("qwen2-vl-7b", smoke=True).resolve(tp=1)
+    gen = torch.Generator().manual_seed(0)
     return {
         "resolve_device": lambda: resolve_device(),
         "run_compiled": lambda: simcore.run_compiled(_build_cluster(cfg),
@@ -71,11 +77,18 @@ def _entry_points():
         "run_sim_compiled": lambda: simcore.run_sim_compiled(cfg),
         "run_scenario": lambda: campaign.run_scenario("baseline",
                                                       seeds=(0,), **small),
+        "init_params": lambda: model.init_params(arch, gen),
+        "init_cache": lambda: model.init_cache(arch, 1, 8),
+        "params_from_reference": lambda: params_from_reference(
+            {"w": [1.0]}, None),
+        "ServingEngine": lambda: ServingEngine(arch, {}),
     }
 
 
 @pytest.mark.parametrize("name", ["resolve_device", "run_compiled",
-                                  "run_sim_compiled", "run_scenario"])
+                                  "run_sim_compiled", "run_scenario",
+                                  "init_params", "init_cache",
+                                  "params_from_reference", "ServingEngine"])
 def test_entry_point_without_card_raises(name, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
