@@ -26,11 +26,16 @@ Phases (any failure raises and exits non-zero, with no result line):
 5. the serving path: ``ServingEngine`` with qwen2-vl-7b at full width
    (28 layers, bf16, random weights from a seeded generator), 3 waves of
    8 requests (prompts of 256-1024 tokens, 32 new tokens each), counting
-   the attention kernels' launches; then a profiled decode step outside
-   the count;
+   the attention kernels' launches; then a profiled prefill and decode
+   step outside the count;
+5b. the Mamba2 serving path: ``ServingEngine`` with mamba2-1.3b at full
+   width (48 layers, bf16, random weights), the same 3 waves with each
+   wave's longest prompt lengthened to the next multiple of the SSD
+   chunk (256), counting the SSD kernel's launches; then a profiled
+   prefill and decode step outside the count;
 6. CUDA against the CPU: the campaign at a mid shape (summary stats
-   within 1e-5 relative) and the serving path at qwen2-vl-7b's smoke
-   config in f32 (logits within 1e-4 relative, identical tokens);
+   within 1e-5 relative) and both serving paths at their smoke configs
+   in f32 (logits within 1e-4 relative, identical tokens);
 7. a ``kernels`` JSON line, the card's line, then the result line.
 """
 from __future__ import annotations
@@ -67,6 +72,10 @@ WAVES, NEW_TOKENS, PROMPT_LEN = 3, 32, (256, 1024)
 ATTN_TOL = {"torch.float32": 2e-5, "torch.bfloat16": 2e-2}
 SERVE_PARITY_RTOL = 1e-4
 
+#: the Mamba2 serving path: mamba2-1.3b at full width, the same waves
+MAMBA_ARCH = "mamba2-1.3b"
+SSD_TOL = {"torch.float32": 2e-4, "torch.bfloat16": 4e-2}
+
 
 def wave_prompts(vocab: int):
     """The serving waves' prompts, seeded: WAVES x max_batch token
@@ -79,6 +88,23 @@ def wave_prompts(vocab: int):
                for m in lens]
     B = SERVE["max_batch"]
     return [prompts[w * B:(w + 1) * B] for w in range(WAVES)]
+
+
+def mamba_waves(vocab: int, chunk: int):
+    """The serving waves' prompts with each wave's longest prompt
+    lengthened to the next multiple of ``chunk`` by seeded tokens: the
+    reference's Mamba2 prefill takes a padded length longer than the
+    chunk only as a multiple of it."""
+    import numpy as np
+    rng = np.random.default_rng(1)
+    waves = []
+    for prompts in wave_prompts(vocab):
+        i = max(range(len(prompts)), key=lambda j: len(prompts[j]))
+        n = len(prompts[i])
+        extra = rng.integers(0, vocab, size=-n % chunk).astype(np.int32)
+        waves.append([np.concatenate([extra, p]) if j == i else p
+                      for j, p in enumerate(prompts)])
+    return waves
 
 
 def card_line() -> str:
@@ -370,6 +396,78 @@ def check_decode(dev, plen: int) -> dict:
             "bound_by": bound_by, "library_ms": dev_ms["library"]}
 
 
+def check_ssd(dev, L: int) -> dict:
+    """Hold the SSD kernel against its plain version (the Mamba2 path's
+    prefill shape at padded length ``L``, the sweep of
+    tests/test_kernels.py, one partial chunk, G = 2, a chunk that is no
+    multiple of 64, and the strong decay A = -16, dt = 0.1, where exp of
+    the upper triangle overflows); time it at the path shape.  Returns
+    its ``kernels`` entry."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.ssd import ssd, ssd_plain
+
+    def case(B, L, H, P, G, N, chunk, dtype, strong=False, seed=0):
+        x = _randn((B, L, H, P), dtype, dev, seed)
+        Bm = _randn((B, L, G, N), dtype, dev, seed + 1)
+        Cm = _randn((B, L, G, N), dtype, dev, seed + 2)
+        if strong:
+            dt = torch.full((B, L, H), 0.1, device=dev)
+            A = torch.full((H,), -16.0, device=dev)
+        else:
+            dt = F.softplus(_randn((B, L, H), torch.float32, dev, seed + 3))
+            A = -_randn((H,), torch.float32, dev, seed + 4).exp()
+        y, state = ssd(x, dt, A, Bm, Cm, chunk=chunk)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(y).all() & torch.isfinite(state).all()), \
+            f"ssd ({B},{L},{H},{P},{G},{N}) chunk {chunk}: not finite"
+        want_y, want_state = ssd_plain(x, dt, A, Bm, Cm, chunk)
+        tol = SSD_TOL[str(dtype)]
+        torch.testing.assert_close(y, want_y, rtol=tol, atol=tol)
+        torch.testing.assert_close(state, want_state, rtol=tol, atol=tol)
+        err = max(float((y - want_y).abs().max()),
+                  float((state - want_state).abs().max()))
+        print(f"ssd ({B},{L},{H},{P}) G={G} N={N} chunk {chunk} "
+              f"{str(dtype)[6:]}{' A=-16 dt=0.1' if strong else ''}: "
+              f"finite, max_abs_err {err:.3e} (tol {tol})")
+        return (x, dt, A, Bm, Cm), err
+
+    s = get_config(MAMBA_ARCH).ssm
+    d_model = get_config(MAMBA_ARCH).d_model
+    B, H, P, G, N, Q = (SERVE["max_batch"], s.n_heads(d_model), s.head_dim,
+                        s.n_groups, s.d_state, s.chunk_size)
+    args, path_err = case(B, L, H, P, G, N, Q, torch.bfloat16)
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in ((1, 64, 2, 8, 1, 4, 16), (2, 128, 4, 16, 2, 8, 32),
+                      (1, 256, 8, 32, 1, 16, 64),     # tests/test_kernels.py
+                      (2, 40, 4, 16, 1, 16, 256),     # L < chunk
+                      (2, 512, 8, 64, 2, 128, 256),   # G = 2
+                      (2, 200, 4, 64, 2, 128, 100)):  # chunk not 64k
+            case(*shape, dtype, seed=5)
+        case(1, 512, 8, 64, 1, 128, 256, dtype, strong=True, seed=6)
+    case(B, 200, H, P, G, N, Q, torch.bfloat16, seed=7)   # one partial chunk
+
+    timed = {"kernel": lambda: ssd(*args, chunk=Q),
+             "plain": lambda: ssd_plain(*args, chunk=Q)}
+    dev_ms = _timed("ssd", timed, inner=5)
+    x, dt, A, Bm, Cm = args
+    nc = L // Q
+    nbytes = (x.numel() * x.element_size() + 4 * (dt.numel() + A.numel())
+              + 2 * Bm.numel() * Bm.element_size()
+              + 4 * (x.numel() + B * H * P * N))
+    # the causal half of C B^T and of S xd, the incoming-state term and the
+    # state update, per (batch, head, chunk)
+    ops = B * H * nc * (Q * (Q + 1) // 2 * 2 * (N + P) + 4 * Q * N * P)
+    bound_ms, bound_by = _bound(nbytes, ops, torch.float32)
+    return {"name": "ssd", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ssd.cu",
+            "replaces": "src/repro/kernels/ssd.py:78",
+            "launches": 0, "max_abs_err": path_err, "ms": dev_ms["kernel"],
+            "plain_ms": dev_ms["plain"], "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
+
+
 def sync_cost_us(dev) -> float:
     """Cost of one expiry-round host sync: ``bool(mask.any())`` on a
     (256, 1000) bool mask, CUDA launch and device-to-host copy included."""
@@ -423,22 +521,49 @@ def profile_pass(scenario: str, policy: str, n_requests: int) -> None:
               f"{e.count:7d} x  {e.key[:80]}")
 
 
-def serve_full_width(dev) -> dict:
-    """The serving path: qwen2-vl-7b at full width, weights from the
-    port's own ``init_params`` with a seeded generator on the card, 3
-    waves of 8 requests through ``ServingEngine``.  Checks tokens and
-    logits, and that each wave launched the flash kernel once per layer
-    and the decode kernel once per layer and decode step.  Returns the
-    launch counts, the engine and the first wave's prompts."""
+def _kernel_wrappers() -> dict:
+    """name -> wrapper of every kernel of the port, each with its
+    ``launches`` count."""
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.segment_sum import segment_sum
+    from repro_torch.kernels.ssd import ssd
+    return {"segment_sum": segment_sum, "flash_attention": flash_attention,
+            "decode_attention": decode_attention, "ssd": ssd}
+
+
+def _batch(cfg, prompts, dev) -> dict:
+    """The engine's left-padded wave batch (with the zero vision stub of
+    a ``vlm``)."""
+    import numpy as np
+    import torch
+    plen = max(len(p) for p in prompts)
+    toks = np.zeros((len(prompts), plen), np.int32)
+    for i, p in enumerate(prompts):
+        toks[i, -len(p):] = p
+    batch = {"tokens": torch.as_tensor(toks, device=dev)}
+    if cfg.family == "vlm":
+        batch["vision_embeds"] = torch.zeros(
+            (len(prompts), cfg.num_frontend_tokens, cfg.d_model),
+            dtype=torch.bfloat16, device=dev)
+    return batch
+
+
+def serve_full_width(dev, arch: str, waves, per_wave) -> dict:
+    """A serving path at full width: ``arch``'s weights from the port's
+    own ``init_params`` with a seeded generator on the card, ``waves`` of
+    requests through ``ServingEngine``.  Checks tokens and logits, and
+    that each wave launched each kernel of ``per_wave`` (name -> launches
+    per wave, from the config) that many times and no other kernel.
+    Returns the launch counts, the engine and the first wave's prompts."""
     import numpy as np
     import torch
     from repro_torch.configs.base import get_config
-    from repro_torch.kernels.decode_attention import decode_attention
-    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.models import model
     from repro_torch.serving.engine import Request, ServingEngine
 
-    cfg = get_config(ARCH).resolve(tp=1)
+    cfg = get_config(arch).resolve(tp=1)
+    expect = per_wave(cfg)
     L, V = cfg.num_layers, cfg.vocab_size
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -469,10 +594,11 @@ def serve_full_width(dev) -> dict:
 
     eng._prefill = checked("prefill", eng._prefill)
     eng._decode = checked("decode", eng._decode)
-    waves = wave_prompts(V)
-    flash_attention.launches = decode_attention.launches = 0
+    kernels = _kernel_wrappers()
+    for k in kernels.values():
+        k.launches = 0
     for w, prompts in enumerate(waves):
-        before = (flash_attention.launches, decode_attention.launches)
+        before = {n: k.launches for n, k in kernels.items()}
         for i, p in enumerate(prompts):
             eng.submit(Request(rid=w * len(prompts) + i, tokens=p,
                                max_new_tokens=NEW_TOKENS))
@@ -480,11 +606,10 @@ def serve_full_width(dev) -> dict:
         t0 = time.perf_counter()
         done = eng.step_wave()
         wall = time.perf_counter() - t0
-        n_flash = flash_attention.launches - before[0]
-        n_decode = decode_attention.launches - before[1]
-        assert n_flash == L, f"wave {w}: {n_flash} flash launches, not {L}"
-        assert n_decode == L * (NEW_TOKENS - 1), \
-            f"wave {w}: {n_decode} decode launches"
+        got = {n: k.launches - before[n] for n, k in kernels.items()}
+        for n, count in got.items():
+            assert count == expect.get(n, 0), \
+                f"wave {w}: {count} {n} launches, not {expect.get(n, 0)}"
         out = np.stack([r.output for r in done])
         assert out.shape == (len(prompts), NEW_TOKENS), out.shape
         assert ((out >= 0) & (out < V)).all(), "token outside the vocab"
@@ -492,14 +617,13 @@ def serve_full_width(dev) -> dict:
         print(f"wave {w}: padded prompt {plen}, prefill "
               f"{spent['prefill'] * 1e3:.1f} ms, decode "
               f"{spent['decode'] / (NEW_TOKENS - 1) * 1e3:.2f} ms/step, "
-              f"{out.size / wall:.1f} tokens/s, wall {wall:.3f} s, "
-              f"launches flash {n_flash} decode {n_decode}")
+              f"{out.size / wall:.1f} tokens/s, wall {wall:.3f} s, launches "
+              + " ".join(f"{n} {c}" for n, c in got.items() if c))
         print(f"  rtt s: " + " ".join(f"{r.rtt:.3f}" for r in done))
     assert bool(finite), "a logit is not finite"
-    launches = {"flash_attention": flash_attention.launches,
-                "decode_attention": decode_attention.launches}
-    print(f"serving path launches: {launches}; peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    launches = {n: k.launches for n, k in kernels.items()}
+    print(f"{cfg.name} serving path launches: {launches}; peak device "
+          f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     return {"launches": launches, "engine": eng, "prompts": waves[0]}
 
 
@@ -516,41 +640,22 @@ def _leaves(tree):
             yield v
 
 
-def profile_decode(eng, prompts) -> None:
-    """One decode step at full width under torch.profiler (a prefill of
-    the first wave's prompts and one warm-up step first): kernel
-    launches per step, the device's busy share of the step, and the
-    largest kernels."""
-    import numpy as np
+def _profiled(label: str, fn):
+    """Run ``fn`` once unprofiled and once under torch.profiler, each to
+    its end on the card; print the wall times, the kernels and launch
+    calls, the device's busy share of the profiled run, and the largest
+    kernels.  Returns ``fn``'s last result."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.models import model
-    cfg, dev = eng.cfg, eng.device
-    plen = max(len(p) for p in prompts)
-    toks = np.zeros((len(prompts), plen), np.int32)
-    for i, p in enumerate(prompts):
-        toks[i, -len(p):] = p
-    batch = {"tokens": torch.as_tensor(toks, device=dev),
-             "vision_embeds": torch.zeros(
-                 (len(prompts), cfg.num_frontend_tokens, cfg.d_model),
-                 dtype=torch.bfloat16, device=dev)}
-    logits, cache = model.prefill(eng.params, cfg, batch,
-                                  cache_len=eng.max_seq)
-    tok = logits[:, :cfg.vocab_size].argmax(-1, keepdim=True)
-    logits, cache = model.decode_step(eng.params, cfg, cache, tok)
-    tok = logits[:, :cfg.vocab_size].argmax(-1, keepdim=True)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    model.decode_step(eng.params, cfg, cache, tok)
+    fn()
     torch.cuda.synchronize()
     unprofiled = time.perf_counter() - t0
-    logits, cache = model.decode_step(eng.params, cfg, cache, tok)
-    tok = logits[:, :cfg.vocab_size].argmax(-1, keepdim=True)
-    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        model.decode_step(eng.params, cfg, cache, tok)
+        out = fn()
         torch.cuda.synchronize()
         step = time.perf_counter() - t0
     events = prof.key_averages()
@@ -561,23 +666,43 @@ def profile_decode(eng, prompts) -> None:
     launches = sum(e.count for e in events
                    if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
                                 "cudaLaunchKernelExC"))
-    print(f"profile decode step (B={len(prompts)}, kv_len {plen + 2}): "
-          f"{unprofiled * 1e3:.2f} ms unprofiled, {step * 1e3:.2f} ms "
-          f"profiled; {n_kernels} kernels on the device, {launches} launch "
-          f"calls; kernels busy {kern_us / 1e3:.2f} ms = "
-          f"{kern_us / 1e6 / step * 100:.1f} % of the step")
+    print(f"profile {label}: {unprofiled * 1e3:.2f} ms unprofiled, "
+          f"{step * 1e3:.2f} ms profiled; {n_kernels} kernels on the device, "
+          f"{launches} launch calls; kernels busy {kern_us / 1e3:.2f} ms = "
+          f"{kern_us / 1e6 / step * 100:.1f} % of the profiled run")
     if kern_us == 0:
         print("profile: no device time recorded (not measured)")
     for e in sorted(on_device, key=lambda e: -e.self_device_time_total)[:10]:
         print(f"  device {e.self_device_time_total / 1e3:8.3f} ms "
               f"{e.count:5d} x  {e.key[:90]}")
+    return out
 
 
-def serving_parity(dev) -> None:
-    """The serving path on CUDA and on the CPU at the smoke config in
-    f32: prefill and 4 decode steps' logits within SERVE_PARITY_RTOL of
-    the largest value, identical greedy tokens, and an engine wave with
-    identical outputs."""
+def profile_serving(eng, prompts) -> None:
+    """A prefill of the first wave's prompts and then the second decode
+    step after it, at full width, each under torch.profiler after an
+    unprofiled run of the same call (see :func:`_profiled`)."""
+    from repro_torch.models import model
+    cfg = eng.cfg
+    batch = _batch(cfg, prompts, eng.device)
+    plen = batch["tokens"].shape[1]
+    logits, cache = _profiled(
+        f"{cfg.name} prefill (B={len(prompts)}, padded prompt {plen})",
+        lambda: model.prefill(eng.params, cfg, batch, cache_len=eng.max_seq))
+    tok = logits[:, :cfg.vocab_size].argmax(-1, keepdim=True)
+    logits, cache = model.decode_step(eng.params, cfg, cache, tok)
+    tok = logits[:, :cfg.vocab_size].argmax(-1, keepdim=True)
+    # both runs of the step write the same cache row (attention) or update
+    # the state in place (Mamba2); the step's work is the same
+    _profiled(f"{cfg.name} decode step (B={len(prompts)}, prompt {plen})",
+              lambda: model.decode_step(eng.params, cfg, cache, tok))
+
+
+def serving_parity(dev, arch: str, S: int, lengths, max_seq: int) -> None:
+    """A serving path on CUDA and on the CPU at ``arch``'s smoke config in
+    f32: prefill of ``S`` tokens and 4 decode steps' logits within
+    SERVE_PARITY_RTOL of the largest value, identical greedy tokens, and
+    an engine wave (prompts of ``lengths``) with identical outputs."""
     import dataclasses
     import numpy as np
     import torch
@@ -585,17 +710,17 @@ def serving_parity(dev) -> None:
     from repro_torch.models import model
     from repro_torch.serving.engine import Request, ServingEngine
 
-    cfg = dataclasses.replace(get_config(ARCH, smoke=True),
+    cfg = dataclasses.replace(get_config(arch, smoke=True),
                               dtype="float32").resolve(tp=1)
     params = model.init_params(cfg, torch.Generator().manual_seed(0),
                                device="cpu")
     rng = np.random.default_rng(1)
-    toks = rng.integers(0, cfg.vocab_size, size=(4, 24)).astype(np.int32)
+    toks = rng.integers(0, cfg.vocab_size, size=(4, S)).astype(np.int32)
     runs = {}
     for name in ("cuda", "cpu"):
         p = _to(params, name)
         batch = {"tokens": torch.as_tensor(toks, device=name)}
-        logits, cache = model.prefill(p, cfg, batch, cache_len=32)
+        logits, cache = model.prefill(p, cfg, batch, cache_len=S + 8)
         seq = [logits.cpu()]
         for _ in range(4):
             tok = logits[:, :cfg.vocab_size].argmax(-1, keepdim=True)
@@ -611,10 +736,10 @@ def serving_parity(dev) -> None:
         assert torch.equal(a[:, :V].argmax(-1), b[:, :V].argmax(-1))
     outs = {}
     for name in ("cuda", "cpu"):
-        eng = ServingEngine(cfg, params, device=name, max_batch=4,
-                            max_seq=32)
-        for i in range(4):
-            eng.submit(Request(rid=i, tokens=toks[i, : 9 + 4 * i],
+        eng = ServingEngine(cfg, params, device=name, max_batch=len(lengths),
+                            max_seq=max_seq)
+        for i, n in enumerate(lengths):
+            eng.submit(Request(rid=i, tokens=toks[i, :n],
                                max_new_tokens=6))
         outs[name] = [r.output for r in eng.step_wave()]
     for a, b in zip(outs["cuda"], outs["cpu"]):
@@ -668,23 +793,26 @@ def main() -> int:
     # phase 3: kernels against their plain versions, timed, at the main
     # paths' shapes (the serving waves' padded prompt lengths)
     from repro_torch.configs.base import get_config
-    from repro_torch.kernels.decode_attention import decode_attention
-    from repro_torch.kernels.flash_attention import flash_attention
     plens = [max(len(p) for p in w)
              for w in wave_prompts(get_config(ARCH).vocab_size)]
+    mamba = get_config(MAMBA_ARCH)
+    waves_ssm = mamba_waves(mamba.vocab_size, mamba.ssm.chunk_size)
+    ssm_len = max(len(p) for w in waves_ssm for p in w)
     kernels = [check_segment_sum(dev), check_flash(dev, max(plens)),
-               check_decode(dev, max(plens))]
+               check_decode(dev, max(plens)), check_ssd(dev, ssm_len)]
     for k in kernels:
+        lib = "no library call" if k["library_ms"] is None \
+            else f"{k['library_ms'] * 1e3:.2f} us library"
         print(f"{k['name']}: {k['ms'] * 1e3:.2f} us kernel, "
-              f"{k['plain_ms'] * 1e3:.2f} us plain, "
-              f"{k['library_ms'] * 1e3:.2f} us library, "
+              f"{k['plain_ms'] * 1e3:.2f} us plain, {lib}, "
               f"bound {k['bound_ms'] * 1e3:.2f} us ({k['bound_by']})")
     sync_us = sync_cost_us(dev)
     print(f"host sync (bool(mask.any()) on (256, 1000)): {sync_us:.1f} us")
 
     # phase 4: the simulation path at full width
-    segment_sum.launches = flash_attention.launches = 0
-    decode_attention.launches = 0
+    wrappers = _kernel_wrappers()
+    for k in wrappers.values():
+        k.launches = 0
     per_scen = {}
     torch.cuda.reset_peak_memory_stats()
     for scen in MAIN_SCENARIOS:
@@ -713,6 +841,8 @@ def main() -> int:
     main_launches = segment_sum.launches
     for scen in KERNEL_SCENARIOS:
         assert per_scen[scen] > 0, f"segment_sum never launched on {scen}"
+    assert all(k.launches == 0 for n, k in wrappers.items()
+               if n != "segment_sum"), "the simulation launched a model kernel"
     kernels[0]["launches"] = main_launches
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
           f" GiB")
@@ -721,14 +851,26 @@ def main() -> int:
     profile_pass("stale-predictions", "perf_aware", 100)
     profile_pass("stale-predictions", "least_conn", 100)
 
-    # phase 5: the serving path at full width
-    segment_sum.launches = 0
-    served = serve_full_width(dev)
-    assert segment_sum.launches == 0
-    for k in kernels[1:]:
+    # phase 5: the serving path at full width (each wave: the flash
+    # kernel once per layer, the decode kernel once per layer and step)
+    served = serve_full_width(
+        dev, ARCH, wave_prompts(get_config(ARCH).vocab_size),
+        lambda cfg: {"flash_attention": cfg.num_layers,
+                     "decode_attention": cfg.num_layers * (NEW_TOKENS - 1)})
+    for k in kernels[1:3]:
         k["launches"] = served["launches"][k["name"]]
         assert k["launches"] > 0, f"{k['name']} never launched"
-    profile_decode(served["engine"], served["prompts"])
+    profile_serving(served["engine"], served["prompts"])
+    del served
+    torch.cuda.empty_cache()
+
+    # phase 5b: the Mamba2 serving path at full width (each wave: the SSD
+    # kernel once per layer, in prefill)
+    served = serve_full_width(dev, MAMBA_ARCH, waves_ssm,
+                              lambda cfg: {"ssd": cfg.num_layers})
+    kernels[3]["launches"] = served["launches"]["ssd"]
+    assert kernels[3]["launches"] > 0, "ssd never launched"
+    profile_serving(served["engine"], served["prompts"])
     del served
     torch.cuda.empty_cache()
 
@@ -760,7 +902,9 @@ def main() -> int:
               f"{t2 - t1:.1f} s")
     print(f"parity cuda vs cpu: worst relative drift {worst:.3e} "
           f"(limit {PARITY_RTOL})")
-    serving_parity(dev)
+    serving_parity(dev, ARCH, S=24, lengths=(9, 13, 17, 21), max_seq=32)
+    serving_parity(dev, MAMBA_ARCH, S=64, lengths=(9, 40, 64, 17),
+                   max_seq=96)
 
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -10,7 +10,8 @@ flash_attention`` on the GQA k/v as they are (no kv-head repeat) and
 kernels always launch; on CPU tensors their plain versions run.
 
 Not lowered (each raises ``NotImplementedError`` naming it): the int8 KV
-cache, MLA, MoE, and the ``ssm`` / ``hybrid`` / ``encdec`` families.
+cache, MLA, MoE, and the ``hybrid`` / ``encdec`` families.  The ``ssm``
+family is lowered by ``models/ssm.py`` and ``models/hybrid.py``.
 """
 from __future__ import annotations
 
@@ -21,8 +22,8 @@ from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.common import (apply_mrope, apply_rope, dtype_of,
                                        normal_init)
 
-#: the model families whose attention the port lowers
-LOWERED_FAMILIES = ("dense", "vlm")
+#: the model families the port lowers
+LOWERED_FAMILIES = ("dense", "vlm", "ssm")
 
 
 def check_lowered(cfg) -> None:

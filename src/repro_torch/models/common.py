@@ -1,5 +1,6 @@
-"""Shared building blocks of the port's models: initializers, RMSNorm,
-RoPE / M-RoPE, embeddings and logits, the SwiGLU MLP.
+"""Shared building blocks of the port's models: initializers, stacked
+layer trees, RMSNorm, RoPE / M-RoPE, embeddings and logits, the SwiGLU
+MLP.
 
 Translated from the reference's ``models/common.py``; the tensor layouts
 and the parameter leaf names are the reference's, so a parameter tree
@@ -11,7 +12,7 @@ both sides the same weights instead.
 from __future__ import annotations
 
 import functools
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -33,6 +34,36 @@ def normal_init(shape: Sequence[int], stddev: float, dtype: torch.dtype,
                     device=generator.device)
     torch.nn.init.trunc_normal_(x, 0.0, 1.0, -2.0, 2.0, generator=generator)
     return (x.mul_(stddev)).to(dtype=dtype, device=device or x.device)
+
+
+def stacked_init(init_layer: Callable[[], dict], n: int) -> dict:
+    """``n`` layers drawn one at a time by ``init_layer()``, each cast
+    into its slot of leaves stacked on a leading layer axis, so no list
+    of per-layer copies is ever held."""
+    def stack(x):
+        if isinstance(x, dict):
+            return {k: stack(v) for k, v in x.items()}
+        out = torch.empty((n, *x.shape), dtype=x.dtype, device=x.device)
+        out[0] = x
+        return out
+
+    def fill(dst, src, i):
+        for k, v in src.items():
+            if isinstance(v, dict):
+                fill(dst[k], v, i)
+            else:
+                dst[k][i] = v
+
+    layers = stack(init_layer())
+    for i in range(1, n):
+        fill(layers, init_layer(), i)
+    return layers
+
+
+def layer_slice(tree: dict, i: int) -> dict:
+    """Layer ``i`` of a stacked layer tree (views, no copies)."""
+    return {k: layer_slice(v, i) if isinstance(v, dict) else v[i]
+            for k, v in tree.items()}
 
 
 # ----------------------------------------------------------------------

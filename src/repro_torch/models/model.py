@@ -1,4 +1,5 @@
-"""Model assembly of the port: the decoder-only family (``dense`` / ``vlm``).
+"""Model assembly of the port: family dispatch, and the decoder-only
+family (``dense`` / ``vlm``).
 
 Translated from the reference's ``models/model.py``.  Public API:
 
@@ -7,19 +8,21 @@ Translated from the reference's ``models/model.py``.  Public API:
   decode_step(params, cfg, cache, tokens)  -> (logits (B, V), cache)
   init_cache(cfg, B, S, dtype=bf16, device=None) -> zeroed cache
 
-The parameters keep the reference's leaf names and stacked shapes
-(``embed.tok``, ``embed.head``, ``layers.attn.wq`` (L, D, H, dh), ...,
-``layers.ln1.scale``, ``layers.ffn.wi``, ``final_norm.scale``), so a tree
-carried across by :func:`repro_torch.interop.params_from_reference` runs
-here as it is.  The layers are a Python loop over the stacked leaves (the
-reference scans them).  The cache is ``{"k", "v": (L, B, S, KV, dh),
-"len": (B,) int32}``; prefill allocates it at its padded length and
-fills the first S rows (the reference pads afterwards, ``_pad_seq``), and
-a decode step writes its row of each layer's cache in place (the
-reference threads the cache through its scan carry).
+The ``ssm`` family (Mamba2) goes to :mod:`repro_torch.models.hybrid`, as
+in the reference.  The decoder-only parameters keep the reference's leaf
+names and stacked shapes (``embed.tok``, ``embed.head``,
+``layers.attn.wq`` (L, D, H, dh), ..., ``layers.ln1.scale``,
+``layers.ffn.wi``, ``final_norm.scale``), so a tree carried across by
+:func:`repro_torch.interop.params_from_reference` runs here as it is.
+The layers are a Python loop over the stacked leaves (the reference
+scans them).  The cache is ``{"k", "v": (L, B, S, KV, dh), "len": (B,)
+int32}``; prefill allocates it at its padded length and fills the first
+S rows (the reference pads afterwards, ``_pad_seq``), and a decode step
+writes its row of each layer's cache in place (the reference threads the
+cache through its scan carry).
 
-Not lowered: MLA, MoE, the int8 KV cache and the ``ssm`` / ``hybrid`` /
-``encdec`` families raise ``NotImplementedError``.
+Not lowered: MLA, MoE, the int8 KV cache and the ``hybrid`` / ``encdec``
+families raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -28,11 +31,13 @@ from typing import Optional
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.models import hybrid
 from repro_torch.models.attention import (attention_decode, attention_fwd,
                                           check_lowered, init_attention)
 from repro_torch.models.common import (embed_tokens, init_embedding,
-                                       init_mlp, init_rmsnorm,
-                                       logits_from_hidden, mlp, rmsnorm)
+                                       init_mlp, init_rmsnorm, layer_slice,
+                                       logits_from_hidden, mlp, rmsnorm,
+                                       stacked_init)
 
 
 def default_positions(cfg, B: int, S: int, device=None) -> torch.Tensor:
@@ -42,12 +47,6 @@ def default_positions(cfg, B: int, S: int, device=None) -> torch.Tensor:
     if cfg.mrope:
         return pos[..., None].expand(B, S, 3)
     return pos
-
-
-def _layer(tree, i: int):
-    """Layer ``i`` of the stacked layer tree (views, no copies)."""
-    return {k: _layer(v, i) if isinstance(v, dict) else v[i]
-            for k, v in tree.items()}
 
 
 # ----------------------------------------------------------------------
@@ -84,7 +83,7 @@ def _dec_backbone(params, cfg, batch, cache: Optional[dict] = None):
     if positions is None:
         positions = default_positions(cfg, B, S, device=h.device)
     for i in range(cfg.num_layers):
-        lp = _layer(params["layers"], i)
+        lp = layer_slice(params["layers"], i)
         a, (k, v) = attention_fwd(lp["attn"], cfg,
                                   rmsnorm(lp["ln1"], h, cfg.norm_eps),
                                   positions, causal=cfg.causal)
@@ -111,7 +110,7 @@ def _dec_decode(params, cfg, cache, tokens: torch.Tensor):
     h = embed_tokens(params["embed"], cfg, tokens)          # (B, 1, D)
     pos = cache["len"]
     for i in range(cfg.num_layers):
-        lp = _layer(params["layers"], i)
+        lp = layer_slice(params["layers"], i)
         a, _, _ = attention_decode(lp["attn"], cfg,
                                    rmsnorm(lp["ln1"], h, cfg.norm_eps), pos,
                                    cache["k"][i], cache["v"][i], cache["len"])
@@ -128,28 +127,8 @@ def _dec_init_params(cfg, generator: torch.Generator, device) -> dict:
     (wq, wk, wv, wo, wi, wo, wg), each layer drawn in f32 on the
     generator's device and cast into its slot of the stacked leaves."""
     embed = init_embedding(cfg, generator, device)
-    first = _init_dec_layer(cfg, generator, device)
-
-    def stack(x):
-        if isinstance(x, dict):
-            return {k: stack(v) for k, v in x.items()}
-        out = torch.empty((cfg.num_layers, *x.shape), dtype=x.dtype,
-                          device=x.device)
-        out[0] = x
-        return out
-
-    layers = stack(first)
-    del first
-
-    def fill(dst, src, i):
-        for k, v in src.items():
-            if isinstance(v, dict):
-                fill(dst[k], v, i)
-            else:
-                dst[k][i] = v
-
-    for i in range(1, cfg.num_layers):
-        fill(layers, _init_dec_layer(cfg, generator, device), i)
+    layers = stacked_init(lambda: _init_dec_layer(cfg, generator, device),
+                          cfg.num_layers)
     return {"embed": embed, "layers": layers,
             "final_norm": init_rmsnorm(cfg.d_model, device)}
 
@@ -162,12 +141,14 @@ def _dec_init_cache(cfg, B: int, S: int, dtype=torch.bfloat16, device=None):
 
 
 # ----------------------------------------------------------------------
-# public API
+# public dispatch
 def init_params(cfg, generator: torch.Generator, device=None) -> dict:
     """Random parameters for ``cfg`` on ``device`` (None: the CUDA card),
     drawn from ``generator`` on its own device one layer at a time, so no
     f32 copy of the whole model is ever held."""
     check_lowered(cfg)
+    if cfg.family == "ssm":
+        return hybrid.init_params(cfg, generator, resolve_device(device))
     return _dec_init_params(cfg, generator, resolve_device(device))
 
 
@@ -175,19 +156,25 @@ def prefill(params, cfg, batch, cache_len: Optional[int] = None):
     """batch: ``tokens`` (B, S) int, optional ``vision_embeds`` (B, n, D)
     and ``positions``, on the parameters' device.  Returns the last
     position's logits (B, V_padded) f32 and the cache, padded to
-    ``cache_len`` rows."""
+    ``cache_len`` rows (the ``ssm`` family's cache has no rows)."""
     check_lowered(cfg)
+    if cfg.family == "ssm":
+        return hybrid.prefill(params, cfg, batch, cache_len)
     return _dec_prefill(params, cfg, batch, cache_len)
 
 
 def decode_step(params, cfg, cache, tokens: torch.Tensor):
     """tokens (B, 1) -> (logits (B, V_padded) f32, cache).  The returned
-    cache holds the same k/v tensors, each with one more row written in
-    place, and ``len + 1``."""
+    cache holds the same state tensors, updated in place, and
+    ``len + 1``."""
     check_lowered(cfg)
+    if cfg.family == "ssm":
+        return hybrid.decode_step(params, cfg, cache, tokens)
     return _dec_decode(params, cfg, cache, tokens)
 
 
 def init_cache(cfg, B: int, S: int, dtype=torch.bfloat16, device=None):
     check_lowered(cfg)
+    if cfg.family == "ssm":
+        return hybrid.init_cache(cfg, B, S, dtype, resolve_device(device))
     return _dec_init_cache(cfg, B, S, dtype, resolve_device(device))

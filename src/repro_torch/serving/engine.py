@@ -9,9 +9,12 @@ heterogeneous or contended nodes.
 
 As in the reference, a wave left-pads its prompts with token 0 and passes
 no pad mask: prefill attends causally over the pads and decode's
-``kv_len = len + 1`` counts them.  The greedy tokens come back to the host
-after every step, and the card is synchronised before ``t_done`` is
-stamped, so an RTT is wall time.
+``kv_len = len + 1`` counts them; a Mamba2 (``ssm``) model scans them
+like any token.  The reference's Mamba2 prefill takes a padded length
+only up to the SSD chunk or as a multiple of it, and at least the conv
+history ``d_conv - 1``; a wave outside that raises ``ValueError``.  The
+greedy tokens come back to the host after every step, and the card is
+synchronised before ``t_done`` is stamped, so an RTT is wall time.
 """
 from __future__ import annotations
 
@@ -101,10 +104,21 @@ class ServingEngine:
         return float(self._tok_count / dt)
 
     def _check_wave(self, plen: int, n_new: int) -> None:
+        """Refuse a wave the reference's model cannot take, before it
+        leaves the queue."""
         nft = self.cfg.num_frontend_tokens
         if self.cfg.family == "vlm" and plen < nft:
             raise ValueError(f"a wave of prompts at most {plen} tokens long "
                              f"cannot hold the {nft} vision-stub positions")
+        if self.cfg.family == "ssm":
+            chunk, W = self.cfg.ssm.chunk_size, self.cfg.ssm.d_conv
+            if plen > chunk and plen % chunk:
+                raise ValueError(f"padded prompt length {plen} is longer "
+                                 f"than the SSD chunk {chunk} and not a "
+                                 f"multiple of it")
+            if plen < W - 1:
+                raise ValueError(f"padded prompt length {plen} is shorter "
+                                 f"than the conv history of {W - 1}")
         if plen + n_new - 1 > self.max_seq:
             raise ValueError(f"prompt length {plen} + {n_new} new tokens - 1 "
                              f"exceeds max_seq={self.max_seq}")
@@ -117,9 +131,9 @@ class ServingEngine:
     def step_wave(self) -> List[Request]:
         """Serve one wave: take up to max_batch queued requests, prefill,
         decode to completion, return finished requests.  A wave that does
-        not fit (prompts shorter than the vision stub, or longer than
-        ``max_seq`` with their new tokens) raises ``ValueError`` and
-        stays queued."""
+        not fit (prompts shorter than the vision stub, longer than
+        ``max_seq`` with their new tokens, or of a padded length the SSD
+        scan cannot chunk) raises ``ValueError`` and stays queued."""
         if not self.queue:
             return []
         wave = self.queue[: self.max_batch]

@@ -12,8 +12,9 @@ Tolerances: 0/1 masks are integer sums, exact; other values 1e-12
 relative in f64 and 1e-5 in f32 (shared-memory atomics add in a
 run-dependent order); campaign stats 1e-5 relative (the reference's own
 contract between backends).  Attention kernels 2e-5 in f32 and 2e-2 in
-bf16 (tests/test_kernels.py's); the model's logits at f32 1e-4 relative
-to their largest value, with identical greedy tokens.
+bf16, the SSD kernel 2e-4 in f32 and 4e-2 with bf16 x, B and C
+(tests/test_kernels.py's); the models' logits at f32 1e-4 relative to
+their largest value, with identical greedy tokens.
 """
 import dataclasses
 
@@ -28,6 +29,7 @@ from repro_torch.kernels.decode_attention import (decode_attention,
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
 from repro_torch.kernels.segment_sum import segment_sum, segment_sum_plain
+from repro_torch.kernels.ssd import ssd, ssd_plain
 from repro_torch.models import model
 from repro_torch.serving.engine import Request, ServingEngine
 
@@ -153,5 +155,59 @@ def test_serving_cuda_matches_cpu(cuda):
             assert flash_attention.launches - before[0] == cfg.num_layers
             assert decode_attention.launches - before[1] == \
                 cfg.num_layers * 4
+    for got, want in zip(out["cuda"], out["cpu"]):
+        np.testing.assert_array_equal(got, want)
+
+
+SSD_TOL = {torch.float32: 2e-4, torch.bfloat16: 4e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,L,H,P,G,N,chunk,strong", [
+    (1, 64, 2, 8, 1, 4, 16, False), (2, 128, 4, 16, 2, 8, 32, False),
+    (1, 256, 8, 32, 1, 16, 64, False), (2, 40, 4, 16, 1, 16, 256, False),
+    (2, 200, 4, 64, 2, 128, 100, False), (1, 512, 8, 64, 1, 128, 256, True),
+    (2, 1024, 4, 64, 1, 128, 256, False)])
+def test_ssd_kernel_matches_plain(cuda, B, L, H, P, G, N, chunk, strong,
+                                  dtype):
+    x = _randn((B, L, H, P), dtype, cuda, 6)
+    Bm = _randn((B, L, G, N), dtype, cuda, 7)
+    Cm = _randn((B, L, G, N), dtype, cuda, 8)
+    if strong:    # dA = -1.6 per step: exp of the upper triangle overflows
+        dt = torch.full((B, L, H), 0.1, device=cuda)
+        A = torch.full((H,), -16.0, device=cuda)
+    else:
+        dt = torch.nn.functional.softplus(_randn((B, L, H), torch.float32,
+                                                 cuda, 9))
+        A = -_randn((H,), torch.float32, cuda, 10).exp()
+    launches = ssd.launches
+    y, state = ssd(x, dt, A, Bm, Cm, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd.launches == launches + 1
+    assert torch.isfinite(y).all() and torch.isfinite(state).all()
+    want_y, want_state = ssd_plain(x, dt, A, Bm, Cm, chunk)
+    tol = SSD_TOL[dtype]
+    torch.testing.assert_close(y, want_y, rtol=tol, atol=tol)
+    torch.testing.assert_close(state, want_state, rtol=tol, atol=tol)
+
+
+def test_mamba2_serving_cuda_matches_cpu(cuda):
+    cfg = dataclasses.replace(get_config("mamba2-1.3b", smoke=True),
+                              dtype="float32").resolve(tp=1)
+    params = model.init_params(cfg, torch.Generator().manual_seed(0),
+                               device="cpu")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab_size, size=n).astype(np.int32)
+               for n in (9, 64, 40)]              # padded to 2 chunks of 32
+    out = {}
+    for dev in ("cpu", "cuda"):
+        eng = ServingEngine(cfg, params, device=dev, max_batch=3,
+                            max_seq=96)
+        for i, p in enumerate(prompts):
+            eng.submit(Request(rid=i, tokens=p, max_new_tokens=5))
+        before = ssd.launches
+        out[dev] = [r.output for r in eng.step_wave()]
+        if dev == "cuda":
+            assert ssd.launches - before == cfg.num_layers
     for got, want in zip(out["cuda"], out["cpu"]):
         np.testing.assert_array_equal(got, want)

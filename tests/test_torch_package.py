@@ -64,11 +64,12 @@ def _entry_points():
     from repro_torch.configs.base import get_config
     from repro_torch.device import resolve_device
     from repro_torch.interop import params_from_reference
-    from repro_torch.models import model
+    from repro_torch.models import hybrid, model
     from repro_torch.serving.engine import ServingEngine
     small = dict(n_trials=2, n_requests=10)
     cfg = get_scenario("baseline").compile(seed=0, **small)
     arch = get_config("qwen2-vl-7b", smoke=True).resolve(tp=1)
+    mamba = get_config("mamba2-1.3b", smoke=True).resolve(tp=1)
     gen = torch.Generator().manual_seed(0)
     return {
         "resolve_device": lambda: resolve_device(),
@@ -82,13 +83,21 @@ def _entry_points():
         "params_from_reference": lambda: params_from_reference(
             {"w": [1.0]}, None),
         "ServingEngine": lambda: ServingEngine(arch, {}),
+        "init_params_ssm": lambda: model.init_params(mamba, gen),
+        "init_cache_ssm": lambda: model.init_cache(mamba, 1, 8),
+        "hybrid.init_params": lambda: hybrid.init_params(mamba, gen),
+        "hybrid.init_cache": lambda: hybrid.init_cache(mamba, 1, 8),
+        "ServingEngine_ssm": lambda: ServingEngine(mamba, {}),
     }
 
 
 @pytest.mark.parametrize("name", ["resolve_device", "run_compiled",
                                   "run_sim_compiled", "run_scenario",
                                   "init_params", "init_cache",
-                                  "params_from_reference", "ServingEngine"])
+                                  "params_from_reference", "ServingEngine",
+                                  "init_params_ssm", "init_cache_ssm",
+                                  "hybrid.init_params", "hybrid.init_cache",
+                                  "ServingEngine_ssm"])
 def test_entry_point_without_card_raises(name, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

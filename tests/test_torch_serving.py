@@ -214,8 +214,8 @@ def test_engine_without_card_raises(f32, monkeypatch):
         ServingEngine(tcfg, tparams)
 
 
-@pytest.mark.parametrize("feature", ["int8_cache", "mla", "moe", "ssm",
-                                     "hybrid", "encdec"])
+@pytest.mark.parametrize("feature", ["int8_cache", "mla", "moe", "hybrid",
+                                     "encdec"])
 def test_unported_features_raise(feature):
     cfg = get_config(ARCH, smoke=True).resolve(tp=1)
     cfg = {"int8_cache": lambda c: dataclasses.replace(
