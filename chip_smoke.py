@@ -33,9 +33,14 @@ Phases (any failure raises and exits non-zero, with no result line):
    wave's longest prompt lengthened to the next multiple of the SSD
    chunk (256), counting the SSD kernel's launches; then a profiled
    prefill and decode step outside the count;
+5c. the MoE serving path: ``ServingEngine`` with qwen3-moe-30b-a3b at
+   full width (48 layers, 128 experts top-8, bf16, random weights, ~61
+   GB), the waves of phase 5, counting the grouped-matmul kernel's
+   launches (three per layer and step) beside the attention kernels';
+   then a profiled prefill and decode step outside the count;
 6. CUDA against the CPU: the campaign at a mid shape (summary stats
-   within 1e-5 relative) and both serving paths at their smoke configs
-   in f32 (logits within 1e-4 relative, identical tokens);
+   within 1e-5 relative) and the three serving paths at their smoke
+   configs in f32 (logits within 1e-4 relative, identical tokens);
 7. a ``kernels`` JSON line, the card's line, then the result line.
 """
 from __future__ import annotations
@@ -75,6 +80,10 @@ SERVE_PARITY_RTOL = 1e-4
 #: the Mamba2 serving path: mamba2-1.3b at full width, the same waves
 MAMBA_ARCH = "mamba2-1.3b"
 SSD_TOL = {"torch.float32": 2e-4, "torch.bfloat16": 4e-2}
+
+#: the MoE serving path: qwen3-moe-30b-a3b at full width, the same waves
+MOE_ARCH = "qwen3-moe-30b-a3b"
+GMM_TOL = {"torch.float32": 2e-5, "torch.bfloat16": 2e-2}
 
 
 def wave_prompts(vocab: int):
@@ -468,6 +477,86 @@ def check_ssd(dev, L: int) -> dict:
             "bound_by": bound_by, "library_ms": None}
 
 
+def moe_path_rows(cfg, plens) -> tuple:
+    """The grouped matmul's C (= G * cap) at each wave's prefill (B =
+    max_batch tokens of each padded length) and at a decode step (B
+    tokens), from the MoE layer's own group and capacity rules."""
+    from repro_torch.models.moe import capacity, dispatch_groups
+    m, B = cfg.moe, SERVE["max_batch"]
+
+    def rows(T):
+        G = dispatch_groups(T, m.num_groups)
+        return G * capacity(T // G, m.top_k, m.num_experts,
+                            m.capacity_factor)
+    return [rows(B * n) for n in plens], rows(B)
+
+
+def check_gmm(dev, prefill_cs, decode_c: int) -> dict:
+    """Hold the grouped-matmul kernel against its plain version (the MoE
+    path's prefill and decode shapes in both orientations, wi/wg (D -> F)
+    and wo (F -> D), bf16; the sweep of tests/test_kernels.py and ragged
+    C = 1, 5, 100 in f32 and bf16); time kernel, plain version and
+    ``torch.bmm`` at the largest prefill C and at the decode C.  Returns
+    its ``kernels`` entry (the prefill shape's numbers)."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.gmm import gmm, gmm_plain
+
+    def case(E, C, D, F, dtype, seed=0, scale=1.0):
+        x = _randn((E, C, D), dtype, dev, seed)
+        w = (_randn((E, D, F), torch.float32, dev, seed + 1) * scale) \
+            .to(dtype)
+        got = gmm(x, w)
+        torch.cuda.synchronize()
+        want = gmm_plain(x, w)
+        tol = GMM_TOL[str(dtype)]
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+        err = float((got.float() - want.float()).abs().max())
+        print(f"gmm ({E},{C},{D})x({D},{F}) {str(dtype)[6:]}: max_abs_err "
+              f"{err:.3e} (rtol = atol = {tol})")
+        return x, w, err
+
+    cfg = get_config(MOE_ARCH)
+    E, D, Fd = cfg.moe.num_experts, cfg.d_model, cfg.d_ff
+    big = max(prefill_cs)
+    path = {}
+    for C in sorted(set(prefill_cs)) + [decode_c]:
+        for d, f in ((D, Fd), (Fd, D)):
+            # the weights at the model's scale (d^-1/2), outputs O(1)
+            path[C, d] = case(E, C, d, f, torch.bfloat16, seed=C,
+                              scale=d ** -0.5)
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in ((2, 64, 32, 48), (4, 128, 64, 64), (1, 32, 16, 128),
+                      (3, 1, 32, 48), (2, 5, 64, 16), (4, 100, 48, 80)):
+            case(*shape, dtype, seed=3)
+
+    entries = {}
+    for C in (big, decode_c):
+        x, w, _ = path[C, D]
+        timed = {"kernel": lambda: gmm(x, w),
+                 "plain": lambda: gmm_plain(x, w),
+                 "library": lambda: torch.bmm(x, w)}
+        lib = float((timed["library"]().float() - gmm(x, w).float())
+                    .abs().max())
+        print(f"gmm library (torch.bmm) vs kernel at C = {C}: max_abs_diff "
+              f"{lib:.3e}")
+        dev_ms = _timed(f"gmm C={C}", timed, inner=10)
+        nbytes = 2 * (x.numel() + w.numel() + E * C * Fd)
+        ops = 2 * E * C * D * Fd
+        bound_ms, bound_by = _bound(nbytes, ops, x.dtype)
+        print(f"gmm C={C}: bound {bound_ms * 1e3:.2f} us ({bound_by}), "
+              f"{ops / dev_ms['kernel'] / 1e9:.1f} TFLOP/s, "
+              f"{nbytes / dev_ms['kernel'] / 1e6:.1f} GB/s")
+        entries[C] = dict(ms=dev_ms["kernel"], plain_ms=dev_ms["plain"],
+                          bound_ms=bound_ms, bound_by=bound_by,
+                          library_ms=dev_ms["library"])
+    return {"name": "gmm", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/gmm.cu",
+            "replaces": "src/repro/kernels/moe_gmm.py:49",
+            "launches": 0, "max_abs_err": path[big, D][2], **entries[big]}
+
+
 def sync_cost_us(dev) -> float:
     """Cost of one expiry-round host sync: ``bool(mask.any())`` on a
     (256, 1000) bool mask, CUDA launch and device-to-host copy included."""
@@ -526,10 +615,11 @@ def _kernel_wrappers() -> dict:
     ``launches`` count."""
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.gmm import gmm
     from repro_torch.kernels.segment_sum import segment_sum
     from repro_torch.kernels.ssd import ssd
     return {"segment_sum": segment_sum, "flash_attention": flash_attention,
-            "decode_attention": decode_attention, "ssd": ssd}
+            "decode_attention": decode_attention, "ssd": ssd, "gmm": gmm}
 
 
 def _batch(cfg, prompts, dev) -> dict:
@@ -565,6 +655,8 @@ def serve_full_width(dev, arch: str, waves, per_wave) -> dict:
     cfg = get_config(arch).resolve(tp=1)
     expect = per_wave(cfg)
     L, V = cfg.num_layers, cfg.vocab_size
+    held = torch.cuda.memory_allocated()
+    assert held < 1e9, f"{held / 1e9:.2f} GB still held before {arch}"
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = model.init_params(
@@ -798,8 +890,13 @@ def main() -> int:
     mamba = get_config(MAMBA_ARCH)
     waves_ssm = mamba_waves(mamba.vocab_size, mamba.ssm.chunk_size)
     ssm_len = max(len(p) for w in waves_ssm for p in w)
+    moe_prefill_cs, moe_decode_c = moe_path_rows(get_config(MOE_ARCH),
+                                                 plens)
+    print(f"gmm path rows: prefill C {moe_prefill_cs} (padded prompts "
+          f"{plens}), decode C {moe_decode_c}")
     kernels = [check_segment_sum(dev), check_flash(dev, max(plens)),
-               check_decode(dev, max(plens)), check_ssd(dev, ssm_len)]
+               check_decode(dev, max(plens)), check_ssd(dev, ssm_len),
+               check_gmm(dev, moe_prefill_cs, moe_decode_c)]
     for k in kernels:
         lib = "no library call" if k["library_ms"] is None \
             else f"{k['library_ms'] * 1e3:.2f} us library"
@@ -874,6 +971,20 @@ def main() -> int:
     del served
     torch.cuda.empty_cache()
 
+    # phase 5c: the MoE serving path at full width (each wave: three
+    # grouped matmuls per layer in prefill and in each decode step, and
+    # the attention kernels as in phase 5)
+    served = serve_full_width(
+        dev, MOE_ARCH, wave_prompts(get_config(MOE_ARCH).vocab_size),
+        lambda cfg: {"gmm": 3 * cfg.num_layers * NEW_TOKENS,
+                     "flash_attention": cfg.num_layers,
+                     "decode_attention": cfg.num_layers * (NEW_TOKENS - 1)})
+    kernels[4]["launches"] = served["launches"]["gmm"]
+    assert kernels[4]["launches"] > 0, "gmm never launched"
+    profile_serving(served["engine"], served["prompts"])
+    del served
+    torch.cuda.empty_cache()
+
     # phase 6: CUDA against the CPU: the campaign at the mid shape
     worst = 0.0
     for scen in PARITY_SCENARIOS:
@@ -905,6 +1016,7 @@ def main() -> int:
     serving_parity(dev, ARCH, S=24, lengths=(9, 13, 17, 21), max_seq=32)
     serving_parity(dev, MAMBA_ARCH, S=64, lengths=(9, 40, 64, 17),
                    max_seq=96)
+    serving_parity(dev, MOE_ARCH, S=24, lengths=(9, 13, 17, 21), max_seq=32)
 
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,3 +1,4 @@
 """Import the architecture configs the port serves, for their
 ``@register`` side effects.  Other arches come with their slices."""
-from repro_torch.configs.archs import mamba2_1_3b, qwen2_vl_7b  # noqa: F401
+from repro_torch.configs.archs import (mamba2_1_3b, qwen2_vl_7b,  # noqa: F401
+                                       qwen3_moe_30b_a3b)

@@ -10,8 +10,9 @@ flash_attention`` on the GQA k/v as they are (no kv-head repeat) and
 kernels always launch; on CPU tensors their plain versions run.
 
 Not lowered (each raises ``NotImplementedError`` naming it): the int8 KV
-cache, MLA, MoE, and the ``hybrid`` / ``encdec`` families.  The ``ssm``
-family is lowered by ``models/ssm.py`` and ``models/hybrid.py``.
+cache, MLA, and the ``hybrid`` / ``encdec`` families.  The ``ssm`` family
+is lowered by ``models/ssm.py`` and ``models/hybrid.py``, the ``moe``
+family's feed-forward by ``models/moe.py``.
 """
 from __future__ import annotations
 
@@ -23,7 +24,7 @@ from repro_torch.models.common import (apply_mrope, apply_rope, dtype_of,
                                        normal_init)
 
 #: the model families the port lowers
-LOWERED_FAMILIES = ("dense", "vlm", "ssm")
+LOWERED_FAMILIES = ("dense", "moe", "vlm", "ssm")
 
 
 def check_lowered(cfg) -> None:
@@ -35,8 +36,6 @@ def check_lowered(cfg) -> None:
             f"{', '.join(LOWERED_FAMILIES)})")
     if cfg.mla is not None:
         raise NotImplementedError("MLA attention is not ported yet")
-    if cfg.moe is not None:
-        raise NotImplementedError("the MoE feed-forward is not ported yet")
     if cfg.kv_cache_dtype == "int8":
         raise NotImplementedError("the int8 KV cache "
                                   "(kv_cache_dtype='int8') is not ported yet")

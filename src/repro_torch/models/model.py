@@ -1,5 +1,5 @@
 """Model assembly of the port: family dispatch, and the decoder-only
-family (``dense`` / ``vlm``).
+families (``dense`` / ``moe`` / ``vlm``).
 
 Translated from the reference's ``models/model.py``.  Public API:
 
@@ -12,7 +12,9 @@ The ``ssm`` family (Mamba2) goes to :mod:`repro_torch.models.hybrid`, as
 in the reference.  The decoder-only parameters keep the reference's leaf
 names and stacked shapes (``embed.tok``, ``embed.head``,
 ``layers.attn.wq`` (L, D, H, dh), ..., ``layers.ln1.scale``,
-``layers.ffn.wi``, ``final_norm.scale``), so a tree carried across by
+``layers.ffn.wi``, ``final_norm.scale``; an ``moe`` layer's ``ffn``
+holds ``router``, ``wi``, ``wg`` and ``wo`` stacked over its experts),
+so a tree carried across by
 :func:`repro_torch.interop.params_from_reference` runs here as it is.
 The layers are a Python loop over the stacked leaves (the reference
 scans them).  The cache is ``{"k", "v": (L, B, S, KV, dh), "len": (B,)
@@ -21,7 +23,12 @@ S rows (the reference pads afterwards, ``_pad_seq``), and a decode step
 writes its row of each layer's cache in place (the reference threads the
 cache through its scan carry).
 
-Not lowered: MLA, MoE, the int8 KV cache and the ``hybrid`` / ``encdec``
+An ``moe`` layer's feed-forward is :func:`repro_torch.models.moe.moe_ffn`
+(its expert products through the ``gmm`` kernel) where a dense layer's is
+the SwiGLU MLP; prefill and decode drop its aux loss, as the reference's
+do.
+
+Not lowered: MLA, the int8 KV cache and the ``hybrid`` / ``encdec``
 families raise ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -38,6 +45,7 @@ from repro_torch.models.common import (embed_tokens, init_embedding,
                                        init_mlp, init_rmsnorm, layer_slice,
                                        logits_from_hidden, mlp, rmsnorm,
                                        stacked_init)
+from repro_torch.models.moe import init_moe, moe_ffn
 
 
 def default_positions(cfg, B: int, S: int, device=None) -> torch.Tensor:
@@ -52,10 +60,19 @@ def default_positions(cfg, B: int, S: int, device=None) -> torch.Tensor:
 # ----------------------------------------------------------------------
 # decoder-only layer
 def _init_dec_layer(cfg, generator: torch.Generator, device) -> dict:
+    init_ffn = init_moe if cfg.moe is not None else init_mlp
     return {"attn": init_attention(cfg, generator, device),
             "ln1": init_rmsnorm(cfg.d_model, device),
             "ln2": init_rmsnorm(cfg.d_model, device),
-            "ffn": init_mlp(cfg, generator, device)}
+            "ffn": init_ffn(cfg, generator, device)}
+
+
+def _ffn(lp, cfg, x: torch.Tensor) -> torch.Tensor:
+    """The layer's feed-forward: the MoE layer (its aux loss dropped) or
+    the SwiGLU MLP."""
+    if cfg.moe is not None:
+        return moe_ffn(lp["ffn"], cfg, x)[0]
+    return mlp(lp["ffn"], x)
 
 
 def _merge_vision(cfg, h: torch.Tensor, batch) -> torch.Tensor:
@@ -88,7 +105,7 @@ def _dec_backbone(params, cfg, batch, cache: Optional[dict] = None):
                                   rmsnorm(lp["ln1"], h, cfg.norm_eps),
                                   positions, causal=cfg.causal)
         h = h + a
-        h = h + mlp(lp["ffn"], rmsnorm(lp["ln2"], h, cfg.norm_eps))
+        h = h + _ffn(lp, cfg, rmsnorm(lp["ln2"], h, cfg.norm_eps))
         if cache is not None:
             cache["k"][i, :, :S] = k
             cache["v"][i, :, :S] = v
@@ -115,7 +132,7 @@ def _dec_decode(params, cfg, cache, tokens: torch.Tensor):
                                    rmsnorm(lp["ln1"], h, cfg.norm_eps), pos,
                                    cache["k"][i], cache["v"][i], cache["len"])
         h = h + a
-        h = h + mlp(lp["ffn"], rmsnorm(lp["ln2"], h, cfg.norm_eps))
+        h = h + _ffn(lp, cfg, rmsnorm(lp["ln2"], h, cfg.norm_eps))
     h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
     logits = logits_from_hidden(params["embed"], cfg, h)[:, 0]
     return logits, {"k": cache["k"], "v": cache["v"],
@@ -124,8 +141,9 @@ def _dec_decode(params, cfg, cache, tokens: torch.Tensor):
 
 def _dec_init_params(cfg, generator: torch.Generator, device) -> dict:
     """Draws in order: the embedding (tok, head), then layer by layer
-    (wq, wk, wv, wo, wi, wo, wg), each layer drawn in f32 on the
-    generator's device and cast into its slot of the stacked leaves."""
+    (wq, wk, wv, wo, then the MLP's wi, wo, wg or the MoE layer's router,
+    wi, wg, wo), each layer drawn in f32 on the generator's device and
+    cast into its slot of the stacked leaves."""
     embed = init_embedding(cfg, generator, device)
     layers = stacked_init(lambda: _init_dec_layer(cfg, generator, device),
                           cfg.num_layers)

@@ -12,9 +12,10 @@ Tolerances: 0/1 masks are integer sums, exact; other values 1e-12
 relative in f64 and 1e-5 in f32 (shared-memory atomics add in a
 run-dependent order); campaign stats 1e-5 relative (the reference's own
 contract between backends).  Attention kernels 2e-5 in f32 and 2e-2 in
-bf16, the SSD kernel 2e-4 in f32 and 4e-2 with bf16 x, B and C
-(tests/test_kernels.py's); the models' logits at f32 1e-4 relative to
-their largest value, with identical greedy tokens.
+bf16, the SSD kernel 2e-4 in f32 and 4e-2 with bf16 x, B and C, the
+grouped matmul 2e-5 in f32 and 2e-2 in bf16 (tests/test_kernels.py's);
+the models' logits at f32 1e-4 relative to their largest value, with
+identical greedy tokens.
 """
 import dataclasses
 
@@ -28,6 +29,7 @@ from repro_torch.kernels.decode_attention import (decode_attention,
                                                   decode_attention_plain)
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
+from repro_torch.kernels.gmm import gmm, gmm_plain
 from repro_torch.kernels.segment_sum import segment_sum, segment_sum_plain
 from repro_torch.kernels.ssd import ssd, ssd_plain
 from repro_torch.models import model
@@ -209,5 +211,55 @@ def test_mamba2_serving_cuda_matches_cpu(cuda):
         out[dev] = [r.output for r in eng.step_wave()]
         if dev == "cuda":
             assert ssd.launches - before == cfg.num_layers
+    for got, want in zip(out["cuda"], out["cpu"]):
+        np.testing.assert_array_equal(got, want)
+
+
+GMM_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("E,C,D,F", [
+    (2, 64, 32, 48), (4, 128, 64, 64), (1, 32, 16, 128),   # the sweep
+    (3, 1, 32, 48), (2, 5, 64, 16), (4, 100, 48, 80),      # ragged C
+    (8, 16, 2048, 768), (8, 17, 768, 2048), (4, 624, 2048, 768)])
+def test_gmm_kernel_matches_plain(cuda, E, C, D, F, dtype):
+    # w at the model's scale, D^-1/2, so outputs are O(1): with unit
+    # weights at D = 2048 they reach ~45, and two f32 sums of 2048 terms
+    # in different orders differ by ~1e-4, past an absolute 2e-5
+    x = _randn((E, C, D), dtype, cuda, 11)
+    w = (_randn((E, D, F), torch.float32, cuda, 12) * D ** -0.5).to(dtype)
+    launches = gmm.launches
+    got = gmm(x, w)
+    torch.cuda.synchronize()
+    assert gmm.launches == launches + 1
+    assert got.shape == (E, C, F) and got.dtype == dtype
+    tol = GMM_TOL[dtype]
+    torch.testing.assert_close(got.float(), gmm_plain(x, w).float(),
+                               rtol=tol, atol=tol)
+
+
+def test_moe_serving_cuda_matches_cpu(cuda):
+    cfg = dataclasses.replace(get_config("qwen3-moe-30b-a3b", smoke=True),
+                              dtype="float32").resolve(tp=1)
+    params = model.init_params(cfg, torch.Generator().manual_seed(0),
+                               device="cpu")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab_size, size=n).astype(np.int32)
+               for n in (9, 17, 12)]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        eng = ServingEngine(cfg, params, device=dev, max_batch=3,
+                            max_seq=32)
+        for i, p in enumerate(prompts):
+            eng.submit(Request(rid=i, tokens=p, max_new_tokens=5))
+        before = (gmm.launches, flash_attention.launches,
+                  decode_attention.launches)
+        out[dev] = [r.output for r in eng.step_wave()]
+        if dev == "cuda":
+            assert gmm.launches - before[0] == 3 * cfg.num_layers * 5
+            assert flash_attention.launches - before[1] == cfg.num_layers
+            assert decode_attention.launches - before[2] == \
+                cfg.num_layers * 4
     for got, want in zip(out["cuda"], out["cpu"]):
         np.testing.assert_array_equal(got, want)

@@ -70,6 +70,7 @@ def _entry_points():
     cfg = get_scenario("baseline").compile(seed=0, **small)
     arch = get_config("qwen2-vl-7b", smoke=True).resolve(tp=1)
     mamba = get_config("mamba2-1.3b", smoke=True).resolve(tp=1)
+    moe = get_config("qwen3-moe-30b-a3b", smoke=True).resolve(tp=1)
     gen = torch.Generator().manual_seed(0)
     return {
         "resolve_device": lambda: resolve_device(),
@@ -88,6 +89,9 @@ def _entry_points():
         "hybrid.init_params": lambda: hybrid.init_params(mamba, gen),
         "hybrid.init_cache": lambda: hybrid.init_cache(mamba, 1, 8),
         "ServingEngine_ssm": lambda: ServingEngine(mamba, {}),
+        "init_params_moe": lambda: model.init_params(moe, gen),
+        "init_cache_moe": lambda: model.init_cache(moe, 1, 8),
+        "ServingEngine_moe": lambda: ServingEngine(moe, {}),
     }
 
 
@@ -97,7 +101,8 @@ def _entry_points():
                                   "params_from_reference", "ServingEngine",
                                   "init_params_ssm", "init_cache_ssm",
                                   "hybrid.init_params", "hybrid.init_cache",
-                                  "ServingEngine_ssm"])
+                                  "ServingEngine_ssm", "init_params_moe",
+                                  "init_cache_moe", "ServingEngine_moe"])
 def test_entry_point_without_card_raises(name, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
