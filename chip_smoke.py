@@ -15,8 +15,9 @@ Phases (any failure raises and exits non-zero, with no result line):
    directory;
 3. hold each kernel against its plain PyTorch version on the card (the
    main paths' shapes, the sweeps of ``tests/test_kernels.py``, ragged
-   lengths and edge cases) and time kernel, plain version and a one-call
-   library yardstick;
+   lengths and edge cases; for flash attention, which of its two kernels,
+   tensor-core or FMA, each call took) and time kernel, plain version and
+   a one-call library yardstick;
 4. the simulation path: ``run_scenario`` at full width (250 nodes, 200
    replicas per app, 1000 requests, 8 seeds x 32 trials) on baseline,
    stale-predictions and churn with the four default policies and the
@@ -26,8 +27,8 @@ Phases (any failure raises and exits non-zero, with no result line):
 5. the serving path: ``ServingEngine`` with qwen2-vl-7b at full width
    (28 layers, bf16, random weights from a seeded generator), 3 waves of
    8 requests (prompts of 256-1024 tokens, 32 new tokens each), counting
-   the attention kernels' launches; then a profiled prefill and decode
-   step outside the count;
+   the attention kernels' launches (every flash call on the tensor-core
+   kernel); then a profiled prefill and decode step outside the count;
 5b. the Mamba2 serving path: ``ServingEngine`` with mamba2-1.3b at full
    width (48 layers, bf16, random weights), the same 3 waves with each
    wave's longest prompt lengthened to the next multiple of the SSD
@@ -122,6 +123,18 @@ def card_line() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def kernel_name(mangled: str) -> str:
+    """A ptxas entry name without its namespace and parameters, e.g.
+    ``flash_fwd_tc<128, 4, 2, 3>`` (``c++filt`` where it is installed)."""
+    import shutil
+    if shutil.which("c++filt") is None:
+        return mangled
+    out = subprocess.run(["c++filt", mangled], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    out = out.replace("(anonymous namespace)::", "").split("(")[0]
+    return out.removeprefix("void ").split("::")[-1] or mangled
 
 
 def _median_event_ms(run, inner: int, repeats: int) -> float:
@@ -290,35 +303,60 @@ def _timed(name: str, timed: dict, inner: int) -> dict:
 
 
 def check_flash(dev, S: int) -> dict:
-    """Hold the flash-attention kernel against its plain version (the
-    serving path's prefill shape at padded length ``S``, the sweep of
-    tests/test_kernels.py, ragged lengths, head dim 256); time it at the
-    path shape.  Returns its ``kernels`` entry."""
+    """Hold the flash-attention kernels against their plain version (the
+    serving paths' prefill shapes at padded length ``S``, the sweep of
+    tests/test_kernels.py, ragged lengths, head dims 256 and 40, q, k, v
+    as views of one fused tensor), asserting which kernel each call took;
+    time them at the path shape.  Returns the ``kernels`` entry."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
 
+    def counts():
+        return flash_attention.tc_launches, flash_attention.fma_launches
+
+    def checked(q, k, v, causal, variant, label):
+        before = counts()
+        got = flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        moved = tuple(a - b for a, b in zip(counts(), before))
+        assert moved == ((1, 0) if variant == "tc" else (0, 1)), \
+            f"flash {label}: took {moved} (tc, fma) launches, not {variant}"
+        err = _attn_err(got, flash_attention_plain(q, k, v, causal),
+                        q.dtype)
+        print(f"flash {label} {str(q.dtype)[6:]} causal={causal} "
+              f"[{variant}]: max_abs_err {err:.3e} "
+              f"(tol {ATTN_TOL[str(q.dtype)]})")
+        return err
+
     def case(B, Sq, H, KV, D, dtype, causal, seed=0):
         q = _randn((B, Sq, H, D), dtype, dev, seed)
         k = _randn((B, Sq, KV, D), dtype, dev, seed + 1)
         v = _randn((B, Sq, KV, D), dtype, dev, seed + 2)
-        got = flash_attention(q, k, v, causal=causal)
-        torch.cuda.synchronize()
-        err = _attn_err(got, flash_attention_plain(q, k, v, causal), dtype)
-        print(f"flash ({B},{Sq},{H}/{KV},{D}) {str(dtype)[6:]} causal="
-              f"{causal}: max_abs_err {err:.3e} "
-              f"(tol {ATTN_TOL[str(dtype)]})")
+        variant = "tc" if dtype == torch.bfloat16 and D % 16 == 0 \
+            and H // KV <= 128 else "fma"
+        err = checked(q, k, v, causal, variant, f"({B},{Sq},{H}/{KV},{D})")
         return q, k, v, err
 
     B, H, KV, D = SERVE["max_batch"], 28, 4, 128
     q, k, v, path_err = case(B, S, H, KV, D, torch.bfloat16, True)
     for shape in ((1, 128, 4, 4, 32), (2, 256, 8, 2, 64), (1, 128, 8, 1, 16),
                   (1, 777, 28, 4, 128), (2, 1000, 8, 2, 64),
-                  (1, 300, 4, 2, 256), (3, 100, 6, 3, 16)):
+                  (1, 300, 4, 2, 256), (3, 100, 6, 3, 16),
+                  (B, 910, 32, 4, 128), (2, 200, 6, 2, 40)):
         for dtype in (torch.float32, torch.bfloat16):
             for causal in (True, False):
                 case(*shape, dtype, causal, seed=3)
+    # q, k, v as views of one fused (B, S, H + 2 KV, D) tensor: aligned
+    # rows take the tensor cores; one element off, the FMA kernel
+    n = 2 * 300 * (H + 2 * KV) * D
+    for off, variant in ((0, "tc"), (1, "fma")):
+        qkv = _randn((n + off,), torch.bfloat16, dev, 5)[off:].view(
+            2, 300, H + 2 * KV, D)
+        for causal in (True, False):
+            checked(qkv[:, :, :H], qkv[:, :, H:H + KV], qkv[:, :, H + KV:],
+                    causal, variant, f"fused qkv views, offset {off}")
 
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     timed = {
@@ -333,9 +371,42 @@ def check_flash(dev, S: int) -> dict:
     nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
     ops = 2 * B * H * (S * (S + 1) // 2) * (D + D)
     bound_ms, bound_by = _bound(nbytes, ops, q.dtype)
+    print(f"flash at the path shape ({B},{S},{H}/{KV},{D}) bf16 causal "
+          f"[tc]: {ops / 1e9:.2f} GFLOP, {ops / dev_ms['kernel'] / 1e9:.1f} "
+          f"TFLOP/s, {bound_ms / dev_ms['kernel'] * 100:.1f} % of the "
+          f"{bound_ms * 1e3:.2f} us bound ({bound_by}); SDPA "
+          f"{ops / dev_ms['library'] / 1e9:.1f} TFLOP/s, kernel / SDPA "
+          f"{dev_ms['kernel'] / dev_ms['library']:.3f}")
+    # the FMA kernel on the same values, q one element off its 16-byte
+    # alignment: the kernel this path took before the tensor-core one
+    qf = torch.empty(q.numel() + 1, dtype=q.dtype, device=dev)[1:].view(
+        q.shape).copy_(q)
+    checked(qf, k, v, True, "fma", f"({B},{S},{H}/{KV},{D}), q misaligned")
+    fma_ms = device_ms(lambda: flash_attention(qf, k, v, causal=True),
+                       repeats=5, inner=3)
+    print(f"flash FMA kernel at the path shape: {fma_ms * 1e3:.2f} us, "
+          f"{ops / fma_ms / 1e9:.1f} TFLOP/s; the tensor-core kernel is "
+          f"{fma_ms / dev_ms['kernel']:.1f}x faster")
+    del qf
+    # the MoE path's shape (32 heads over 4, G = 8) at its first wave's
+    # padded length, kernel against SDPA
+    Sm, Hm = 910, 32
+    qm = _randn((B, Sm, Hm, D), torch.bfloat16, dev, 11)
+    km, vm = (_randn((B, Sm, KV, D), torch.bfloat16, dev, 12 + i)
+              for i in range(2))
+    qmt, kmt, vmt = (t.transpose(1, 2) for t in (qm, km, vm))
+    moe_ms = _timed("flash_attention (8,910,32/4,128)", {
+        "kernel": lambda: flash_attention(qm, km, vm, causal=True),
+        "library": lambda: F.scaled_dot_product_attention(
+            qmt, kmt, vmt, is_causal=True, enable_gqa=True)}, inner=10)
+    ops_m = 2 * B * Hm * (Sm * (Sm + 1) // 2) * (D + D)
+    print(f"flash at (8,910,32/4,128) bf16 causal [tc]: "
+          f"{ops_m / moe_ms['kernel'] / 1e9:.1f} TFLOP/s, SDPA "
+          f"{ops_m / moe_ms['library'] / 1e9:.1f} TFLOP/s")
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:80",
+            "variant": "tc",
             "launches": 0, "max_abs_err": path_err, "ms": dev_ms["kernel"],
             "plain_ms": dev_ms["plain"], "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": dev_ms["library"]}
@@ -622,6 +693,21 @@ def _kernel_wrappers() -> dict:
             "decode_attention": decode_attention, "ssd": ssd, "gmm": gmm}
 
 
+def counts(kernels) -> dict:
+    """Each wrapper's ``launches``, and the flash kernel's launches of its
+    tensor-core variant as ``flash_attention.tc``."""
+    out = {n: k.launches for n, k in kernels.items()}
+    out["flash_attention.tc"] = kernels["flash_attention"].tc_launches
+    return out
+
+
+def reset_counts(kernels) -> None:
+    for k in kernels.values():
+        k.launches = 0
+    kernels["flash_attention"].tc_launches = 0
+    kernels["flash_attention"].fma_launches = 0
+
+
 def _batch(cfg, prompts, dev) -> dict:
     """The engine's left-padded wave batch (with the zero vision stub of
     a ``vlm``)."""
@@ -687,10 +773,9 @@ def serve_full_width(dev, arch: str, waves, per_wave) -> dict:
     eng._prefill = checked("prefill", eng._prefill)
     eng._decode = checked("decode", eng._decode)
     kernels = _kernel_wrappers()
-    for k in kernels.values():
-        k.launches = 0
+    reset_counts(kernels)
     for w, prompts in enumerate(waves):
-        before = {n: k.launches for n, k in kernels.items()}
+        before = counts(kernels)
         for i, p in enumerate(prompts):
             eng.submit(Request(rid=w * len(prompts) + i, tokens=p,
                                max_new_tokens=NEW_TOKENS))
@@ -698,7 +783,7 @@ def serve_full_width(dev, arch: str, waves, per_wave) -> dict:
         t0 = time.perf_counter()
         done = eng.step_wave()
         wall = time.perf_counter() - t0
-        got = {n: k.launches - before[n] for n, k in kernels.items()}
+        got = {n: c - before[n] for n, c in counts(kernels).items()}
         for n, count in got.items():
             assert count == expect.get(n, 0), \
                 f"wave {w}: {count} {n} launches, not {expect.get(n, 0)}"
@@ -713,7 +798,7 @@ def serve_full_width(dev, arch: str, waves, per_wave) -> dict:
               + " ".join(f"{n} {c}" for n, c in got.items() if c))
         print(f"  rtt s: " + " ".join(f"{r.rtt:.3f}" for r in done))
     assert bool(finite), "a logit is not finite"
-    launches = {n: k.launches for n, k in kernels.items()}
+    launches = counts(kernels)
     print(f"{cfg.name} serving path launches: {launches}; peak device "
           f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     return {"launches": launches, "engine": eng, "prompts": waves[0]}
@@ -878,9 +963,12 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s")
     for name, path in libs.items():
         log = path.with_suffix(".log")
+        entry = ""
         for line in (log.read_text().splitlines() if log.exists() else ()):
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                entry = kernel_name(line.split("'")[1])
+            elif "registers" in line or "spill" in line:
+                print(f"  {name} {entry}: {line.strip()}")
 
     # phase 3: kernels against their plain versions, timed, at the main
     # paths' shapes (the serving waves' padded prompt lengths)
@@ -908,8 +996,7 @@ def main() -> int:
 
     # phase 4: the simulation path at full width
     wrappers = _kernel_wrappers()
-    for k in wrappers.values():
-        k.launches = 0
+    reset_counts(wrappers)
     per_scen = {}
     torch.cuda.reset_peak_memory_stats()
     for scen in MAIN_SCENARIOS:
@@ -953,6 +1040,7 @@ def main() -> int:
     served = serve_full_width(
         dev, ARCH, wave_prompts(get_config(ARCH).vocab_size),
         lambda cfg: {"flash_attention": cfg.num_layers,
+                     "flash_attention.tc": cfg.num_layers,
                      "decode_attention": cfg.num_layers * (NEW_TOKENS - 1)})
     for k in kernels[1:3]:
         k["launches"] = served["launches"][k["name"]]
@@ -978,6 +1066,7 @@ def main() -> int:
         dev, MOE_ARCH, wave_prompts(get_config(MOE_ARCH).vocab_size),
         lambda cfg: {"gmm": 3 * cfg.num_layers * NEW_TOKENS,
                      "flash_attention": cfg.num_layers,
+                     "flash_attention.tc": cfg.num_layers,
                      "decode_attention": cfg.num_layers * (NEW_TOKENS - 1)})
     kernels[4]["launches"] = served["launches"]["gmm"]
     assert kernels[4]["launches"] > 0, "gmm never launched"

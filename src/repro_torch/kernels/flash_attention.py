@@ -1,4 +1,4 @@
-"""Flash attention (forward): the CUDA kernel's wrapper and its plain
+"""Flash attention (forward): the CUDA kernels' wrapper and their plain
 version.
 
 ``out[b, i, h] = softmax_j(q[b, i, h] . k[b, j, h // G] / sqrt(D)) v[b, j,
@@ -17,21 +17,35 @@ kernel and the reference's ``blockwise_attention`` do, while
 ``Sq == Skv``, the only case the model has, so ``causal`` with
 ``Sq != Skv`` is refused.
 
-The kernel (``csrc/flash_attention.cu``) is bound by operations: ~60 GFLOP
-per call at the serving path's shape (B=8, S=1024, H=28, KV=4, D=128,
-bf16, causal), ~0.061 ms at 989 TFLOP/s.  One CTA per (batch, kv head, 64
-(query, head) rows) loads each K/V tile into shared memory once for all G
-heads, keeps (m, l, acc) in f32 registers, skips the tiles above the
-diagonal and masks ragged edges.  Like the Pallas kernel it computes in
-f32 throughout (the reference model's XLA path casts P to the value dtype
-before P.V, so at bf16 the two differ slightly).
+Both kernels live in ``csrc/flash_attention.cu`` and are bound by
+operations: 57.6 GFLOP per call at the serving path's shape (B=8, S=1002,
+H=28, KV=4, D=128, bf16, causal), 0.058 ms at 989 TFLOP/s.  A CTA takes
+one (batch, kv head) and a block of the flattened (query position, head
+in group) rows, so each K/V tile it loads serves all G heads; it keeps
+(m, l, acc) in f32 registers, skips the tiles above the diagonal and
+masks ragged edges.  :func:`_variant` picks the kernel, by rules that
+depend only on dtype, widths, strides and alignment:
+
+* ``"tc"``, the tensor-core kernel: bf16 with D and Dv multiples of 16, G
+  at most 128, and 16-byte aligned rows (base pointers and the batch,
+  position and head strides of q, k, v positive multiples of 8 elements).
+  Persistent, one CTA per SM; an item is all G heads of as many positions
+  as fit 64 rows per consumer warpgroup (three, or two at D > 128);
+  ``wgmma`` products in bf16 with f32 accumulation; Q, K and V in and O
+  out by TMA; the softmax of one tile overlapping the previous tile's
+  P.V.  Like the Pallas kernel (which casts P to ``v.dtype`` before P.V)
+  it rounds P to bf16 before P.V.
+* ``"fma"``, the FMA kernel: every f32 input and the other bf16 inputs.
+  64 rows a CTA, f32 FMA products from shared memory, P in f32.
 
 Tolerance against the plain version: 2e-5 in f32 and 2e-2 in bf16 (the
-order of the sums differs; bf16 rounds the output), as
-``tests/test_kernels.py`` holds the Pallas kernel.
+order of the sums differs; bf16 rounds the output and, in the tensor-core
+kernel, P), as ``tests/test_kernels.py`` holds the Pallas kernel.
 
 :func:`flash_attention` runs the plain version only for tensors that lie
-on the CPU; for a CUDA tensor it launches the kernel or raises.
+on the CPU (counted in ``flash_attention.plain_calls``); for a CUDA tensor
+it launches the chosen kernel or raises.  ``flash_attention.launches``
+counts every launch, ``tc_launches`` and ``fma_launches`` each variant's.
 """
 from __future__ import annotations
 
@@ -44,9 +58,14 @@ from repro_torch.kernels.build import load
 
 __all__ = ["flash_attention", "flash_attention_plain"]
 
-_ENTRY = {torch.float32: "flash_attention_f32",
-          torch.bfloat16: "flash_attention_bf16"}
+_ENTRY = {("fma", torch.float32): "flash_attention_f32",
+          ("fma", torch.bfloat16): "flash_attention_bf16",
+          ("tc", torch.bfloat16): "flash_attention_bf16_tc"}
+_DTYPES = (torch.float32, torch.bfloat16)
 MAX_HEAD_DIM = 256
+#: the tensor-core kernel's items hold every head of a kv head's group
+#: for at least one position: 128 rows at D > 128
+MAX_TC_GROUP = 128
 _MAX_GRID_Y = 65535
 
 
@@ -73,7 +92,7 @@ def check_attention_inputs(name: str, q: torch.Tensor, k: torch.Tensor,
     if not (1 <= D <= MAX_HEAD_DIM and 1 <= v.shape[3] <= MAX_HEAD_DIM):
         raise ValueError(f"{name}: head dims {D}, {v.shape[3]} must lie in "
                          f"[1, {MAX_HEAD_DIM}]")
-    if q.dtype not in _ENTRY or k.dtype != q.dtype or v.dtype != q.dtype:
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"{name}: q, k, v must all be float32 or bfloat16, "
                         f"got {q.dtype}, {k.dtype}, {v.dtype}")
     if not (q.device == k.device == v.device):
@@ -114,9 +133,23 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o.reshape(B, Sq, H, v.shape[-1]).to(q.dtype)
 
 
+def _variant(dtype: torch.dtype, D: int, Dv: int, G: int, strides,
+             ptrs) -> str:
+    """The kernel a CUDA call takes: ``"tc"`` (tensor cores) for bf16 with
+    D and Dv multiples of 16, at most MAX_TC_GROUP query heads per kv head
+    (G), ``strides`` (the batch, position and head element strides of q,
+    k and v) positive multiples of 8 and base addresses ``ptrs`` 16-byte
+    aligned; else ``"fma"``."""
+    if dtype != torch.bfloat16 or D % 16 or Dv % 16 or G > MAX_TC_GROUP:
+        return "fma"
+    if any(s <= 0 or s % 8 for s in strides) or any(p % 16 for p in ptrs):
+        return "fma"
+    return "tc"
+
+
 @functools.lru_cache(maxsize=None)
-def _entry(dtype: torch.dtype):
-    fn = getattr(load("flash_attention"), _ENTRY[dtype])
+def _entry(variant: str, dtype: torch.dtype):
+    fn = getattr(load("flash_attention"), _ENTRY[variant, dtype])
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
                    + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -129,8 +162,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (B, Sq, H, Dv) in q's dtype.
 
     CPU tensors take :func:`flash_attention_plain` (counted in
-    ``flash_attention.plain_calls``); CUDA tensors launch the kernel on
-    the current stream (counted in ``flash_attention.launches``)."""
+    ``flash_attention.plain_calls``); CUDA tensors launch the kernel that
+    :func:`_variant` picks on the current stream (counted in
+    ``flash_attention.launches`` and in ``tc_launches`` or
+    ``fma_launches``)."""
     check_attention_inputs("flash_attention", q, k, v)
     B, Sq, H, D = q.shape
     Skv, KV, Dv = k.shape[1], k.shape[2], v.shape[3]
@@ -148,17 +183,25 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return out
     strides = strides_arg((q, (0, 1, 2)), (k, (0, 1, 2)), (v, (0, 1, 2)),
                           (out, (0, 1, 2)))
-    fn = _entry(q.dtype)
+    variant = _variant(q.dtype, D, Dv, H // KV, strides[:9],
+                       (q.data_ptr(), k.data_ptr(), v.data_ptr()))
+    fn = _entry(variant, q.dtype)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 B, Sq, Skv, H, KV, D, Dv, int(causal), strides, stream)
     if rc != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
-                           f"error {rc}")
+        raise RuntimeError(f"flash_attention {variant} kernel launch failed: "
+                           f"CUDA error {rc}")
     flash_attention.launches += 1
+    if variant == "tc":
+        flash_attention.tc_launches += 1
+    else:
+        flash_attention.fma_launches += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.tc_launches = 0
+flash_attention.fma_launches = 0
 flash_attention.plain_calls = 0

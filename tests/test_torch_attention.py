@@ -23,7 +23,7 @@ from repro.kernels.flash_attention import \
     flash_attention as pallas_flash_attention
 from repro_torch.kernels.decode_attention import (decode_attention,
                                                   decode_attention_plain)
-from repro_torch.kernels.flash_attention import (flash_attention,
+from repro_torch.kernels.flash_attention import (_variant, flash_attention,
                                                  flash_attention_plain)
 
 DTYPES = {"float32": (jnp.float32, torch.float32, 2e-5),
@@ -138,6 +138,64 @@ def test_cpu_wrappers_count_plain_calls_not_launches():
     assert (flash_attention.plain_calls, flash_attention.launches,
             decode_attention.plain_calls, decode_attention.launches) == \
         (before[0] + 1, before[1], before[2] + 1, before[3])
+
+
+def _variant_of(q, k, v):
+    """The variant the wrapper would pick for these tensors on a card."""
+    strides = [t.stride(d) for t in (q, k, v) for d in (0, 1, 2)]
+    return _variant(q.dtype, q.shape[3], v.shape[3], q.shape[2] // k.shape[2],
+                    strides, [t.data_ptr() for t in (q, k, v)])
+
+
+@pytest.mark.parametrize("case,want", [
+    ("f32", "fma"), ("bf16", "tc"), ("bf16_d40", "fma"),
+    ("bf16_dv40", "fma"), ("bf16_d16", "tc"), ("bf16_d256", "tc"),
+    ("bf16_fused_qkv", "tc"), ("bf16_stride_off8", "fma"),
+    ("bf16_ptr_off16", "fma"), ("bf16_zero_stride", "fma"),
+    ("bf16_g128", "tc"), ("bf16_g256", "fma")])
+def test_flash_variant_rule(case, want):
+    """bf16 with D and Dv multiples of 16, at most 128 query heads per kv
+    head and 16-byte aligned rows takes the tensor-core kernel; f32, other
+    widths, larger groups and misaligned rows the FMA kernel."""
+    B, S, H, KV, D, Dv = 2, 8, 4, 2, 128, 128
+    if case in ("bf16_g128", "bf16_g256"):
+        H, KV = int(case[6:]), 1
+    dtype = torch.float32 if case == "f32" else torch.bfloat16
+    if case == "bf16_d40":
+        D = Dv = 40
+    elif case == "bf16_dv40":
+        Dv = 40
+    elif case == "bf16_d16":
+        D = Dv = 16
+    elif case == "bf16_d256":
+        D = Dv = 256
+    q = torch.zeros((B, S, H, D), dtype=dtype)
+    k = torch.zeros((B, S, KV, D), dtype=dtype)
+    v = torch.zeros((B, S, KV, Dv), dtype=dtype)
+    if case == "bf16_fused_qkv":
+        qkv = torch.zeros((B, S, H + 2 * KV, D), dtype=dtype)
+        q, k, v = qkv[:, :, :H], qkv[:, :, H:H + KV], qkv[:, :, H + KV:]
+    elif case == "bf16_stride_off8":      # rows 260 bytes apart
+        k = torch.zeros((B, S, KV, D + 2), dtype=dtype)[..., :D]
+    elif case == "bf16_ptr_off16":        # base 2 bytes past alignment
+        flat = torch.zeros(B * S * H * D + 8, dtype=dtype)
+        q = flat[1:1 + B * S * H * D].view(B, S, H, D)
+    elif case == "bf16_zero_stride":      # one key row broadcast
+        k = torch.zeros((B, 1, KV, D), dtype=dtype).expand(B, S, KV, D)
+    assert _variant_of(q, k, v) == want
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cpu_calls_count_neither_variant(dtype):
+    """On the CPU both dtypes take the plain version: ``plain_calls``
+    moves, no launch counter does."""
+    q = torch.randn((1, 8, 4, 16)).to(dtype)
+    kv = torch.randn((1, 8, 2, 16)).to(dtype)
+    counters = ("plain_calls", "launches", "tc_launches", "fma_launches")
+    before = [getattr(flash_attention, c) for c in counters]
+    flash_attention(q, kv, kv)
+    after = [getattr(flash_attention, c) for c in counters]
+    assert [a - b for a, b in zip(after, before)] == [1, 0, 0, 0]
 
 
 def test_plain_versions_are_what_the_wrappers_return():

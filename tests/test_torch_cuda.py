@@ -98,20 +98,61 @@ def _randn(shape, dtype, device, seed):
     return torch.randn(shape, generator=g).to(dtype=dtype, device=device)
 
 
+def _flash_counts():
+    return (flash_attention.launches, flash_attention.tc_launches,
+            flash_attention.fma_launches)
+
+
+def _assert_one_launch(before, variant):
+    """One launch more, counted in ``variant``'s counter alone."""
+    launches, tc, fma = before
+    assert _flash_counts() == (launches + 1, tc + (variant == "tc"),
+                               fma + (variant == "fma"))
+
+
+# bf16 with D a multiple of 16 and G <= 128 takes the tensor-core kernel,
+# the rest the FMA kernel.  Beside tests/test_kernels.py's sweep: the
+# serving paths' shapes (qwen2-vl-7b at S = 1002, G = 7; qwen3-moe-30b-a3b
+# at S = 910, G = 8), D = 256 (at G = 128, one position an item), D = 40
+# (no multiple of 16) and G = 160.
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("B,S,H,KV,D", [
     (1, 128, 4, 4, 32), (2, 256, 8, 2, 64), (1, 128, 8, 1, 16),
-    (2, 100, 4, 2, 32), (1, 777, 28, 4, 128), (1, 130, 4, 2, 256)])
+    (2, 100, 4, 2, 32), (1, 777, 28, 4, 128), (1, 130, 4, 2, 256),
+    (8, 1002, 28, 4, 128), (8, 910, 32, 4, 128), (2, 333, 8, 4, 256),
+    (2, 200, 6, 2, 40), (1, 50, 128, 1, 256), (1, 64, 160, 1, 64)])
 def test_flash_kernel_matches_plain(cuda, B, S, H, KV, D, causal, dtype):
     q = _randn((B, S, H, D), dtype, cuda, 0)
     k = _randn((B, S, KV, D), dtype, cuda, 1)
     v = _randn((B, S, KV, D), dtype, cuda, 2)
-    launches = flash_attention.launches
+    before = _flash_counts()
     got = flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
-    assert flash_attention.launches == launches + 1
+    _assert_one_launch(before, "tc" if dtype == torch.bfloat16
+                       and D % 16 == 0 and H // KV <= 128 else "fma")
     tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(),
+                               flash_attention_plain(q, k, v, causal).float(),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("offset,variant", [(0, "tc"), (1, "fma")])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernel_takes_fused_qkv_views(cuda, causal, offset, variant):
+    """q, k and v as strided views of one (B, S, H + 2 KV, D) tensor, as a
+    fused projection gives them: rows 16-byte aligned take the tensor-core
+    kernel; the same views one element off the alignment, the FMA kernel."""
+    B, S, H, KV, D = 2, 300, 8, 2, 128
+    n = B * S * (H + 2 * KV) * D
+    flat = _randn((n + offset,), torch.bfloat16, cuda, 7)[offset:]
+    qkv = flat.view(B, S, H + 2 * KV, D)
+    q, k, v = qkv[:, :, :H], qkv[:, :, H:H + KV], qkv[:, :, H + KV:]
+    before = _flash_counts()
+    got = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    _assert_one_launch(before, variant)
+    tol = ATTN_TOL[torch.bfloat16]
     torch.testing.assert_close(got.float(),
                                flash_attention_plain(q, k, v, causal).float(),
                                rtol=tol, atol=tol)
