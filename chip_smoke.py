@@ -423,17 +423,30 @@ def check_decode(dev, plen: int) -> dict:
     from repro_torch.kernels.decode_attention import (decode_attention,
                                                       decode_attention_plain)
 
+    def counts():
+        return (decode_attention.launches, decode_attention.mma_launches,
+                decode_attention.fma_launches)
+
     def case(B, S, H, KV, D, dtype, lens, seed=0):
         q = _randn((B, 1, H, D), dtype, dev, seed)
         k = _randn((B, S, KV, D), dtype, dev, seed + 1)
         v = _randn((B, S, KV, D), dtype, dev, seed + 2)
         lens = torch.as_tensor(lens, dtype=torch.int32, device=dev)
+        variant = "mma" if dtype == torch.bfloat16 and D % 16 == 0 \
+            and H // KV <= 16 else "fma"
+        before = counts()
         got = decode_attention(q, k, v, lens)
         torch.cuda.synchronize()
-        err = _attn_err(got, decode_attention_plain(q, k, v, lens), dtype)
+        moved = tuple(a - b for a, b in zip(counts(), before))
+        assert moved == (1, int(variant == "mma"), int(variant == "fma")), \
+            f"decode took {moved} (all, mma, fma) launches, not one {variant}"
+        live = lens > 0
+        assert torch.count_nonzero(got[~live]) == 0, "kv_len 0 not zeros"
+        err = _attn_err(got[live], decode_attention_plain(
+            q[live], k[live], v[live], lens[live]), dtype)
         print(f"decode ({B},{S},{H}/{KV},{D}) {str(dtype)[6:]} kv_len "
-              f"{int(lens.min())}..{int(lens.max())}: max_abs_err "
-              f"{err:.3e} (tol {ATTN_TOL[str(dtype)]})")
+              f"{int(lens.min())}..{int(lens.max())} [{variant}]: "
+              f"max_abs_err {err:.3e} (tol {ATTN_TOL[str(dtype)]})")
         return q, k, v, lens, err
 
     B, S, H, KV, D = SERVE["max_batch"], SERVE["max_seq"], 28, 4, 128
@@ -450,6 +463,29 @@ def check_decode(dev, plen: int) -> dict:
         case(100, 100, 4, 2, 32, dtype, list(range(1, 101)), seed=7)
         case(4, 777, 28, 4, 128, dtype, [1, 64, 65, 777], seed=7)
         case(2, 300, 8, 1, 256, dtype, [299, 300], seed=7)
+        # every kv_len from 1 to S at the path's heads, one row each
+        case(300, 300, H, KV, D, dtype, list(range(1, 301)), seed=9)
+        # one (batch, kv head) pair: ~2 x 132 splits, so lengths below
+        # the split count leave most splits empty; kv_len 0 gives zeros
+        case(18, 4096, 7, 1, D, dtype, list(range(18)), seed=9)
+        case(3, 256, H, KV, D, dtype, [0, 256, 0], seed=9)
+    # two CUDA-graph replays give the same bits (each call's last CTAs
+    # reset their ticket counters)
+    ragged = torch.tensor([kv, 1, 7, 64, 65, S, 500, 999], dtype=torch.int32,
+                          device=dev)
+    eager = decode_attention(q, k, v, ragged)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = decode_attention(q, k, v, ragged)
+    outs = []
+    for _ in range(2):
+        replayed.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        outs.append(replayed.clone())
+    assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], eager), \
+        "decode: CUDA-graph replays differ"
+    print("decode: two CUDA-graph replays and the eager call bit-identical")
 
     mask = (torch.arange(S, device=dev)[None, :] < lens[:, None])
     mask = mask[:, None, None, :]
@@ -463,15 +499,48 @@ def check_decode(dev, plen: int) -> dict:
     print(f"decode library (SDPA) vs kernel at the path shape: "
           f"max_abs_diff {float((lib.float() - decode_attention(q, k, v, lens).float()).abs().max()):.3e}")
     dev_ms = _timed("decode_attention", timed, inner=50)
+    # the split rule (every CTA resident at once, two an SM) against
+    # other split counts at the path shape, by swapping the rule
+    from repro_torch.kernels import decode_attention as decode_mod
+    rule = decode_mod._splits
+    picked = rule(B, KV, S, torch.cuda.get_device_properties(0)
+                  .multi_processor_count)
+    swept = {}
+    try:
+        for n in sorted({4, 6, picked, picked + 1, 12, 16}):
+            decode_mod._splits = lambda *_, n=n: n
+            swept[n] = device_ms(lambda: decode_attention(q, k, v, lens),
+                                 repeats=7, inner=50)
+    finally:
+        decode_mod._splits = rule
+    print(f"decode split sweep at the path shape (the rule picks {picked}): "
+          + ", ".join(f"{n}: {t * 1e3:.2f} us" for n, t in swept.items()))
+    # one call is one kernel on the device (the combine is folded in)
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        decode_attention(q, k, v, lens)
+        torch.cuda.synchronize()
+    ran = {e.key: e.count for e in prof.key_averages()
+           if str(e.device_type).endswith("CUDA")
+           and not e.key.startswith("Mem")}
+    assert sum(ran.values()) == 1, f"decode ran {ran}, not one kernel"
+    print(f"decode: one call ran one kernel on the device: {ran}")
     used = int(lens.sum())
     nbytes = (2 * (q.numel() * 2 + used * KV * (D + D))
               + 4 * lens.numel())
     ops = 2 * H * used * (D + D)
     bound_ms, bound_by = _bound(nbytes, ops, q.dtype)
+    print(f"decode at the path shape ({B},{S},{H}/{KV},{D}) bf16 kv_len "
+          f"{kv} [mma]: {nbytes / dev_ms['kernel'] / 1e6:.1f} GB/s, "
+          f"{bound_ms / dev_ms['kernel'] * 100:.1f} % of the "
+          f"{bound_ms * 1e3:.2f} us bound ({bound_by}); kernel / SDPA "
+          f"{dev_ms['kernel'] / dev_ms['library']:.3f}")
     return {"name": "decode_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
             "replaces": "src/repro/kernels/decode_attention.py:65",
-            "launches": 0, "max_abs_err": path_err, "ms": dev_ms["kernel"],
+            "variant": "mma", "launches": 0, "max_abs_err": path_err,
+            "ms": dev_ms["kernel"],
             "plain_ms": dev_ms["plain"], "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": dev_ms["library"]}
 
@@ -573,19 +642,27 @@ def check_gmm(dev, prefill_cs, decode_c: int) -> dict:
     from repro_torch.configs.base import get_config
     from repro_torch.kernels.gmm import gmm, gmm_plain
 
+    def counts():
+        return gmm.launches, gmm.wgmma_launches, gmm.fma_launches
+
     def case(E, C, D, F, dtype, seed=0, scale=1.0):
         x = _randn((E, C, D), dtype, dev, seed)
         w = (_randn((E, D, F), torch.float32, dev, seed + 1) * scale) \
             .to(dtype)
+        variant = "wgmma" if dtype == torch.bfloat16 else "fma"
+        before = counts()
         got = gmm(x, w)
         torch.cuda.synchronize()
+        moved = tuple(a - b for a, b in zip(counts(), before))
+        assert moved == (1, int(variant == "wgmma"), int(variant == "fma")), \
+            f"gmm took {moved} (all, wgmma, fma) launches, not {variant}"
         want = gmm_plain(x, w)
         tol = GMM_TOL[str(dtype)]
         torch.testing.assert_close(got.float(), want.float(), rtol=tol,
                                    atol=tol)
         err = float((got.float() - want.float()).abs().max())
-        print(f"gmm ({E},{C},{D})x({D},{F}) {str(dtype)[6:]}: max_abs_err "
-              f"{err:.3e} (rtol = atol = {tol})")
+        print(f"gmm ({E},{C},{D})x({D},{F}) {str(dtype)[6:]} [{variant}]: "
+              f"max_abs_err {err:.3e} (rtol = atol = {tol})")
         return x, w, err
 
     cfg = get_config(MOE_ARCH)
@@ -601,6 +678,12 @@ def check_gmm(dev, prefill_cs, decode_c: int) -> dict:
         for shape in ((2, 64, 32, 48), (4, 128, 64, 64), (1, 32, 16, 128),
                       (3, 1, 32, 48), (2, 5, 64, 16), (4, 100, 48, 80)):
             case(*shape, dtype, seed=3)
+    # row counts on both sides of the decode operand swap (C <= 16) and of
+    # the 128-row tile edge, at both widths, one expert and all of them
+    for e in (1, E):
+        for d, f in ((D, Fd), (Fd, D)):
+            for C in (1, 4, 5, 100, 112, 128, 576, 608, 624, 625):
+                case(e, C, d, f, torch.bfloat16, seed=7, scale=d ** -0.5)
 
     entries = {}
     for C in (big, decode_c):
@@ -622,10 +705,15 @@ def check_gmm(dev, prefill_cs, decode_c: int) -> dict:
         entries[C] = dict(ms=dev_ms["kernel"], plain_ms=dev_ms["plain"],
                           bound_ms=bound_ms, bound_by=bound_by,
                           library_ms=dev_ms["library"])
+        print(f"gmm C={C}: kernel / torch.bmm "
+              f"{dev_ms['kernel'] / dev_ms['library']:.3f}")
     return {"name": "gmm", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/gmm.cu",
             "replaces": "src/repro/kernels/moe_gmm.py:49",
-            "launches": 0, "max_abs_err": path[big, D][2], **entries[big]}
+            "variant": "wgmma", "launches": 0,
+            "max_abs_err": path[big, D][2], **entries[big],
+            "decode": {"C": decode_c, "max_abs_err": path[decode_c, D][2],
+                       **entries[decode_c]}}
 
 
 def sync_cost_us(dev) -> float:
@@ -693,19 +781,27 @@ def _kernel_wrappers() -> dict:
             "decode_attention": decode_attention, "ssd": ssd, "gmm": gmm}
 
 
+#: wrapper -> its counters by variant, beside ``launches``
+VARIANT_COUNTERS = {"flash_attention": ("tc", "fma"),
+                    "decode_attention": ("mma", "fma"),
+                    "gmm": ("wgmma", "fma")}
+
+
 def counts(kernels) -> dict:
-    """Each wrapper's ``launches``, and the flash kernel's launches of its
-    tensor-core variant as ``flash_attention.tc``."""
+    """Each wrapper's ``launches``, and its launches by variant as
+    ``<name>.<variant>`` (e.g. ``flash_attention.tc``)."""
     out = {n: k.launches for n, k in kernels.items()}
-    out["flash_attention.tc"] = kernels["flash_attention"].tc_launches
+    for n, variants in VARIANT_COUNTERS.items():
+        for v in variants:
+            out[f"{n}.{v}"] = getattr(kernels[n], f"{v}_launches")
     return out
 
 
 def reset_counts(kernels) -> None:
-    for k in kernels.values():
+    for n, k in kernels.items():
         k.launches = 0
-    kernels["flash_attention"].tc_launches = 0
-    kernels["flash_attention"].fma_launches = 0
+        for v in VARIANT_COUNTERS.get(n, ()):
+            setattr(k, f"{v}_launches", 0)
 
 
 def _batch(cfg, prompts, dev) -> dict:
@@ -967,8 +1063,14 @@ def main() -> int:
         for line in (log.read_text().splitlines() if log.exists() else ()):
             if "Compiling entry function" in line:
                 entry = kernel_name(line.split("'")[1])
-            elif "registers" in line or "spill" in line:
+            elif "registers" in line or "spill" in line or "C75" in line:
                 print(f"  {name} {entry}: {line.strip()}")
+            # ptxas's C7512 / C7518 remarks: the wgmmas were serialised
+            assert not ("C7512" in line or "C7518" in line), \
+                f"{name} {entry}: wgmma serialised: {line.strip()}"
+            if name == "gmm" and "spill stores" in line:
+                assert line.split("bytes spill stores")[0].split(",")[-1] \
+                    .strip() == "0", f"gmm {entry} spills: {line.strip()}"
 
     # phase 3: kernels against their plain versions, timed, at the main
     # paths' shapes (the serving waves' padded prompt lengths)
@@ -1041,7 +1143,9 @@ def main() -> int:
         dev, ARCH, wave_prompts(get_config(ARCH).vocab_size),
         lambda cfg: {"flash_attention": cfg.num_layers,
                      "flash_attention.tc": cfg.num_layers,
-                     "decode_attention": cfg.num_layers * (NEW_TOKENS - 1)})
+                     "decode_attention": cfg.num_layers * (NEW_TOKENS - 1),
+                     "decode_attention.mma":
+                         cfg.num_layers * (NEW_TOKENS - 1)})
     for k in kernels[1:3]:
         k["launches"] = served["launches"][k["name"]]
         assert k["launches"] > 0, f"{k['name']} never launched"
@@ -1065,9 +1169,12 @@ def main() -> int:
     served = serve_full_width(
         dev, MOE_ARCH, wave_prompts(get_config(MOE_ARCH).vocab_size),
         lambda cfg: {"gmm": 3 * cfg.num_layers * NEW_TOKENS,
+                     "gmm.wgmma": 3 * cfg.num_layers * NEW_TOKENS,
                      "flash_attention": cfg.num_layers,
                      "flash_attention.tc": cfg.num_layers,
-                     "decode_attention": cfg.num_layers * (NEW_TOKENS - 1)})
+                     "decode_attention": cfg.num_layers * (NEW_TOKENS - 1),
+                     "decode_attention.mma":
+                         cfg.num_layers * (NEW_TOKENS - 1)})
     kernels[4]["launches"] = served["launches"]["gmm"]
     assert kernels[4]["launches"] > 0, "gmm never launched"
     profile_serving(served["engine"], served["prompts"])

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into
 ``build/kernels/<name>-<digest>.so`` at the repository root (a
-git-ignored directory), where ``<digest>`` hashes the source and the
-flags, so an edited source builds anew and an unchanged one is reused.
+git-ignored directory), where ``<digest>`` hashes the source, the shared
+headers (``csrc/*.cuh``) and the flags, so an edited source or header
+builds anew and an unchanged one is reused.
 The libraries expose plain C entry points and are loaded with
 ``ctypes``; nothing here includes PyTorch's headers, so a build takes
 seconds.  Nothing is compiled when this module is imported: the first
@@ -54,9 +55,14 @@ def sources(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
 
 
 def library_path(src: Path) -> Path:
-    digest = hashlib.sha1(src.read_bytes()
-                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"{src.stem}-{digest}.so"
+    """Where ``src``'s library goes: its name carries a digest of the
+    source, of every header under ``csrc/`` (any source may include any
+    of them) and of the flags, so an edit to any of them builds anew."""
+    h = hashlib.sha1(src.read_bytes())
+    for header in sorted(src.parent.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:12]}.so"
 
 
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:

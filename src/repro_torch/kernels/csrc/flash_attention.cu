@@ -75,14 +75,15 @@
 // layout with element strides for batch, position and head; the head dim
 // must be contiguous.  The C entry points return cudaGetLastError() after
 // the launch (or cudaErrorInvalidValue for arguments they refuse); the
-// Python wrapper raises on a non-zero code.
+// Python wrapper raises on a non-zero code.  The Hopper helpers (mbarriers,
+// TMA, wgmma descriptors and fences) come from hopper.cuh.
 
-#include <cuda.h>  // CUtensorMap and its enums; cuTensorMapEncodeTiled is
-                   // looked up at run time, so no -lcuda is needed
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -329,6 +330,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 namespace {
 namespace tc {
 
+using namespace hopper;
+
 // A CTA has kWGs consumer warpgroups of 64 rows each and one producer
 // warpgroup; after setmaxnreg a producer thread keeps 56 registers and a
 // consumer thread its share of the rest: 128 x (56 + kWGs x regs) <= 65536.
@@ -337,139 +340,6 @@ constexpr int kProducerRegs = 56;
 // need more registers than three warpgroups have, and with two it measured
 // slower on the H100
 constexpr int kBN = 64;
-constexpr long long kWatchdog = 1ll << 34;  // cycles (~9 s) without progress
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// wgmma matrix descriptor of a tile in 128-byte-swizzled shared memory
-// (layout type 1, bits 62-63): start address, leading and stride byte
-// offsets, each in 16-byte units.
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
-                                         uint32_t sbo) {
-  return static_cast<uint64_t>((addr >> 4) & 0x3FFF) |
-         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-// Wait until the barrier's phase of this parity has completed.  A wait
-// that sees no progress for kWatchdog cycles traps: a lost copy fails the
-// launch instead of holding the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  long long start = 0;
-  for (;;) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    const long long now = clock64();
-    if (start == 0) start = now;
-    else if (now - start > kWatchdog) __trap();
-  }
-}
-
-// One box of a 4-d tensor map (dims innermost first) into shared memory;
-// its bytes count toward the barrier's expected transactions.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1, int c2,
-                                         int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// One box of shared memory out to a 4-d tensor map, in this thread's bulk
-// group; elements past the tensor's edges are not written.
-__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src,
-                                          int c0, int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
-      " [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
-          reinterpret_cast<uint64_t>(map)),
-      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// Wait until this thread's bulk stores have read their shared memory
-// (kReadOnly) or have completed.
-template <bool kReadOnly>
-__device__ __forceinline__ void bulk_wait() {
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-  if (kReadOnly)
-    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-  else
-    asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void st_shared(uint32_t addr, uint32_t v) {
-  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-// wait until at most N of this warpgroup's committed groups are pending
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// Pin registers that an asynchronous wgmma reads or writes: the compiler
-// may not move their other uses across this point, nor reuse them while a
-// wgmma is in flight.
-template <int N>
-__device__ __forceinline__ void pin(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void pin(uint32_t (&r)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 // wgmma m64nNk16, bf16 x bf16 -> f32, D (+)= A B.  _ss (N = 64): A and B
 // from shared memory, both K-major; scale_d = 0 overwrites D.  _rs (N = 64
 // or 128): A from registers (the m16k16 fragment of each warp), B from
@@ -929,32 +799,6 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap qmap,
     __syncwarp();
     if (lane == 0) mbar_arrive(qbars + 8 * (2 * kQBufs + qb));
   }
-}
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, looked up through the runtime once
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
 }
 
 // The tensor map of q, k, v or o (B, S, heads, width) with element strides

@@ -10,18 +10,25 @@ Replaces the Pallas kernel ``src/repro/kernels/decode_attention.py::
 decode_attention``.  The model's decode step (``models/attention.py::
 attention_decode``) calls it once per layer with ``kv_len = len + 1``.
 
-The kernel (``csrc/decode_attention.cu``) is bound by bytes: K and V up to
-``kv_len`` are read once, ~16.7 MB per call at the serving path's shape
-(B=8, KV=4, D=128, bf16, kv_len ~1018 of S=2048), ~5.0 us at 3.35 TB/s.
-Pass 1 splits the cache into chunks of 64 positions, one CTA per (chunk,
-batch, kv head) for all G heads, and a chunk at or beyond ``kv_len[b]``
-reads nothing; pass 2 combines the chunks' (m, l, acc) partials.  Scores,
-probabilities and sums are f32 throughout, as in the Pallas kernel.
+The kernels (``csrc/decode_attention.cu``) are bound by bytes: K and V
+up to ``kv_len`` are read once, ~16.7 MB per call at the serving path's
+shape (B=8, KV=4, D=128, bf16, kv_len ~1018 of S=2048), ~5.0 us at
+3.35 TB/s.  One launch per call: each (batch, kv head) gets
+:func:`_splits` CTAs, each of which reads its row's ``kv_len`` on the
+card and takes an even share of the valid positions for all G heads;
+the last CTA of each (batch, kv head) to finish combines the partials
+in split order, found by a ticket counter it resets itself (the
+counters live in :func:`_tickets`, once per device).  bf16 inputs
+that :func:`_variant` allows go through ``mma.sync`` tensor-core tiles
+(K and V stay bf16 in shared memory), the rest through f32 FMAs.
+Scores, probabilities and sums are f32 throughout, as in the Pallas
+kernel.
 
 ``kv_len`` is clamped to [0, S].  Every length from 1 to S is supported; a
-row with ``kv_len == 0`` has no keys and its output is not specified (the
-reference averages V uniformly there, the kernel writes zeros); the model
-never produces one.
+row with ``kv_len == 0`` has no keys and the kernels write zeros there
+(the reference averages V uniformly; the model never produces one).
+Calls on one device share the ticket counters, so two calls must not run
+at once on two streams.
 
 Tolerance against the plain version: 2e-5 in f32 and 2e-2 in bf16, as
 ``tests/test_kernels.py`` holds the Pallas kernel.
@@ -42,8 +49,16 @@ from repro_torch.kernels.flash_attention import (check_attention_inputs,
 
 __all__ = ["decode_attention", "decode_attention_plain"]
 
-_ENTRY = {torch.float32: "decode_attention_f32",
-          torch.bfloat16: "decode_attention_bf16"}
+_ENTRY = {("fma", torch.float32): "decode_attention_f32",
+          ("fma", torch.bfloat16): "decode_attention_bf16",
+          ("mma", torch.bfloat16): "decode_attention_bf16_mma"}
+#: cache positions of a kernel tile: a split gets at least one
+TILE = 64
+#: CTAs of the mma kernel that fit on one SM at once (~96 KB of shared
+#: memory each at D = 128)
+CTAS_PER_SM = 2
+#: the most query heads per kv head that the mma kernel's 16-row tiles take
+MAX_MMA_GROUP = 16
 
 
 def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -61,21 +76,61 @@ def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o.reshape(B, 1, H, v.shape[-1]).to(q.dtype)
 
 
+def _splits(B: int, KV: int, S: int, n_sm: int) -> int:
+    """CTAs per (batch, kv head): as many as keep all B * KV * n_split
+    CTAs resident at once, CTAS_PER_SM an SM (a second wave of a few CTAs
+    costs more than the finer split gains; ``chip_smoke.py`` times other
+    split counts beside this one), at least 1 and at most one per tile of
+    the cache.  A function of the shapes and the card alone, never of
+    ``kv_len``, which lives on the card (reading it here would wait for
+    the device)."""
+    return max(1, min(CTAS_PER_SM * n_sm // (B * KV), -(-S // TILE)))
+
+
+def _variant(dtype: torch.dtype, D: int, Dv: int, G: int, strides,
+             ptrs) -> str:
+    """The kernel a CUDA call takes: ``"mma"`` (tensor cores) for bf16 with
+    D and Dv multiples of 16, at most MAX_MMA_GROUP query heads per kv
+    head (G), ``strides`` (q's batch and head, k's and v's batch, position
+    and head element strides) multiples of 8 and base addresses ``ptrs``
+    16-byte aligned; else ``"fma"``."""
+    if dtype != torch.bfloat16 or D % 16 or Dv % 16 or G > MAX_MMA_GROUP:
+        return "fma"
+    if any(s % 8 for s in strides) or any(p % 16 for p in ptrs):
+        return "fma"
+    return "mma"
+
+
 @functools.lru_cache(maxsize=None)
-def _entry(dtype: torch.dtype):
-    fn = getattr(load("decode_attention"), _ENTRY[dtype])
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+def _entry(variant: str, dtype: torch.dtype):
+    fn = getattr(load("decode_attention"), _ENTRY[variant, dtype])
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
                    + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
 @functools.lru_cache(maxsize=None)
-def _chunk() -> int:
-    fn = load("decode_attention").decode_attention_chunk
-    fn.argtypes = []
-    fn.restype = ctypes.c_int
-    return fn()
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+_TICKETS = {}
+
+
+def _tickets(device: torch.device, n: int) -> torch.Tensor:
+    """At least ``n`` ticket counters on ``device``, zero between calls:
+    allocated zeroed on first use (and when more are needed), then kept,
+    since each call's last CTAs set theirs back to zero."""
+    t = _TICKETS.get(device.index)
+    if t is None or t.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("decode_attention: call it once outside CUDA "
+                               "graph capture first, to allocate its "
+                               "ticket counters")
+        t = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _TICKETS[device.index] = t
+    return t
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -84,9 +139,10 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     int32 -> (B, 1, H, Dv) in q's dtype.
 
     CPU tensors take :func:`decode_attention_plain` (counted in
-    ``decode_attention.plain_calls``); CUDA tensors launch the kernel's
-    two passes on the current stream (counted once in
-    ``decode_attention.launches``)."""
+    ``decode_attention.plain_calls``); CUDA tensors launch the kernel that
+    :func:`_variant` picks, once, on the current stream (counted in
+    ``decode_attention.launches`` and in ``mma_launches`` or
+    ``fma_launches``)."""
     check_attention_inputs("decode_attention", q, k, v)
     B, Sq, H, D = q.shape
     S, KV, Dv = k.shape[1], k.shape[2], v.shape[3]
@@ -105,25 +161,35 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if out.numel() == 0 or S == 0:
         return out.zero_()
     kv_len = kv_len.contiguous()
-    G, n_splits = H // KV, -(-S // _chunk())
-    part_ml = torch.empty((B * KV, n_splits, G, 2), dtype=torch.float32,
+    G = H // KV
+    n_split = _splits(B, KV, S, _sm_count(q.device.index))
+    part_ml = torch.empty((B * KV, n_split, G, 2), dtype=torch.float32,
                           device=q.device)
-    part_acc = torch.empty((B * KV, n_splits, G, Dv), dtype=torch.float32,
+    part_acc = torch.empty((B * KV, n_split, G, Dv), dtype=torch.float32,
                            device=q.device)
+    tickets = _tickets(q.device, B * KV)
     strides = strides_arg((q, (0, 2)), (k, (0, 1, 2)), (v, (0, 1, 2)),
                           (out, (0, 2)))
-    fn = _entry(q.dtype)
+    variant = _variant(q.dtype, D, Dv, G, strides[:8],
+                       (q.data_ptr(), k.data_ptr(), v.data_ptr()))
+    fn = _entry(variant, q.dtype)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(),
-                part_ml.data_ptr(), part_acc.data_ptr(), out.data_ptr(),
-                B, S, H, KV, D, Dv, n_splits, strides, stream)
+                part_ml.data_ptr(), part_acc.data_ptr(), tickets.data_ptr(),
+                out.data_ptr(), B, S, H, KV, D, Dv, n_split, strides, stream)
     if rc != 0:
-        raise RuntimeError(f"decode_attention kernel launch failed: CUDA "
-                           f"error {rc}")
+        raise RuntimeError(f"decode_attention {variant} kernel launch "
+                           f"failed: CUDA error {rc}")
     decode_attention.launches += 1
+    if variant == "mma":
+        decode_attention.mma_launches += 1
+    else:
+        decode_attention.fma_launches += 1
     return out
 
 
 decode_attention.launches = 0
+decode_attention.mma_launches = 0
+decode_attention.fma_launches = 0
 decode_attention.plain_calls = 0

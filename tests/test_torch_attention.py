@@ -21,6 +21,9 @@ from repro.kernels.decode_attention import \
     decode_attention as pallas_decode_attention
 from repro.kernels.flash_attention import \
     flash_attention as pallas_flash_attention
+from repro_torch.kernels.decode_attention import TILE as DECODE_TILE
+from repro_torch.kernels.decode_attention import _splits as decode_splits
+from repro_torch.kernels.decode_attention import _variant as decode_variant
 from repro_torch.kernels.decode_attention import (decode_attention,
                                                   decode_attention_plain)
 from repro_torch.kernels.flash_attention import (_variant, flash_attention,
@@ -195,6 +198,70 @@ def test_cpu_calls_count_neither_variant(dtype):
     before = [getattr(flash_attention, c) for c in counters]
     flash_attention(q, kv, kv)
     after = [getattr(flash_attention, c) for c in counters]
+    assert [a - b for a, b in zip(after, before)] == [1, 0, 0, 0]
+
+
+@pytest.mark.parametrize("B,KV,n_sm", [(8, 4, 132), (1, 1, 132),
+                                        (100, 2, 132), (3, 4, 8),
+                                        (1, 8, 1)])
+def test_decode_splits_rule(B, KV, n_sm):
+    """CTAs per (batch, kv head): as many as fit on the card at once, two
+    per SM, over the B * KV pairs, never fewer than 1 nor more than the
+    cache's tiles, for every S from 1 to 4096 (the number depends on the
+    shapes and the card, not on kv_len)."""
+    resident = 2 * n_sm // (B * KV)
+    for S in range(1, 4097):
+        n = decode_splits(B, KV, S, n_sm)
+        assert 1 <= n <= -(-S // DECODE_TILE)
+        assert n == max(1, min(resident, -(-S // DECODE_TILE)))
+        assert n == 1 or B * KV * n <= 2 * n_sm
+    assert decode_splits(8, 4, 2048, 132) == 8   # the serving path: 256 CTAs
+
+
+def _decode_variant_of(q, k, v):
+    """The variant the decode wrapper would pick for these tensors."""
+    strides = [q.stride(0), q.stride(2)] + \
+        [t.stride(d) for t in (k, v) for d in (0, 1, 2)]
+    return decode_variant(q.dtype, q.shape[3], v.shape[3],
+                          q.shape[2] // k.shape[2], strides,
+                          [t.data_ptr() for t in (q, k, v)])
+
+
+@pytest.mark.parametrize("case,want", [
+    ("f32", "fma"), ("bf16", "mma"), ("bf16_d40", "fma"),
+    ("bf16_d16", "mma"), ("bf16_d256", "mma"), ("bf16_g16", "mma"),
+    ("bf16_g17", "fma"), ("bf16_stride_off8", "fma"),
+    ("bf16_ptr_off16", "fma")])
+def test_decode_variant_rule(case, want):
+    """bf16 with D and Dv multiples of 16, at most 16 query heads per kv
+    head and 16-byte aligned rows takes the mma kernel; f32, other widths,
+    larger groups and misaligned rows the FMA kernel."""
+    B, S, H, KV, D = 2, 8, 28, 4, 128
+    if case in ("bf16_g16", "bf16_g17"):
+        H, KV = int(case[6:]), 1
+    dtype = torch.float32 if case == "f32" else torch.bfloat16
+    D = {"bf16_d40": 40, "bf16_d16": 16, "bf16_d256": 256}.get(case, D)
+    q = torch.zeros((B, 1, H, D), dtype=dtype)
+    k = torch.zeros((B, S, KV, D), dtype=dtype)
+    v = torch.zeros((B, S, KV, D), dtype=dtype)
+    if case == "bf16_stride_off8":        # rows 260 bytes apart
+        k = torch.zeros((B, S, KV, D + 2), dtype=dtype)[..., :D]
+    elif case == "bf16_ptr_off16":        # base 2 bytes past alignment
+        flat = torch.zeros(B * H * D + 8, dtype=dtype)
+        q = flat[1:1 + B * H * D].view(B, 1, H, D)
+    assert _decode_variant_of(q, k, v) == want
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_cpu_calls_count_neither_variant(dtype):
+    """On the CPU decode runs the plain version: ``plain_calls`` moves, no
+    launch counter does."""
+    q = torch.randn((1, 1, 4, 16)).to(dtype)
+    kv = torch.randn((1, 8, 2, 16)).to(dtype)
+    counters = ("plain_calls", "launches", "mma_launches", "fma_launches")
+    before = [getattr(decode_attention, c) for c in counters]
+    decode_attention(q, kv, kv, torch.tensor([5], dtype=torch.int32))
+    after = [getattr(decode_attention, c) for c in counters]
     assert [a - b for a, b in zip(after, before)] == [1, 0, 0, 0]
 
 

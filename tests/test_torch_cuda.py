@@ -178,6 +178,101 @@ def test_decode_kernel_matches_plain(cuda, B, S, H, KV, D, dtype):
                                rtol=tol, atol=tol)
 
 
+def _decode_checked(q, k, v, lens, variant):
+    """One decode call: one launch, of ``variant``, within tolerance of the
+    plain version; returns the output."""
+    before = (decode_attention.launches, decode_attention.mma_launches,
+              decode_attention.fma_launches)
+    got = decode_attention(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert (decode_attention.launches, decode_attention.mma_launches,
+            decode_attention.fma_launches) == (
+        before[0] + 1, before[1] + (variant == "mma"),
+        before[2] + (variant == "fma"))
+    tol = ATTN_TOL[q.dtype]
+    torch.testing.assert_close(got.float(),
+                               decode_attention_plain(q, k, v, lens).float(),
+                               rtol=tol, atol=tol)
+    return got
+
+
+@pytest.mark.parametrize("dtype,variant", [(torch.float32, "fma"),
+                                           (torch.bfloat16, "mma")])
+@pytest.mark.parametrize("S,KV,G,D", [(300, 1, 7, 128), (130, 2, 4, 64),
+                                      (2048, 1, 7, 128)])
+def test_decode_every_length(cuda, S, KV, G, D, dtype, variant):
+    """Every kv_len from 1 to S, one row each, in one call (B = S)."""
+    q = _randn((S, 1, KV * G, D), dtype, cuda, 21)
+    k = _randn((S, S, KV, D), dtype, cuda, 22)
+    v = _randn((S, S, KV, D), dtype, cuda, 23)
+    lens = torch.arange(1, S + 1, dtype=torch.int32, device=cuda)
+    _decode_checked(q, k, v, lens, variant)
+
+
+@pytest.mark.parametrize("dtype,variant", [(torch.float32, "fma"),
+                                           (torch.bfloat16, "mma")])
+def test_decode_lengths_below_the_split_count(cuda, dtype, variant):
+    """One (batch, kv head) pair gets many splits (about two per SM), so
+    lengths 1-16 leave most splits empty, and 0 writes zeros."""
+    B, S, H, KV, D = 17, 4096, 7, 1, 128
+    q = _randn((B, 1, H, D), dtype, cuda, 31)
+    k = _randn((B, S, KV, D), dtype, cuda, 32)
+    v = _randn((B, S, KV, D), dtype, cuda, 33)
+    lens = torch.arange(B, dtype=torch.int32, device=cuda)  # 0 .. 16
+    got = decode_attention(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert torch.count_nonzero(got[0]) == 0
+    want = decode_attention_plain(q[1:], k[1:], v[1:], lens[1:])
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got[1:].float(), want.float(), rtol=tol,
+                               atol=tol)
+    _decode_checked(q[1:], k[1:], v[1:], lens[1:], variant)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_zero_length_writes_zeros(cuda, dtype):
+    q = _randn((3, 1, 28, 128), dtype, cuda, 41)
+    k = _randn((3, 256, 4, 128), dtype, cuda, 42)
+    v = _randn((3, 256, 4, 128), dtype, cuda, 43)
+    lens = torch.tensor([0, 256, 0], dtype=torch.int32, device=cuda)
+    got = decode_attention(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert torch.count_nonzero(got[0]) == 0 and torch.count_nonzero(got[2]) == 0
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(
+        got[1:2].float(),
+        decode_attention_plain(q[1:2], k[1:2], v[1:2], lens[1:2]).float(),
+        rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_graph_replays_are_bit_identical(cuda, dtype):
+    """The last CTA of each (batch, kv head) resets its ticket, so every
+    replay of a captured call combines again, in the same order."""
+    B, S, H, KV, D = 8, 2048, 28, 4, 128
+    q = _randn((B, 1, H, D), dtype, cuda, 51)
+    k = _randn((B, S, KV, D), dtype, cuda, 52)
+    v = _randn((B, S, KV, D), dtype, cuda, 53)
+    lens = torch.tensor([1018, 1, 7, 64, 65, 2048, 500, 999],
+                        dtype=torch.int32, device=cuda)
+    eager = decode_attention(q, k, v, lens)   # allocates the tickets
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = decode_attention(q, k, v, lens)
+    replays = []
+    for _ in range(2):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        replays.append(out.clone())
+    assert torch.equal(replays[0], replays[1])
+    assert torch.equal(replays[0], eager)
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(eager.float(),
+                               decode_attention_plain(q, k, v, lens).float(),
+                               rtol=tol, atol=tol)
+
+
 def test_serving_cuda_matches_cpu(cuda):
     cfg = dataclasses.replace(get_config("qwen2-vl-7b", smoke=True),
                               dtype="float32").resolve(tp=1)
@@ -276,6 +371,26 @@ def test_gmm_kernel_matches_plain(cuda, E, C, D, F, dtype):
     assert gmm.launches == launches + 1
     assert got.shape == (E, C, F) and got.dtype == dtype
     tol = GMM_TOL[dtype]
+    torch.testing.assert_close(got.float(), gmm_plain(x, w).float(),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("E", [1, 128])
+@pytest.mark.parametrize("D,F", [(2048, 768), (768, 2048)])
+@pytest.mark.parametrize("C", [1, 4, 5, 100, 112, 128, 576, 608, 624, 625])
+def test_gmm_wgmma_every_row_count(cuda, C, D, F, E):
+    """The bf16 kernel at qwen3-moe-30b-a3b's widths (wi/wg and wo) for
+    row counts on both sides of the decode operand swap (C <= 16) and of
+    the 128-row tile edge; every call takes the wgmma kernel."""
+    x = _randn((E, C, D), torch.bfloat16, cuda, C)
+    w = (_randn((E, D, F), torch.float32, cuda, C + 1) * D ** -0.5) \
+        .to(torch.bfloat16)
+    before = (gmm.launches, gmm.wgmma_launches, gmm.fma_launches)
+    got = gmm(x, w)
+    torch.cuda.synchronize()
+    assert (gmm.launches, gmm.wgmma_launches, gmm.fma_launches) == \
+        (before[0] + 1, before[1] + 1, before[2])
+    tol = GMM_TOL[torch.bfloat16]
     torch.testing.assert_close(got.float(), gmm_plain(x, w).float(),
                                rtol=tol, atol=tol)
 

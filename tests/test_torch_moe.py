@@ -37,6 +37,7 @@ from repro.serving.engine import Request as ReferenceRequest
 from repro.serving.engine import ServingEngine as ReferenceEngine
 from repro_torch.configs.base import get_config
 from repro_torch.interop import params_from_reference
+from repro_torch.kernels.gmm import _variant as gmm_variant
 from repro_torch.kernels.gmm import gmm, gmm_plain
 from repro_torch.models import model as TM
 from repro_torch.models import moe as TMoE
@@ -116,6 +117,30 @@ def test_gmm_wrapper_refuses(case):
         "float16": (x.half(), w.half(), TypeError)}[case]
     with pytest.raises(err):
         gmm(x, w)
+
+
+@pytest.mark.parametrize("C,D,F", [(1, 2048, 768), (4, 2048, 768),
+                                   (16, 768, 2048), (17, 768, 2048),
+                                   (624, 2048, 768), (5, 16, 16)])
+@pytest.mark.parametrize("dtype,want", [(torch.bfloat16, "wgmma"),
+                                        (torch.float32, "fma")])
+def test_gmm_variant_rule(dtype, want, C, D, F):
+    """bf16 takes the wgmma kernel at every shape the wrapper accepts
+    (decode's C <= 16 included: the kernel swaps its operands there); f32
+    the FMA kernel, whose f32 sums keep the 2e-5 tolerance."""
+    assert gmm_variant(dtype, C, D, F) == want
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gmm_cpu_calls_count_neither_variant(dtype):
+    """On the CPU the wrapper runs the plain version: ``plain_calls``
+    moves, no launch counter does."""
+    _, (tx, tw) = _gmm_inputs(2, 5, 32, 48, dtype)
+    counters = ("plain_calls", "launches", "wgmma_launches", "fma_launches")
+    before = [getattr(gmm, c) for c in counters]
+    gmm(tx, tw)
+    assert [getattr(gmm, c) - b for c, b in zip(counters, before)] == \
+        [1, 0, 0, 0]
 
 
 def test_config_is_the_reference_config():
