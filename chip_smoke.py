@@ -15,9 +15,10 @@ Phases (any failure raises and exits non-zero, with no result line):
    directory;
 3. hold each kernel against its plain PyTorch version on the card (the
    main paths' shapes, the sweeps of ``tests/test_kernels.py``, ragged
-   lengths and edge cases; for flash attention, which of its two kernels,
-   tensor-core or FMA, each call took) and time kernel, plain version and
-   a one-call library yardstick;
+   lengths and edge cases; for flash attention, flash-decoding, SSD and
+   ``gmm``, which of each one's two kernels, tensor-core or FMA, each call
+   took) and time kernel, plain version and a one-call library yardstick
+   (for SSD, the FMA kernel on f32 beside the tensor-core one on bf16);
 4. the simulation path: ``run_scenario`` at full width (250 nodes, 200
    replicas per app, 1000 requests, 8 seeds x 32 trials) on baseline,
    stale-predictions and churn with the four default policies and the
@@ -32,8 +33,9 @@ Phases (any failure raises and exits non-zero, with no result line):
 5b. the Mamba2 serving path: ``ServingEngine`` with mamba2-1.3b at full
    width (48 layers, bf16, random weights), the same 3 waves with each
    wave's longest prompt lengthened to the next multiple of the SSD
-   chunk (256), counting the SSD kernel's launches; then a profiled
-   prefill and decode step outside the count;
+   chunk (256), counting the SSD kernel's launches (every one on the
+   tensor cores); then a profiled prefill and decode step outside the
+   count;
 5c. the MoE serving path: ``ServingEngine`` with qwen3-moe-30b-a3b at
    full width (48 layers, 128 experts top-8, bf16, random weights, ~61
    GB), the waves of phase 5, counting the grouped-matmul kernel's
@@ -546,16 +548,40 @@ def check_decode(dev, plen: int) -> dict:
 
 
 def check_ssd(dev, L: int) -> dict:
-    """Hold the SSD kernel against its plain version (the Mamba2 path's
+    """Hold the SSD kernels against their plain version (the Mamba2 path's
     prefill shape at padded length ``L``, the sweep of
     tests/test_kernels.py, one partial chunk, G = 2, a chunk that is no
-    multiple of 64, and the strong decay A = -16, dt = 0.1, where exp of
-    the upper triangle overflows); time it at the path shape.  Returns
-    its ``kernels`` entry."""
+    multiple of 64, zamba2-2.7b's N = 64, and the strong decay A = -16,
+    dt = 0.1, where exp of the upper triangle overflows), asserting which
+    kernel each call took; time the tensor-core kernel on the path's bf16
+    inputs and the FMA kernel on the same values in f32.  Returns the
+    ``kernels`` entry (launches are filled in from the main-path run)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.configs.base import get_config
     from repro_torch.kernels.ssd import ssd, ssd_plain
+
+    def counts():
+        return ssd.launches, ssd.tc_launches, ssd.fma_launches
+
+    def checked(args, chunk, variant, label):
+        before = counts()
+        y, state = ssd(*args, chunk=chunk)
+        torch.cuda.synchronize()
+        moved = tuple(a - b for a, b in zip(counts(), before))
+        assert moved == (1, int(variant == "tc"), int(variant == "fma")), \
+            f"ssd {label}: took {moved} (all, tc, fma) launches, not {variant}"
+        assert bool(torch.isfinite(y).all() & torch.isfinite(state).all()), \
+            f"ssd {label}: not finite"
+        want_y, want_state = ssd_plain(*args, chunk)
+        tol = SSD_TOL[str(args[0].dtype)]
+        torch.testing.assert_close(y, want_y, rtol=tol, atol=tol)
+        torch.testing.assert_close(state, want_state, rtol=tol, atol=tol)
+        err = max(float((y - want_y).abs().max()),
+                  float((state - want_state).abs().max()))
+        print(f"ssd {label} {str(args[0].dtype)[6:]} [{variant}]: finite, "
+              f"max_abs_err {err:.3e} (tol {tol})")
+        return err
 
     def case(B, L, H, P, G, N, chunk, dtype, strong=False, seed=0):
         x = _randn((B, L, H, P), dtype, dev, seed)
@@ -567,20 +593,13 @@ def check_ssd(dev, L: int) -> dict:
         else:
             dt = F.softplus(_randn((B, L, H), torch.float32, dev, seed + 3))
             A = -_randn((H,), torch.float32, dev, seed + 4).exp()
-        y, state = ssd(x, dt, A, Bm, Cm, chunk=chunk)
-        torch.cuda.synchronize()
-        assert bool(torch.isfinite(y).all() & torch.isfinite(state).all()), \
-            f"ssd ({B},{L},{H},{P},{G},{N}) chunk {chunk}: not finite"
-        want_y, want_state = ssd_plain(x, dt, A, Bm, Cm, chunk)
-        tol = SSD_TOL[str(dtype)]
-        torch.testing.assert_close(y, want_y, rtol=tol, atol=tol)
-        torch.testing.assert_close(state, want_state, rtol=tol, atol=tol)
-        err = max(float((y - want_y).abs().max()),
-                  float((state - want_state).abs().max()))
-        print(f"ssd ({B},{L},{H},{P}) G={G} N={N} chunk {chunk} "
-              f"{str(dtype)[6:]}{' A=-16 dt=0.1' if strong else ''}: "
-              f"finite, max_abs_err {err:.3e} (tol {tol})")
-        return (x, dt, A, Bm, Cm), err
+        # the tensor cores take bf16 with P, N multiples of 8, chunks <= 256
+        variant = "tc" if dtype == torch.bfloat16 and P % 8 == 0 \
+            and N % 8 == 0 and min(chunk, L) <= 256 else "fma"
+        args = (x, dt, A, Bm, Cm)
+        label = (f"({B},{L},{H},{P}) G={G} N={N} chunk {chunk}"
+                 f"{' A=-16 dt=0.1' if strong else ''}")
+        return args, checked(args, chunk, variant, label)
 
     s = get_config(MAMBA_ARCH).ssm
     d_model = get_config(MAMBA_ARCH).d_model
@@ -592,29 +611,62 @@ def check_ssd(dev, L: int) -> dict:
                       (1, 256, 8, 32, 1, 16, 64),     # tests/test_kernels.py
                       (2, 40, 4, 16, 1, 16, 256),     # L < chunk
                       (2, 512, 8, 64, 2, 128, 256),   # G = 2
-                      (2, 200, 4, 64, 2, 128, 100)):  # chunk not 64k
+                      (2, 200, 4, 64, 2, 128, 100),   # chunk not 64k
+                      (2, 512, 8, 64, 1, 64, 256),    # zamba2-2.7b's P, N
+                      (1, 64, 8, 16, 1, 16, 32)):     # the smoke configs'
             case(*shape, dtype, seed=5)
         case(1, 512, 8, 64, 1, 128, 256, dtype, strong=True, seed=6)
     case(B, 200, H, P, G, N, Q, torch.bfloat16, seed=7)   # one partial chunk
+    # the FMA kernel on the path's bf16 values, x one element off its
+    # 16-byte alignment: what the rounding of the tensor-core kernel costs
+    x, dt, A, Bm, Cm = args
+    xm = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)[1:].view(
+        x.shape).copy_(x)
+    fma_err = checked((xm, dt, A, Bm, Cm), Q, "fma",
+                      f"({B},{L},{H},{P}) G={G} N={N}, x misaligned")
+    del xm
+    f32_args = (x.float(), dt, A, Bm.float(), Cm.float())
+    f32_err = checked(f32_args, Q, "fma", f"({B},{L},{H},{P}) G={G} N={N}")
 
     timed = {"kernel": lambda: ssd(*args, chunk=Q),
              "plain": lambda: ssd_plain(*args, chunk=Q)}
-    dev_ms = _timed("ssd", timed, inner=5)
-    x, dt, A, Bm, Cm = args
+    dev_ms = _timed("ssd", timed, inner=10)
+    fma_ms = device_ms(lambda: ssd(*f32_args, chunk=Q), repeats=5, inner=3)
     nc = L // Q
-    nbytes = (x.numel() * x.element_size() + 4 * (dt.numel() + A.numel())
-              + 2 * Bm.numel() * Bm.element_size()
-              + 4 * (x.numel() + B * H * P * N))
-    # the causal half of C B^T and of S xd, the incoming-state term and the
-    # state update, per (batch, head, chunk)
-    ops = B * H * nc * (Q * (Q + 1) // 2 * 2 * (N + P) + 4 * Q * N * P)
-    bound_ms, bound_by = _bound(nbytes, ops, torch.float32)
+
+    def nbytes(t):
+        return (x.numel() * t.element_size() + 4 * (dt.numel() + A.numel())
+                + 2 * Bm.numel() * t.element_size()
+                + 4 * (x.numel() + B * H * P * N))
+    # the causal half of C B^T once per (batch, group, chunk); per (batch,
+    # head, chunk) the causal half of S xd, the incoming-state term and the
+    # state update
+    ops = (B * G * nc * Q * (Q + 1) // 2 * 2 * N
+           + B * H * nc * (Q * (Q + 1) // 2 * 2 * P + 4 * Q * N * P))
+    bound_ms, bound_by = _bound(nbytes(x), ops, x.dtype)
+    fma_bound, fma_by = _bound(nbytes(f32_args[0]), ops, torch.float32)
+    ms = dev_ms["kernel"]
+    print(f"ssd at the path shape ({B},{L},{H},{P}) G={G} N={N} chunk {Q} "
+          f"bf16 [tc]: {ms * 1e3:.2f} us, {ops / 1e9:.2f} GFLOP counted "
+          f"({ops / ms / 1e9:.1f} TFLOP/s), {nbytes(x) / 1e6:.1f} MB "
+          f"({nbytes(x) / ms / 1e6:.1f} GB/s), {bound_ms / ms * 100:.1f} % "
+          f"of the {bound_ms * 1e3:.2f} us bound ({bound_by}); max_abs_err "
+          f"{path_err:.3e}, the FMA kernel's on the same bf16 inputs "
+          f"{fma_err:.3e}")
+    print(f"ssd FMA kernel at the path shape in f32: {fma_ms * 1e3:.2f} us, "
+          f"{fma_bound / fma_ms * 100:.1f} % of its {fma_bound * 1e3:.2f} us "
+          f"bound ({fma_by}), max_abs_err {f32_err:.3e}; the tensor-core "
+          f"kernel is {fma_ms / ms:.1f}x faster")
     return {"name": "ssd", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/ssd.cu",
             "replaces": "src/repro/kernels/ssd.py:78",
-            "launches": 0, "max_abs_err": path_err, "ms": dev_ms["kernel"],
+            "variant": "tc", "launches": 0, "tc_launches": 0,
+            "fma_launches": 0, "max_abs_err": path_err, "ms": ms,
             "plain_ms": dev_ms["plain"], "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None}
+            "bound_by": bound_by, "library_ms": None,
+            "fma": {"dtype": "float32", "ms": fma_ms, "bound_ms": fma_bound,
+                    "bound_by": fma_by, "max_abs_err": f32_err,
+                    "max_abs_err_bf16_inputs": fma_err}}
 
 
 def moe_path_rows(cfg, plens) -> tuple:
@@ -784,6 +836,7 @@ def _kernel_wrappers() -> dict:
 #: wrapper -> its counters by variant, beside ``launches``
 VARIANT_COUNTERS = {"flash_attention": ("tc", "fma"),
                     "decode_attention": ("mma", "fma"),
+                    "ssd": ("tc", "fma"),
                     "gmm": ("wgmma", "fma")}
 
 
@@ -1068,9 +1121,12 @@ def main() -> int:
             # ptxas's C7512 / C7518 remarks: the wgmmas were serialised
             assert not ("C7512" in line or "C7518" in line), \
                 f"{name} {entry}: wgmma serialised: {line.strip()}"
-            if name == "gmm" and "spill stores" in line:
+            # the gmm and SSD tensor-core kernels hold their accumulators
+            # in registers: a spill would put them in local memory
+            if (name == "gmm" or "ssd_tc" in entry) \
+                    and "spill stores" in line:
                 assert line.split("bytes spill stores")[0].split(",")[-1] \
-                    .strip() == "0", f"gmm {entry} spills: {line.strip()}"
+                    .strip() == "0", f"{name} {entry} spills: {line.strip()}"
 
     # phase 3: kernels against their plain versions, timed, at the main
     # paths' shapes (the serving waves' padded prompt lengths)
@@ -1154,11 +1210,16 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # phase 5b: the Mamba2 serving path at full width (each wave: the SSD
-    # kernel once per layer, in prefill)
+    # kernel once per layer, in prefill, every call on the tensor cores)
     served = serve_full_width(dev, MAMBA_ARCH, waves_ssm,
-                              lambda cfg: {"ssd": cfg.num_layers})
-    kernels[3]["launches"] = served["launches"]["ssd"]
+                              lambda cfg: {"ssd": cfg.num_layers,
+                                           "ssd.tc": cfg.num_layers})
+    kernels[3].update(launches=served["launches"]["ssd"],
+                      tc_launches=served["launches"]["ssd.tc"],
+                      fma_launches=served["launches"]["ssd.fma"])
     assert kernels[3]["launches"] > 0, "ssd never launched"
+    assert kernels[3]["tc_launches"] == kernels[3]["launches"], \
+        "an ssd call of the Mamba2 waves missed the tensor cores"
     profile_serving(served["engine"], served["prompts"])
     del served
     torch.cuda.empty_cache()

@@ -1,5 +1,6 @@
-// Building blocks shared by the kernels of flash_attention.cu, gmm.cu and
-// decode_attention.cu: 16-byte cp.async copies, and for Hopper (sm_90a)
+// Building blocks shared by the kernels of flash_attention.cu, gmm.cu,
+// decode_attention.cu and ssd.cu: 16-byte cp.async copies, ldmatrix and
+// mma.sync m16n8k16 (bf16 in, f32 out), and for Hopper (sm_90a)
 // mbarriers, TMA copies between tensor maps and shared memory, wgmma
 // matrix descriptors and the wgmma fence / commit / wait, register pins,
 // and on the host the driver's cuTensorMapEncodeTiled.
@@ -195,6 +196,37 @@ __device__ __forceinline__ void pin(uint32_t (&r)[N][4]) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// four 8 x 8 b16 matrices from shared memory into mma.sync fragments;
+// lanes 8 i .. 8 i + 7 give the row addresses of matrix i
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, "
+               "[%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+// the same, each matrix transposed
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+// d += a b, m16n8k16, bf16 in, f32 out
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,

@@ -12,30 +12,36 @@ state::
 
 Head ``h`` reads group ``h // (H // G)`` of B and C.  Shapes are the
 reference's: x (B, L, H, P), dt (B, L, H), A (H,), Bm / Cm (B, L, G, N) ->
-y (B, L, H, P) f32 and the final state (B, H, P, N) f32.  Everything is
-computed in f32; x, Bm and Cm may be f32 or bf16 (one dtype for the
-three), dt and A are taken in f32.
+y (B, L, H, P) f32 and the final state (B, H, P, N) f32.  x, Bm and Cm
+may be f32 or bf16 (one dtype for the three), dt and A are taken in f32;
+sums, decays and the carried state are f32.
 
 Replaces the Pallas kernel ``src/repro/kernels/ssd.py::ssd``, the twin of
 the reference model's XLA ``ssd_chunked``.  The Mamba2 prefill
 (``models/ssm.py::mamba2_fwd``) calls it once per layer.
 
-The kernel (``csrc/ssd.cu``) is bound by operations: ~43 GFLOP per call
-at the serving path's shape (B=8, L=1024, H=64, P=64, N=128, Q=256),
-~0.64 ms at the 67 TFLOP/s f32 rate.  One CTA per (batch, head) loops
-over the chunks with the state in shared memory; 64-row q-tiles go
-against the k-tiles at or below them.  It takes P <= 64 and N <= 128.
+Two CUDA kernels (``csrc/ssd.cu``), chosen by :func:`_variant`: bf16
+with P and N multiples of 8 (P <= 64, N <= 128), a chunk of at most 256
+positions and 16-byte aligned rows goes through the tensor cores
+(``mma.sync`` with bf16 operands and f32 accumulators; the score, state
+and ``x * w`` operands as bf16 hi + lo pairs), everything else through
+f32 FMAs (P <= 64, N <= 128).  In both, one CTA walks a (batch, head)'s
+chunks in order with the state on chip.  At the serving path's shape
+(B=8, L=1024, H=64, P=64, N=128, Q=256, bf16) a call moves ~224 MB
+(f32 y is 134 MB of it) and computes ~26 GFLOP with C B^T counted once
+per (batch, group, chunk): bound by bytes at ~0.067 ms.
 
 The decay is selected on the causal triangle before the exp, in the
-kernel and in the plain version: ``cum_q - cum_k`` above the diagonal is
+kernels and in the plain version: ``cum_q - cum_k`` above the diagonal is
 large and positive, and ``exp(seg) * mask`` would give ``inf * 0 = NaN``.
 
 Tolerance against the plain version: 2e-4 in f32 and 4e-2 with bf16 x, B
 and C (``tests/test_kernels.py``'s for the Pallas kernel; the prefix sums
-and products run in another order).
+and products run in another order, and the tensor-core kernel's hi + lo
+pairs keep ~16 bits of each rounded operand).
 
 :func:`ssd` runs the plain version only for tensors that lie on the CPU;
-for a CUDA tensor it launches the kernel or raises.
+for a CUDA tensor it launches one of the kernels or raises.
 """
 from __future__ import annotations
 
@@ -49,9 +55,13 @@ from repro_torch.kernels.flash_attention import strides_arg
 
 __all__ = ["ssd", "ssd_plain"]
 
-_ENTRY = {torch.float32: "ssd_f32", torch.bfloat16: "ssd_bf16"}
+_ENTRY = {("fma", torch.float32): "ssd_f32",
+          ("fma", torch.bfloat16): "ssd_bf16",
+          ("tc", torch.bfloat16): "ssd_bf16_tc"}
+_DTYPES = (torch.float32, torch.bfloat16)
 MAX_HEAD_DIM = 64
 MAX_STATE_DIM = 128
+MAX_TC_CHUNK = 256   # the tensor-core kernel holds a chunk in shared memory
 
 
 def _check_inputs(x, dt, A, Bm, Cm, chunk: int) -> int:
@@ -82,7 +92,7 @@ def _check_inputs(x, dt, A, Bm, Cm, chunk: int) -> int:
     if not (1 <= P <= MAX_HEAD_DIM and 1 <= N <= MAX_STATE_DIM):
         raise ValueError(f"ssd takes head dims up to {MAX_HEAD_DIM} and state "
                          f"dims up to {MAX_STATE_DIM}, got P={P}, N={N}")
-    if x.dtype not in _ENTRY or Bm.dtype != x.dtype or Cm.dtype != x.dtype:
+    if x.dtype not in _DTYPES or Bm.dtype != x.dtype or Cm.dtype != x.dtype:
         raise TypeError(f"ssd: x, Bm, Cm must all be float32 or bfloat16, "
                         f"got {x.dtype}, {Bm.dtype}, {Cm.dtype}")
     if not (dt.is_floating_point() and A.is_floating_point()):
@@ -133,9 +143,26 @@ def ssd_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return torch.stack(ys, dim=1).reshape(Bsz, L, H, P), state
 
 
+def _variant(dtype: torch.dtype, L: int, Q: int, P: int, N: int,
+             strides=(), ptrs=()) -> str:
+    """The kernel a CUDA call takes: ``"tc"`` (tensor cores) for bf16 with
+    P and N multiples of 8, a chunk ``Q`` of at most MAX_TC_CHUNK
+    positions, ``strides`` (x's, B's and C's batch, position and head
+    element strides) multiples of 8 and base addresses ``ptrs`` 16-byte
+    aligned; else ``"fma"``, whose f32 products hold f32 inputs to 2e-4.
+    L does not change the choice: the tensor-core kernel takes the prefix
+    sums of any number of chunks, a window at a time."""
+    del L
+    if dtype != torch.bfloat16 or P % 8 or N % 8 or Q > MAX_TC_CHUNK:
+        return "fma"
+    if any(s % 8 for s in strides) or any(p % 16 for p in ptrs):
+        return "fma"
+    return "tc"
+
+
 @functools.lru_cache(maxsize=None)
-def _entry(dtype: torch.dtype):
-    fn = getattr(load("ssd"), _ENTRY[dtype])
+def _entry(variant: str, dtype: torch.dtype):
+    fn = getattr(load("ssd"), _ENTRY[variant, dtype])
     fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
                    + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -149,8 +176,9 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
     multiple of ``min(chunk, L)`` (``ValueError`` otherwise).
 
     CPU tensors take :func:`ssd_plain` (counted in ``ssd.plain_calls``);
-    CUDA tensors launch the kernel on the current stream (counted in
-    ``ssd.launches``)."""
+    CUDA tensors launch the kernel that :func:`_variant` picks on the
+    current stream (counted in ``ssd.launches`` and in ``tc_launches`` or
+    ``fma_launches``)."""
     Q = _check_inputs(x, dt, A, Bm, Cm, chunk)
     if x.device.type == "cpu":
         ssd.plain_calls += 1
@@ -163,17 +191,27 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
     state = torch.empty((Bsz, H, P, N), dtype=torch.float32, device=x.device)
     strides = strides_arg((x, (0, 1, 2)), (dt, (0, 1, 2)), (Bm, (0, 1, 2)),
                           (Cm, (0, 1, 2)))
-    fn = _entry(x.dtype)
+    variant = _variant(x.dtype, L, Q, P, N,
+                       [t.stride(d) for t in (x, Bm, Cm) for d in (0, 1, 2)],
+                       [t.data_ptr() for t in (x, Bm, Cm)])
+    fn = _entry(variant, x.dtype)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
                 Cm.data_ptr(), y.data_ptr(), state.data_ptr(), Bsz, L, H, G,
                 P, N, Q, strides, stream)
     if rc != 0:
-        raise RuntimeError(f"ssd kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(f"ssd {variant} kernel launch failed: CUDA error "
+                           f"{rc}")
     ssd.launches += 1
+    if variant == "tc":
+        ssd.tc_launches += 1
+    else:
+        ssd.fma_launches += 1
     return y, state
 
 
 ssd.launches = 0
+ssd.tc_launches = 0
+ssd.fma_launches = 0
 ssd.plain_calls = 0

@@ -305,7 +305,9 @@ SSD_TOL = {torch.float32: 2e-4, torch.bfloat16: 4e-2}
     (1, 64, 2, 8, 1, 4, 16, False), (2, 128, 4, 16, 2, 8, 32, False),
     (1, 256, 8, 32, 1, 16, 64, False), (2, 40, 4, 16, 1, 16, 256, False),
     (2, 200, 4, 64, 2, 128, 100, False), (1, 512, 8, 64, 1, 128, 256, True),
-    (2, 1024, 4, 64, 1, 128, 256, False)])
+    (2, 1024, 4, 64, 1, 128, 256, False),
+    (2, 512, 8, 64, 1, 64, 256, False),      # zamba2-2.7b's P and N
+    (2, 1024, 64, 64, 1, 128, 256, False)])  # mamba2-1.3b's, batch 2
 def test_ssd_kernel_matches_plain(cuda, B, L, H, P, G, N, chunk, strong,
                                   dtype):
     x = _randn((B, L, H, P), dtype, cuda, 6)
@@ -318,15 +320,51 @@ def test_ssd_kernel_matches_plain(cuda, B, L, H, P, G, N, chunk, strong,
         dt = torch.nn.functional.softplus(_randn((B, L, H), torch.float32,
                                                  cuda, 9))
         A = -_randn((H,), torch.float32, cuda, 10).exp()
-    launches = ssd.launches
+    # the tensor cores take bf16 with P, N multiples of 8 and chunks <= 256
+    variant = "tc" if dtype == torch.bfloat16 and P % 8 == 0 \
+        and N % 8 == 0 and min(chunk, L) <= 256 else "fma"
+    before = (ssd.launches, ssd.tc_launches, ssd.fma_launches)
     y, state = ssd(x, dt, A, Bm, Cm, chunk=chunk)
     torch.cuda.synchronize()
-    assert ssd.launches == launches + 1
+    moved = tuple(a - b for a, b in zip(
+        (ssd.launches, ssd.tc_launches, ssd.fma_launches), before))
+    assert moved == (1, int(variant == "tc"), int(variant == "fma")), \
+        f"took {moved} (all, tc, fma) launches, not {variant}"
     assert torch.isfinite(y).all() and torch.isfinite(state).all()
     want_y, want_state = ssd_plain(x, dt, A, Bm, Cm, chunk)
     tol = SSD_TOL[dtype]
     torch.testing.assert_close(y, want_y, rtol=tol, atol=tol)
     torch.testing.assert_close(state, want_state, rtol=tol, atol=tol)
+
+
+def test_mamba2_bf16_prefill_through_the_kernel(cuda, monkeypatch):
+    """mamba2-1.3b's smoke config in bf16 on the card: the prefill through
+    the tensor-core kernel against the same prefill with the plain version
+    in its place.  Logits within 2e-2 of their largest value (only the
+    SSD's sums differ, by ~1e-4 of y, and the bf16 casts after it may
+    round either way), identical greedy tokens, SSD states within 4e-2."""
+    import repro_torch.models.ssm as ssm_mod
+    cfg = dataclasses.replace(get_config("mamba2-1.3b", smoke=True),
+                              dtype="bfloat16").resolve(tp=1)
+    params = model.init_params(cfg, torch.Generator(device=cuda)
+                               .manual_seed(0), device=cuda)
+    rng = np.random.default_rng(2)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(4, 64))
+                           .astype(np.int32), device=cuda)
+    before = ssd.tc_launches
+    got, got_cache = model.prefill(params, cfg, {"tokens": toks},
+                                   cache_len=72)
+    assert ssd.tc_launches - before == cfg.num_layers
+    monkeypatch.setattr(ssm_mod, "ssd", ssd_plain)
+    want, want_cache = model.prefill(params, cfg, {"tokens": toks},
+                                     cache_len=72)
+    V = cfg.vocab_size
+    got, want = got[:, :V].float(), want[:, :V].float()
+    assert torch.isfinite(got).all()
+    assert float((got - want).abs().max() / want.abs().max()) <= 2e-2
+    assert torch.equal(got.argmax(-1), want.argmax(-1))
+    torch.testing.assert_close(got_cache["ssm"], want_cache["ssm"],
+                               rtol=4e-2, atol=4e-2)
 
 
 def test_mamba2_serving_cuda_matches_cpu(cuda):
@@ -343,10 +381,11 @@ def test_mamba2_serving_cuda_matches_cpu(cuda):
                             max_seq=96)
         for i, p in enumerate(prompts):
             eng.submit(Request(rid=i, tokens=p, max_new_tokens=5))
-        before = ssd.launches
+        before = (ssd.launches, ssd.fma_launches)
         out[dev] = [r.output for r in eng.step_wave()]
-        if dev == "cuda":
-            assert ssd.launches - before == cfg.num_layers
+        if dev == "cuda":    # f32 stays on the FMA kernel
+            assert ssd.launches - before[0] == cfg.num_layers
+            assert ssd.fma_launches - before[1] == cfg.num_layers
     for got, want in zip(out["cuda"], out["cpu"]):
         np.testing.assert_array_equal(got, want)
 

@@ -36,7 +36,7 @@ from repro.serving.engine import Request as ReferenceRequest
 from repro.serving.engine import ServingEngine as ReferenceEngine
 from repro_torch.configs.base import get_config
 from repro_torch.interop import params_from_reference
-from repro_torch.kernels.ssd import ssd, ssd_plain
+from repro_torch.kernels.ssd import _variant, ssd, ssd_plain
 from repro_torch.models import hybrid
 from repro_torch.models import model as TM
 from repro_torch.monitoring.metrics import SimClock
@@ -141,6 +141,108 @@ def test_ssd_refuses_what_the_kernel_does_not_take(change, error):
         ssd(t(B, L, H, P), t(B, L, H).abs(), -t(H).abs(),
             t(B, L, G, N).to(bc_dtype), t(B, L, G, N).to(bc_dtype),
             chunk=kw["chunk"])
+
+
+# (dtype, L, Q, P, N, strides, ptrs) -> the kernel a CUDA call takes
+SSD_VARIANTS = [
+    (torch.bfloat16, 1024, 256, 64, 128, (), (), "tc"),   # mamba2-1.3b
+    (torch.bfloat16, 1024, 256, 64, 64, (), (), "tc"),    # zamba2-2.7b
+    (torch.bfloat16, 64, 32, 16, 16, (), (), "tc"),       # the smoke configs
+    (torch.bfloat16, 200, 100, 64, 128, (), (), "tc"),    # ragged tiles
+    (torch.bfloat16, 40, 40, 16, 16, (), (), "tc"),       # one partial chunk
+    (torch.bfloat16, 8192, 256, 8, 8, (), (), "tc"),      # many windows
+    (torch.float32, 1024, 256, 64, 128, (), (), "fma"),   # f32: 2e-4
+    (torch.float32, 64, 32, 16, 16, (), (), "fma"),
+    (torch.bfloat16, 64, 16, 8, 4, (), (), "fma"),        # N not 8k
+    (torch.bfloat16, 64, 16, 12, 16, (), (), "fma"),      # P not 8k
+    (torch.bfloat16, 512, 512, 64, 128, (), (), "fma"),   # chunk past 256
+    (torch.bfloat16, 1024, 256, 64, 128, (4096, 64, 4), (), "fma"),
+    (torch.bfloat16, 1024, 256, 64, 128, (), (16, 2), "fma"),
+    (torch.bfloat16, 1024, 256, 64, 128, (524288, 4096, 64), (256, 512),
+     "tc"),
+]
+
+
+@pytest.mark.parametrize("dtype,L,Q,P,N,strides,ptrs,want", SSD_VARIANTS)
+def test_ssd_variant_rule(dtype, L, Q, P, N, strides, ptrs, want):
+    assert _variant(dtype, L, Q, P, N, strides, ptrs) == want
+
+
+def test_ssd_cpu_calls_count_neither_variant():
+    _, torch_in = _ssd_inputs(1, 64, 2, 16, 1, 16, "random", "bfloat16")
+    before = (ssd.launches, ssd.tc_launches, ssd.fma_launches)
+    ssd(*torch_in, chunk=32)
+    assert (ssd.launches, ssd.tc_launches, ssd.fma_launches) == before
+
+
+def _split(t, pair=True):
+    """t as a bf16 hi + lo pair (or one bf16), each part as f32."""
+    hi = t.to(torch.bfloat16).float()
+    return (hi, (t - hi).to(torch.bfloat16).float()) if pair else (hi,)
+
+
+def _ssd_tc_emulated(x, dt, A, Bm, Cm, chunk, single=None):
+    """The tensor-core kernel's arithmetic in plain f32 PyTorch: bf16
+    operands exactly where it rounds them (S~ = S exp(cum_q - cum_k) dt_k,
+    the carried state and x * w, each as a hi + lo pair), f32 sums.
+    ``single`` ("scores", "state" or "xw") rounds that operand to one
+    bf16 instead of a pair."""
+    Bsz, L, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    Q = min(chunk, L)
+    x, dt = x.float(), dt.float()
+    Bh = Bm.float().repeat_interleave(H // G, dim=2)
+    Ch = Cm.float().repeat_interleave(H // G, dim=2)
+    dA = dt * A.float()
+    upper = ~torch.ones((Q, Q), dtype=torch.bool).tril()
+    state = torch.zeros((Bsz, H, P, N))
+    ys = []
+    for c in range(L // Q):
+        sl = slice(c * Q, (c + 1) * Q)
+        xq, Bq, Cq, dq = x[:, sl], Bh[:, sl], Ch[:, sl], dt[:, sl]
+        cum = dA[:, sl].cumsum(dim=1)                          # (B, Q, H)
+        seg = cum[:, :, None] - cum[:, None]                   # (B, Q, K, H)
+        decay = seg.masked_fill(upper[None, :, :, None], float("-inf")).exp()
+        s = torch.einsum("bqhn,bkhn->bqkh", Cq, Bq) * decay * dq[:, None]
+        y = sum(torch.einsum("bhpn,bqhn->bqhp", part, Cq)
+                for part in _split(state, single != "state")) \
+            * cum.exp()[..., None]
+        y = y + sum(torch.einsum("bqkh,bkhp->bqhp", part, xq)
+                    for part in _split(s, single != "scores"))
+        tot = cum[:, -1]
+        xw = xq * (dq * (tot[:, None] - cum).exp())[..., None]
+        state = state * tot.exp()[..., None, None] + sum(
+            torch.einsum("bqhp,bqhn->bhpn", part, Bq)
+            for part in _split(xw, single != "xw"))
+        ys.append(y)
+    return torch.cat(ys, dim=1), state
+
+
+@pytest.mark.parametrize("B,L,H,P,G,N,chunk,decay", [
+    (2, 1024, 8, 64, 1, 128, 256, "random"),
+    (2, 1024, 8, 64, 1, 128, 256, "strong"),
+    (2, 512, 8, 64, 2, 128, 256, "random"),
+    (2, 512, 8, 64, 1, 64, 256, "random"),
+])
+def test_ssd_tc_rounding_points_hold_the_tolerance(B, L, H, P, G, N, chunk,
+                                                   decay):
+    """The tensor-core kernel's rounding plan against the plain version at
+    the bf16 tolerance (4e-2), on the CPU, before it reaches a card."""
+    _, torch_in = _ssd_inputs(B, L, H, P, G, N, decay, "bfloat16")
+    y, state = _ssd_tc_emulated(*torch_in, chunk)
+    want_y, want_state = ssd_plain(*torch_in, chunk=chunk)
+    torch.testing.assert_close(y, want_y, rtol=4e-2, atol=4e-2)
+    torch.testing.assert_close(state, want_state, rtol=4e-2, atol=4e-2)
+
+
+@pytest.mark.parametrize("single", ["scores", "state", "xw"])
+def test_ssd_one_bf16_in_place_of_a_pair_misses_the_tolerance(single):
+    """Why the kernel pays for hi + lo pairs: at the first shape above, one
+    bf16 for any of the three rounded operands moves some y past 4e-2."""
+    _, torch_in = _ssd_inputs(2, 1024, 8, 64, 1, 128, "random", "bfloat16")
+    y, _ = _ssd_tc_emulated(*torch_in, 256, single=single)
+    want_y, _ = ssd_plain(*torch_in, chunk=256)
+    assert ((y - want_y).abs() > 4e-2 + 4e-2 * want_y.abs()).any()
 
 
 # ----------------------------------------------------------------------
