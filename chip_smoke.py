@@ -21,10 +21,11 @@ Phases (any failure raises and exits non-zero, with no result line):
    (for SSD, the FMA kernel on f32 beside the tensor-core one on bf16);
 4. the simulation path: ``run_scenario`` at full width (250 nodes, 200
    replicas per app, 1000 requests, 8 seeds x 32 trials) on baseline,
-   stale-predictions and churn with the four default policies and the
-   oracle, counting kernel launches; then a profiled full-width pass
-   cut to 100 requests (device busy share, largest kernels and host
-   ops), outside the launch count;
+   stale-predictions, churn, cold-start and drift-fallback (the
+   closed-loop fleet under drift) with the four default policies and the
+   oracle, counting kernel launches; then profiled full-width passes cut
+   to 100 requests (device busy share, largest kernels and host ops,
+   the host's waits on the device), outside the launch count;
 5. the serving path: ``ServingEngine`` with qwen2-vl-7b at full width
    (28 layers, bf16, random weights from a seeded generator), 3 waves of
    8 requests (prompts of 256-1024 tokens, 32 new tokens each), counting
@@ -42,8 +43,9 @@ Phases (any failure raises and exits non-zero, with no result line):
    launches (three per layer and step) beside the attention kernels';
    then a profiled prefill and decode step outside the count;
 6. CUDA against the CPU: the campaign at a mid shape (summary stats
-   within 1e-5 relative) and the three serving paths at their smoke
-   configs in f32 (logits within 1e-4 relative, identical tokens);
+   within 1e-5 relative; a closed-loop cell that misses is shown its
+   flipped pick and held to 1e-2) and the three serving paths at their
+   smoke configs in f32 (logits within 1e-4 relative, identical tokens);
 7. a ``kernels`` JSON line, the card's line, then the result line.
 """
 from __future__ import annotations
@@ -68,9 +70,11 @@ LARGE = dict(n_nodes=250, n_replicas_per_app=200, n_requests=1000)
 LARGE_SEEDS, LARGE_TRIALS = tuple(range(8)), 32
 MID = dict(n_nodes=60, n_replicas_per_app=50, n_requests=200)
 MID_SEEDS, MID_TRIALS = tuple(range(4)), 16
-MAIN_SCENARIOS = ("baseline", "stale-predictions", "churn")
+MAIN_SCENARIOS = ("baseline", "stale-predictions", "churn", "cold-start",
+                  "drift-fallback")
 KERNEL_SCENARIOS = ("stale-predictions", "churn")
-PARITY_SCENARIOS = ("stale-predictions", "churn")
+PARITY_SCENARIOS = ("stale-predictions", "churn", "cold-start",
+                    "drift-fallback")
 PARITY_RTOL = 1e-5
 
 #: the serving path: qwen2-vl-7b at full width, 3 waves of 8 requests
@@ -194,17 +198,26 @@ def check_segment_sum(dev) -> dict:
     filled in from the main-path run)."""
     import numpy as np
     import torch
-    from repro_torch.kernels.segment_sum import (segment_sum,
+    from repro_torch.kernels.segment_sum import (launch_floor, segment_sum,
                                                  segment_sum_plain)
 
     rng = np.random.default_rng(0)
 
-    def case(T, R, B, dtype, lo=0, hi=None, mask=False):
+    def unaligned_copy(x):
+        """A copy of ``x`` whose base is 8 bytes past 16-byte alignment."""
+        off = 8 // x.element_size()
+        y = torch.empty(x.numel() + off, dtype=x.dtype, device=dev)[off:]
+        return y.view(x.shape).copy_(x)
+
+    def case(T, R, B, dtype, lo=0, hi=None, mask=False, unaligned=False):
         ids = rng.integers(lo, B if hi is None else hi, size=(T, R))
         vals = (rng.random((T, R)) < 0.5).astype(float) if mask \
             else rng.standard_normal((T, R))
         v = torch.as_tensor(vals, dtype=dtype, device=dev)
         i = torch.as_tensor(ids.astype(np.int32), device=dev)
+        if unaligned:
+            v, i = unaligned_copy(v), unaligned_copy(i)
+            assert v.data_ptr() % 16 == 8 and i.data_ptr() % 16 == 8
         got = segment_sum(v, i, B)
         torch.cuda.synchronize()
         want = segment_sum_plain(v, i, B)
@@ -226,11 +239,25 @@ def check_segment_sum(dev) -> dict:
     print(f"segment_sum path shape ({T},{R})->{B} f64 0/1 mask: "
           f"max_abs_err {path_err}")
 
+    # each load and store path of the kernel: 16-byte loads (the path
+    # shape), scalar loads (R % 4 != 0, an unaligned base), a scalar
+    # head / tail of the stores (odd B), bin tiles (B past 48 KB of
+    # histograms), more than one pass of loads a thread, f32
     checks = [
         ((256, 1000, 1250, torch.float64), dict(), 1e-12),
         ((256, 1000, 1250, torch.float32), dict(), 1e-5),
-        ((4, 5000, 10000, torch.float64), dict(), 1e-12),  # 2 bin tiles
-        ((4, 5000, 20000, torch.float32), dict(), 1e-5),   # 2 bin tiles
+        ((256, 1001, 1250, torch.float64), dict(), 1e-12),
+        ((256, 1001, 1250, torch.float64), dict(mask=True), 0.0),
+        ((256, 1000, 1251, torch.float64), dict(), 1e-12),
+        ((256, 1000, 1251, torch.float32), dict(mask=True), 0.0),
+        ((4, 1000, 6145, torch.float64), dict(), 1e-12),   # 2 bin tiles
+        ((4, 1000, 6145, torch.float64), dict(mask=True), 0.0),
+        ((4, 5000, 10000, torch.float64), dict(), 1e-12),  # 3 bin tiles
+        ((4, 5000, 20000, torch.float32), dict(), 1e-5),   # 3 bin tiles
+        ((3, 8000, 1250, torch.float64), dict(), 1e-12),   # 2 load passes
+        ((37, 1000, 999, torch.float64), dict(unaligned=True), 1e-12),
+        ((37, 1000, 999, torch.float32), dict(unaligned=True, mask=True),
+         0.0),
     ]
     for shape in ((1, 1, 1), (3, 50, 20), (8, 128, 128), (16, 300, 60)):
         for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
@@ -254,13 +281,17 @@ def check_segment_sum(dev) -> dict:
         "library": lambda: torch.zeros((T, B), dtype=busy.dtype,
                                        device=dev).scatter_add_(1, ids64,
                                                                 busy)}
+    # the launch floor: an empty kernel with the same grid, block and
+    # shared memory, timed by the same graph replay
+    timed["launch floor"] = lambda: launch_floor(busy, ids, B)
     dev_ms = {k: device_ms(f) for k, f in timed.items()}
-    eager_ms = {k: call_ms(f) for k, f in timed.items()}
+    eager_ms = {k: call_ms(timed[k]) for k in ("kernel", "plain", "library")}
     print("segment_sum device time per call (CUDA graph replay): "
-          + ", ".join(f"{k} {v * 1e3:.2f} us" for k, v in dev_ms.items()))
+          + ", ".join(f"{k} {v * 1e3:.3f} us" for k, v in dev_ms.items()))
     print("segment_sum eager call time, host included: "
           + ", ".join(f"{k} {v * 1e3:.2f} us" for k, v in eager_ms.items()))
-    ms, plain_ms, library_ms = (dev_ms[k] for k in timed)
+    ms, plain_ms, library_ms = (dev_ms[k]
+                                for k in ("kernel", "plain", "library"))
     nbytes = T * R * (busy.element_size() + ids.element_size()) \
         + T * B * busy.element_size()
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
@@ -271,7 +302,8 @@ def check_segment_sum(dev) -> dict:
             "launches": 0, "max_abs_err": path_err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": library_ms}
+            "library_ms": library_ms,
+            "launch_floor_ms": dev_ms["launch floor"]}
 
 
 def _randn(shape, dtype, dev, seed):
@@ -811,6 +843,16 @@ def profile_pass(scenario: str, policy: str, n_requests: int) -> None:
           f"{launches / n_requests:.0f} kernel launches/step, kernels "
           f"busy {kern_us / 1e6:.4f} s = {kern_us / 1e6 / loop_s * 100:.1f}"
           f" % of the loop")
+    # every wait of the host on the device goes through the runtime
+    # API, a library's own included: the core's count of its syncs is
+    # held against the profiler's
+    syncs = sum(e.count for e in events if e.key in (
+        "cudaStreamSynchronize", "cudaDeviceSynchronize",
+        "cudaEventSynchronize"))
+    print(f"profile {scenario}/{policy}: {syncs} host waits on the device "
+          f"in the pass (set-up copies and results included), "
+          f"{res[policy].host_syncs} counted by the core's expiry rounds, "
+          f"{res[policy].n_fallback} fallback routings")
     if kern_us == 0:
         print("profile: no device time recorded (not measured)")
     for e in sorted(on_device, key=lambda e: -e.self_device_time_total)[:8]:
@@ -1095,6 +1137,7 @@ def main() -> int:
     from repro_torch.kernels import build as kbuild
     from repro_torch.kernels.segment_sum import segment_sum
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1171,11 +1214,12 @@ def main() -> int:
         for pol, r in res.items():
             ineff = "" if r.inefficiency_pct is None \
                 else f" ineff {r.inefficiency_pct:.2f}%"
+            fb = f" fallback {r.n_fallback}" if r.n_fallback else ""
             print(f"  {scen}/{pol}: wall {r.wall_s:.2f} s, loop "
                   f"{r.loop_s:.2f} s = {r.loop_s / J * 1e6:.0f} us/step, "
                   f"host syncs {r.host_syncs} (~{r.host_syncs * sync_us / 1e6:.2f} s), "
                   f"mean_rtt {r.stat('mean_rtt'):.4f} p99_rtt "
-                  f"{r.stat('p99_rtt'):.4f}{ineff}")
+                  f"{r.stat('p99_rtt'):.4f}{ineff}{fb}")
         if scen == "baseline":
             pa, rr = res["perf_aware"].stat("mean_rtt"), \
                 res["round_robin"].stat("mean_rtt")
@@ -1192,6 +1236,7 @@ def main() -> int:
     # where the loop's time goes (not part of the main-path count)
     profile_pass("stale-predictions", "perf_aware", 100)
     profile_pass("stale-predictions", "least_conn", 100)
+    profile_pass("drift-fallback", "perf_aware", 100)
 
     # phase 5: the serving path at full width (each wave: the flash
     # kernel once per layer, the decode kernel once per layer and step)
@@ -1254,7 +1299,8 @@ def main() -> int:
         for pol in on_cpu:
             a, b = on_gpu[pol], on_cpu[pol]
             assert a.n_hedged == b.n_hedged, f"{scen}/{pol} n_hedged"
-            for k in SUMMARY_STATS + ("hedged",):
+            assert a.n_fallback == b.n_fallback, f"{scen}/{pol} n_fallback"
+            for k in SUMMARY_STATS + ("hedged", "fallback"):
                 x = np.asarray(a.per_seed[k], float)
                 y = np.asarray(b.per_seed[k], float)
                 np.testing.assert_allclose(x, y, rtol=PARITY_RTOL, atol=1e-7,
@@ -1275,6 +1321,8 @@ def main() -> int:
                    max_seq=96)
     serving_parity(dev, MOE_ARCH, S=24, lengths=(9, 13, 17, 21), max_seq=32)
 
+    print(f"chip_smoke: whole run {time.perf_counter() - t_start:.1f} s, "
+          f"the kernels' build included")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -58,17 +58,25 @@ def stack_clusters(clusters: Sequence[_Cluster]) -> _Cluster:
         return np.concatenate([getattr(c, attr) for c in clusters], axis=0)
 
     # each seed drew its own interference mix -> per-trial (T, A, A)
-    imat = np.concatenate(
-        [np.broadcast_to(c.imat, (t,) + c.imat.shape)
-         for c, t in zip(clusters, trials)], axis=0)
+    def cat_imat(attr):
+        return np.concatenate(
+            [np.broadcast_to(getattr(c, attr),
+                             (t,) + getattr(c, attr).shape)
+             for c, t in zip(clusters, trials)], axis=0)
+
+    # the post-drift regime stacks like its pre-drift counterpart; the
+    # shared mean_rtt_post is config-derived, equal across seeds
     return _Cluster(
         cfg=replace(c0.cfg, n_trials=sum(trials)),
         app_of=c0.app_of, mean_rtt=c0.mean_rtt,
         cpu_req=c0.cpu_req, mem_req=c0.mem_req,
-        imat=imat, node_of=cat("node_of"), accel=cat("accel"),
+        imat=cat_imat("imat"), node_of=cat("node_of"), accel=cat("accel"),
         req_app=c0.req_app, req_t=c0.req_t,
         z_rtt=cat("z_rtt"), z_pred=cat("z_pred"),
-        failed_node=None if c0.failed_node is None else cat("failed_node"))
+        failed_node=None if c0.failed_node is None else cat("failed_node"),
+        imat_post=None if c0.imat_post is None else cat_imat("imat_post"),
+        accel_post=None if c0.accel_post is None else cat("accel_post"),
+        mean_rtt_post=c0.mean_rtt_post)
 
 
 @dataclass
@@ -79,6 +87,9 @@ class PolicyResult:
     seeds: Tuple[int, ...]
     per_seed: Dict[str, np.ndarray]          # stat -> (S,)
     n_hedged: int = 0
+    #: routings the closed loop's accuracy fallback sent by least_conn
+    #: (per seed in ``per_seed["fallback"]``)
+    n_fallback: int = 0
     inefficiency_pct: Optional[float] = None     # mean over seeds
     inefficiency_std: Optional[float] = None     # std over seeds
     p99_inefficiency_pct: Optional[float] = None
@@ -108,6 +119,8 @@ def _split_per_seed(summary: Dict[str, np.ndarray],
     out = {k: _block_reduce(summary[k], trials) for k in SUMMARY_STATS}
     out["hedged"] = _block_reduce(summary["hedged_per_trial"], trials,
                                   np.sum)
+    out["fallback"] = _block_reduce(summary["fallback_per_trial"], trials,
+                                    np.sum)
     # inefficiency is defined per trial, then averaged
     out["_trial_mean_rtt"] = summary["mean_rtt"]
     out["_trial_p99_rtt"] = summary["p99_rtt"]
@@ -169,7 +182,8 @@ def run_scenario(scenario, policies: Sequence[str] = DEFAULT_POLICIES,
         out[pol_name] = PolicyResult(
             scenario=spec.name, policy=pol_name, seeds=seeds,
             per_seed=_split_per_seed(summary, trials),
-            n_hedged=summary["n_hedged"], wall_s=wall,
+            n_hedged=summary["n_hedged"],
+            n_fallback=summary["n_fallback"], wall_s=wall,
             loop_s=summary["loop_s"], host_syncs=summary["host_syncs"])
     if include_oracle:
         for pol_name in wanted:

@@ -4,7 +4,9 @@
 A :class:`ScenarioSpec` names one regime and compiles to the
 :class:`~repro_torch.core.simulator.SimConfig` the core runs.  The field
 set is the reference's, so a spec carries over whole; the registry holds
-the nine standing-matrix scenarios the port runs end to end.
+the fifteen scenarios the port runs end to end: the nine of the standing
+matrix, cold start, the four closed-loop drift scenarios and the mixed
+fleet.
 
 Seed discipline: ``compile(seed=s)`` varies topology/noise with ``s``
 but pins the arrival stream to a per-scenario ``stream_seed`` (crc32 of
@@ -48,17 +50,19 @@ class ScenarioSpec:
     cold_start_s: float = 0.0
     outage: Optional[Tuple[float, float]] = None
     hedge_factor: Optional[float] = None
-    # not lowered in the port yet (see simulator.unlowered)
+    # closed-loop online prediction (core/online.py)
     closed_loop: bool = False
     online_warmup_s: float = 20.0
     retrain_every_s: float = 0.0
     online_window: int = 400
     fallback_threshold: float = 0.0
     accuracy_window: int = 40
+    # mid-run workload drift
     t_drift: Optional[float] = None
     drift_interference: Optional[float] = None
     drift_rtt_factor: Optional[Tuple[float, ...]] = None
     drift_tier_shuffle: bool = False
+    # not lowered in the port yet (see simulator.unlowered)
     capacity: Optional[Any] = None
     preempt: Optional[Tuple[float, float]] = None
     resilience: Optional[Any] = None
@@ -70,6 +74,19 @@ class ScenarioSpec:
         unknown = [a for a in self.apps if a not in APPS]
         if unknown:
             raise ValueError(f"{self.name}: unknown apps {unknown}")
+        drifts = (self.drift_interference is not None
+                  or self.drift_rtt_factor is not None
+                  or self.drift_tier_shuffle)
+        if self.t_drift is None and drifts:
+            raise ValueError(f"{self.name}: drift knobs set without t_drift")
+        if self.t_drift is not None and not drifts:
+            raise ValueError(f"{self.name}: t_drift set but no drift knob")
+        if self.drift_rtt_factor is not None \
+                and len(self.drift_rtt_factor) not in (1, len(self.apps)):
+            raise ValueError(
+                f"{self.name}: drift_rtt_factor needs 1 or "
+                f"{len(self.apps)} entries, got "
+                f"{len(self.drift_rtt_factor)}")
 
     @property
     def stream_seed(self) -> int:
@@ -85,6 +102,16 @@ class ScenarioSpec:
         cfg = SimConfig(seed=seed, stream_seed=self.stream_seed, **kwargs)
         return replace(cfg, **overrides) if overrides else cfg
 
+
+# closed-loop drift scenarios: predictions come from per-(trial, app)
+# predictors trained on observed RTTs; at t_drift the regime shifts and a
+# frozen fleet degrades while periodic retraining recovers.  They keep
+# interference low and always include a structural (node-speed) shift.
+_DRIFT_APPS = ("motioncor2", "fft_mock", "gctf", "ctffind4")
+_DRIFT = dict(apps=_DRIFT_APPS, n_requests=560, arrival_rate=1.0,
+              heterogeneity=0.05, node_tiers=(-0.6, 0.0, 1.8),
+              closed_loop=True, online_warmup_s=40.0,
+              retrain_every_s=12.0, online_window=120, t_drift=80.0)
 
 #: the scenarios the port runs end to end
 SCENARIOS: Dict[str, ScenarioSpec] = {s.name: s for s in (
@@ -124,9 +151,55 @@ SCENARIOS: Dict[str, ScenarioSpec] = {s.name: s for s in (
         description="Predictors only see occupancy every 20s.",
         prediction_lag_s=20.0),
     ScenarioSpec(
+        name="cold-start",
+        description="No trained predictors for the first 40s: predictions "
+                    "carry only app-mean RTTs until the knowledge base "
+                    "warms.",
+        cold_start_s=40.0),
+    ScenarioSpec(
         name="metric-outage",
         description="The metric source blacks out from t=30s for 40s.",
         prediction_lag_s=5.0, outage=(30.0, 40.0)),
+    ScenarioSpec(
+        name="tier-drift",
+        description="Hardware reshuffle under a trained fleet: at t=80s "
+                    "node speeds are permuted (a live migration / refresh "
+                    "epoch) — frozen predictors now prefer the "
+                    "previously-fast nodes.",
+        interference_strength=0.2, drift_tier_shuffle=True, **_DRIFT),
+    ScenarioSpec(
+        name="app-drift",
+        description="A release changes app profiles (per-app mean-RTT "
+                    "factors) while the scheduler rebalances placements "
+                    "(tier reshuffle): both the scale and the structure a "
+                    "trained predictor learned are stale after t=80s.",
+        interference_strength=0.3, drift_tier_shuffle=True,
+        drift_rtt_factor=(1.8, 0.6, 1.5, 0.7), **_DRIFT),
+    ScenarioSpec(
+        name="colocation-drift",
+        description="Tenancy epoch change: the interference matrix is "
+                    "redrawn, node speeds reshuffle, and app means shift — "
+                    "every signal the fleet learned moves at once.",
+        **{**_DRIFT, "arrival_rate": 0.9}, interference_strength=0.4,
+        drift_interference=0.6, drift_tier_shuffle=True,
+        drift_rtt_factor=(1.4, 0.8, 1.2, 0.9)),
+    ScenarioSpec(
+        name="drift-fallback",
+        description="tier-drift with the viability rule armed: trials "
+                    "whose rolling prediction accuracy drops below 0.55 "
+                    "fall back to least_conn until retraining restores the "
+                    "predictor.",
+        interference_strength=0.2, drift_tier_shuffle=True,
+        fallback_threshold=0.55, **_DRIFT),
+    ScenarioSpec(
+        name="mixed-app-fleet",
+        description="Everything at once: bursty arrivals over tiered "
+                    "hardware with hotspot interference and imperfect "
+                    "predictions — the closest to a production fleet.",
+        arrival_process="bursty", arrival_params=(4.0, 15.0, 25.0),
+        node_tiers=(-0.3, 0.0, 0.6), heterogeneity=0.15,
+        interference_strength=0.9, interference_profile="hotspot",
+        accuracy=0.7),
 )}
 
 

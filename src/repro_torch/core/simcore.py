@@ -16,15 +16,23 @@ operations over dense ``(T, K)`` / ``(T, R)`` state on one device:
   place a hand-written kernel runs, the per-row segment sum
   (``repro_torch.kernels.segment_sum``);
 * Eq. 12 predictions from the pre-drawn ``z_pred`` noise, held on the
-  device and sliced per step; pick-only co-location draws for the
-  reactive policies from a static mates table; hedging; the stale /
-  outage snapshot; the churn busy-bump.
+  device and sliced per step, with the bare app-mean basis before
+  ``cold_start_s``; pick-only co-location draws for the reactive
+  policies from a static mates table; hedging; the stale / outage
+  snapshot; the churn busy-bump;
+* workload drift: from ``t_drift`` on, the post-drift interference
+  rows, node speeds and app means replace the pre-drift ones;
+* the closed loop (``repro_torch.core.online``): predictions from
+  per-(trial, app) ridge predictors retrained on the run's own observed
+  RTTs, with the rolling-accuracy fallback to least_conn.
 
 The host knows each request's app, arrival time and every per-step flag
-(snapshot refresh, churn edge) before the loop starts, so a step
-specialises on them in Python; the only host syncs are the expiry
-rounds' ``any()`` checks (one per ``expire`` call, plus one per extra
-round).
+(snapshot refresh, churn edge, drift regime, cold start, retrain) before
+the loop starts, so a step specialises on them in Python; the only host
+syncs are the expiry rounds' ``any()`` checks (one per ``expire`` call,
+plus one per extra round).  Scalars go into tensors by ``scatter_`` /
+``fill_``, which take them as kernel arguments: ``t[idx] = True`` on a
+CUDA tensor copies a CPU scalar to the card and waits for it.
 
 **Serial-reference contract**: the reference's serial stepper is the
 semantics; the port agrees with it to <= 1e-5 relative on every summary
@@ -33,8 +41,8 @@ are int32; the noise is the reference's own, drawn by numpy on the host,
 so the only divergence is rounding (sums reassociated, libm ulps).
 
 Not lowered yet (``supports`` names the feature, the entry points raise
-``NotImplementedError``): cold start, drift, the closed loop, the
-capacity plane, resilience, the trace.  The reference's in-kernel-noise
+``NotImplementedError``): the capacity plane, spot preemption,
+resilience, the trace.  The reference's in-kernel-noise
 ``fleet_throughput`` mode and its multi-device ``shard_map`` dispatch
 have no counterpart here yet.
 """
@@ -48,6 +56,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.balancer import BUSY_PENALTY, POLICIES
+from repro_torch.core.online import OnlineFleet, obs_window, retrain_schedule
 from repro_torch.core.rng import rng_from_key, rng_seed
 from repro_torch.core.simulator import (SimConfig, _build_cluster, _Cluster,
                                         _Metrics, unlowered)
@@ -68,13 +77,23 @@ class _Static:
     hedge: Optional[float]
     accuracy: float
     reactive: bool               # policy reads neither predicted nor actual
-    needs_pred: bool             # Eq. 12 predictions consumed
+    needs_pred: bool             # Eq. 12 / fleet predictions consumed
+    closed_loop: bool            # OnlineFleet active (needs_pred implied)
     snapshot: bool               # stale/outage occupancy snapshot carried
+    cold_start: bool
     churn: Optional[Tuple[float, float]]
+    drift: bool
+    fallback_threshold: float
+    obs_window: int              # fleet observation ring length (Wn)
+    acc_window: int              # rolling-accuracy ring length (Wa)
 
     @property
     def hedging(self) -> bool:
         return self.hedge is not None and self.k >= 2
+
+    @property
+    def fallback(self) -> bool:
+        return self.closed_loop and self.fallback_threshold > 0
 
 
 def supports(cfg: SimConfig, policy: str) -> Optional[str]:
@@ -93,24 +112,34 @@ def _static_for(cfg: SimConfig, policy: str) -> _Static:
     hedge = cfg.hedge_factor if policy in ("perf_aware", "oracle") else None
     hedging = hedge is not None
     needs_pred = hedging or "predicted" in spec.requires
+    closed = bool(cfg.closed_loop and needs_pred)
     snapshot = (cfg.prediction_lag_s > 0 or cfg.outage is not None) \
         and needs_pred
     return _Static(
         policy=policy, n_apps=len(cfg.apps), k=cfg.n_replicas_per_app,
         n_nodes=cfg.n_nodes, hedge=hedge, accuracy=cfg.accuracy,
         reactive=not hedging and not spec.requires, needs_pred=needs_pred,
-        snapshot=snapshot, churn=cfg.churn)
+        closed_loop=closed, snapshot=snapshot,
+        cold_start=cfg.cold_start_s > 0, churn=cfg.churn,
+        drift=cfg.t_drift is not None,
+        fallback_threshold=cfg.fallback_threshold if closed else 0.0,
+        obs_window=obs_window(cfg),
+        acc_window=max(1, int(cfg.accuracy_window)))
 
 
 def _count_flags(st: _Static) -> Tuple[bool, bool, bool]:
     """(full_actual, need_live, need_snap): whether the step draws the
     full-K true RTT, and which incremental count carries exist
     (``need_live`` tracks the live occupancy, ``need_snap`` the stale
-    snapshot).  Without the closed loop ``need_live == full_actual``."""
+    snapshot).  The closed loop reads the live counts for its features
+    when there is no snapshot, even where perf_aware draws no full-K
+    true RTT."""
     if st.reactive:
         return False, False, False
-    full_actual = st.policy != "perf_aware" or not st.snapshot
-    return full_actual, full_actual, st.snapshot
+    full_actual = st.policy != "perf_aware" \
+        or (not st.closed_loop and not st.snapshot)
+    need_live = full_actual or (st.closed_loop and not st.snapshot)
+    return full_actual, need_live, st.snapshot
 
 
 def _needs_plan(st: _Static) -> bool:
@@ -194,18 +223,22 @@ def _lower(cluster: _Cluster, policy: str, seed_blocks=None):
                          "_build_cluster produces (app_of = repeat)")
     node_of = np.asarray(cluster.node_of, np.int64)
     req_t = np.asarray(cluster.req_t, float)
+    req_app = np.asarray(cluster.req_app, np.int64)
     trial = np.arange(T)
+    cand_node = np.stack([node_of[:, a * K:(a + 1) * K] for a in range(A)])
 
-    imat = np.asarray(cluster.imat, float)
-    irow = np.empty((A, T, A))
-    speed = np.empty((A, T, K))
-    cand_node = np.empty((A, T, K), np.int64)
-    for a in range(A):
-        nodes = node_of[:, a * K:(a + 1) * K]
-        irow[a] = imat[:, a, :] if imat.ndim == 3 \
-            else np.broadcast_to(imat[a], (T, A))
-        speed[a] = 1.0 + cluster.accel[trial[:, None], nodes]
-        cand_node[a] = nodes
+    def regime(imat, accel, mean_rtt):
+        """Per-app imat rows (A, T, A), candidate speeds (A, T, K) and
+        log mean RTTs of one interference / speed / mean regime."""
+        imat = np.asarray(imat, float)
+        irow = np.stack([imat[:, a, :] if imat.ndim == 3
+                         else np.broadcast_to(imat[a], (T, A))
+                         for a in range(A)])
+        speed = 1.0 + np.asarray(accel)[trial[None, :, None], cand_node]
+        return irow, speed, [float(np.log(m)) for m in mean_rtt]
+
+    irow, speed, log_rbar = regime(cluster.imat, cluster.accel,
+                                   cluster.mean_rtt)
     mate_idx, mate_pad = _mates_plan(node_of, N)
     consts: Dict[str, np.ndarray] = {
         "node_of": node_of, "imat": irow, "speed": speed,
@@ -214,7 +247,7 @@ def _lower(cluster: _Cluster, policy: str, seed_blocks=None):
         "mate_pad": mate_pad,
         "z": np.ascontiguousarray(cluster.z_rtt.T),          # (J, T)
     }
-    if st.needs_pred:
+    if st.needs_pred and not st.closed_loop:
         consts["z_pred"] = np.asarray(cluster.z_pred, float)  # (T, J, R)
     if st.policy == "random":
         consts["draw"] = _policy_draws(J, T, K, rng_seed(cfg.seed, "policy"),
@@ -223,17 +256,37 @@ def _lower(cluster: _Cluster, policy: str, seed_blocks=None):
         consts["na_key"] = (node_of * A + cluster.app_of[None, :]
                             ).astype(np.int32)
     plan = {
-        "req_app": np.asarray(cluster.req_app, np.int64),
+        "req_app": req_app,
         "req_t": req_t,
-        "log_rbar": [float(np.log(m)) for m in cluster.mean_rtt],
+        "log_rbar": log_rbar,
+        "mean_rtt": [float(m) for m in cluster.mean_rtt],
         "bump": np.zeros(J, bool),
         "refresh": np.zeros(J, bool),
+        "drift": np.zeros(J, bool),
+        "cold": np.zeros(J, bool),
+        "retrain": np.zeros(J, bool),
     }
     if st.churn is not None:
         consts["down"] = node_of == np.asarray(cluster.failed_node)[:, None]
         plan["bump"] = _first_true(req_t >= st.churn[0])
+    if st.drift:
+        def post(name):
+            v = getattr(cluster, f"{name}_post")
+            return getattr(cluster, name) if v is None else v
+        irow_p, speed_p, plan["log_rbar_post"] = regime(
+            post("imat"), post("accel"), post("mean_rtt"))
+        consts.update(imat_post=irow_p, speed_post=speed_p)
+        plan["drift"] = req_t >= cfg.t_drift
+    if st.cold_start:
+        plan["cold"] = req_t < cfg.cold_start_s
     if st.snapshot:
-        plan["refresh"] = _refresh_schedule(cfg, req_t, np.ones(J, bool))
+        # the Eq. 12 path consults the snapshot only past cold start;
+        # the closed loop at every step
+        call = np.ones(J, bool) if st.closed_loop else ~plan["cold"]
+        plan["refresh"] = _refresh_schedule(cfg, req_t, call)
+    if st.closed_loop:
+        plan["retrain"] = retrain_schedule(cfg, req_t)
+        consts["req_app"] = req_app
     return st, consts, plan
 
 
@@ -276,7 +329,7 @@ def _pop_round(cnt: torch.Tensor, counted: torch.Tensor, ex: torch.Tensor,
     trial2 = torch.arange(T, device=dev)[:, None].expand(T, 2 * A)
     cnt.index_put_((app2, trial2, nn), -dec.to(cnt.dtype), accumulate=True)
     ii = torch.cat([torch.where(hasb, i1, R), torch.where(has2, i2, R)], 1)
-    counted[trial2, ii] = False
+    counted.scatter_(1, ii, False)
 
 
 def _expire(cnt: torch.Tensor, counted: torch.Tensor,
@@ -301,8 +354,10 @@ def _expire(cnt: torch.Tensor, counted: torch.Tensor,
 # ----------------------------------------------------------------------
 # the request loop
 def _simulate(st: _Static, c: Dict[str, torch.Tensor], plan):
-    """Run every request; returns (final busy, per-step outputs, number
-    of host syncs the expiry rounds made)."""
+    """Run every request; returns the final state: ``busy`` (T, R), the
+    per-step outputs ``ys``, ``syncs`` (the expiry rounds' host syncs),
+    ``fallback`` (T,) (routings by the least_conn fallback) and, in the
+    closed loop, the ``fleet``."""
     dev = c["node_of"].device
     f64, i32 = torch.float64, torch.int32
     A, K, N = st.n_apps, st.k, st.n_nodes
@@ -312,8 +367,11 @@ def _simulate(st: _Static, c: Dict[str, torch.Tensor], plan):
     full_actual, need_live, need_snap = _count_flags(st)
     trial = torch.arange(T, device=dev)
     colK = torch.arange(K, device=dev)[None, :]
-    lr = plan["log_rbar"]
     syncs = 0
+    # (imat rows, candidate speeds, log mean RTTs) before and after drift
+    pre = (c["imat"], c["speed"], plan["log_rbar"])
+    post = (c["imat_post"], c["speed_post"], plan["log_rbar_post"]) \
+        if st.drift else pre
 
     def recount(busy_src, now):
         """From-scratch (A, T, N) busy counts and the (T, R + 1)
@@ -325,26 +383,28 @@ def _simulate(st: _Static, c: Dict[str, torch.Tensor], plan):
         counted[:, :R] = busyb
         return cnt, counted
 
-    def rtt_full(a, counts, z):
+    def rtt_full(a, reg, counts, z):
         """True RTT over the app's whole candidate row (T, K) from the
         per-(node, app) counts contracted with the app's imat row."""
-        iw = c["imat"][a]                                  # (T, A)
+        imat, speed, lr = reg
+        iw = imat[a]                                       # (T, A)
         w_cnt = counts[0] * iw[:, 0:1]                     # (T, N)
         for a_ in range(1, A):
             w_cnt = w_cnt + counts[a_] * iw[:, a_:a_ + 1]
         inter = w_cnt.gather(1, c["cand_node"][a])
-        return _lognormal(inter, lr[a], z[:, None]) * c["speed"][a]
+        return _lognormal(inter, lr[a], z[:, None]) * speed[a]
 
-    def rtt_at(a, busy_src, now, z, cand):
+    def rtt_at(a, reg, busy_src, now, z, cand):
         """True RTT at candidate slots ``cand`` (T, Kq), summing the
         busy co-located replicas from the static mates table."""
+        imat, speed, lr = reg
         nodes = c["cand_node"][a].gather(1, cand)          # (T, Kq)
-        sp = c["speed"][a].gather(1, cand)
+        sp = speed[a].gather(1, cand)
         t_ = trial[:, None]
         mi = c["mate_idx"][t_, nodes]                      # (T, Kq, B)
         ma = c["mate_app"][t_, nodes]
         mp = c["mate_pad"][t_, nodes]
-        w = c["imat"][a].gather(1, ma.reshape(T, -1)).view(ma.shape)
+        w = imat[a].gather(1, ma.reshape(T, -1)).view(ma.shape)
         bg = busy_src.gather(1, mi.reshape(T, -1)).view(mi.shape)
         inter = torch.where((bg > now) & ~mp, w, 0.0).sum(-1)
         return _lognormal(inter, lr[a], z[:, None]) * sp
@@ -355,6 +415,12 @@ def _simulate(st: _Static, c: Dict[str, torch.Tensor], plan):
     if need_live:
         cnt = torch.zeros((A, T, N), dtype=i32, device=dev)
         counted = torch.zeros((T, R + 1), dtype=torch.bool, device=dev)
+    snap = None                        # until the snapshot first refreshes
+    fleet = OnlineFleet(N, A, T, J, plan["mean_rtt"],
+                        obs_window=st.obs_window, acc_window=st.acc_window,
+                        device=dev) \
+        if st.closed_loop else None
+    fallback = torch.zeros(T, dtype=torch.int64, device=dev)
     ys = {"resp": torch.empty((J, T), dtype=f64, device=dev),
           "rtt": torch.empty((J, T), dtype=f64, device=dev),
           "rep": torch.empty((J, T), dtype=torch.int64, device=dev),
@@ -365,6 +431,7 @@ def _simulate(st: _Static, c: Dict[str, torch.Tensor], plan):
         a = int(plan["req_app"][j])
         now = float(plan["req_t"][j])
         a0 = a * K
+        reg = post if plan["drift"][j] else pre
         if plan["bump"][j]:
             # churn: the failed node's replicas stay busy until it is
             # back; applied once, at the first request past t_fail
@@ -385,7 +452,8 @@ def _simulate(st: _Static, c: Dict[str, torch.Tensor], plan):
                     s_cnt, s_cted = cnt.clone(), counted.clone()
                 else:
                     s_cnt, s_cted = recount(busy, now)
-            syncs += _expire(s_cnt, s_cted, snap, now, c["node_of"], K)
+            if snap is not None:
+                syncs += _expire(s_cnt, s_cted, snap, now, c["node_of"], K)
         z = c["z"][j]
 
         hmask = None
@@ -401,18 +469,40 @@ def _simulate(st: _Static, c: Dict[str, torch.Tensor], plan):
             picks = torch.argmin(sc, dim=1)
             if st.policy == "round_robin":
                 cursor = (picks + 1) % K
-            rtt_pick = rtt_at(a, busy, now, z, picks[:, None])[:, 0]
+            rtt_pick = rtt_at(a, reg, busy, now, z, picks[:, None])[:, 0]
         else:
-            actual = rtt_full(a, cnt, z) if full_actual else None
-            if st.needs_pred:
-                basis = rtt_full(a, s_cnt, z) if st.snapshot else actual
+            actual = rtt_full(a, reg, cnt, z) if full_actual else None
+            if st.closed_loop:
+                # the serial order: fold the completed predictions into
+                # the trackers, retrain, then predict from the features
+                prev = float(plan["req_t"][j - 1]) if j else -np.inf
+                fleet.fold_pending(j, now, prev, c["req_app"])
+                if plan["retrain"][j]:
+                    fleet.retrain(now)
+                counts_src = s_cnt if st.snapshot else cnt
+                fleet_pred = fleet.predict(a, counts_src, c["cand_node"][a])
+                predicted = fleet_pred
+                if st.fallback:
+                    # a non-viable trial scores by queue wait alone
+                    ok = fleet.viable(a, st.fallback_threshold)
+                    predicted = torch.where(ok[:, None], fleet_pred, 0.0)
+                    fallback += ~ok
+            elif st.needs_pred:
+                if plan["cold"][j]:
+                    # no predictor has trained yet: the app-mean RTT
+                    basis = torch.full((T, K), plan["mean_rtt"][a],
+                                       dtype=f64, device=dev)
+                elif st.snapshot:
+                    basis = rtt_full(a, reg, s_cnt, z)
+                else:
+                    basis = actual
                 eps = (1.0 - st.accuracy) * basis
                 predicted = basis + eps * c["z_pred"][:, j, a0:a0 + K]
             sig = predicted if st.policy == "perf_aware" else actual
             sc = wait_c + sig
             picks = torch.argmin(sc, dim=1)
             rtt_pick = _pick(actual, picks) if full_actual \
-                else rtt_at(a, busy, now, z, picks[:, None])[:, 0]
+                else rtt_at(a, reg, busy, now, z, picks[:, None])[:, 0]
             if st.hedging:
                 # runner-up by score; hedge when the pick's signal
                 # exceeds hedge x the best busy replica's completion
@@ -427,7 +517,7 @@ def _simulate(st: _Static, c: Dict[str, torch.Tensor], plan):
         new_c = torch.where(colK == picks[:, None], finish[:, None], busy_c)
         if hmask is not None:
             rtt2 = _pick(actual, second) if full_actual \
-                else rtt_at(a, busy, now, z, second[:, None])[:, 0]
+                else rtt_at(a, reg, busy, now, z, second[:, None])[:, 0]
             finish2 = _pick(busy_c, second).clamp(min=now) + rtt2
             resp = torch.where(hmask, torch.minimum(finish, finish2),
                                finish) - now
@@ -438,6 +528,11 @@ def _simulate(st: _Static, c: Dict[str, torch.Tensor], plan):
         else:
             resp = finish - now
         busy[:, a0:a0 + K] = new_c
+        if st.closed_loop:
+            # the routed request trains the fleet: the pick's features
+            # (counts before this dispatch), true RTT and completion
+            fleet.observe(j, a, counts_src, _pick(c["cand_node"][a], picks),
+                          rtt_pick, finish, _pick(fleet_pred, picks))
         if need_live:
             # +1 per newly busy replica (a pick with queued work is
             # already counted)
@@ -446,24 +541,29 @@ def _simulate(st: _Static, c: Dict[str, torch.Tensor], plan):
             add1 = ~_pick(counted, r1)
             cnt[a].index_put_((trial, _pick(nodes_row, picks)),
                               add1.to(i32), accumulate=True)
-            counted[trial, r1] = True
+            counted.scatter_(1, r1[:, None], True)
             if hmask is not None:
                 r2 = a0 + second
                 add2 = hmask & ~_pick(counted, r2)
                 cnt[a].index_put_((trial, _pick(nodes_row, second)),
                                   add2.to(i32), accumulate=True)
-                counted[trial, torch.where(hmask, r2, R)] = True
+                counted.scatter_(1, torch.where(hmask, r2, R)[:, None], True)
         ys["resp"][j] = resp
         ys["rtt"][j] = rtt_pick
         ys["rep"][j] = a0 + picks
-    return busy, ys, syncs
+    if st.closed_loop:
+        # everything has completed: the serial run's final fold
+        fleet.fold_pending(J, np.inf, float(plan["req_t"][-1]),
+                           c["req_app"])
+    return {"busy": busy, "ys": ys, "syncs": syncs, "fallback": fallback,
+            "fleet": fleet}
 
 
 # ----------------------------------------------------------------------
 # host-side summary (the reference's _Metrics summary)
-def _summarize(cluster: _Cluster, busy: np.ndarray,
-               ys: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+def _summarize(cluster: _Cluster, final, plan) -> Dict[str, np.ndarray]:
     m = _Metrics(cluster.cfg)
+    ys = {k: v.cpu().numpy() for k, v in final["ys"].items()}
     resp = ys["resp"].T                              # (T, J)
     rtt = ys["rtt"].T
     hmask = ys["hmask"].T
@@ -478,7 +578,12 @@ def _summarize(cluster: _Cluster, busy: np.ndarray,
     m.slo_violation_s = np.maximum(resp - m.slo, 0.0).sum(axis=1)
     m.n_hedged = int(hmask.sum())
     m.hedged = hmask.sum(axis=1).astype(np.int64)
-    return m.summary(cluster, busy_until=busy)
+    m.fallback = final["fallback"].cpu().numpy()
+    summary = m.summary(cluster, busy_until=final["busy"])
+    if final["fleet"] is not None:
+        summary["online"] = final["fleet"].stats(
+            plan["req_app"], plan["req_t"], plan["retrain"])
+    return summary
 
 
 # ----------------------------------------------------------------------
@@ -491,10 +596,11 @@ def run_compiled(cluster: _Cluster, policy: str, *, seed_blocks=None,
     .run()`` on supported configs; raises NotImplementedError naming the
     feature on an unsupported one.  Besides the reference's summary keys
     it reports ``loop_s`` (wall seconds of the request loop, device work
-    included) and ``host_syncs`` (the expiry rounds' host syncs).
-    ``seed_blocks`` mirrors RandomChoice's campaign blocks.
-    ``device=None`` runs on the CUDA card (RuntimeError without one);
-    ``device="cpu"`` on the CPU.
+    included), ``host_syncs`` (the expiry rounds' host syncs) and
+    ``fallback_per_trial``; a closed-loop pass adds the fleet's
+    ``online`` stats.  ``seed_blocks`` mirrors RandomChoice's campaign
+    blocks.  ``device=None`` runs on the CUDA card (RuntimeError without
+    one); ``device="cpu"`` on the CPU.
     """
     dev = resolve_device(device)
     reason = supports(cluster.cfg, policy)
@@ -504,12 +610,12 @@ def run_compiled(cluster: _Cluster, policy: str, *, seed_blocks=None,
     st, consts, plan = _lower(cluster, policy, seed_blocks)
     c = {k: torch.as_tensor(v, device=dev) for k, v in consts.items()}
     t0 = time.perf_counter()
-    busy, ys, syncs = _simulate(st, c, plan)
-    busy = busy.cpu().numpy()            # waits for the device
+    final = _simulate(st, c, plan)
+    final["busy"] = final["busy"].cpu().numpy()     # waits for the device
     loop_s = time.perf_counter() - t0
-    summary = _summarize(cluster, busy,
-                         {k: v.cpu().numpy() for k, v in ys.items()})
-    summary.update(device=str(dev), loop_s=loop_s, host_syncs=syncs)
+    summary = _summarize(cluster, final, plan)
+    summary.update(device=str(dev), loop_s=loop_s,
+                   host_syncs=final["syncs"])
     return summary
 
 

@@ -8,10 +8,10 @@ same cluster bit for bit), and the summary half of :class:`_Metrics`.
 The serial stepper is not ported: the reference's stays the semantics
 the port is tested against.
 
-Fields of features the port does not lower yet (capacity plane,
-resilience, trace, drift, cold start, closed loop) stay on
-:class:`SimConfig` as optional values so configurations carry over
-unchanged; :func:`unlowered` names the first one a config sets.
+Fields of features the port does not lower yet (capacity plane, spot
+preemption, resilience, trace) stay on :class:`SimConfig` as optional
+values so configurations carry over unchanged; :func:`unlowered` names
+the first one a config sets.
 """
 from __future__ import annotations
 
@@ -62,17 +62,19 @@ class SimConfig:
     interference_profile: str = "uniform"   # or "hotspot"
     cold_start_s: float = 0.0               # untrained-predictor window
     outage: Optional[Tuple[float, float]] = None  # (t_start_s, duration_s)
-    # -- not lowered in the port yet: carried so configs stay whole ----
+    # -- closed-loop online prediction (core/online.py) ------------------
     closed_loop: bool = False
-    online_warmup_s: float = 20.0
-    retrain_every_s: float = 0.0
-    online_window: int = 400
-    fallback_threshold: float = 0.0
-    accuracy_window: int = 40
-    t_drift: Optional[float] = None
-    drift_interference: Optional[float] = None
-    drift_rtt_factor: Optional[Tuple[float, ...]] = None
-    drift_tier_shuffle: bool = False
+    online_warmup_s: float = 20.0     # observe-only window before 1st train
+    retrain_every_s: float = 0.0      # 0 -> train once at warmup, frozen
+    online_window: int = 400          # rolling observation window (requests)
+    fallback_threshold: float = 0.0   # accuracy floor; 0 disables fallback
+    accuracy_window: int = 40         # rolling accuracy tracker length
+    # -- mid-run workload drift ----------------------------------------
+    t_drift: Optional[float] = None               # drift onset (s)
+    drift_interference: Optional[float] = None    # redraw imat, new strength
+    drift_rtt_factor: Optional[Tuple[float, ...]] = None  # per-app factors
+    drift_tier_shuffle: bool = False              # permute node speeds
+    # -- not lowered in the port yet: carried so configs stay whole ----
     capacity: Optional[Any] = None
     preempt: Optional[Tuple[float, float]] = None
     resilience: Optional[Any] = None
@@ -83,9 +85,6 @@ def unlowered(cfg: SimConfig) -> Optional[str]:
     """The first feature ``cfg`` sets that the port does not lower yet,
     as a human-readable reason; None when the port runs it whole."""
     checks = (
-        (cfg.cold_start_s > 0, "cold start (cold_start_s)"),
-        (cfg.t_drift is not None, "workload drift (t_drift)"),
-        (cfg.closed_loop, "the closed-loop online fleet (closed_loop)"),
         (cfg.capacity is not None, "the capacity plane (capacity)"),
         (cfg.preempt is not None, "spot preemption (preempt)"),
         (cfg.resilience is not None, "the resilience plane (resilience)"),
@@ -164,8 +163,10 @@ class _Cluster:
 
     ``imat`` is (A, A) for a single-seed cluster and (T, A, A) for the
     campaign's stacked clusters (each seed drew its own mix).  The
-    optional fields belong to features the port does not lower yet;
-    they are kept so a reference cluster carries over whole
+    ``*_post`` arrays are the post-drift regime (active once ``now >=
+    cfg.t_drift``): a None field keeps its pre-drift counterpart.  The
+    other optional fields belong to features the port does not lower
+    yet; they are kept so a reference cluster carries over whole
     (``repro_torch.interop.cluster_from_reference``).
     """
     cfg: SimConfig
@@ -191,10 +192,11 @@ class _Cluster:
 
 
 def _build_cluster(cfg: SimConfig) -> _Cluster:
-    """Topology + request stream + noise, in the reference's RNG order.
+    """Topology + request stream + noise + the post-drift regime, in the
+    reference's RNG order.
 
-    Raises NotImplementedError for configs whose extra draws (drift,
-    preemption, faults) belong to features the port does not lower."""
+    Raises NotImplementedError for configs whose extra draws
+    (preemption, faults) belong to features the port does not lower."""
     reason = unlowered(cfg)
     if reason is not None:
         raise NotImplementedError(reason)
@@ -228,15 +230,34 @@ def _build_cluster(cfg: SimConfig) -> _Cluster:
     if cfg.churn is not None:
         failed_node = rng_stream(cfg.seed, "churn").integers(
             0, cfg.n_nodes, size=T)
+    mean_rtt = np.array([APPS[a][0] for a in cfg.apps])
+    # post-drift regime: redrawn interference mix, reshuffled node
+    # speeds, rescaled app means, from the drift stream in this order
+    imat_post = accel_post = mean_rtt_post = None
+    if cfg.t_drift is not None:
+        drift_rng = rng_stream(cfg.seed, "drift")
+        if cfg.drift_interference is not None:
+            imat_post = _apply_interference_profile(
+                _interference_matrix(cfg.apps, cfg.drift_interference,
+                                     drift_rng),
+                cfg.interference_profile, A)
+        if cfg.drift_tier_shuffle:
+            perm = np.argsort(drift_rng.random((T, cfg.n_nodes)), axis=1)
+            accel_post = np.take_along_axis(accel, perm, axis=1)
+        if cfg.drift_rtt_factor is not None:
+            factor = np.broadcast_to(
+                np.asarray(cfg.drift_rtt_factor, float), (A,))
+            mean_rtt_post = mean_rtt * factor
     return _Cluster(
         cfg=cfg,
         app_of=np.repeat(np.arange(A), cfg.n_replicas_per_app),
-        mean_rtt=np.array([APPS[a][0] for a in cfg.apps]),
+        mean_rtt=mean_rtt,
         cpu_req=np.array([APPS[a][1] for a in cfg.apps]),
         mem_req=np.array([APPS[a][2] for a in cfg.apps]),
         imat=imat, node_of=node_of, accel=accel,
         req_app=req_app, req_t=req_t, z_rtt=z_rtt, z_pred=z_pred,
-        failed_node=failed_node)
+        failed_node=failed_node, imat_post=imat_post,
+        accel_post=accel_post, mean_rtt_post=mean_rtt_post)
 
 
 class _Metrics:
@@ -254,6 +275,8 @@ class _Metrics:
         self.chosen = np.zeros((T, J), dtype=np.int64)
         self.n_hedged = 0
         self.hedged = np.zeros(T, dtype=np.int64)   # per-trial hedge count
+        #: least_conn-fallback routings of the closed loop, per trial
+        self.fallback = np.zeros(T, dtype=np.int64)
         self.slo = DEFAULT_SLO_S
         self.busy_s = np.zeros(T)           # replica-seconds of service
         self.slo_violation_s = np.zeros(T)  # response time above the SLO
@@ -289,6 +312,8 @@ class _Metrics:
                 "cpu_s": self.cpu_s, "mem_s": self.mem_s,
                 "chosen": self.chosen, "n_hedged": self.n_hedged,
                 "hedged_per_trial": self.hedged,
+                "n_fallback": int(self.fallback.sum()),
+                "fallback_per_trial": self.fallback,
                 "provisioned_s": provisioned, "busy_s": self.busy_s,
                 "waste": waste,
                 "shed_rate": self.shed.mean(axis=1),

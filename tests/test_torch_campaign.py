@@ -48,10 +48,55 @@ def test_campaign_matches_serial(name):
         assert recounts > 0
 
 
+@pytest.mark.parametrize("name,kw", [
+    ("cold-start", KW), ("mixed-app-fleet", KW),
+    ("drift-fallback", dict(KW, arrival_rate=2.0, t_drift=20.0,
+                            online_warmup_s=8.0, retrain_every_s=6.0)),
+    ("colocation-drift", dict(KW, arrival_rate=2.0, t_drift=20.0,
+                              online_warmup_s=8.0, retrain_every_s=6.0))])
+def test_campaign_matches_serial_on_new_scenarios(name, kw):
+    """The stacked seed grid through the closed loop and the drift
+    switch equals the serial campaign; the per-seed fallback counts
+    equal the serial stepper's on each seed's own cluster."""
+    port = run_scenario(name, device="cpu", **kw)
+    serial = ref_run_scenario(name, backend="serial", **kw)
+    for pol, want in serial.items():
+        got = port[pol]
+        for k in SUMMARY_STATS + ("hedged",):
+            np.testing.assert_allclose(got.per_seed[k], want.per_seed[k],
+                                       rtol=RTOL, atol=1e-7,
+                                       err_msg=f"{name}/{pol}/{k}")
+        if want.inefficiency_pct is not None:
+            np.testing.assert_allclose(got.inefficiency_pct,
+                                       want.inefficiency_pct, rtol=RTOL,
+                                       atol=1e-7)
+    fb = port["perf_aware"].per_seed["fallback"]
+    assert port["perf_aware"].n_fallback == fb.sum()
+    seeds = kw["seeds"]
+    want_fb = [_serial_fallback(name, s, kw) for s in seeds]
+    np.testing.assert_array_equal(fb, want_fb)
+    if name == "drift-fallback":
+        assert fb.sum() > 0
+
+
+def _serial_fallback(name, seed, kw):
+    from repro.core.balancer import make_policy
+    from repro.core.rng import rng_seed
+    from repro.core.scenarios import get_scenario as ref_scenario
+    from repro.core.simulator import SimStepper, _build_cluster
+    over = {k: v for k, v in kw.items() if k != "seeds"}
+    cfg = ref_scenario(name).compile(seed=seed, **over)
+    pol = make_policy("perf_aware", seed=rng_seed(seed, "policy"),
+                      hedge_factor=cfg.hedge_factor)
+    return SimStepper(_build_cluster(cfg), pol).run()["n_fallback"]
+
+
 def test_campaign_refuses_unlowered_scenario():
     from repro.core.scenarios import get_scenario as ref_scenario
     from repro_torch.core.scenarios import ScenarioSpec
-    ref = ref_scenario("cold-start")
-    spec = ScenarioSpec(name=ref.name, cold_start_s=ref.cold_start_s)
-    with pytest.raises(NotImplementedError, match="cold start"):
+    ref = ref_scenario("overload-ramp")
+    spec = ScenarioSpec(name=ref.name, capacity=ref.capacity,
+                        arrival_process=ref.arrival_process,
+                        arrival_params=ref.arrival_params)
+    with pytest.raises(NotImplementedError, match="capacity plane"):
         run_scenario(spec, device="cpu", **KW)

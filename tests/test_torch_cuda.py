@@ -67,27 +67,74 @@ def test_segment_sum_kernel_matches_plain(cuda, T, R, B, dtype, tol):
                        segment_sum_plain(mask, ids, B))
 
 
+def _unaligned(x):
+    """A contiguous copy of ``x`` whose base is 8 bytes past a 16-byte
+    boundary (the kernel then takes its scalar loads)."""
+    flat = torch.empty(x.numel() + 2, dtype=x.dtype, device=x.device)
+    off = 2 if x.element_size() == 4 else 1
+    out = flat[off:off + x.numel()].view(x.shape)
+    out.copy_(x)
+    assert out.data_ptr() % 16 == 8
+    return out
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
+                                       (torch.float32, 1e-5)])
+@pytest.mark.parametrize("T,R,B,where", [
+    (256, 1000, 1250, "vector loads, the simulation path's shape"),
+    (256, 1001, 1250, "scalar loads: R % 4 != 0"),
+    (256, 1000, 1251, "odd B: scalar head or tail of the 16-byte stores"),
+    (4, 1000, 6145, "bin tiles: B past 48 KB of f64 histogram"),
+    (37, 1000, 999, "unaligned base pointers: scalar loads"),
+    (3, 8000, 1250, "more than one pass of vector loads a thread")])
+def test_segment_sum_load_and_store_paths(cuda, T, R, B, where, dtype,
+                                          tol):
+    rng = np.random.default_rng(5)
+    ids = torch.as_tensor(rng.integers(-3, B + 3, size=(T, R)),
+                          dtype=torch.int32, device=cuda)
+    v = torch.as_tensor(rng.standard_normal((T, R)), dtype=dtype,
+                        device=cuda)
+    mask = (v > 0).to(dtype)
+    if where.startswith("unaligned"):
+        ids, v, mask = _unaligned(ids), _unaligned(v), _unaligned(mask)
+    got = segment_sum(v, ids, B)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, segment_sum_plain(v, ids, B),
+                               rtol=tol, atol=tol, msg=where)
+    assert torch.equal(segment_sum(mask, ids, B),
+                       segment_sum_plain(mask, ids, B)), where
+
+
 def test_segment_sum_rejects_cpu_ids_with_cuda_values(cuda):
     v = torch.zeros((2, 3), dtype=torch.float64, device=cuda)
     with pytest.raises(ValueError):
         segment_sum(v, torch.zeros((2, 3), dtype=torch.int32), 4)
 
 
-@pytest.mark.parametrize("name", ("stale-predictions", "churn"))
+@pytest.mark.parametrize("name", ("stale-predictions", "churn",
+                                  "cold-start", "drift-fallback"))
 def test_campaign_cuda_matches_cpu(cuda, name):
     kw = dict(seeds=(0, 1), n_trials=8, n_requests=150, n_nodes=30,
               n_replicas_per_app=20)
+    if name == "drift-fallback":
+        # warm-up, retrains, the drift onset and the fallback in the run
+        kw.update(arrival_rate=2.0, t_drift=40.0, online_warmup_s=10.0,
+                  retrain_every_s=6.0)
     launches = segment_sum.launches
     on_gpu = run_scenario(name, device="cuda", **kw)
-    assert segment_sum.launches > launches
+    assert (segment_sum.launches > launches) == (name in ("stale-predictions",
+                                                          "churn"))
     on_cpu = run_scenario(name, device="cpu", **kw)
     for pol, want in on_cpu.items():
         got = on_gpu[pol]
-        for k in SUMMARY_STATS + ("hedged",):
+        for k in SUMMARY_STATS + ("hedged", "fallback"):
             np.testing.assert_allclose(got.per_seed[k], want.per_seed[k],
                                        rtol=1e-5, atol=1e-7,
                                        err_msg=f"{name}/{pol}/{k}")
         assert got.n_hedged == want.n_hedged
+        assert got.n_fallback == want.n_fallback
+    if name == "drift-fallback":
+        assert on_cpu["perf_aware"].n_fallback > 0
 
 
 ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}

@@ -8,7 +8,7 @@ reference's separately).  The port runs with ``device="cpu"``.  Summary
 stats must agree to 1e-5 relative (the reference's own contract); in
 practice the two differ by rounding only and pick the same replicas.
 """
-from dataclasses import fields
+from dataclasses import fields, replace
 
 import numpy as np
 import pytest
@@ -17,20 +17,35 @@ import torch
 from repro.core.balancer import make_policy
 from repro.core.rng import rng_seed
 from repro.core.scenarios import get_scenario as ref_scenario
+from repro.core.scenarios import scenario_names as ref_scenario_names
 from repro.core.simulator import SimStepper
 from repro.core.simulator import _build_cluster as ref_build
 from repro_torch.core import simcore
 from repro_torch.core.campaign import SUMMARY_STATS
 from repro_torch.core.scenarios import get_scenario, scenario_names
-from repro_torch.core.simulator import _build_cluster, _Cluster
+from repro_torch.core.simulator import _build_cluster, _Cluster, unlowered
 from repro_torch.interop import cluster_from_reference, config_from_reference
 
 NINE = ("baseline", "colocation-surge", "hetero-tiers", "diurnal",
         "flash-crowd", "bursty", "churn", "stale-predictions",
         "metric-outage")
+#: the scenarios this slice lowers: cold start, the closed-loop drift
+#: scenarios (with the fallback) and the mixed fleet
+SIX = ("cold-start", "tier-drift", "app-drift", "colocation-drift",
+       "drift-fallback", "mixed-app-fleet")
+#: the registry, in the reference's order
+FIFTEEN = ("baseline", "colocation-surge", "hetero-tiers", "diurnal",
+           "flash-crowd", "bursty", "churn", "stale-predictions",
+           "cold-start", "metric-outage", "tier-drift", "app-drift",
+           "colocation-drift", "drift-fallback", "mixed-app-fleet")
 POLICIES = ("round_robin", "random", "least_conn", "perf_aware", "oracle")
 SMALL = dict(n_trials=4, n_requests=150)
 RTOL = 1e-5
+#: the drift scenarios with the timeline compressed so the drift onset,
+#: warm-up and several retrains fall inside the run
+CROSSING = dict(n_trials=3, n_requests=80, arrival_rate=2.0, t_drift=20.0)
+FALLBACK_CROSSING = dict(CROSSING, online_warmup_s=8.0,
+                         retrain_every_s=6.0)
 
 
 def _serial(cluster, policy):
@@ -47,13 +62,28 @@ def _assert_summary_close(port, serial, label):
     assert port["n_hedged"] == serial["n_hedged"], label
     np.testing.assert_array_equal(port["hedged_per_trial"],
                                   serial["hedged_per_trial"])
+    assert port["n_fallback"] == serial["n_fallback"], label
+    assert ("online" in port) == ("online" in serial), label
+    if "online" in serial:
+        got, want = port["online"], serial["online"]
+        np.testing.assert_array_equal(got["versions"], want["versions"])
+        np.testing.assert_allclose(got["retrain_times"],
+                                   want["retrain_times"], rtol=0, atol=0)
+        np.testing.assert_allclose(got["trained_frac"], want["trained_frac"],
+                                   rtol=RTOL, err_msg=f"{label}/trained")
+        np.testing.assert_allclose(got["accuracy"], want["accuracy"],
+                                   rtol=RTOL, atol=1e-7,
+                                   err_msg=f"{label}/accuracy")
 
 
 def test_registry_is_the_nine_standing_scenarios():
-    assert tuple(scenario_names()) == NINE
+    """The registry: the nine standing-matrix scenarios and the six this
+    slice lowers, in the reference's order."""
+    assert tuple(scenario_names()) == FIFTEEN
+    assert set(NINE) | set(SIX) == set(FIFTEEN)
 
 
-@pytest.mark.parametrize("name", NINE)
+@pytest.mark.parametrize("name", FIFTEEN)
 def test_cluster_build_bit_identical(name):
     ref_cfg = ref_scenario(name).compile(seed=3, **SMALL)
     cfg = get_scenario(name).compile(seed=3, **SMALL)
@@ -88,7 +118,7 @@ def test_cluster_from_reference_round_trips():
 
 
 @pytest.mark.parametrize("policy", POLICIES)
-@pytest.mark.parametrize("name", NINE)
+@pytest.mark.parametrize("name", FIFTEEN)
 def test_core_matches_serial_stepper(name, policy):
     ref = ref_build(ref_scenario(name).compile(seed=0, **SMALL))
     port = simcore.run_compiled(cluster_from_reference(ref), policy,
@@ -111,6 +141,54 @@ def test_hedging_matches_serial_stepper(name, policy):
     assert serial["n_hedged"] > 0          # the hedge actually fired
     _assert_summary_close(port, serial, f"hedge/{name}/{policy}")
     np.testing.assert_array_equal(port["chosen"], serial["chosen"])
+
+
+@pytest.mark.parametrize("policy", POLICIES)
+@pytest.mark.parametrize("name,kw", [
+    ("tier-drift", CROSSING), ("app-drift", CROSSING),
+    ("colocation-drift", CROSSING), ("drift-fallback", FALLBACK_CROSSING)])
+def test_drift_crossing_matches_serial_stepper(name, kw, policy):
+    """The registry's horizon at test size ends before t_drift; these
+    compress the timeline so the regime switch (and, for drift-fallback,
+    warm-up, retrains and the fallback) happen inside the run."""
+    ref = ref_build(ref_scenario(name).compile(seed=0, **kw))
+    port = simcore.run_compiled(cluster_from_reference(ref), policy,
+                                device="cpu")
+    serial = _serial(ref, policy)
+    _assert_summary_close(port, serial, f"crossing/{name}/{policy}")
+    np.testing.assert_array_equal(port["chosen"], serial["chosen"])
+    if name == "drift-fallback" and policy == "perf_aware":
+        assert serial["n_fallback"] > 0        # the fallback fired
+
+
+@pytest.mark.parametrize("policy", ("perf_aware", "oracle"))
+@pytest.mark.parametrize("name,kw", [
+    ("drift-fallback", dict(FALLBACK_CROSSING, hedge_factor=0.5)),
+    ("drift-fallback", dict(FALLBACK_CROSSING, prediction_lag_s=5.0,
+                            outage=(15.0, 10.0), hedge_factor=0.7)),
+    ("cold-start", dict(SMALL, prediction_lag_s=5.0)),
+    ("cold-start", dict(SMALL, hedge_factor=0.5, arrival_rate=8.0))])
+def test_closed_loop_and_cold_start_compose(name, kw, policy):
+    """Combinations no registered scenario has: the fleet with hedging
+    (the oracle then carries a fleet too) and with a stale, outage-frozen
+    snapshot; cold start with a snapshot (consulted only past cold start)
+    and with hedging."""
+    ref = ref_build(ref_scenario(name).compile(seed=1, **kw))
+    port = simcore.run_compiled(cluster_from_reference(ref), policy,
+                                device="cpu")
+    serial = _serial(ref, policy)
+    _assert_summary_close(port, serial, f"{name}/{kw}/{policy}")
+    np.testing.assert_array_equal(port["chosen"], serial["chosen"])
+
+
+def test_post_drift_regime_carries_across():
+    ref = ref_build(ref_scenario("colocation-drift").compile(seed=2, **SMALL))
+    port = cluster_from_reference(ref)
+    for name in ("imat_post", "accel_post", "mean_rtt_post"):
+        assert getattr(ref, name) is not None
+        np.testing.assert_array_equal(getattr(port, name),
+                                      getattr(ref, name))
+    assert port.cfg.t_drift == ref.cfg.t_drift == 80.0
 
 
 def test_tied_argmin_takes_first_index():
@@ -182,7 +260,8 @@ def test_expire_random_states_match_brute_force():
 
 
 @pytest.mark.parametrize("name,feature", [
-    ("cold-start", "cold start"), ("tier-drift", "drift"),
+    ("retry-storm", "resilience"),
+    ("flash-crowd-autoscale", "capacity plane"),
     ("overload-ramp", "capacity plane"), ("gray-failure", "resilience")])
 def test_unlowered_planes_are_named_and_refused(name, feature):
     ref_cfg = ref_scenario(name).compile(seed=0, n_trials=2, n_requests=40)
@@ -201,3 +280,25 @@ def test_supports_rejects_unknown_policy():
     assert "unknown policy" in simcore.supports(cfg, "no_such_policy")
     for pol in POLICIES:
         assert simcore.supports(cfg, pol) is None
+
+
+def test_supports_every_registered_scenario_and_names_the_rest():
+    for name in FIFTEEN:
+        cfg = get_scenario(name).compile(seed=0, **SMALL)
+        for pol in POLICIES:
+            assert simcore.supports(cfg, pol) is None, (name, pol)
+    named = set()
+    for name in ref_scenario_names():
+        if name in FIFTEEN:
+            continue
+        cfg = config_from_reference(ref_scenario(name).compile(seed=0))
+        reason = simcore.supports(cfg, "perf_aware")
+        assert reason is not None, name
+        named |= {w for w in ("capacity", "preemption", "resilience",
+                              "trace") if w in reason}
+    assert named == {"capacity", "resilience"}
+    traced = get_scenario("baseline").compile(seed=0, trace=object())
+    assert "trace" in simcore.supports(traced, "perf_aware")
+    preempt = config_from_reference(ref_scenario("spot-preemption")
+                                    .compile(seed=0))
+    assert "preemption" in unlowered(replace(preempt, capacity=None))
