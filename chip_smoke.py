@@ -21,11 +21,14 @@ Phases (any failure raises and exits non-zero, with no result line):
    (for SSD, the FMA kernel on f32 beside the tensor-core one on bf16);
 4. the simulation path: ``run_scenario`` at full width (250 nodes, 200
    replicas per app, 1000 requests, 8 seeds x 32 trials) on baseline,
-   stale-predictions, churn, cold-start and drift-fallback (the
-   closed-loop fleet under drift) with the four default policies and the
-   oracle, counting kernel launches; then profiled full-width passes cut
-   to 100 requests (device busy share, largest kernels and host ops,
-   the host's waits on the device), outside the launch count;
+   stale-predictions, churn, cold-start, drift-fallback (the closed-loop
+   fleet under drift), the four capacity-plane scenarios (overload-ramp,
+   flash-crowd-autoscale, scale-to-zero-idle, spot-preemption: waste,
+   shed rate and the autoscaler's telemetry printed), gray-failure and
+   staleness-storm with the four default policies and the oracle,
+   counting kernel launches; then profiled full-width passes cut to 100
+   requests (device busy share, largest kernels and host ops, the
+   host's waits on the device), outside the launch count;
 5. the serving path: ``ServingEngine`` with qwen2-vl-7b at full width
    (28 layers, bf16, random weights from a seeded generator), 3 waves of
    8 requests (prompts of 256-1024 tokens, 32 new tokens each), counting
@@ -43,9 +46,9 @@ Phases (any failure raises and exits non-zero, with no result line):
    launches (three per layer and step) beside the attention kernels';
    then a profiled prefill and decode step outside the count;
 6. CUDA against the CPU: the campaign at a mid shape (summary stats
-   within 1e-5 relative; a closed-loop cell that misses is shown its
-   flipped pick and held to 1e-2) and the three serving paths at their
-   smoke configs in f32 (logits within 1e-4 relative, identical tokens);
+   within 1e-5 relative on every cell, the capacity plane's telemetry
+   counts equal) and the three serving paths at their smoke configs in
+   f32 (logits within 1e-4 relative, identical tokens);
 7. a ``kernels`` JSON line, the card's line, then the result line.
 """
 from __future__ import annotations
@@ -70,12 +73,19 @@ LARGE = dict(n_nodes=250, n_replicas_per_app=200, n_requests=1000)
 LARGE_SEEDS, LARGE_TRIALS = tuple(range(8)), 32
 MID = dict(n_nodes=60, n_replicas_per_app=50, n_requests=200)
 MID_SEEDS, MID_TRIALS = tuple(range(4)), 16
+CAPACITY_SCENARIOS = ("overload-ramp", "flash-crowd-autoscale",
+                      "scale-to-zero-idle", "spot-preemption")
 MAIN_SCENARIOS = ("baseline", "stale-predictions", "churn", "cold-start",
-                  "drift-fallback")
-KERNEL_SCENARIOS = ("stale-predictions", "churn")
+                  "drift-fallback") + CAPACITY_SCENARIOS \
+    + ("gray-failure", "staleness-storm")
+KERNEL_SCENARIOS = ("stale-predictions", "churn", "staleness-storm")
 PARITY_SCENARIOS = ("stale-predictions", "churn", "cold-start",
-                    "drift-fallback")
+                    "drift-fallback") + CAPACITY_SCENARIOS \
+    + ("gray-failure", "staleness-storm")
 PARITY_RTOL = 1e-5
+#: the capacity plane's integer telemetry, equal on the card and the CPU
+TELEMETRY = ("decisions", "scale_ups", "scale_downs", "wakeups",
+             "active_final", "routed_inactive")
 
 #: the serving path: qwen2-vl-7b at full width, 3 waves of 8 requests
 ARCH = "qwen2-vl-7b"
@@ -1220,6 +1230,19 @@ def main() -> int:
                   f"host syncs {r.host_syncs} (~{r.host_syncs * sync_us / 1e6:.2f} s), "
                   f"mean_rtt {r.stat('mean_rtt'):.4f} p99_rtt "
                   f"{r.stat('p99_rtt'):.4f}{ineff}{fb}")
+            if r.telemetry is not None:
+                tm = r.telemetry
+                assert tm["routed_inactive"] == 0, \
+                    f"{scen}/{pol} routed onto a drained replica"
+                print(f"    waste {r.stat('waste'):.4f} shed_rate "
+                      f"{r.stat('shed_rate'):.5f} slo_violation_s "
+                      f"{r.stat('slo_violation_s'):.1f}; epochs "
+                      f"{tm['decisions']}, scale-ups "
+                      f"{int(tm['scale_ups'].sum())}, scale-downs "
+                      f"{int(tm['scale_downs'].sum())}, wakeups "
+                      f"{int(tm['wakeups'].sum())}, active at the end "
+                      f"{int(tm['active_final'].sum())}, mean util "
+                      f"{float(tm['mean_util'].mean()):.3f}")
         if scen == "baseline":
             pa, rr = res["perf_aware"].stat("mean_rtt"), \
                 res["round_robin"].stat("mean_rtt")
@@ -1237,6 +1260,10 @@ def main() -> int:
     profile_pass("stale-predictions", "perf_aware", 100)
     profile_pass("stale-predictions", "least_conn", 100)
     profile_pass("drift-fallback", "perf_aware", 100)
+    # the capacity plane: perf_aware folds a prediction a step,
+    # least_conn the completions at each epoch (one host read an epoch)
+    profile_pass("spot-preemption", "perf_aware", 100)
+    profile_pass("spot-preemption", "least_conn", 100)
 
     # phase 5: the serving path at full width (each wave: the flash
     # kernel once per layer, the decode kernel once per layer and step)
@@ -1300,6 +1327,11 @@ def main() -> int:
             a, b = on_gpu[pol], on_cpu[pol]
             assert a.n_hedged == b.n_hedged, f"{scen}/{pol} n_hedged"
             assert a.n_fallback == b.n_fallback, f"{scen}/{pol} n_fallback"
+            assert (a.telemetry is None) == (b.telemetry is None)
+            for k in TELEMETRY if b.telemetry is not None else ():
+                np.testing.assert_array_equal(
+                    a.telemetry[k], b.telemetry[k],
+                    err_msg=f"{scen}/{pol} telemetry {k}")
             for k in SUMMARY_STATS + ("hedged", "fallback"):
                 x = np.asarray(a.per_seed[k], float)
                 y = np.asarray(b.per_seed[k], float)

@@ -64,8 +64,12 @@ def stack_clusters(clusters: Sequence[_Cluster]) -> _Cluster:
                              (t,) + getattr(c, attr).shape)
              for c, t in zip(clusters, trials)], axis=0)
 
+    def cat_opt(attr):
+        return None if getattr(c0, attr) is None else cat(attr)
+
     # the post-drift regime stacks like its pre-drift counterpart; the
-    # shared mean_rtt_post is config-derived, equal across seeds
+    # shared mean_rtt_post is config-derived, equal across seeds.  Every
+    # seed shares the arrival stream, hence one membership timeline.
     return _Cluster(
         cfg=replace(c0.cfg, n_trials=sum(trials)),
         app_of=c0.app_of, mean_rtt=c0.mean_rtt,
@@ -73,10 +77,12 @@ def stack_clusters(clusters: Sequence[_Cluster]) -> _Cluster:
         imat=cat_imat("imat"), node_of=cat("node_of"), accel=cat("accel"),
         req_app=c0.req_app, req_t=c0.req_t,
         z_rtt=cat("z_rtt"), z_pred=cat("z_pred"),
-        failed_node=None if c0.failed_node is None else cat("failed_node"),
+        failed_node=cat_opt("failed_node"),
         imat_post=None if c0.imat_post is None else cat_imat("imat_post"),
-        accel_post=None if c0.accel_post is None else cat("accel_post"),
-        mean_rtt_post=c0.mean_rtt_post)
+        accel_post=cat_opt("accel_post"), mean_rtt_post=c0.mean_rtt_post,
+        preempted_node=cat_opt("preempted_node"),
+        gray_rep=cat_opt("gray_rep"), group_rep=cat_opt("group_rep"),
+        z_jitter=cat_opt("z_jitter"))
 
 
 @dataclass
@@ -98,8 +104,14 @@ class PolicyResult:
     #: host (cluster build excluded), and of its request loop alone
     wall_s: Optional[float] = None
     loop_s: Optional[float] = None
-    #: host syncs the pass made (the expiry rounds' checks)
+    #: host syncs the pass made (the expiry rounds' checks and the
+    #: completion folds' round counts)
     host_syncs: int = 0
+    #: the capacity plane's telemetry over the stacked trials (epochs,
+    #: per-trial scale-ups / downs, wakes and final active counts,
+    #: routings onto a drained replica, mean utilisation); None without
+    #: a capacity plane
+    telemetry: Optional[Dict[str, object]] = None
 
     def stat(self, name: str) -> float:
         return float(self.per_seed[name].mean())
@@ -184,7 +196,8 @@ def run_scenario(scenario, policies: Sequence[str] = DEFAULT_POLICIES,
             per_seed=_split_per_seed(summary, trials),
             n_hedged=summary["n_hedged"],
             n_fallback=summary["n_fallback"], wall_s=wall,
-            loop_s=summary["loop_s"], host_syncs=summary["host_syncs"])
+            loop_s=summary["loop_s"], host_syncs=summary["host_syncs"],
+            telemetry=summary.get("capacity"))
     if include_oracle:
         for pol_name in wanted:
             if pol_name != "oracle":

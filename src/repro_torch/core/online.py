@@ -176,6 +176,8 @@ class OnlineFleet:
         fin = self.pd_fin[:j]
         new = fin <= now
         new[:j - 1] &= fin[:j - 1] > prev
+        if now == np.inf:
+            new &= fin < np.inf          # a shed request never completes
         self.tracker.fold(self.pd_err[:j], new, req_app[:j])
 
     def retrain(self, now: float) -> None:
@@ -213,11 +215,16 @@ class OnlineFleet:
 
     def observe(self, j: int, a: int, counts: torch.Tensor,
                 node: torch.Tensor, rtt: torch.Tensor, finish: torch.Tensor,
-                pred: torch.Tensor) -> None:
+                pred: torch.Tensor,
+                served: Optional[torch.Tensor] = None) -> None:
         """Record step ``j``'s routed request of every trial: the picked
         candidate's features (its node ``node`` (T,), the busy counts
         there before the dispatch), its true RTT, its completion time
-        and what the fleet predicted for it."""
+        and what the fleet predicted for it.  A trial whose request was
+        shed (``served`` False) never completes: its infinite completion
+        time keeps it out of training and of the tracker."""
+        if served is not None:
+            finish = torch.where(served, finish, np.inf)
         slot = j % self.Wn
         x = self.obs_X[slot]
         x.zero_()

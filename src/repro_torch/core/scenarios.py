@@ -4,9 +4,11 @@
 A :class:`ScenarioSpec` names one regime and compiles to the
 :class:`~repro_torch.core.simulator.SimConfig` the core runs.  The field
 set is the reference's, so a spec carries over whole; the registry holds
-the fifteen scenarios the port runs end to end: the nine of the standing
-matrix, cold start, the four closed-loop drift scenarios and the mixed
-fleet.
+the twenty-one scenarios the port runs end to end, in the reference's
+order: the nine of the standing matrix, cold start, the four closed-loop
+drift scenarios, the four capacity-plane scenarios, gray failure, the
+staleness storm and the mixed fleet.  The three left out need
+client-side resilience (timeouts, retries, breakers).
 
 Seed discipline: ``compile(seed=s)`` varies topology/noise with ``s``
 but pins the arrival stream to a per-scenario ``stream_seed`` (crc32 of
@@ -17,8 +19,10 @@ from __future__ import annotations
 
 import zlib
 from dataclasses import dataclass, fields, replace
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
+from repro_torch.core.capacity import CapacityConfig
+from repro_torch.core.resilience import ResilienceConfig
 from repro_torch.core.simulator import APPS, ARRIVAL_PROCESSES, SimConfig
 
 
@@ -62,10 +66,11 @@ class ScenarioSpec:
     drift_interference: Optional[float] = None
     drift_rtt_factor: Optional[Tuple[float, ...]] = None
     drift_tier_shuffle: bool = False
-    # not lowered in the port yet (see simulator.unlowered)
-    capacity: Optional[Any] = None
+    # capacity plane (core/capacity.py)
+    capacity: Optional[CapacityConfig] = None
     preempt: Optional[Tuple[float, float]] = None
-    resilience: Optional[Any] = None
+    # resilience plane (core/resilience.py)
+    resilience: Optional[ResilienceConfig] = None
 
     def __post_init__(self):
         if self.arrival_process not in ARRIVAL_PROCESSES:
@@ -87,6 +92,16 @@ class ScenarioSpec:
                 f"{self.name}: drift_rtt_factor needs 1 or "
                 f"{len(self.apps)} entries, got "
                 f"{len(self.drift_rtt_factor)}")
+        if self.preempt is not None and self.capacity is None:
+            raise ValueError(f"{self.name}: preempt requires a capacity "
+                             "config (the elastic replica set handles "
+                             "the takeback)")
+        if self.resilience is not None and self.resilience.client_side \
+                and self.hedge_factor is not None:
+            raise ValueError(
+                f"{self.name}: hedge_factor and resilience timeouts are "
+                "mutually exclusive (a hedged duplicate has no attempt "
+                "identity for the timeout/breaker state machine)")
 
     @property
     def stream_seed(self) -> int:
@@ -112,6 +127,22 @@ _DRIFT = dict(apps=_DRIFT_APPS, n_requests=560, arrival_rate=1.0,
               heterogeneity=0.05, node_tiers=(-0.6, 0.0, 1.8),
               closed_loop=True, online_warmup_s=40.0,
               retrain_every_s=12.0, online_window=120, t_drift=80.0)
+
+# capacity-plane scenarios: a predictive autoscaler provisions replicas
+# from Little's law (trailing demand x the service-time forecast /
+# rho_target), admission control sheds what the active set cannot bound,
+# and every cell reports the (RTT, waste, shed) triple.  The apps are the
+# three light stages (means 5/5/3 s), so the overload peaks need ~8-10 of
+# the 12 replicas per app.
+_CAP_APPS = ("motioncor2", "gctf", "ctffind4")
+_CAP = dict(apps=_CAP_APPS, n_nodes=12, n_replicas_per_app=12,
+            heterogeneity=0.2, interference_strength=0.4, accuracy=0.85,
+            n_trials=8)
+_CAP_CFG = CapacityConfig(min_replicas=2, decide_every_s=5.0,
+                          warmup_s=8.0, cold_rtt_factor=2.0,
+                          slo_target_s=15.0, rho_target=0.75,
+                          rate_window_s=15.0, cooldown_s=10.0,
+                          admission_limit_s=45.0)
 
 #: the scenarios the port runs end to end
 SCENARIOS: Dict[str, ScenarioSpec] = {s.name: s for s in (
@@ -191,6 +222,67 @@ SCENARIOS: Dict[str, ScenarioSpec] = {s.name: s for s in (
                     "predictor.",
         interference_strength=0.2, drift_tier_shuffle=True,
         fallback_threshold=0.55, **_DRIFT),
+    ScenarioSpec(
+        name="overload-ramp",
+        description="Arrivals ramp 1x -> 5x over [30s, 90s] and recede by "
+                    "150s: the autoscaler must grow ahead of the ramp (or "
+                    "p95 explodes) and release capacity behind it (or "
+                    "waste does).",
+        arrival_process="ramp", arrival_params=(30.0, 90.0, 150.0, 5.0),
+        arrival_rate=0.9, n_requests=480, capacity=_CAP_CFG, **_CAP),
+    ScenarioSpec(
+        name="flash-crowd-autoscale",
+        description="A 6x flash crowd 50s in, 40s long, over a minimally-"
+                    "provisioned pool: the +1-per-cooldown reactive rule "
+                    "cannot reach the required size inside the spike, the "
+                    "Little's-law predictive rule jumps straight there.",
+        arrival_process="flash_crowd", arrival_params=(50.0, 40.0, 6.0),
+        arrival_rate=0.8, n_requests=420, capacity=_CAP_CFG, **_CAP),
+    ScenarioSpec(
+        name="scale-to-zero-idle",
+        description="Long idle valleys between short bursts (20s on at 6x, "
+                    "70s off) with min_replicas=0: the pool drains to zero "
+                    "when demand stops and pays a cold-start penalty on "
+                    "the first arrival of the next burst.",
+        arrival_process="bursty", arrival_params=(6.0, 20.0, 70.0),
+        arrival_rate=0.5, n_requests=360,
+        capacity=CapacityConfig(min_replicas=0, initial_replicas=1,
+                                decide_every_s=5.0, warmup_s=6.0,
+                                cold_rtt_factor=2.0, slo_target_s=15.0,
+                                rho_target=0.75, rate_window_s=12.0,
+                                cooldown_s=10.0, admission_limit_s=60.0),
+        **_CAP),
+    ScenarioSpec(
+        name="spot-preemption",
+        description="A spot node is reclaimed at t=50s for 60s under "
+                    "steady load: its replicas drain out of the pool and "
+                    "the autoscaler back-fills from standby capacity "
+                    "(which comes up cold).",
+        arrival_rate=1.2, n_requests=420, preempt=(50.0, 60.0),
+        capacity=CapacityConfig(min_replicas=2, decide_every_s=5.0,
+                                warmup_s=8.0, cold_rtt_factor=2.0,
+                                slo_target_s=15.0, rho_target=0.7,
+                                rate_window_s=15.0, cooldown_s=10.0,
+                                admission_limit_s=45.0),
+        **_CAP),
+    ScenarioSpec(
+        name="gray-failure",
+        description="One node per trial serves every RTT at 4x from t=40s "
+                    "for 60s while its advertised metrics stay healthy: "
+                    "the predictor keeps routing onto it (the paper's "
+                    "signals cannot see a fail-slow fault), only the "
+                    "oracle avoids it.",
+        n_requests=300,
+        resilience=ResilienceConfig(gray=(40.0, 60.0, 4.0))),
+    ScenarioSpec(
+        name="staleness-storm",
+        description="The metric pipeline stalls from t=40s for 50s under "
+                    "heavy interference: the occupancy snapshot freezes "
+                    "(a staleness storm on the PeriodicRefresh hook) and "
+                    "predictions route on a dead view of the cluster.",
+        interference_strength=0.9, arrival_rate=2.5, n_requests=300,
+        prediction_lag_s=2.0,
+        resilience=ResilienceConfig(staleness=(40.0, 50.0))),
     ScenarioSpec(
         name="mixed-app-fleet",
         description="Everything at once: bursty arrivals over tiered "

@@ -24,15 +24,26 @@ operations over dense ``(T, K)`` / ``(T, R)`` state on one device:
   rows, node speeds and app means replace the pre-drift ones;
 * the closed loop (``repro_torch.core.online``): predictions from
   per-(trial, app) ridge predictors retrained on the run's own observed
-  RTTs, with the rolling-accuracy fallback to least_conn.
+  RTTs, with the rolling-accuracy fallback to least_conn;
+* the capacity plane (``repro_torch.core.capacity.ElasticSet``): the
+  membership walk (autoscaler epochs, spot preemption, churn) before
+  each request, scale-from-zero wakes, admission (a shed request gets a
+  NaN response and ``chosen = -1``), cold replicas, drained candidates
+  masked out of every policy's score, the autoscaler's service-time
+  estimate and the provisioning ledger;
+* the resilience plane's gray failure (the true RTT of one node per
+  trial slowed inside a window, the prediction basis kept healthy) and
+  staleness storm (one more outage window of the snapshot).
 
 The host knows each request's app, arrival time and every per-step flag
-(snapshot refresh, churn edge, drift regime, cold start, retrain) before
-the loop starts, so a step specialises on them in Python; the only host
-syncs are the expiry rounds' ``any()`` checks (one per ``expire`` call,
-plus one per extra round).  Scalars go into tensors by ``scatter_`` /
-``fill_``, which take them as kernel arguments: ``t[idx] = True`` on a
-CUDA tensor copies a CPU scalar to the card and waits for it.
+(snapshot refresh, membership events, drift regime, cold start, gray
+window, retrain) before the loop starts, so a step specialises on them
+in Python; the only host syncs are the expiry rounds' ``any()`` checks
+(one per ``expire`` call, plus one per extra round) and the completion
+fold's round count (one per autoscaler epoch of a pass without
+predictions).  Scalars go into tensors by ``scatter_`` / ``fill_``,
+which take them as kernel arguments: ``t[idx] = True`` on a CUDA tensor
+copies a CPU scalar to the card and waits for it.
 
 **Serial-reference contract**: the reference's serial stepper is the
 semantics; the port agrees with it to <= 1e-5 relative on every summary
@@ -41,8 +52,9 @@ are int32; the noise is the reference's own, drawn by numpy on the host,
 so the only divergence is rounding (sums reassociated, libm ulps).
 
 Not lowered yet (``supports`` names the feature, the entry points raise
-``NotImplementedError``): the capacity plane, spot preemption,
-resilience, the trace.  The reference's in-kernel-noise
+``NotImplementedError``): client-side resilience (timeouts, retries,
+breakers), the correlated node-group outage, the trace.  The
+reference's in-kernel-noise
 ``fleet_throughput`` mode and its multi-device ``shard_map`` dispatch
 have no counterpart here yet.
 """
@@ -56,6 +68,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.balancer import BUSY_PENALTY, POLICIES
+from repro_torch.core.capacity import (CapacityConfig, ElasticSet,
+                                       arrival_rates, membership_timeline)
 from repro_torch.core.online import OnlineFleet, obs_window, retrain_schedule
 from repro_torch.core.rng import rng_from_key, rng_seed
 from repro_torch.core.simulator import (SimConfig, _build_cluster, _Cluster,
@@ -83,6 +97,8 @@ class _Static:
     cold_start: bool
     churn: Optional[Tuple[float, float]]
     drift: bool
+    capacity: Optional[CapacityConfig]
+    gray: Optional[Tuple[float, float, float]]   # resilience gray failure
     fallback_threshold: float
     obs_window: int              # fleet observation ring length (Wn)
     acc_window: int              # rolling-accuracy ring length (Wa)
@@ -94,6 +110,16 @@ class _Static:
     @property
     def fallback(self) -> bool:
         return self.closed_loop and self.fallback_threshold > 0
+
+    @property
+    def admission(self) -> bool:
+        return self.capacity is not None \
+            and self.capacity.admission_limit_s is not None
+
+    @property
+    def pending(self) -> bool:
+        """The autoscaler learns from completions (no predictions)."""
+        return self.capacity is not None and not self.needs_pred
 
 
 def supports(cfg: SimConfig, policy: str) -> Optional[str]:
@@ -113,7 +139,8 @@ def _static_for(cfg: SimConfig, policy: str) -> _Static:
     hedging = hedge is not None
     needs_pred = hedging or "predicted" in spec.requires
     closed = bool(cfg.closed_loop and needs_pred)
-    snapshot = (cfg.prediction_lag_s > 0 or cfg.outage is not None) \
+    res = cfg.resilience
+    snapshot = (cfg.prediction_lag_s > 0 or bool(_outages(cfg))) \
         and needs_pred
     return _Static(
         policy=policy, n_apps=len(cfg.apps), k=cfg.n_replicas_per_app,
@@ -121,7 +148,8 @@ def _static_for(cfg: SimConfig, policy: str) -> _Static:
         reactive=not hedging and not spec.requires, needs_pred=needs_pred,
         closed_loop=closed, snapshot=snapshot,
         cold_start=cfg.cold_start_s > 0, churn=cfg.churn,
-        drift=cfg.t_drift is not None,
+        drift=cfg.t_drift is not None, capacity=cfg.capacity,
+        gray=None if res is None else res.gray,
         fallback_threshold=cfg.fallback_threshold if closed else 0.0,
         obs_window=obs_window(cfg),
         acc_window=max(1, int(cfg.accuracy_window)))
@@ -153,16 +181,26 @@ def _needs_plan(st: _Static) -> bool:
 
 # ----------------------------------------------------------------------
 # host-side schedules (data-independent per-step flags)
+def _outages(cfg: SimConfig) -> Tuple[Tuple[float, float], ...]:
+    """The snapshot's frozen windows: the metric outage, and a
+    resilience staleness storm as one more window."""
+    out = ()
+    if cfg.outage is not None:
+        t0, duration = cfg.outage
+        out = ((t0, t0 + duration),)
+    res = cfg.resilience
+    if res is not None and res.staleness is not None:
+        s0, sdur = res.staleness
+        out = out + ((s0, s0 + sdur),)
+    return out
+
+
 def _refresh_schedule(cfg: SimConfig, req_t: np.ndarray,
                       call_mask: np.ndarray) -> np.ndarray:
     """(J,) bool: steps where the snapshot recomputes.  Drives the real
     :class:`PeriodicRefresh` with the serial call pattern, so cadence and
     outage-freeze semantics cannot drift from the reference."""
-    outages = ()
-    if cfg.outage is not None:
-        t0, duration = cfg.outage
-        outages = ((t0, t0 + duration),)
-    pr = PeriodicRefresh(cfg.prediction_lag_s, outages)
+    pr = PeriodicRefresh(cfg.prediction_lag_s, _outages(cfg))
     out = np.zeros(len(req_t), bool)
     for j, now in enumerate(req_t):
         if not call_mask[j]:
@@ -202,13 +240,6 @@ def _mates_plan(node_of: np.ndarray, n_nodes: int):
     idx[trial, sorted_nodes, slot] = order
     pad[trial, sorted_nodes, slot] = False
     return idx, pad
-
-
-def _first_true(mask: np.ndarray) -> np.ndarray:
-    """One-hot of the first True of a monotone (J,) flag."""
-    edge = mask.copy()
-    edge[1:] &= ~mask[:-1]
-    return edge
 
 
 # ----------------------------------------------------------------------
@@ -264,11 +295,34 @@ def _lower(cluster: _Cluster, policy: str, seed_blocks=None):
         "refresh": np.zeros(J, bool),
         "drift": np.zeros(J, bool),
         "cold": np.zeros(J, bool),
+        "gray": np.zeros(J, bool),
         "retrain": np.zeros(J, bool),
+        # step -> [(kind, t, event index)]: the membership events that
+        # pop before the step's request routes, in the serial heap order
+        "events": {},
     }
+    cap = st.capacity
+    events = membership_timeline(float(req_t[-1]), churn=cfg.churn,
+                                 capacity=cap, preempt=cfg.preempt)
+    ev_t = [ev.t for ev in events]
+    # an event pops at the first request with now >= t
+    for i, (ev, jj) in enumerate(zip(
+            events, np.searchsorted(req_t, ev_t, side="left"))):
+        plan["events"].setdefault(int(jj), []).append((ev.kind, ev.t, i))
+        plan["bump"][jj] |= ev.kind == "churn"
     if st.churn is not None:
         consts["down"] = node_of == np.asarray(cluster.failed_node)[:, None]
-        plan["bump"] = _first_true(req_t >= st.churn[0])
+    if cap is not None:
+        consts["ev_rate"] = arrival_rates(cap, req_t, req_app, A, ev_t)
+        if cfg.preempt is not None:
+            consts["hit"] = node_of \
+                == np.asarray(cluster.preempted_node)[:, None]
+        if st.pending:
+            consts["req_app"] = req_app
+    if st.gray is not None:
+        g0, gdur, _ = st.gray
+        consts["gray_rep"] = np.asarray(cluster.gray_rep, bool)
+        plan["gray"] = (req_t >= g0) & (req_t < g0 + gdur)
     if st.drift:
         def post(name):
             v = getattr(cluster, f"{name}_post")
@@ -355,9 +409,10 @@ def _expire(cnt: torch.Tensor, counted: torch.Tensor,
 # the request loop
 def _simulate(st: _Static, c: Dict[str, torch.Tensor], plan):
     """Run every request; returns the final state: ``busy`` (T, R), the
-    per-step outputs ``ys``, ``syncs`` (the expiry rounds' host syncs),
-    ``fallback`` (T,) (routings by the least_conn fallback) and, in the
-    closed loop, the ``fleet``."""
+    per-step outputs ``ys``, ``syncs`` (the host syncs: expiry rounds and
+    completion folds), ``fallback`` (T,) (routings by the least_conn
+    fallback), in the closed loop the ``fleet`` and with a capacity plane
+    the ``elastic`` replica set."""
     dev = c["node_of"].device
     f64, i32 = torch.float64, torch.int32
     A, K, N = st.n_apps, st.k, st.n_nodes
@@ -409,6 +464,16 @@ def _simulate(st: _Static, c: Dict[str, torch.Tensor], plan):
         inter = torch.where((bg > now) & ~mp, w, 0.0).sum(-1)
         return _lognormal(inter, lr[a], z[:, None]) * sp
 
+    def served_at(a, reg, busy_src, now, z, idx, coldm, graym):
+        """True RTT the replica at slot ``idx`` (T,) serves with: the
+        pick-only draw, cold, then gray."""
+        rtt = rtt_at(a, reg, busy_src, now, z, idx[:, None])[:, 0]
+        if coldm is not None:
+            rtt = rtt * _pick(coldm, idx)
+        if graym is not None:
+            rtt = rtt * _pick(graym, idx)
+        return rtt
+
     busy = torch.zeros((T, R), dtype=f64, device=dev)
     if st.policy == "round_robin":
         cursor = torch.zeros(T, dtype=torch.int64, device=dev)
@@ -420,10 +485,16 @@ def _simulate(st: _Static, c: Dict[str, torch.Tensor], plan):
                         obs_window=st.obs_window, acc_window=st.acc_window,
                         device=dev) \
         if st.closed_loop else None
+    elastic = ElasticSet(st.capacity, A, K, T, plan["mean_rtt"],
+                         rates=c["ev_rate"], hit=c.get("hit"),
+                         req_app=c["req_app"] if st.pending else None,
+                         n_requests=J, device=dev) \
+        if st.capacity is not None else None
     fallback = torch.zeros(T, dtype=torch.int64, device=dev)
     ys = {"resp": torch.empty((J, T), dtype=f64, device=dev),
           "rtt": torch.empty((J, T), dtype=f64, device=dev),
           "rep": torch.empty((J, T), dtype=torch.int64, device=dev),
+          "shed": torch.zeros((J, T), dtype=torch.bool, device=dev),
           "hmask": torch.zeros((J, T), dtype=torch.bool, device=dev),
           "rtt2": torch.zeros((J, T), dtype=f64, device=dev)}
 
@@ -432,13 +503,34 @@ def _simulate(st: _Static, c: Dict[str, torch.Tensor], plan):
         now = float(plan["req_t"][j])
         a0 = a * K
         reg = post if plan["drift"][j] else pre
-        if plan["bump"][j]:
-            # churn: the failed node's replicas stay busy until it is
-            # back; applied once, at the first request past t_fail
-            t_up = st.churn[0] + st.churn[1]
-            busy = torch.where(c["down"], busy.clamp(min=t_up), busy)
+        # membership events, in heap order: a later epoch sees the busy
+        # bump of an earlier churn in the same walk
+        for kind, t_ev, i in plan["events"].get(j, ()):
+            if kind == "churn":
+                # the failed node's replicas stay busy until it is back
+                t_up = st.churn[0] + st.churn[1]
+                busy = torch.where(c["down"], busy.clamp(min=t_up), busy)
+            elif kind == "scale":
+                elastic.decide(t_ev, i, busy, j)
+            elif kind == "preempt_down":
+                elastic.preempt(t_ev, busy)
+            else:                                          # preempt_up
+                elastic.restore()
         busy_c = busy[:, a0:a0 + K]
         wait_c = (busy_c - now).clamp(min=0.0)
+        act_c = coldm = served = None
+        if elastic is not None:
+            act_c = elastic.wake(a, now)
+            if st.admission:
+                # shed where even the best active queue wait is too long
+                best = torch.where(act_c, wait_c, float("inf")).amin(1)
+                served = best <= st.capacity.admission_limit_s
+                ys["shed"][j] = ~served
+            coldm = elastic.cold_mult(a, now)
+        # gray failure: the true RTT only; predictions keep the healthy
+        # view the replica still advertises
+        graym = torch.where(c["gray_rep"][:, a0:a0 + K], st.gray[2], 1.0) \
+            if plan["gray"][j] else None
 
         if need_live:
             if plan["bump"][j]:
@@ -456,7 +548,7 @@ def _simulate(st: _Static, c: Dict[str, torch.Tensor], plan):
                 syncs += _expire(s_cnt, s_cted, snap, now, c["node_of"], K)
         z = c["z"][j]
 
-        hmask = None
+        hmask = predicted = None
         if st.reactive:
             idle = busy_c <= now
             if st.policy == "round_robin":
@@ -466,12 +558,18 @@ def _simulate(st: _Static, c: Dict[str, torch.Tensor], plan):
                 sc = torch.where(idle, c["draw"][j], BUSY_PENALTY + wait_c)
             else:                                          # least_conn
                 sc = busy_c - now
+            if act_c is not None:
+                sc = torch.where(act_c, sc, float("inf"))
             picks = torch.argmin(sc, dim=1)
             if st.policy == "round_robin":
                 cursor = (picks + 1) % K
-            rtt_pick = rtt_at(a, reg, busy, now, z, picks[:, None])[:, 0]
+            rtt_pick = served_at(a, reg, busy, now, z, picks, coldm, graym)
         else:
-            actual = rtt_full(a, reg, cnt, z) if full_actual else None
+            actual = None
+            if full_actual:
+                actual = rtt_full(a, reg, cnt, z)
+                if coldm is not None:
+                    actual = actual * coldm
             if st.closed_loop:
                 # the serial order: fold the completed predictions into
                 # the trackers, retrain, then predict from the features
@@ -488,36 +586,55 @@ def _simulate(st: _Static, c: Dict[str, torch.Tensor], plan):
                     predicted = torch.where(ok[:, None], fleet_pred, 0.0)
                     fallback += ~ok
             elif st.needs_pred:
-                if plan["cold"][j]:
-                    # no predictor has trained yet: the app-mean RTT
-                    basis = torch.full((T, K), plan["mean_rtt"][a],
-                                       dtype=f64, device=dev)
-                elif st.snapshot:
-                    basis = rtt_full(a, reg, s_cnt, z)
+                if plan["cold"][j] or st.snapshot:
+                    if plan["cold"][j]:
+                        # no predictor has trained yet: the app-mean RTT
+                        basis = torch.full((T, K), plan["mean_rtt"][a],
+                                           dtype=f64, device=dev)
+                    else:
+                        basis = rtt_full(a, reg, s_cnt, z)
+                    if coldm is not None:
+                        # the predictor knows which replicas are cold
+                        basis = basis * coldm
                 else:
                     basis = actual
                 eps = (1.0 - st.accuracy) * basis
                 predicted = basis + eps * c["z_pred"][:, j, a0:a0 + K]
+            if graym is not None and actual is not None:
+                actual = actual * graym
             sig = predicted if st.policy == "perf_aware" else actual
             sc = wait_c + sig
-            picks = torch.argmin(sc, dim=1)
+            sc_m = sc if act_c is None \
+                else torch.where(act_c, sc, float("inf"))
+            picks = torch.argmin(sc_m, dim=1)
             rtt_pick = _pick(actual, picks) if full_actual \
-                else rtt_at(a, reg, busy, now, z, picks[:, None])[:, 0]
+                else served_at(a, reg, busy, now, z, picks, coldm, graym)
             if st.hedging:
                 # runner-up by score; hedge when the pick's signal
                 # exceeds hedge x the best busy replica's completion
                 second = torch.argmin(
-                    sc.scatter(1, picks[:, None], float("inf")), dim=1)
-                ref = torch.where(busy_c > now, sc, float("inf")).amin(1)
-                hmask = _pick(sig, picks) > st.hedge * ref
+                    sc_m.scatter(1, picks[:, None], float("inf")), dim=1)
+                busy_sc = torch.where(busy_c > now, sc, float("inf"))
+                if act_c is not None:
+                    # a drained replica can neither take the duplicate
+                    # nor be waited on
+                    busy_sc = torch.where(act_c, busy_sc, float("inf"))
+                hmask = _pick(sig, picks) > st.hedge * busy_sc.amin(1)
+                if act_c is not None:
+                    hmask &= _pick(act_c, second)
+                if served is not None:
+                    hmask &= served
 
         # commit: only the app's K-column block changes
         b_pick = _pick(busy_c, picks)
         finish = b_pick.clamp(min=now) + rtt_pick
-        new_c = torch.where(colK == picks[:, None], finish[:, None], busy_c)
+        take = colK == picks[:, None]
+        if served is not None:
+            take &= served[:, None]
+        new_c = torch.where(take, finish[:, None], busy_c)
         if hmask is not None:
             rtt2 = _pick(actual, second) if full_actual \
-                else rtt_at(a, reg, busy, now, z, second[:, None])[:, 0]
+                else served_at(a, reg, busy, now, z, second, coldm, graym)
             finish2 = _pick(busy_c, second).clamp(min=now) + rtt2
             resp = torch.where(hmask, torch.minimum(finish, finish2),
                                finish) - now
@@ -527,18 +644,32 @@ def _simulate(st: _Static, c: Dict[str, torch.Tensor], plan):
             ys["rtt2"][j] = rtt2
         else:
             resp = finish - now
+        if served is not None:
+            resp = torch.where(served, resp, float("nan"))
         busy[:, a0:a0 + K] = new_c
         if st.closed_loop:
             # the routed request trains the fleet: the pick's features
             # (counts before this dispatch), true RTT and completion
             fleet.observe(j, a, counts_src, _pick(c["cand_node"][a], picks),
-                          rtt_pick, finish, _pick(fleet_pred, picks))
+                          rtt_pick, finish, _pick(fleet_pred, picks), served)
+        if elastic is not None:
+            # the autoscaler's signal: the routed prediction (the fleet's
+            # raw one in the closed loop), else the observed completion
+            elastic.check_routed(a0 + picks, served)
+            if st.needs_pred:
+                src = fleet_pred if st.closed_loop else predicted
+                elastic.note_prediction(a, _pick(src, picks), served)
+            else:
+                elastic.note_completion(j, rtt_pick, finish, served)
         if need_live:
             # +1 per newly busy replica (a pick with queued work is
-            # already counted)
+            # already counted; a shed request dispatches nothing)
             nodes_row = c["cand_node"][a]
             r1 = a0 + picks
             add1 = ~_pick(counted, r1)
+            if served is not None:
+                add1 &= served
+                r1 = torch.where(served, r1, R)
             cnt[a].index_put_((trial, _pick(nodes_row, picks)),
                               add1.to(i32), accumulate=True)
             counted.scatter_(1, r1[:, None], True)
@@ -555,8 +686,10 @@ def _simulate(st: _Static, c: Dict[str, torch.Tensor], plan):
         # everything has completed: the serial run's final fold
         fleet.fold_pending(J, np.inf, float(plan["req_t"][-1]),
                            c["req_app"])
+    if elastic is not None:
+        syncs += elastic.syncs
     return {"busy": busy, "ys": ys, "syncs": syncs, "fallback": fallback,
-            "fleet": fleet}
+            "fleet": fleet, "elastic": elastic}
 
 
 # ----------------------------------------------------------------------
@@ -566,20 +699,27 @@ def _summarize(cluster: _Cluster, final, plan) -> Dict[str, np.ndarray]:
     ys = {k: v.cpu().numpy() for k, v in final["ys"].items()}
     resp = ys["resp"].T                              # (T, J)
     rtt = ys["rtt"].T
+    shed = ys["shed"].T
     hmask = ys["hmask"].T
     rtt2 = ys["rtt2"].T
+    served = ~shed
     cpu_a = cluster.cpu_req[cluster.req_app][None, :]     # (1, J)
     mem_a = cluster.mem_req[cluster.req_app][None, :]
     m.rtts = resp
-    m.chosen = ys["rep"].T
-    m.busy_s = (rtt + hmask * rtt2).sum(axis=1)
-    m.cpu_s = (cpu_a * rtt + hmask * cpu_a * rtt2).sum(axis=1)
-    m.mem_s = (mem_a * rtt + hmask * mem_a * rtt2).sum(axis=1)
-    m.slo_violation_s = np.maximum(resp - m.slo, 0.0).sum(axis=1)
+    m.chosen = np.where(shed, -1, ys["rep"].T)
+    m.shed = shed
+    m.busy_s = (np.where(served, rtt, 0.0) + hmask * rtt2).sum(axis=1)
+    m.cpu_s = (np.where(served, cpu_a * rtt, 0.0)
+               + hmask * cpu_a * rtt2).sum(axis=1)
+    m.mem_s = (np.where(served, mem_a * rtt, 0.0)
+               + hmask * mem_a * rtt2).sum(axis=1)
+    m.slo_violation_s = np.where(served, np.maximum(resp - m.slo, 0.0),
+                                 0.0).sum(axis=1)
     m.n_hedged = int(hmask.sum())
     m.hedged = hmask.sum(axis=1).astype(np.int64)
     m.fallback = final["fallback"].cpu().numpy()
-    summary = m.summary(cluster, busy_until=final["busy"])
+    summary = m.summary(cluster, busy_until=final["busy"],
+                        capacity=final["elastic"])
     if final["fleet"] is not None:
         summary["online"] = final["fleet"].stats(
             plan["req_app"], plan["req_t"], plan["retrain"])

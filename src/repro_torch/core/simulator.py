@@ -8,10 +8,12 @@ same cluster bit for bit), and the summary half of :class:`_Metrics`.
 The serial stepper is not ported: the reference's stays the semantics
 the port is tested against.
 
-Fields of features the port does not lower yet (capacity plane, spot
-preemption, resilience, trace) stay on :class:`SimConfig` as optional
-values so configurations carry over unchanged; :func:`unlowered` names
-the first one a config sets.
+The capacity plane (``core/capacity.py``) and the resilience plane's
+configuration (``core/resilience.py``) are the port's own copies.  What
+the port does not lower yet — client-side resilience, the correlated
+node-group outage, the flight-recorder trace — stays on
+:class:`SimConfig` so configurations carry over unchanged, and
+:func:`unlowered` names it.
 """
 from __future__ import annotations
 
@@ -21,6 +23,8 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 
+from repro_torch.core.capacity import CapacityConfig, ElasticSet
+from repro_torch.core.resilience import ResilienceConfig
 from repro_torch.core.rng import rng_stream
 
 # SPA app profiles: (mean RTT s, cpu cores/req, mem GB/req) — scaled from
@@ -74,26 +78,34 @@ class SimConfig:
     drift_interference: Optional[float] = None    # redraw imat, new strength
     drift_rtt_factor: Optional[Tuple[float, ...]] = None  # per-app factors
     drift_tier_shuffle: bool = False              # permute node speeds
+    # -- capacity plane, spot preemption, resilience --------------------
+    capacity: Optional[CapacityConfig] = None
+    preempt: Optional[Tuple[float, float]] = None  # (t_start_s, duration_s)
+    resilience: Optional[ResilienceConfig] = None
     # -- not lowered in the port yet: carried so configs stay whole ----
-    capacity: Optional[Any] = None
-    preempt: Optional[Tuple[float, float]] = None
-    resilience: Optional[Any] = None
     trace: Optional[Any] = None
 
 
 def unlowered(cfg: SimConfig) -> Optional[str]:
-    """The first feature ``cfg`` sets that the port does not lower yet,
-    as a human-readable reason; None when the port runs it whole."""
-    checks = (
-        (cfg.capacity is not None, "the capacity plane (capacity)"),
-        (cfg.preempt is not None, "spot preemption (preempt)"),
-        (cfg.resilience is not None, "the resilience plane (resilience)"),
-        (cfg.trace is not None, "the flight-recorder trace (trace)"),
-    )
-    for hit, what in checks:
-        if hit:
-            return f"{what} is not lowered in the port yet"
-    return None
+    """Every feature ``cfg`` sets that the port does not lower yet, as a
+    human-readable reason; None when the port runs it whole."""
+    missing = []
+    res = cfg.resilience
+    if res is not None and res.timeout_s is not None:
+        missing.append(
+            f"client-side resilience (timeout_s={res.timeout_s}, "
+            f"max_retries={res.max_retries}, backoff=("
+            f"{res.backoff_base_s}, {res.backoff_mult}, "
+            f"{res.backoff_jitter}), breaker=({res.breaker_threshold}, "
+            f"{res.breaker_cooldown_s}))")
+    if res is not None and res.outage_group is not None:
+        missing.append(f"the correlated outage (outage_group="
+                       f"{res.outage_group})")
+    if cfg.trace is not None:
+        missing.append("the flight-recorder trace (trace)")
+    if not missing:
+        return None
+    return "; ".join(missing) + " not lowered in the port yet"
 
 
 def _interference_matrix(apps: Sequence[str], strength: float,
@@ -164,9 +176,11 @@ class _Cluster:
     ``imat`` is (A, A) for a single-seed cluster and (T, A, A) for the
     campaign's stacked clusters (each seed drew its own mix).  The
     ``*_post`` arrays are the post-drift regime (active once ``now >=
-    cfg.t_drift``): a None field keeps its pre-drift counterpart.  The
-    other optional fields belong to features the port does not lower
-    yet; they are kept so a reference cluster carries over whole
+    cfg.t_drift``): a None field keeps its pre-drift counterpart.
+    ``preempted_node`` is the spot node per trial; ``gray_rep``,
+    ``group_rep`` and ``z_jitter`` are the resilience plane's fault
+    draws (:func:`fault_draws`), the last two read by nothing the port
+    lowers yet but kept so a reference cluster carries over whole
     (``repro_torch.interop.cluster_from_reference``).
     """
     cfg: SimConfig
@@ -185,18 +199,48 @@ class _Cluster:
     imat_post: Optional[np.ndarray] = None
     accel_post: Optional[np.ndarray] = None
     mean_rtt_post: Optional[np.ndarray] = None
-    preempted_node: Optional[np.ndarray] = None
-    gray_rep: Optional[np.ndarray] = None
-    group_rep: Optional[np.ndarray] = None
-    z_jitter: Optional[np.ndarray] = None
+    preempted_node: Optional[np.ndarray] = None   # (T,)
+    gray_rep: Optional[np.ndarray] = None         # (T, R) bool
+    group_rep: Optional[np.ndarray] = None        # (T, R) bool
+    z_jitter: Optional[np.ndarray] = None         # (T, J, max_retries)
+
+
+def fault_draws(cfg: SimConfig, node_of: np.ndarray):
+    """``(gray_rep, group_rep, z_jitter)``: the resilience plane's draws
+    from its one ``"fault"`` stream, in the reference's fixed order (the
+    gray node, then the outage group's start, then the backoff jitter),
+    so adding a later fault never moves an earlier one.  Each is None
+    when its fault is not configured."""
+    gray_rep = group_rep = z_jitter = None
+    res = cfg.resilience
+    if res is None:
+        return gray_rep, group_rep, z_jitter
+    if cfg.hedge_factor is not None and res.client_side:
+        raise ValueError(
+            "hedge_factor and resilience timeouts are mutually exclusive "
+            "(a hedged duplicate has no attempt identity for the "
+            "timeout/breaker state machine)")
+    T = cfg.n_trials
+    fault_rng = rng_stream(cfg.seed, "fault")
+    if res.gray is not None:
+        gray_node = fault_rng.integers(0, cfg.n_nodes, size=T)
+        gray_rep = node_of == gray_node[:, None]
+    if res.outage_group is not None:
+        n_down = min(int(res.outage_group[2]), cfg.n_nodes)
+        start = fault_rng.integers(0, cfg.n_nodes, size=T)
+        off = (node_of - start[:, None]) % cfg.n_nodes
+        group_rep = off < n_down         # contiguous group, wrap mod N
+    if res.client_side:
+        z_jitter = fault_rng.random((T, cfg.n_requests, res.max_retries))
+    return gray_rep, group_rep, z_jitter
 
 
 def _build_cluster(cfg: SimConfig) -> _Cluster:
-    """Topology + request stream + noise + the post-drift regime, in the
-    reference's RNG order.
+    """Topology + request stream + noise + the preempted node + the fault
+    draws + the post-drift regime, in the reference's RNG order.
 
-    Raises NotImplementedError for configs whose extra draws
-    (preemption, faults) belong to features the port does not lower."""
+    Raises NotImplementedError for configs with a feature the port does
+    not lower (:func:`unlowered`)."""
     reason = unlowered(cfg)
     if reason is not None:
         raise NotImplementedError(reason)
@@ -230,6 +274,14 @@ def _build_cluster(cfg: SimConfig) -> _Cluster:
     if cfg.churn is not None:
         failed_node = rng_stream(cfg.seed, "churn").integers(
             0, cfg.n_nodes, size=T)
+    preempted_node = None
+    if cfg.preempt is not None:
+        if cfg.capacity is None:
+            raise ValueError("preempt requires a CapacityConfig (the "
+                             "elastic replica set handles the takeback)")
+        preempted_node = rng_stream(cfg.seed, "preempt").integers(
+            0, cfg.n_nodes, size=T)
+    gray_rep, group_rep, z_jitter = fault_draws(cfg, node_of)
     mean_rtt = np.array([APPS[a][0] for a in cfg.apps])
     # post-drift regime: redrawn interference mix, reshuffled node
     # speeds, rescaled app means, from the drift stream in this order
@@ -257,14 +309,22 @@ def _build_cluster(cfg: SimConfig) -> _Cluster:
         imat=imat, node_of=node_of, accel=accel,
         req_app=req_app, req_t=req_t, z_rtt=z_rtt, z_pred=z_pred,
         failed_node=failed_node, imat_post=imat_post,
-        accel_post=accel_post, mean_rtt_post=mean_rtt_post)
+        accel_post=accel_post, mean_rtt_post=mean_rtt_post,
+        preempted_node=preempted_node, gray_rep=gray_rep,
+        group_rep=group_rep, z_jitter=z_jitter)
 
 
 class _Metrics:
     """Per-trial results of one run and their summary: the full RTT
     matrix (tail percentiles, per-app breakdown), resource-seconds,
-    assignments.  The accumulation side lives in the core's step; this
-    is the summary half of the reference's ``_Metrics``."""
+    assignments, and the capacity plane's waste / shed / SLO accounting.
+    The accumulation side lives in the core's step; this is the summary
+    half of the reference's ``_Metrics``.
+
+    A shed request carries NaN in the RTT matrix and -1 in ``chosen``,
+    and the RTT stats become NaN-aware.  Which stats are NaN-aware
+    follows from the config (a capacity plane with admission control),
+    never from the data, as in the reference."""
 
     def __init__(self, cfg: SimConfig):
         T, J = cfg.n_trials, cfg.n_requests
@@ -277,47 +337,62 @@ class _Metrics:
         self.hedged = np.zeros(T, dtype=np.int64)   # per-trial hedge count
         #: least_conn-fallback routings of the closed loop, per trial
         self.fallback = np.zeros(T, dtype=np.int64)
-        self.slo = DEFAULT_SLO_S
+        cap = cfg.capacity
+        self.slo = cap.slo_target_s if cap is not None else DEFAULT_SLO_S
+        self._nan_stats = cap is not None \
+            and cap.admission_limit_s is not None
         self.busy_s = np.zeros(T)           # replica-seconds of service
         self.slo_violation_s = np.zeros(T)  # response time above the SLO
-        # the slice drops no request: no shed, no timeout (the keys stay
-        # so summaries line up with the reference's)
         self.shed = np.zeros((T, J), bool)
+        # the port lowers no client timeout (the key stays so summaries
+        # line up with the reference's)
         self.timeout = np.zeros((T, J), bool)
 
     def summary(self, cluster: _Cluster,
-                busy_until: Optional[np.ndarray] = None
+                busy_until: Optional[np.ndarray] = None,
+                capacity: Optional[ElasticSet] = None
                 ) -> Dict[str, np.ndarray]:
+        mean_fn, pct_fn = (np.nanmean, np.nanpercentile) \
+            if self._nan_stats else (np.mean, np.percentile)
         with warnings.catch_warnings():
+            # an all-shed slice legitimately yields NaN stats
             warnings.simplefilter("ignore", RuntimeWarning)
-            p50, p95, p99 = np.percentile(self.rtts, [50, 95, 99], axis=1)
+            p50, p95, p99 = pct_fn(self.rtts, [50, 95, 99], axis=1)
             per_app = {}
             for i, name in enumerate(self.cfg.apps):
                 mask = cluster.req_app == i
                 if mask.any():
-                    per_app[name] = np.mean(self.rtts[:, mask], axis=1)
-            mean_rtt = np.mean(self.rtts, axis=1)
-        # replica-seconds provisioned: the full pool over the per-trial
-        # horizon (which covers every completion, so waste stays in [0, 1])
+                    per_app[name] = mean_fn(self.rtts[:, mask], axis=1)
+            mean_rtt = mean_fn(self.rtts, axis=1)
+        # replica-seconds provisioned: the capacity ledger when elastic,
+        # else the full pool over the per-trial horizon (which covers
+        # every completion, so waste stays in [0, 1])
         t_end = float(cluster.req_t[-1])
         if busy_until is not None:
             t_end = np.maximum(t_end, busy_until.max(axis=1))
-        provisioned = len(cluster.app_of) * np.asarray(t_end, float) \
-            * np.ones(len(self.rtts))
+        if capacity is not None:
+            provisioned = capacity.finalize(t_end)
+        else:
+            provisioned = len(cluster.app_of) * np.asarray(t_end, float) \
+                * np.ones(len(self.rtts))
         waste = np.clip(1.0 - self.busy_s / np.maximum(provisioned, 1e-9),
                         0.0, 1.0)
-        return {"mean_rtt": mean_rtt,
-                "p50_rtt": p50, "p95_rtt": p95, "p99_rtt": p99,
-                "per_app": per_app,
-                "cpu_s": self.cpu_s, "mem_s": self.mem_s,
-                "chosen": self.chosen, "n_hedged": self.n_hedged,
-                "hedged_per_trial": self.hedged,
-                "n_fallback": int(self.fallback.sum()),
-                "fallback_per_trial": self.fallback,
-                "provisioned_s": provisioned, "busy_s": self.busy_s,
-                "waste": waste,
-                "shed_rate": self.shed.mean(axis=1),
-                "slo_violation_s": self.slo_violation_s,
-                "goodput": 1.0 - (self.shed | self.timeout).mean(axis=1),
-                "timeout_rate": self.timeout.mean(axis=1),
-                "rtts": self.rtts, "req_t": cluster.req_t}
+        out = {"mean_rtt": mean_rtt,
+               "p50_rtt": p50, "p95_rtt": p95, "p99_rtt": p99,
+               "per_app": per_app,
+               "cpu_s": self.cpu_s, "mem_s": self.mem_s,
+               "chosen": self.chosen, "n_hedged": self.n_hedged,
+               "hedged_per_trial": self.hedged,
+               "n_fallback": int(self.fallback.sum()),
+               "fallback_per_trial": self.fallback,
+               "provisioned_s": provisioned, "busy_s": self.busy_s,
+               "waste": waste,
+               "shed_rate": self.shed.mean(axis=1),
+               "n_shed": int(self.shed.sum()),
+               "slo_violation_s": self.slo_violation_s,
+               "goodput": 1.0 - (self.shed | self.timeout).mean(axis=1),
+               "timeout_rate": self.timeout.mean(axis=1),
+               "rtts": self.rtts, "req_t": cluster.req_t}
+        if capacity is not None:
+            out["capacity"] = capacity.telemetry()
+        return out

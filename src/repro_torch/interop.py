@@ -15,17 +15,30 @@ from dataclasses import fields
 import numpy as np
 import torch
 
+from repro_torch.core.capacity import CapacityConfig
+from repro_torch.core.resilience import ResilienceConfig
 from repro_torch.core.simulator import SimConfig, _Cluster
 from repro_torch.device import DeviceLike, resolve_device
 
 
+def _by_name(cls, obj):
+    """An instance of the dataclass ``cls`` with every field read by
+    name from ``obj`` (None stays None)."""
+    if obj is None:
+        return None
+    return cls(**{f.name: getattr(obj, f.name) for f in fields(cls)})
+
+
 def config_from_reference(cfg) -> SimConfig:
     """The port's :class:`SimConfig` with every field read by name from
-    ``cfg`` (any object with the reference's SimConfig fields).  Values
-    of features the port does not lower (capacity, resilience, trace)
-    are carried as they are."""
-    return SimConfig(**{f.name: getattr(cfg, f.name)
-                        for f in fields(SimConfig)})
+    ``cfg`` (any object with the reference's SimConfig fields).  The
+    capacity and resilience configs become the port's own classes, read
+    by name the same way; the trace config, which the port does not
+    lower, is carried as it is."""
+    kw = {f.name: getattr(cfg, f.name) for f in fields(SimConfig)}
+    kw["capacity"] = _by_name(CapacityConfig, kw["capacity"])
+    kw["resilience"] = _by_name(ResilienceConfig, kw["resilience"])
+    return SimConfig(**kw)
 
 
 def cluster_from_reference(c) -> _Cluster:

@@ -91,12 +91,45 @@ def _serial_fallback(name, seed, kw):
     return SimStepper(_build_cluster(cfg), pol).run()["n_fallback"]
 
 
+@pytest.mark.parametrize("name", ("overload-ramp", "flash-crowd-autoscale",
+                                  "scale-to-zero-idle", "spot-preemption",
+                                  "gray-failure", "staleness-storm"))
+def test_campaign_matches_serial_on_capacity_and_fault_scenarios(name):
+    """The stacked seed grid shares one membership timeline (one arrival
+    stream): the elastic replica set, admission, gray failure and the
+    staleness storm per seed equal the serial campaign's, waste and shed
+    included."""
+    calls = segment_sum.plain_calls
+    port = run_scenario(name, device="cpu", **KW)
+    recounts = segment_sum.plain_calls - calls
+    serial = ref_run_scenario(name, backend="serial", **KW)
+    for pol, want in serial.items():
+        got = port[pol]
+        for k in SUMMARY_STATS + ("hedged",):
+            np.testing.assert_allclose(got.per_seed[k], want.per_seed[k],
+                                       rtol=RTOL, atol=1e-7,
+                                       err_msg=f"{name}/{pol}/{k}")
+        if want.inefficiency_pct is not None:
+            np.testing.assert_allclose(got.inefficiency_pct,
+                                       want.inefficiency_pct, rtol=RTOL,
+                                       atol=1e-7)
+    if name in ("overload-ramp", "flash-crowd-autoscale",
+                "scale-to-zero-idle", "spot-preemption"):
+        waste = port["perf_aware"].per_seed["waste"]
+        assert ((waste > 0) & (waste < 1)).all()
+    # the storm's snapshot refreshes rebuild perf_aware's counts
+    assert (recounts > 0) == (name == "staleness-storm")
+
+
 def test_campaign_refuses_unlowered_scenario():
     from repro.core.scenarios import get_scenario as ref_scenario
+    from repro_torch.core.resilience import ResilienceConfig
     from repro_torch.core.scenarios import ScenarioSpec
-    ref = ref_scenario("overload-ramp")
-    spec = ScenarioSpec(name=ref.name, capacity=ref.capacity,
-                        arrival_process=ref.arrival_process,
-                        arrival_params=ref.arrival_params)
-    with pytest.raises(NotImplementedError, match="capacity plane"):
+    ref = ref_scenario("retry-storm")
+    spec = ScenarioSpec(
+        name=ref.name, arrival_process=ref.arrival_process,
+        arrival_params=ref.arrival_params,
+        resilience=ResilienceConfig(timeout_s=ref.resilience.timeout_s,
+                                    max_retries=ref.resilience.max_retries))
+    with pytest.raises(NotImplementedError, match="client-side resilience"):
         run_scenario(spec, device="cpu", **KW)

@@ -1,11 +1,15 @@
 """The port's contracts with the reference, checked statically.
 
 1. Field coverage, after ``repro.analysis.contracts``: every field of
-   ``SimConfig`` that the reference's serial path reads is read by the
-   port's core (``repro_torch/core``) or named by
-   ``simulator.unlowered``, whose features ``supports`` refuses.  A
-   ``ScenarioSpec`` field of the reference is a field of the port's
-   spec and compiles onto a field of the port's ``SimConfig``.
+   ``SimConfig`` and ``CapacityConfig`` that the reference's serial path
+   reads is read by the port's core (``repro_torch/core``) or named by
+   ``simulator.unlowered``, whose features ``supports`` refuses; of
+   ``ResilienceConfig``, the faults the core lowers are read and the
+   client-side knobs and the correlated outage are named.  A field read
+   only by a config class's own property counts as read where the port
+   reads the property.  A ``ScenarioSpec`` field of the reference is a
+   field of the port's spec and compiles onto a field of the port's
+   ``SimConfig``.
 2. RNG streams, after ``repro.analysis.rng_audit``: no raw generator is
    built in ``repro_torch/core`` outside ``core/rng.py``; every stream
    name the port uses is a literal, maps to the same generator identity
@@ -15,6 +19,8 @@
 Both run on the CPU from the sources alone: nothing of the port is
 imported but its ``rng_seed``.
 """
+import ast
+
 from repro.analysis.contracts import (SERIAL, SHARED,
                                       ContractSpec, ModuleScope,
                                       analyze_scenario_mapping,
@@ -29,37 +35,83 @@ from repro_torch.core.rng import rng_seed
 CTX = AnalysisContext()
 PORT_CORE = "src/repro_torch/core"
 PORT_SIM = f"{PORT_CORE}/simulator.py"
+PORT_CAP = f"{PORT_CORE}/capacity.py"
+PORT_RES = f"{PORT_CORE}/resilience.py"
 READ, NAMED, BODY = "read", "named", "class-body"
 
 #: where the port reads a config field: every module of its core; the
 #: reads inside ``unlowered`` only name a refused feature, and the
 #: config classes' own bodies read nothing at run time
+_BODIES = {"simulator": "SimConfig", "scenarios": "ScenarioSpec",
+           "capacity": "CapacityConfig", "resilience": "ResilienceConfig"}
 PORT_SCOPES = tuple(
     ModuleScope(f"{PORT_CORE}/{m}.py", READ,
-                {"unlowered": NAMED, "SimConfig": BODY}
-                if m == "simulator" else {"ScenarioSpec": BODY}
-                if m == "scenarios" else {})
-    for m in ("simulator", "simcore", "online", "campaign", "scenarios"))
+                dict({"unlowered": NAMED} if m == "simulator" else {},
+                     **({_BODIES[m]: BODY} if m in _BODIES else {})))
+    for m in ("simulator", "simcore", "online", "campaign", "scenarios",
+              "capacity", "resilience"))
+#: the resilience knobs the core does not lower: ``unlowered`` names them
+CLIENT_SIDE = {"timeout_s", "max_retries", "backoff_base_s", "backoff_mult",
+               "backoff_jitter", "breaker_threshold", "breaker_cooldown_s",
+               "outage_group"}
 
 
-def _serial_reads():
-    """SimConfig fields the reference's serial path reads."""
+def _serial_reads(cls="SimConfig"):
+    """Fields of the reference's ``cls`` that its serial path reads."""
     cov = field_coverage(CTX)
     return {q.split(".", 1)[1] for q, by in cov.items()
-            if q.startswith("SimConfig.")
+            if q.startswith(f"{cls}.")
             and (by.get(SERIAL) or by.get(SHARED))}
 
 
-def _uncovered(scopes):
+def _property_reads(path, cls):
+    """field -> the properties of the port's ``cls`` that read it."""
+    out = {}
+    for node in CTX.parse(path).body:
+        if isinstance(node, ast.ClassDef) and node.name == cls:
+            for fn in node.body:
+                if isinstance(fn, ast.FunctionDef) and any(
+                        getattr(d, "id", None) == "property"
+                        for d in fn.decorator_list):
+                    for n in ast.walk(fn):
+                        if isinstance(n, ast.Attribute):
+                            out.setdefault(n.attr, set()).add(fn.name)
+    return out
+
+
+def _uncovered(scopes, cls="SimConfig", path=PORT_SIM):
     reads = collect_reads(CTX, scopes)
-    return sorted(f for f in _serial_reads()
-                  if not reads.get(f, {}).get(READ)
-                  and not reads.get(f, {}).get(NAMED))
+    props = _property_reads(path, cls)
+
+    def covered(f):
+        by = reads.get(f, {})
+        return by.get(READ) or by.get(NAMED) or any(
+            reads.get(p, {}).get(READ) for p in props.get(f, ()))
+    return sorted(f for f in _serial_reads(cls) if not covered(f))
 
 
 def test_every_serial_simconfig_field_is_read_or_named_unlowered():
     assert len(_serial_reads()) >= 30
     assert _uncovered(PORT_SCOPES) == []
+
+
+def test_every_serial_capacity_field_is_read_by_the_core():
+    fields = _serial_reads("CapacityConfig")
+    assert len(fields) == 15 and "initial_replicas" in fields
+    assert _uncovered(PORT_SCOPES, "CapacityConfig", PORT_CAP) == []
+    # read through the ``initial`` property alone
+    assert "initial_replicas" in _uncovered(
+        PORT_SCOPES, "CapacityConfig", PORT_SIM)
+
+
+def test_resilience_faults_are_read_and_client_side_named():
+    reads = collect_reads(CTX, PORT_SCOPES)
+    fields = _serial_reads("ResilienceConfig")
+    assert fields == CLIENT_SIDE | {"gray", "staleness"}
+    for f in ("gray", "staleness"):
+        assert reads[f].get(READ), f
+    for f in sorted(CLIENT_SIDE):
+        assert reads[f].get(NAMED), f
 
 
 def test_coverage_check_finds_a_field_nobody_reads():
@@ -72,16 +124,20 @@ def test_coverage_check_finds_a_field_nobody_reads():
 
 def test_named_fields_are_the_unlowered_planes():
     reads = collect_reads(CTX, PORT_SCOPES)
+    sim_fields = set(dataclass_fields(CTX.parse(PORT_SIM), "SimConfig"))
     named = {f for f, by in reads.items() if by.get(NAMED)}
-    only_named = {f for f in named if not reads[f].get(READ)}
-    assert only_named == {"capacity", "preempt", "resilience", "trace"}
+    only_named = {f for f in named & sim_fields if not reads[f].get(READ)}
+    assert only_named == {"trace"}
 
 
 def test_config_and_scenario_fields_match_the_reference():
     for cls, ref_mod, port_mod in (
             ("SimConfig", "src/repro/core/simulator.py", PORT_SIM),
             ("ScenarioSpec", "src/repro/core/scenarios.py",
-             f"{PORT_CORE}/scenarios.py")):
+             f"{PORT_CORE}/scenarios.py"),
+            ("CapacityConfig", "src/repro/core/capacity.py", PORT_CAP),
+            ("ResilienceConfig", "src/repro/core/resilience.py",
+             PORT_RES)):
         assert dataclass_fields(CTX.parse(port_mod), cls) \
             == dataclass_fields(CTX.parse(ref_mod), cls), cls
     spec = ContractSpec(config_classes={"SimConfig": PORT_SIM}, scopes=(),
@@ -106,7 +162,7 @@ def test_port_streams_are_literal_unique_and_the_references():
     assert [d for d in dynamic if not d[1].endswith("core/rng.py")] == []
     names = sorted({n for n, _, _ in literal})
     assert {"topology", "noise", "arrival", "noise_streamed", "churn",
-            "drift", "policy"} <= set(names)
+            "drift", "policy", "preempt", "fault"} <= set(names)
     seen = {}
     for name in names:
         probe = tuple(rng_seed(s, name) for s in (0, 12345))

@@ -111,8 +111,16 @@ def test_segment_sum_rejects_cpu_ids_with_cuda_values(cuda):
         segment_sum(v, torch.zeros((2, 3), dtype=torch.int32), 4)
 
 
+#: the scenarios whose passes rebuild counts with the segment sum
+RECOUNTS = ("stale-predictions", "churn", "staleness-storm")
+TELEMETRY = ("decisions", "scale_ups", "scale_downs", "wakeups",
+             "active_final", "routed_inactive")
+
+
 @pytest.mark.parametrize("name", ("stale-predictions", "churn",
-                                  "cold-start", "drift-fallback"))
+                                  "cold-start", "drift-fallback",
+                                  "spot-preemption", "scale-to-zero-idle",
+                                  "gray-failure", "staleness-storm"))
 def test_campaign_cuda_matches_cpu(cuda, name):
     kw = dict(seeds=(0, 1), n_trials=8, n_requests=150, n_nodes=30,
               n_replicas_per_app=20)
@@ -122,8 +130,7 @@ def test_campaign_cuda_matches_cpu(cuda, name):
                   retrain_every_s=6.0)
     launches = segment_sum.launches
     on_gpu = run_scenario(name, device="cuda", **kw)
-    assert (segment_sum.launches > launches) == (name in ("stale-predictions",
-                                                          "churn"))
+    assert (segment_sum.launches > launches) == (name in RECOUNTS)
     on_cpu = run_scenario(name, device="cpu", **kw)
     for pol, want in on_cpu.items():
         got = on_gpu[pol]
@@ -133,6 +140,13 @@ def test_campaign_cuda_matches_cpu(cuda, name):
                                        err_msg=f"{name}/{pol}/{k}")
         assert got.n_hedged == want.n_hedged
         assert got.n_fallback == want.n_fallback
+        assert (got.telemetry is None) == (want.telemetry is None)
+        if want.telemetry is not None:
+            for k in TELEMETRY:
+                np.testing.assert_array_equal(got.telemetry[k],
+                                              want.telemetry[k],
+                                              err_msg=f"{name}/{pol}/{k}")
+            assert got.telemetry["routed_inactive"] == 0
     if name == "drift-fallback":
         assert on_cpu["perf_aware"].n_fallback > 0
 

@@ -15,29 +15,46 @@ import pytest
 import torch
 
 from repro.core.balancer import make_policy
+from repro.core.capacity import CapacityConfig as RefCapacityConfig
+from repro.core.capacity import _take_highest as ref_take_highest
+from repro.core.capacity import _take_lowest as ref_take_lowest
+from repro.core.capacity import membership_timeline as ref_timeline
 from repro.core.rng import rng_seed
 from repro.core.scenarios import get_scenario as ref_scenario
 from repro.core.scenarios import scenario_names as ref_scenario_names
 from repro.core.simulator import SimStepper
 from repro.core.simulator import _build_cluster as ref_build
+from repro.core.telemetry import TraceConfig
 from repro_torch.core import simcore
 from repro_torch.core.campaign import SUMMARY_STATS
+from repro_torch.core.capacity import (CapacityConfig, membership_timeline,
+                                       take_highest, take_lowest)
 from repro_torch.core.scenarios import get_scenario, scenario_names
-from repro_torch.core.simulator import _build_cluster, _Cluster, unlowered
+from repro_torch.core.simulator import (_build_cluster, _Cluster,
+                                        fault_draws, unlowered)
 from repro_torch.interop import cluster_from_reference, config_from_reference
 
 NINE = ("baseline", "colocation-surge", "hetero-tiers", "diurnal",
         "flash-crowd", "bursty", "churn", "stale-predictions",
         "metric-outage")
-#: the scenarios this slice lowers: cold start, the closed-loop drift
-#: scenarios (with the fallback) and the mixed fleet
+#: cold start, the closed-loop drift scenarios (with the fallback) and
+#: the mixed fleet
 SIX = ("cold-start", "tier-drift", "app-drift", "colocation-drift",
        "drift-fallback", "mixed-app-fleet")
+#: the capacity plane (with spot preemption)
+CAPACITY = ("overload-ramp", "flash-crowd-autoscale", "scale-to-zero-idle",
+            "spot-preemption")
+#: the resilience plane's faults that need no client semantics
+FAULTS = ("gray-failure", "staleness-storm")
 #: the registry, in the reference's order
-FIFTEEN = ("baseline", "colocation-surge", "hetero-tiers", "diurnal",
+LOWERED = ("baseline", "colocation-surge", "hetero-tiers", "diurnal",
            "flash-crowd", "bursty", "churn", "stale-predictions",
            "cold-start", "metric-outage", "tier-drift", "app-drift",
-           "colocation-drift", "drift-fallback", "mixed-app-fleet")
+           "colocation-drift", "drift-fallback") + CAPACITY + FAULTS \
+    + ("mixed-app-fleet",)
+#: the reference scenarios that need client-side resilience
+CLIENT_SIDE = ("correlated-outage", "retry-storm",
+               "breaker-saves-retry-storm")
 POLICIES = ("round_robin", "random", "least_conn", "perf_aware", "oracle")
 SMALL = dict(n_trials=4, n_requests=150)
 RTOL = 1e-5
@@ -63,6 +80,10 @@ def _assert_summary_close(port, serial, label):
     np.testing.assert_array_equal(port["hedged_per_trial"],
                                   serial["hedged_per_trial"])
     assert port["n_fallback"] == serial["n_fallback"], label
+    assert port["n_shed"] == serial["n_shed"], label
+    assert ("capacity" in port) == ("capacity" in serial), label
+    if "capacity" in serial:
+        _assert_telemetry_equal(port, serial, label)
     assert ("online" in port) == ("online" in serial), label
     if "online" in serial:
         got, want = port["online"], serial["online"]
@@ -76,14 +97,33 @@ def _assert_summary_close(port, serial, label):
                                    err_msg=f"{label}/accuracy")
 
 
+def _assert_telemetry_equal(port, serial, label):
+    """The capacity plane's integer telemetry exactly (a flipped ceiling
+    in a target shows here first), no served request on a drained
+    replica, and the ledger to rounding."""
+    got, want = port["capacity"], serial["capacity"]
+    assert got["decisions"] == want["decisions"], label
+    for k in ("scale_ups", "scale_downs", "wakeups", "active_final"):
+        np.testing.assert_array_equal(got[k], want[k], err_msg=f"{label}/{k}")
+    assert got["routed_inactive"] == want["routed_inactive"] == 0, label
+    np.testing.assert_allclose(got["mean_util"], want["mean_util"],
+                               rtol=RTOL, err_msg=f"{label}/mean_util")
+    np.testing.assert_allclose(port["provisioned_s"], serial["provisioned_s"],
+                               rtol=RTOL, err_msg=f"{label}/provisioned_s")
+
+
 def test_registry_is_the_nine_standing_scenarios():
-    """The registry: the nine standing-matrix scenarios and the six this
-    slice lowers, in the reference's order."""
-    assert tuple(scenario_names()) == FIFTEEN
-    assert set(NINE) | set(SIX) == set(FIFTEEN)
+    """The registry: the nine standing-matrix scenarios and the twelve
+    lowered since, in the reference's order; the three the port leaves
+    out need client-side resilience."""
+    assert tuple(scenario_names()) == LOWERED
+    assert set(NINE) | set(SIX) | set(CAPACITY) | set(FAULTS) \
+        == set(LOWERED)
+    assert [n for n in ref_scenario_names() if n not in LOWERED] \
+        == list(CLIENT_SIDE)
 
 
-@pytest.mark.parametrize("name", FIFTEEN)
+@pytest.mark.parametrize("name", LOWERED)
 def test_cluster_build_bit_identical(name):
     ref_cfg = ref_scenario(name).compile(seed=3, **SMALL)
     cfg = get_scenario(name).compile(seed=3, **SMALL)
@@ -117,8 +157,26 @@ def test_cluster_from_reference_round_trips():
             assert b is not getattr(ref, f.name)      # a copy, not a view
 
 
+@pytest.mark.parametrize("name", ref_scenario_names())
+def test_fault_draws_bit_identical(name):
+    """The fault stream's draws (gray node, group start, backoff jitter)
+    on every reference scenario, the three the core refuses included."""
+    ref = ref_build(ref_scenario(name).compile(seed=4, **SMALL))
+    cfg = config_from_reference(ref.cfg)
+    got = fault_draws(cfg, ref.node_of)
+    for f, a in zip(("gray_rep", "group_rep", "z_jitter"), got):
+        b = getattr(ref, f)
+        if b is None:
+            assert a is None, f
+        else:
+            np.testing.assert_array_equal(a, b, err_msg=f)
+            assert a.dtype == b.dtype, f
+    res = ref.cfg.resilience
+    assert (got[0] is not None) == (res is not None and res.gray is not None)
+
+
 @pytest.mark.parametrize("policy", POLICIES)
-@pytest.mark.parametrize("name", FIFTEEN)
+@pytest.mark.parametrize("name", LOWERED)
 def test_core_matches_serial_stepper(name, policy):
     ref = ref_build(ref_scenario(name).compile(seed=0, **SMALL))
     port = simcore.run_compiled(cluster_from_reference(ref), policy,
@@ -259,12 +317,14 @@ def test_expire_random_states_match_brute_force():
     assert torch.equal(counted[:, :A * K], want_counted[:, :A * K])
 
 
-@pytest.mark.parametrize("name,feature", [
-    ("retry-storm", "resilience"),
-    ("flash-crowd-autoscale", "capacity plane"),
-    ("overload-ramp", "capacity plane"), ("gray-failure", "resilience")])
-def test_unlowered_planes_are_named_and_refused(name, feature):
-    ref_cfg = ref_scenario(name).compile(seed=0, n_trials=2, n_requests=40)
+@pytest.mark.parametrize("name,kw,feature", [
+    ("retry-storm", {}, "client-side resilience"),
+    ("correlated-outage", {}, "correlated outage"),
+    ("breaker-saves-retry-storm", {}, "client-side resilience"),
+    ("baseline", dict(trace=TraceConfig(sample_every=4)), "trace")])
+def test_unlowered_planes_are_named_and_refused(name, kw, feature):
+    ref_cfg = ref_scenario(name).compile(seed=0, n_trials=2, n_requests=40,
+                                         **kw)
     cfg = config_from_reference(ref_cfg)
     reason = simcore.supports(cfg, "perf_aware")
     assert reason is not None and feature in reason
@@ -283,22 +343,171 @@ def test_supports_rejects_unknown_policy():
 
 
 def test_supports_every_registered_scenario_and_names_the_rest():
-    for name in FIFTEEN:
+    for name in LOWERED:
         cfg = get_scenario(name).compile(seed=0, **SMALL)
         for pol in POLICIES:
             assert simcore.supports(cfg, pol) is None, (name, pol)
-    named = set()
-    for name in ref_scenario_names():
-        if name in FIFTEEN:
-            continue
+    for name in CLIENT_SIDE:
         cfg = config_from_reference(ref_scenario(name).compile(seed=0))
-        reason = simcore.supports(cfg, "perf_aware")
-        assert reason is not None, name
-        named |= {w for w in ("capacity", "preemption", "resilience",
-                              "trace") if w in reason}
-    assert named == {"capacity", "resilience"}
+        for pol in POLICIES:
+            reason = simcore.supports(cfg, pol)
+            assert "client-side resilience" in reason, (name, pol)
+            assert ("correlated outage" in reason) \
+                == (name == "correlated-outage"), name
     traced = get_scenario("baseline").compile(seed=0, trace=object())
     assert "trace" in simcore.supports(traced, "perf_aware")
-    preempt = config_from_reference(ref_scenario("spot-preemption")
-                                    .compile(seed=0))
-    assert "preemption" in unlowered(replace(preempt, capacity=None))
+    spot = config_from_reference(ref_scenario("spot-preemption")
+                                 .compile(seed=0))
+    assert unlowered(spot) is None
+    with pytest.raises(ValueError, match="preempt requires"):
+        _build_cluster(replace(spot, capacity=None))
+
+
+@pytest.mark.parametrize("policy", POLICIES)
+@pytest.mark.parametrize("name", CAPACITY)
+def test_capacity_telemetry_matches_serial_exactly(name, policy):
+    """The registered capacity scenarios at their own length (every
+    autoscaler epoch of the run, the preemption window, the idle
+    valleys' scale-to-zero and wakes): the integer telemetry equals the
+    serial stepper's, and no served request lands on a drained
+    replica."""
+    ref = ref_build(ref_scenario(name).compile(seed=1, n_trials=2))
+    port = simcore.run_compiled(cluster_from_reference(ref), policy,
+                                device="cpu")
+    serial = _serial(ref, policy)
+    assert serial["capacity"]["decisions"] > 20
+    assert serial["capacity"]["scale_ups"].sum() > 0
+    _assert_summary_close(port, serial, f"{name}/{policy}")
+    np.testing.assert_array_equal(port["chosen"], serial["chosen"])
+
+
+#: capacity planes that shed, wake every arrival and break glass
+_REACTIVE_SHED = RefCapacityConfig(autoscaler="reactive", min_replicas=1,
+                                   admission_limit_s=3.0)
+_FIXED_ZERO = RefCapacityConfig(autoscaler="fixed", min_replicas=0,
+                                initial_replicas=0, max_replicas=3,
+                                admission_limit_s=2.0)
+_PREDICT_SHED = RefCapacityConfig(min_replicas=1, admission_limit_s=3.0)
+
+
+@pytest.mark.parametrize("policy", POLICIES)
+@pytest.mark.parametrize("name,kw", [
+    ("overload-ramp", dict(capacity=_REACTIVE_SHED)),
+    ("spot-preemption", dict(capacity=_FIXED_ZERO)),
+    ("spot-preemption", dict(n_nodes=1))])
+def test_capacity_shed_wake_and_break_glass_match_serial(name, kw, policy):
+    """Admission sheds (NaN responses, ``chosen = -1``, NaN-aware stats)
+    under the reactive and the fixed autoscaler, a pool that starts
+    empty and wakes at every arrival, and a preemption that takes every
+    replica's node (the wake breaks glass)."""
+    ref = ref_build(ref_scenario(name).compile(seed=0, n_trials=3,
+                                               n_requests=200, **kw))
+    port = simcore.run_compiled(cluster_from_reference(ref), policy,
+                                device="cpu")
+    serial = _serial(ref, policy)
+    assert serial["n_shed"] > 0
+    if "n_nodes" in kw or kw["capacity"].initial == 0:
+        assert serial["capacity"]["wakeups"].sum() > 0
+    _assert_summary_close(port, serial, f"{name}/{kw}/{policy}")
+    np.testing.assert_array_equal(port["chosen"], serial["chosen"])
+
+
+@pytest.mark.parametrize("policy", POLICIES)
+@pytest.mark.parametrize("name,kw", [
+    ("spot-preemption", dict(churn=(30.0, 40.0))),
+    ("overload-ramp", dict(churn=(40.0, 30.0), capacity=_REACTIVE_SHED)),
+    ("overload-ramp", dict(closed_loop=True, online_warmup_s=20.0,
+                           retrain_every_s=10.0, fallback_threshold=0.55)),
+    ("overload-ramp", dict(closed_loop=True, online_warmup_s=20.0,
+                           retrain_every_s=10.0, fallback_threshold=0.55,
+                           hedge_factor=0.7, capacity=_PREDICT_SHED))])
+def test_capacity_with_churn_and_closed_loop_matches_serial(name, kw,
+                                                            policy):
+    """Churn inside the membership walk (its busy bump lands mid-walk,
+    the resync at the churn step) and the closed-loop fleet under the
+    capacity plane (the fleet's raw prediction feeds the autoscaler,
+    shed requests train nothing), with hedging and admission."""
+    ref = ref_build(ref_scenario(name).compile(seed=0, n_trials=3,
+                                               n_requests=200, **kw))
+    port = simcore.run_compiled(cluster_from_reference(ref), policy,
+                                device="cpu")
+    serial = _serial(ref, policy)
+    _assert_summary_close(port, serial, f"{name}/{kw}/{policy}")
+    np.testing.assert_array_equal(port["chosen"], serial["chosen"])
+    if kw.get("closed_loop") and policy == "perf_aware":
+        assert serial["n_fallback"] > 0
+
+
+@pytest.mark.parametrize("policy", ("perf_aware", "oracle"))
+@pytest.mark.parametrize("name,kw", [
+    ("spot-preemption", dict(hedge_factor=0.5)),
+    ("scale-to-zero-idle", dict(cold_start_s=40.0, prediction_lag_s=5.0)),
+    ("overload-ramp", dict(hedge_factor=0.5, prediction_lag_s=5.0,
+                           capacity=_PREDICT_SHED)),
+    ("gray-failure", dict(hedge_factor=0.5, prediction_lag_s=5.0,
+                          arrival_rate=4.0)),
+    ("gray-failure", dict(capacity=_PREDICT_SHED, preempt=(30.0, 30.0))),
+    ("staleness-storm", dict(outage=(20.0, 10.0)))])
+def test_planes_compose_with_hedging_snapshot_and_cold_start(name, kw,
+                                                             policy):
+    """Combinations no registered scenario has: the capacity plane with
+    hedging (drained candidates neither take nor anchor a hedge), cold
+    start and a stale snapshot (cold replicas predicted slow); gray
+    failure under hedging, a snapshot and a capacity plane; a staleness
+    storm beside a metric outage."""
+    ref = ref_build(ref_scenario(name).compile(seed=2, n_trials=3,
+                                               n_requests=200, **kw))
+    port = simcore.run_compiled(cluster_from_reference(ref), policy,
+                                device="cpu")
+    serial = _serial(ref, policy)
+    _assert_summary_close(port, serial, f"{name}/{kw}/{policy}")
+    np.testing.assert_array_equal(port["chosen"], serial["chosen"])
+    if "hedge_factor" in kw:
+        assert serial["n_hedged"] > 0
+
+
+_CAP_PORT = CapacityConfig(decide_every_s=3.0)
+_CAP_REF = RefCapacityConfig(decide_every_s=3.0)
+
+
+@pytest.mark.parametrize("horizon,kw", [
+    (40.0, dict(churn=(12.0, 5.0))),
+    (40.0, dict(capacity=True)),
+    (40.0, dict(capacity=True, preempt=(9.0, 6.0), churn=(9.0, 1.0))),
+    (30.0, dict(capacity=True, preempt=(6.0, 30.0),
+                outage_group=(3.0, 4.0, 2))),
+    (2.0, dict(capacity=True, churn=(1.0, 1.0)))])
+def test_membership_timeline_matches_reference(horizon, kw):
+    """The heap order, same-instant ties (by push order) and the horizon
+    cut, event for event."""
+    port = membership_timeline(horizon, **{
+        k: (_CAP_PORT if k == "capacity" else v) for k, v in kw.items()})
+    ref = ref_timeline(horizon, **{
+        k: (_CAP_REF if k == "capacity" else v) for k, v in kw.items()})
+    assert [(e.t, e.seq, e.kind) for e in port] \
+        == [(e.t, e.seq, e.kind) for e in ref]
+
+
+def test_take_lowest_and_highest_match_brute_force():
+    rng = np.random.default_rng(3)
+    elig = rng.random((40, 9)) < 0.6
+    k = rng.integers(0, 8, size=40)
+    lo = take_lowest(torch.as_tensor(elig), torch.as_tensor(k)).numpy()
+    hi = take_highest(torch.as_tensor(elig), torch.as_tensor(k)).numpy()
+    for t in range(40):
+        idx = np.flatnonzero(elig[t])
+        want_lo = np.zeros(9, bool)
+        want_lo[idx[:k[t]]] = True
+        want_hi = np.zeros(9, bool)
+        want_hi[idx[::-1][:k[t]]] = True
+        np.testing.assert_array_equal(lo[t], want_lo)
+        np.testing.assert_array_equal(hi[t], want_hi)
+    np.testing.assert_array_equal(lo, ref_take_lowest(elig, k))
+    np.testing.assert_array_equal(hi, ref_take_highest(elig, k))
+    # over the (T, A, K) blocks the autoscaler applies them to
+    blocks = torch.as_tensor(elig.reshape(40, 3, 3))
+    kb = torch.as_tensor(rng.integers(0, 4, size=(40, 3)))
+    for a in range(3):
+        np.testing.assert_array_equal(
+            take_highest(blocks, kb)[:, a].numpy(),
+            ref_take_highest(blocks[:, a].numpy(), kb[:, a].numpy()))
