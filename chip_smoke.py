@@ -20,15 +20,24 @@ Phases (any failure raises and exits non-zero, with no result line):
    took) and time kernel, plain version and a one-call library yardstick
    (for SSD, the FMA kernel on f32 beside the tensor-core one on bf16);
 4. the simulation path: ``run_scenario`` at full width (250 nodes, 200
-   replicas per app, 1000 requests, 8 seeds x 32 trials) on baseline,
+   replicas per app, 8 seeds x 32 trials; 600 requests, cut from 1000 to
+   keep the whole run within about 8 minutes) on baseline,
    stale-predictions, churn, cold-start, drift-fallback (the closed-loop
    fleet under drift), the four capacity-plane scenarios (overload-ramp,
    flash-crowd-autoscale, scale-to-zero-idle, spot-preemption: waste,
    shed rate and the autoscaler's telemetry printed), gray-failure and
-   staleness-storm with the four default policies and the oracle,
-   counting kernel launches; then profiled full-width passes cut to 100
-   requests (device busy share, largest kernels and host ops, the
-   host's waits on the device), outside the launch count;
+   staleness-storm with the four default policies and the oracle, and
+   the client plane's three scenarios (correlated-outage, retry-storm,
+   breaker-saves-retry-storm) at their registry shape with 12 seeds x 8
+   trials, one pass a policy (goodput, timeout, fail-fast and shed
+   rates, attempts per request, wasted work, ms a step), counting kernel
+   launches; then, outside the launch count, the launches a step of each
+   client pass, a traced pass at bench_telemetry.py's LARGE shape
+   (least_conn and perf_aware untraced and at sample_every 16 and 1:
+   step-time overhead and the trace's sum rule), and profiled passes
+   (device busy share, largest kernels and host ops, the host's waits
+   on the device): full width cut to 100 requests, and retry-storm's
+   perf_aware at its registry shape;
 5. the serving path: ``ServingEngine`` with qwen2-vl-7b at full width
    (28 layers, bf16, random weights from a seeded generator), 3 waves of
    8 requests (prompts of 256-1024 tokens, 32 new tokens each), counting
@@ -46,8 +55,10 @@ Phases (any failure raises and exits non-zero, with no result line):
    launches (three per layer and step) beside the attention kernels';
    then a profiled prefill and decode step outside the count;
 6. CUDA against the CPU: the campaign at a mid shape (summary stats
-   within 1e-5 relative on every cell, the capacity plane's telemetry
-   counts equal) and the three serving paths at their smoke configs in
+   and the client plane's stats within 1e-5 relative on every cell, the
+   capacity plane's telemetry and the timeout counts equal; a traced
+   baseline at sample_every 1 and 16 with equal NaN masks and rows
+   within 1e-5) and the three serving paths at their smoke configs in
    f32 (logits within 1e-4 relative, identical tokens);
 7. a ``kernels`` JSON line, the card's line, then the result line.
 """
@@ -71,6 +82,8 @@ PEAK_OPS_S = {"torch.float64": 34e12, "torch.float32": 67e12,
 
 LARGE = dict(n_nodes=250, n_replicas_per_app=200, n_requests=1000)
 LARGE_SEEDS, LARGE_TRIALS = tuple(range(8)), 32
+#: the depth of phase 4's full-width scenarios
+MAIN_J = 600
 MID = dict(n_nodes=60, n_replicas_per_app=50, n_requests=200)
 MID_SEEDS, MID_TRIALS = tuple(range(4)), 16
 CAPACITY_SCENARIOS = ("overload-ramp", "flash-crowd-autoscale",
@@ -78,10 +91,20 @@ CAPACITY_SCENARIOS = ("overload-ramp", "flash-crowd-autoscale",
 MAIN_SCENARIOS = ("baseline", "stale-predictions", "churn", "cold-start",
                   "drift-fallback") + CAPACITY_SCENARIOS \
     + ("gray-failure", "staleness-storm")
-KERNEL_SCENARIOS = ("stale-predictions", "churn", "staleness-storm")
+#: the client plane's scenarios at their registry shape (5 apps x 6
+#: replicas, J = 300 or 450: the collapse is calibrated at this size)
+#: with bench_resilience.py's 12 seeds x 8 trials
+CLIENT_SCENARIOS = ("correlated-outage", "retry-storm",
+                    "breaker-saves-retry-storm")
+CLIENT_SEEDS = tuple(range(12))
+POLICIES = ("perf_aware", "least_conn", "round_robin", "random", "oracle")
+KERNEL_SCENARIOS = ("stale-predictions", "churn", "staleness-storm",
+                    "correlated-outage")
+#: card against the CPU at MID (the client plane's scenarios are held
+#: at their registry shape instead: phase 4's own passes)
 PARITY_SCENARIOS = ("stale-predictions", "churn", "cold-start",
                     "drift-fallback") + CAPACITY_SCENARIOS \
-    + ("gray-failure", "staleness-storm")
+    + ("gray-failure", "staleness-storm", "baseline@1", "baseline@16")
 PARITY_RTOL = 1e-5
 #: the capacity plane's integer telemetry, equal on the card and the CPU
 TELEMETRY = ("decisions", "scale_ups", "scale_downs", "wakeups",
@@ -233,21 +256,29 @@ def check_segment_sum(dev) -> dict:
         want = segment_sum_plain(v, i, B)
         return v, i, got, want
 
-    # the main path's shape: (T, R) = (256, 1000), B = N·A = 1250, keyed
-    # by node·A + app like simcore's recount, on a 0/1 f64 busy mask
+    def path_case(T, R, N, A):
+        """simcore's recount: a 0/1 f64 busy mask (T, R) keyed by
+        node·A + app into B = N·A bins; the sums must be exact."""
+        node_of = rng.integers(0, N, size=(T, R))
+        na_key = (node_of * A + np.repeat(np.arange(A), R // A)[None, :])
+        busy = torch.as_tensor((rng.random((T, R)) < 0.5).astype(float),
+                               device=dev)
+        ids = torch.as_tensor(na_key.astype(np.int32), device=dev)
+        got = segment_sum(busy, ids, N * A)
+        want = segment_sum_plain(busy, ids, N * A)
+        err = float((got - want).abs().max())
+        assert err == 0.0, f"0/1 mask ({T},{R})->{N * A} not exact: {err}"
+        print(f"segment_sum path shape ({T},{R})->{N * A} f64 0/1 mask: "
+              f"max_abs_err {err}")
+        return busy, ids, err
+
+    # the main path's shapes: the full-width scenarios' (T, R) = (256,
+    # 1000) into N·A = 1250 bins, and the correlated outage's resync at
+    # its registry shape, (96, 30) into 6 x 5 = 30 bins
     T, R, N, A = 256, 1000, LARGE["n_nodes"], 5
     B = N * A
-    node_of = rng.integers(0, N, size=(T, R))
-    na_key = (node_of * A + np.repeat(np.arange(A), R // A)[None, :])
-    busy = torch.as_tensor((rng.random((T, R)) < 0.5).astype(float),
-                           device=dev)
-    ids = torch.as_tensor(na_key.astype(np.int32), device=dev)
-    got = segment_sum(busy, ids, B)
-    want = segment_sum_plain(busy, ids, B)
-    path_err = float((got - want).abs().max())
-    assert path_err == 0.0, f"0/1 mask not exact: {path_err}"
-    print(f"segment_sum path shape ({T},{R})->{B} f64 0/1 mask: "
-          f"max_abs_err {path_err}")
+    busy, ids, path_err = path_case(T, R, N, A)
+    path_case(8 * len(CLIENT_SEEDS), 30, 6, 5)
 
     # each load and store path of the kernel: 16-byte loads (the path
     # shape), scalar loads (R % 4 != 0, an unaligned base), a scalar
@@ -824,32 +855,36 @@ def sync_cost_us(dev) -> float:
     return (time.perf_counter() - t0) / n * 1e6
 
 
-def profile_pass(scenario: str, policy: str, n_requests: int) -> None:
-    """One full-width pass of ``policy`` on ``scenario``, cut to
-    ``n_requests`` requests, under torch.profiler: kernel launches per
-    step, the device's busy share of the request loop (kernel time only:
-    the setup's host-to-device copies are left out), and the largest
-    kernels and host ops."""
+def profile_pass(scenario: str, policy: str, n_requests: int,
+                 seeds=LARGE_SEEDS, n_trials=LARGE_TRIALS,
+                 shape=LARGE) -> None:
+    """One pass of ``policy`` on ``scenario`` (by default at full width),
+    cut to ``n_requests`` requests, under torch.profiler: kernel
+    launches per step, the device's busy share of the request loop
+    (kernel time only: the setup's host-to-device copies are left out),
+    and the largest kernels and host ops."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.campaign import run_scenario
-    kw = dict(LARGE, n_requests=n_requests)
+    kw = dict(shape, n_requests=n_requests)
     run_scenario(scenario, policies=(policy,), include_oracle=False,
-                 seeds=LARGE_SEEDS[:1], n_trials=8, **kw)      # warm-up
+                 seeds=seeds[:1], n_trials=min(n_trials, 8), **kw)  # warm-up
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         res = run_scenario(scenario, policies=(policy,),
-                           include_oracle=False, seeds=LARGE_SEEDS,
-                           n_trials=LARGE_TRIALS, **kw)
+                           include_oracle=False, seeds=seeds,
+                           n_trials=n_trials, **kw)
     loop_s = res[policy].loop_s
     events = prof.key_averages()
     on_device = [e for e in events if str(e.device_type).endswith("CUDA")]
     kernels = [e for e in on_device if not e.key.startswith("Mem")]
     kern_us = sum(e.self_device_time_total for e in kernels)
     launches = sum(e.count for e in events if e.key == "cudaLaunchKernel")
-    print(f"profile {scenario}/{policy} ({n_requests} requests, full "
-          f"width, profiler on): loop {loop_s:.3f} s, "
+    T = len(seeds) * n_trials
+    print(f"profile {scenario}/{policy} ({n_requests} requests, T = {T}, "
+          f"{'full width' if shape == LARGE else 'registry shape'}, "
+          f"profiler on): loop {loop_s:.3f} s, "
           f"{launches / n_requests:.0f} kernel launches/step, kernels "
           f"busy {kern_us / 1e6:.4f} s = {kern_us / 1e6 / loop_s * 100:.1f}"
           f" % of the loop")
@@ -871,6 +906,159 @@ def profile_pass(scenario: str, policy: str, n_requests: int) -> None:
     for e in sorted(events, key=lambda e: -e.self_cpu_time_total)[:8]:
         print(f"  host   {e.self_cpu_time_total / 1e3:9.2f} ms  "
               f"{e.count:7d} x  {e.key[:80]}")
+
+
+def launches_per_step(scenario: str, policy: str, n_requests: int,
+                      **kw) -> float:
+    """Kernels a step of one pass cut to ``n_requests`` requests ran on
+    the device, counted by torch.profiler tracing the device alone (the
+    set-up copies left out; the host's ops are not recorded, which keeps
+    the count cheap)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.campaign import run_scenario
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run_scenario(scenario, policies=(policy,), include_oracle=False,
+                     n_requests=n_requests, **kw)
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if str(e.device_type).endswith("CUDA")
+               and not e.key.startswith("Mem")) / n_requests
+
+
+def sum_rule_err(trace) -> float:
+    """Largest |signed sum of the decomposition - response| over the
+    served rows of a trace block."""
+    import numpy as np
+    from repro_torch.core.telemetry import (COMPONENTS, DISP_SERVED,
+                                            TRACE_IDX)
+    data = trace["data"]
+    comp = sum(data[..., TRACE_IDX[c]] for c in COMPONENTS
+               if c != "hedge_s") - data[..., TRACE_IDX["hedge_s"]]
+    served = data[..., TRACE_IDX["disposition"]] == DISP_SERVED
+    err = np.abs(comp - data[..., TRACE_IDX["response"]])[served]
+    return float(err.max()) if err.size else 0.0
+
+
+def client_passes(per_scen: dict) -> dict:
+    """The client plane's scenarios at their registry shape, one pass a
+    policy (segment-sum launches counted per pass into ``per_scen``);
+    returns (scenario, policy) -> PolicyResult."""
+    from repro_torch.core.campaign import (RESILIENCE_STATS, SUMMARY_STATS,
+                                           run_scenario)
+    from repro_torch.core.scenarios import get_scenario
+    from repro_torch.kernels.segment_sum import segment_sum
+    out = {}
+    for scen in CLIENT_SCENARIOS:
+        J = get_scenario(scen).n_requests
+        t0 = time.perf_counter()
+        for pol in POLICIES:
+            before = segment_sum.launches
+            res = run_scenario(scen, policies=(pol,), include_oracle=False,
+                               seeds=CLIENT_SEEDS)
+            per_scen[scen, pol] = segment_sum.launches - before
+            finite_stats(res, SUMMARY_STATS + RESILIENCE_STATS)
+            r = out[scen, pol] = res[pol]
+            n_tmo = int(r.per_seed["timeouts"].sum())
+            print(f"  {scen}/{pol}: goodput {r.stat('goodput'):.4f} timeout "
+                  f"{r.stat('timeout_rate'):.4f} (fail-fast "
+                  f"{r.stat('fail_fast_rate'):.4f}, {n_tmo} requests) "
+                  f"breaker trips {int(r.per_seed['trips'].sum())} shed "
+                  f"{r.stat('shed_rate'):.4f} attempts/req "
+                  f"{r.stat('attempts_per_req'):.4f} wasted work "
+                  f"{r.stat('wasted_work_s'):.1f} s; loop {r.loop_s:.2f} s "
+                  f"= {r.loop_s / J * 1e3:.2f} ms/step, host syncs "
+                  f"{r.host_syncs}, segment_sum {per_scen[scen, pol]}")
+        print(f"{scen}: T = {len(CLIENT_SEEDS) * 8}, J = {J}, "
+              f"{time.perf_counter() - t0:.1f} s for the 5 passes")
+    return out
+
+
+def client_parity(client: dict) -> float:
+    """The client plane at its registry shape: phase 4's card passes
+    (``client``, from :func:`client_passes`) against the CPU on the same
+    inputs, where the retries, backoff, breaker trips and fail-fast
+    attempts all happen.  Returns the worst relative drift."""
+    import numpy as np
+    from repro_torch.core.campaign import (RESILIENCE_STATS, SUMMARY_STATS,
+                                           run_scenario)
+    worst = 0.0
+    t0 = time.perf_counter()
+    for scen in CLIENT_SCENARIOS:
+        for pol in POLICIES:
+            a = client[scen, pol]
+            b = run_scenario(scen, policies=(pol,), include_oracle=False,
+                             seeds=CLIENT_SEEDS, device="cpu")[pol]
+            for k in ("timeouts", "trips"):
+                np.testing.assert_array_equal(
+                    a.per_seed[k], b.per_seed[k],
+                    err_msg=f"{scen}/{pol} {k}")
+            for k in SUMMARY_STATS + RESILIENCE_STATS + ("hedged",
+                                                         "fallback"):
+                x = np.asarray(a.per_seed[k], float)
+                y = np.asarray(b.per_seed[k], float)
+                np.testing.assert_allclose(x, y, rtol=PARITY_RTOL, atol=1e-7,
+                                           err_msg=f"{scen}/{pol}/{k}")
+                d = np.abs(x - y) / np.maximum(np.abs(y), 1e-9)
+                worst = max(worst, float(d.max()))
+        n_tmo = int(client[scen, "perf_aware"].per_seed["timeouts"].sum())
+        n_ff = sum(float(client[scen, pol].per_seed["fail_fast_rate"].sum())
+                   for pol in POLICIES)
+        n_trips = sum(int(client[scen, pol].per_seed["trips"].sum())
+                      for pol in POLICIES)
+        print(f"parity {scen} (registry shape, T = "
+              f"{8 * len(CLIENT_SEEDS)}): perf_aware timed-out requests "
+              f"{n_tmo}; over the 5 policies fail-fast rate sum "
+              f"{n_ff:.4f}, breaker trips {n_trips}")
+        assert n_tmo > 0, f"{scen}: no request timed out"
+        if scen != "retry-storm":
+            # the breaker scenarios trip breakers and fail fast
+            assert n_trips > 0 and n_ff > 0, (scen, n_trips, n_ff)
+    print(f"parity client plane: cpu {time.perf_counter() - t0:.1f} s")
+    return worst
+
+
+def traced_pass(T_seeds, n_trials) -> None:
+    """bench_telemetry.py's LARGE cell (baseline) untraced and traced at
+    sample_every 16 and 1, least_conn and perf_aware, on one stacked
+    cluster: each pass's loop time, the overhead against the untraced
+    pass in the same call, the sum rule and the trace's shape."""
+    from dataclasses import replace
+    from repro_torch.core import simcore
+    from repro_torch.core.campaign import stack_clusters
+    from repro_torch.core.rng import rng_seed
+    from repro_torch.core.scenarios import get_scenario
+    from repro_torch.core.simulator import _build_cluster
+    from repro_torch.core.telemetry import TraceConfig
+    spec = get_scenario("baseline")
+    cfgs = [spec.compile(seed=s, n_trials=n_trials, **LARGE)
+            for s in T_seeds]
+    stacked = stack_clusters([_build_cluster(c) for c in cfgs])
+    blocks = [(rng_seed(c.seed, "policy"), c.n_trials) for c in cfgs]
+    J = LARGE["n_requests"]
+    for pol in ("least_conn", "perf_aware"):
+        loop = {}
+        for k in (None, 16, 1, None):
+            c = stacked if k is None else replace(
+                stacked, cfg=replace(stacked.cfg, trace=TraceConfig(k)))
+            out = simcore.run_compiled(c, pol, seed_blocks=blocks)
+            loop.setdefault(k, []).append(out["loop_s"])
+            if k is not None:
+                tr = out["trace"]
+                err = sum_rule_err(tr)
+                want = (stacked.cfg.n_trials, -(-J // k), 12)
+                assert tr["data"].shape == want, tr["data"].shape
+                assert err < 1e-6, f"trace sum rule {err} at k = {k}"
+                print(f"  traced {pol} k={k}: loop {out['loop_s']:.3f} s "
+                      f"= {out['loop_s'] / J * 1e3:.3f} ms/step, sum-rule "
+                      f"error {err:.3e}, trace {tr['data'].shape}")
+        base = min(loop[None])
+        print(f"trace overhead {pol} (T = {stacked.cfg.n_trials}, R = "
+              f"{len(stacked.app_of)}, J = {J}): untraced "
+              f"{base / J * 1e3:.3f} ms/step (two passes "
+              f"{', '.join(f'{x:.3f}' for x in loop[None])} s), k=16 "
+              f"x{loop[16][0] / base:.3f}, k=1 x{loop[1][0] / base:.3f}")
 
 
 def _kernel_wrappers() -> dict:
@@ -1214,11 +1402,11 @@ def main() -> int:
         before = segment_sum.launches
         t0 = time.perf_counter()
         res = run_scenario(scen, seeds=LARGE_SEEDS, n_trials=LARGE_TRIALS,
-                           **LARGE)
+                           **dict(LARGE, n_requests=MAIN_J))
         total = time.perf_counter() - t0
         per_scen[scen] = segment_sum.launches - before
         finite_stats(res, SUMMARY_STATS)
-        J = LARGE["n_requests"]
+        J = MAIN_J
         print(f"{scen}: {total:.1f} s total (build + 5 passes), "
               f"segment_sum launches {per_scen[scen]}")
         for pol, r in res.items():
@@ -1247,9 +1435,28 @@ def main() -> int:
             pa, rr = res["perf_aware"].stat("mean_rtt"), \
                 res["round_robin"].stat("mean_rtt")
             assert pa < rr, f"baseline perf_aware {pa} >= round_robin {rr}"
+    # the client plane at its registry shape
+    print(f"phase 4 full width: {time.perf_counter() - t_start:.1f} s into "
+          f"the run")
+    client = client_passes(per_scen)
     main_launches = segment_sum.launches
+    for scen in CLIENT_SCENARIOS:
+        per_scen[scen] = sum(per_scen[scen, pol] for pol in POLICIES)
+    print("correlated-outage segment_sum launches (the outage's resync): "
+          + ", ".join(f"{pol} {per_scen['correlated-outage', pol]}"
+                      for pol in POLICIES))
+    assert per_scen["correlated-outage", "perf_aware"] > 0 \
+        and per_scen["correlated-outage", "oracle"] > 0, \
+        "the correlated outage's resync never launched the segment sum"
     for scen in KERNEL_SCENARIOS:
         assert per_scen[scen] > 0, f"segment_sum never launched on {scen}"
+    # the storm: retries amplify the load (attempts), breakers and
+    # admission keep more requests served
+    storm, saved = (client[s, "perf_aware"] for s in CLIENT_SCENARIOS[1:])
+    assert storm.stat("attempts_per_req") > 1.5, \
+        storm.stat("attempts_per_req")
+    assert saved.stat("goodput") > storm.stat("goodput") + 0.1, \
+        (saved.stat("goodput"), storm.stat("goodput"))
     assert all(k.launches == 0 for n, k in wrappers.items()
                if n != "segment_sum"), "the simulation launched a model kernel"
     kernels[0]["launches"] = main_launches
@@ -1264,7 +1471,29 @@ def main() -> int:
     # least_conn the completions at each epoch (one host read an epoch)
     profile_pass("spot-preemption", "perf_aware", 100)
     profile_pass("spot-preemption", "least_conn", 100)
+    # the client plane: launches a step of perf_aware's and
+    # least_conn's passes (cut to 30 requests), the retry storm's perf_aware profiled at its registry
+    # shape through the whole run (the ramp, the collapse past the 25 s
+    # timeouts and the storm after the peak), and the trace's overhead
+    # at LARGE
+    t0 = time.perf_counter()
+    for scen in CLIENT_SCENARIOS:
+        per_step = {pol: launches_per_step(scen, pol, 30, seeds=CLIENT_SEEDS)
+                    for pol in ("perf_aware", "least_conn")}
+        print(f"{scen} launches/step: " + ", ".join(
+            f"{pol} {n:.1f}" for pol, n in per_step.items()))
+    t1 = time.perf_counter()
+    from repro_torch.core.scenarios import get_scenario
+    profile_pass("retry-storm", "perf_aware",
+                 get_scenario("retry-storm").n_requests, seeds=CLIENT_SEEDS,
+                 n_trials=8, shape={})
+    t2 = time.perf_counter()
+    traced_pass(LARGE_SEEDS, LARGE_TRIALS)
+    print(f"client launch counts {t1 - t0:.1f} s, retry-storm profile "
+          f"{t2 - t1:.1f} s, traced pass {time.perf_counter() - t2:.1f} s; "
+          f"{time.perf_counter() - t_start:.1f} s into the run")
 
+    print(f"phase 4 done: {time.perf_counter() - t_start:.1f} s into the run")
     # phase 5: the serving path at full width (each wave: the flash
     # kernel once per layer, the decode kernel once per layer and step)
     served = serve_full_width(
@@ -1315,9 +1544,15 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # phase 6: CUDA against the CPU: the campaign at the mid shape
+    print(f"phase 5 done: {time.perf_counter() - t_start:.1f} s into the run")
+    from repro_torch.core.campaign import RESILIENCE_STATS
+    from repro_torch.core.telemetry import TraceConfig
     worst = 0.0
     for scen in PARITY_SCENARIOS:
         kw = dict(seeds=MID_SEEDS, n_trials=MID_TRIALS, **MID)
+        if "@" in scen:
+            scen, k = scen.split("@")
+            kw["trace"] = TraceConfig(sample_every=int(k))
         t0 = time.perf_counter()
         on_gpu = run_scenario(scen, device="cuda", **kw)
         t1 = time.perf_counter()
@@ -1332,7 +1567,20 @@ def main() -> int:
                 np.testing.assert_array_equal(
                     a.telemetry[k], b.telemetry[k],
                     err_msg=f"{scen}/{pol} telemetry {k}")
-            for k in SUMMARY_STATS + ("hedged", "fallback"):
+            np.testing.assert_array_equal(
+                a.per_seed["timeouts"], b.per_seed["timeouts"],
+                err_msg=f"{scen}/{pol} timeouts")
+            assert (a.trace is None) == (b.trace is None) \
+                == ("trace" not in kw)
+            if b.trace is not None:
+                x, y = a.trace["data"], b.trace["data"]
+                np.testing.assert_array_equal(np.isnan(x), np.isnan(y))
+                np.testing.assert_allclose(
+                    np.nan_to_num(x), np.nan_to_num(y), rtol=PARITY_RTOL,
+                    atol=1e-7, err_msg=f"{scen}/{pol} trace")
+                assert sum_rule_err(a.trace) < 1e-6
+            for k in SUMMARY_STATS + RESILIENCE_STATS + ("hedged",
+                                                         "fallback"):
                 x = np.asarray(a.per_seed[k], float)
                 y = np.asarray(b.per_seed[k], float)
                 np.testing.assert_allclose(x, y, rtol=PARITY_RTOL, atol=1e-7,
@@ -1344,8 +1592,11 @@ def main() -> int:
                     a.inefficiency_pct, b.inefficiency_pct,
                     rtol=PARITY_RTOL, atol=1e-7,
                     err_msg=f"{scen}/{pol}/inefficiency_pct")
-        print(f"parity {scen} (mid shape): cuda {t1 - t0:.1f} s, cpu "
-              f"{t2 - t1:.1f} s")
+        n_tmo = int(on_cpu["perf_aware"].per_seed["timeouts"].sum())
+        print(f"parity {scen}{' traced' if 'trace' in kw else ''} (mid "
+              f"shape): cuda {t1 - t0:.1f} s, cpu {t2 - t1:.1f} s, "
+              f"timed-out requests {n_tmo} (perf_aware)")
+    worst = max(worst, client_parity(client))
     print(f"parity cuda vs cpu: worst relative drift {worst:.3e} "
           f"(limit {PARITY_RTOL})")
     serving_parity(dev, ARCH, S=24, lengths=(9, 13, 17, 21), max_seq=32)

@@ -12,13 +12,14 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass, replace
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from repro_torch.core import simcore
 from repro_torch.core.rng import rng_seed
-from repro_torch.core.scenarios import ScenarioSpec, get_scenario
+from repro_torch.core.scenarios import (ScenarioSpec, get_scenario,
+                                        scenario_names)
 from repro_torch.core.simulator import _build_cluster, _Cluster
 from repro_torch.device import DeviceLike, resolve_device
 
@@ -28,6 +29,9 @@ DEFAULT_POLICIES = ("perf_aware", "least_conn", "round_robin", "random")
 SUMMARY_STATS = ("mean_rtt", "p50_rtt", "p95_rtt", "p99_rtt",
                  "cpu_s", "mem_s", "waste", "shed_rate",
                  "slo_violation_s", "goodput", "timeout_rate")
+#: the client plane's per-trial stats, aggregated per seed the same way
+RESILIENCE_STATS = ("client_timeout_rate", "fail_fast_rate",
+                    "attempts_per_req", "wasted_work_s")
 
 
 def _resolve(scenario) -> ScenarioSpec:
@@ -112,6 +116,9 @@ class PolicyResult:
     #: routings onto a drained replica, mean utilisation); None without
     #: a capacity plane
     telemetry: Optional[Dict[str, object]] = None
+    #: the flight recorder's block over the stacked trials; None when
+    #: the scenario is not traced
+    trace: Optional[Dict[str, object]] = None
 
     def stat(self, name: str) -> float:
         return float(self.per_seed[name].mean())
@@ -127,12 +134,16 @@ def _block_reduce(values: np.ndarray, trials: Sequence[int],
 
 def _split_per_seed(summary: Dict[str, np.ndarray],
                     trials: Sequence[int]) -> Dict[str, np.ndarray]:
-    """Collapse each seed's trial block to its mean, stat by stat."""
-    out = {k: _block_reduce(summary[k], trials) for k in SUMMARY_STATS}
-    out["hedged"] = _block_reduce(summary["hedged_per_trial"], trials,
-                                  np.sum)
-    out["fallback"] = _block_reduce(summary["fallback_per_trial"], trials,
-                                    np.sum)
+    """Collapse each seed's trial block to its mean, stat by stat, and
+    the per-trial counts (hedges, fallback routings, timed-out requests,
+    breaker trips) to their sum."""
+    out = {k: _block_reduce(summary[k], trials)
+           for k in SUMMARY_STATS + RESILIENCE_STATS}
+    for k, src in (("hedged", "hedged_per_trial"),
+                   ("fallback", "fallback_per_trial"),
+                   ("timeouts", "timeouts_per_trial"),
+                   ("trips", "breaker_trips_per_trial")):
+        out[k] = _block_reduce(summary[src], trials, np.sum)
     # inefficiency is defined per trial, then averaged
     out["_trial_mean_rtt"] = summary["mean_rtt"]
     out["_trial_p99_rtt"] = summary["p99_rtt"]
@@ -167,7 +178,7 @@ def run_scenario(scenario, policies: Sequence[str] = DEFAULT_POLICIES,
     inefficiency / p99 / waste percentages.  ``device=None`` runs on the
     CUDA card (RuntimeError without one), ``device="cpu"`` on the CPU.
     Raises NotImplementedError, naming the feature, when the scenario
-    needs one the port does not lower yet.
+    needs one the port does not lower.
     """
     dev = resolve_device(device)
     spec = _resolve(scenario)
@@ -197,9 +208,26 @@ def run_scenario(scenario, policies: Sequence[str] = DEFAULT_POLICIES,
             n_hedged=summary["n_hedged"],
             n_fallback=summary["n_fallback"], wall_s=wall,
             loop_s=summary["loop_s"], host_syncs=summary["host_syncs"],
-            telemetry=summary.get("capacity"))
+            telemetry=summary.get("capacity"), trace=summary.get("trace"))
     if include_oracle:
         for pol_name in wanted:
             if pol_name != "oracle":
                 _attach_inefficiency(out[pol_name], out["oracle"], trials)
+    return out
+
+
+def compiled_coverage(policies: Optional[Sequence[str]] = None
+                      ) -> List[Tuple[str, str, str]]:
+    """Every (registered scenario, policy) pair the batched core does not
+    run, as ``(scenario, policy, reason)`` rows; empty means the port
+    runs the whole registry."""
+    pols = tuple(policies) if policies is not None \
+        else DEFAULT_POLICIES + ("oracle",)
+    out: List[Tuple[str, str, str]] = []
+    for name in scenario_names():
+        cfg = get_scenario(name).compile(seed=0)
+        for pol in pols:
+            reason = simcore.supports(cfg, pol)
+            if reason is not None:
+                out.append((name, pol, reason))
     return out

@@ -4,11 +4,11 @@
 A :class:`ScenarioSpec` names one regime and compiles to the
 :class:`~repro_torch.core.simulator.SimConfig` the core runs.  The field
 set is the reference's, so a spec carries over whole; the registry holds
-the twenty-one scenarios the port runs end to end, in the reference's
-order: the nine of the standing matrix, cold start, the four closed-loop
-drift scenarios, the four capacity-plane scenarios, gray failure, the
-staleness storm and the mixed fleet.  The three left out need
-client-side resilience (timeouts, retries, breakers).
+the reference's twenty-four scenarios in its order: the nine of the
+standing matrix, cold start, the four closed-loop drift scenarios, the
+four capacity-plane scenarios, the resilience plane's five (gray
+failure, the staleness storm, the correlated outage and the retry-storm
+pair) and the mixed fleet.
 
 Seed discipline: ``compile(seed=s)`` varies topology/noise with ``s``
 but pins the arrival stream to a per-scenario ``stream_seed`` (crc32 of
@@ -144,7 +144,22 @@ _CAP_CFG = CapacityConfig(min_replicas=2, decide_every_s=5.0,
                           rate_window_s=15.0, cooldown_s=10.0,
                           admission_limit_s=45.0)
 
-#: the scenarios the port runs end to end
+# resilience-plane scenarios with client semantics: a per-attempt
+# timeout, bounded retries with backoff and jitter, per-replica breakers.
+# The retry-storm pair is the metastable-collapse study: with m retries a
+# timed-out request dispatches up to 1 + m attempts, each occupying its
+# server for its whole service time, so at the 10x ramp's peak the
+# amplified load crosses the fleet's capacity and keeps the queues past
+# the 25 s deadline after the offered load recedes.  The calibration
+# (baseline p99 just under the timeout, the heavy "upload" app seeding
+# the collapse) holds at this size: do not scale it.
+_RETRY_STORM = dict(
+    n_nodes=6, n_replicas_per_app=6, heterogeneity=0.15,
+    interference_strength=0.15, accuracy=0.85, n_trials=8,
+    arrival_process="ramp", arrival_params=(30.0, 80.0, 130.0, 10.0),
+    arrival_rate=0.6, n_requests=450)
+
+#: the registry
 SCENARIOS: Dict[str, ScenarioSpec] = {s.name: s for s in (
     ScenarioSpec(
         name="baseline",
@@ -283,6 +298,43 @@ SCENARIOS: Dict[str, ScenarioSpec] = {s.name: s for s in (
         interference_strength=0.9, arrival_rate=2.5, n_requests=300,
         prediction_lag_s=2.0,
         resilience=ResilienceConfig(staleness=(40.0, 50.0))),
+    ScenarioSpec(
+        name="correlated-outage",
+        description="A contiguous 2-node group drops at t=40s for 30s: "
+                    "clients ride timeouts + 2 retries with breakers, and "
+                    "the load concentrates on the surviving nodes.",
+        **_RETRY_STORM | dict(arrival_process="poisson", arrival_params=(),
+                              arrival_rate=0.8, n_requests=300),
+        resilience=ResilienceConfig(
+            timeout_s=25.0, max_retries=2, backoff_base_s=0.5,
+            breaker_threshold=3, breaker_cooldown_s=10.0,
+            outage_group=(40.0, 30.0, 2))),
+    ScenarioSpec(
+        name="retry-storm",
+        description="Naive clients (25s timeout, 3 retries, no breaker) "
+                    "over the 10x overload ramp: retry amplification keeps "
+                    "the fleet saturated after the offered load recedes — "
+                    "goodput stays collapsed at a load the fleet handled "
+                    "comfortably before the peak (metastable failure).",
+        **_RETRY_STORM,
+        resilience=ResilienceConfig(timeout_s=25.0, max_retries=3,
+                                    backoff_base_s=0.5, backoff_mult=2.0,
+                                    backoff_jitter=0.5)),
+    ScenarioSpec(
+        name="breaker-saves-retry-storm",
+        description="The same storm with per-replica circuit breakers and "
+                    "admission control over a fixed full-size pool: "
+                    "breakers fail fast instead of dispatching doomed "
+                    "attempts, admission sheds the excess, and the fleet "
+                    "recovers as the load recedes.",
+        **_RETRY_STORM,
+        capacity=CapacityConfig(autoscaler="fixed", min_replicas=6,
+                                decide_every_s=5.0, warmup_s=0.0,
+                                slo_target_s=15.0, admission_limit_s=25.0),
+        resilience=ResilienceConfig(timeout_s=25.0, max_retries=3,
+                                    backoff_base_s=0.5, backoff_mult=2.0,
+                                    backoff_jitter=0.5, breaker_threshold=3,
+                                    breaker_cooldown_s=10.0)),
     ScenarioSpec(
         name="mixed-app-fleet",
         description="Everything at once: bursty arrivals over tiered "

@@ -32,18 +32,30 @@ operations over dense ``(T, K)`` / ``(T, R)`` state on one device:
   masked out of every policy's score, the autoscaler's service-time
   estimate and the provisioning ledger;
 * the resilience plane's gray failure (the true RTT of one node per
-  trial slowed inside a window, the prediction basis kept healthy) and
-  staleness storm (one more outage window of the snapshot).
+  trial slowed inside a window, the prediction basis kept healthy),
+  correlated node-group outage (the group's busy bump in the membership
+  walk, then a count resync) and staleness storm (one more outage
+  window of the snapshot);
+* client-side resilience: a statically unrolled attempt loop per
+  request (a per-attempt timeout, ``max_retries`` retries after
+  exponential backoff with pre-drawn jitter, per-replica breakers from
+  ``repro_torch.core.resilience.Breakers``), every dispatched attempt
+  occupying its server whether or not the client still waits;
+* the flight recorder: every ``sample_every``-th request's decision and
+  additive RTT decomposition, a row of a ``(ceil(J / k), T, F)`` buffer
+  on the device (``repro_torch.core.telemetry``).
 
 The host knows each request's app, arrival time and every per-step flag
 (snapshot refresh, membership events, drift regime, cold start, gray
-window, retrain) before the loop starts, so a step specialises on them
-in Python; the only host syncs are the expiry rounds' ``any()`` checks
-(one per ``expire`` call, plus one per extra round) and the completion
-fold's round count (one per autoscaler epoch of a pass without
-predictions).  Scalars go into tensors by ``scatter_`` / ``fill_``,
-which take them as kernel arguments: ``t[idx] = True`` on a CUDA tensor
-copies a CPU scalar to the card and waits for it.
+window, retrain, trace sample) before the loop starts, so a step
+specialises on them in Python; the only host syncs are the expiry
+rounds' ``any()`` checks (one per ``expire`` call, plus one per extra
+round) and the completion fold's round count (one per autoscaler epoch
+of a pass without predictions).  The attempt loop runs every attempt
+with its per-trial masks on the device, never stopping early.  Scalars
+go into tensors by ``scatter_`` / ``fill_``, which take them as kernel
+arguments: ``t[idx] = True`` on a CUDA tensor copies a CPU scalar to
+the card and waits for it.
 
 **Serial-reference contract**: the reference's serial stepper is the
 semantics; the port agrees with it to <= 1e-5 relative on every summary
@@ -51,12 +63,8 @@ stat for every supported config.  All float state is float64 and counts
 are int32; the noise is the reference's own, drawn by numpy on the host,
 so the only divergence is rounding (sums reassociated, libm ulps).
 
-Not lowered yet (``supports`` names the feature, the entry points raise
-``NotImplementedError``): client-side resilience (timeouts, retries,
-breakers), the correlated node-group outage, the trace.  The
-reference's in-kernel-noise
-``fleet_throughput`` mode and its multi-device ``shard_map`` dispatch
-have no counterpart here yet.
+The reference's in-kernel-noise ``fleet_throughput`` mode and its
+multi-device ``shard_map`` dispatch have no counterpart here yet.
 """
 from __future__ import annotations
 
@@ -71,9 +79,14 @@ from repro_torch.core.balancer import BUSY_PENALTY, POLICIES
 from repro_torch.core.capacity import (CapacityConfig, ElasticSet,
                                        arrival_rates, membership_timeline)
 from repro_torch.core.online import OnlineFleet, obs_window, retrain_schedule
+from repro_torch.core.resilience import (Breakers, ResilienceConfig,
+                                         backoff_delay)
 from repro_torch.core.rng import rng_from_key, rng_seed
 from repro_torch.core.simulator import (SimConfig, _build_cluster, _Cluster,
                                         _Metrics, unlowered)
+from repro_torch.core.telemetry import (DISP_FAIL_FAST, DISP_SERVED,
+                                        DISP_SHED, DISP_TIMEOUT,
+                                        TRACE_FIELDS, trace_block, trace_row)
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.segment_sum import segment_sum
 from repro_torch.monitoring.metrics import PeriodicRefresh
@@ -98,10 +111,11 @@ class _Static:
     churn: Optional[Tuple[float, float]]
     drift: bool
     capacity: Optional[CapacityConfig]
-    gray: Optional[Tuple[float, float, float]]   # resilience gray failure
+    resilience: Optional[ResilienceConfig]
     fallback_threshold: float
     obs_window: int              # fleet observation ring length (Wn)
     acc_window: int              # rolling-accuracy ring length (Wa)
+    trace_every: int             # flight-recorder sampling stride; 0 off
 
     @property
     def hedging(self) -> bool:
@@ -121,6 +135,27 @@ class _Static:
         """The autoscaler learns from completions (no predictions)."""
         return self.capacity is not None and not self.needs_pred
 
+    @property
+    def gray(self) -> Optional[Tuple[float, float, float]]:
+        return None if self.resilience is None else self.resilience.gray
+
+    @property
+    def group(self) -> Optional[Tuple[float, float, int]]:
+        """The correlated outage's (t_start_s, duration_s, n_nodes)."""
+        return None if self.resilience is None \
+            else self.resilience.outage_group
+
+    @property
+    def res_client(self) -> bool:
+        """The timeout / retry / breaker plane is armed: the step runs
+        the attempt loop."""
+        return self.resilience is not None and self.resilience.client_side
+
+    @property
+    def res_breaker(self) -> bool:
+        return self.resilience is not None \
+            and self.resilience.breaker_threshold is not None
+
 
 def supports(cfg: SimConfig, policy: str) -> Optional[str]:
     """None when :func:`run_compiled` reproduces the serial stepper for
@@ -139,7 +174,6 @@ def _static_for(cfg: SimConfig, policy: str) -> _Static:
     hedging = hedge is not None
     needs_pred = hedging or "predicted" in spec.requires
     closed = bool(cfg.closed_loop and needs_pred)
-    res = cfg.resilience
     snapshot = (cfg.prediction_lag_s > 0 or bool(_outages(cfg))) \
         and needs_pred
     return _Static(
@@ -149,19 +183,22 @@ def _static_for(cfg: SimConfig, policy: str) -> _Static:
         closed_loop=closed, snapshot=snapshot,
         cold_start=cfg.cold_start_s > 0, churn=cfg.churn,
         drift=cfg.t_drift is not None, capacity=cfg.capacity,
-        gray=None if res is None else res.gray,
+        resilience=cfg.resilience,
         fallback_threshold=cfg.fallback_threshold if closed else 0.0,
         obs_window=obs_window(cfg),
-        acc_window=max(1, int(cfg.accuracy_window)))
+        acc_window=max(1, int(cfg.accuracy_window)),
+        trace_every=0 if cfg.trace is None
+        else int(cfg.trace.sample_every))
 
 
 def _count_flags(st: _Static) -> Tuple[bool, bool, bool]:
     """(full_actual, need_live, need_snap): whether the step draws the
-    full-K true RTT, and which incremental count carries exist
-    (``need_live`` tracks the live occupancy, ``need_snap`` the stale
-    snapshot).  The closed loop reads the live counts for its features
-    when there is no snapshot, even where perf_aware draws no full-K
-    true RTT."""
+    full-K true RTT from the count carry, and which incremental count
+    carries exist (``need_live`` tracks the live occupancy, ``need_snap``
+    the stale snapshot).  The closed loop reads the live counts for its
+    features when there is no snapshot, even where perf_aware draws no
+    full-K true RTT.  The attempt loop needs the full-K row for every
+    policy; without a live carry it draws it from the mates table."""
     if st.reactive:
         return False, False, False
     full_actual = st.policy != "perf_aware" \
@@ -171,11 +208,11 @@ def _count_flags(st: _Static) -> Tuple[bool, bool, bool]:
 
 
 def _needs_plan(st: _Static) -> bool:
-    """True when the step rebuilds counts from scratch: the churn resync
-    of the live carry, or a snapshot refresh with no live carry to copy
-    from."""
+    """True when the step rebuilds counts from scratch: the resync of the
+    live carry after a busy bump (churn, the correlated outage), or a
+    snapshot refresh with no live carry to copy from."""
     _, need_live, need_snap = _count_flags(st)
-    return (need_live and st.churn is not None) \
+    return (need_live and (st.churn is not None or st.group is not None)) \
         or (need_snap and not need_live)
 
 
@@ -303,15 +340,21 @@ def _lower(cluster: _Cluster, policy: str, seed_blocks=None):
     }
     cap = st.capacity
     events = membership_timeline(float(req_t[-1]), churn=cfg.churn,
-                                 capacity=cap, preempt=cfg.preempt)
+                                 capacity=cap, preempt=cfg.preempt,
+                                 outage_group=st.group)
     ev_t = [ev.t for ev in events]
     # an event pops at the first request with now >= t
     for i, (ev, jj) in enumerate(zip(
             events, np.searchsorted(req_t, ev_t, side="left"))):
         plan["events"].setdefault(int(jj), []).append((ev.kind, ev.t, i))
-        plan["bump"][jj] |= ev.kind == "churn"
+        plan["bump"][jj] |= ev.kind in ("churn", "group_down")
     if st.churn is not None:
         consts["down"] = node_of == np.asarray(cluster.failed_node)[:, None]
+    if st.group is not None:
+        consts["gdown"] = np.asarray(cluster.group_rep, bool)
+    if st.res_client and st.resilience.max_retries > 0:
+        consts["zj"] = np.ascontiguousarray(
+            np.asarray(cluster.z_jitter, float).transpose(1, 0, 2))
     if cap is not None:
         consts["ev_rate"] = arrival_rates(cap, req_t, req_app, A, ev_t)
         if cfg.preempt is not None:
@@ -411,8 +454,9 @@ def _simulate(st: _Static, c: Dict[str, torch.Tensor], plan):
     """Run every request; returns the final state: ``busy`` (T, R), the
     per-step outputs ``ys``, ``syncs`` (the host syncs: expiry rounds and
     completion folds), ``fallback`` (T,) (routings by the least_conn
-    fallback), in the closed loop the ``fleet`` and with a capacity plane
-    the ``elastic`` replica set."""
+    fallback), in the closed loop the ``fleet``, with a capacity plane
+    the ``elastic`` replica set and with the flight recorder the
+    ``trace`` buffer."""
     dev = c["node_of"].device
     f64, i32 = torch.float64, torch.int32
     A, K, N = st.n_apps, st.k, st.n_nodes
@@ -420,6 +464,7 @@ def _simulate(st: _Static, c: Dict[str, torch.Tensor], plan):
     T = c["node_of"].shape[0]
     J = len(plan["req_t"])
     full_actual, need_live, need_snap = _count_flags(st)
+    res = st.resilience
     trial = torch.arange(T, device=dev)
     colK = torch.arange(K, device=dev)[None, :]
     syncs = 0
@@ -465,14 +510,52 @@ def _simulate(st: _Static, c: Dict[str, torch.Tensor], plan):
         return _lognormal(inter, lr[a], z[:, None]) * sp
 
     def served_at(a, reg, busy_src, now, z, idx, coldm, graym):
-        """True RTT the replica at slot ``idx`` (T,) serves with: the
-        pick-only draw, cold, then gray."""
-        rtt = rtt_at(a, reg, busy_src, now, z, idx[:, None])[:, 0]
+        """(raw, served) true RTT of the replica at slot ``idx`` (T,): the
+        pick-only draw, and the same after the cold and gray
+        multipliers."""
+        raw = rtt_at(a, reg, busy_src, now, z, idx[:, None])[:, 0]
+        rtt = raw
         if coldm is not None:
             rtt = rtt * _pick(coldm, idx)
         if graym is not None:
             rtt = rtt * _pick(graym, idx)
-        return rtt
+        return raw, rtt
+
+    def base_at(a, reg, z, idx):
+        """The trace's service base: the zero-interference draw on the
+        tier of slot ``idx`` (T,)."""
+        _, speed, lr = reg
+        return _lognormal(torch.zeros_like(z), lr[a], z) \
+            * _pick(speed[a], idx)
+
+    def count_dispatch(a, idx, sent):
+        """+1 on the live count carry per newly busy replica: app ``a``'s
+        slot ``idx`` (T,) where ``sent`` (None: every trial).  A replica
+        with queued work is already counted."""
+        r = a * K + idx
+        add = ~_pick(counted, r)
+        if sent is not None:
+            add &= sent
+            r = torch.where(sent, r, R)
+        cnt[a].index_put_((trial, _pick(c["cand_node"][a], idx)),
+                          add.to(i32), accumulate=True)
+        counted.scatter_(1, r[:, None], True)
+
+    def picked(m, idx, default):
+        return default if m is None else _pick(m, idx)
+
+    def score(busy_c, t, sig, j):
+        """The policy's score of the app's candidates at time ``t`` (the
+        request's ``now``, or each trial's attempt time as (T, 1)):
+        queue wait + ``sig``, or without a signal the reactive rules."""
+        if sig is not None:
+            return (busy_c - t).clamp(min=0.0) + sig
+        if st.policy == "least_conn":
+            return busy_c - t
+        alt = torch.remainder(colK - cursor[:, None], K).to(f64) \
+            if st.policy == "round_robin" else c["draw"][j]
+        return torch.where(busy_c <= t, alt,
+                           BUSY_PENALTY + (busy_c - t).clamp(min=0.0))
 
     busy = torch.zeros((T, R), dtype=f64, device=dev)
     if st.policy == "round_robin":
@@ -490,6 +573,12 @@ def _simulate(st: _Static, c: Dict[str, torch.Tensor], plan):
                          req_app=c["req_app"] if st.pending else None,
                          n_requests=J, device=dev) \
         if st.capacity is not None else None
+    breakers = Breakers(T, R, res.breaker_threshold, res.breaker_cooldown_s,
+                        res.timeout_s, device=dev) \
+        if st.res_breaker else None
+    k_tr = st.trace_every
+    trace = torch.full((-(-J // k_tr), T, len(TRACE_FIELDS)), float("nan"),
+                       dtype=f64, device=dev) if k_tr else None
     fallback = torch.zeros(T, dtype=torch.int64, device=dev)
     ys = {"resp": torch.empty((J, T), dtype=f64, device=dev),
           "rtt": torch.empty((J, T), dtype=f64, device=dev),
@@ -497,19 +586,31 @@ def _simulate(st: _Static, c: Dict[str, torch.Tensor], plan):
           "shed": torch.zeros((J, T), dtype=torch.bool, device=dev),
           "hmask": torch.zeros((J, T), dtype=torch.bool, device=dev),
           "rtt2": torch.zeros((J, T), dtype=f64, device=dev)}
+    if st.res_client:
+        # every attempt timed out; dispatched attempts; their service
+        # time (the work the servers did, answered or not)
+        ys.update(tout=torch.zeros((J, T), dtype=torch.bool, device=dev),
+                  att=torch.zeros((J, T), dtype=f64, device=dev),
+                  bwork=torch.zeros((J, T), dtype=f64, device=dev))
 
     for j in range(J):
         a = int(plan["req_app"][j])
         now = float(plan["req_t"][j])
         a0 = a * K
         reg = post if plan["drift"][j] else pre
+        tracing = bool(k_tr) and j % k_tr == 0
         # membership events, in heap order: a later epoch sees the busy
-        # bump of an earlier churn in the same walk
+        # bump of an earlier churn or group outage in the same walk
         for kind, t_ev, i in plan["events"].get(j, ()):
             if kind == "churn":
                 # the failed node's replicas stay busy until it is back
                 t_up = st.churn[0] + st.churn[1]
                 busy = torch.where(c["down"], busy.clamp(min=t_up), busy)
+            elif kind == "group_down":
+                # the correlated outage: churn's bump, group-wide
+                g0, gdur, _ = st.group
+                busy = torch.where(c["gdown"], busy.clamp(min=g0 + gdur),
+                                   busy)
             elif kind == "scale":
                 elastic.decide(t_ev, i, busy, j)
             elif kind == "preempt_down":
@@ -517,13 +618,13 @@ def _simulate(st: _Static, c: Dict[str, torch.Tensor], plan):
             else:                                          # preempt_up
                 elastic.restore()
         busy_c = busy[:, a0:a0 + K]
-        wait_c = (busy_c - now).clamp(min=0.0)
         act_c = coldm = served = None
         if elastic is not None:
             act_c = elastic.wake(a, now)
             if st.admission:
                 # shed where even the best active queue wait is too long
-                best = torch.where(act_c, wait_c, float("inf")).amin(1)
+                best = torch.where(act_c, (busy_c - now).clamp(min=0.0),
+                                   float("inf")).amin(1)
                 served = best <= st.capacity.admission_limit_s
                 ys["shed"][j] = ~served
             coldm = elastic.cold_mult(a, now)
@@ -549,27 +650,25 @@ def _simulate(st: _Static, c: Dict[str, torch.Tensor], plan):
         z = c["z"][j]
 
         hmask = predicted = None
-        if st.reactive:
-            idle = busy_c <= now
-            if st.policy == "round_robin":
-                dist = torch.remainder(colK - cursor[:, None], K).to(f64)
-                sc = torch.where(idle, dist, BUSY_PENALTY + wait_c)
-            elif st.policy == "random":
-                sc = torch.where(idle, c["draw"][j], BUSY_PENALTY + wait_c)
-            else:                                          # least_conn
-                sc = busy_c - now
-            if act_c is not None:
-                sc = torch.where(act_c, sc, float("inf"))
-            picks = torch.argmin(sc, dim=1)
+        if st.reactive and not st.res_client:
+            sc = score(busy_c, now, None, j)
+            sc_m = sc if act_c is None \
+                else torch.where(act_c, sc, float("inf"))
+            picks = torch.argmin(sc_m, dim=1)
             if st.policy == "round_robin":
                 cursor = (picks + 1) % K
-            rtt_pick = served_at(a, reg, busy, now, z, picks, coldm, graym)
+            raw_pick, rtt_pick = served_at(a, reg, busy, now, z, picks,
+                                           coldm, graym)
         else:
-            actual = None
-            if full_actual:
-                actual = rtt_full(a, reg, cnt, z)
-                if coldm is not None:
-                    actual = actual * coldm
+            actual = actual_raw = None
+            if full_actual or st.res_client:
+                # the attempt loop reads the full row for every policy:
+                # from the count carry where one exists, else from the
+                # mates table (the same sum, reassociated)
+                actual_raw = rtt_full(a, reg, cnt, z) if need_live \
+                    else rtt_at(a, reg, busy, now, z, colK.expand(T, K))
+                actual = actual_raw if coldm is None \
+                    else actual_raw * coldm
             if st.closed_loop:
                 # the serial order: fold the completed predictions into
                 # the trackers, retrain, then predict from the features
@@ -578,6 +677,10 @@ def _simulate(st: _Static, c: Dict[str, torch.Tensor], plan):
                 if plan["retrain"][j]:
                     fleet.retrain(now)
                 counts_src = s_cnt if st.snapshot else cnt
+                if st.res_client and not st.snapshot:
+                    # the attempts' dispatches move the live counts; the
+                    # fleet observes the features the request saw
+                    counts_src = cnt.clone()
                 fleet_pred = fleet.predict(a, counts_src, c["cand_node"][a])
                 predicted = fleet_pred
                 if st.fallback:
@@ -603,50 +706,145 @@ def _simulate(st: _Static, c: Dict[str, torch.Tensor], plan):
             if graym is not None and actual is not None:
                 actual = actual * graym
             sig = predicted if st.policy == "perf_aware" else actual
-            sc = wait_c + sig
-            sc_m = sc if act_c is None \
-                else torch.where(act_c, sc, float("inf"))
-            picks = torch.argmin(sc_m, dim=1)
-            rtt_pick = _pick(actual, picks) if full_actual \
-                else served_at(a, reg, busy, now, z, picks, coldm, graym)
-            if st.hedging:
-                # runner-up by score; hedge when the pick's signal
-                # exceeds hedge x the best busy replica's completion
-                second = torch.argmin(
-                    sc_m.scatter(1, picks[:, None], float("inf")), dim=1)
-                busy_sc = torch.where(busy_c > now, sc, float("inf"))
-                if act_c is not None:
-                    # a drained replica can neither take the duplicate
-                    # nor be waited on
-                    busy_sc = torch.where(act_c, busy_sc, float("inf"))
-                hmask = _pick(sig, picks) > st.hedge * busy_sc.amin(1)
-                if act_c is not None:
-                    hmask &= _pick(act_c, second)
-                if served is not None:
-                    hmask &= served
+            if not st.res_client:
+                sc = score(busy_c, now, sig, j)
+                sc_m = sc if act_c is None \
+                    else torch.where(act_c, sc, float("inf"))
+                picks = torch.argmin(sc_m, dim=1)
+                if full_actual:
+                    raw_pick, rtt_pick = _pick(actual_raw, picks), \
+                        _pick(actual, picks)
+                else:
+                    raw_pick, rtt_pick = served_at(a, reg, busy, now, z,
+                                                   picks, coldm, graym)
+                if st.hedging:
+                    # runner-up by score; hedge when the pick's signal
+                    # exceeds hedge x the best busy replica's completion
+                    second = torch.argmin(
+                        sc_m.scatter(1, picks[:, None], float("inf")), dim=1)
+                    busy_sc = torch.where(busy_c > now, sc, float("inf"))
+                    if act_c is not None:
+                        # a drained replica can neither take the
+                        # duplicate nor be waited on
+                        busy_sc = torch.where(act_c, busy_sc, float("inf"))
+                    hmask = _pick(sig, picks) > st.hedge * busy_sc.amin(1)
+                    if act_c is not None:
+                        hmask &= _pick(act_c, second)
+                    if served is not None:
+                        hmask &= served
 
-        # commit: only the app's K-column block changes
-        b_pick = _pick(busy_c, picks)
-        finish = b_pick.clamp(min=now) + rtt_pick
-        take = colK == picks[:, None]
-        if served is not None:
-            take &= served[:, None]
-        new_c = torch.where(take, finish[:, None], busy_c)
-        if hmask is not None:
-            rtt2 = _pick(actual, second) if full_actual \
-                else served_at(a, reg, busy, now, z, second, coldm, graym)
-            finish2 = _pick(busy_c, second).clamp(min=now) + rtt2
-            resp = torch.where(hmask, torch.minimum(finish, finish2),
-                               finish) - now
-            new_c = torch.where((colK == second[:, None]) & hmask[:, None],
-                                finish2[:, None], new_c)
-            ys["hmask"][j] = hmask
-            ys["rtt2"][j] = rtt2
+        if st.res_client:
+            # the attempt loop, unrolled: each attempt rescores at its
+            # per-trial attempt time ``t_att`` over the request's one
+            # true-RTT row; a dispatched attempt occupies its server for
+            # its whole service time whether or not the client waits
+            timeout = res.timeout_s
+            live = served if served is not None \
+                else torch.ones(T, dtype=torch.bool, device=dev)
+            success = torch.zeros(T, dtype=torch.bool, device=dev)
+            t_att = torch.full((T,), now, dtype=f64, device=dev)
+            picks = torch.zeros(T, dtype=torch.int64, device=dev)
+            rtt_pick = torch.zeros(T, dtype=f64, device=dev)
+            finish = torch.zeros_like(rtt_pick)
+            work = torch.zeros_like(rtt_pick)
+            n_att = torch.zeros_like(rtt_pick)
+            if tracing:
+                # the successful attempt's score, start and queue wait
+                sc_ok, t_ok, qw_ok = (torch.zeros_like(rtt_pick)
+                                      for _ in range(3))
+            for i in range(1 + res.max_retries):
+                mask = act_c
+                if breakers is not None:
+                    # an open breaker is unroutable; half-open probes go
+                    shut = breakers.open_mask(t_att, slice(a0, a0 + K))
+                    mask = ~shut if mask is None else mask & ~shut
+                dispatch = live & ~success
+                if mask is not None:
+                    dispatch &= mask.any(1)
+                sc = score(busy_c, t_att[:, None],
+                           None if st.reactive else sig, j)
+                p_i = torch.argmin(sc if mask is None else torch.where(
+                    mask, sc, float("inf")), dim=1)
+                rtt_i = _pick(actual, p_i)
+                b_pick = _pick(busy_c, p_i)
+                qwait = (b_pick - t_att).clamp(min=0.0)
+                resp_i = qwait + rtt_i
+                ok = dispatch & (resp_i <= timeout)
+                hit = (colK == p_i[:, None]) & dispatch[:, None]
+                busy_c = torch.where(hit, (torch.maximum(t_att, b_pick)
+                                           + rtt_i)[:, None], busy_c)
+                work = work + torch.where(dispatch, rtt_i, 0.0)
+                n_att = n_att + dispatch
+                if st.policy == "round_robin":
+                    cursor = torch.where(dispatch, (p_i + 1) % K, cursor)
+                if need_live:
+                    count_dispatch(a, p_i, dispatch)
+                if breakers is not None:
+                    breakers.record(t_att, a0 + p_i, ok, dispatch & ~ok)
+                picks = torch.where(ok, p_i, picks)
+                rtt_pick = torch.where(ok, rtt_i, rtt_pick)
+                finish = torch.where(ok, t_att + resp_i, finish)
+                if tracing:
+                    sc_ok = torch.where(ok, _pick(sc, p_i), sc_ok)
+                    t_ok = torch.where(ok, t_att, t_ok)
+                    qw_ok = torch.where(ok, qwait, qw_ok)
+                success = success | ok
+                if i < res.max_retries:
+                    delay = backoff_delay(res, i, c["zj"][j, :, i])
+                    # a dispatched attempt fails only at its timeout; a
+                    # fail-fast one (no routable candidate) backs off at
+                    # once, which is how breakers arrest a retry storm
+                    t_att = torch.where(dispatch, t_att + timeout + delay,
+                                        t_att + delay)
+            busy[:, a0:a0 + K] = busy_c
+            timed_out = live & ~success
+            resp = torch.where(success, finish - now, float("nan"))
+            served = success         # only completed requests are observed
+            ys["tout"][j] = timed_out
+            ys["att"][j] = n_att
+            ys["bwork"][j] = work
+            if tracing:
+                disp = torch.where(timed_out, torch.where(
+                    n_att == 0, DISP_FAIL_FAST, DISP_TIMEOUT), DISP_SERVED)
+                disp = torch.where(live, disp, DISP_SHED)
+                row = dict(predicted=picked(predicted, picks, float("nan")),
+                           score=sc_ok, queue_wait=qw_ok,
+                           raw=_pick(actual_raw, picks), retry_s=t_ok - now,
+                           hedge_s=0.0)
         else:
-            resp = finish - now
-        if served is not None:
-            resp = torch.where(served, resp, float("nan"))
-        busy[:, a0:a0 + K] = new_c
+            # commit: only the app's K-column block changes
+            b_pick = _pick(busy_c, picks)
+            finish = b_pick.clamp(min=now) + rtt_pick
+            take = colK == picks[:, None]
+            if served is not None:
+                take &= served[:, None]
+            new_c = torch.where(take, finish[:, None], busy_c)
+            hedge_s = 0.0
+            if hmask is not None:
+                rtt2 = _pick(actual, second) if full_actual \
+                    else served_at(a, reg, busy, now, z, second, coldm,
+                                   graym)[1]
+                finish2 = _pick(busy_c, second).clamp(min=now) + rtt2
+                first = torch.where(hmask, torch.minimum(finish, finish2),
+                                    finish)
+                resp = first - now
+                hedge_s = torch.where(hmask, finish - first, 0.0)
+                new_c = torch.where((colK == second[:, None])
+                                    & hmask[:, None], finish2[:, None], new_c)
+                ys["hmask"][j] = hmask
+                ys["rtt2"][j] = rtt2
+            else:
+                resp = finish - now
+            disp = DISP_SERVED
+            if served is not None:
+                resp = torch.where(served, resp, float("nan"))
+                disp = torch.where(served, DISP_SERVED, DISP_SHED)
+            busy[:, a0:a0 + K] = new_c
+            if tracing:
+                row = dict(predicted=picked(predicted, picks, float("nan")),
+                           score=_pick(sc, picks),
+                           queue_wait=(b_pick - now).clamp(min=0.0),
+                           raw=raw_pick, retry_s=0.0, hedge_s=hedge_s)
         if st.closed_loop:
             # the routed request trains the fleet: the pick's features
             # (counts before this dispatch), true RTT and completion
@@ -661,24 +859,18 @@ def _simulate(st: _Static, c: Dict[str, torch.Tensor], plan):
                 elastic.note_prediction(a, _pick(src, picks), served)
             else:
                 elastic.note_completion(j, rtt_pick, finish, served)
-        if need_live:
-            # +1 per newly busy replica (a pick with queued work is
-            # already counted; a shed request dispatches nothing)
-            nodes_row = c["cand_node"][a]
-            r1 = a0 + picks
-            add1 = ~_pick(counted, r1)
-            if served is not None:
-                add1 &= served
-                r1 = torch.where(served, r1, R)
-            cnt[a].index_put_((trial, _pick(nodes_row, picks)),
-                              add1.to(i32), accumulate=True)
-            counted.scatter_(1, r1[:, None], True)
+        if need_live and not st.res_client:
+            # after the fleet has read the counts before the dispatch; a
+            # shed request dispatches nothing
+            count_dispatch(a, picks, served)
             if hmask is not None:
-                r2 = a0 + second
-                add2 = hmask & ~_pick(counted, r2)
-                cnt[a].index_put_((trial, _pick(nodes_row, second)),
-                                  add2.to(i32), accumulate=True)
-                counted.scatter_(1, torch.where(hmask, r2, R)[:, None], True)
+                count_dispatch(a, second, hmask)
+        if tracing:
+            trace[j // k_tr] = trace_row(
+                rep=a0 + picks, base=base_at(a, reg, z, picks),
+                cold_mult=picked(coldm, picks, 1.0),
+                gray_mult=picked(graym, picks, 1.0), disposition=disp,
+                response=resp, **row)
         ys["resp"][j] = resp
         ys["rtt"][j] = rtt_pick
         ys["rep"][j] = a0 + picks
@@ -689,12 +881,14 @@ def _simulate(st: _Static, c: Dict[str, torch.Tensor], plan):
     if elastic is not None:
         syncs += elastic.syncs
     return {"busy": busy, "ys": ys, "syncs": syncs, "fallback": fallback,
-            "fleet": fleet, "elastic": elastic}
+            "fleet": fleet, "elastic": elastic, "trace": trace,
+            "breakers": breakers}
 
 
 # ----------------------------------------------------------------------
 # host-side summary (the reference's _Metrics summary)
-def _summarize(cluster: _Cluster, final, plan) -> Dict[str, np.ndarray]:
+def _summarize(cluster: _Cluster, st: _Static, final,
+               plan) -> Dict[str, np.ndarray]:
     m = _Metrics(cluster.cfg)
     ys = {k: v.cpu().numpy() for k, v in final["ys"].items()}
     resp = ys["resp"].T                              # (T, J)
@@ -713,8 +907,23 @@ def _summarize(cluster: _Cluster, final, plan) -> Dict[str, np.ndarray]:
                + hmask * cpu_a * rtt2).sum(axis=1)
     m.mem_s = (np.where(served, mem_a * rtt, 0.0)
                + hmask * mem_a * rtt2).sum(axis=1)
-    m.slo_violation_s = np.where(served, np.maximum(resp - m.slo, 0.0),
-                                 0.0).sum(axis=1)
+    with np.errstate(invalid="ignore"):
+        over = np.maximum(resp - m.slo, 0.0)
+    m.slo_violation_s = np.where(served, over, 0.0).sum(axis=1)
+    if st.res_client:
+        # every dispatched attempt's service time is busy, cpu and mem
+        # time; what no client waited for is wasted
+        tout, att, bwork = ys["tout"].T, ys["att"].T, ys["bwork"].T
+        ok = served & ~tout
+        m.timeout = tout
+        m.fail_fast = tout & (att == 0)
+        m.chosen = np.where(ok, ys["rep"].T, -1)
+        m.busy_s = bwork.sum(axis=1)
+        m.cpu_s = (cpu_a * bwork).sum(axis=1)
+        m.mem_s = (mem_a * bwork).sum(axis=1)
+        m.wasted_s = (bwork - np.where(ok, rtt, 0.0)).sum(axis=1)
+        m.attempts = att.sum(axis=1)
+        m.slo_violation_s = np.where(ok, over, 0.0).sum(axis=1)
     m.n_hedged = int(hmask.sum())
     m.hedged = hmask.sum(axis=1).astype(np.int64)
     m.fallback = final["fallback"].cpu().numpy()
@@ -723,6 +932,14 @@ def _summarize(cluster: _Cluster, final, plan) -> Dict[str, np.ndarray]:
     if final["fleet"] is not None:
         summary["online"] = final["fleet"].stats(
             plan["req_app"], plan["req_t"], plan["retrain"])
+    br = final["breakers"]
+    summary["breaker_trips_per_trial"] = \
+        np.zeros(len(m.fallback), np.int64) if br is None \
+        else br.trip_count.sum(1).cpu().numpy().astype(np.int64)
+    if final["trace"] is not None:
+        summary["trace"] = trace_block(final["trace"].cpu().numpy(),
+                                       cluster.cfg.n_requests,
+                                       st.trace_every)
     return summary
 
 
@@ -736,9 +953,11 @@ def run_compiled(cluster: _Cluster, policy: str, *, seed_blocks=None,
     .run()`` on supported configs; raises NotImplementedError naming the
     feature on an unsupported one.  Besides the reference's summary keys
     it reports ``loop_s`` (wall seconds of the request loop, device work
-    included), ``host_syncs`` (the expiry rounds' host syncs) and
-    ``fallback_per_trial``; a closed-loop pass adds the fleet's
-    ``online`` stats.  ``seed_blocks`` mirrors RandomChoice's campaign
+    included), ``host_syncs`` (the expiry rounds' host syncs),
+    ``fallback_per_trial``, ``timeouts_per_trial`` and
+    ``breaker_trips_per_trial`` (the breakers' trip events); a closed-loop
+    pass adds the fleet's ``online`` stats, a traced one the ``trace``
+    block.  ``seed_blocks`` mirrors RandomChoice's campaign
     blocks.  ``device=None`` runs on the CUDA card (RuntimeError without
     one); ``device="cpu"`` on the CPU.
     """
@@ -753,7 +972,7 @@ def run_compiled(cluster: _Cluster, policy: str, *, seed_blocks=None,
     final = _simulate(st, c, plan)
     final["busy"] = final["busy"].cpu().numpy()     # waits for the device
     loop_s = time.perf_counter() - t0
-    summary = _summarize(cluster, final, plan)
+    summary = _summarize(cluster, st, final, plan)
     summary.update(device=str(dev), loop_s=loop_s,
                    host_syncs=final["syncs"])
     return summary

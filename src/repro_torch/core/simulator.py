@@ -8,24 +8,24 @@ same cluster bit for bit), and the summary half of :class:`_Metrics`.
 The serial stepper is not ported: the reference's stays the semantics
 the port is tested against.
 
-The capacity plane (``core/capacity.py``) and the resilience plane's
-configuration (``core/resilience.py``) are the port's own copies.  What
-the port does not lower yet — client-side resilience, the correlated
-node-group outage, the flight-recorder trace — stays on
-:class:`SimConfig` so configurations carry over unchanged, and
-:func:`unlowered` names it.
+The capacity plane (``core/capacity.py``), the resilience plane's
+configuration (``core/resilience.py``) and the flight recorder's
+(``core/telemetry.py``) are the port's own copies.  The port lowers
+every feature of :class:`SimConfig`; :func:`unlowered` stays as the one
+place that would name one it does not.
 """
 from __future__ import annotations
 
 import warnings
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 
 from repro_torch.core.capacity import CapacityConfig, ElasticSet
 from repro_torch.core.resilience import ResilienceConfig
 from repro_torch.core.rng import rng_stream
+from repro_torch.core.telemetry import TraceConfig
 
 # SPA app profiles: (mean RTT s, cpu cores/req, mem GB/req) — scaled from
 # the paper's app set (upload / MotionCor2 / FFT mock / gCTF / ctffind4).
@@ -82,30 +82,15 @@ class SimConfig:
     capacity: Optional[CapacityConfig] = None
     preempt: Optional[Tuple[float, float]] = None  # (t_start_s, duration_s)
     resilience: Optional[ResilienceConfig] = None
-    # -- not lowered in the port yet: carried so configs stay whole ----
-    trace: Optional[Any] = None
+    # -- flight recorder (core/telemetry.py) ----------------------------
+    trace: Optional[TraceConfig] = None
 
 
 def unlowered(cfg: SimConfig) -> Optional[str]:
-    """Every feature ``cfg`` sets that the port does not lower yet, as a
-    human-readable reason; None when the port runs it whole."""
-    missing = []
-    res = cfg.resilience
-    if res is not None and res.timeout_s is not None:
-        missing.append(
-            f"client-side resilience (timeout_s={res.timeout_s}, "
-            f"max_retries={res.max_retries}, backoff=("
-            f"{res.backoff_base_s}, {res.backoff_mult}, "
-            f"{res.backoff_jitter}), breaker=({res.breaker_threshold}, "
-            f"{res.breaker_cooldown_s}))")
-    if res is not None and res.outage_group is not None:
-        missing.append(f"the correlated outage (outage_group="
-                       f"{res.outage_group})")
-    if cfg.trace is not None:
-        missing.append("the flight-recorder trace (trace)")
-    if not missing:
-        return None
-    return "; ".join(missing) + " not lowered in the port yet"
+    """Every feature ``cfg`` sets that the port does not lower, as a
+    human-readable reason; None when the port runs it whole, which it
+    now does for every config."""
+    return None
 
 
 def _interference_matrix(apps: Sequence[str], strength: float,
@@ -179,9 +164,8 @@ class _Cluster:
     cfg.t_drift``): a None field keeps its pre-drift counterpart.
     ``preempted_node`` is the spot node per trial; ``gray_rep``,
     ``group_rep`` and ``z_jitter`` are the resilience plane's fault
-    draws (:func:`fault_draws`), the last two read by nothing the port
-    lowers yet but kept so a reference cluster carries over whole
-    (``repro_torch.interop.cluster_from_reference``).
+    draws (:func:`fault_draws`): the gray node's replicas, the outage
+    group's replicas and the backoff jitter.
     """
     cfg: SimConfig
     app_of: np.ndarray        # (R,) app index per replica
@@ -237,13 +221,7 @@ def fault_draws(cfg: SimConfig, node_of: np.ndarray):
 
 def _build_cluster(cfg: SimConfig) -> _Cluster:
     """Topology + request stream + noise + the preempted node + the fault
-    draws + the post-drift regime, in the reference's RNG order.
-
-    Raises NotImplementedError for configs with a feature the port does
-    not lower (:func:`unlowered`)."""
-    reason = unlowered(cfg)
-    if reason is not None:
-        raise NotImplementedError(reason)
+    draws + the post-drift regime, in the reference's RNG order."""
     rng = rng_stream(cfg.seed, "topology")
     T = cfg.n_trials
     A = len(cfg.apps)
@@ -321,10 +299,11 @@ class _Metrics:
     The accumulation side lives in the core's step; this is the summary
     half of the reference's ``_Metrics``.
 
-    A shed request carries NaN in the RTT matrix and -1 in ``chosen``,
-    and the RTT stats become NaN-aware.  Which stats are NaN-aware
-    follows from the config (a capacity plane with admission control),
-    never from the data, as in the reference."""
+    A shed or timed-out request carries NaN in the RTT matrix and -1 in
+    ``chosen``, and the RTT stats become NaN-aware.  Which stats are
+    NaN-aware follows from the config (a capacity plane with admission
+    control, or a client timeout), never from the data, as in the
+    reference."""
 
     def __init__(self, cfg: SimConfig):
         T, J = cfg.n_trials, cfg.n_requests
@@ -339,14 +318,20 @@ class _Metrics:
         self.fallback = np.zeros(T, dtype=np.int64)
         cap = cfg.capacity
         self.slo = cap.slo_target_s if cap is not None else DEFAULT_SLO_S
-        self._nan_stats = cap is not None \
-            and cap.admission_limit_s is not None
+        can_shed = cap is not None and cap.admission_limit_s is not None
+        can_timeout = cfg.resilience is not None \
+            and cfg.resilience.client_side
+        self._nan_stats = can_shed or can_timeout
         self.busy_s = np.zeros(T)           # replica-seconds of service
         self.slo_violation_s = np.zeros(T)  # response time above the SLO
         self.shed = np.zeros((T, J), bool)
-        # the port lowers no client timeout (the key stays so summaries
-        # line up with the reference's)
+        # the client plane: every attempt timed out; of those, the ones
+        # that never dispatched (breakers open or the set drained); the
+        # dispatched attempts; their service time nobody waited for
         self.timeout = np.zeros((T, J), bool)
+        self.fail_fast = np.zeros((T, J), bool)
+        self.attempts = np.zeros(T)
+        self.wasted_s = np.zeros(T)
 
     def summary(self, cluster: _Cluster,
                 busy_until: Optional[np.ndarray] = None,
@@ -392,6 +377,18 @@ class _Metrics:
                "slo_violation_s": self.slo_violation_s,
                "goodput": 1.0 - (self.shed | self.timeout).mean(axis=1),
                "timeout_rate": self.timeout.mean(axis=1),
+               "n_timeouts": int(self.timeout.sum()),
+               "timeouts_per_trial": self.timeout.sum(axis=1),
+               # fail_fast is a subset of timeout: the resolved buckets
+               # are shed, timeout & ~fail_fast and fail_fast
+               "n_client_timeout": int((self.timeout
+                                        & ~self.fail_fast).sum()),
+               "n_fail_fast": int(self.fail_fast.sum()),
+               "client_timeout_rate": (self.timeout
+                                       & ~self.fail_fast).mean(axis=1),
+               "fail_fast_rate": self.fail_fast.mean(axis=1),
+               "attempts_per_req": self.attempts / self.rtts.shape[1],
+               "wasted_work_s": self.wasted_s,
                "rtts": self.rtts, "req_t": cluster.req_t}
         if capacity is not None:
             out["capacity"] = capacity.telemetry()

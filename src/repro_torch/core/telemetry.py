@@ -1,0 +1,147 @@
+"""Flight recorder: the trace schema and the row builder of the batched
+core (a copy of the schema half of the reference's ``core/telemetry.py``).
+
+Every traced request carries one fixed-width row (:data:`TRACE_FIELDS`)
+recording the routing decision (chosen replica, score at pick time,
+predicted RTT) and an additive decomposition of the response time::
+
+    queue_wait + service_base + interference_s + cold_s + gray_s
+        + retry_s - hedge_s  ==  response        (served requests)
+
+``service_base`` is the chosen replica's service draw at zero
+interference, ``interference_s`` the co-location inflation of it,
+``cold_s`` / ``gray_s`` the cold-start and gray-failure surcharges,
+``retry_s`` the time spent on failed attempts and backoff before the
+successful one, ``hedge_s`` the time a winning hedge duplicate saved.
+A dropped request keeps ``rep = -1``, its disposition code and NaN
+components.
+
+The core records every ``sample_every``-th request into a
+``(ceil(J / k), T, F)`` buffer on its device (:func:`trace_row` builds
+one row from tensors, as :func:`compose_row` does from numpy arrays);
+:func:`trace_block` packages it for the summary.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict
+
+import numpy as np
+import torch
+
+__all__ = ["TRACE_FIELDS", "TRACE_IDX", "COMPONENTS", "DISP_SERVED",
+           "DISP_SHED", "DISP_TIMEOUT", "DISP_FAIL_FAST", "DISPOSITIONS",
+           "TraceConfig", "trace_block", "compose_row", "trace_row"]
+
+#: column order of every trace row; the seven middle columns are the
+#: additive decomposition
+TRACE_FIELDS = (
+    "rep", "predicted", "score",
+    "queue_wait", "service_base", "interference_s", "cold_s", "gray_s",
+    "retry_s", "hedge_s",
+    "disposition", "response",
+)
+
+#: field name -> column index
+TRACE_IDX = {name: i for i, name in enumerate(TRACE_FIELDS)}
+
+#: decomposition components (their signed sum is the response)
+COMPONENTS = ("queue_wait", "service_base", "interference_s", "cold_s",
+              "gray_s", "retry_s", "hedge_s")
+
+DISP_SERVED = 0        #: request completed
+DISP_SHED = 1          #: dropped by admission control
+DISP_TIMEOUT = 2       #: client-side timeout after >= 1 dispatched attempt
+DISP_FAIL_FAST = 3     #: breaker / drain failed fast: 0 attempts dispatched
+
+DISPOSITIONS = {
+    DISP_SERVED: "served",
+    DISP_SHED: "shed",
+    DISP_TIMEOUT: "client_timeout",
+    DISP_FAIL_FAST: "fail_fast",
+}
+
+
+@dataclass(frozen=True)
+class TraceConfig:
+    """Flight-recorder knob on ``SimConfig``: ``sample_every = k``
+    records requests ``0, k, 2k, ...``; 1 records every request."""
+    sample_every: int = 16
+
+
+def trace_block(data, n_requests: int, sample_every: int) -> Dict:
+    """Package a ``(J_s, T, F)`` slot-major buffer as the summary's
+    ``"trace"`` block (trial-major ``(T, J_s, F)``)."""
+    data = np.asarray(data)
+    return {
+        "fields": list(TRACE_FIELDS),
+        "sample_every": int(sample_every),
+        "requests": np.arange(0, int(n_requests), int(sample_every)),
+        "data": np.transpose(data, (1, 0, 2)),
+    }
+
+
+def compose_row(*, rep, predicted, score, queue_wait, raw, base,
+                cold_mult, gray_mult, retry_s, hedge_s, disposition,
+                response) -> np.ndarray:
+    """One (T, F) trace row from pick-time quantities (numpy).
+
+    ``raw`` is the service draw on the chosen replica before the cold /
+    gray multipliers, ``base`` the zero-interference draw on the same
+    tier; ``cold_s = raw * (cm - 1)`` and ``gray_s = raw * cm * (gm - 1)``
+    so that ``base + interference + cold_s + gray_s == raw * cm * gm``.
+    Rows whose disposition is not served are NaN with ``rep = -1``."""
+    rep = np.asarray(rep, np.float64)
+    disposition = np.asarray(disposition, np.float64)
+    dropped = disposition != DISP_SERVED
+    raw = np.asarray(raw, np.float64)
+    cm = np.asarray(cold_mult, np.float64)
+    gm = np.asarray(gray_mult, np.float64)
+    cols = {
+        "rep": np.where(dropped, -1.0, rep),
+        "predicted": np.asarray(predicted, np.float64),
+        "score": np.asarray(score, np.float64),
+        "queue_wait": np.asarray(queue_wait, np.float64),
+        "service_base": np.asarray(base, np.float64),
+        "interference_s": raw - base,
+        "cold_s": raw * (cm - 1.0),
+        "gray_s": raw * cm * (gm - 1.0),
+        "retry_s": np.asarray(retry_s, np.float64),
+        "hedge_s": np.asarray(hedge_s, np.float64),
+        "disposition": disposition,
+        "response": np.asarray(response, np.float64),
+    }
+    out = np.empty(rep.shape + (len(TRACE_FIELDS),), np.float64)
+    for name, i in TRACE_IDX.items():
+        col = np.broadcast_to(cols[name], rep.shape)
+        if name not in ("rep", "disposition"):
+            col = np.where(dropped, np.nan, col)
+        out[..., i] = col
+    return out
+
+
+def trace_row(*, rep: torch.Tensor, predicted, score, queue_wait, raw,
+              base, cold_mult, gray_mult, retry_s, hedge_s, disposition,
+              response) -> torch.Tensor:
+    """:func:`compose_row` on the core's device: a (T, F) float64 row
+    from (T,) tensors or Python scalars, in the same float operations.
+    A scalar becomes a filled tensor (a fill takes it as a kernel
+    argument; a host-to-device copy would wait for the device)."""
+    dev, f64 = rep.device, torch.float64
+
+    def col(v):
+        if isinstance(v, torch.Tensor):
+            return v.to(f64).expand(rep.shape)
+        return torch.full(rep.shape, float(v), dtype=f64, device=dev)
+    disp = col(disposition)
+    dropped = disp != DISP_SERVED
+    raw, cm, gm = col(raw), col(cold_mult), col(gray_mult)
+    base = col(base)
+    parts = [col(predicted), col(score), col(queue_wait), base, raw - base,
+             raw * (cm - 1.0), raw * cm * (gm - 1.0), col(retry_s),
+             col(hedge_s)]
+    nan = torch.full_like(disp, float("nan"))
+    cols = [torch.where(dropped, -1.0, col(rep))] \
+        + [torch.where(dropped, nan, p) for p in parts] \
+        + [disp, torch.where(dropped, nan, col(response))]
+    return torch.stack(cols, dim=-1)

@@ -18,6 +18,7 @@ import torch
 from repro_torch.core.capacity import CapacityConfig
 from repro_torch.core.resilience import ResilienceConfig
 from repro_torch.core.simulator import SimConfig, _Cluster
+from repro_torch.core.telemetry import TraceConfig
 from repro_torch.device import DeviceLike, resolve_device
 
 
@@ -32,12 +33,12 @@ def _by_name(cls, obj):
 def config_from_reference(cfg) -> SimConfig:
     """The port's :class:`SimConfig` with every field read by name from
     ``cfg`` (any object with the reference's SimConfig fields).  The
-    capacity and resilience configs become the port's own classes, read
-    by name the same way; the trace config, which the port does not
-    lower, is carried as it is."""
+    capacity, resilience and trace configs become the port's own
+    classes, read by name the same way."""
     kw = {f.name: getattr(cfg, f.name) for f in fields(SimConfig)}
     kw["capacity"] = _by_name(CapacityConfig, kw["capacity"])
     kw["resilience"] = _by_name(ResilienceConfig, kw["resilience"])
+    kw["trace"] = _by_name(TraceConfig, kw["trace"])
     return SimConfig(**kw)
 
 

@@ -12,7 +12,8 @@ import numpy as np
 import pytest
 
 from repro.core.campaign import run_scenario as ref_run_scenario
-from repro_torch.core.campaign import SUMMARY_STATS, run_scenario
+from repro_torch.core.campaign import (RESILIENCE_STATS, SUMMARY_STATS,
+                                       compiled_coverage, run_scenario)
 from repro_torch.kernels.segment_sum import segment_sum
 
 KW = dict(seeds=(0, 1), n_trials=4, n_requests=120)
@@ -122,14 +123,87 @@ def test_campaign_matches_serial_on_capacity_and_fault_scenarios(name):
 
 
 def test_campaign_refuses_unlowered_scenario():
+    """A retry-storm-like spec built field by field (timeouts and
+    retries, no breaker) once refused by name: it now runs, and equals
+    the serial campaign on the same spec."""
+    from repro.core.resilience import ResilienceConfig as RefResilience
+    from repro.core.scenarios import ScenarioSpec as RefSpec
     from repro.core.scenarios import get_scenario as ref_scenario
     from repro_torch.core.resilience import ResilienceConfig
     from repro_torch.core.scenarios import ScenarioSpec
     ref = ref_scenario("retry-storm")
-    spec = ScenarioSpec(
-        name=ref.name, arrival_process=ref.arrival_process,
-        arrival_params=ref.arrival_params,
-        resilience=ResilienceConfig(timeout_s=ref.resilience.timeout_s,
-                                    max_retries=ref.resilience.max_retries))
-    with pytest.raises(NotImplementedError, match="client-side resilience"):
-        run_scenario(spec, device="cpu", **KW)
+    knobs = dict(timeout_s=ref.resilience.timeout_s,
+                 max_retries=ref.resilience.max_retries)
+    common = dict(name=ref.name, arrival_process=ref.arrival_process,
+                  arrival_params=ref.arrival_params)
+    port = run_scenario(ScenarioSpec(
+        **common, resilience=ResilienceConfig(**knobs)), device="cpu", **KW)
+    serial = ref_run_scenario(RefSpec(
+        **common, resilience=RefResilience(**knobs)), backend="serial", **KW)
+    for pol, want in serial.items():
+        for k in SUMMARY_STATS:
+            np.testing.assert_allclose(port[pol].per_seed[k],
+                                       want.per_seed[k], rtol=RTOL,
+                                       atol=1e-7, err_msg=f"{pol}/{k}")
+
+
+def _serial_seed(name, seed, policy, kw):
+    """The serial stepper's summary on one seed's own cluster."""
+    from repro.core.balancer import make_policy
+    from repro.core.rng import rng_seed
+    from repro.core.scenarios import get_scenario as ref_scenario
+    from repro.core.simulator import SimStepper, _build_cluster
+    over = {k: v for k, v in kw.items() if k != "seeds"}
+    cfg = ref_scenario(name).compile(seed=seed, **over)
+    pol = make_policy(policy, seed=rng_seed(seed, "policy"),
+                      hedge_factor=cfg.hedge_factor)
+    stepper = SimStepper(_build_cluster(cfg), pol)
+    out = stepper.run()
+    # the breakers' trip events, which the summary does not carry
+    out["breaker_trips"] = 0 if stepper.breaker is None \
+        else stepper.breaker.trips
+    return out
+
+
+@pytest.mark.parametrize("name", ("correlated-outage", "retry-storm",
+                                  "breaker-saves-retry-storm"))
+def test_campaign_matches_serial_on_client_scenarios(name):
+    """The stacked seed grid through the attempt loop equals the serial
+    campaign, and each seed's timed-out requests, breaker trips,
+    client-timeout and fail-fast rates, attempts and wasted work equal the serial stepper's
+    on that seed's own cluster; the correlated outage's resync runs the
+    segment sum."""
+    kw = dict(KW, n_requests=150)
+    calls = segment_sum.plain_calls
+    port = run_scenario(name, device="cpu", **kw)
+    recounts = segment_sum.plain_calls - calls
+    serial = ref_run_scenario(name, backend="serial", **kw)
+    for pol, want in serial.items():
+        got = port[pol]
+        for k in SUMMARY_STATS + ("hedged",):
+            np.testing.assert_allclose(got.per_seed[k], want.per_seed[k],
+                                       rtol=RTOL, atol=1e-7,
+                                       err_msg=f"{name}/{pol}/{k}")
+        if want.inefficiency_pct is not None:
+            np.testing.assert_allclose(got.inefficiency_pct,
+                                       want.inefficiency_pct, rtol=RTOL,
+                                       atol=1e-7)
+        per_seed = [_serial_seed(name, s, pol, kw) for s in kw["seeds"]]
+        np.testing.assert_array_equal(
+            got.per_seed["timeouts"], [o["n_timeouts"] for o in per_seed])
+        np.testing.assert_array_equal(
+            got.per_seed["trips"], [o["breaker_trips"] for o in per_seed])
+        for k in RESILIENCE_STATS:
+            np.testing.assert_allclose(
+                got.per_seed[k], [o[k].mean() for o in per_seed],
+                rtol=RTOL, atol=1e-7, err_msg=f"{name}/{pol}/{k}")
+    assert port["least_conn"].per_seed["timeouts"].sum() > 0
+    # perf_aware's and the oracle's live carries resync after the bump
+    assert (recounts > 0) == (name == "correlated-outage")
+
+
+def test_compiled_coverage_is_complete():
+    """The port runs every registered scenario under every policy."""
+    assert compiled_coverage() == []
+    assert compiled_coverage(("perf_aware", "no_such_policy"))[0][1] \
+        == "no_such_policy"

@@ -1,11 +1,10 @@
 """The port's contracts with the reference, checked statically.
 
 1. Field coverage, after ``repro.analysis.contracts``: every field of
-   ``SimConfig`` and ``CapacityConfig`` that the reference's serial path
-   reads is read by the port's core (``repro_torch/core``) or named by
-   ``simulator.unlowered``, whose features ``supports`` refuses; of
-   ``ResilienceConfig``, the faults the core lowers are read and the
-   client-side knobs and the correlated outage are named.  A field read
+   ``SimConfig``, ``CapacityConfig``, ``ResilienceConfig`` and
+   ``TraceConfig`` that the reference's serial path reads is read by the
+   port's core (``repro_torch/core``); ``simulator.unlowered``, whose
+   reads would only name a refused feature, names none.  A field read
    only by a config class's own property counts as read where the port
    reads the property.  A ``ScenarioSpec`` field of the reference is a
    field of the port's spec and compiles onto a field of the port's
@@ -37,20 +36,23 @@ PORT_CORE = "src/repro_torch/core"
 PORT_SIM = f"{PORT_CORE}/simulator.py"
 PORT_CAP = f"{PORT_CORE}/capacity.py"
 PORT_RES = f"{PORT_CORE}/resilience.py"
+PORT_TEL = f"{PORT_CORE}/telemetry.py"
 READ, NAMED, BODY = "read", "named", "class-body"
 
 #: where the port reads a config field: every module of its core; the
 #: reads inside ``unlowered`` only name a refused feature, and the
 #: config classes' own bodies read nothing at run time
 _BODIES = {"simulator": "SimConfig", "scenarios": "ScenarioSpec",
-           "capacity": "CapacityConfig", "resilience": "ResilienceConfig"}
+           "capacity": "CapacityConfig", "resilience": "ResilienceConfig",
+           "telemetry": "TraceConfig"}
 PORT_SCOPES = tuple(
     ModuleScope(f"{PORT_CORE}/{m}.py", READ,
                 dict({"unlowered": NAMED} if m == "simulator" else {},
                      **({_BODIES[m]: BODY} if m in _BODIES else {})))
     for m in ("simulator", "simcore", "online", "campaign", "scenarios",
-              "capacity", "resilience"))
-#: the resilience knobs the core does not lower: ``unlowered`` names them
+              "capacity", "resilience", "telemetry"))
+#: the client-side resilience knobs and the correlated outage, the last
+#: resilience fields the core lowered
 CLIENT_SIDE = {"timeout_s", "max_retries", "backoff_base_s", "backoff_mult",
                "backoff_jitter", "breaker_threshold", "breaker_cooldown_s",
                "outage_group"}
@@ -105,13 +107,26 @@ def test_every_serial_capacity_field_is_read_by_the_core():
 
 
 def test_resilience_faults_are_read_and_client_side_named():
+    """Every serial-read resilience field, the client-side knobs and the
+    correlated outage included, is read by the core; none is only
+    named."""
     reads = collect_reads(CTX, PORT_SCOPES)
     fields = _serial_reads("ResilienceConfig")
     assert fields == CLIENT_SIDE | {"gray", "staleness"}
-    for f in ("gray", "staleness"):
+    for f in sorted(fields):
         assert reads[f].get(READ), f
-    for f in sorted(CLIENT_SIDE):
-        assert reads[f].get(NAMED), f
+        assert not reads[f].get(NAMED), f
+    assert _uncovered(PORT_SCOPES, "ResilienceConfig", PORT_RES) == []
+
+
+def test_every_serial_trace_field_is_read_by_the_core():
+    fields = _serial_reads("TraceConfig")
+    assert fields == {"sample_every"}
+    assert _uncovered(PORT_SCOPES, "TraceConfig", PORT_TEL) == []
+    # the core's own read, not the config class's body
+    scopes = tuple(s for s in PORT_SCOPES
+                   if not s.path.endswith("simcore.py"))
+    assert _uncovered(scopes, "TraceConfig", PORT_TEL) == ["sample_every"]
 
 
 def test_coverage_check_finds_a_field_nobody_reads():
@@ -127,7 +142,8 @@ def test_named_fields_are_the_unlowered_planes():
     sim_fields = set(dataclass_fields(CTX.parse(PORT_SIM), "SimConfig"))
     named = {f for f, by in reads.items() if by.get(NAMED)}
     only_named = {f for f in named & sim_fields if not reads[f].get(READ)}
-    assert only_named == {"trace"}
+    assert only_named == set()
+    assert named == set()
 
 
 def test_config_and_scenario_fields_match_the_reference():
@@ -137,7 +153,8 @@ def test_config_and_scenario_fields_match_the_reference():
              f"{PORT_CORE}/scenarios.py"),
             ("CapacityConfig", "src/repro/core/capacity.py", PORT_CAP),
             ("ResilienceConfig", "src/repro/core/resilience.py",
-             PORT_RES)):
+             PORT_RES),
+            ("TraceConfig", "src/repro/core/telemetry.py", PORT_TEL)):
         assert dataclass_fields(CTX.parse(port_mod), cls) \
             == dataclass_fields(CTX.parse(ref_mod), cls), cls
     spec = ContractSpec(config_classes={"SimConfig": PORT_SIM}, scopes=(),

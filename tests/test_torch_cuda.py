@@ -24,7 +24,9 @@ import pytest
 import torch
 
 from repro_torch.configs.base import get_config
-from repro_torch.core.campaign import SUMMARY_STATS, run_scenario
+from repro_torch.core.campaign import (RESILIENCE_STATS, SUMMARY_STATS,
+                                       run_scenario)
+from repro_torch.core.telemetry import TraceConfig
 from repro_torch.kernels.decode_attention import (decode_attention,
                                                   decode_attention_plain)
 from repro_torch.kernels.flash_attention import (flash_attention,
@@ -112,7 +114,8 @@ def test_segment_sum_rejects_cpu_ids_with_cuda_values(cuda):
 
 
 #: the scenarios whose passes rebuild counts with the segment sum
-RECOUNTS = ("stale-predictions", "churn", "staleness-storm")
+RECOUNTS = ("stale-predictions", "churn", "staleness-storm",
+            "correlated-outage")
 TELEMETRY = ("decisions", "scale_ups", "scale_downs", "wakeups",
              "active_final", "routed_inactive")
 
@@ -120,10 +123,23 @@ TELEMETRY = ("decisions", "scale_ups", "scale_downs", "wakeups",
 @pytest.mark.parametrize("name", ("stale-predictions", "churn",
                                   "cold-start", "drift-fallback",
                                   "spot-preemption", "scale-to-zero-idle",
-                                  "gray-failure", "staleness-storm"))
+                                  "gray-failure", "staleness-storm",
+                                  "correlated-outage", "retry-storm",
+                                  "breaker-saves-retry-storm",
+                                  "traced-baseline"))
 def test_campaign_cuda_matches_cpu(cuda, name):
     kw = dict(seeds=(0, 1), n_trials=8, n_requests=150, n_nodes=30,
               n_replicas_per_app=20)
+    if name == "traced-baseline":
+        name = "baseline"
+        kw["trace"] = TraceConfig(sample_every=4)
+    client = name in ("correlated-outage", "retry-storm",
+                      "breaker-saves-retry-storm")
+    if client:
+        # the client plane at its registry shape and depth (its
+        # calibration): the storm forms, and on seed 8 a breaker leaves
+        # round_robin no routable replica (a fail-fast attempt)
+        kw = dict(seeds=(0, 8))
     if name == "drift-fallback":
         # warm-up, retrains, the drift onset and the fallback in the run
         kw.update(arrival_rate=2.0, t_drift=40.0, online_warmup_s=10.0,
@@ -134,10 +150,19 @@ def test_campaign_cuda_matches_cpu(cuda, name):
     on_cpu = run_scenario(name, device="cpu", **kw)
     for pol, want in on_cpu.items():
         got = on_gpu[pol]
-        for k in SUMMARY_STATS + ("hedged", "fallback"):
+        for k in SUMMARY_STATS + RESILIENCE_STATS + ("hedged", "fallback"):
             np.testing.assert_allclose(got.per_seed[k], want.per_seed[k],
                                        rtol=1e-5, atol=1e-7,
                                        err_msg=f"{name}/{pol}/{k}")
+        for k in ("timeouts", "trips"):
+            np.testing.assert_array_equal(got.per_seed[k], want.per_seed[k],
+                                          err_msg=f"{name}/{pol}/{k}")
+        assert (got.trace is None) == (want.trace is None)
+        if want.trace is not None:
+            a, b = got.trace["data"], want.trace["data"]
+            np.testing.assert_array_equal(np.isnan(a), np.isnan(b))
+            np.testing.assert_allclose(np.nan_to_num(a), np.nan_to_num(b),
+                                       rtol=1e-5, atol=1e-7)
         assert got.n_hedged == want.n_hedged
         assert got.n_fallback == want.n_fallback
         assert (got.telemetry is None) == (want.telemetry is None)
@@ -149,6 +174,13 @@ def test_campaign_cuda_matches_cpu(cuda, name):
             assert got.telemetry["routed_inactive"] == 0
     if name == "drift-fallback":
         assert on_cpu["perf_aware"].n_fallback > 0
+    if client:
+        # the parity covers retries, and with breakers trips and
+        # fail-fast attempts
+        assert on_cpu["perf_aware"].per_seed["timeouts"].sum() > 0
+        if name != "retry-storm":
+            for k in ("trips", "fail_fast_rate"):
+                assert sum(r.per_seed[k].sum() for r in on_cpu.values()) > 0
 
 
 ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}

@@ -19,6 +19,7 @@ from repro.core.capacity import CapacityConfig as RefCapacityConfig
 from repro.core.capacity import _take_highest as ref_take_highest
 from repro.core.capacity import _take_lowest as ref_take_lowest
 from repro.core.capacity import membership_timeline as ref_timeline
+from repro.core.resilience import ResilienceConfig as RefResilienceConfig
 from repro.core.rng import rng_seed
 from repro.core.scenarios import get_scenario as ref_scenario
 from repro.core.scenarios import scenario_names as ref_scenario_names
@@ -26,13 +27,14 @@ from repro.core.simulator import SimStepper
 from repro.core.simulator import _build_cluster as ref_build
 from repro.core.telemetry import TraceConfig
 from repro_torch.core import simcore
-from repro_torch.core.campaign import SUMMARY_STATS
+from repro_torch.core.campaign import RESILIENCE_STATS, SUMMARY_STATS
 from repro_torch.core.capacity import (CapacityConfig, membership_timeline,
                                        take_highest, take_lowest)
 from repro_torch.core.scenarios import get_scenario, scenario_names
 from repro_torch.core.simulator import (_build_cluster, _Cluster,
                                         fault_draws, unlowered)
 from repro_torch.interop import cluster_from_reference, config_from_reference
+from repro_torch.kernels.segment_sum import segment_sum
 
 NINE = ("baseline", "colocation-surge", "hetero-tiers", "diurnal",
         "flash-crowd", "bursty", "churn", "stale-predictions",
@@ -46,15 +48,16 @@ CAPACITY = ("overload-ramp", "flash-crowd-autoscale", "scale-to-zero-idle",
             "spot-preemption")
 #: the resilience plane's faults that need no client semantics
 FAULTS = ("gray-failure", "staleness-storm")
+#: the scenarios with client-side resilience (timeouts, retries,
+#: breakers), the correlated outage among them
+CLIENT_SIDE = ("correlated-outage", "retry-storm",
+               "breaker-saves-retry-storm")
 #: the registry, in the reference's order
 LOWERED = ("baseline", "colocation-surge", "hetero-tiers", "diurnal",
            "flash-crowd", "bursty", "churn", "stale-predictions",
            "cold-start", "metric-outage", "tier-drift", "app-drift",
            "colocation-drift", "drift-fallback") + CAPACITY + FAULTS \
-    + ("mixed-app-fleet",)
-#: the reference scenarios that need client-side resilience
-CLIENT_SIDE = ("correlated-outage", "retry-storm",
-               "breaker-saves-retry-storm")
+    + CLIENT_SIDE + ("mixed-app-fleet",)
 POLICIES = ("round_robin", "random", "least_conn", "perf_aware", "oracle")
 SMALL = dict(n_trials=4, n_requests=150)
 RTOL = 1e-5
@@ -69,7 +72,12 @@ def _serial(cluster, policy):
     cfg = cluster.cfg
     pol = make_policy(policy, seed=rng_seed(cfg.seed, "policy"),
                       hedge_factor=cfg.hedge_factor)
-    return SimStepper(cluster, pol).run()
+    stepper = SimStepper(cluster, pol)
+    out = stepper.run()
+    # the breakers' trip events, which the summary does not carry
+    out["breaker_trips"] = 0 if stepper.breaker is None \
+        else stepper.breaker.trips
+    return out
 
 
 def _assert_summary_close(port, serial, label):
@@ -81,6 +89,16 @@ def _assert_summary_close(port, serial, label):
                                   serial["hedged_per_trial"])
     assert port["n_fallback"] == serial["n_fallback"], label
     assert port["n_shed"] == serial["n_shed"], label
+    # the client plane: the rates to rounding, the counts exactly
+    for k in RESILIENCE_STATS:
+        np.testing.assert_allclose(port[k], serial[k], rtol=RTOL, atol=1e-7,
+                                   err_msg=f"{label}/{k}")
+    for k in ("n_timeouts", "n_client_timeout", "n_fail_fast"):
+        assert port[k] == serial[k], f"{label}/{k}"
+    np.testing.assert_array_equal(port["attempts_per_req"],
+                                  serial["attempts_per_req"])
+    assert int(port["breaker_trips_per_trial"].sum()) \
+        == serial["breaker_trips"], f"{label}/breaker_trips"
     assert ("capacity" in port) == ("capacity" in serial), label
     if "capacity" in serial:
         _assert_telemetry_equal(port, serial, label)
@@ -113,14 +131,12 @@ def _assert_telemetry_equal(port, serial, label):
 
 
 def test_registry_is_the_nine_standing_scenarios():
-    """The registry: the nine standing-matrix scenarios and the twelve
-    lowered since, in the reference's order; the three the port leaves
-    out need client-side resilience."""
-    assert tuple(scenario_names()) == LOWERED
+    """The registry: the nine standing-matrix scenarios and the fifteen
+    lowered since; the reference's twenty-four in its order."""
+    assert tuple(scenario_names()) == LOWERED == tuple(ref_scenario_names())
     assert set(NINE) | set(SIX) | set(CAPACITY) | set(FAULTS) \
-        == set(LOWERED)
-    assert [n for n in ref_scenario_names() if n not in LOWERED] \
-        == list(CLIENT_SIDE)
+        | set(CLIENT_SIDE) == set(LOWERED)
+    assert len(LOWERED) == 24
 
 
 @pytest.mark.parametrize("name", LOWERED)
@@ -160,7 +176,7 @@ def test_cluster_from_reference_round_trips():
 @pytest.mark.parametrize("name", ref_scenario_names())
 def test_fault_draws_bit_identical(name):
     """The fault stream's draws (gray node, group start, backoff jitter)
-    on every reference scenario, the three the core refuses included."""
+    on every reference scenario."""
     ref = ref_build(ref_scenario(name).compile(seed=4, **SMALL))
     cfg = config_from_reference(ref.cfg)
     got = fault_draws(cfg, ref.node_of)
@@ -323,16 +339,27 @@ def test_expire_random_states_match_brute_force():
     ("breaker-saves-retry-storm", {}, "client-side resilience"),
     ("baseline", dict(trace=TraceConfig(sample_every=4)), "trace")])
 def test_unlowered_planes_are_named_and_refused(name, kw, feature):
+    """The planes the port once refused by name (client-side resilience,
+    the correlated outage, the trace) are supported and run: the same
+    inputs now match the serial stepper, the trace row for row."""
     ref_cfg = ref_scenario(name).compile(seed=0, n_trials=2, n_requests=40,
                                          **kw)
     cfg = config_from_reference(ref_cfg)
-    reason = simcore.supports(cfg, "perf_aware")
-    assert reason is not None and feature in reason
-    cluster = cluster_from_reference(ref_build(ref_cfg))
-    with pytest.raises(NotImplementedError, match=feature):
-        simcore.run_compiled(cluster, "perf_aware", device="cpu")
-    with pytest.raises(NotImplementedError, match=feature):
-        _build_cluster(cfg)
+    assert simcore.supports(cfg, "perf_aware") is None, feature
+    assert unlowered(cfg) is None
+    ref = ref_build(ref_cfg)
+    port = simcore.run_compiled(cluster_from_reference(ref), "perf_aware",
+                                device="cpu")
+    serial = _serial(ref, "perf_aware")
+    _assert_summary_close(port, serial, f"{name}/{feature}")
+    np.testing.assert_array_equal(port["chosen"], serial["chosen"])
+    assert ("trace" in port) == ("trace" in serial) == ("trace" in kw)
+    if "trace" in kw:
+        a, b = port["trace"]["data"], serial["trace"]["data"]
+        np.testing.assert_array_equal(np.isnan(a), np.isnan(b))
+        np.testing.assert_allclose(np.nan_to_num(a), np.nan_to_num(b),
+                                   rtol=RTOL, atol=1e-7)
+    _build_cluster(cfg)
 
 
 def test_supports_rejects_unknown_policy():
@@ -343,24 +370,25 @@ def test_supports_rejects_unknown_policy():
 
 
 def test_supports_every_registered_scenario_and_names_the_rest():
+    """Every registered scenario x policy is supported, traced or not;
+    what stays refused is what the reference refuses: preemption without
+    a capacity plane, hedging with client timeouts."""
     for name in LOWERED:
         cfg = get_scenario(name).compile(seed=0, **SMALL)
         for pol in POLICIES:
             assert simcore.supports(cfg, pol) is None, (name, pol)
-    for name in CLIENT_SIDE:
-        cfg = config_from_reference(ref_scenario(name).compile(seed=0))
-        for pol in POLICIES:
-            reason = simcore.supports(cfg, pol)
-            assert "client-side resilience" in reason, (name, pol)
-            assert ("correlated outage" in reason) \
-                == (name == "correlated-outage"), name
-    traced = get_scenario("baseline").compile(seed=0, trace=object())
-    assert "trace" in simcore.supports(traced, "perf_aware")
+        ref = config_from_reference(ref_scenario(name).compile(seed=0))
+        assert unlowered(ref) is None, name
+    traced = get_scenario("baseline").compile(seed=0, trace=TraceConfig(16))
+    assert simcore.supports(traced, "perf_aware") is None
     spot = config_from_reference(ref_scenario("spot-preemption")
                                  .compile(seed=0))
     assert unlowered(spot) is None
     with pytest.raises(ValueError, match="preempt requires"):
         _build_cluster(replace(spot, capacity=None))
+    storm = get_scenario("retry-storm").compile(seed=0, **SMALL)
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        _build_cluster(replace(storm, hedge_factor=0.5))
 
 
 @pytest.mark.parametrize("policy", POLICIES)
@@ -511,3 +539,73 @@ def test_take_lowest_and_highest_match_brute_force():
         np.testing.assert_array_equal(
             take_highest(blocks, kb)[:, a].numpy(),
             ref_take_highest(blocks[:, a].numpy(), kb[:, a].numpy()))
+
+
+@pytest.mark.parametrize("policy", POLICIES)
+@pytest.mark.parametrize("name,kw", [
+    ("correlated-outage", dict(churn=(40.0, 25.0))),
+    ("correlated-outage", dict(churn=(40.0, 10.0),
+                               capacity=RefCapacityConfig(decide_every_s=5.0,
+                                                          min_replicas=2))),
+    ("baseline", dict(churn=(30.0, 20.0), resilience=RefResilienceConfig(
+        outage_group=(30.0, 30.0, 3))))])
+def test_group_outage_in_one_walk_with_churn(name, kw, policy):
+    """The group outage's busy bump in the same membership walk as a
+    churn event (and an autoscaler epoch at the same instant): the
+    bumps land in heap order and the count carry resyncs once, after
+    the walk; without client timeouts the plain step takes the bump."""
+    ref = ref_build(ref_scenario(name).compile(seed=1, n_trials=3,
+                                               n_requests=150, **kw))
+    calls = segment_sum.plain_calls
+    port = simcore.run_compiled(cluster_from_reference(ref), policy,
+                                device="cpu")
+    serial = _serial(ref, policy)
+    _assert_summary_close(port, serial, f"{name}/{kw}/{policy}")
+    np.testing.assert_array_equal(port["chosen"], serial["chosen"])
+    steps = {ev.t for ev in ref_timeline(
+        float(ref.req_t[-1]), churn=ref.cfg.churn,
+        capacity=ref.cfg.capacity,
+        outage_group=ref.cfg.resilience.outage_group)}
+    assert ref.cfg.churn[0] in steps
+    # perf_aware and the oracle keep a live count carry: one resync
+    assert (segment_sum.plain_calls > calls) \
+        == (policy in ("perf_aware", "oracle"))
+
+
+#: capacity planes and a gray failure for the client plane to ride
+_FIXED = RefCapacityConfig(autoscaler="fixed", min_replicas=6)
+_FIXED_SHED = RefCapacityConfig(autoscaler="fixed", min_replicas=6,
+                                admission_limit_s=25.0)
+_STORM = RefResilienceConfig(timeout_s=25.0, max_retries=3,
+                             backoff_base_s=0.5, breaker_threshold=3,
+                             gray=(40.0, 60.0, 4.0))
+
+
+@pytest.mark.parametrize("policy", POLICIES)
+@pytest.mark.parametrize("name,kw", [
+    ("retry-storm", dict(closed_loop=True, online_warmup_s=20.0,
+                         retrain_every_s=10.0, fallback_threshold=0.55)),
+    ("retry-storm", dict(closed_loop=True, online_warmup_s=20.0,
+                         retrain_every_s=10.0, capacity=_FIXED,
+                         prediction_lag_s=5.0)),
+    ("retry-storm", dict(prediction_lag_s=5.0, cold_start_s=30.0)),
+    ("retry-storm", dict(resilience=_STORM, capacity=_FIXED_SHED,
+                         t_drift=60.0, drift_tier_shuffle=True)),
+    ("breaker-saves-retry-storm", dict(n_requests=200, arrival_rate=2.0,
+                                       capacity=None))])
+def test_client_plane_composes_with_every_plane(name, kw, policy):
+    """The attempt loop under the closed loop (only completed requests
+    train the fleet or fold into its accuracy), with a stale snapshot
+    and cold start, under admission with breakers, gray failure and
+    drift, and the breakers' storm at a heavier load without admission
+    (every breaker of an app open: fail-fast requests)."""
+    kw = dict(dict(n_trials=3, n_requests=150), **kw)
+    ref = ref_build(ref_scenario(name).compile(seed=2, **kw))
+    port = simcore.run_compiled(cluster_from_reference(ref), policy,
+                                device="cpu")
+    serial = _serial(ref, policy)
+    assert serial["n_timeouts"] > 0
+    _assert_summary_close(port, serial, f"{name}/{kw}/{policy}")
+    np.testing.assert_array_equal(port["chosen"], serial["chosen"])
+    if name == "breaker-saves-retry-storm":
+        assert serial["n_fail_fast"] > 0
