@@ -60,7 +60,20 @@ Phases (any failure raises and exits non-zero, with no result line):
    baseline at sample_every 1 and 16 with equal NaN masks and rows
    within 1e-5) and the three serving paths at their smoke configs in
    f32 (logits within 1e-4 relative, identical tokens);
-7. a ``kernels`` JSON line, the card's line, then the result line.
+7. the paper's Fig. 11 at the reference's benchmark setting
+   (``SimConfig(n_trials=200, n_requests=300)``, 76 runs of the core:
+   accuracy, replicas per app and heterogeneity sweeps, four policies
+   against the oracle), each series and sweep's wall seconds printed
+   beside the EXPERIMENTS.md rows; the accuracy sweep held against the
+   CPU at 32 trials (rtol 1e-5, atol 1e-4 percentage points);
+8. the prediction plane at the full campaign's width: 1000 predictors
+   (5 apps x 200 replicas on 250 nodes, all nine zoo families, 4
+   metrics over 5 s windows on one store scraped every 200 ms, seeded
+   parameters in the reference's shapes), ``predict_all`` on the card
+   against the CPU plane (1e-5 relative, 1e-4 for the recurrent and
+   convolutional families), its wall ms, dispatches, each bucket's
+   device call and the state / feature shares per prediction;
+9. a ``kernels`` JSON line, the card's line, then the result line.
 """
 from __future__ import annotations
 
@@ -109,6 +122,17 @@ PARITY_RTOL = 1e-5
 #: the capacity plane's integer telemetry, equal on the card and the CPU
 TELEMETRY = ("decisions", "scale_ups", "scale_downs", "wakeups",
              "active_final", "routed_inactive")
+
+#: phase 7: the paper's Fig. 11 at the reference's benchmark setting
+#: (benchmarks/bench_load_balancing.py:19-45), four policies
+FIG11 = dict(n_trials=200, n_requests=300)
+FIG11_ACCURACY = (0.0, 0.2, 0.4, 0.6, 0.8, 1.0)
+FIG11_REPLICAS = (1, 2, 4, 8)
+FIG11_HETEROGENEITY = (0.0, 0.3, 0.6, 1.0)
+FIG11_PARITY_TRIALS = 32
+#: phase 8: the prediction plane at the full campaign's width (phase 4:
+#: 250 nodes, 5 apps x 200 replicas), K = 4 metrics over 5 s windows
+PLANE = dict(nodes=250, apps=5, replicas=200, k=4, window_s=5.0)
 
 #: the serving path: qwen2-vl-7b at full width, 3 waves of 8 requests
 ARCH = "qwen2-vl-7b"
@@ -1315,6 +1339,206 @@ def serving_parity(dev, arch: str, S: int, lengths, max_seq: int) -> None:
           f"greedy tokens identical")
 
 
+def _ineff_row(series) -> str:
+    return ", ".join(f"{x:g}: {r['inefficiency_pct']:.4f}%"
+                     for x, r in series)
+
+
+def fig11_sweeps(wrappers) -> None:
+    """Phase 7: the paper's Fig. 11 at the reference's benchmark setting
+    (bench_load_balancing.py: 200 trials x 300 requests), every point a
+    policy pass and an oracle pass of the batched core on the card; the
+    accuracy sweep held against the CPU at 32 trials."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.core.simulator import SimConfig
+    from repro_torch.core.sweeps import (sweep_accuracy,
+                                         sweep_heterogeneity,
+                                         sweep_replicas)
+    base = SimConfig(**FIG11)
+    reset_counts(wrappers)
+    t0 = time.perf_counter()
+    acc = sweep_accuracy(base, FIG11_ACCURACY)
+    t1 = time.perf_counter()
+    rep = sweep_replicas(base, FIG11_REPLICAS)
+    t2 = time.perf_counter()
+    het = sweep_heterogeneity(base, FIG11_HETEROGENEITY)
+    t3 = time.perf_counter()
+    launched = counts(wrappers)
+    runs = 2 * (len(acc) + sum(len(v) for v in (*rep.values(),
+                                                 *het.values())))
+    print(f"fig11 ({FIG11['n_trials']} trials x {FIG11['n_requests']} "
+          f"requests, {runs} runs of the core): accuracy {t1 - t0:.2f} s, "
+          f"replicas {t2 - t1:.2f} s, heterogeneity {t3 - t2:.2f} s; "
+          f"kernel launches {launched['segment_sum']} segment_sum")
+    print(f"  fig11.1 perf_aware vs accuracy: {_ineff_row(acc)}")
+    for pol, series in rep.items():
+        print(f"  fig11.2/3 {pol} vs replicas: " + ", ".join(
+            f"{c}: {r['inefficiency_pct']:.4f}% / waste "
+            f"{r['resource_waste_pct']:.4f}%" for c, r in series))
+    for pol, series in het.items():
+        print(f"  fig11.4 {pol} vs heterogeneity: {_ineff_row(series)}")
+    for series in (acc, *rep.values(), *het.values()):
+        for _, r in series:
+            assert all(np.isfinite(v) for v in r.values()), r
+    assert all(n == 0 for k, n in launched.items() if k != "segment_sum"), \
+        f"the sweeps launched a model kernel: {launched}"
+    # the three EXPERIMENTS.md rows, beside the reference's readings
+    a = dict(acc)
+    print(f"  EXPERIMENTS.md fig11-1 (reference 8.0% -> 0.9% -> 0.0%): "
+          f"p=0 {a[0.0]['inefficiency_pct']:.4f}% -> p=0.8 "
+          f"{a[0.8]['inefficiency_pct']:.4f}% -> p=1.0 "
+          f"{a[1.0]['inefficiency_pct']:.4f}%")
+    at8 = {pol: dict(series)[8] for pol, series in rep.items()}
+    print("  EXPERIMENTS.md fig11-2/3 at 8 replicas (reference rr/random "
+          "21%/44% ineff/waste vs perf_aware 2.9%/6.8%): " + ", ".join(
+              f"{pol} {r['inefficiency_pct']:.4f}%/"
+              f"{r['resource_waste_pct']:.4f}%" for pol, r in at8.items()))
+    h1 = {pol: dict(series)[1.0] for pol, series in het.items()}
+    print(f"  EXPERIMENTS.md fig11-4 at h=1.0 (reference rr 27% vs "
+          f"perf_aware ~0%): round_robin "
+          f"{h1['round_robin']['inefficiency_pct']:.4f}%, perf_aware "
+          f"{h1['perf_aware']['inefficiency_pct']:.4f}%")
+    # one replica per app (one candidate, the oracle's) and perfect
+    # predictions route as the oracle does: 0 up to the rounding of the
+    # passes' RTT paths on the card
+    k1 = max(abs(v) for series in rep.values()
+             for v in dict(series)[1].values())
+    print(f"  K = 1 (every policy) and p = 1.0: largest |%| "
+          f"{max(k1, abs(a[1.0]['inefficiency_pct'])):.3e}")
+    assert k1 < 1e-9 and abs(a[1.0]["inefficiency_pct"]) < 1e-9, (rep, a)
+    assert at8["perf_aware"]["inefficiency_pct"] \
+        < at8["round_robin"]["inefficiency_pct"], at8
+    # the accuracy sweep, card against the CPU (K = 1 ran above)
+    small = dataclasses.replace(base, n_trials=FIG11_PARITY_TRIALS)
+    t0 = time.perf_counter()
+    on_gpu = sweep_accuracy(small, FIG11_ACCURACY, device="cuda")
+    t1 = time.perf_counter()
+    on_cpu = sweep_accuracy(small, FIG11_ACCURACY, device="cpu")
+    t2 = time.perf_counter()
+    worst = 0.0
+    for (p, g), (_, c) in zip(on_gpu, on_cpu):
+        for k, v in c.items():
+            np.testing.assert_allclose(g[k], v, rtol=PARITY_RTOL,
+                                       atol=1e-4, err_msg=f"p={p} {k}")
+            worst = max(worst, abs(g[k] - v))
+    print(f"fig11 accuracy sweep at {FIG11_PARITY_TRIALS} trials, cuda "
+          f"{t1 - t0:.2f} s vs cpu {t2 - t1:.2f} s: worst difference "
+          f"{worst:.3e} pp (limit rtol {PARITY_RTOL}, atol 1e-4 pp)")
+
+
+def _plane_fleet():
+    """The 1000-predictor fleet of phase 8: 5 apps x 200 replicas, each
+    app's replicas on distinct nodes of 250, every predictor reading 4
+    of its node's 10 metrics over 5 s windows, families in turn; the
+    store scraped every 200 ms for 80 s."""
+    import numpy as np
+    from repro_torch.core import zoo
+    from repro_torch.core.simulator import APPS
+    from repro_torch.testing import make_store, random_artifact
+    n_nodes, per_app, n_metrics = PLANE["nodes"], PLANE["replicas"], 10
+    names = [[f"node{n:03d}/m{i:02d}" for i in range(n_metrics)]
+             for n in range(n_nodes)]
+    store = make_store(seed=0, names=[m for ns in names for m in ns])
+    rng = np.random.default_rng(1)
+    arts = []
+    for a, app in enumerate(tuple(APPS)[:PLANE["apps"]]):
+        for j in range(per_app):
+            node = (a * (n_nodes // PLANE["apps"]) + j) % n_nodes
+            pick = np.sort(rng.choice(n_metrics, PLANE["k"], replace=False))
+            i = len(arts)
+            arts.append(random_artifact(
+                app, f"node{node:03d}", zoo.ALL_MODELS[i % 9],
+                [names[node][m] for m in pick],
+                window_s=PLANE["window_s"], seed=i))
+    return store, arts
+
+
+def prediction_plane_fleet(wrappers) -> None:
+    """Phase 8: the prediction plane at the full campaign's width, on the
+    card, held against the CPU plane on the same artifacts."""
+    import numpy as np
+    import torch
+    from repro_torch.core import zoo
+    from repro_torch.core.prediction_plane import (PredictionPlane,
+                                                   _bucket_predict)
+    t0 = time.perf_counter()
+    store, arts = _plane_fleet()
+    gpu, cpu = PredictionPlane(), PredictionPlane(device="cpu")
+    for art in arts:
+        gpu.register(art, store)
+        cpu.register(art, store)
+    buckets = gpu.buckets()
+    print(f"plane fleet: {len(arts)} predictors, {len(buckets)} buckets "
+          f"(" + ", ".join(f"{b.family} {len(b.keys)}+{b.pad}"
+                           for b in buckets)
+          + f"), built in {time.perf_counter() - t0:.2f} s")
+    reset_counts(wrappers)
+    gpu.predict_all()                         # warm-up
+    d0, walls = gpu.dispatches, []
+    for _ in range(11):
+        t = time.perf_counter()
+        got = gpu.predict_all()
+        walls.append(time.perf_counter() - t)
+    launched = counts(wrappers)
+    per_call = (gpu.dispatches - d0) / 11
+    assert per_call == len(buckets), (per_call, len(buckets))
+    assert all(n == 0 for n in launched.values()), \
+        f"the plane launched a kernel: {launched}"
+    t = time.perf_counter()
+    want = cpu.predict_all()
+    cpu_ms = (time.perf_counter() - t) * 1e3
+    assert set(got) == set(want) and len(got) == len(arts)
+    worst = {}
+    for key, rec in want.items():
+        fam = gpu._entries[key].artifact.family
+        rtol = 1e-4 if fam in zoo.SEQ_MODELS else 1e-5
+        assert np.isfinite(got[key].rtt_pred), key
+        np.testing.assert_allclose(got[key].rtt_pred, rec.rtt_pred,
+                                   rtol=rtol, err_msg=f"{key} {fam}")
+        d = abs(got[key].rtt_pred - rec.rtt_pred) / abs(rec.rtt_pred)
+        worst[fam] = max(worst.get(fam, 0.0), d)
+    print(f"plane predict_all on the card: {statistics.median(walls) * 1e3:.3f}"
+          f" ms median of 11 ({min(walls) * 1e3:.3f}-{max(walls) * 1e3:.3f})"
+          f", {per_call:.0f} dispatches a call, "
+          f"{statistics.median(walls) / len(arts) * 1e6:.2f} us a "
+          f"prediction (predicted RTTs {min(r.rtt_pred for r in want.values()):.3f}-"
+          f"{max(r.rtt_pred for r in want.values()):.3f} s); the CPU plane "
+          f"{cpu_ms:.3f} ms; card vs CPU worst "
+          f"relative difference by family: " + ", ".join(
+              f"{f} {d:.2e}" for f, d in worst.items()))
+    # one bucket's device call: windows in, predictions out
+    state = gpu._gather_state(gpu.keys())
+    for b in buckets:
+        k = gpu._entries[b.keys[0]].artifact.k
+        windows = np.zeros((len(b.keys) + b.pad, k, b.w_pts), np.float32)
+        for i, key in enumerate(b.keys):
+            windows[i] = state[key][0]
+
+        def call():
+            return _bucket_predict(
+                b.family, b.sequential, b.params,
+                torch.from_numpy(windows).to(gpu.device), b.lo, b.hi,
+                b.y_lo, b.y_hi).cpu()
+        call()
+        ms = []
+        for _ in range(11):
+            t = time.perf_counter()
+            call()
+            ms.append((time.perf_counter() - t) * 1e3)
+        print(f"  bucket {b.family} ({windows.shape}): "
+              f"{statistics.median(ms):.3f} ms median of 11")
+    recs = list(got.values())
+    share = np.array([r.t_wall_state / r.t_wall_prediction for r in recs])
+    print(f"  per prediction: t_wall_state median "
+          f"{np.median([r.t_wall_state for r in recs]) * 1e6:.3f} us, "
+          f"t_wall_feature median "
+          f"{np.median([r.t_wall_feature for r in recs]) * 1e6:.3f} us; "
+          f"state share {np.median(share) * 100:.2f} %, feature + "
+          f"inference share {(1 - np.median(share)) * 100:.2f} %")
+
+
 def finite_stats(res, stats) -> None:
     import numpy as np
     for pol, r in res.items():
@@ -1603,6 +1827,13 @@ def main() -> int:
     serving_parity(dev, MAMBA_ARCH, S=64, lengths=(9, 40, 64, 17),
                    max_seq=96)
     serving_parity(dev, MOE_ARCH, S=24, lengths=(9, 13, 17, 21), max_seq=32)
+
+    # phase 7: the paper's Fig. 11 sweeps on the card
+    print(f"phase 6 done: {time.perf_counter() - t_start:.1f} s into the run")
+    fig11_sweeps(wrappers)
+    # phase 8: the prediction plane at the full campaign's width
+    print(f"phase 7 done: {time.perf_counter() - t_start:.1f} s into the run")
+    prediction_plane_fleet(wrappers)
 
     print(f"chip_smoke: whole run {time.perf_counter() - t_start:.1f} s, "
           f"the kernels' build included")

@@ -7,10 +7,11 @@ cluster, and each policy steps the whole stack in one pass of the
 batched core.  All seeds share the scenario's arrival stream
 (``ScenarioSpec.compile`` pins ``stream_seed``), and RandomChoice draws
 per-seed blocks, so the stacked pass equals the per-seed serial runs.
+:func:`run_campaign` runs the scenario x policy x seed grid and
+:func:`campaign_table` renders it as the EXPERIMENTS.md tables do.
 """
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass, replace
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -21,9 +22,15 @@ from repro_torch.core.rng import rng_seed
 from repro_torch.core.scenarios import (ScenarioSpec, get_scenario,
                                         scenario_names)
 from repro_torch.core.simulator import _build_cluster, _Cluster
+from repro_torch.core.telemetry import PhaseTimer
 from repro_torch.device import DeviceLike, resolve_device
 
 DEFAULT_POLICIES = ("perf_aware", "least_conn", "round_robin", "random")
+
+#: wall seconds per phase of the most recent :func:`run_scenario` call
+#: ("build" + one "run:<policy>" entry per pass), refreshed per call;
+#: the phases are also torch profiler ranges (:class:`PhaseTimer`)
+LAST_PHASES: Dict[str, float] = {}
 
 #: summary stats aggregated per seed (means over that seed's trials)
 SUMMARY_STATS = ("mean_rtt", "p50_rtt", "p95_rtt", "p99_rtt",
@@ -182,38 +189,87 @@ def run_scenario(scenario, policies: Sequence[str] = DEFAULT_POLICIES,
     """
     dev = resolve_device(device)
     spec = _resolve(scenario)
-    seeds = tuple(int(s) for s in seeds)
-    cfgs = [spec.compile(seed=s, **overrides) for s in seeds]
-    wanted = list(policies)
-    if include_oracle and "oracle" not in wanted:
-        wanted.append("oracle")
-    for pol_name in wanted:
-        reason = simcore.supports(cfgs[0], pol_name)
-        if reason is not None:
-            raise NotImplementedError(
-                f"{spec.name}/{pol_name}: {reason}")
-    stacked = stack_clusters([_build_cluster(c) for c in cfgs])
-    trials = [c.n_trials for c in cfgs]
-    blocks = [(rng_seed(c.seed, "policy"), c.n_trials) for c in cfgs]
+    timer = PhaseTimer()
+    with timer.phase("build"):
+        seeds = tuple(int(s) for s in seeds)
+        cfgs = [spec.compile(seed=s, **overrides) for s in seeds]
+        wanted = list(policies)
+        if include_oracle and "oracle" not in wanted:
+            wanted.append("oracle")
+        for pol_name in wanted:
+            reason = simcore.supports(cfgs[0], pol_name)
+            if reason is not None:
+                raise NotImplementedError(
+                    f"{spec.name}/{pol_name}: {reason}")
+        stacked = stack_clusters([_build_cluster(c) for c in cfgs])
+        trials = [c.n_trials for c in cfgs]
+        blocks = [(rng_seed(c.seed, "policy"), c.n_trials) for c in cfgs]
 
     out: Dict[str, PolicyResult] = {}
     for pol_name in wanted:
-        t0 = time.perf_counter()
-        summary = simcore.run_compiled(stacked, pol_name, seed_blocks=blocks,
-                                       device=dev)
-        wall = time.perf_counter() - t0
+        with timer.phase(f"run:{pol_name}"):
+            summary = simcore.run_compiled(stacked, pol_name,
+                                           seed_blocks=blocks, device=dev)
         out[pol_name] = PolicyResult(
             scenario=spec.name, policy=pol_name, seeds=seeds,
             per_seed=_split_per_seed(summary, trials),
             n_hedged=summary["n_hedged"],
-            n_fallback=summary["n_fallback"], wall_s=wall,
+            n_fallback=summary["n_fallback"],
+            wall_s=timer.wall[f"run:{pol_name}"],
             loop_s=summary["loop_s"], host_syncs=summary["host_syncs"],
             telemetry=summary.get("capacity"), trace=summary.get("trace"))
     if include_oracle:
         for pol_name in wanted:
             if pol_name != "oracle":
                 _attach_inefficiency(out[pol_name], out["oracle"], trials)
+    LAST_PHASES.clear()
+    LAST_PHASES.update(timer.summary())
     return out
+
+
+def run_campaign(scenarios: Optional[Sequence] = None,
+                 policies: Sequence[str] = DEFAULT_POLICIES,
+                 seeds: Sequence[int] = tuple(range(12)),
+                 include_oracle: bool = True, device: DeviceLike = None,
+                 **overrides) -> Dict[str, Dict[str, PolicyResult]]:
+    """The scenario x policy x seed grid: one :func:`run_scenario` per
+    scenario (every registered one by default), keyed by name."""
+    dev = resolve_device(device)
+    names = scenario_names() if scenarios is None else list(scenarios)
+    return {_resolve(n).name: run_scenario(n, policies, seeds,
+                                           include_oracle, device=dev,
+                                           **overrides)
+            for n in names}
+
+
+def campaign_table(results: Dict[str, Dict[str, PolicyResult]],
+                   markdown: bool = False) -> str:
+    """Render the scenario x policy grid as one table (p50/p95/p99 s,
+    oracle-relative inefficiency % and resource waste %, plus the
+    capacity plane's idle-provisioned fraction and shed rate)."""
+    rows = [("scenario", "policy", "p50 s", "p95 s", "p99 s",
+             "ineff %", "waste %", "idle", "shed")]
+    for scen, cell in results.items():
+        for pol, r in cell.items():
+            if pol == "oracle":
+                continue
+            ineff = "-" if r.inefficiency_pct is None \
+                else f"{r.inefficiency_pct:.1f}±{r.inefficiency_std:.1f}"
+            waste = "-" if r.resource_waste_pct is None \
+                else f"{r.resource_waste_pct:.1f}"
+            rows.append((scen, pol, f"{r.stat('p50_rtt'):.2f}",
+                         f"{r.stat('p95_rtt'):.2f}",
+                         f"{r.stat('p99_rtt'):.2f}", ineff, waste,
+                         f"{r.stat('waste'):.2f}",
+                         f"{r.stat('shed_rate'):.3f}"))
+    if markdown:
+        lines = ["| " + " | ".join(rows[0]) + " |",
+                 "|" + "---|" * len(rows[0])]
+        lines += ["| " + " | ".join(r) + " |" for r in rows[1:]]
+        return "\n".join(lines)
+    widths = [max(len(r[i]) for r in rows) for i in range(len(rows[0]))]
+    return "\n".join("  ".join(c.ljust(w) for c, w in zip(r, widths))
+                     for r in rows)
 
 
 def compiled_coverage(policies: Optional[Sequence[str]] = None

@@ -19,19 +19,24 @@ components.
 The core records every ``sample_every``-th request into a
 ``(ceil(J / k), T, F)`` buffer on its device (:func:`trace_row` builds
 one row from tensors, as :func:`compose_row` does from numpy arrays);
-:func:`trace_block` packages it for the summary.
+:func:`trace_block` packages it for the summary, and
+:func:`tail_attribution` reads a block's response tails by component.
+:class:`PhaseTimer` times the campaign runner's phases.
 """
 from __future__ import annotations
 
+import time
+from contextlib import contextmanager
 from dataclasses import dataclass
-from typing import Dict
+from typing import Dict, Sequence
 
 import numpy as np
 import torch
 
 __all__ = ["TRACE_FIELDS", "TRACE_IDX", "COMPONENTS", "DISP_SERVED",
            "DISP_SHED", "DISP_TIMEOUT", "DISP_FAIL_FAST", "DISPOSITIONS",
-           "TraceConfig", "trace_block", "compose_row", "trace_row"]
+           "TraceConfig", "trace_block", "compose_row", "trace_row",
+           "tail_attribution", "PhaseTimer"]
 
 #: column order of every trace row; the seven middle columns are the
 #: additive decomposition
@@ -145,3 +150,71 @@ def trace_row(*, rep: torch.Tensor, predicted, score, queue_wait, raw,
         + [torch.where(dropped, nan, p) for p in parts] \
         + [disp, torch.where(dropped, nan, col(response))]
     return torch.stack(cols, dim=-1)
+
+
+def tail_attribution(trace: Dict,
+                     quantiles: Sequence[float] = (0.99, 0.999)) -> Dict:
+    """Attribute response-time tails to decomposition components.
+
+    For each quantile q, selects the served rows at or above the q-th
+    response percentile (across all trials) and reports the mean of
+    each component over those rows plus its share of the mean tail
+    response (``hedge_s`` enters negatively, so shares sum to ~1).
+    """
+    data = np.asarray(trace["data"], np.float64).reshape(
+        -1, len(TRACE_FIELDS))
+    resp = data[:, TRACE_IDX["response"]]
+    disp = data[:, TRACE_IDX["disposition"]]
+    served = (disp == DISP_SERVED) & np.isfinite(resp)
+    out: Dict[str, Dict] = {
+        "n_rows": int(data.shape[0]),
+        "n_served": int(served.sum()),
+        "dispositions": {
+            name: int(np.sum(disp == code))
+            for code, name in DISPOSITIONS.items()},
+    }
+    rows = data[served]
+    rr = rows[:, TRACE_IDX["response"]] if rows.size else np.empty(0)
+    for q in quantiles:
+        key = "p" + ("%g" % (100 * q)).replace(".", "_")
+        if rr.size == 0:
+            out[key] = None
+            continue
+        cut = np.quantile(rr, q)
+        tail = rows[rr >= cut]
+        tresp = float(tail[:, TRACE_IDX["response"]].mean())
+        comp = {}
+        for name in COMPONENTS:
+            v = float(tail[:, TRACE_IDX[name]].mean())
+            signed = -v if name == "hedge_s" else v
+            comp[name] = {
+                "mean_s": v,
+                "share": signed / tresp if tresp else 0.0,
+            }
+        out[key] = {
+            "cut_s": float(cut),
+            "n_tail": int(tail.shape[0]),
+            "mean_response_s": tresp,
+            "components": comp,
+        }
+    return out
+
+
+class PhaseTimer:
+    """Named wall-time accumulator.  Each phase is also a
+    ``torch.profiler.record_function`` range, so campaign phases show up
+    in a torch profiler trace around the kernels they launched."""
+
+    def __init__(self):
+        self.wall: Dict[str, float] = {}
+
+    @contextmanager
+    def phase(self, name: str):
+        t0 = time.perf_counter()
+        with torch.profiler.record_function(name):
+            yield
+        self.wall[name] = self.wall.get(name, 0.0) + (
+            time.perf_counter() - t0)
+
+    def summary(self) -> Dict[str, float]:
+        return dict(sorted(self.wall.items()))

@@ -7,6 +7,8 @@ for a comparison to mean anything.  For the models, the port cannot
 replay the reference's jax PRNG draws, so a comparison hands both sides
 the reference's parameters.  These helpers are duck-typed — they read
 attributes and leaves by the reference's names and import nothing of it.
+A predictor's exported artifact crosses the same way
+(:func:`artifact_from_reference`).
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.capacity import CapacityConfig
+from repro_torch.core.predictor import InferenceArtifact
 from repro_torch.core.resilience import ResilienceConfig
 from repro_torch.core.simulator import SimConfig, _Cluster
 from repro_torch.core.telemetry import TraceConfig
@@ -58,14 +61,18 @@ def cluster_from_reference(c) -> _Cluster:
 
 def params_from_reference(tree, device: DeviceLike, dtype=None):
     """The port's parameters from the reference's parameter pytree, given
-    as nested dicts of arrays (anything ``np.asarray`` takes, bfloat16
-    included): the same nesting and leaf names, each leaf a tensor on
-    ``device`` (None: the CUDA card).  ``dtype`` casts the floating
-    leaves; by default each keeps its own dtype."""
+    as nested dicts, tuples and lists of arrays (anything ``np.asarray``
+    takes, bfloat16 included): the same nesting, containers and leaf
+    names, each leaf a tensor on ``device`` (None: the CUDA card).
+    ``dtype`` casts the floating leaves; by default each keeps its own
+    dtype."""
     dev = resolve_device(device)
     if isinstance(tree, dict):
         return {k: params_from_reference(v, dev, dtype)
                 for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(params_from_reference(v, dev, dtype)
+                          for v in tree)
     arr = np.asarray(tree)
     if arr.dtype.name == "bfloat16":     # numpy has no bf16: carry the bits
         t = torch.from_numpy(arr.view(np.uint16).copy()).view(torch.bfloat16)
@@ -74,3 +81,17 @@ def params_from_reference(tree, device: DeviceLike, dtype=None):
     if dtype is not None and t.is_floating_point():
         t = t.to(dtype)
     return t.to(dev)
+
+
+def artifact_from_reference(art, device: DeviceLike = None
+                            ) -> InferenceArtifact:
+    """The port's :class:`InferenceArtifact` from a reference one: the
+    params through :func:`params_from_reference` onto ``device`` (None:
+    the CUDA card), the scalers as numpy arrays (None stays None) and
+    every other field by name."""
+    kw = {f.name: getattr(art, f.name) for f in fields(InferenceArtifact)}
+    kw["params"] = params_from_reference(art.params, device)
+    for name in ("scaler_lo", "scaler_hi", "seq_lo", "seq_hi"):
+        if kw[name] is not None:
+            kw[name] = np.array(kw[name])
+    return InferenceArtifact(**kw)

@@ -207,3 +207,161 @@ def test_compiled_coverage_is_complete():
     assert compiled_coverage() == []
     assert compiled_coverage(("perf_aware", "no_such_policy"))[0][1] \
         == "no_such_policy"
+
+
+# ----------------------------------------------------------------------
+# the campaign's outer surface: run_campaign, campaign_table, the phase
+# timer and the tail attribution
+CAMPAIGN = ("baseline", "stale-predictions", "overload-ramp")
+CAMPAIGN_KW = dict(seeds=(0, 1, 2), n_trials=3, n_requests=100)
+
+
+@pytest.fixture(scope="module")
+def campaigns():
+    from repro.core.campaign import run_campaign as ref_run_campaign
+    from repro_torch.core.campaign import run_campaign
+    port = run_campaign(CAMPAIGN, device="cpu", **CAMPAIGN_KW)
+    serial = ref_run_campaign(CAMPAIGN, backend="serial", **CAMPAIGN_KW)
+    return port, serial
+
+
+def test_run_campaign_matches_serial(campaigns):
+    """Every field the reference's PolicyResult has agrees to 1e-5."""
+    from dataclasses import fields
+
+    from repro.core.campaign import PolicyResult as RefResult
+    port, serial = campaigns
+    assert list(port) == list(serial) == list(CAMPAIGN)
+    for scen, cell in serial.items():
+        assert list(port[scen]) == list(cell)
+        for pol, want in cell.items():
+            got = port[scen][pol]
+            for f in fields(RefResult):
+                a, b = getattr(got, f.name), getattr(want, f.name)
+                what = f"{scen}/{pol}/{f.name}"
+                if f.name == "per_seed":
+                    for k, v in b.items():
+                        np.testing.assert_allclose(a[k], v, rtol=RTOL,
+                                                   atol=1e-7, err_msg=k)
+                elif f.name == "telemetry":
+                    assert (a is None) == (b is None), what
+                    for k, v in (b or {}).items():
+                        np.testing.assert_allclose(
+                            np.asarray(a[k], float), np.asarray(v, float),
+                            rtol=RTOL, atol=1e-7, err_msg=f"{what}/{k}")
+                elif isinstance(b, float):
+                    np.testing.assert_allclose(a, b, rtol=RTOL, atol=1e-7,
+                                               err_msg=what)
+                else:
+                    assert a == b, what
+    assert port["overload-ramp"]["perf_aware"].telemetry is not None
+
+
+@pytest.mark.parametrize("markdown", [False, True])
+def test_campaign_table_renders_the_same_string(campaigns, markdown):
+    from repro.core.campaign import campaign_table as ref_table
+    from repro_torch.core.campaign import campaign_table
+    port, serial = campaigns
+    got = campaign_table(port, markdown=markdown)
+    assert got == ref_table(serial, markdown=markdown)
+    assert len(got.splitlines()) == 1 + markdown + 3 * 4
+
+
+def test_last_phases_has_the_reference_keys():
+    from repro.core.campaign import LAST_PHASES as REF_PHASES
+    from repro_torch.core.campaign import LAST_PHASES
+    kw = dict(seeds=(0,), n_trials=2, n_requests=40)
+    run_scenario("baseline", policies=("perf_aware", "random"),
+                 device="cpu", **kw)
+    ref_run_scenario("baseline", policies=("perf_aware", "random"),
+                     backend="serial", **kw)
+    assert list(LAST_PHASES) == list(REF_PHASES) == [
+        "build", "run:oracle", "run:perf_aware", "run:random"]
+    assert all(v > 0 for v in LAST_PHASES.values())
+
+
+def test_phases_are_profiler_ranges():
+    import torch
+
+    from repro_torch.core.telemetry import PhaseTimer
+    timer = PhaseTimer()
+    with torch.profiler.profile() as prof:
+        with timer.phase("run:x"):
+            torch.ones(4).sum()
+        with timer.phase("run:x"):
+            pass
+    assert "run:x" in {e.key for e in prof.key_averages()}
+    assert list(timer.summary()) == ["run:x"] and timer.wall["run:x"] > 0
+
+
+@pytest.mark.parametrize("name,kw", [
+    ("baseline", dict(hedge_factor=0.7)),
+    ("retry-storm", {}), ("overload-ramp", {})])
+def test_tail_attribution_matches_serial(name, kw):
+    """Over a traced port run and the serial stepper's trace of the same
+    config: counts exactly, means and shares to 1e-5."""
+    from repro.core.balancer import make_policy
+    from repro.core.rng import rng_seed
+    from repro.core.scenarios import get_scenario as ref_scenario
+    from repro.core.simulator import SimStepper, _build_cluster
+    from repro.core.telemetry import TraceConfig as RefTrace
+    from repro.core.telemetry import tail_attribution as ref_tail
+    from repro_torch.core.simcore import run_sim_compiled
+    from repro_torch.core.telemetry import tail_attribution
+    from repro_torch.interop import config_from_reference
+    cfg = ref_scenario(name).compile(seed=1, n_trials=4, n_requests=150,
+                                     trace=RefTrace(sample_every=1), **kw)
+    pol = make_policy("perf_aware", seed=rng_seed(cfg.seed, "policy"),
+                      hedge_factor=cfg.hedge_factor)
+    want = ref_tail(SimStepper(_build_cluster(cfg), pol).run()["trace"],
+                    quantiles=(0.5, 0.99, 0.999))
+    got = tail_attribution(
+        run_sim_compiled(config_from_reference(cfg), "perf_aware",
+                         device="cpu")["trace"],
+        quantiles=(0.5, 0.99, 0.999))
+    assert list(got) == list(want)
+    for key in ("n_rows", "n_served", "dispositions"):
+        assert got[key] == want[key], key
+    for q in ("p50", "p99", "p99_9"):
+        g, w = got[q], want[q]
+        assert g["n_tail"] == w["n_tail"], q
+        for k in ("cut_s", "mean_response_s"):
+            np.testing.assert_allclose(g[k], w[k], rtol=RTOL)
+        for comp, v in w["components"].items():
+            for k in ("mean_s", "share"):
+                np.testing.assert_allclose(g["components"][comp][k], v[k],
+                                           rtol=RTOL, atol=1e-9,
+                                           err_msg=f"{q}/{comp}/{k}")
+    if name == "retry-storm":
+        assert got["dispositions"]["client_timeout"] > 0
+    if name == "baseline":
+        assert any(want[q]["components"]["hedge_s"]["mean_s"] > 0
+                   for q in ("p50", "p99", "p99_9"))
+
+
+def test_entry_points_refuse_to_move_to_the_cpu():
+    """device=None means the CUDA card: without one every entry point
+    raises instead of running on the CPU."""
+    import torch
+
+    from repro_torch.core import sweeps
+    from repro_torch.core.campaign import run_campaign
+    from repro_torch.core.prediction_plane import PredictionPlane
+    from repro_torch.core.simulator import SimConfig
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: device=None runs on it")
+    cfg = SimConfig(n_trials=2, n_requests=20)
+    calls = [
+        lambda: run_scenario("baseline", seeds=(0,), n_trials=2,
+                             n_requests=20),
+        lambda: run_campaign(("baseline",), seeds=(0,), n_trials=2,
+                             n_requests=20),
+        lambda: sweeps.scheduling_inefficiency(cfg, "perf_aware"),
+        lambda: sweeps.sweep_accuracy(cfg, [0.5]),
+        lambda: sweeps.sweep_replicas(cfg, [2]),
+        lambda: sweeps.sweep_heterogeneity(cfg, [0.3]),
+        lambda: PredictionPlane(),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()

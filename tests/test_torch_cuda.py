@@ -551,3 +551,57 @@ def test_moe_serving_cuda_matches_cpu(cuda):
                 cfg.num_layers * 4
     for got, want in zip(out["cuda"], out["cpu"]):
         np.testing.assert_array_equal(got, want)
+
+
+# ----------------------------------------------------------------------
+# the prediction plane: features, every zoo family and one plane call
+@pytest.mark.parametrize("w", [1, 2, 24, 25])
+def test_extract_features_cuda_matches_cpu(cuda, w):
+    from repro_torch.core.features import extract_features
+    X = torch.as_tensor(np.random.default_rng(w).standard_normal(
+        (128, 4, w)), dtype=torch.float32)
+    got = extract_features(X.to(cuda)).cpu()
+    want = extract_features(X)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6,
+                               atol=1e-6, equal_nan=True)
+
+
+@pytest.mark.parametrize("fam", ["lr", "svm", "xgb", "rf", "fnn", "rnn",
+                                 "lstm", "gru", "cnn"])
+def test_stacked_apply_cuda_matches_cpu(cuda, fam):
+    from repro_torch.core import zoo
+    from repro_torch.testing import random_params
+    B, k, w = 128, 4, 25
+    params = zoo.tree_map(lambda *xs: torch.stack(xs), *[
+        random_params(fam, k, seed=s) for s in range(B)])
+    rng = np.random.default_rng(1)
+    shape = (B, k, w) if fam in zoo.SEQ_MODELS else (B, k * 12)
+    X = torch.as_tensor(rng.uniform(-0.2, 1.2, shape), dtype=torch.float32)
+    apply = zoo.stacked_apply(fam)
+    got = apply(zoo.tree_map(lambda p: p.to(cuda), params), X.to(cuda))
+    want = apply(params, X)
+    rtol = 1e-4 if fam in zoo.SEQ_MODELS else 1e-5
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=rtol,
+                               atol=1e-6, err_msg=fam)
+
+
+def test_prediction_plane_cuda_matches_cpu(cuda):
+    from repro_torch.core import zoo
+    from repro_torch.core.prediction_plane import PredictionPlane
+    from repro_torch.testing import make_store, random_artifact
+    store = make_store(seed=2, n_metrics=12)
+    planes = [PredictionPlane(device=d) for d in (cuda, "cpu")]
+    for i in range(40):
+        art = random_artifact(f"app{i % 5}", f"n{i}", zoo.ALL_MODELS[i % 9],
+                              store.names[i % 8:i % 8 + 4], seed=i)
+        for p in planes:
+            p.register(art, store)
+    got, want = (p.predict_all() for p in planes)
+    assert planes[0].dispatches == planes[1].dispatches == 9
+    assert set(got) == set(want)
+    for key, rec in want.items():
+        fam = zoo.ALL_MODELS[int(key[1][1:]) % 9]
+        rtol = 1e-4 if fam in zoo.SEQ_MODELS else 1e-5
+        np.testing.assert_allclose(got[key].rtt_pred, rec.rtt_pred,
+                                   rtol=rtol, err_msg=str(key))
+        assert got[key].t_state == rec.t_state
