@@ -73,10 +73,28 @@ Phases (any failure raises and exits non-zero, with no result line):
    against the CPU plane (1e-5 relative, 1e-4 for the recurrent and
    convolutional families), its wall ms, dispatches, each bucket's
    device call and the state / feature shares per prediction;
-9. a ``kernels`` JSON line, the card's line, then the result line.
+9. (run right after phase 5, on its qwen2-vl-7b weights) the router:
+   ``MorpheusRouter`` over three full-width replicas sharing the
+   weights (max_batch 4, max_seq 2048, slowdowns 0, 0.02 and 0.08 s a
+   decode step, wall clock), 24 requests of 256-1024 tokens and 8 new
+   tokens each through ``route`` + ``drain`` under round_robin, random,
+   least_conn, perf_aware on a knowledge base seeded from one wave per
+   replica and perf_aware on plane-served predictors (one a replica);
+   each pass's mean and p95 RTT, routing shares, route() host us a
+   request, plane dispatches a route and each wave's launches (the
+   flash kernel once a layer and the decode kernel once a layer a step,
+   no other kernel, asserted); one ``predict_all`` a route on the
+   plane pass and the largest share to the fast replica under the
+   seeded knowledge base asserted; then one scenario per mirrored plane
+   (hedged perf_aware with predictors, capacity with admission,
+   resilience with a breaker) at deepseek-67b's smoke config in f32 on
+   the card against the CPU under a simulated clock: picks, counts,
+   RTTs, tokens, registry and ledger equal, trace rows NaN-equal;
+10. a ``kernels`` JSON line, the card's line, then the result line.
 """
 from __future__ import annotations
 
+import gc
 import json
 import os
 import statistics
@@ -96,7 +114,7 @@ PEAK_OPS_S = {"torch.float64": 34e12, "torch.float32": 67e12,
 LARGE = dict(n_nodes=250, n_replicas_per_app=200, n_requests=1000)
 LARGE_SEEDS, LARGE_TRIALS = tuple(range(8)), 32
 #: the depth of phase 4's full-width scenarios
-MAIN_J = 600
+MAIN_J = 500
 MID = dict(n_nodes=60, n_replicas_per_app=50, n_requests=200)
 MID_SEEDS, MID_TRIALS = tuple(range(4)), 16
 CAPACITY_SCENARIOS = ("overload-ramp", "flash-crowd-autoscale",
@@ -133,6 +151,13 @@ FIG11_PARITY_TRIALS = 32
 #: phase 8: the prediction plane at the full campaign's width (phase 4:
 #: 250 nodes, 5 apps x 200 replicas), K = 4 metrics over 5 s windows
 PLANE = dict(nodes=250, apps=5, replicas=200, k=4, window_s=5.0)
+#: phase 9: the router over three qwen2-vl-7b replicas at full width,
+#: examples/serve_cluster.py's heterogeneity (s a decode step)
+ROUTER_ENGINE = dict(max_batch=4, max_seq=2048)
+ROUTER_SLOWDOWNS = (0.0, 0.02, 0.08)
+ROUTER_REQUESTS, ROUTER_NEW_TOKENS = 24, 8
+ROUTER_PASSES = ("round_robin", "random", "least_conn", "perf_aware",
+                 "perf_aware+plane")
 
 #: the serving path: qwen2-vl-7b at full width, 3 waves of 8 requests
 ARCH = "qwen2-vl-7b"
@@ -447,6 +472,11 @@ def check_flash(dev, S: int) -> dict:
         for dtype in (torch.float32, torch.bfloat16):
             for causal in (True, False):
                 case(*shape, dtype, causal, seed=3)
+    # phase 9's prefill waves: 1 to max_batch rows padded to at most the
+    # longest prompt
+    for b in range(1, ROUTER_ENGINE["max_batch"] + 1):
+        for s in (PROMPT_LEN[0] + 1, 700, PROMPT_LEN[1]):
+            case(b, s, H, KV, D, torch.bfloat16, True, seed=20 + b)
     # q, k, v as views of one fused (B, S, H + 2 KV, D) tensor: aligned
     # rows take the tensor cores; one element off, the FMA kernel
     n = 2 * 300 * (H + 2 * KV) * D
@@ -568,6 +598,21 @@ def check_decode(dev, plen: int) -> dict:
         # the split count leave most splits empty; kv_len 0 gives zeros
         case(18, 4096, 7, 1, D, dtype, list(range(18)), seed=9)
         case(3, 256, H, KV, D, dtype, [0, 256, 0], seed=9)
+    # phase 9's decode waves: 1 to max_batch rows of a max_seq cache take
+    # more splits a (batch, kv head) than the path shape above, at kv_len
+    # from 1 through the waves' lengths to max_seq, equal and ragged
+    from repro_torch.kernels import decode_attention as decode_mod
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    RB, RS = ROUTER_ENGINE["max_batch"], ROUTER_ENGINE["max_seq"]
+    splits = {b: decode_mod._splits(b, KV, RS, n_sm)
+              for b in range(1, RB + 1)}
+    print(f"decode: phase 9's waves take {splits} splits (B: splits)")
+    for b in splits:
+        for n in (1, PROMPT_LEN[0] + 1, 700, PROMPT_LEN[1] + ROUTER_NEW_TOKENS,
+                  RS):
+            case(b, RS, H, KV, D, torch.bfloat16, [n] * b, seed=20 + b)
+        case(b, RS, H, KV, D, torch.bfloat16, [1, 513, 1030, RS][:b],
+             seed=30 + b)
     # two CUDA-graph replays give the same bits (each call's last CTAs
     # reset their ticket counters)
     ragged = torch.tensor([kv, 1, 7, 64, 65, S, 500, 999], dtype=torch.int32,
@@ -599,30 +644,39 @@ def check_decode(dev, plen: int) -> dict:
           f"max_abs_diff {float((lib.float() - decode_attention(q, k, v, lens).float()).abs().max()):.3e}")
     dev_ms = _timed("decode_attention", timed, inner=50)
     # the split rule (every CTA resident at once, two an SM) against
-    # other split counts at the path shape, by swapping the rule
-    from repro_torch.kernels import decode_attention as decode_mod
+    # other split counts at the path shape, by swapping the rule; every
+    # count's output is held against the plain version too
     rule = decode_mod._splits
-    picked = rule(B, KV, S, torch.cuda.get_device_properties(0)
-                  .multi_processor_count)
-    swept = {}
+    picked = rule(B, KV, S, n_sm)
+    want = decode_attention_plain(q, k, v, lens)
+    swept, errs = {}, {}
     try:
-        for n in sorted({4, 6, picked, picked + 1, 12, 16}):
+        for n in sorted({4, 6, picked, picked + 1, 12, 16, 32, 64}):
             decode_mod._splits = lambda *_, n=n: n
+            errs[n] = _attn_err(decode_attention(q, k, v, lens), want,
+                                q.dtype)
             swept[n] = device_ms(lambda: decode_attention(q, k, v, lens),
                                  repeats=7, inner=50)
     finally:
         decode_mod._splits = rule
     print(f"decode split sweep at the path shape (the rule picks {picked}): "
-          + ", ".join(f"{n}: {t * 1e3:.2f} us" for n, t in swept.items()))
-    # one call is one kernel on the device (the combine is folded in)
+          + ", ".join(f"{n}: {t * 1e3:.2f} us (err {errs[n]:.1e})"
+                      for n, t in swept.items()))
+    # one call is one kernel on the device (the combine is folded in).
+    # A trace that holds no device event at all is the tracer missing
+    # the card, not a kernel-free call: trace again, up to three times
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        decode_attention(q, k, v, lens)
+    for attempt in range(3):
         torch.cuda.synchronize()
-    ran = {e.key: e.count for e in prof.key_averages()
-           if str(e.device_type).endswith("CUDA")
-           and not e.key.startswith("Mem")}
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            decode_attention(q, k, v, lens)
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if str(e.device_type).endswith("CUDA")]
+        if events:
+            break
+        print(f"decode: trace {attempt + 1} recorded no device event")
+    ran = {e.key: e.count for e in events if not e.key.startswith("Mem")}
     assert sum(ran.values()) == 1, f"decode ran {ran}, not one kernel"
     print(f"decode: one call ran one kernel on the device: {ran}")
     used = int(lens.sum())
@@ -1339,6 +1393,165 @@ def serving_parity(dev, arch: str, S: int, lengths, max_seq: int) -> None:
           f"greedy tokens identical")
 
 
+def _route_pass(dev, cfg, params, name, prompts, seed_prompts, wrappers):
+    """One phase 9 pass: three full-width replicas sharing ``params``
+    behind a ``MorpheusRouter`` (wall clock), every prompt routed, then
+    drained.  Returns the RTTs, the routed replicas, the per-wave launch
+    counts, route() host seconds (submit excluded), plane dispatches and
+    ``predict_all`` calls."""
+    import numpy as np
+    from repro_torch.monitoring.metrics import SimClock
+    from repro_torch.serving.engine import Request, ServingEngine
+    from repro_torch.serving.router import MorpheusRouter
+    from repro_torch.testing import make_store, make_trained_predictor
+
+    clock = SimClock(simulated=False)
+    engines = [ServingEngine(cfg, params, device=dev, node=f"node-{i}",
+                             slowdown=s, clock=clock, seed=i,
+                             **ROUTER_ENGINE)
+               for i, s in enumerate(ROUTER_SLOWDOWNS)]
+    waves, submit_s = [], [0.0]
+    for eng in engines:
+        def step(orig=eng.step_wave, node=eng.node):
+            before = counts(wrappers)
+            out = orig()
+            if out:
+                waves.append((node, len(out), {
+                    n: c - before[n] for n, c in counts(wrappers).items()}))
+            return out
+
+        def submit(req, orig=eng.submit):
+            t0 = time.perf_counter()
+            orig(req)
+            submit_s[0] += time.perf_counter() - t0
+        eng.step_wave, eng.submit = step, submit
+    policy, _, plane = name.partition("+")
+    predictors = None
+    if plane:
+        predictors = {e.node: make_trained_predictor(
+            "serve", make_store(seed=i), "lr", seed=500 + i, node=e.node,
+            device=dev) for i, e in enumerate(engines)}
+    router = MorpheusRouter(engines, policy=policy, seed=0,
+                            predictors=predictors, device=dev)
+    if policy == "perf_aware" and not plane:
+        # the knowledge base from one observed wave per replica, as
+        # examples/serve_cluster.py seeds it
+        for eng, p in zip(engines, seed_prompts):
+            eng.submit(Request(rid=-1, tokens=p,
+                               max_new_tokens=ROUTER_NEW_TOKENS))
+            done = eng.step_wave()
+            router.kb.put("serve", eng.node, clock.now(), done[0].rtt)
+    calls = [0]
+    predict_all = router.plane.predict_all
+
+    def counted(keys=None):
+        calls[0] += 1
+        return predict_all(keys)
+    router.plane.predict_all = counted
+    reqs = [Request(rid=i, tokens=p, max_new_tokens=ROUTER_NEW_TOKENS)
+            for i, p in enumerate(prompts)]
+    submit_s[0] = 0.0
+    route_s = 0.0
+    for r in reqs:
+        t0 = time.perf_counter()
+        router.route(r)
+        route_s += time.perf_counter() - t0
+    route_s -= submit_s[0]
+    done = router.drain()
+    assert len(done) == len(reqs), (len(done), len(reqs))
+    for r in reqs:
+        assert r.output is not None and len(r.output) == ROUTER_NEW_TOKENS
+        assert ((r.output >= 0) & (r.output < cfg.vocab_size)).all()
+    return {"rtts": np.array([r.rtt for r in reqs]),
+            "routed": list(router.routed), "waves": waves,
+            "route_us": route_s / len(reqs) * 1e6,
+            "dispatches": router.plane.dispatches, "calls": calls[0]}
+
+
+def router_full_width(dev, params, wrappers) -> dict:
+    """Phase 9: the router at full width over three qwen2-vl-7b replicas
+    sharing phase 5's weights, ROUTER_REQUESTS requests of PROMPT_LEN
+    tokens and ROUTER_NEW_TOKENS new tokens each under every pass of
+    ROUTER_PASSES, then the router's three card-against-CPU scenarios at
+    deepseek-67b's smoke config in f32.  Returns the kernels' launches
+    of the passes (read before the comparison)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model
+    from repro_torch.testing import (ROUTER_SCENARIOS,
+                                     assert_router_runs_equal,
+                                     router_scenario)
+
+    cfg = get_config(ARCH).resolve(tp=1)
+    L = cfg.num_layers
+    per_wave = {"flash_attention": L, "flash_attention.tc": L,
+                "decode_attention": L * (ROUTER_NEW_TOKENS - 1),
+                "decode_attention.mma": L * (ROUTER_NEW_TOKENS - 1)}
+    rng = np.random.default_rng(2)
+    lens = rng.integers(PROMPT_LEN[0], PROMPT_LEN[1] + 1,
+                        size=ROUTER_REQUESTS + len(ROUTER_SLOWDOWNS))
+    prompts = [rng.integers(0, cfg.vocab_size, size=int(n)).astype(np.int32)
+               for n in lens]
+    seed_prompts, prompts = prompts[:3], prompts[3:]
+    t_start = time.perf_counter()
+    reset_counts(wrappers)
+    runs = {}
+    for name in ROUTER_PASSES:
+        t0 = time.perf_counter()
+        run = runs[name] = _route_pass(dev, cfg, params, name, prompts,
+                                       seed_prompts, wrappers)
+        for w, (node, B, got) in enumerate(run["waves"]):
+            for n, c in got.items():
+                assert c == per_wave.get(n, 0), \
+                    f"{name} wave {w} ({node}, B={B}): {c} {n} launches, " \
+                    f"not {per_wave.get(n, 0)}"
+        rtts, routed = run["rtts"], run["routed"]
+        share = [routed.count(i) / len(routed) for i in range(3)]
+        routes = len(routed)
+        print(f"router {name}: mean RTT {rtts.mean():.4f} s, p95 "
+              f"{np.percentile(rtts, 95):.4f} s, shares fast "
+              f"{share[0]:.3f} med {share[1]:.3f} slow {share[2]:.3f}; "
+              f"route() {run['route_us']:.1f} us a request (submit "
+              f"excluded); {run['dispatches'] / routes:.2f} plane "
+              f"dispatches and {run['calls'] / routes:.2f} predict_all a "
+              f"route; {len(run['waves'])} waves, wall "
+              f"{time.perf_counter() - t0:.1f} s")
+        print("  waves (node, B, flash, decode): " + "; ".join(
+            f"{node} {B} {got['flash_attention.tc']} "
+            f"{got['decode_attention.mma']}"
+            for node, B, got in run["waves"]))
+        if name == "perf_aware+plane":
+            assert run["calls"] == routes, (run["calls"], routes)
+            assert run["dispatches"] == routes, (run["dispatches"], routes)
+        if name == "perf_aware":
+            assert share[0] == max(share), \
+                f"KB-seeded perf_aware gave the fast replica {share}"
+    launches = counts(wrappers)
+    n_waves = sum(len(r["waves"]) for r in runs.values())
+    assert launches["flash_attention"] == L * n_waves > 0
+    print(f"phase 9 router passes: {time.perf_counter() - t_start:.1f} s, "
+          f"{n_waves} waves, launches {launches}")
+    # card against CPU, one scenario per mirrored plane (SimClock)
+    small = dataclasses.replace(get_config("deepseek-67b", smoke=True),
+                                dtype="float32").resolve(tp=1)
+    p = model.init_params(small, torch.Generator().manual_seed(0),
+                          device="cpu")
+    for name in ROUTER_SCENARIOS:
+        t0 = time.perf_counter()
+        got = router_scenario(name, small, _to(p, dev), dev)
+        t1 = time.perf_counter()
+        want = router_scenario(name, small, p, "cpu")
+        assert_router_runs_equal(got, want)
+        print(f"router parity {name} (deepseek-67b smoke, f32): cuda "
+              f"{t1 - t0:.2f} s, cpu {time.perf_counter() - t1:.2f} s; "
+              f"{len(got['routed'])} picks, {len(got['hedged'])} hedged, "
+              f"{got['shed']} shed, {got['retries']} retries, "
+              f"{got['timeouts']} timeouts, trips {got['trips']}: equal")
+    return launches
+
+
 def _ineff_row(series) -> str:
     return ", ".join(f"{x:g}: {r['inefficiency_pct']:.4f}%"
                      for x, r in series)
@@ -1731,7 +1944,17 @@ def main() -> int:
         k["launches"] = served["launches"][k["name"]]
         assert k["launches"] > 0, f"{k['name']} never launched"
     profile_serving(served["engine"], served["prompts"])
+    # phase 9: the router over three replicas sharing these weights
+    print(f"phase 5 serving done: {time.perf_counter() - t_start:.1f} s "
+          f"into the run")
+    routed = router_full_width(dev, served["engine"].params, wrappers)
+    for k in kernels[1:3]:
+        k["launches"] += routed[k["name"]]
+    print(f"phase 9 done: {time.perf_counter() - t_start:.1f} s into the run")
     del served
+    # phase 9's counting wrappers made reference cycles through its
+    # engines, which hold the weights
+    gc.collect()
     torch.cuda.empty_cache()
 
     # phase 5b: the Mamba2 serving path at full width (each wave: the SSD

@@ -9,7 +9,10 @@ one slice at a time and imports nothing from it.  It runs:
   (``repro_torch.serving.engine.ServingEngine``, qwen2-vl-7b), whose
   prefill runs the flash-attention kernel (``kernels.flash_attention``)
   and whose decode steps run the flash-decoding kernel
-  (``kernels.decode_attention``).
+  (``kernels.decode_attention``);
+- the Morpheus router across serving replicas
+  (``repro_torch.serving.router.MorpheusRouter``) over the policy engine
+  (``repro_torch.core.balancer``) and the prediction plane.
 
 Entry points take ``device=None``, which means the CUDA card; without one
 they raise unless the caller passes ``device="cpu"``.

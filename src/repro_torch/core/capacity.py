@@ -13,7 +13,9 @@ port of the reference's ``core/capacity.py``).
 * :class:`ElasticSet` — the serial ``CapacityController`` as tensors on
   the core's device: active and allowed masks, warm-up, drain tails,
   the provisioning ledger, the autoscalers and the service-time
-  estimate they read.
+  estimate they read;
+* :class:`EnginePool` — the serving router's mirror: the same rules over
+  a pool of serving engines, with the admission hook and the ledger.
 
 Event times, the request each event pops before, and the rates depend
 only on the config and the shared arrival stream, so the core computes
@@ -23,12 +25,12 @@ from __future__ import annotations
 
 import heapq
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-__all__ = ["AUTOSCALERS", "CapacityConfig", "ElasticSet",
+__all__ = ["AUTOSCALERS", "CapacityConfig", "ElasticSet", "EnginePool",
            "MembershipEvent", "membership_timeline", "arrival_rates",
            "take_lowest", "take_highest"]
 
@@ -399,3 +401,163 @@ class ElasticSet:
                 "mean_util": self.util_sum.cpu().numpy()
                 / max(self.decisions, 1),
                 "active_final": self.active.sum(1).cpu().numpy()}
+
+
+class EnginePool:
+    """Serving-side mirror of the capacity plane: grow / shrink a pool of
+    :class:`~repro_torch.serving.engine.ServingEngine` replicas and gate
+    admission, on the same decision rules as the simulator's controller
+    (one app, one "trial").  Host logic over the engines (a copy of the
+    reference's).
+
+    The router calls :meth:`on_request` per arrival (scale epochs ride
+    the request clock, as in the simulator), :meth:`admit` before
+    submitting, and reads :meth:`active_mask` into its ClusterState so
+    the policy can never pick a drained engine.  ``ledger()`` reports
+    the same (provisioned, busy, waste) triple the simulator pins.
+    """
+
+    def __init__(self, engines: Sequence, cap: CapacityConfig):
+        self.engines = list(engines)
+        self.cap = cap
+        n = len(self.engines)
+        n0 = min(cap.initial, n)
+        for i, e in enumerate(self.engines):
+            e.active = i < n0
+        self.clock = self.engines[0].clock
+        self._t0 = self.clock.now()
+        self._last_t = self._t0
+        self._next_decide = self._t0 + cap.decide_every_s
+        self._last_scale = -np.inf
+        self.prov_s = 0.0
+        self.shed = 0
+        self.scale_events: List[Tuple[float, int]] = []
+        self._arrivals: List[float] = []
+        self._s_hat: Optional[float] = None
+        self._busy_seen = [float(getattr(e, "busy_s", 0.0))
+                           for e in self.engines]
+
+    # ------------------------------------------------------------------
+    def active_mask(self) -> np.ndarray:
+        return np.array([e.active for e in self.engines], bool)
+
+    def _accrue(self, now: float) -> None:
+        dt = now - self._last_t
+        if dt > 0:
+            self.prov_s += int(self.active_mask().sum()) * dt
+            self._last_t = now
+        # drain tails: serving time an INACTIVE engine spent emptying
+        # its queue since the last accrual is still paid for — the
+        # serving mirror of the controller's _deactivate tail, keeping
+        # busy_s <= prov_s (waste in [0, 1]) through scale-downs
+        for i, e in enumerate(self.engines):
+            busy = float(getattr(e, "busy_s", 0.0))
+            if not e.active:
+                self.prov_s += max(busy - self._busy_seen[i], 0.0)
+            self._busy_seen[i] = busy
+
+    def note_prediction(self, pred: float) -> None:
+        al = self.cap.ewma_alpha
+        self._s_hat = pred if self._s_hat is None \
+            else (1.0 - al) * self._s_hat + al * pred
+
+    def on_request(self, now: float) -> None:
+        """Record the arrival; run the latest due autoscaler epoch; wake
+        the pool when everything is drained (scale-from-zero).  After an
+        idle gap only the MOST RECENT due epoch runs — replaying stale
+        epochs would score them against arrivals from after their time
+        (the simulator controller never has this problem: its epochs
+        ride the membership timeline request by request)."""
+        self._arrivals.append(now)
+        # only the trailing rate window (plus one epoch of slack for a
+        # decision made at t < now) can matter: prune so a long-lived
+        # router stays O(window), not O(lifetime)
+        lo = now - self.cap.rate_window_s - self.cap.decide_every_s
+        if self._arrivals[0] < lo:
+            keep = np.searchsorted(np.asarray(self._arrivals), lo,
+                                   side="right")
+            del self._arrivals[:keep]
+        if self._next_decide <= now:
+            missed = int((now - self._next_decide)
+                         // self.cap.decide_every_s)
+            t = self._next_decide + missed * self.cap.decide_every_s
+            self._decide(t)
+            self._next_decide = t + self.cap.decide_every_s
+        if not any(e.active for e in self.engines):
+            self._accrue(now)
+            self.engines[0].active = True
+            self.scale_events.append((now, +1))
+
+    def _rate(self, now: float) -> float:
+        win = min(self.cap.rate_window_s, max(now - self._t0, 1e-9))
+        lo = now - win
+        return sum(1 for t in self._arrivals if lo < t <= now) / win
+
+    def _decide(self, now: float) -> None:
+        cap = self.cap
+        act = [e for e in self.engines if e.active]
+        cur = len(act)
+        if cap.autoscaler == "predictive":
+            s = self._s_hat if self._s_hat is not None else 1.0
+            need = int(np.ceil(self._rate(now) * s / cap.rho_target))
+        elif cap.autoscaler == "reactive":
+            util = (sum(1 for e in act if e.pending() > 0)
+                    / max(cur, 1)) if cur else 0.0
+            cooled = now - self._last_scale >= cap.cooldown_s
+            need = cur + (1 if cooled and util > cap.hi_util else
+                          -1 if cooled and util < cap.lo_util else 0)
+        else:
+            need = cap.initial
+        hi = len(self.engines) if cap.max_replicas is None \
+            else min(cap.max_replicas, len(self.engines))
+        want = int(np.clip(need, cap.min_replicas, hi))
+        if want == cur:
+            return
+        self._accrue(now)
+        self._last_scale = now
+        if want > cur:
+            for e in self.engines:
+                if not e.active and want > cur:
+                    e.active = True
+                    cur += 1
+            self.scale_events.append((now, +1))
+        else:
+            # drain idle engines first, highest index first
+            for e in reversed(self.engines):
+                if cur <= want:
+                    break
+                if e.active and e.pending() == 0:
+                    e.active = False
+                    cur -= 1
+            for e in reversed(self.engines):
+                if cur <= want:
+                    break
+                if e.active:
+                    e.active = False
+                    cur -= 1
+            self.scale_events.append((now, -1))
+
+    # ------------------------------------------------------------------
+    def admit(self, now: float) -> bool:
+        """Admission hook: False sheds the request (queues on the active
+        set already exceed the wait limit)."""
+        if self.cap.admission_limit_s is None:
+            return True
+        waits = [e.pending() * (self._s_hat or 1.0) / max(e.max_batch, 1)
+                 for e in self.engines if e.active]
+        if not waits:
+            return True
+        if min(waits) > self.cap.admission_limit_s:
+            self.shed += 1
+            return False
+        return True
+
+    def ledger(self) -> Dict[str, float]:
+        """(provisioned, busy, waste, shed) — the serving-side triple."""
+        now = self.clock.now()
+        self._accrue(now)
+        busy = float(sum(getattr(e, "busy_s", 0.0) for e in self.engines))
+        prov = max(self.prov_s, 1e-9)
+        return {"provisioned_s": self.prov_s, "busy_s": busy,
+                "waste": float(np.clip(1.0 - busy / prov, 0.0, 1.0)),
+                "shed": self.shed}

@@ -1,5 +1,8 @@
 """Closed-loop online prediction: the batched core's lowering of the
-reference's ``core/online.py`` (``OnlineFleet``, ``RollingAccuracy``).
+reference's ``core/online.py`` (``OnlineFleet``; ``StackedAccuracy``,
+the reference's per-app ``RollingAccuracy`` trackers stacked), and the
+reference's ``RollingAccuracy`` itself, the (n,)-axis numpy tracker that
+the serving router folds its replicas' completed predictions into.
 
 In the closed loop, ``predicted`` comes from one ridge predictor per
 (trial, app) trained on the RTTs the simulation itself observes, not
@@ -11,8 +14,8 @@ folds each routed request's relative error once it has completed; with
 ``fallback_threshold > 0`` trials whose accuracy falls below it route by
 queue wait alone (least_conn).
 
-Everything here is a tensor on the core's device with a leading trial
-axis; what the host knows before the loop (the retrain steps, which app
+Everything of the closed loop is a tensor on the core's device with a
+leading trial axis; what the host knows before the loop (the retrain steps, which app
 each step routed) stays on the host, so nothing here needs a host sync:
 
 * the observation ring holds the last ``Wn = min(online_window, J)``
@@ -66,9 +69,51 @@ def obs_window(cfg) -> int:
 
 
 class RollingAccuracy:
+    """Rolling relative accuracy over the last ``window`` observations,
+    per element of an (n,) fleet axis (a copy of the reference's).
+
+    Tracks ``err = min(|rel_err|, 1)`` in a per-element ring;
+    ``accuracy() = 1 - mean(err)`` over each element's filled ring.
+    Elements with fewer than ``min_count`` lifetime observations report
+    accuracy 1.0 and are always viable."""
+
+    def __init__(self, window: int = 40, n: int = 1,
+                 min_count: int = MIN_COUNT):
+        self.window = max(int(window), 1)
+        self.n = int(n)
+        self.min_count = int(min_count)
+        self._err = np.zeros((self.window, self.n))
+        self._pos = np.zeros(self.n, np.int64)
+        self.count = np.zeros(self.n, np.int64)
+
+    def update(self, rel_err: np.ndarray, mask: Optional[np.ndarray] = None):
+        """Fold one (n,) batch of relative errors; ``mask`` selects which
+        elements observed this round."""
+        rel_err = np.minimum(np.abs(np.asarray(rel_err, float)), 1.0)
+        idx = np.arange(self.n) if mask is None else np.flatnonzero(mask)
+        if idx.size == 0:
+            return
+        self._err[self._pos[idx], idx] = rel_err[idx]
+        self._pos[idx] = (self._pos[idx] + 1) % self.window
+        self.count[idx] += 1
+
+    def accuracy(self) -> np.ndarray:
+        """(n,) rolling accuracy in [0, 1]; 1.0 where nothing observed."""
+        filled = np.minimum(self.count, self.window)
+        valid = np.arange(self.window)[:, None] < filled[None, :]
+        err_sum = np.where(valid, self._err, 0.0).sum(axis=0)
+        acc = 1.0 - err_sum / np.maximum(filled, 1)
+        return np.where(filled > 0, acc, 1.0)
+
+    def viable(self, threshold: float) -> np.ndarray:
+        """(n,) bool: above threshold or not enough evidence yet."""
+        return (self.count < self.min_count) | (self.accuracy() >= threshold)
+
+
+class StackedAccuracy:
     """Rolling relative accuracy per (app, trial) over the last
-    ``window`` completed requests (the reference's ``RollingAccuracy``,
-    one per app, stacked).
+    ``window`` completed requests: one :class:`RollingAccuracy` per app
+    over the trial axis, stacked into tensors.
 
     ``err`` is an (A, Wa + 1, T) ring whose spare slot ``Wa`` takes the
     writes that a later write of the same fold overtakes; ``accuracy =
@@ -161,7 +206,8 @@ class OnlineFleet:
         # folded into the tracker once it has completed
         self.pd_err = torch.zeros((J, T), **f64)
         self.pd_fin = torch.full((J, T), float("inf"), **f64)
-        self.tracker = RollingAccuracy(self.A, T, acc_window, device=device)
+        self.tracker = StackedAccuracy(self.A, T, acc_window,
+                                       device=device)
         self._eye = LAM * torch.eye(D, **f64)
         self._trial = torch.arange(T, device=device)
 

@@ -1,5 +1,5 @@
-"""Flight recorder: the trace schema and the row builder of the batched
-core (a copy of the schema half of the reference's ``core/telemetry.py``).
+"""Flight recorder and serving telemetry (a port of the reference's
+``core/telemetry.py``).
 
 Every traced request carries one fixed-width row (:data:`TRACE_FIELDS`)
 recording the routing decision (chosen replica, score at pick time,
@@ -21,14 +21,20 @@ The core records every ``sample_every``-th request into a
 one row from tensors, as :func:`compose_row` does from numpy arrays);
 :func:`trace_block` packages it for the summary, and
 :func:`tail_attribution` reads a block's response tails by component.
-:class:`PhaseTimer` times the campaign runner's phases.
+The serving router (T = 1, always on) builds its rows with
+:func:`compose_row` and packages them with :func:`trace_block` too.
+It also exports a Prometheus-style :class:`MetricsRegistry` of
+:class:`Counter`, :class:`Gauge` and :class:`Histogram` metrics whose
+scrape lands in the columnar ``MetricsStore``.  :class:`PhaseTimer`
+times the campaign runner's phases.
 """
 from __future__ import annotations
 
+import math
 import time
 from contextlib import contextmanager
 from dataclasses import dataclass
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -36,7 +42,8 @@ import torch
 __all__ = ["TRACE_FIELDS", "TRACE_IDX", "COMPONENTS", "DISP_SERVED",
            "DISP_SHED", "DISP_TIMEOUT", "DISP_FAIL_FAST", "DISPOSITIONS",
            "TraceConfig", "trace_block", "compose_row", "trace_row",
-           "tail_attribution", "PhaseTimer"]
+           "tail_attribution", "Counter", "Gauge",
+           "Histogram", "MetricsRegistry", "PhaseTimer"]
 
 #: column order of every trace row; the seven middle columns are the
 #: additive decomposition
@@ -198,6 +205,127 @@ def tail_attribution(trace: Dict,
             "components": comp,
         }
     return out
+
+
+class Counter:
+    """Monotone counter (exported as a single cumulative series)."""
+
+    def __init__(self, name: str):
+        self.name, self.value = name, 0.0
+
+    def inc(self, amount: float = 1.0):
+        if amount < 0:
+            raise ValueError("counters only go up")
+        self.value += amount
+
+    def export(self) -> Dict[str, float]:
+        return {self.name: self.value}
+
+
+class Gauge:
+    """Set-to-current-value metric."""
+
+    def __init__(self, name: str):
+        self.name, self.value = name, 0.0
+
+    def set(self, value: float):
+        self.value = float(value)
+
+    def inc(self, amount: float = 1.0):
+        self.value += amount
+
+    def dec(self, amount: float = 1.0):
+        self.value -= amount
+
+    def export(self) -> Dict[str, float]:
+        return {self.name: self.value}
+
+
+class Histogram:
+    """Fixed-bucket cumulative histogram, Prometheus ``le`` semantics:
+    one series per bucket plus ``_sum`` and ``_count``."""
+
+    DEFAULT_BUCKETS = (0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0)
+
+    def __init__(self, name: str,
+                 buckets: Sequence[float] = DEFAULT_BUCKETS):
+        self.name = name
+        self.buckets = tuple(sorted(buckets))
+        self.counts = np.zeros(len(self.buckets) + 1, np.int64)
+        self.sum = 0.0
+
+    def observe(self, value: float):
+        self.counts[np.searchsorted(self.buckets, value, side="left")] += 1
+        self.sum += float(value)
+
+    @property
+    def count(self) -> int:
+        return int(self.counts.sum())
+
+    def quantile(self, q: float) -> float:
+        """Bucket-interpolated quantile (inf bucket clamps to top le)."""
+        total = self.count
+        if total == 0:
+            return math.nan
+        target = q * total
+        cum = np.cumsum(self.counts)
+        i = int(np.searchsorted(cum, target, side="left"))
+        if i >= len(self.buckets):
+            return self.buckets[-1]
+        lo = 0.0 if i == 0 else self.buckets[i - 1]
+        lo_cum = 0 if i == 0 else cum[i - 1]
+        frac = (target - lo_cum) / max(self.counts[i], 1)
+        return lo + (self.buckets[i] - lo) * min(max(frac, 0.0), 1.0)
+
+    def export(self) -> Dict[str, float]:
+        out = {}
+        cum = 0
+        for le, c in zip(self.buckets, self.counts[:-1]):
+            cum += int(c)
+            out[f"{self.name}_bucket_le_{le:g}"] = float(cum)
+        out[f"{self.name}_bucket_le_inf"] = float(self.count)
+        out[f"{self.name}_sum"] = self.sum
+        out[f"{self.name}_count"] = float(self.count)
+        return out
+
+
+class MetricsRegistry:
+    """Counter / gauge / histogram registry whose scrape lands in the
+    columnar ``MetricsStore`` (one 200 ms column per scrape), the same
+    storage and retrieval model as the prediction plane's signals."""
+
+    def __init__(self, store=None):
+        self.store = store
+        self._metrics: Dict[str, object] = {}
+
+    def _add(self, metric):
+        if metric.name in self._metrics:
+            raise ValueError(f"duplicate metric {metric.name}")
+        self._metrics[metric.name] = metric
+        if self.store is not None:
+            self.store.register(list(metric.export()))
+        return metric
+
+    def counter(self, name: str) -> Counter:
+        return self._add(Counter(name))
+
+    def gauge(self, name: str) -> Gauge:
+        return self._add(Gauge(name))
+
+    def histogram(self, name: str, buckets=Histogram.DEFAULT_BUCKETS
+                  ) -> Histogram:
+        return self._add(Histogram(name, buckets))
+
+    def collect(self) -> Dict[str, float]:
+        out: Dict[str, float] = {}
+        for m in self._metrics.values():
+            out.update(m.export())
+        return out
+
+    def scrape(self, t: Optional[float] = None):
+        """Write one column of current values into the store."""
+        if self.store is not None:
+            self.store.scrape(self.collect(), t=t)
 
 
 class PhaseTimer:

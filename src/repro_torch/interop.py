@@ -8,7 +8,8 @@ replay the reference's jax PRNG draws, so a comparison hands both sides
 the reference's parameters.  These helpers are duck-typed — they read
 attributes and leaves by the reference's names and import nothing of it.
 A predictor's exported artifact crosses the same way
-(:func:`artifact_from_reference`).
+(:func:`artifact_from_reference`), and a trained predictor with it
+(:func:`predictor_from_reference`).
 """
 from __future__ import annotations
 
@@ -18,7 +19,9 @@ import numpy as np
 import torch
 
 from repro_torch.core.capacity import CapacityConfig
-from repro_torch.core.predictor import InferenceArtifact
+from repro_torch.core.predictor import (InferenceArtifact, MinMax,
+                                        ModelChoice, RTTPredictor,
+                                        SelectedConfig)
 from repro_torch.core.resilience import ResilienceConfig
 from repro_torch.core.simulator import SimConfig, _Cluster
 from repro_torch.core.telemetry import TraceConfig
@@ -95,3 +98,24 @@ def artifact_from_reference(art, device: DeviceLike = None
         if kw[name] is not None:
             kw[name] = np.array(kw[name])
     return InferenceArtifact(**kw)
+
+
+def predictor_from_reference(p, store, device: DeviceLike = None
+                             ) -> RTTPredictor:
+    """The port's :class:`RTTPredictor` from a trained reference one,
+    reading the port's ``store`` (the reference's reads its own): the
+    model through :func:`artifact_from_reference` onto ``device`` (None:
+    the CUDA card), the selection, scalers, target range and version by
+    name."""
+    art = artifact_from_reference(p.export_artifact(), device)
+    q = RTTPredictor(p.app, p.node, store, fast_state=p.fast_state,
+                     device=device)
+    q.selected = _by_name(SelectedConfig, p.selected)
+    q.selected.metric_idx = np.array(q.selected.metric_idx)
+    q.choice = ModelChoice(art.family, art.params, float(p.choice.rmse),
+                           float(p.choice.t_inference))
+    q.scaler_X = MinMax(np.array(p.scaler_X.lo), np.array(p.scaler_X.hi))
+    q._seq_lo, q._seq_hi = np.array(p._seq_lo), np.array(p._seq_hi)
+    q.y_lo, q.y_hi = float(p.y_lo), float(p.y_hi)
+    q.artifact_version = p.artifact_version
+    return q

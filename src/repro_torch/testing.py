@@ -8,6 +8,8 @@ the same samples.  :func:`random_artifact` builds an
 the way the reference's ``make_trained_predictor`` fits them, and whose
 parameters are :func:`random_params`: trained state's shapes, for
 machines where the reference cannot train one.
+:func:`make_trained_predictor` builds an :class:`RTTPredictor` the same
+way, with the reference's draws for its metrics and scalers.
 """
 from __future__ import annotations
 
@@ -18,7 +20,10 @@ import torch
 
 from repro_torch.core import zoo
 from repro_torch.core.features import extract_features
-from repro_torch.core.predictor import InferenceArtifact
+from repro_torch.core.predictor import (InferenceArtifact, MinMax,
+                                        ModelChoice, RTTPredictor,
+                                        SelectedConfig)
+from repro_torch.device import DeviceLike
 from repro_torch.monitoring.metrics import (SCRAPE_INTERVAL, MetricsStore,
                                             SimClock)
 
@@ -93,6 +98,21 @@ def random_params(family: str, k: int, seed: int = 0):
              n(gates * H, s=0.1)), head)
 
 
+def _fitted_scales(rng, k: int, window_s: float, n_samples: int) -> tuple:
+    """The reference ``make_trained_predictor``'s fit, drawn from ``rng``:
+    ``n_samples`` standard-normal windows of ``k`` metrics and targets
+    in [1, 5] s.  Returns the windows' per-metric (k,) min and max, the
+    features' per-column min and max, and the targets' min and max."""
+    w_pts = int(round(window_s / SCRAPE_INTERVAL))
+    X_raw = rng.standard_normal((n_samples, k, w_pts)).astype(np.float32)
+    y = rng.uniform(1.0, 5.0, n_samples).astype(np.float32)
+    feats = extract_features(torch.from_numpy(X_raw)).numpy().reshape(
+        n_samples, -1)
+    return (X_raw.min(axis=(0, 2)), X_raw.max(axis=(0, 2)),
+            feats.min(axis=0), feats.max(axis=0),
+            float(y.min()), float(y.max()))
+
+
 def random_artifact(app: str, node: str, family: str,
                     metric_names: Sequence[str], window_s: float = WINDOW_S,
                     seed: int = 0, n_samples: int = 64,
@@ -101,21 +121,162 @@ def random_artifact(app: str, node: str, family: str,
     ``n_samples`` standard-normal windows and targets in [1, 5] s, as
     the reference's ``make_trained_predictor`` fits them; parameters
     from :func:`random_params`; on the CPU."""
-    rng = np.random.default_rng(seed)
     k = len(metric_names)
-    w_pts = int(round(window_s / SCRAPE_INTERVAL))
-    X_raw = rng.standard_normal((n_samples, k, w_pts)).astype(np.float32)
-    y = rng.uniform(1.0, 5.0, n_samples).astype(np.float32)
+    seq_lo, seq_hi, feat_lo, feat_hi, y_lo, y_hi = _fitted_scales(
+        np.random.default_rng(seed), k, window_s, n_samples)
     seq = family in zoo.SEQ_MODELS
-    feats = extract_features(torch.from_numpy(X_raw)).numpy().reshape(
-        n_samples, -1)
     return InferenceArtifact(
         app=app, node=node, family=family, sequential=seq,
         metric_names=tuple(metric_names), window_s=window_s,
         params=random_params(family, k, seed=seed),
-        scaler_lo=None if seq else feats.min(axis=0),
-        scaler_hi=None if seq else feats.max(axis=0),
-        seq_lo=X_raw.min(axis=(0, 2))[:, None] if seq else None,
-        seq_hi=X_raw.max(axis=(0, 2))[:, None] if seq else None,
-        y_lo=float(y.min()), y_hi=float(y.max()), t_inference=1e-4,
+        scaler_lo=None if seq else feat_lo,
+        scaler_hi=None if seq else feat_hi,
+        seq_lo=seq_lo[:, None] if seq else None,
+        seq_hi=seq_hi[:, None] if seq else None,
+        y_lo=y_lo, y_hi=y_hi, t_inference=1e-4,
         fast_state=fast_state, version=1)
+
+
+def make_trained_predictor(app: str, store: MetricsStore, family: str,
+                           k: int = K, window_s: float = WINDOW_S,
+                           seed: int = 0, node: str = "node-0",
+                           fast_state: bool = True, n_samples: int = 64,
+                           device: DeviceLike = None) -> RTTPredictor:
+    """An :class:`RTTPredictor` with injected trained state: ``k`` of
+    the store's metrics, the window scale, target range and feature
+    scaler drawn and fitted as the reference's
+    ``make_trained_predictor`` does (the same draws, so equal up to the
+    features' rounding), and :func:`random_params` for the model.
+    ``device=None`` puts it on the CUDA card."""
+    rng = np.random.default_rng(seed)
+    p = RTTPredictor(app, node, store, fast_state=fast_state, device=device)
+    idx = np.sort(rng.choice(len(store.names), size=k, replace=False))
+    p.selected = SelectedConfig(window_s, "pearson", idx, total_corr=1.0,
+                                t_state=0.0, t_feature=0.0)
+    seq_lo, seq_hi, feat_lo, feat_hi, p.y_lo, p.y_hi = _fitted_scales(
+        rng, k, window_s, n_samples)
+    p._seq_lo, p._seq_hi = seq_lo[None, :, None], seq_hi[None, :, None]
+    p.scaler_X = MinMax(feat_lo, feat_hi)
+    params = zoo.tree_map(lambda x: x.to(p.device),
+                          random_params(family, k, seed=seed))
+    p.choice = ModelChoice(family, params, rmse=0.1, t_inference=1e-4)
+    p.artifact_version = 1
+    return p
+
+
+#: the router's card-against-CPU scenarios, one a plane it mirrors
+ROUTER_SCENARIOS = ("hedged-perf-aware", "capacity-admission",
+                    "resilience-breaker")
+
+
+def router_scenario(name: str, cfg, params, device: DeviceLike = None
+                    ) -> dict:
+    """Drive one of :data:`ROUTER_SCENARIOS` through a
+    ``MorpheusRouter`` and its engines on ``device`` under a SimClock
+    (seeded 8-token prompts, 4 new tokens a request):
+
+    - ``hedged-perf-aware``: perf_aware over three replicas (slowdowns
+      0, 0.05, 0.2 s a step) with plane-served predictors (lr, xgb, gru
+      over one store), hedge factor 0.5;
+    - ``capacity-admission``: least_conn over a predictive pool of three
+      one-slot replicas, one active at first, epochs every second and
+      admission at 1.5 s of estimated wait;
+    - ``resilience-breaker``: round_robin over a fast and a 5 s-a-step
+      replica, a 2 s timeout, two retries and a breaker that trips on
+      the first timeout.
+
+    Returns what two runs must agree on: the picks, the counts, each
+    request's RTT and tokens, the trace rows, the registry and (with a
+    pool) the ledger."""
+    from repro_torch.core.capacity import CapacityConfig
+    from repro_torch.core.resilience import ResilienceConfig
+    from repro_torch.serving.engine import Request, ServingEngine
+    from repro_torch.serving.router import MorpheusRouter
+
+    clock = SimClock()
+
+    def engines(slowdowns, max_batch=2):
+        return [ServingEngine(cfg, params, device=device, node=f"n{i}",
+                              max_batch=max_batch, max_seq=32, clock=clock,
+                              slowdown=s) for i, s in enumerate(slowdowns)]
+    rng = np.random.default_rng(ROUTER_SCENARIOS.index(name))
+
+    def reqs(n, start=0):
+        return [Request(rid=start + i, tokens=rng.integers(0, 100, size=8),
+                        max_new_tokens=4) for i in range(n)]
+    sent = []
+    if name == "hedged-perf-aware":
+        reps = engines((0.0, 0.05, 0.2))
+        store = make_store()
+        preds = {f"n{i}": make_trained_predictor(
+            "serve", store, fam, seed=500 + i, node=f"n{i}", device=device)
+            for i, fam in enumerate(("lr", "xgb", "gru"))}
+        router = MorpheusRouter(reps, policy="perf_aware", predictors=preds,
+                                hedge_factor=0.5, device=device)
+        for r in reqs(12):
+            router.route(r)
+            sent.append(r)
+        router.drain()
+    elif name == "capacity-admission":
+        reps = engines((0.0, 0.1, 0.3), max_batch=1)
+        cap = CapacityConfig(autoscaler="predictive", initial_replicas=1,
+                             decide_every_s=1.0, admission_limit_s=1.5)
+        router = MorpheusRouter(reps, policy="least_conn", capacity=cap,
+                                device=device)
+        router.pool.note_prediction(0.6)
+        for r in reqs(16):
+            router.route(r)
+            sent.append(r)
+            clock.advance(0.25)
+        router.drain()
+    elif name == "resilience-breaker":
+        reps = engines((0.0, 5.0))
+        res = ResilienceConfig(timeout_s=2.0, max_retries=2,
+                               breaker_threshold=1, breaker_cooldown_s=1e3)
+        router = MorpheusRouter(reps, policy="round_robin", resilience=res,
+                                device=device)
+        for batch in (reqs(4), reqs(4, start=10)):
+            for r in batch:
+                router.route(r)
+                sent.append(r)
+            router.drain()
+    else:
+        raise KeyError(f"unknown router scenario {name!r}; one of "
+                       f"{ROUTER_SCENARIOS}")
+    return {
+        "routed": list(router.routed), "hedged": list(router.hedged),
+        "shed": len(router.shed), "fallbacks": router.fallbacks,
+        "retries": router.retries, "timeouts": len(router.timeouts),
+        "trips": None if router.breaker is None
+        else int(router.breaker.trips),
+        "rtts": [r.rtt for r in sent],
+        "outputs": [None if r.output is None else r.output.tolist()
+                    for r in sent],
+        "trace": router.trace()["data"],
+        "registry": router.registry.collect(),
+        "ledger": None if router.pool is None else router.pool.ledger(),
+        "scale_events": None if router.pool is None
+        else list(router.pool.scale_events),
+        "dispatches": router.plane.dispatches,
+    }
+
+
+def assert_router_runs_equal(got: dict, want: dict) -> None:
+    """Two :func:`router_scenario` runs agree: picks, counts, RTTs,
+    tokens, registry and ledger exactly; trace rows NaN where the other
+    has NaN, the ``predicted`` / ``score`` columns (float32 inference
+    on two devices) within ``rel=1e-5, abs=1e-5`` and the rest exactly."""
+    from repro_torch.core.telemetry import TRACE_IDX
+    for key in ("routed", "hedged", "shed", "fallbacks", "retries",
+                "timeouts", "trips", "rtts", "outputs", "registry",
+                "ledger", "scale_events", "dispatches"):
+        assert got[key] == want[key], (key, got[key], want[key])
+    a, b = got["trace"], want["trace"]
+    assert a.shape == b.shape, (a.shape, b.shape)
+    np.testing.assert_array_equal(np.isnan(a), np.isnan(b))
+    a, b = np.nan_to_num(a), np.nan_to_num(b)
+    pred = [TRACE_IDX["predicted"], TRACE_IDX["score"]]
+    np.testing.assert_allclose(a[..., pred], b[..., pred], rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_array_equal(np.delete(a, pred, -1),
+                                  np.delete(b, pred, -1))

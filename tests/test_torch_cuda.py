@@ -1,6 +1,6 @@
 """The port on the CUDA card: each hand-written kernel against its plain
-PyTorch version, and the campaign and the serving path on CUDA against
-the CPU.
+PyTorch version, and the campaign, the serving path and the router on
+CUDA against the CPU.
 
 Every test here is marked ``cuda`` and skips without a card.  The file
 imports neither jax nor the JAX package, so it also runs where those are
@@ -605,3 +605,48 @@ def test_prediction_plane_cuda_matches_cpu(cuda):
         np.testing.assert_allclose(got[key].rtt_pred, rec.rtt_pred,
                                    rtol=rtol, err_msg=str(key))
         assert got[key].t_state == rec.t_state
+
+
+# ----------------------------------------------------------------------
+# the router: one scenario per plane it mirrors, on the card against the
+# CPU at deepseek-67b's smoke config in f32 (repro_torch.testing)
+@pytest.fixture(scope="module")
+def router_model():
+    cfg = dataclasses.replace(get_config("deepseek-67b", smoke=True),
+                              dtype="float32").resolve(tp=1)
+    params = model.init_params(cfg, torch.Generator().manual_seed(0),
+                               device="cpu")
+    return cfg, params
+
+
+@pytest.mark.parametrize("name", ["hedged-perf-aware", "capacity-admission",
+                                  "resilience-breaker"])
+def test_router_cuda_matches_cpu(cuda, router_model, name):
+    from repro_torch.testing import assert_router_runs_equal, router_scenario
+    cfg, params = router_model
+    got = router_scenario(name, cfg, params, cuda)
+    want = router_scenario(name, cfg, params, "cpu")
+    assert_router_runs_equal(got, want)
+    assert len(got["routed"]) > 0
+
+
+def test_router_policy_state_on_the_card(cuda):
+    from repro_torch.serving.router import MorpheusRouter
+
+    class _Stub:
+        def __init__(self, node, pending):
+            self.node, self.max_batch, self._pending = node, 2, pending
+            self.device = cuda
+
+        def pending(self):
+            return self._pending
+
+        def submit(self, req):
+            self._pending += 1
+    router = MorpheusRouter([_Stub(f"n{i}", i % 3) for i in range(4)],
+                            policy="round_robin")
+    assert router.device.type == "cuda"
+    picks = [router.route(object()) for _ in range(6)]
+    assert picks == [0, 1, 2, 3, 0, 1]
+    assert router.policy._cursor.device.type == "cuda"
+    assert router.cluster_state().busy_until.device.type == "cuda"

@@ -1,18 +1,23 @@
 """The port's example scripts run end to end on the CPU at tiny sizes."""
+import functools
+import importlib.util
 import os
+import re
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 SCRIPT = os.path.join(ROOT, "examples", "lb_simulation_torch.py")
+SERVE = os.path.join(ROOT, "examples", "serve_cluster_torch.py")
 
 
-def _run(*args):
+def _run(*args, script=SCRIPT):
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-    return subprocess.run([sys.executable, SCRIPT, *args], env=env,
+    return subprocess.run([sys.executable, script, *args], env=env,
                           capture_output=True, text=True, timeout=300)
 
 
@@ -34,5 +39,72 @@ def test_lb_simulation_torch_needs_a_card_by_default():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default runs on it")
     out = _run("--smoke", "--trials", "2")
+    assert out.returncode != 0
+    assert "no CUDA device" in out.stderr
+
+
+_ROW = re.compile(r"^(\w+)\s+mean RTT=\s*([\d.]+)s\s+p95=\s*([\d.]+)s\s+"
+                  r"routing=\[fast ([\d.]+), med ([\d.]+), slow ([\d.]+)\]$")
+
+
+def _reference_rows():
+    """The JAX package's ``examples/serve_cluster.py`` ``run_policy`` for
+    each policy, its rows formatted as the port's example prints them
+    (its engines share one jitted prefill / decode, which the example
+    would compile once an engine)."""
+    import jax
+    from repro.configs.base import get_config
+    from repro.models import model as JM
+    spec = importlib.util.spec_from_file_location(
+        "serve_cluster_reference", os.path.join(ROOT, "examples",
+                                                "serve_cluster.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    cfg = get_config("deepseek-67b", smoke=True).resolve(tp=1)
+    params = JM.init_params(jax.random.PRNGKey(0), cfg)
+
+    @functools.lru_cache(maxsize=None)
+    def fns(max_seq):
+        return (jax.jit(lambda p, b: JM.prefill(p, cfg, b,
+                                                cache_len=max_seq)),
+                jax.jit(lambda p, c, t: JM.decode_step(p, cfg, c, t)))
+
+    class Shared(mod.ServingEngine):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            self._prefill, self._decode = fns(self.max_seq)
+    mod.ServingEngine = Shared
+    rows = {}
+    for policy in ("round_robin", "random", "least_conn", "perf_aware"):
+        rtts, routed = mod.run_policy(policy, cfg, params, 24)
+        share = [routed.count(i) / len(routed) for i in range(3)]
+        rows[policy] = (f"{rtts.mean():.3f}",
+                        f"{np.percentile(rtts, 95):.3f}",
+                        *(f"{x:.2f}" for x in share))
+    return rows
+
+
+def test_serve_cluster_torch_smoke_matches_the_reference_example():
+    """Under a simulated clock the port's example routes as the JAX
+    package's does: per policy, the same routing shares, mean and p95
+    RTT on the same seed; perf_aware sends the least to the slow
+    replica."""
+    out = _run("--smoke", "--device", "cpu", script=SERVE)
+    assert out.returncode == 0, out.stderr
+    got = {}
+    for line in out.stdout.splitlines():
+        m = _ROW.match(line)
+        if m:
+            got[m.group(1)] = m.groups()[1:]
+    want = _reference_rows()
+    assert got == want
+    fast, med, slow = (float(x) for x in got["perf_aware"][2:])
+    assert slow < min(fast, med)
+
+
+def test_serve_cluster_torch_needs_a_card_by_default():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default runs on it")
+    out = _run("--smoke", script=SERVE)
     assert out.returncode != 0
     assert "no CUDA device" in out.stderr

@@ -1,5 +1,7 @@
 """The port's closed-loop fleet (``repro_torch.core.online``) against the
-JAX package's ``OnlineFleet`` and ``RollingAccuracy`` (numpy, no jax).
+JAX package's ``OnlineFleet`` and ``RollingAccuracy`` (numpy, no jax):
+the stacked tracker of the batched core and the router's (n,)-axis
+copy.
 
 Inputs are made with numpy from a seed and handed to both sides; the
 port runs on the CPU.  The tracker folds several completed requests per
@@ -16,7 +18,7 @@ import torch
 from repro.core.online import OnlineFleet as RefFleet
 from repro.core.online import RollingAccuracy as RefAccuracy
 from repro_torch.core.online import (OnlineFleet, RollingAccuracy,
-                                     retrain_schedule)
+                                     StackedAccuracy, retrain_schedule)
 from repro_torch.core.scenarios import get_scenario
 
 
@@ -25,7 +27,7 @@ def test_rolling_accuracy_fold_matches_one_by_one(window):
     rng = np.random.default_rng(window)
     A, T = 3, 5
     ref = [RefAccuracy(window, n=T) for _ in range(A)]
-    port = RollingAccuracy(A, T, window)
+    port = StackedAccuracy(A, T, window)
     biggest = 0
     for _ in range(30):
         S = int(rng.integers(0, 3 * A * window + 4))
@@ -48,6 +50,25 @@ def test_rolling_accuracy_fold_matches_one_by_one(window):
             np.testing.assert_array_equal(port.viable(a, 0.6).numpy(),
                                           ref[a].viable(0.6))
     assert biggest > window      # more folds than the ring in one step
+
+
+@pytest.mark.parametrize("window,n", [(1, 1), (5, 3), (40, 4)])
+def test_router_rolling_accuracy_matches_reference(window, n):
+    """The (n,)-axis tracker the router folds into: the reference's
+    ``update`` / ``accuracy`` / ``viable`` / ``count`` exactly, with and
+    without masks, past the ring's wrap and the evidence floor."""
+    rng = np.random.default_rng(window * 10 + n)
+    ref, port = RefAccuracy(window, n=n), RollingAccuracy(window, n=n)
+    assert port.min_count == ref.min_count and port.window == ref.window
+    for step in range(3 * window + 12):
+        err = rng.random(n) * 1.6 - 0.3
+        mask = None if step % 3 == 0 else rng.random(n) < 0.5
+        ref.update(err, mask)
+        port.update(err, mask)
+        np.testing.assert_array_equal(port.accuracy(), ref.accuracy())
+        np.testing.assert_array_equal(port.count, ref.count)
+        for thr in (0.3, 0.6, 0.9):
+            np.testing.assert_array_equal(port.viable(thr), ref.viable(thr))
 
 
 def _counts(busy_until, now, node_of, app_of, A, N):

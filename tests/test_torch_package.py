@@ -66,6 +66,10 @@ def _entry_points():
     from repro_torch.interop import params_from_reference
     from repro_torch.models import hybrid, model
     from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.router import MorpheusRouter
+    from repro_torch.core.balancer import ClusterState
+    from repro_torch.core.predictor import RTTPredictor
+    from repro_torch.testing import make_store, make_trained_predictor
     small = dict(n_trials=2, n_requests=10)
     cfg = get_scenario("baseline").compile(seed=0, **small)
     arch = get_config("qwen2-vl-7b", smoke=True).resolve(tp=1)
@@ -92,6 +96,11 @@ def _entry_points():
         "init_params_moe": lambda: model.init_params(moe, gen),
         "init_cache_moe": lambda: model.init_cache(moe, 1, 8),
         "ServingEngine_moe": lambda: ServingEngine(moe, {}),
+        "MorpheusRouter": lambda: MorpheusRouter([]),
+        "ClusterState": lambda: ClusterState(now=0.0, busy_until=[[0.0]]),
+        "RTTPredictor": lambda: RTTPredictor("a", "n", make_store()),
+        "make_trained_predictor": lambda: make_trained_predictor(
+            "a", make_store(), "lr"),
     }
 
 
@@ -102,7 +111,9 @@ def _entry_points():
                                   "init_params_ssm", "init_cache_ssm",
                                   "hybrid.init_params", "hybrid.init_cache",
                                   "ServingEngine_ssm", "init_params_moe",
-                                  "init_cache_moe", "ServingEngine_moe"])
+                                  "init_cache_moe", "ServingEngine_moe",
+                                  "MorpheusRouter", "ClusterState",
+                                  "RTTPredictor", "make_trained_predictor"])
 def test_entry_point_without_card_raises(name, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -1,6 +1,8 @@
 """The port's flight recorder and client-side resilience against the JAX
 package: the trace schema helpers, the breakers and the backoff rule,
-and the traced core against the reference's serial stepper.
+the traced core against the reference's serial stepper, and the serving
+router's telemetry (the counter / gauge / histogram registry scraped
+into a ``MetricsStore``).
 
 Both sides run one and the same cluster (the reference draws it,
 ``repro_torch.interop.cluster_from_reference`` carries it across); the
@@ -21,7 +23,9 @@ from repro.core.scenarios import get_scenario as ref_scenario
 from repro.core.scenarios import scenario_names as ref_scenario_names
 from repro.core.simulator import SimStepper
 from repro.core.simulator import _build_cluster as ref_build
+from repro.core import telemetry as RT
 from repro.core.telemetry import TraceConfig as RefTraceConfig
+from repro.testing import make_store as ref_make_store
 from repro.core.telemetry import compose_row as ref_compose_row
 from repro.core.telemetry import trace_block as ref_trace_block
 from repro_torch.core import simcore
@@ -29,9 +33,12 @@ from repro_torch.core.resilience import Breakers, ResilienceConfig, \
     backoff_delay
 from repro_torch.core.telemetry import (COMPONENTS, DISP_FAIL_FAST,
                                         DISP_SERVED, DISP_SHED, DISP_TIMEOUT,
-                                        TRACE_FIELDS, TRACE_IDX, TraceConfig,
+                                        TRACE_FIELDS, TRACE_IDX,
+                                        Histogram,
+                                        MetricsRegistry, TraceConfig,
                                         compose_row, trace_block, trace_row)
 from repro_torch.interop import cluster_from_reference, config_from_reference
+from repro_torch.testing import make_store
 
 SMALL = dict(n_trials=4, n_requests=50)
 RTOL = 1e-5
@@ -281,3 +288,52 @@ def test_trace_leaves_the_summary_unchanged():
         else:
             assert v == traced[k], k
     assert "trace" in traced and "trace" not in plain
+
+
+# ----------------------------------------------------------------------
+# the serving router's telemetry
+def _drive(reg, rng):
+    """The same seeded counter / gauge / histogram traffic."""
+    c, g = reg.counter("reqs_total"), reg.gauge("inflight")
+    h = reg.histogram("rtt_seconds")
+    h2 = reg.histogram("wait_seconds", buckets=(2.0, 0.5, 8.0))
+    for _ in range(60):
+        c.inc(float(rng.integers(0, 3)))
+        g.inc() if rng.random() < 0.6 else g.dec(0.5)
+        v = float(rng.choice([rng.exponential(1.0), 0.05, 10.0, 20.0]))
+        h.observe(v)
+        h2.observe(v)
+    g.set(3.25)
+    return h
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_metrics_registry_matches_the_reference(seed):
+    """Counters, gauges and histograms (the reference's ``le`` buckets,
+    ``_sum`` / ``_count``, interpolated quantiles), collected and
+    scraped into each package's store, equal."""
+    ref_store = ref_make_store(seed=seed, n_scrapes=20)
+    port_store = make_store(seed=seed, n_scrapes=20)
+    ref, port = RT.MetricsRegistry(ref_store), MetricsRegistry(port_store)
+    hr = _drive(ref, np.random.default_rng(seed))
+    hp = _drive(port, np.random.default_rng(seed))
+    assert port.collect() == ref.collect()
+    assert port_store.names == ref_store.names
+    ref.scrape(t=5.0)
+    port.scrape(t=5.0)
+    np.testing.assert_array_equal(port_store._data, ref_store._data)
+    for q in (0.0, 0.1, 0.5, 0.9, 0.99, 1.0):
+        assert hp.quantile(q) == hr.quantile(q)
+    assert hp.count == hr.count
+    assert np.isnan(Histogram("empty").quantile(0.5))
+    with pytest.raises(ValueError):
+        port.counter("reqs_total")          # duplicate
+    with pytest.raises(ValueError):
+        port._metrics["reqs_total"].inc(-1.0)
+
+
+def test_registry_without_store_collects_only():
+    reg = MetricsRegistry()
+    reg.counter("a_total").inc(2.0)
+    reg.scrape()                            # no store: a no-op
+    assert reg.collect() == {"a_total": 2.0}
