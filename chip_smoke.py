@@ -20,8 +20,8 @@ Phases (any failure raises and exits non-zero, with no result line):
    took) and time kernel, plain version and a one-call library yardstick
    (for SSD, the FMA kernel on f32 beside the tensor-core one on bf16);
 4. the simulation path: ``run_scenario`` at full width (250 nodes, 200
-   replicas per app, 8 seeds x 32 trials; 600 requests, cut from 1000 to
-   keep the whole run within about 8 minutes) on baseline,
+   replicas per app, 8 seeds x 32 trials; 300 requests, cut from 1000 to
+   keep the whole run near 10 minutes) on baseline,
    stale-predictions, churn, cold-start, drift-fallback (the closed-loop
    fleet under drift), the four capacity-plane scenarios (overload-ramp,
    flash-crowd-autoscale, scale-to-zero-idle, spot-preemption: waste,
@@ -90,7 +90,20 @@ Phases (any failure raises and exits non-zero, with no result line):
    resilience with a breaker) at deepseek-67b's smoke config in f32 on
    the card against the CPU under a simulated clock: picks, counts,
    RTTs, tokens, registry and ledger equal, trace rows NaN-equal;
-10. a ``kernels`` JSON line, the card's line, then the result line.
+10. predictor training on the card: the lifecycle (``PredictionManager``:
+   workload, collection, correlations, selection, training, the plane's
+   sweep) on the three nodes of ``benchmarks/fixture.py`` at 294 metrics
+   a store (4 cycles of 240 s), one plane sweep over every trained
+   predictor, an ``OnlineAdapter`` a node fed 240 s more with the plane's
+   predictions and retraining on the lifecycle's 240 s cadence, the
+   segment sum's launches counted (the trees' split search and MIC's
+   counts), a swap a node and no skipped candidate; the nine zoo
+   families fitted at n = 10,000 (fit s, RMSE against the mean's and the
+   reference's readings, predict us); node 1's lifecycle at 39 metrics
+   and every family at n = 1,000 on the card against the CPU; phase 3
+   holds the segment sum at the trees' and MIC's shapes beside its
+   simulation shapes;
+11. a ``kernels`` JSON line, the card's line, then the result line.
 """
 from __future__ import annotations
 
@@ -113,8 +126,9 @@ PEAK_OPS_S = {"torch.float64": 34e12, "torch.float32": 67e12,
 
 LARGE = dict(n_nodes=250, n_replicas_per_app=200, n_requests=1000)
 LARGE_SEEDS, LARGE_TRIALS = tuple(range(8)), 32
-#: the depth of phase 4's full-width scenarios
-MAIN_J = 500
+#: the depth of phase 4's full-width scenarios (the reference's 1000, cut
+#: to keep the whole run, phase 10 included, near 560 s on a slow host)
+MAIN_J = 300
 MID = dict(n_nodes=60, n_replicas_per_app=50, n_requests=200)
 MID_SEEDS, MID_TRIALS = tuple(range(4)), 16
 CAPACITY_SCENARIOS = ("overload-ramp", "flash-crowd-autoscale",
@@ -160,6 +174,32 @@ ROUTER_PASSES = ("round_robin", "random", "least_conn", "perf_aware",
                  "perf_aware+plane")
 
 #: the serving path: qwen2-vl-7b at full width, 3 waves of 8 requests
+#: phase 10: predictor training at full width on the reference's benchmark
+#: fixture's three nodes (``benchmarks/fixture.py:27-45``) with the paper's
+#: 294-metric surface (15 informative + 279 noise metrics), the zoo at
+#: Table 2's top tier (10 metrics of a 5 s window: 120 features, 25
+#: points), and node 1's lifecycle at 39 metrics on the card and the CPU
+TRAIN = dict(nodes=3, noise_metrics=279, metrics=294, cycles=4,
+             cycle_s=240.0, adapt_step_s=20.0,
+             zoo_n=10_000, zoo_d=120, zoo_k=10, zoo_w=25,
+             parity=dict(n_noise_metrics=24, n_cycles=3))
+#: the reference zoo's held-out RMSE at phase 10's top tier, and the
+#: mean's, from ``experiments/zoo_top_tier_reference.py`` (JAX on the
+#: CPU): one reading for the families without random state, which the
+#: port's fits hold to 1e-3 relative; five initial draws (seeds 0-4) for
+#: the others.  Torch cannot replay jax's draws, so the port's one draw is
+#: held below ZOO_DRAW_MARGIN x the reference's worst draw and below the
+#: mean's RMSE
+ZOO_REF_RMSE = {
+    "lr": (0.086392,), "svm": (0.591987,), "xgb": (0.017612,),
+    "rf": (0.114053,),
+    "fnn": (0.091720, 0.077116, 0.088856, 0.087706, 0.096473),
+    "rnn": (0.080754, 0.044992, 0.083617, 0.085002, 0.079626),
+    "lstm": (0.022734, 0.016252, 0.071359, 0.020885, 0.016295),
+    "gru": (0.009216, 0.009548, 0.017886, 0.009529, 0.015490),
+    "cnn": (0.143755, 0.134591, 0.126618, 0.129621, 0.142436)}
+ZOO_REF_MEAN = {False: 0.193985, True: 0.160062}
+ZOO_DRAW_MARGIN = 1.5
 ARCH = "qwen2-vl-7b"
 SERVE = dict(max_batch=8, max_seq=2048)
 WAVES, NEW_TOKENS, PROMPT_LEN = 3, 32, (256, 1024)
@@ -394,6 +434,74 @@ def check_segment_sum(dev) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": library_ms,
             "launch_floor_ms": dev_ms["launch floor"]}
+
+
+def check_segment_sum_training(dev) -> dict:
+    """Hold the segment sum at predictor training's shapes: a tree's split
+    search, (240, 10,000) f64 -> 32 bins at Table 2's top tier (d = 120
+    count rows, exact, over 120 residual rows, 1e-12 relative), with
+    R % 4 != 0 (the scalar loads) and R = 10,000 (more than one load pass
+    a thread) beside it; MIC's joint counts, (m, n) f32 ones -> bx * by,
+    exact, at the lifecycle's 294 metrics and its dataset sizes.  Times
+    the tree shape by graph replay against its bound and ``scatter_add_``.
+    Returns the entries it adds to the kernel's line."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.segment_sum import segment_sum, segment_sum_plain
+
+    rng = np.random.default_rng(23)
+
+    def tree_case(d, n, B):
+        ids = torch.as_tensor(np.tile(rng.integers(0, B, (d, n)), (2, 1)),
+                              dtype=torch.int32, device=dev)
+        mask = (rng.random(n) < 0.6).astype(float)
+        res = rng.standard_normal(n).astype(np.float32).astype(float)
+        v = torch.as_tensor(np.concatenate([np.tile(mask, (d, 1)),
+                                            np.tile(mask * res, (d, 1))]),
+                            device=dev)
+        got = segment_sum(v, ids, B)
+        want = segment_sum_plain(v, ids, B)
+        assert torch.equal(got[:d], want[:d]), f"tree counts ({d},{n})"
+        err = float((got[d:] - want[d:]).abs().max())
+        scale = max(float(want[d:].abs().max()), 1.0)
+        assert err <= 1e-12 * scale, f"tree sums ({d},{n}): {err}"
+        print(f"segment_sum tree shape ({2 * d},{n})->{B} f64: counts "
+              f"exact, sums max_abs_err {err:.3e} (tol 1e-12 x "
+              f"{scale:.3g})")
+        return v, ids, err
+
+    v, ids, err = tree_case(120, 10_000, 32)
+    # R % 4 != 0 at the top tier and, at the lifecycle's own widths (k up
+    # to 60 metrics x 12 features), a full training's 80 % split and a
+    # re-training's whole dataset
+    for d, n in ((120, 8_001), (120, 10_001), (12, 133), (720, 55),
+                 (720, 101)):
+        tree_case(d, n, 32)
+    for m, n, B in ((294, 214, 9), (294, 137, 64), (294, 600, 144),
+                    (39, 61, 4)):
+        i = torch.as_tensor(rng.integers(0, B, (m, n)), dtype=torch.int32,
+                            device=dev)
+        ones = torch.ones((m, n), device=dev)
+        assert torch.equal(segment_sum(ones, i, B),
+                           segment_sum_plain(ones, i, B)), (m, n, B)
+        print(f"segment_sum MIC shape ({m},{n})->{B} f32 ones: exact")
+    T, R, B = v.shape[0], v.shape[1], 32
+    ids64 = ids.long()
+    timed = {
+        "kernel": lambda: segment_sum(v, ids, B),
+        "plain": lambda: segment_sum_plain(v, ids, B),
+        "library": lambda: torch.zeros((T, B), dtype=v.dtype,
+                                       device=dev).scatter_add_(1, ids64, v)}
+    dev_ms = {k: device_ms(f) for k, f in timed.items()}
+    print(f"segment_sum tree shape ({T},{R})->{B} device time per call "
+          f"(CUDA graph replay): " + ", ".join(
+              f"{k} {ms * 1e3:.3f} us" for k, ms in dev_ms.items()))
+    bound_ms, bound_by = _bound(T * R * (8 + 4) + T * B * 8, T * R,
+                                torch.float64)
+    return {"tree_shape": [T, R, B], "tree_max_abs_err": err,
+            "tree_ms": dev_ms["kernel"], "tree_plain_ms": dev_ms["plain"],
+            "tree_library_ms": dev_ms["library"], "tree_bound_ms": bound_ms,
+            "tree_bound_by": bound_by}
 
 
 def _randn(shape, dtype, dev, seed):
@@ -1752,6 +1860,191 @@ def prediction_plane_fleet(wrappers) -> None:
           f"inference share {(1 - np.median(share)) * 100:.2f} %")
 
 
+def _observe_windows(node, w_s) -> dict:
+    """A completed task's monitoring windows, as the manager's callback
+    reads them."""
+    return {w: node.store.query_window(node.store.names, w, fast=True)[0]
+            for w in w_s}
+
+
+def predictor_training(dev, wrappers) -> int:
+    """Phase 10: predictor training on the card.  1) The lifecycle at full
+    width on the three nodes of the reference's benchmark fixture (294
+    metrics a store), one plane sweep over every trained predictor, and an
+    ``OnlineAdapter`` a manager fed 240 s more with the plane's
+    predictions; 2) the zoo's nine families at Table 2's top tier (n =
+    10,000); 3) a lifecycle and every family on the card against the CPU.
+    Returns the segment sum's launches in 1)."""
+    import resource
+
+    import numpy as np
+    import torch
+    from repro_torch.core import selection, zoo
+    from repro_torch.core.prediction_plane import PredictionPlane
+    from repro_torch.kernels.segment_sum import segment_sum
+    from repro_torch.testing import (FIT_RTOL, assert_fits_equal,
+                                     assert_lifecycles_equal, run_lifecycle,
+                                     zoo_data)
+    t_phase = time.perf_counter()
+    skipped0 = selection.select_model.skipped
+    reset_counts(wrappers)
+    runs = []
+    for i in range(TRAIN["nodes"]):
+        launches0 = segment_sum.launches
+        t0 = time.perf_counter()
+        node, mgr, hist = run_lifecycle(
+            i, dev, n_noise_metrics=TRAIN["noise_metrics"],
+            n_cycles=TRAIN["cycles"], cycle_s=TRAIN["cycle_s"])
+        wall = time.perf_counter() - t0
+        runs.append((node, mgr))
+        assert len(node.store.names) == TRAIN["metrics"], \
+            len(node.store.names)
+        trained = [p for p in mgr.predictors.values()
+                   if p.choice is not None]
+        print(f"training {node.node} (factor {node.node_factor}): "
+              f"{len(trained)} of {len(mgr.predictors)} predictors "
+              f"trained, {len(node.store.names)} metrics, "
+              f"{len(node.completed)} tasks, {wall:.2f} s; segment_sum "
+              f"launches {segment_sum.launches - launches0}; seconds: "
+              + ", ".join(f"{k} {v:.3f}"
+                          for k, v in mgr.timer.summary().items()))
+        for (app, _), p in mgr.predictors.items():
+            sel = p.selected
+            line = (f"  {app:10s} dataset {len(p.dataset):4d} (seen "
+                    f"{p.dataset.n_seen})")
+            if p.choice is not None:
+                line += (f": window {sel.window_s:g} s, {sel.method}, "
+                         f"k {len(sel.metric_idx)}, {p.choice.name}, "
+                         f"normalized RMSE {p.choice.rmse:.4f}, full "
+                         f"{p.full_trainings} / re-trainings "
+                         f"{p.retrainings}")
+                assert np.isfinite(p.choice.rmse) and p.choice.rmse < 1.0
+            print(line)
+    training_launches = segment_sum.launches
+    launched = counts(wrappers)
+    assert training_launches > 0, "training never launched segment_sum"
+    assert all(n == 0 for k, n in launched.items()
+               if not k.startswith("segment_sum")), \
+        f"training launched a model kernel: {launched}"
+    n_trained = sum(p.choice is not None for _, m in runs
+                    for p in m.predictors.values())
+    assert n_trained >= TRAIN["nodes"], n_trained
+    # one sweep of one plane over every trained predictor
+    plane = PredictionPlane(device=dev)
+    for _, mgr in runs:
+        for p in mgr.predictors.values():
+            plane.register_predictor(p)
+    t0 = time.perf_counter()
+    recs = plane.predict_all()
+    sweep_ms = (time.perf_counter() - t0) * 1e3
+    assert len(recs) == n_trained and all(
+        np.isfinite(r.rtt_pred) and r.rtt_pred > 0 for r in recs.values())
+    print(f"plane sweep over the {n_trained} trained predictors: "
+          f"{sweep_ms:.3f} ms, {len(plane.buckets())} buckets")
+    # the retrain loop: 240 s more, each completed task observed with
+    # the plane's prediction (refreshed every 20 s), retraining on the
+    # lifecycle's cadence (one collection cycle, at the end)
+    for node, mgr in runs:
+        adapter = mgr.online_adapter(retrain_every_s=TRAIN["cycle_s"])
+        latest = {}
+
+        def on_complete(task, node=node, adapter=adapter, latest=latest):
+            adapter.observe(task.app, node.node, task.rtt,
+                            _observe_windows(node, selection.WINDOWS_S),
+                            predicted=latest.get(task.app))
+        adapter.maybe_retrain(node.clock.now())           # arm
+        t0 = time.perf_counter()
+        for _ in range(int(TRAIN["cycle_s"] // TRAIN["adapt_step_s"])):
+            latest.clear()
+            latest.update({a: r.rtt_pred for (a, _), r in
+                           mgr.plane.predict_all().items()})
+            node.run(TRAIN["adapt_step_s"], on_complete=on_complete)
+            adapter.maybe_retrain(node.clock.now())
+        print(f"  {node.node} online adapter: {len(adapter.swaps)} "
+              f"swaps in {time.perf_counter() - t0:.2f} s; accuracy "
+              + ", ".join(f"{a} {adapter.accuracy(a, n):.3f}"
+                          for (a, n) in adapter.predictors))
+        # the retrain loop swapped a re-trained artifact into the plane,
+        # and the plane serves each swapped predictor's newest version
+        assert adapter.swaps, f"{node.node}: no artifact swapped"
+        for key in {k for _, k, _ in adapter.swaps}:
+            assert mgr.plane._entries[key].artifact.version == \
+                mgr.predictors[key].artifact_version, key
+    stored = sum(w.nbytes for _, m in runs for p in m.predictors.values()
+                 for pay in p.dataset.payloads() for w in pay.values())
+    print(f"phase 10 lifecycle: {stored / 2**30:.3f} GiB of stored windows, "
+          f"peak host RSS of the process "
+          f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20:.2f} "
+          f"GiB, {time.perf_counter() - t_phase:.1f} s")
+
+    # 2) the zoo at Table 2's top tier: all nine families at n = 10,000
+    n = TRAIN["zoo_n"]
+    X, y, Xs, ys = zoo_data(n + n // 5, TRAIN["zoo_d"], TRAIN["zoo_k"],
+                            TRAIN["zoo_w"], seed=0)
+    for fam, cls in zoo.FIT_CLASSES.items():
+        seq = cls.sequential
+        Xa, ya = (Xs, ys) if seq else (X, y)
+        launches0 = segment_sum.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = cls(device=dev).fit(Xa[:n], ya[:n])
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        pred = model.predict(Xa[n:]).cpu().numpy()
+        rmse = float(np.sqrt(np.mean((pred - ya[n:]) ** 2)))
+        base = float(np.sqrt(np.mean((ya[n:].mean() - ya[n:]) ** 2)))
+        model.predict(Xa[n:n + 1]).cpu()
+        us = []
+        for _ in range(21):
+            t0 = time.perf_counter()
+            model.predict(Xa[n:n + 1]).cpu()
+            us.append((time.perf_counter() - t0) * 1e6)
+        print(f"zoo {fam} at n {n} ({Xa.shape[1:]}): fit {fit_s:.3f} s, RMSE "
+              f"{rmse:.4f} against the mean's {base:.4f}, predict "
+              f"{statistics.median(us):.1f} us (median of 21); segment_sum "
+              f"launches {segment_sum.launches - launches0}")
+        assert np.isfinite(pred).all(), fam
+        # the same data as the reference's readings, then its bars
+        want = ZOO_REF_RMSE[fam]
+        assert abs(base - ZOO_REF_MEAN[seq]) <= 1e-5 * base, (fam, base)
+        if len(want) == 1:
+            assert abs(rmse - want[0]) <= 1e-3 * want[0], (fam, rmse, want)
+        else:
+            assert rmse < min(ZOO_DRAW_MARGIN * max(want), base), \
+                (fam, rmse, want, base)
+
+    # 3) the card against the CPU: a lifecycle, then every family from the
+    # same initial parameters at n = 1,000 and 30 epochs
+    t0 = time.perf_counter()
+    on_card = run_lifecycle(0, dev, **TRAIN["parity"])
+    t1 = time.perf_counter()
+    on_cpu = run_lifecycle(0, "cpu", **TRAIN["parity"])
+    t2 = time.perf_counter()
+    n_par = assert_lifecycles_equal(on_card, on_cpu)
+    print(f"training parity, {on_card[0].node} at "
+          f"{len(on_card[0].store.names)} metrics: {n_par} trained, "
+          f"datasets, selections, families and counts equal, RMSEs and "
+          f"plane predictions within 1e-4 (card {t1 - t0:.2f} s, CPU "
+          f"{t2 - t1:.2f} s)")
+    X, y, Xs, ys = zoo_data(1000, TRAIN["zoo_d"], TRAIN["zoo_k"],
+                            TRAIN["zoo_w"], seed=1)
+    for fam, cls in zoo.FIT_CLASSES.items():
+        seq = cls.sequential
+        kw = {"epochs": 30} if fam in FIT_RTOL and fam != "svm" else {}
+        fits = [cls(device=d, **kw).fit(Xs if seq else X, ys if seq else y)
+                for d in (dev, "cpu")]
+        assert_fits_equal(*fits, rtol=FIT_RTOL.get(fam, 1e-4))
+    print("training parity: the nine families at n 1000 (30 epochs where "
+          "they descend), card against CPU within " + ", ".join(
+              f"{f} {t:g}" for f, t in FIT_RTOL.items())
+          + ", trees by column and bin")
+    skipped = selection.select_model.skipped - skipped0
+    assert skipped == 0, f"{skipped} candidates skipped"
+    print(f"phase 10: {time.perf_counter() - t_phase:.1f} s, skipped "
+          f"candidates {skipped}")
+    return training_launches
+
+
 def finite_stats(res, stats) -> None:
     import numpy as np
     for pol, r in res.items():
@@ -1821,6 +2114,7 @@ def main() -> int:
     kernels = [check_segment_sum(dev), check_flash(dev, max(plens)),
                check_decode(dev, max(plens)), check_ssd(dev, ssm_len),
                check_gmm(dev, moe_prefill_cs, moe_decode_c)]
+    kernels[0].update(check_segment_sum_training(dev))
     for k in kernels:
         lib = "no library call" if k["library_ms"] is None \
             else f"{k['library_ms'] * 1e3:.2f} us library"
@@ -1896,6 +2190,7 @@ def main() -> int:
         (saved.stat("goodput"), storm.stat("goodput"))
     assert all(k.launches == 0 for n, k in wrappers.items()
                if n != "segment_sum"), "the simulation launched a model kernel"
+    kernels[0]["simulation_launches"] = main_launches
     kernels[0]["launches"] = main_launches
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
           f" GiB")
@@ -2057,6 +2352,12 @@ def main() -> int:
     # phase 8: the prediction plane at the full campaign's width
     print(f"phase 7 done: {time.perf_counter() - t_start:.1f} s into the run")
     prediction_plane_fleet(wrappers)
+    # phase 10: predictor training on the card (its own main path: the
+    # counts are reset just before its lifecycles and read just after)
+    print(f"phase 8 done: {time.perf_counter() - t_start:.1f} s into the run")
+    training = predictor_training(dev, wrappers)
+    kernels[0]["training_launches"] = training
+    kernels[0]["launches"] += training
 
     print(f"chip_smoke: whole run {time.perf_counter() - t_start:.1f} s, "
           f"the kernels' build included")

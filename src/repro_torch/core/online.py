@@ -1,8 +1,10 @@
 """Closed-loop online prediction: the batched core's lowering of the
 reference's ``core/online.py`` (``OnlineFleet``; ``StackedAccuracy``,
-the reference's per-app ``RollingAccuracy`` trackers stacked), and the
+the reference's per-app ``RollingAccuracy`` trackers stacked), the
 reference's ``RollingAccuracy`` itself, the (n,)-axis numpy tracker that
-the serving router folds its replicas' completed predictions into.
+the serving router folds its replicas' completed predictions into, and
+its ``OnlineAdapter``, the serving side's retrain loop (host logic over
+the port's ``RTTPredictor`` lifecycles and ``PredictionPlane``).
 
 In the closed loop, ``predicted`` comes from one ridge predictor per
 (trial, app) trained on the RTTs the simulation itself observes, not
@@ -32,7 +34,7 @@ each step routed) stays on the host, so nothing here needs a host sync:
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -300,3 +302,74 @@ class OnlineFleet:
                 "retrain_times": [float(req_t[j]) for j in steps],
                 "trained_frac": float(self.trained.double().mean()),
                 "accuracy": self.tracker.accuracy().cpu().numpy()}
+
+
+class OnlineAdapter:
+    """Serving-side retrain loop: observed RTTs -> RTTPredictor
+    lifecycles -> versioned artifact hot-swap into the PredictionPlane.
+
+    ``observe`` feeds a completed task into its predictor's dataset (and
+    the rolling accuracy tracker when the routed prediction is known);
+    ``maybe_retrain`` runs each predictor's collection/training cycle on
+    the cadence and re-registers bumped artifacts — the plane's version
+    check makes the swap a bucket restack, not a rebuild.  The router
+    shares the same :class:`RollingAccuracy` for its fallback rule.
+    """
+
+    def __init__(self, plane, retrain_every_s: float = 60.0,
+                 accuracy_window: int = 40, min_count: int = 8):
+        self.plane = plane
+        self.retrain_every_s = float(retrain_every_s)
+        self.accuracy_window = int(accuracy_window)
+        self.min_count = int(min_count)
+        self.predictors: Dict[Tuple[str, str], object] = {}
+        self.trackers: Dict[Tuple[str, str], RollingAccuracy] = {}
+        #: hot-swap log: (t, (app, node), new artifact version)
+        self.swaps: List[Tuple[float, Tuple[str, str], int]] = []
+        self._next_train: Optional[float] = None
+
+    def track(self, pred) -> None:
+        key = (pred.app, pred.node)
+        self.predictors[key] = pred
+        self.trackers.setdefault(
+            key, RollingAccuracy(self.accuracy_window, n=1,
+                                 min_count=self.min_count))
+
+    def observe(self, app: str, node: str, rtt: float, windows,
+                predicted: Optional[float] = None) -> None:
+        pred = self.predictors.get((app, node))
+        if pred is None:
+            return
+        pred.observe_task(rtt, windows)
+        if predicted is not None and rtt > 0:
+            self.trackers[(app, node)].update(
+                np.array([abs(predicted - rtt) / rtt]))
+
+    def accuracy(self, app: str, node: str) -> float:
+        tr = self.trackers.get((app, node))
+        return 1.0 if tr is None else float(tr.accuracy()[0])
+
+    def viable(self, app: str, node: str, threshold: float) -> bool:
+        tr = self.trackers.get((app, node))
+        return True if tr is None else bool(tr.viable(threshold)[0])
+
+    def maybe_retrain(self, now: float) -> List[Tuple[str, str]]:
+        """Run due collection/training cycles; returns the keys whose
+        artifacts were hot-swapped into the plane this call."""
+        if self._next_train is None:
+            self._next_train = now + self.retrain_every_s
+            return []
+        if now < self._next_train:
+            return []
+        while self._next_train <= now:
+            self._next_train += self.retrain_every_s
+        swapped = []
+        for key, pred in self.predictors.items():
+            if not pred.collection_cycle():
+                continue
+            if pred.train() is None:
+                continue
+            if self.plane.register_predictor(pred):
+                self.swaps.append((now, key, pred.artifact_version))
+                swapped.append(key)
+        return swapped

@@ -18,6 +18,7 @@ from dataclasses import fields
 import numpy as np
 import torch
 
+from repro_torch.core import zoo
 from repro_torch.core.capacity import CapacityConfig
 from repro_torch.core.predictor import (InferenceArtifact, MinMax,
                                         ModelChoice, RTTPredictor,
@@ -105,15 +106,17 @@ def predictor_from_reference(p, store, device: DeviceLike = None
     """The port's :class:`RTTPredictor` from a trained reference one,
     reading the port's ``store`` (the reference's reads its own): the
     model through :func:`artifact_from_reference` onto ``device`` (None:
-    the CUDA card), the selection, scalers, target range and version by
+    the CUDA card) into a fit object (``zoo.from_params``), the
+    selection, scalers, target range, version, ``c_max`` and seed by
     name."""
     art = artifact_from_reference(p.export_artifact(), device)
-    q = RTTPredictor(p.app, p.node, store, fast_state=p.fast_state,
-                     device=device)
+    q = RTTPredictor(p.app, p.node, store, c_max=p.dataset.c_max,
+                     seed=p.seed, fast_state=p.fast_state, device=device)
     q.selected = _by_name(SelectedConfig, p.selected)
     q.selected.metric_idx = np.array(q.selected.metric_idx)
-    q.choice = ModelChoice(art.family, art.params, float(p.choice.rmse),
-                           float(p.choice.t_inference))
+    q.choice = ModelChoice(art.family,
+                           zoo.from_params(art.family, art.params),
+                           float(p.choice.rmse), float(p.choice.t_inference))
     q.scaler_X = MinMax(np.array(p.scaler_X.lo), np.array(p.scaler_X.hi))
     q._seq_lo, q._seq_hi = np.array(p._seq_lo), np.array(p._seq_hi)
     q.y_lo, q.y_hi = float(p.y_lo), float(p.y_hi)

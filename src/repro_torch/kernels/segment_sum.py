@@ -7,6 +7,10 @@ Replaces the Pallas kernel ``src/repro/kernels/segment_sum.py::
 segment_sum``.  The simulation core calls it from ``recount`` to rebuild
 the per-(node, app) busy counts of every trial from its (T, R) busy
 mask; each trial has its own placement, so the ids differ per row.
+Predictor training calls it for histograms: a tree's split search sums
+the counts and residuals of d binned columns as (2d, n) f64 rows into
+n_bins bins (``core/zoo.py``), and MIC counts each grid's joint bins of
+m metrics as (m, n) f32 ones (``core/correlate.py``).
 
 The kernel (``csrc/segment_sum.cu``) is bound by bytes: each row's
 histogram lives in shared memory; every thread loads its share of the

@@ -146,7 +146,8 @@ def make_trained_predictor(app: str, store: MetricsStore, family: str,
     the store's metrics, the window scale, target range and feature
     scaler drawn and fitted as the reference's
     ``make_trained_predictor`` does (the same draws, so equal up to the
-    features' rounding), and :func:`random_params` for the model.
+    features' rounding), and :func:`random_params` for the model, held
+    by a fit object (``zoo.from_params``).
     ``device=None`` puts it on the CUDA card."""
     rng = np.random.default_rng(seed)
     p = RTTPredictor(app, node, store, fast_state=fast_state, device=device)
@@ -159,7 +160,8 @@ def make_trained_predictor(app: str, store: MetricsStore, family: str,
     p.scaler_X = MinMax(feat_lo, feat_hi)
     params = zoo.tree_map(lambda x: x.to(p.device),
                           random_params(family, k, seed=seed))
-    p.choice = ModelChoice(family, params, rmse=0.1, t_inference=1e-4)
+    p.choice = ModelChoice(family, zoo.from_params(family, params), rmse=0.1,
+                           t_inference=1e-4)
     p.artifact_version = 1
     return p
 
@@ -280,3 +282,112 @@ def assert_router_runs_equal(got: dict, want: dict) -> None:
                                atol=1e-5)
     np.testing.assert_array_equal(np.delete(a, pred, -1),
                                   np.delete(b, pred, -1))
+
+
+#: the nodes of the reference's benchmark fixture
+#: (``benchmarks/fixture.py``): node factors; node i has seed i
+NODE_FACTORS = (0.7, 1.0, 1.6)
+#: the rtols of :func:`assert_fits_equal` for the families trained by
+#: descent, on two devices from the same initial parameters
+FIT_RTOL = {"svm": 1e-4, "fnn": 1e-4, "rnn": 1e-3, "gru": 1e-3,
+            "lstm": 1e-3, "cnn": 1e-3}
+
+
+def run_lifecycle(i: int, device: DeviceLike = None,
+                  n_noise_metrics: int = 12, n_cycles: int = 4,
+                  cycle_s: float = 240.0):
+    """Node i of the reference's benchmark fixture (``worker-{i+1}``,
+    node factor ``NODE_FACTORS[i]``, seed i, one instance an app) through
+    ``PredictionManager(c_max=40, seed=0)`` on ``device``: 120 s of noisy
+    load at 3.0, then ``n_cycles`` collection cycles of ``cycle_s``.
+    Returns (node, manager, history)."""
+    from repro_torch.core.manager import PredictionManager
+    from repro_torch.core.workload import NodeWorkload
+    node = NodeWorkload(f"worker-{i + 1}", instances_per_app=1,
+                        node_factor=NODE_FACTORS[i], seed=i,
+                        clock=SimClock(), n_noise_metrics=n_noise_metrics)
+    mgr = PredictionManager(c_max=40, seed=0, device=device)
+    cb = mgr.attach(node)
+    mgr.bootstrap_noise(node, load=3.0, duration_s=120, on_complete=cb)
+    history = mgr.run_cycles(node, n_cycles=n_cycles, cycle_s=cycle_s,
+                             on_complete=cb)
+    return node, mgr, history
+
+
+def _leaves_np(model) -> list:
+    return [np.asarray(x.cpu()) for x in
+            zoo.tree_leaves(model.inference_params())]
+
+
+def assert_fits_equal(got, want, rtol: float = 1e-4) -> None:
+    """Two fits of one family on the same data agree: trees by column,
+    bin and base exactly, leaves within ``rtol`` (atol 1e-6); the other
+    families' parameters within ``rtol`` (atol 1e-5)."""
+    assert got.name == want.name
+    a, b = _leaves_np(got), _leaves_np(want)
+    assert [x.shape for x in a] == [x.shape for x in b]
+    if got.name in ("xgb", "rf"):
+        for x, y in zip(a[1:3], b[1:3]):          # feats, bins
+            np.testing.assert_array_equal(x, y)
+        np.testing.assert_allclose(a[0], b[0], rtol=1e-6)
+        np.testing.assert_allclose(a[3], b[3], rtol=rtol, atol=1e-6)
+        return
+    for x, y in zip(a, b):
+        np.testing.assert_allclose(x, y, rtol=rtol, atol=1e-5)
+
+
+def assert_lifecycles_equal(got, want, rtol: float = 1e-4) -> int:
+    """Two :func:`run_lifecycle` runs agree: the clocks, the datasets
+    exactly, the selections (window, method, metric indices), the
+    families, the counts of full and re-trainings and the ``rmse_history``
+    times; the RMSEs within ``rtol``, the models by
+    :func:`assert_fits_equal` and the plane's predictions of every
+    trained predictor within ``rtol``.  Returns the number trained."""
+    (gnode, gmgr, ghist), (wnode, wmgr, whist) = got, want
+    assert gnode.clock.now() == wnode.clock.now()
+    assert [(t, a) for t, a, _ in ghist] == [(t, a) for t, a, _ in whist]
+    trained = 0
+    for key, w in wmgr.predictors.items():
+        g = gmgr.predictors[key]
+        np.testing.assert_array_equal(g.dataset.rtts, w.dataset.rtts)
+        assert (g.selected is None) == (w.selected is None), key
+        if w.selected is not None:
+            assert (g.selected.window_s, g.selected.method) == \
+                (w.selected.window_s, w.selected.method), key
+            np.testing.assert_array_equal(g.selected.metric_idx,
+                                          w.selected.metric_idx)
+        assert (g.full_trainings, g.retrainings) == \
+            (w.full_trainings, w.retrainings), key
+        assert [t for t, _ in g.rmse_history] == \
+            [t for t, _ in w.rmse_history], key
+        np.testing.assert_allclose([r for _, r in g.rmse_history],
+                                   [r for _, r in w.rmse_history],
+                                   rtol=rtol, err_msg=str(key))
+        if w.choice is not None:
+            trained += 1
+            assert_fits_equal(g.choice.model, w.choice.model,
+                              FIT_RTOL.get(w.choice.name, rtol))
+    keys = sorted(wmgr.plane.keys())
+    assert sorted(gmgr.plane.keys()) == keys
+    gp, wp = gmgr.plane.predict_all(keys), wmgr.plane.predict_all(keys)
+    for key in keys:
+        a, b = gp[key].rtt_pred, wp[key].rtt_pred
+        assert abs(a - b) <= rtol * abs(b), (key, a, b)
+    return trained
+
+
+def zoo_data(n: int, d: int, k: int, w: int, seed: int = 0):
+    """Learnable data in the shape of ``tests/test_zoo.py``'s draws: (n, d)
+    features in [0, 1) and a normalized target of three of them, and
+    (n, k, w) windows whose target is a mean and a last value; float32.
+    Returns (X, y, X_seq, y_seq)."""
+    rng = np.random.default_rng(seed)
+    X = rng.uniform(0, 1, (n, d)).astype(np.float32)
+    y = (2 * X[:, 0] + np.sin(3 * X[:, 1]) + 0.5 * X[:, 2] ** 2
+         + 0.05 * rng.standard_normal(n))
+    X_seq = rng.uniform(0, 1, (n, k, w)).astype(np.float32)
+    y_seq = X_seq[:, 0].mean(-1) + 0.3 * X_seq[:, 1, -1]
+
+    def norm(v):
+        return ((v - v.min()) / (v.max() - v.min())).astype(np.float32)
+    return X, norm(y), X_seq, norm(y_seq)

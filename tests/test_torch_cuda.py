@@ -15,7 +15,13 @@ contract between backends).  Attention kernels 2e-5 in f32 and 2e-2 in
 bf16, the SSD kernel 2e-4 in f32 and 4e-2 with bf16 x, B and C, the
 grouped matmul 2e-5 in f32 and 2e-2 in bf16 (tests/test_kernels.py's);
 the models' logits at f32 1e-4 relative to their largest value, with
-identical greedy tokens.
+identical greedy tokens.  Predictor training: the segment sum at the
+trees' (2d, n) f64 and MIC's (m, n) f32 shapes as above; a tree fit on
+the card equal to the CPU's by column, bin and base, leaves 1e-6; the
+correlation battery 1e-5 (pearson, spearman, kendall) and 1e-4
+(distance, mic); the Adam fits' CUDA-graph replay equal to the eager
+loop bit for bit; a lifecycle on the card against the CPU by
+``repro_torch.testing.assert_lifecycles_equal`` (RMSEs 1e-4).
 """
 import dataclasses
 
@@ -650,3 +656,132 @@ def test_router_policy_state_on_the_card(cuda):
     assert picks == [0, 1, 2, 3, 0, 1]
     assert router.policy._cursor.device.type == "cuda"
     assert router.cluster_state().busy_until.device.type == "cuda"
+
+
+# ----------------------------------------------------------------------
+# predictor training: the segment sum's new call sites, fits, correlations
+@pytest.mark.parametrize("T,R,B", [(240, 10_000, 32), (240, 8_001, 32),
+                                   (24, 133, 32)])
+def test_segment_sum_at_the_tree_shapes(cuda, T, R, B):
+    """The split search's launch: d count rows (0/1, exact) over d
+    residual rows (f64), ids the binned columns."""
+    rng = np.random.default_rng(R)
+    d = T // 2
+    ids = torch.as_tensor(np.tile(rng.integers(0, B, (d, R)), (2, 1)),
+                          dtype=torch.int32, device=cuda)
+    mask = (rng.random(R) < 0.6).astype(float)
+    res = rng.standard_normal(R).astype(np.float32).astype(float)
+    v = torch.as_tensor(np.concatenate([np.tile(mask, (d, 1)),
+                                        np.tile(mask * res, (d, 1))]),
+                        device=cuda)
+    got = segment_sum(v, ids, B)
+    want = segment_sum_plain(v, ids, B)
+    assert torch.equal(got[:d], want[:d])
+    torch.testing.assert_close(got[d:], want[d:], rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("m,n,B", [(294, 600, 9), (294, 137, 64),
+                                   (5, 10_000, 144), (39, 61, 4)])
+def test_segment_sum_at_the_mic_shapes(cuda, m, n, B):
+    rng = np.random.default_rng(m + n)
+    ids = torch.as_tensor(rng.integers(0, B, (m, n)), dtype=torch.int32,
+                          device=cuda)
+    ones = torch.ones((m, n), device=cuda)
+    assert torch.equal(segment_sum(ones, ids, B),
+                       segment_sum_plain(ones, ids, B))
+
+
+def _tree_data(n=2000, d=24):
+    from repro_torch.testing import zoo_data
+    X, y, _, _ = zoo_data(n, d, 2, 2, seed=5)
+    X[:, d - 1] = 1.0 - X[:, 0]            # a mirrored column: a tie
+    X[:, d - 2] = X[:, 1]                  # a duplicated one
+    return X, y
+
+
+@pytest.mark.parametrize("fam", ["xgb", "rf"])
+def test_tree_fit_cuda_matches_cpu(cuda, fam):
+    from repro_torch.core import zoo
+    from repro_torch.testing import assert_fits_equal
+    X, y = _tree_data()
+    before = segment_sum.launches
+    on_card = zoo.FIT_CLASSES[fam](device=cuda).fit(X, y)
+    n_rounds = on_card.n_rounds
+    assert segment_sum.launches - before == 3 * n_rounds
+    on_cpu = zoo.FIT_CLASSES[fam](device="cpu").fit(X, y)
+    assert_fits_equal(on_card, on_cpu, rtol=1e-6)
+    torch.testing.assert_close(on_card.predict(X).cpu(), on_cpu.predict(X),
+                               rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("fam", ["svm", "fnn", "rnn", "gru", "lstm", "cnn"])
+def test_descent_fits_cuda_match_cpu(cuda, fam):
+    from repro_torch.core import zoo
+    from repro_torch.testing import FIT_RTOL, assert_fits_equal, zoo_data
+    X, y, Xs, ys = zoo_data(300, 24, 4, 10, seed=6)
+    seq = fam in zoo.SEQ_MODELS
+    kw = {} if fam == "svm" else {"epochs": 30}
+    a = zoo.FIT_CLASSES[fam](device=cuda, **kw).fit(Xs if seq else X,
+                                                    ys if seq else y)
+    b = zoo.FIT_CLASSES[fam](device="cpu", **kw).fit(Xs if seq else X,
+                                                     ys if seq else y)
+    assert_fits_equal(a, b, FIT_RTOL[fam])
+
+
+@pytest.mark.parametrize("fam", ["fnn", "rnn", "gru", "lstm", "cnn"])
+def test_adam_graph_replays_the_eager_steps(cuda, fam, monkeypatch):
+    """The card captures one Adam step in a CUDA graph after three eager
+    ones and replays it: the same kernels, so the same bits as the eager
+    loop."""
+    from repro_torch.core import zoo
+    from repro_torch.testing import zoo_data
+    X, y, Xs, ys = zoo_data(500, 24, 4, 10, seed=9)
+    seq = fam in zoo.SEQ_MODELS
+    data = (Xs, ys) if seq else (X, y)
+    graphed = zoo.FIT_CLASSES[fam](epochs=40, device=cuda).fit(*data)
+    monkeypatch.setattr(zoo, "_GRAPH_WARMUP", 10 ** 9)
+    eager = zoo.FIT_CLASSES[fam](epochs=40, device=cuda).fit(*data)
+    for a, b in zip(zoo.tree_leaves(graphed.params),
+                    zoo.tree_leaves(eager.params)):
+        assert torch.equal(a, b)
+
+
+def test_correlate_all_cuda_matches_cpu(cuda):
+    from repro_torch.core.correlate import _mic_grids, correlate_all
+    rng = np.random.default_rng(8)
+    n = 1500
+    x = rng.standard_normal(n)
+    X = np.stack([2 * x + 0.1 * rng.standard_normal(n), x ** 2,
+                  rng.standard_normal(n), (rng.random(n) < 0.3) * 1.0,
+                  np.round(x), np.full(n, 0.3)])
+    before = segment_sum.launches
+    got = correlate_all(X, x, device=cuda)
+    assert segment_sum.launches - before == len(_mic_grids(n))
+    want = correlate_all(X, x, device="cpu")
+    for name, tol in (("pearson", 1e-5), ("spearman", 1e-5),
+                      ("kendall", 0.0), ("distance", 1e-4), ("mic", 1e-4)):
+        np.testing.assert_allclose(got[name], want[name], rtol=tol,
+                                   atol=1e-6, err_msg=name)
+
+
+def test_select_model_raises_when_the_kernel_fails(cuda, monkeypatch):
+    """A failed launch propagates: the candidate is not skipped."""
+    from repro_torch.core import selection, zoo
+
+    def failed(*args, **kw):
+        raise RuntimeError("segment_sum kernel launch failed: CUDA error 700")
+    monkeypatch.setattr(zoo, "segment_sum", failed)
+    X, y = _tree_data(n=200)
+    before = selection.select_model.skipped
+    with pytest.raises(RuntimeError, match="launch failed"):
+        selection.select_model(["lr", "xgb"], X, None, y, 10.0, device=cuda)
+    assert selection.select_model.skipped == before
+
+
+def test_lifecycle_cuda_matches_cpu(cuda):
+    from repro_torch.testing import assert_lifecycles_equal, run_lifecycle
+    before = segment_sum.launches
+    on_card = run_lifecycle(0, cuda, n_noise_metrics=24, n_cycles=3)
+    assert segment_sum.launches > before
+    on_cpu = run_lifecycle(0, "cpu", n_noise_metrics=24, n_cycles=3)
+    assert assert_lifecycles_equal(on_card, on_cpu) >= 1

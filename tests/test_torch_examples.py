@@ -13,10 +13,11 @@ import torch
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 SCRIPT = os.path.join(ROOT, "examples", "lb_simulation_torch.py")
 SERVE = os.path.join(ROOT, "examples", "serve_cluster_torch.py")
+QUICKSTART = os.path.join(ROOT, "examples", "quickstart_torch.py")
 
 
-def _run(*args, script=SCRIPT):
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+def _run(*args, script=SCRIPT, **env_extra):
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), **env_extra)
     return subprocess.run([sys.executable, script, *args], env=env,
                           capture_output=True, text=True, timeout=300)
 
@@ -106,5 +107,34 @@ def test_serve_cluster_torch_needs_a_card_by_default():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default runs on it")
     out = _run("--smoke", script=SERVE)
+    assert out.returncode != 0
+    assert "no CUDA device" in out.stderr
+
+
+def test_quickstart_torch_trains_and_serves_on_the_cpu():
+    """The predictor pipeline at a reduced size (4 noise metrics, 4
+    cycles of 240 s): at least one predictor trained, and the plane's
+    batched sweep serves every trained one."""
+    out = _run("--device", "cpu", "--cycles", "4", "--cycle-s", "240",
+               "--noise-metrics", "4", script=QUICKSTART, OMP_NUM_THREADS="1")
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.splitlines()
+    assert lines[0] == "device cpu, 5 apps, 4 noise metrics"
+    trained = [ln for ln in lines if "model=" in ln]
+    assert len(trained) >= 1
+    i = lines.index("== fleet prediction plane: one batched sweep "
+                    "(DESIGN.md §9) ==")
+    m = re.match(r"^  (\d+) predictors, (\d+) model bucket", lines[i + 1])
+    assert m and int(m.group(1)) == len(trained)
+    served = [ln for ln in lines[i + 3:] if "predicted RTT=" in ln]
+    assert len(served) == len(trained)
+    for ln in served:
+        assert float(re.search(r"RTT=([\d.]+)s", ln).group(1)) > 0
+
+
+def test_quickstart_torch_needs_a_card_by_default():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default runs on it")
+    out = _run("--cycles", "1", script=QUICKSTART)
     assert out.returncode != 0
     assert "no CUDA device" in out.stderr

@@ -10,6 +10,11 @@ updates exactly, also when more requests than the ring holds land in
 one step.  The ridge retrain, the features and the prediction agree to
 rounding (1e-9 relative on the weights, 1e-10 on predictions: the
 solves are well conditioned at these sizes).
+
+The serving side's ``OnlineAdapter`` and ``PredictionManager.
+online_adapter`` replay the reference's ``tests/test_online.py`` hot-swap,
+cadence, manager and viability tests on port predictors
+(``repro_torch.testing.make_trained_predictor``) and planes, on the CPU.
 """
 import numpy as np
 import pytest
@@ -17,9 +22,14 @@ import torch
 
 from repro.core.online import OnlineFleet as RefFleet
 from repro.core.online import RollingAccuracy as RefAccuracy
-from repro_torch.core.online import (OnlineFleet, RollingAccuracy,
-                                     StackedAccuracy, retrain_schedule)
+from repro_torch.core.features import extract_features
+from repro_torch.core.manager import PredictionManager
+from repro_torch.core.online import (OnlineAdapter, OnlineFleet,
+                                     RollingAccuracy, StackedAccuracy,
+                                     retrain_schedule)
+from repro_torch.core.prediction_plane import PredictionPlane
 from repro_torch.core.scenarios import get_scenario
+from repro_torch.testing import make_store, make_trained_predictor
 
 
 @pytest.mark.parametrize("window", [1, 3, 7, 40])
@@ -156,3 +166,99 @@ def test_retrain_schedule_matches_maybe_retrain():
                        np.ones(4), warmup_s=warmup, retrain_every_s=every)
         want = np.array([ref.maybe_retrain(float(t)) for t in req_t])
         np.testing.assert_array_equal(retrain_schedule(cfg, req_t), want)
+
+
+# ---------------------------------------------------------------------------
+# artifact hot-swap (OnlineAdapter -> PredictionPlane), tests/test_online.py
+# ---------------------------------------------------------------------------
+def _trained(app, seed, store_seed, **kw):
+    return make_trained_predictor(app, make_store(seed=store_seed), "lr",
+                                  seed=seed, device="cpu", **kw)
+
+
+def test_hot_swap_version_monotonic_and_served():
+    """Retraining bumps artifact_version monotonically and the plane
+    serves the NEW artifact after re-registration (bucket restack)."""
+    pred = _trained("hotswap", 31, 30, n_samples=48)
+    plane = PredictionPlane(device="cpu")
+    assert plane.register_predictor(pred)
+    v0 = pred.artifact_version
+    before = plane.predict_all()[("hotswap", "node-0")].rtt_pred
+    rng = np.random.default_rng(7)
+    w_pts = int(round(5.0 / 0.2))
+    versions = [v0]
+    for _ in range(2):
+        for _ in range(40):
+            pred.observe_task(10.0 + rng.uniform(0, 2),
+                              {w: rng.standard_normal((10, w_pts))
+                               for w in (5.0,)})
+        X = rng.standard_normal((48, 4, w_pts)).astype(np.float32)
+        y = rng.uniform(8.0, 12.0, 48).astype(np.float32)
+        feats = extract_features(torch.from_numpy(X)).numpy().reshape(48, -1)
+        pred.scaler_X.fit(feats)
+        pred.y_lo, pred.y_hi = float(y.min()), float(y.max())
+        pred.choice.model.fit(pred.scaler_X.transform(feats),
+                              (y - pred.y_lo) / (pred.y_hi - pred.y_lo))
+        pred.artifact_version += 1
+        versions.append(pred.artifact_version)
+        assert plane.register_predictor(pred)     # hot swap
+    after = plane.predict_all()[("hotswap", "node-0")].rtt_pred
+    assert versions == sorted(set(versions))      # strictly increasing
+    assert after != pytest.approx(before, rel=1e-3)
+    assert 5.0 < after < 16.0                     # serves the new scale
+
+
+def test_online_adapter_retrains_and_swaps_on_cadence():
+    pred = _trained("adapt", 41, 40, n_samples=48)
+    pred.correlations_valid = True     # keep the injected (w, k) choice
+    plane = PredictionPlane(device="cpu")
+    plane.register_predictor(pred)
+    adapter = OnlineAdapter(plane, retrain_every_s=30.0)
+    adapter.track(pred)
+    v0 = pred.artifact_version
+    rng = np.random.default_rng(8)
+    w_pts = int(round(5.0 / 0.2))
+    for _ in range(60):
+        # tight RTT spread so the CONFIRM bootstrap check passes
+        adapter.observe("adapt", "node-0", float(rng.uniform(2.0, 2.2)),
+                        {w: rng.standard_normal((10, w_pts))
+                         for w in (5.0,)}, predicted=2.1)
+    t0 = pred.store.clock.now()
+    assert adapter.maybe_retrain(t0) == []        # first call arms cadence
+    assert adapter.maybe_retrain(t0 + 10.0) == []  # not due yet
+    swapped = adapter.maybe_retrain(t0 + 31.0)
+    assert swapped == [("adapt", "node-0")]
+    assert pred.artifact_version > v0
+    assert adapter.swaps[-1][2] == pred.artifact_version
+    assert 0.0 < adapter.accuracy("adapt", "node-0") <= 1.0
+    # the swapped artifact is the retrained model, served by the plane
+    assert pred.choice.name == "lr" and pred.retrainings == 1
+    rec = plane.predict_all()[("adapt", "node-0")]
+    assert rec.rtt_pred == pytest.approx(pred.predict().rtt_pred, rel=1e-5)
+
+
+def test_manager_builds_adapter_over_active_predictors():
+    store = make_store(seed=60)
+    mgr = PredictionManager(device="cpu")
+    for i in range(3):
+        p = make_trained_predictor(f"m{i}", store, "lr", seed=60 + i,
+                                   device="cpu")
+        mgr.predictors[(f"m{i}", "node-0")] = p
+        mgr.paused[(f"m{i}", "node-0")] = False
+    mgr.pause("m2", "node-0")
+    adapter = mgr.online_adapter(retrain_every_s=42.0)
+    assert set(adapter.predictors) == {("m0", "node-0"), ("m1", "node-0")}
+    assert adapter.plane is mgr.plane
+    assert adapter.retrain_every_s == 42.0
+
+
+def test_adapter_viability_rule():
+    adapter = OnlineAdapter(PredictionPlane(device="cpu"), min_count=2)
+    pred = _trained("via", 51, 50)
+    adapter.track(pred)
+    assert adapter.viable("via", "node-0", 0.9)      # no evidence
+    for _ in range(4):
+        adapter.trackers[("via", "node-0")].update(np.array([0.9]))
+    assert not adapter.viable("via", "node-0", 0.5)
+    assert adapter.viable("unknown", "nowhere", 0.99)  # untracked
+    assert adapter.accuracy("unknown", "nowhere") == 1.0

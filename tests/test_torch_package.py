@@ -70,6 +70,11 @@ def _entry_points():
     from repro_torch.core.balancer import ClusterState
     from repro_torch.core.predictor import RTTPredictor
     from repro_torch.testing import make_store, make_trained_predictor
+    from repro_torch.core import zoo
+    from repro_torch.core.correlate import correlate_all
+    from repro_torch.core.manager import PredictionManager
+    from repro_torch.core.selection import select_model
+    import numpy as np
     small = dict(n_trials=2, n_requests=10)
     cfg = get_scenario("baseline").compile(seed=0, **small)
     arch = get_config("qwen2-vl-7b", smoke=True).resolve(tp=1)
@@ -101,6 +106,11 @@ def _entry_points():
         "RTTPredictor": lambda: RTTPredictor("a", "n", make_store()),
         "make_trained_predictor": lambda: make_trained_predictor(
             "a", make_store(), "lr"),
+        "PredictionManager": lambda: PredictionManager(),
+        "correlate_all": lambda: correlate_all(np.ones((2, 8)), np.ones(8)),
+        "select_model": lambda: select_model(["lr"], np.ones((8, 2)), None,
+                                             np.ones(8), 1.0),
+        "zoo.GBT": lambda: zoo.GBT(),
     }
 
 
@@ -113,7 +123,9 @@ def _entry_points():
                                   "ServingEngine_ssm", "init_params_moe",
                                   "init_cache_moe", "ServingEngine_moe",
                                   "MorpheusRouter", "ClusterState",
-                                  "RTTPredictor", "make_trained_predictor"])
+                                  "RTTPredictor", "make_trained_predictor",
+                                  "PredictionManager", "correlate_all",
+                                  "select_model", "zoo.GBT"])
 def test_entry_point_without_card_raises(name, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
