@@ -19,8 +19,11 @@ Phases (any failure raises and exits non-zero, with no result line):
    ``gmm``, which of each one's two kernels, tensor-core or FMA, each call
    took) and time kernel, plain version and a one-call library yardstick
    (for SSD, the FMA kernel on f32 beside the tensor-core one on bf16);
+   and flash, decode and SSD at the shapes of phases 5d-5f (head dim
+   160, D 96 / Dv 64 with v a view, cross-attention over 8 frames, N 64)
+   beside SDPA;
 4. the simulation path: ``run_scenario`` at full width (250 nodes, 200
-   replicas per app, 8 seeds x 32 trials; 300 requests, cut from 1000 to
+   replicas per app, 8 seeds x 32 trials; 200 requests, cut from 1000 to
    keep the whole run near 10 minutes) on baseline,
    stale-predictions, churn, cold-start, drift-fallback (the closed-loop
    fleet under drift), the four capacity-plane scenarios (overload-ramp,
@@ -42,24 +45,35 @@ Phases (any failure raises and exits non-zero, with no result line):
    (28 layers, bf16, random weights from a seeded generator), 3 waves of
    8 requests (prompts of 256-1024 tokens, 32 new tokens each), counting
    the attention kernels' launches (every flash call on the tensor-core
-   kernel); then a profiled prefill and decode step outside the count;
+   kernel); then a profiled prefill and decode step outside the count,
+   and 32 decode steps of the same weights from an int8 ``init_cache``
+   (the decode kernel's launches counted);
 5b. the Mamba2 serving path: ``ServingEngine`` with mamba2-1.3b at full
-   width (48 layers, bf16, random weights), the same 3 waves with each
+   width (48 layers, bf16, random weights), the first 2 of those waves
+   (cut to keep the run near 10 minutes) with each
    wave's longest prompt lengthened to the next multiple of the SSD
    chunk (256), counting the SSD kernel's launches (every one on the
    tensor cores); then a profiled prefill and decode step outside the
    count;
 5c. the MoE serving path: ``ServingEngine`` with qwen3-moe-30b-a3b at
    full width (48 layers, 128 experts top-8, bf16, random weights, ~61
-   GB), the waves of phase 5, counting the grouped-matmul kernel's
+   GB), the first 2 waves of phase 5, counting the grouped-matmul kernel's
    launches (three per layer and step) beside the attention kernels';
    then a profiled prefill and decode step outside the count;
+5d-5f. the rest of the catalogue through the same engine at full width,
+   the 3 waves of phase 5 (Zamba2's lengthened as in 5b), each wave's launches
+   asserted, then a profiled prefill and decode step: zamba2-2.7b (54
+   Mamba2 layers and a shared attention block every 6, head dim 160, its
+   LoRA b matrices seeded nonzero), minicpm3-4b (62 layers of MLA) and
+   seamless-m4t-medium (12 + 12 layers, zero encoder frames);
 6. CUDA against the CPU: the campaign at a mid shape (summary stats
    and the client plane's stats within 1e-5 relative on every cell, the
    capacity plane's telemetry and the timeout counts equal; a traced
    baseline at sample_every 1 and 16 with equal NaN masks and rows
-   within 1e-5) and the three serving paths at their smoke configs in
-   f32 (logits within 1e-4 relative, identical tokens);
+   within 1e-5) and the six serving paths at their smoke configs in f32
+   (logits within 1e-4 relative, identical tokens; Zamba2 with nonzero
+   LoRA, seamless's encoder on normal frames) and the int8 cache decoded
+   from ``init_cache``;
 7. the paper's Fig. 11 at the reference's benchmark setting
    (``SimConfig(n_trials=200, n_requests=300)``, 76 runs of the core:
    accuracy, replicas per app and heterogeneity sweeps, four policies
@@ -127,8 +141,12 @@ PEAK_OPS_S = {"torch.float64": 34e12, "torch.float32": 67e12,
 LARGE = dict(n_nodes=250, n_replicas_per_app=200, n_requests=1000)
 LARGE_SEEDS, LARGE_TRIALS = tuple(range(8)), 32
 #: the depth of phase 4's full-width scenarios (the reference's 1000, cut
-#: to keep the whole run, phase 10 included, near 560 s on a slow host)
-MAIN_J = 300
+#: to keep the whole run, phases 5d-5f and 10 included, near 560 s on a
+#: slow host)
+MAIN_J = 200
+#: the waves of phases 5b and 5c (the other serving paths take WAVES),
+#: cut for the same reason
+CUT_WAVES = 2
 MID = dict(n_nodes=60, n_replicas_per_app=50, n_requests=200)
 MID_SEEDS, MID_TRIALS = tuple(range(4)), 16
 CAPACITY_SCENARIOS = ("overload-ramp", "flash-crowd-autoscale",
@@ -213,6 +231,14 @@ SSD_TOL = {"torch.float32": 2e-4, "torch.bfloat16": 4e-2}
 #: the MoE serving path: qwen3-moe-30b-a3b at full width, the same waves
 MOE_ARCH = "qwen3-moe-30b-a3b"
 GMM_TOL = {"torch.float32": 2e-5, "torch.bfloat16": 2e-2}
+
+#: the rest of the catalogue served at full width (phases 5d, 5e, 5f):
+#: Zamba2's Mamba2 backbone with its shared attention block (head dim
+#: 160), MLA and the encoder-decoder; the int8 KV cache on phase 5's
+#: qwen2-vl-7b weights
+HYBRID_ARCH = "zamba2-2.7b"
+MLA_ARCH = "minicpm3-4b"
+ENCDEC_ARCH = "seamless-m4t-medium"
 
 
 def wave_prompts(vocab: int):
@@ -891,24 +917,14 @@ def check_ssd(dev, L: int) -> dict:
              "plain": lambda: ssd_plain(*args, chunk=Q)}
     dev_ms = _timed("ssd", timed, inner=10)
     fma_ms = device_ms(lambda: ssd(*f32_args, chunk=Q), repeats=5, inner=3)
-    nc = L // Q
-
-    def nbytes(t):
-        return (x.numel() * t.element_size() + 4 * (dt.numel() + A.numel())
-                + 2 * Bm.numel() * t.element_size()
-                + 4 * (x.numel() + B * H * P * N))
-    # the causal half of C B^T once per (batch, group, chunk); per (batch,
-    # head, chunk) the causal half of S xd, the incoming-state term and the
-    # state update
-    ops = (B * G * nc * Q * (Q + 1) // 2 * 2 * N
-           + B * H * nc * (Q * (Q + 1) // 2 * 2 * P + 4 * Q * N * P))
-    bound_ms, bound_by = _bound(nbytes(x), ops, x.dtype)
-    fma_bound, fma_by = _bound(nbytes(f32_args[0]), ops, torch.float32)
+    nbytes, ops = ssd_work(args, Q)
+    bound_ms, bound_by = _bound(nbytes, ops, x.dtype)
+    fma_bound, fma_by = _bound(ssd_work(f32_args, Q)[0], ops, torch.float32)
     ms = dev_ms["kernel"]
     print(f"ssd at the path shape ({B},{L},{H},{P}) G={G} N={N} chunk {Q} "
           f"bf16 [tc]: {ms * 1e3:.2f} us, {ops / 1e9:.2f} GFLOP counted "
-          f"({ops / ms / 1e9:.1f} TFLOP/s), {nbytes(x) / 1e6:.1f} MB "
-          f"({nbytes(x) / ms / 1e6:.1f} GB/s), {bound_ms / ms * 100:.1f} % "
+          f"({ops / ms / 1e9:.1f} TFLOP/s), {nbytes / 1e6:.1f} MB "
+          f"({nbytes / ms / 1e6:.1f} GB/s), {bound_ms / ms * 100:.1f} % "
           f"of the {bound_ms * 1e3:.2f} us bound ({bound_by}); max_abs_err "
           f"{path_err:.3e}, the FMA kernel's on the same bf16 inputs "
           f"{fma_err:.3e}")
@@ -926,6 +942,147 @@ def check_ssd(dev, L: int) -> dict:
             "fma": {"dtype": "float32", "ms": fma_ms, "bound_ms": fma_bound,
                     "bound_by": fma_by, "max_abs_err": f32_err,
                     "max_abs_err_bf16_inputs": fma_err}}
+
+
+def ssd_work(args, Q: int) -> tuple:
+    """The bytes (x, dt, A, B, C read once, y and the state written once)
+    and the operations of one SSD call on ``args`` at chunk ``Q``: the
+    causal half of C B^T once per (batch, group, chunk); per (batch, head,
+    chunk) the causal half of S xd, the incoming-state term and the state
+    update."""
+    x, dt, A, Bm, _ = args
+    B, L, H, P = x.shape
+    G, N = Bm.shape[2:]
+    nc = -(-L // Q)
+    nbytes = (x.numel() * x.element_size() + 4 * (dt.numel() + A.numel())
+              + 2 * Bm.numel() * Bm.element_size()
+              + 4 * (x.numel() + B * H * P * N))
+    ops = (B * G * nc * Q * (Q + 1) // 2 * 2 * N
+           + B * H * nc * (Q * (Q + 1) // 2 * 2 * P + 4 * Q * N * P))
+    return nbytes, ops
+
+
+def check_catalogue_shapes(dev, hybrid_len: int, plen: int) -> dict:
+    """Hold flash, flash-decoding and SSD against their plain versions at
+    the shapes the rest of the catalogue gives them (Zamba2's shared block
+    at head dim 160 and padded prompt ``hybrid_len``, its N = 64 scan;
+    MLA's prefill at D 96 / Dv 64 with v a view of the expanded latent;
+    seamless's cross-attention over 8 encoder frames, in prefill and
+    decode; MLA's and seamless's prompts padded to ``plen``), asserting
+    the tensor-core variant; time kernel, plain version and SDPA (SSD: no
+    library call).  Returns name -> list of per-shape entries."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      decode_attention_plain)
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    from repro_torch.kernels.ssd import ssd, ssd_plain
+    wrappers = {"flash_attention": flash_attention,
+                "decode_attention": decode_attention, "ssd": ssd}
+    bf16 = torch.bfloat16
+    B = SERVE["max_batch"]
+    out = {n: [] for n in wrappers}
+
+    def entry(name, label, variant, run, plain, library, nbytes, ops, err):
+        k = wrappers[name]
+        before = getattr(k, f"{variant}_launches")
+        run()
+        torch.cuda.synchronize()
+        assert getattr(k, f"{variant}_launches") == before + 1, \
+            f"{name} {label} missed the {variant} kernel"
+        timed = {"kernel": run, "plain": plain}
+        if library is not None:
+            timed["library"] = library
+        ms = _timed(f"{name} {label}", timed, inner=10)
+        bound_ms, bound_by = _bound(nbytes, ops, bf16)
+        lib = ("" if library is None else
+               f", SDPA {ms['library'] * 1e3:.2f} us (kernel / SDPA "
+               f"{ms['kernel'] / ms['library']:.3f})")
+        print(f"{name} {label} bf16 [{variant}]: max_abs_err {err:.3e}, "
+              f"{ms['kernel'] * 1e3:.2f} us, {bound_ms / ms['kernel'] * 100:.1f}"
+              f" % of the {bound_ms * 1e3:.2f} us bound ({bound_by}){lib}")
+        out[name].append({"shape": label, "variant": variant,
+                          "max_abs_err": err, "ms": ms["kernel"],
+                          "plain_ms": ms["plain"], "bound_ms": bound_ms,
+                          "bound_by": bound_by,
+                          "library_ms": ms.get("library")})
+
+    def flash_case(label, q, k, v, causal):
+        err = _attn_err(flash_attention(q, k, v, causal=causal),
+                        flash_attention_plain(q, k, v, causal), bf16)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        Sq, H, D = q.shape[1:]
+        Skv, Dv = k.shape[1], v.shape[3]
+        pairs = Sq * (Sq + 1) // 2 if causal else Sq * Skv
+        entry("flash_attention", label, "tc",
+              lambda: flash_attention(q, k, v, causal=causal),
+              lambda: flash_attention_plain(q, k, v, causal),
+              lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                     is_causal=causal),
+              2 * (q.numel() + k.numel() + v.numel() + B * Sq * H * Dv),
+              2 * B * H * pairs * (D + Dv), err)
+
+    def decode_case(label, S, H, D, kv):
+        q = _randn((B, 1, H, D), bf16, dev, 40)
+        k, v = (_randn((B, S, H, D), bf16, dev, 41 + i) for i in range(2))
+        lens = torch.full((B,), kv, dtype=torch.int32, device=dev)
+        err = _attn_err(decode_attention(q, k, v, lens),
+                        decode_attention_plain(q, k, v, lens), bf16)
+        mask = (torch.arange(S, device=dev)[None, :] < lens[:, None])
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        entry("decode_attention", label, "mma",
+              lambda: decode_attention(q, k, v, lens),
+              lambda: decode_attention_plain(q, k, v, lens),
+              lambda: F.scaled_dot_product_attention(
+                  qt, kt, vt, attn_mask=mask[:, None, None, :]),
+              2 * (2 * q.numel() + B * kv * H * 2 * D) + 4 * B,
+              2 * B * H * kv * 2 * D, err)
+
+    hyb = get_config(HYBRID_ARCH)
+    Hh, Dh = hyb.hybrid.shared_num_heads, hyb.head_dim
+    flash_case(f"({B},{hybrid_len},{Hh}/{Hh},{Dh}) causal",
+               *(_randn((B, hybrid_len, Hh, Dh), bf16, dev, 30 + i)
+                 for i in range(3)), True)
+    mla = get_config(MLA_ARCH)
+    m, Hm = mla.mla, mla.num_heads
+    Dq = m.qk_nope_head_dim + m.qk_rope_head_dim
+    kv = _randn((B, plen, Hm, m.qk_nope_head_dim + m.v_head_dim), bf16,
+                dev, 34)
+    flash_case(f"({B},{plen},{Hm}/{Hm},{Dq}/{m.v_head_dim}) causal, v a "
+               f"view", _randn((B, plen, Hm, Dq), bf16, dev, 35),
+               _randn((B, plen, Hm, Dq), bf16, dev, 36),
+               kv[..., m.qk_nope_head_dim:], True)
+    enc = get_config(ENCDEC_ARCH)
+    He, De, Se = enc.num_heads, enc.head_dim, 8
+    flash_case(f"({B},{plen}->{Se},{He}/{He},{De}) cross",
+               _randn((B, plen, He, De), bf16, dev, 37),
+               *(_randn((B, Se, He, De), bf16, dev, 38 + i)
+                 for i in range(2)), False)
+    decode_case(f"({B},{SERVE['max_seq']},{Hh}/{Hh},{Dh}) kv_len "
+                f"{hybrid_len + NEW_TOKENS // 2}", SERVE["max_seq"], Hh, Dh,
+                hybrid_len + NEW_TOKENS // 2)
+    decode_case(f"({B},{Se},{He}/{He},{De}) cross kv_len {Se}", Se, He, De,
+                Se)
+    s = hyb.ssm
+    H, P, N, Q = s.n_heads(hyb.d_model), s.head_dim, s.d_state, s.chunk_size
+    args = (_randn((B, hybrid_len, H, P), bf16, dev, 50),
+            F.softplus(_randn((B, hybrid_len, H), torch.float32, dev, 51)),
+            -_randn((H,), torch.float32, dev, 52).exp(),
+            _randn((B, hybrid_len, s.n_groups, N), bf16, dev, 53),
+            _randn((B, hybrid_len, s.n_groups, N), bf16, dev, 54))
+    y, state = ssd(*args, chunk=Q)
+    want_y, want_state = ssd_plain(*args, Q)
+    tol = SSD_TOL[str(bf16)]
+    torch.testing.assert_close(y, want_y, rtol=tol, atol=tol)
+    torch.testing.assert_close(state, want_state, rtol=tol, atol=tol)
+    err = max(float((y - want_y).abs().max()),
+              float((state - want_state).abs().max()))
+    entry("ssd", f"({B},{hybrid_len},{H},{P}) G={s.n_groups} N={N} chunk "
+          f"{Q}", "tc", lambda: ssd(*args, chunk=Q),
+          lambda: ssd_plain(*args, Q), None, *ssd_work(args, Q), err)
+    return out
 
 
 def moe_path_rows(cfg, plens) -> tuple:
@@ -1285,7 +1442,7 @@ def reset_counts(kernels) -> None:
 
 def _batch(cfg, prompts, dev) -> dict:
     """The engine's left-padded wave batch (with the zero vision stub of
-    a ``vlm``)."""
+    a ``vlm`` and the zero encoder frames of an ``encdec``)."""
     import numpy as np
     import torch
     plen = max(len(p) for p in prompts)
@@ -1297,16 +1454,22 @@ def _batch(cfg, prompts, dev) -> dict:
         batch["vision_embeds"] = torch.zeros(
             (len(prompts), cfg.num_frontend_tokens, cfg.d_model),
             dtype=torch.bfloat16, device=dev)
+    if cfg.family == "encdec":
+        from repro_torch.serving.engine import ENC_FRAMES
+        batch["enc_frames"] = torch.zeros(
+            (len(prompts), ENC_FRAMES, cfg.d_model), dtype=torch.bfloat16,
+            device=dev)
     return batch
 
 
-def serve_full_width(dev, arch: str, waves, per_wave) -> dict:
+def serve_full_width(dev, arch: str, waves, per_wave, edit=None) -> dict:
     """A serving path at full width: ``arch``'s weights from the port's
-    own ``init_params`` with a seeded generator on the card, ``waves`` of
-    requests through ``ServingEngine``.  Checks tokens and logits, and
-    that each wave launched each kernel of ``per_wave`` (name -> launches
-    per wave, from the config) that many times and no other kernel.
-    Returns the launch counts, the engine and the first wave's prompts."""
+    own ``init_params`` with a seeded generator on the card (then
+    ``edit(params, cfg)`` where given), ``waves`` of requests through
+    ``ServingEngine``.  Checks tokens and logits, and that each wave
+    launched each kernel of ``per_wave`` (name -> launches per wave, from
+    the config) that many times and no other kernel.  Returns the launch
+    counts, the engine and the first wave's prompts."""
     import numpy as np
     import torch
     from repro_torch.configs.base import get_config
@@ -1322,6 +1485,8 @@ def serve_full_width(dev, arch: str, waves, per_wave) -> dict:
     t0 = time.perf_counter()
     params = model.init_params(
         cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    if edit is not None:
+        edit(params, cfg)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _leaves(params))
     print(f"serve {cfg.name}: {L} layers, {n_params} parameters "
@@ -1450,11 +1615,14 @@ def profile_serving(eng, prompts) -> None:
               lambda: model.decode_step(eng.params, cfg, cache, tok))
 
 
-def serving_parity(dev, arch: str, S: int, lengths, max_seq: int) -> None:
+def serving_parity(dev, arch: str, S: int, lengths, max_seq: int,
+                   edit=None) -> None:
     """A serving path on CUDA and on the CPU at ``arch``'s smoke config in
-    f32: prefill of ``S`` tokens and 4 decode steps' logits within
-    SERVE_PARITY_RTOL of the largest value, identical greedy tokens, and
-    an engine wave (prompts of ``lengths``) with identical outputs."""
+    f32 (after ``edit(params, cfg)`` where given): prefill of ``S``
+    tokens (an ``encdec`` model's encoder on seeded normal frames) and 4
+    decode steps' logits within SERVE_PARITY_RTOL of the largest value,
+    identical greedy tokens, and an engine wave (prompts of ``lengths``)
+    with identical outputs."""
     import dataclasses
     import numpy as np
     import torch
@@ -1466,12 +1634,19 @@ def serving_parity(dev, arch: str, S: int, lengths, max_seq: int) -> None:
                               dtype="float32").resolve(tp=1)
     params = model.init_params(cfg, torch.Generator().manual_seed(0),
                                device="cpu")
+    if edit is not None:
+        edit(params, cfg)
     rng = np.random.default_rng(1)
     toks = rng.integers(0, cfg.vocab_size, size=(4, S)).astype(np.int32)
+    extra = {}
+    if cfg.family == "encdec":
+        extra["enc_frames"] = torch.as_tensor(rng.standard_normal(
+            (4, 8, cfg.d_model)).astype(np.float32))
     runs = {}
     for name in ("cuda", "cpu"):
         p = _to(params, name)
-        batch = {"tokens": torch.as_tensor(toks, device=name)}
+        batch = {"tokens": torch.as_tensor(toks, device=name),
+                 **{k: v.to(name) for k, v in extra.items()}}
         logits, cache = model.prefill(p, cfg, batch, cache_len=S + 8)
         seq = [logits.cpu()]
         for _ in range(4):
@@ -1499,6 +1674,107 @@ def serving_parity(dev, arch: str, S: int, lengths, max_seq: int) -> None:
     print(f"serving parity cuda vs cpu ({cfg.name}, f32): worst logit "
           f"drift {worst:.3e} of the largest (limit {SERVE_PARITY_RTOL}), "
           f"greedy tokens identical")
+
+
+def int8_parity(arch: str, steps: int = 6) -> None:
+    """The int8 KV cache on CUDA and on the CPU at ``arch``'s smoke config
+    in f32: ``steps`` decode steps from ``init_cache``, logits within
+    SERVE_PARITY_RTOL of the largest value, identical greedy tokens; the
+    int8 rows within one step of each other (a projection's last-bit
+    drift can flip a rounding tie) and the scales within 1e-5."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model
+
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32",
+                              kv_cache_dtype="int8").resolve(tp=1)
+    params = model.init_params(cfg, torch.Generator().manual_seed(0),
+                               device="cpu")
+    tok0 = np.random.default_rng(2).integers(0, cfg.vocab_size, size=(4, 1))
+    runs = {}
+    for name in ("cuda", "cpu"):
+        p = _to(params, name)
+        cache = model.init_cache(cfg, 4, 16, device=name)
+        tok = torch.as_tensor(tok0, device=name)
+        seq = []
+        for _ in range(steps):
+            logits, cache = model.decode_step(p, cfg, cache, tok)
+            tok = logits[:, :cfg.vocab_size].argmax(-1, keepdim=True)
+            seq.append(logits.cpu())
+        runs[name] = seq, {k: v.cpu() for k, v in cache.items()}
+    V, worst = cfg.vocab_size, 0.0
+    for a, b in zip(runs["cuda"][0], runs["cpu"][0]):
+        rel = float((a[:, :V] - b[:, :V]).abs().max() / b[:, :V].abs().max())
+        worst = max(worst, rel)
+        assert rel <= SERVE_PARITY_RTOL, f"int8 logits differ by {rel}"
+        assert torch.equal(a[:, :V].argmax(-1), b[:, :V].argmax(-1))
+    got, want = runs["cuda"][1], runs["cpu"][1]
+    flips = 0
+    for k in ("k", "v"):
+        assert got[k].dtype == torch.int8
+        d = (got[k].int() - want[k].int()).abs()
+        assert int(d.max()) <= 1, f"int8 {k} rows differ by {int(d.max())}"
+        flips += int(d.count_nonzero())
+    for k in ("k_scale", "v_scale"):
+        torch.testing.assert_close(got[k], want[k], rtol=1e-5, atol=0)
+    print(f"int8 KV parity cuda vs cpu ({cfg.name}, f32, {steps} steps "
+          f"from init_cache): worst logit drift {worst:.3e}, {flips} of "
+          f"{2 * got['k'].numel()} int8 entries one step apart, greedy "
+          f"tokens identical")
+
+
+def int8_pass(dev, params) -> dict:
+    """The int8 KV cache at full width on phase 5's qwen2-vl-7b weights:
+    NEW_TOKENS greedy decode steps of max_batch rows from an int8
+    ``init_cache`` of max_seq rows (the engine refuses int8: a wave's
+    prefill leaves no scales, as the reference's).  Counts the kernels'
+    launches from 0 (the decode kernel's one a layer a step, all
+    ``mma``, and no other kernel), checks the
+    logits finite and every written row's scales positive; returns the
+    launches and the ms a step (a host clock around work that ends in a
+    synchronise)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model
+
+    cfg = dataclasses.replace(get_config(ARCH),
+                              kv_cache_dtype="int8").resolve(tp=1)
+    B, S, V, L = SERVE["max_batch"], SERVE["max_seq"], cfg.vocab_size, \
+        cfg.num_layers
+    cache = model.init_cache(cfg, B, S, device=dev)
+    g = torch.Generator(device=dev).manual_seed(3)
+    tok = torch.randint(0, V, (B, 1), generator=g, device=dev)
+    finite = torch.ones((), dtype=torch.bool, device=dev)
+    kernels = _kernel_wrappers()
+    reset_counts(kernels)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(NEW_TOKENS):
+        logits, cache = model.decode_step(params, cfg, cache, tok)
+        finite = finite & torch.isfinite(logits[:, :V]).all()
+        tok = logits[:, :V].argmax(-1, keepdim=True)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / NEW_TOKENS * 1e3
+    got = counts(kernels)
+    launches = got["decode_attention"]
+    want = {"decode_attention": L * NEW_TOKENS,
+            "decode_attention.mma": L * NEW_TOKENS}
+    assert all(c == want.get(n, 0) for n, c in got.items()), got
+    assert bool(finite), "an int8-cache logit is not finite"
+    assert cache["k"].dtype == torch.int8
+    written = (cache["k_scale"][:, :, :NEW_TOKENS],
+               cache["v_scale"][:, :, :NEW_TOKENS])
+    assert all(bool((w > 0).all()) for w in written), "a scale is not > 0"
+    assert not cache["k_scale"][:, :, NEW_TOKENS:].any()
+    print(f"int8 KV pass ({cfg.name} full width, B={B}, cache {S} rows, "
+          f"{NEW_TOKENS} steps from init_cache): {ms:.2f} ms/step, decode "
+          f"launches {launches} (all mma); cache "
+          f"{sum(t.numel() * t.element_size() for t in cache.values()) / 1e9:.3f}"
+          f" GB")
+    return {"launches": launches, "ms_per_step": ms}
 
 
 def _route_pass(dev, cfg, params, name, prompts, seed_prompts, wrappers):
@@ -2064,6 +2340,7 @@ def main() -> int:
     from repro_torch.core.campaign import SUMMARY_STATS, run_scenario
     from repro_torch.kernels import build as kbuild
     from repro_torch.kernels.segment_sum import segment_sum
+    from repro_torch.testing import seed_lora
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
@@ -2111,10 +2388,17 @@ def main() -> int:
                                                  plens)
     print(f"gmm path rows: prefill C {moe_prefill_cs} (padded prompts "
           f"{plens}), decode C {moe_decode_c}")
+    hybrid = get_config(HYBRID_ARCH)
+    waves_hybrid = mamba_waves(hybrid.vocab_size, hybrid.ssm.chunk_size)
+    hybrid_len = max(len(p) for w in waves_hybrid for p in w)
     kernels = [check_segment_sum(dev), check_flash(dev, max(plens)),
                check_decode(dev, max(plens)), check_ssd(dev, ssm_len),
                check_gmm(dev, moe_prefill_cs, moe_decode_c)]
     kernels[0].update(check_segment_sum_training(dev))
+    # the rest of the catalogue's shapes (phases 5d-5f)
+    catalogue = check_catalogue_shapes(dev, hybrid_len, max(plens))
+    for k in kernels[1:4]:
+        k["catalogue_shapes"] = catalogue[k["name"]]
     for k in kernels:
         lib = "no library call" if k["library_ms"] is None \
             else f"{k['library_ms'] * 1e3:.2f} us library"
@@ -2239,6 +2523,9 @@ def main() -> int:
         k["launches"] = served["launches"][k["name"]]
         assert k["launches"] > 0, f"{k['name']} never launched"
     profile_serving(served["engine"], served["prompts"])
+    # phase 5's int8 pass: decode from an int8 cache on these weights
+    kernels[2]["launches"] += int8_pass(dev, served["engine"].params)[
+        "launches"]
     # phase 9: the router over three replicas sharing these weights
     print(f"phase 5 serving done: {time.perf_counter() - t_start:.1f} s "
           f"into the run")
@@ -2254,7 +2541,7 @@ def main() -> int:
 
     # phase 5b: the Mamba2 serving path at full width (each wave: the SSD
     # kernel once per layer, in prefill, every call on the tensor cores)
-    served = serve_full_width(dev, MAMBA_ARCH, waves_ssm,
+    served = serve_full_width(dev, MAMBA_ARCH, waves_ssm[:CUT_WAVES],
                               lambda cfg: {"ssd": cfg.num_layers,
                                            "ssd.tc": cfg.num_layers})
     kernels[3].update(launches=served["launches"]["ssd"],
@@ -2271,7 +2558,8 @@ def main() -> int:
     # grouped matmuls per layer in prefill and in each decode step, and
     # the attention kernels as in phase 5)
     served = serve_full_width(
-        dev, MOE_ARCH, wave_prompts(get_config(MOE_ARCH).vocab_size),
+        dev, MOE_ARCH,
+        wave_prompts(get_config(MOE_ARCH).vocab_size)[:CUT_WAVES],
         lambda cfg: {"gmm": 3 * cfg.num_layers * NEW_TOKENS,
                      "gmm.wgmma": 3 * cfg.num_layers * NEW_TOKENS,
                      "flash_attention": cfg.num_layers,
@@ -2284,6 +2572,42 @@ def main() -> int:
     profile_serving(served["engine"], served["prompts"])
     del served
     torch.cuda.empty_cache()
+
+    # phases 5d-5f: the rest of the catalogue at full width.  5d, Zamba2
+    # (its LoRA b matrices seeded nonzero): each wave the SSD kernel once a
+    # layer, flash once a group (head dim 160) and the decode kernel once
+    # a group a step; 5e, MLA: flash once a layer (D 96 / Dv 64), decode
+    # in PyTorch ops (the reference's absorbed form); 5f, the
+    # encoder-decoder: flash once an encoder layer and twice a decoder
+    # layer, the decode kernel twice a decoder layer a step
+    def per_wave(flash, decode, ssd=0):
+        counts = {"flash_attention": flash, "flash_attention.tc": flash,
+                  "decode_attention": decode * (NEW_TOKENS - 1),
+                  "decode_attention.mma": decode * (NEW_TOKENS - 1)}
+        return {**counts, "ssd": ssd, "ssd.tc": ssd}
+
+    def groups(cfg):
+        return cfg.num_layers // cfg.hybrid.shared_every
+
+    catalogue_paths = (
+        (HYBRID_ARCH, waves_hybrid,
+         lambda cfg: per_wave(groups(cfg), groups(cfg), cfg.num_layers),
+         seed_lora),
+        (MLA_ARCH, wave_prompts(get_config(MLA_ARCH).vocab_size),
+         lambda cfg: per_wave(cfg.num_layers, 0), None),
+        (ENCDEC_ARCH, wave_prompts(get_config(ENCDEC_ARCH).vocab_size),
+         lambda cfg: per_wave(cfg.enc_layers + 2 * cfg.num_layers,
+                              2 * cfg.num_layers), None))
+    for arch, waves, expect, edit in catalogue_paths:
+        served = serve_full_width(dev, arch, waves, expect, edit=edit)
+        for k in kernels[1:4]:
+            k["launches"] += served["launches"][k["name"]]
+        kernels[3]["tc_launches"] += served["launches"]["ssd.tc"]
+        profile_serving(served["engine"], served["prompts"])
+        del served
+        torch.cuda.empty_cache()
+        print(f"{arch} done: {time.perf_counter() - t_start:.1f} s into the "
+              f"run")
 
     # phase 6: CUDA against the CPU: the campaign at the mid shape
     print(f"phase 5 done: {time.perf_counter() - t_start:.1f} s into the run")
@@ -2345,6 +2669,12 @@ def main() -> int:
     serving_parity(dev, MAMBA_ARCH, S=64, lengths=(9, 40, 64, 17),
                    max_seq=96)
     serving_parity(dev, MOE_ARCH, S=24, lengths=(9, 13, 17, 21), max_seq=32)
+    serving_parity(dev, HYBRID_ARCH, S=64, lengths=(9, 40, 64, 17),
+                   max_seq=96, edit=seed_lora)
+    serving_parity(dev, MLA_ARCH, S=24, lengths=(9, 13, 17, 21), max_seq=32)
+    serving_parity(dev, ENCDEC_ARCH, S=24, lengths=(9, 13, 17, 21),
+                   max_seq=32)
+    int8_parity(ARCH)
 
     # phase 7: the paper's Fig. 11 sweeps on the card
     print(f"phase 6 done: {time.perf_counter() - t_start:.1f} s into the run")

@@ -2,8 +2,8 @@
 ``configs/base.py`` (the model dataclasses and the arch registry).
 
 One schema covers every architecture family (dense / MoE / SSM / hybrid /
-enc-dec / VLM backbones); the port grows family by family and each arch
-module comes with its slice.  Configs are plain frozen dataclasses.
+enc-dec / VLM backbones), and the registry holds the reference's ten
+archs.  Configs are plain frozen dataclasses.
 
 Dimension padding: ``resolve()`` pads attention heads up to a multiple of
 the tensor-parallel degree and the vocabulary up to a multiple of 256.
@@ -216,6 +216,13 @@ def _norm(name: str) -> str:
 def register(cfg_fn):
     _REGISTRY[_norm(cfg_fn.__name__)] = cfg_fn
     return cfg_fn
+
+
+def available_archs():
+    """The registered arch names (normalised), sorted."""
+    # import the per-arch modules for their @register side effects
+    from repro_torch.configs import archs  # noqa: F401
+    return sorted(_REGISTRY)
 
 
 def get_config(name: str, smoke: bool = False) -> ModelConfig:

@@ -1,56 +1,70 @@
-"""GQA attention of the port: init, QKV projection, RoPE / M-RoPE, the
-prefill and decode forms.
+"""Attention of the port: the GQA block (init, QKV projection, RoPE /
+M-RoPE, the prefill and decode forms, cross-attention, the int8 KV cache)
+and Multi-head Latent Attention.
 
 Translated from the reference's ``models/attention.py`` (``init_attention``,
-``_project_qkv``, ``_rope_qk``, ``attention_fwd``, ``attention_decode``).
+``_project_qkv``, ``_rope_qk``, ``attention_fwd``, ``attention_decode``,
+``init_mla``, ``_mla_q``, ``_mla_latent``, ``mla_fwd``, ``mla_decode``).
 Where the reference calls its XLA ``blockwise_attention`` and
 ``decode_attention``, the port calls its kernels: ``kernels.
 flash_attention`` on the GQA k/v as they are (no kv-head repeat) and
 ``kernels.decode_attention`` on the layer's cache.  On CUDA tensors the
 kernels always launch; on CPU tensors their plain versions run.
 
-Not lowered (each raises ``NotImplementedError`` naming it): the int8 KV
-cache, MLA, and the ``hybrid`` / ``encdec`` families.  The ``ssm`` family
-is lowered by ``models/ssm.py`` and ``models/hybrid.py``, the ``moe``
-family's feed-forward by ``models/moe.py``.
+MLA's prefill (``mla_fwd``) expands the latent into per-head k and v and
+calls the flash kernel at D = qk_nope + qk_rope, Dv = v_head_dim, whose
+own ``D ** -0.5`` is the reference's scale.  Its decode (``mla_decode``)
+attends in the latent space with the absorbed matrices, as the reference
+does outside any kernel: PyTorch ops in the reference's order.
+
+The int8 KV cache quantises each new k / v row per token and kv head
+(symmetric, ``max |x| / 127``, rounded half to even as ``jnp.round``;
+the scale rounded as the reference's compiled multiply-add) and
+dequantises the layer's cache to q's dtype before the decode kernel, as
+the reference does.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.common import (apply_mrope, apply_rope, dtype_of,
-                                       normal_init)
+                                       init_rmsnorm, normal_init, rmsnorm)
 
-#: the model families the port lowers
-LOWERED_FAMILIES = ("dense", "moe", "vlm", "ssm")
+#: the model families the port lowers: the reference's catalogue
+LOWERED_FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid", "encdec")
+#: the reference's masked-score value
+NEG_INF = -1e30
 
 
 def check_lowered(cfg) -> None:
-    """Raise ``NotImplementedError`` for a feature of ``cfg`` the port
-    does not lower yet."""
+    """Raise ``NotImplementedError`` for a family outside the catalogue."""
     if cfg.family not in LOWERED_FAMILIES:
         raise NotImplementedError(
-            f"the {cfg.family!r} family is not ported yet (the port serves "
-            f"{', '.join(LOWERED_FAMILIES)})")
-    if cfg.mla is not None:
-        raise NotImplementedError("MLA attention is not ported yet")
-    if cfg.kv_cache_dtype == "int8":
-        raise NotImplementedError("the int8 KV cache "
-                                  "(kv_cache_dtype='int8') is not ported yet")
+            f"the {cfg.family!r} family is not in the catalogue (the port "
+            f"serves {', '.join(LOWERED_FAMILIES)})")
 
 
-def init_attention(cfg, generator: torch.Generator, device=None) -> dict:
-    check_lowered(cfg)
+def init_attention(cfg, generator: torch.Generator, device=None,
+                   d_in: Optional[int] = None, d_out: Optional[int] = None,
+                   num_heads: Optional[int] = None,
+                   num_kv_heads: Optional[int] = None,
+                   head_dim: Optional[int] = None) -> dict:
+    """Draws in order: wq, wk, wv, wo.  The widths default to the
+    config's (padded heads); Zamba2's shared block passes its own."""
     dt = dtype_of(cfg)
-    D, H, true_H = cfg.d_model, cfg.padded_heads, cfg.num_heads
-    KV, dh = cfg.padded_kv, cfg.head_dim
+    D, Dout = d_in or cfg.d_model, d_out or cfg.d_model
+    H = num_heads or cfg.padded_heads
+    true_H = num_heads or cfg.num_heads
+    KV, dh = num_kv_heads or cfg.padded_kv, head_dim or cfg.head_dim
     p = {"wq": normal_init((D, H, dh), D ** -0.5, dt, generator, device),
          "wk": normal_init((D, KV, dh), D ** -0.5, dt, generator, device),
          "wv": normal_init((D, KV, dh), D ** -0.5, dt, generator, device),
-         "wo": normal_init((H, dh, D), (true_H * dh) ** -0.5, dt, generator,
-                           device)}
+         "wo": normal_init((H, dh, Dout), (true_H * dh) ** -0.5, dt,
+                           generator, device)}
     if H > true_H:  # padded heads contribute exactly zero
         p["wq"][:, true_H:] = 0
         p["wo"][true_H:] = 0
@@ -67,8 +81,9 @@ def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (x @ w.reshape(D, H * dh)).reshape(*x.shape[:-1], H, dh)
 
 
-def _project_qkv(p, cfg, x: torch.Tensor):
-    q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
+def _project_qkv(p, cfg, x: torch.Tensor, x_kv: Optional[torch.Tensor] = None):
+    x_kv = x if x_kv is None else x_kv
+    q, k, v = _proj(x, p["wq"]), _proj(x_kv, p["wk"]), _proj(x_kv, p["wv"])
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     return q, k, v
@@ -90,43 +105,178 @@ def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     return out.reshape(*out.shape[:-2], H * dh) @ wo.reshape(H * dh, D)
 
 
-def attention_fwd(p, cfg, x: torch.Tensor, positions, *, causal=True):
-    """Full-sequence attention (prefill).  x: (B, S, D).
+def attention_fwd(p, cfg, x: torch.Tensor, positions, *, causal=True,
+                  x_kv: Optional[torch.Tensor] = None, use_rope=True):
+    """Full-sequence attention (prefill, encoder, cross).  x: (B, S, D);
+    ``x_kv`` (B, Skv, D) gives the keys and values of cross-attention
+    (non-causal, ``use_rope=False``).
 
-    Returns (out (B, S, D), (k, v)) with k, v (B, S, KV, dh) as the
+    Returns (out (B, S, D), (k, v)) with k, v (B, Skv, KV, dh) as the
     layer's cache rows."""
-    check_lowered(cfg)
-    q, k, v = _project_qkv(p, cfg, x)
-    q, k = _rope_qk(cfg, q, k, positions)
+    q, k, v = _project_qkv(p, cfg, x, x_kv)
+    if use_rope:
+        q, k = _rope_qk(cfg, q, k, positions)
     out = flash_attention(q, k, v, causal=causal)
     return _out_proj(out, p["wo"]), (k, v)
 
 
+#: the reference's compiled int8 scale ``max |x| / 127 + 1e-9`` is one
+#: fused multiply-add of max |x|, the f32 reciprocal of 127 and f32 1e-9
+_INV_127 = float(torch.tensor(1 / 127, dtype=torch.float32))
+_SCALE_EPS = float(torch.tensor(1e-9, dtype=torch.float32))
+
+
+def quantize_rows(x: torch.Tensor):
+    """Per-row symmetric int8 quantisation of x (B, KV, dh), as the
+    reference's ``attention_decode`` rounds it: the scale ``max |x| / 127
+    + 1e-9`` (the product and sum rounded once, in f64, to x's dtype), the
+    row ``clip(round(x / scale), -127, 127)``.  Returns (int8 rows, f32
+    scales (B, KV))."""
+    amax = x.abs().amax(dim=-1).double()
+    scale = (amax * _INV_127 + _SCALE_EPS).to(x.dtype)
+    q = torch.round(x / scale[..., None]).clamp_(-127, 127).to(torch.int8)
+    return q, scale.float()
+
+
 def attention_decode(p, cfg, x: torch.Tensor, pos: torch.Tensor,
                      k_cache: torch.Tensor, v_cache: torch.Tensor,
-                     cache_len: torch.Tensor):
+                     cache_len: torch.Tensor, *, update_cache=True,
+                     use_rope=True, scales=None):
     """Single-token decode.  x: (B, 1, D); caches (B, S, KV, dh); pos and
     cache_len (B,) int32 (pos == cache_len for self-attention).
 
-    Writes row ``cache_len[b]`` of ``k_cache`` / ``v_cache`` in place,
-    then attends over the first ``cache_len + 1`` rows.  Returns
-    (out (B, 1, D), k_cache, v_cache): the same cache tensors."""
-    check_lowered(cfg)
+    With ``update_cache`` writes row ``cache_len[b]`` of ``k_cache`` /
+    ``v_cache`` in place (and of ``scales`` = (k_scale, v_scale), (B, S,
+    KV) f32, when the cache is int8), then attends over the first
+    ``cache_len + 1`` rows.  Returns (out (B, 1, D), k_cache, v_cache):
+    the same cache tensors."""
     q, k, v = _project_qkv(p, cfg, x)
-    if cfg.mrope:
-        pos3 = pos[:, None, None].expand(pos.shape[0], 1, 3)
-        q = apply_mrope(q, pos3, cfg.rope_theta, cfg.mrope_sections)
-        k = apply_mrope(k, pos3, cfg.rope_theta, cfg.mrope_sections)
+    if use_rope:
+        if cfg.mrope:
+            pos3 = pos[:, None, None].expand(pos.shape[0], 1, 3)
+            q = apply_mrope(q, pos3, cfg.rope_theta, cfg.mrope_sections)
+            k = apply_mrope(k, pos3, cfg.rope_theta, cfg.mrope_sections)
+        else:
+            q = apply_rope(q, pos[:, None], cfg.rope_theta)
+            k = apply_rope(k, pos[:, None], cfg.rope_theta)
+    if update_cache:
+        # In place: the reference updates the cache functionally
+        # (``k_cache.at[b, cache_len].set``) and returns a new array;
+        # writing the one row per sequence here saves copying the cache.
+        b_idx = torch.arange(k_cache.shape[0], device=k_cache.device)
+        idx = cache_len.long()
+        if scales is not None:
+            (kq, ks), (vq, vs) = quantize_rows(k[:, 0]), quantize_rows(v[:, 0])
+            k_cache[b_idx, idx], v_cache[b_idx, idx] = kq, vq
+            scales[0][b_idx, idx], scales[1][b_idx, idx] = ks, vs
+        else:
+            k_cache[b_idx, idx] = k[:, 0].to(k_cache.dtype)
+            v_cache[b_idx, idx] = v[:, 0].to(v_cache.dtype)
+    if scales is not None:
+        kf = k_cache.to(q.dtype) * scales[0][..., None].to(q.dtype)
+        vf = v_cache.to(q.dtype) * scales[1][..., None].to(q.dtype)
     else:
-        q = apply_rope(q, pos[:, None], cfg.rope_theta)
-        k = apply_rope(k, pos[:, None], cfg.rope_theta)
-    # In place: the reference updates the cache functionally
-    # (``k_cache.at[b, cache_len].set``) and returns a new array; writing
-    # the one row per sequence here saves copying the layer's cache.
-    b_idx = torch.arange(k_cache.shape[0], device=k_cache.device)
-    idx = cache_len.long()
-    k_cache[b_idx, idx] = k[:, 0].to(k_cache.dtype)
-    v_cache[b_idx, idx] = v[:, 0].to(v_cache.dtype)
-    out = decode_attention(q, k_cache.to(q.dtype), v_cache.to(q.dtype),
-                           cache_len + 1)
+        kf, vf = k_cache.to(q.dtype), v_cache.to(q.dtype)
+    out = decode_attention(q, kf, vf, cache_len + 1)
     return _out_proj(out, p["wo"]), k_cache, v_cache
+
+
+# ----------------------------------------------------------------------
+# Multi-head Latent Attention (MiniCPM3 / DeepSeek-V2 style)
+def init_mla(cfg, generator: torch.Generator, device=None) -> dict:
+    """Draws in order: wdq, wuq, wdkv, wukv, wo; the norms' scales are
+    ones in f32."""
+    m = cfg.mla
+    dt = dtype_of(cfg)
+    D, H = cfg.d_model, cfg.padded_heads or cfg.num_heads
+    qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+
+    def w(shape, std):
+        return normal_init(shape, std, dt, generator, device)
+
+    p = {"wdq": w((D, m.q_lora_rank), D ** -0.5),
+         "wuq": w((m.q_lora_rank, H, qk), m.q_lora_rank ** -0.5),
+         "wdkv": w((D, m.kv_lora_rank + m.qk_rope_head_dim), D ** -0.5),
+         "wukv": w((m.kv_lora_rank, H, m.qk_nope_head_dim + m.v_head_dim),
+                   m.kv_lora_rank ** -0.5),
+         "wo": w((H, m.v_head_dim, D), (cfg.num_heads * m.v_head_dim) ** -0.5)}
+    if H > cfg.num_heads:  # padded heads contribute exactly zero
+        for name in ("wuq", "wukv"):
+            p[name][:, cfg.num_heads:] = 0
+        p["wo"][cfg.num_heads:] = 0
+    dev = p["wdq"].device
+    p["q_norm"] = init_rmsnorm(m.q_lora_rank, dev)["scale"]
+    p["kv_norm"] = init_rmsnorm(m.kv_lora_rank, dev)["scale"]
+    return p
+
+
+def _mla_q(p, cfg, x: torch.Tensor, positions):
+    m = cfg.mla
+    qa = rmsnorm({"scale": p["q_norm"]}, x @ p["wdq"], cfg.norm_eps)
+    q = _proj(qa, p["wuq"])
+    q_nope = q[..., :m.qk_nope_head_dim]
+    q_rope = apply_rope(q[..., m.qk_nope_head_dim:], positions, cfg.rope_theta)
+    return q_nope, q_rope
+
+
+def _mla_latent(p, cfg, x: torch.Tensor, positions):
+    m = cfg.mla
+    kva = x @ p["wdkv"]
+    c_kv = rmsnorm({"scale": p["kv_norm"]}, kva[..., :m.kv_lora_rank],
+                   cfg.norm_eps)
+    k_pe = apply_rope(kva[..., None, m.kv_lora_rank:], positions,
+                      cfg.rope_theta)[..., 0, :]                # (B,S,rope)
+    return c_kv, k_pe
+
+
+def mla_fwd(p, cfg, x: torch.Tensor, positions, *, causal=True):
+    """Expanded MLA for prefill.  Returns (out (B, S, D), (c_kv (B, S,
+    kv_lora_rank), k_pe (B, S, qk_rope)))."""
+    m = cfg.mla
+    q_nope, q_rope = _mla_q(p, cfg, x, positions)
+    c_kv, k_pe = _mla_latent(p, cfg, x, positions)
+    kv = _proj(c_kv, p["wukv"])
+    H = q_nope.shape[2]
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([kv[..., :m.qk_nope_head_dim],
+                   k_pe[:, :, None, :].expand(-1, -1, H, -1)], dim=-1)
+    # v is a view of kv: its head stride qk_nope + v_head_dim and its
+    # offset qk_nope elements keep rows 16-byte aligned at the catalogue's
+    # widths, so the tensor-core kernel reads it without a copy
+    v = kv[..., m.qk_nope_head_dim:]
+    out = flash_attention(q, k, v, causal=causal)
+    return _out_proj(out, p["wo"]), (c_kv, k_pe)
+
+
+def mla_decode(p, cfg, x: torch.Tensor, pos: torch.Tensor,
+               ckv_cache: torch.Tensor, kpe_cache: torch.Tensor,
+               cache_len: torch.Tensor):
+    """Absorbed-matrix MLA decode, attending in the latent space over the
+    caches (B, S, kv_lora_rank) and (B, S, qk_rope).  Writes row
+    ``cache_len[b]`` of both in place and returns (out (B, 1, D),
+    ckv_cache, kpe_cache).  Scores and softmax in f32; the probabilities
+    and the latent cache in x's dtype for the product, as the
+    reference."""
+    m = cfg.mla
+    q_nope, q_rope = _mla_q(p, cfg, x, pos[:, None])
+    c_kv_new, k_pe_new = _mla_latent(p, cfg, x, pos[:, None])
+    S = ckv_cache.shape[1]
+    b_idx = torch.arange(ckv_cache.shape[0], device=ckv_cache.device)
+    idx = cache_len.long()
+    ckv_cache[b_idx, idx] = c_kv_new[:, 0].to(ckv_cache.dtype)
+    kpe_cache[b_idx, idx] = k_pe_new[:, 0].to(kpe_cache.dtype)
+    w_uk = p["wukv"][..., :m.qk_nope_head_dim]                  # (r,H,n)
+    q_lat = torch.einsum("bqhn,rhn->bqhr", q_nope, w_uk)
+    # the reference's f32 products (preferred_element_type): exact
+    # products of the operands, summed in f32
+    s = (torch.einsum("bqhr,bkr->bhqk", q_lat.float(), ckv_cache.float())
+         + torch.einsum("bqhp,bkp->bhqk", q_rope.float(), kpe_cache.float()))
+    s = s * ((m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5)
+    mask = torch.arange(S, device=s.device)[None, :] < (cache_len + 1)[:, None]
+    s = s.masked_fill(~mask[:, None, None, :], NEG_INF)
+    probs = torch.softmax(s, dim=-1)
+    o_lat = torch.einsum("bhqk,bkr->bqhr", probs.to(x.dtype),
+                         ckv_cache.to(x.dtype))
+    w_uv = p["wukv"][..., m.qk_nope_head_dim:]                  # (r,H,v)
+    o = torch.einsum("bqhr,rhv->bqhv", o_lat, w_uv)
+    return _out_proj(o, p["wo"]), ckv_cache, kpe_cache

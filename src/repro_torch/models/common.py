@@ -1,6 +1,6 @@
 """Shared building blocks of the port's models: initializers, stacked
-layer trees, RMSNorm, RoPE / M-RoPE, embeddings and logits, the SwiGLU
-MLP.
+layer trees, RMSNorm, RoPE / M-RoPE, embeddings and logits, the MLP
+(SwiGLU or GELU).
 
 Translated from the reference's ``models/common.py``; the tensor layouts
 and the parameter leaf names are the reference's, so a parameter tree
@@ -134,6 +134,15 @@ def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
     return _rotate(x, ang)
 
 
+def default_positions(cfg, B: int, S: int, device=None) -> torch.Tensor:
+    """(B, S) int32 positions, or (B, S, 3) for M-RoPE."""
+    pos = torch.arange(S, dtype=torch.int32, device=device)[None, :] \
+        .expand(B, S)
+    if cfg.mrope:
+        return pos[..., None].expand(B, S, 3)
+    return pos
+
+
 # ----------------------------------------------------------------------
 # Embedding + logits (padded vocab)
 def init_embedding(cfg, generator: torch.Generator, device=None) -> dict:
@@ -174,14 +183,22 @@ def logits_from_hidden(p, cfg, h: torch.Tensor) -> torch.Tensor:
 
 
 # ----------------------------------------------------------------------
-# SwiGLU MLP
-def init_mlp(cfg, generator: torch.Generator, device=None) -> dict:
+# MLP: SwiGLU, or GELU (tanh approximation) without the gate
+def init_mlp(cfg, generator: torch.Generator, device=None,
+             d_ff: Optional[int] = None, d_in: Optional[int] = None,
+             swiglu: bool = True) -> dict:
+    """Draws in order: wi, wo, then wg for SwiGLU."""
     dt = dtype_of(cfg)
-    D, Fd = cfg.d_model, cfg.d_ff
-    return {"wi": normal_init((D, Fd), D ** -0.5, dt, generator, device),
-            "wo": normal_init((Fd, D), Fd ** -0.5, dt, generator, device),
-            "wg": normal_init((D, Fd), D ** -0.5, dt, generator, device)}
+    D, Fd = d_in or cfg.d_model, d_ff or cfg.d_ff
+    p = {"wi": normal_init((D, Fd), D ** -0.5, dt, generator, device),
+         "wo": normal_init((Fd, D), Fd ** -0.5, dt, generator, device)}
+    if swiglu:
+        p["wg"] = normal_init((D, Fd), D ** -0.5, dt, generator, device)
+    return p
 
 
-def mlp(p, x: torch.Tensor) -> torch.Tensor:
-    return (F.silu(x @ p["wg"]) * (x @ p["wi"])) @ p["wo"]
+def mlp(p, x: torch.Tensor, swiglu: bool = True) -> torch.Tensor:
+    """SwiGLU, or ``jax.nn.gelu``'s default, the tanh approximation."""
+    if swiglu:
+        return (F.silu(x @ p["wg"]) * (x @ p["wi"])) @ p["wo"]
+    return F.gelu(x @ p["wi"], approximate="tanh") @ p["wo"]

@@ -1,0 +1,201 @@
+"""The encoder-decoder family (``encdec``, the SeamlessM4T backbone) of
+the port.
+
+Translated from the reference's ``models/encdec.py``.  The speech
+frontend is a stub there and here: the encoder takes precomputed frame
+embeddings ``enc_frames`` (B, S_enc, D).  Encoder layers are non-causal
+self-attention (RoPE) + a GELU MLP; decoder layers are causal
+self-attention (RoPE), non-causal cross-attention over the encoder's
+output (no RoPE) and a GELU MLP, each pre-normed and residual.  Prefill
+calls the flash kernel once per encoder layer and twice per decoder
+layer (self, cross with Sq != Skv); a decode step calls the decode
+kernel twice per decoder layer (self over ``len + 1`` rows, cross over
+all ``S_enc`` rows of the encoder's k/v).
+
+The parameters keep the reference's tree: ``embed``, ``enc_layers``
+(``attn``, ``mlp`` with ``wi``, ``wo``, ``ln1``, ``ln2``), ``dec_layers``
+(``self``, ``cross``, ``mlp``, ``ln1``-``ln3``), ``enc_norm`` and
+``final_norm``.  The cache is ``{"k", "v": (L, B, S, KV, dh), "ck",
+"cv": (L, B, S_enc, KV, dh), "len": (B,) int32}``.
+
+The frames keep their own dtype into the first layer, as the
+reference's unscanned encoder (``scan_layers=False``) keeps them: the
+normed input is cast to the model's dtype before the projections (the
+reference's einsum promotes bf16 frames against f32 weights) and the
+residual stream promotes as the reference's does.  (The reference's
+scanned encoder refuses bf16 frames in an f32 model: its scan carry
+changes dtype.)
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.models.attention import (attention_decode, attention_fwd,
+                                          init_attention)
+from repro_torch.models.common import (default_positions, dtype_of,
+                                       embed_tokens, init_embedding,
+                                       init_mlp, init_rmsnorm, layer_slice,
+                                       logits_from_hidden, mlp, rmsnorm,
+                                       stacked_init)
+
+#: the encoder (audio-context) length bound of the reference
+ENC_MAX = 4096
+
+
+def enc_len_for(seq_len: int) -> int:
+    return min(seq_len, ENC_MAX)
+
+
+def _check_family(cfg) -> None:
+    if cfg.family != "encdec":
+        raise ValueError(f"models/encdec.py serves the 'encdec' family, not "
+                         f"{cfg.family!r}")
+
+
+# ----------------------------------------------------------------------
+def _init_enc_layer(cfg, generator: torch.Generator, device) -> dict:
+    return {"attn": init_attention(cfg, generator, device),
+            "mlp": init_mlp(cfg, generator, device, swiglu=False),
+            "ln1": init_rmsnorm(cfg.d_model, device),
+            "ln2": init_rmsnorm(cfg.d_model, device)}
+
+
+def _init_dec_layer(cfg, generator: torch.Generator, device) -> dict:
+    return {"self": init_attention(cfg, generator, device),
+            "cross": init_attention(cfg, generator, device),
+            "mlp": init_mlp(cfg, generator, device, swiglu=False),
+            "ln1": init_rmsnorm(cfg.d_model, device),
+            "ln2": init_rmsnorm(cfg.d_model, device),
+            "ln3": init_rmsnorm(cfg.d_model, device)}
+
+
+def init_params(cfg, generator: torch.Generator, device=None) -> dict:
+    """Parameters on ``device`` (None: the CUDA card).  Draws in order:
+    the embedding (tok, head), the encoder layers (attention, MLP), then
+    the decoder layers (self, cross, MLP), each into stacked leaves."""
+    _check_family(cfg)
+    device = resolve_device(device)
+    return {"embed": init_embedding(cfg, generator, device),
+            "enc_layers": stacked_init(
+                lambda: _init_enc_layer(cfg, generator, device),
+                cfg.enc_layers),
+            "dec_layers": stacked_init(
+                lambda: _init_dec_layer(cfg, generator, device),
+                cfg.num_layers),
+            "enc_norm": init_rmsnorm(cfg.d_model, device),
+            "final_norm": init_rmsnorm(cfg.d_model, device)}
+
+
+# ----------------------------------------------------------------------
+def encode(params, cfg, frames: torch.Tensor) -> torch.Tensor:
+    """frames: (B, S_enc, D) precomputed frontend embeddings -> the
+    encoder's normed output (B, S_enc, D)."""
+    B, S, _ = frames.shape
+    dt = dtype_of(cfg)
+    positions = default_positions(cfg, B, S, device=frames.device)
+    h = frames
+    for i in range(cfg.enc_layers):
+        lp = layer_slice(params["enc_layers"], i)
+        a, _ = attention_fwd(lp["attn"], cfg,
+                             rmsnorm(lp["ln1"], h, cfg.norm_eps).to(dt),
+                             positions, causal=False)
+        h = h + a
+        h = h + mlp(lp["mlp"], rmsnorm(lp["ln2"], h, cfg.norm_eps).to(dt),
+                    swiglu=False)
+    return rmsnorm(params["enc_norm"], h, cfg.norm_eps)
+
+
+def _decoder(params, cfg, tokens: torch.Tensor, enc_out: torch.Tensor,
+             cache: Optional[dict] = None) -> torch.Tensor:
+    """The final-normed decoder states (B, S, D); each layer's self k/v
+    go to rows [0, S) of ``cache["k"]`` / ``["v"]`` and its cross k/v to
+    ``cache["ck"]`` / ``["cv"]`` when a cache is given."""
+    B, S = tokens.shape
+    h = embed_tokens(params["embed"], cfg, tokens)
+    positions = default_positions(cfg, B, S, device=h.device)
+    enc_out = enc_out.to(dtype_of(cfg))
+    for i in range(cfg.num_layers):
+        lp = layer_slice(params["dec_layers"], i)
+        a, (k, v) = attention_fwd(lp["self"], cfg,
+                                  rmsnorm(lp["ln1"], h, cfg.norm_eps),
+                                  positions, causal=True)
+        h = h + a
+        c, (ck, cv) = attention_fwd(lp["cross"], cfg,
+                                    rmsnorm(lp["ln2"], h, cfg.norm_eps),
+                                    None, causal=False, x_kv=enc_out,
+                                    use_rope=False)
+        h = h + c
+        h = h + mlp(lp["mlp"], rmsnorm(lp["ln3"], h, cfg.norm_eps),
+                    swiglu=False)
+        if cache is not None:
+            cache["k"][i, :, :S], cache["v"][i, :, :S] = k, v
+            cache["ck"][i], cache["cv"][i] = ck, cv
+    return rmsnorm(params["final_norm"], h, cfg.norm_eps)
+
+
+def prefill(params, cfg, batch, cache_len: Optional[int] = None):
+    """batch: ``tokens`` (B, S) int and ``enc_frames`` (B, S_enc, D) on
+    the parameters' device.  Returns the last position's logits (B,
+    V_padded) f32 and the cache, the self rows padded to ``cache_len``."""
+    _check_family(cfg)
+    B, S = batch["tokens"].shape
+    frames = batch["enc_frames"]
+    tok = params["embed"]["tok"]
+    enc_out = encode(params, cfg, frames)
+    cache = init_cache(cfg, B, max(S, cache_len or 0), tok.dtype, tok.device,
+                       enc_len=frames.shape[1])
+    h = _decoder(params, cfg, batch["tokens"], enc_out, cache)
+    logits = logits_from_hidden(params["embed"], cfg, h[:, -1:, :])[:, 0]
+    cache["len"].fill_(S)
+    return logits, cache
+
+
+def decode_step(params, cfg, cache, tokens: torch.Tensor):
+    """tokens (B, 1) -> (logits (B, V_padded) f32, cache).  The returned
+    cache holds the same tensors, the self rows written in place, and
+    ``len + 1``."""
+    _check_family(cfg)
+    B = tokens.shape[0]
+    h = embed_tokens(params["embed"], cfg, tokens)
+    pos = cache["len"]
+    # attention_decode attends over cache_len + 1 rows: all S_enc of the
+    # encoder's (the reference passes S_enc, which its mask reads as all
+    # rows as well)
+    enc_last = torch.full((B,), cache["ck"].shape[2] - 1, dtype=torch.int32,
+                          device=h.device)
+    for i in range(cfg.num_layers):
+        lp = layer_slice(params["dec_layers"], i)
+        a, _, _ = attention_decode(lp["self"], cfg,
+                                   rmsnorm(lp["ln1"], h, cfg.norm_eps), pos,
+                                   cache["k"][i], cache["v"][i], cache["len"])
+        h = h + a
+        c, _, _ = attention_decode(lp["cross"], cfg,
+                                   rmsnorm(lp["ln2"], h, cfg.norm_eps), pos,
+                                   cache["ck"][i], cache["cv"][i], enc_last,
+                                   update_cache=False, use_rope=False)
+        h = h + c
+        h = h + mlp(lp["mlp"], rmsnorm(lp["ln3"], h, cfg.norm_eps),
+                    swiglu=False)
+    h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
+    logits = logits_from_hidden(params["embed"], cfg, h)[:, 0]
+    return logits, {**cache, "len": cache["len"] + 1}
+
+
+def init_cache(cfg, B: int, S: int, dtype=torch.bfloat16, device=None,
+               enc_len: Optional[int] = None):
+    """The zeroed cache on ``device`` (None: the CUDA card); the cross
+    rows number ``enc_len`` (default: ``enc_len_for(S)``)."""
+    _check_family(cfg)
+    device = resolve_device(device)
+    L, KV, dh = cfg.num_layers, cfg.padded_kv, cfg.head_dim
+    Se = enc_len if enc_len is not None else enc_len_for(S)
+
+    def zeros(*shape, dt=dtype):
+        return torch.zeros(shape, dtype=dt, device=device)
+
+    return {"k": zeros(L, B, S, KV, dh), "v": zeros(L, B, S, KV, dh),
+            "ck": zeros(L, B, Se, KV, dh), "cv": zeros(L, B, Se, KV, dh),
+            "len": zeros(B, dt=torch.int32)}

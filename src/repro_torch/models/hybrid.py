@@ -1,43 +1,61 @@
-"""The ``ssm`` family (Mamba2) of the port.
+"""The ``ssm`` (Mamba2) and ``hybrid`` (Zamba2) families of the port.
 
-Translated from the ``ssm`` half of the reference's ``models/hybrid.py``:
-``init_params``, ``prefill``, ``decode_step`` and ``init_cache`` for a
-stack of Mamba2 blocks (pre-norm, residual) between the embedding and
-the tied logits.  The parameters keep the reference's leaf names and
-stacked shapes (``embed.tok``, ``layers.ln.scale``, ``layers.mixer.in_z``
-(L, D, d_inner), ..., ``final_norm.scale``).
+Translated from the reference's ``models/hybrid.py``: ``init_params``,
+``prefill``, ``decode_step`` and ``init_cache`` for a stack of Mamba2
+blocks (pre-norm, residual) between the embedding and the tied logits,
+and Zamba2's shared block.
+
+Zamba2 (``family == "hybrid"``): after every ``hybrid.shared_every``
+Mamba2 blocks (a group), one *shared* transformer block (weights reused
+by every group, per-group LoRA deltas on the q and FFN-in projections)
+runs on concat(hidden, token embedding) at 2 d_model and its output,
+projected back to d_model, is added to the stream.  Its attention calls
+the flash kernel (causal, once a group) in prefill and the decode kernel
+(once a group a step) in decode.
+
+The parameters keep the reference's leaf names and stacked shapes:
+``embed.tok``, ``final_norm.scale`` and, for ``ssm``, ``layers.ln.scale``,
+``layers.mixer.in_z`` (L, D, d_inner), ...; for ``hybrid``, ``mamba``
+stacked (G, per, ...), ``shared`` (``attn``, ``mlp`` with ``wi``, ``wo``,
+``wg``, ``ln1``, ``ln2``, ``down``) and ``lora`` (``qa``, ``qb``, ``ia``,
+``ib``) stacked (G, ...).  The reference starts ``qb`` and ``ib`` at
+zeros, as does the port, so under init weights the LoRA path adds exactly
+0.
 
 The cache is ``{"conv": {"x", "B", "C": (L, B, W-1, C) f32}, "ssm":
-(L, B, H, P, N) f32, "len": (B,) int32}``: each layer's raw pre-conv
-tails and SSD state.  Prefill writes each layer's slice as the layer
-runs; a decode step updates them in place (the reference threads them
-through its scan carry).  The cache has no sequence axis, so prefill's
-``cache_len`` is accepted and ignored, as in the reference.
-
-Zamba2's shared attention block (``family == "hybrid"``) is not ported
-yet and raises ``NotImplementedError``.
+(L, B, H, P, N) f32, "len": (B,) int32}`` (``hybrid``: (G, per, ...)
+for the Mamba2 state, and the shared block's ``k``, ``v``: (G, B, S,
+KV, dh)).  Prefill writes each layer's slice as the layer runs; a decode
+step updates them in place (the reference threads them through its scan
+carry).  The Mamba2 cache has no sequence axis, so the ``ssm`` family's
+prefill ignores ``cache_len``, as in the reference.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
-from repro_torch.models.common import (embed_tokens, init_embedding,
+from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.models.attention import _out_proj, _proj, init_attention
+from repro_torch.models.common import (apply_rope, default_positions,
+                                       dtype_of, embed_tokens,
+                                       init_embedding, init_mlp,
                                        init_rmsnorm, layer_slice,
-                                       logits_from_hidden, rmsnorm,
-                                       stacked_init)
+                                       logits_from_hidden, normal_init,
+                                       rmsnorm, stacked_init)
 from repro_torch.models.ssm import init_mamba2, mamba2_decode, mamba2_fwd
 
+_FAMILIES = ("ssm", "hybrid")
 
-def _check_ssm(cfg) -> None:
-    if cfg.family != "ssm":
-        raise NotImplementedError(
-            f"the {cfg.family!r} family is not ported: Zamba2's shared "
-            f"attention block over the Mamba2 backbone is still to come"
-            if cfg.family == "hybrid" else
-            f"models/hybrid.py serves the 'ssm' family, not {cfg.family!r}")
+
+def _check_family(cfg) -> None:
+    if cfg.family not in _FAMILIES:
+        raise ValueError(f"models/hybrid.py serves the 'ssm' and 'hybrid' "
+                         f"families, not {cfg.family!r}")
 
 
 # ----------------------------------------------------------------------
@@ -59,47 +77,176 @@ def _mamba_layer_decode(cfg, lp, h: torch.Tensor, conv_s: dict,
     return h + y, conv_s, ssm_s
 
 
-def _layer_cache(cache: dict, i: int):
-    """Layer ``i``'s conv tails and SSD state: views into ``cache``."""
-    return {k: v[i] for k, v in cache["conv"].items()}, cache["ssm"][i]
+def _layer_cache(cache: dict, *idx):
+    """The conv tails and SSD state of layer ``idx`` (``i`` for ``ssm``,
+    ``g, j`` for ``hybrid``): views into ``cache``."""
+    return {k: v[idx] for k, v in cache["conv"].items()}, cache["ssm"][idx]
+
+
+def _write_layer_cache(cache: dict, idx, states) -> None:
+    tails, state = states
+    conv, ssm = _layer_cache(cache, *idx)
+    for name, t in zip(("x", "B", "C"), tails):
+        conv[name].copy_(t)
+    ssm.copy_(state)
+
+
+# ----------------------------------------------------------------------
+# Zamba2 shared block
+def _init_shared_block(cfg, generator: torch.Generator, device) -> dict:
+    """Draws in order: the attention (wq, wk, wv, wo at 2 d_model), the
+    MLP (wi, wo, wg), then ``down``."""
+    hb, D2 = cfg.hybrid, 2 * cfg.d_model
+    attn = init_attention(cfg, generator, device, d_in=D2, d_out=D2,
+                          num_heads=hb.shared_num_heads,
+                          num_kv_heads=hb.shared_kv_heads,
+                          head_dim=cfg.head_dim)
+    mlp = init_mlp(cfg, generator, device, d_ff=hb.shared_d_ff, d_in=D2)
+    return {"attn": attn, "mlp": mlp, "ln1": init_rmsnorm(D2, device),
+            "ln2": init_rmsnorm(D2, device),
+            "down": normal_init((D2, cfg.d_model), D2 ** -0.5,
+                                dtype_of(cfg), generator, device)}
+
+
+def _init_lora(cfg, generator: torch.Generator, device) -> dict:
+    """Draws ``qa`` then ``ia``; ``qb`` and ``ib`` are zeros, as in the
+    reference."""
+    hb, D2, dt = cfg.hybrid, 2 * cfg.d_model, dtype_of(cfg)
+    r, Hdh = hb.lora_rank, hb.shared_num_heads * cfg.head_dim
+    qa = normal_init((D2, r), D2 ** -0.5, dt, generator, device)
+    ia = normal_init((D2, r), D2 ** -0.5, dt, generator, device)
+    return {"qa": qa, "qb": torch.zeros((r, Hdh), dtype=dt, device=qa.device),
+            "ia": ia,
+            "ib": torch.zeros((r, hb.shared_d_ff), dtype=dt,
+                              device=qa.device)}
+
+
+def _shared_qkv(cfg, sp, lp, x: torch.Tensor, positions: torch.Tensor):
+    """QKV of the shared block with the group's LoRA delta on q, rotated
+    at ``positions`` (B, S)."""
+    ap = sp["attn"]
+    q = _proj(x, ap["wq"])
+    q = q + ((x @ lp["qa"]) @ lp["qb"]).reshape(q.shape)
+    k, v = _proj(x, ap["wk"]), _proj(x, ap["wv"])
+    return (apply_rope(q, positions, cfg.rope_theta),
+            apply_rope(k, positions, cfg.rope_theta), v)
+
+
+def _shared_mlp(sp, lp, x: torch.Tensor) -> torch.Tensor:
+    """The shared SwiGLU MLP with the group's LoRA delta on wi."""
+    mp = sp["mlp"]
+    h = x @ mp["wi"] + (x @ lp["ia"]) @ lp["ib"]
+    return (F.silu(x @ mp["wg"]) * h) @ mp["wo"]
+
+
+def _shared_block_tail(cfg, sp, lp, u: torch.Tensor,
+                       att: torch.Tensor) -> torch.Tensor:
+    """The block after its attention: output projection, the MLP and the
+    projection back to d_model."""
+    u = u + _out_proj(att, sp["attn"]["wo"])
+    u = u + _shared_mlp(sp, lp, rmsnorm(sp["ln2"], u, cfg.norm_eps))
+    return u @ sp["down"]
+
+
+def _shared_block_fwd(cfg, sp, lp, h, emb, positions):
+    """Prefill.  Returns (out (B, S, D), (k, v) (B, S, KV, dh))."""
+    u = torch.cat([h, emb], dim=-1)
+    q, k, v = _shared_qkv(cfg, sp, lp, rmsnorm(sp["ln1"], u, cfg.norm_eps),
+                          positions)
+    att = flash_attention(q, k, v, causal=True)
+    return _shared_block_tail(cfg, sp, lp, u, att), (k, v)
+
+
+def _shared_block_decode(cfg, sp, lp, h, emb_t, pos, k_cache, v_cache):
+    """One decode step: writes row ``pos[b]`` of the group's ``k_cache``
+    / ``v_cache`` (B, S, KV, dh) in place and attends over ``pos + 1``
+    rows.  Returns out (B, 1, D)."""
+    u = torch.cat([h, emb_t], dim=-1)                          # (B,1,2D)
+    q, k, v = _shared_qkv(cfg, sp, lp, rmsnorm(sp["ln1"], u, cfg.norm_eps),
+                          pos[:, None])
+    b_idx = torch.arange(k_cache.shape[0], device=k_cache.device)
+    idx = pos.long()
+    k_cache[b_idx, idx] = k[:, 0].to(k_cache.dtype)
+    v_cache[b_idx, idx] = v[:, 0].to(v_cache.dtype)
+    att = decode_attention(q, k_cache.to(q.dtype), v_cache.to(q.dtype),
+                           pos + 1)
+    return _shared_block_tail(cfg, sp, lp, u, att)
+
+
+def _n_groups(cfg) -> int:
+    every = cfg.hybrid.shared_every
+    if cfg.num_layers % every:
+        raise ValueError(f"{cfg.num_layers} layers do not split into groups "
+                         f"of {every}")
+    return cfg.num_layers // every
 
 
 # ----------------------------------------------------------------------
 def init_params(cfg, generator: torch.Generator, device=None) -> dict:
     """Parameters on ``device`` (None: the CUDA card).  Draws in order:
     the embedding, then layer by layer (each Mamba2 block as
-    ``init_mamba2`` draws it) into stacked leaves."""
-    _check_ssm(cfg)
+    ``init_mamba2`` draws it; ``hybrid``: group by group) into stacked
+    leaves, then for ``hybrid`` the shared block and each group's LoRA."""
+    _check_family(cfg)
     device = resolve_device(device)
-    return {"embed": init_embedding(cfg, generator, device),
-            "layers": stacked_init(
-                lambda: _init_mamba_layer(cfg, generator, device),
-                cfg.num_layers),
-            "final_norm": init_rmsnorm(cfg.d_model, device)}
+    p = {"embed": init_embedding(cfg, generator, device),
+         "final_norm": init_rmsnorm(cfg.d_model, device)}
+
+    def mamba_layer():
+        return _init_mamba_layer(cfg, generator, device)
+
+    if cfg.family == "ssm":
+        p["layers"] = stacked_init(mamba_layer, cfg.num_layers)
+        return p
+    G, per = _n_groups(cfg), cfg.hybrid.shared_every
+    p["mamba"] = stacked_init(lambda: stacked_init(mamba_layer, per), G)
+    p["shared"] = _init_shared_block(cfg, generator, device)
+    p["lora"] = stacked_init(lambda: _init_lora(cfg, generator, device), G)
+    return p
 
 
 def _backbone(params, cfg, batch, cache: Optional[dict] = None):
     """The final-normed hidden states (B, S, D); each layer's conv tails
-    and final SSD state go to its slice of ``cache`` when one is given."""
-    h = embed_tokens(params["embed"], cfg, batch["tokens"])
-    for i in range(cfg.num_layers):
-        h, (tails, state) = _mamba_layer_fwd(
-            cfg, layer_slice(params["layers"], i), h)
+    and final SSD state (and each group's shared k/v, rows [0, S)) go to
+    ``cache`` when one is given."""
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    emb = embed_tokens(params["embed"], cfg, tokens)
+    h = emb
+    if cfg.family == "ssm":
+        for i in range(cfg.num_layers):
+            h, states = _mamba_layer_fwd(
+                cfg, layer_slice(params["layers"], i), h)
+            if cache is not None:
+                _write_layer_cache(cache, (i,), states)
+        return rmsnorm(params["final_norm"], h, cfg.norm_eps)
+    positions = batch.get("positions")
+    if positions is None:
+        positions = default_positions(cfg, B, S, device=h.device)
+    for g in range(_n_groups(cfg)):
+        mp = layer_slice(params["mamba"], g)
+        for j in range(cfg.hybrid.shared_every):
+            h, states = _mamba_layer_fwd(cfg, layer_slice(mp, j), h)
+            if cache is not None:
+                _write_layer_cache(cache, (g, j), states)
+        blk, (k, v) = _shared_block_fwd(cfg, params["shared"],
+                                        layer_slice(params["lora"], g), h,
+                                        emb, positions)
+        h = h + blk
         if cache is not None:
-            conv, ssm = _layer_cache(cache, i)
-            for name, t in zip(("x", "B", "C"), tails):
-                conv[name].copy_(t)
-            ssm.copy_(state)
+            cache["k"][g, :, :S] = k
+            cache["v"][g, :, :S] = v
     return rmsnorm(params["final_norm"], h, cfg.norm_eps)
 
 
 def prefill(params, cfg, batch, cache_len: Optional[int] = None):
     """batch: ``tokens`` (B, S) int on the parameters' device.  Returns
-    the last position's logits (B, V_padded) f32 and the cache."""
-    _check_ssm(cfg)
+    the last position's logits (B, V_padded) f32 and the cache (the
+    shared block's rows padded to ``cache_len``)."""
+    _check_family(cfg)
     B, S = batch["tokens"].shape
     tok = params["embed"]["tok"]
-    cache = init_cache(cfg, B, S, tok.dtype, tok.device)
+    cache = init_cache(cfg, B, max(S, cache_len or 0), tok.dtype, tok.device)
     h = _backbone(params, cfg, batch, cache)
     logits = logits_from_hidden(params["embed"], cfg, h[:, -1:, :])[:, 0]
     cache["len"].fill_(S)
@@ -108,35 +255,53 @@ def prefill(params, cfg, batch, cache_len: Optional[int] = None):
 
 def decode_step(params, cfg, cache, tokens: torch.Tensor):
     """tokens (B, 1) -> (logits (B, V_padded) f32, cache).  The returned
-    cache holds the same conv and SSD tensors, updated in place, and
+    cache holds the same state tensors, updated in place, and
     ``len + 1``."""
-    _check_ssm(cfg)
-    h = embed_tokens(params["embed"], cfg, tokens)          # (B, 1, D)
-    for i in range(cfg.num_layers):
-        h, _, _ = _mamba_layer_decode(
-            cfg, layer_slice(params["layers"], i), h, *_layer_cache(cache, i))
+    _check_family(cfg)
+    emb_t = embed_tokens(params["embed"], cfg, tokens)      # (B, 1, D)
+    h = emb_t
+    if cfg.family == "ssm":
+        for i in range(cfg.num_layers):
+            h, _, _ = _mamba_layer_decode(
+                cfg, layer_slice(params["layers"], i), h,
+                *_layer_cache(cache, i))
+    else:
+        pos = cache["len"]
+        for g in range(_n_groups(cfg)):
+            mp = layer_slice(params["mamba"], g)
+            for j in range(cfg.hybrid.shared_every):
+                h, _, _ = _mamba_layer_decode(cfg, layer_slice(mp, j), h,
+                                              *_layer_cache(cache, g, j))
+            h = h + _shared_block_decode(
+                cfg, params["shared"], layer_slice(params["lora"], g), h,
+                emb_t, pos, cache["k"][g], cache["v"][g])
     h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
     logits = logits_from_hidden(params["embed"], cfg, h)[:, 0]
-    return logits, {"conv": cache["conv"], "ssm": cache["ssm"],
-                    "len": cache["len"] + 1}
+    return logits, {**cache, "len": cache["len"] + 1}
 
 
 def init_cache(cfg, B: int, S: int, dtype=torch.bfloat16, device=None):
-    """The zeroed cache on ``device`` (None: the CUDA card); ``S`` and
-    ``dtype`` are unused (the state has no sequence axis and is kept in
-    f32), as in the reference."""
-    _check_ssm(cfg)
+    """The zeroed cache on ``device`` (None: the CUDA card).  The Mamba2
+    state is kept in f32 whatever ``dtype``; ``S`` and ``dtype`` size
+    only the shared block's k/v (``hybrid``), as in the reference."""
+    _check_family(cfg)
     device = resolve_device(device)
     s = cfg.ssm
-    D, L, W = cfg.d_model, cfg.num_layers, s.d_conv
+    D, W = cfg.d_model, s.d_conv
     di, gn = s.d_inner(D), s.n_groups * s.d_state
     H, P, N = s.n_heads(D), s.head_dim, s.d_state
-    f32 = torch.float32
-    return {"conv": {"x": torch.zeros((L, B, W - 1, di), dtype=f32,
-                                      device=device),
-                     "B": torch.zeros((L, B, W - 1, gn), dtype=f32,
-                                      device=device),
-                     "C": torch.zeros((L, B, W - 1, gn), dtype=f32,
-                                      device=device)},
-            "ssm": torch.zeros((L, B, H, P, N), dtype=f32, device=device),
-            "len": torch.zeros((B,), dtype=torch.int32, device=device)}
+    lead = ((cfg.num_layers,) if cfg.family == "ssm"
+            else (_n_groups(cfg), cfg.hybrid.shared_every))
+
+    def zeros(*shape, dt=torch.float32):
+        return torch.zeros(shape, dtype=dt, device=device)
+
+    cache = {"conv": {"x": zeros(*lead, B, W - 1, di),
+                      "B": zeros(*lead, B, W - 1, gn),
+                      "C": zeros(*lead, B, W - 1, gn)},
+             "ssm": zeros(*lead, B, H, P, N),
+             "len": zeros(B, dt=torch.int32)}
+    if cfg.family == "hybrid":
+        kv = (lead[0], B, S, cfg.hybrid.shared_kv_heads, cfg.head_dim)
+        cache["k"], cache["v"] = zeros(*kv, dt=dtype), zeros(*kv, dt=dtype)
+    return cache

@@ -1,5 +1,5 @@
 """Model assembly of the port: family dispatch, and the decoder-only
-families (``dense`` / ``moe`` / ``vlm``).
+families (``dense`` / ``moe`` / ``vlm``, with GQA or MLA attention).
 
 Translated from the reference's ``models/model.py``.  Public API:
 
@@ -8,28 +8,35 @@ Translated from the reference's ``models/model.py``.  Public API:
   decode_step(params, cfg, cache, tokens)  -> (logits (B, V), cache)
   init_cache(cfg, B, S, dtype=bf16, device=None) -> zeroed cache
 
-The ``ssm`` family (Mamba2) goes to :mod:`repro_torch.models.hybrid`, as
-in the reference.  The decoder-only parameters keep the reference's leaf
-names and stacked shapes (``embed.tok``, ``embed.head``,
-``layers.attn.wq`` (L, D, H, dh), ..., ``layers.ln1.scale``,
-``layers.ffn.wi``, ``final_norm.scale``; an ``moe`` layer's ``ffn``
-holds ``router``, ``wi``, ``wg`` and ``wo`` stacked over its experts),
-so a tree carried across by
-:func:`repro_torch.interop.params_from_reference` runs here as it is.
+The ``ssm`` (Mamba2) and ``hybrid`` (Zamba2) families go to
+:mod:`repro_torch.models.hybrid` and ``encdec`` (SeamlessM4T) to
+:mod:`repro_torch.models.encdec`, as in the reference.  The decoder-only
+parameters keep the reference's leaf names and stacked shapes
+(``embed.tok``, ``embed.head``, ``layers.attn.wq`` (L, D, H, dh), ...,
+``layers.ln1.scale``, ``layers.ffn.wi``, ``final_norm.scale``; an ``moe``
+layer's ``ffn`` holds ``router``, ``wi``, ``wg`` and ``wo`` stacked over
+its experts; an MLA layer's ``attn`` holds ``wdq``, ``wuq``, ``wdkv``,
+``wukv``, ``wo``, ``q_norm`` and ``kv_norm``), so a tree carried across
+by :func:`repro_torch.interop.params_from_reference` runs here as it is.
 The layers are a Python loop over the stacked leaves (the reference
-scans them).  The cache is ``{"k", "v": (L, B, S, KV, dh), "len": (B,)
-int32}``; prefill allocates it at its padded length and fills the first
-S rows (the reference pads afterwards, ``_pad_seq``), and a decode step
-writes its row of each layer's cache in place (the reference threads the
-cache through its scan carry).
+scans them).  The GQA cache is ``{"k", "v": (L, B, S, KV, dh), "len": (B,)
+int32}``, the MLA cache ``{"ckv": (L, B, S, kv_lora_rank), "kpe": (L, B,
+S, qk_rope), "len"}``; prefill allocates it at its padded length and
+fills the first S rows (the reference pads afterwards, ``_pad_seq``), and
+a decode step writes its row of each layer's cache in place (the
+reference threads the cache through its scan carry).
+
+With ``kv_cache_dtype="int8"`` (GQA only, as in the reference),
+``init_cache`` gives int8 ``k`` / ``v`` with f32 ``k_scale`` / ``v_scale``
+(L, B, S, KV) and a decode step quantises its row.  Prefill still gives
+the model-dtype cache without scales, as the reference's does; the
+reference cannot decode from that (an ``IndexError`` on the missing
+scales), and the port's ``decode_step`` raises ``ValueError`` there.
 
 An ``moe`` layer's feed-forward is :func:`repro_torch.models.moe.moe_ffn`
 (its expert products through the ``gmm`` kernel) where a dense layer's is
 the SwiGLU MLP; prefill and decode drop its aux loss, as the reference's
 do.
-
-Not lowered: MLA, the int8 KV cache and the ``hybrid`` / ``encdec``
-families raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -38,30 +45,35 @@ from typing import Optional
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.models import hybrid
+from repro_torch.models import encdec, hybrid
 from repro_torch.models.attention import (attention_decode, attention_fwd,
-                                          check_lowered, init_attention)
-from repro_torch.models.common import (embed_tokens, init_embedding,
-                                       init_mlp, init_rmsnorm, layer_slice,
+                                          check_lowered, init_attention,
+                                          init_mla, mla_decode, mla_fwd)
+from repro_torch.models.common import (default_positions, embed_tokens,
+                                       init_embedding, init_mlp,
+                                       init_rmsnorm, layer_slice,
                                        logits_from_hidden, mlp, rmsnorm,
                                        stacked_init)
 from repro_torch.models.moe import init_moe, moe_ffn
 
+#: the decoder-only families (``_dec_*``)
+DEC_FAMILIES = ("dense", "moe", "vlm")
 
-def default_positions(cfg, B: int, S: int, device=None) -> torch.Tensor:
-    """(B, S) int32 positions, or (B, S, 3) for M-RoPE."""
-    pos = torch.arange(S, dtype=torch.int32, device=device)[None, :] \
-        .expand(B, S)
-    if cfg.mrope:
-        return pos[..., None].expand(B, S, 3)
-    return pos
+
+def int8_kv(cfg) -> bool:
+    """Whether ``cfg`` keeps an int8 KV cache: a GQA decoder-only model
+    with ``kv_cache_dtype="int8"`` (the reference's MLA, Mamba2, Zamba2
+    and encoder-decoder caches ignore the setting)."""
+    return (cfg.family in DEC_FAMILIES and cfg.mla is None
+            and cfg.kv_cache_dtype == "int8")
 
 
 # ----------------------------------------------------------------------
 # decoder-only layer
 def _init_dec_layer(cfg, generator: torch.Generator, device) -> dict:
+    init_attn = init_mla if cfg.mla is not None else init_attention
     init_ffn = init_moe if cfg.moe is not None else init_mlp
-    return {"attn": init_attention(cfg, generator, device),
+    return {"attn": init_attn(cfg, generator, device),
             "ln1": init_rmsnorm(cfg.d_model, device),
             "ln2": init_rmsnorm(cfg.d_model, device),
             "ffn": init_ffn(cfg, generator, device)}
@@ -89,8 +101,9 @@ def _merge_vision(cfg, h: torch.Tensor, batch) -> torch.Tensor:
 
 
 def _dec_backbone(params, cfg, batch, cache: Optional[dict] = None):
-    """The final-normed hidden states (B, S, D); each layer's k/v go to
-    rows [0, S) of ``cache`` when one is given."""
+    """The final-normed hidden states (B, S, D); each layer's k/v (or MLA
+    latent and rotary key) go to rows [0, S) of ``cache`` when one is
+    given."""
     tokens = batch["tokens"]
     B, S = tokens.shape
     h = embed_tokens(params["embed"], cfg, tokens)
@@ -99,22 +112,24 @@ def _dec_backbone(params, cfg, batch, cache: Optional[dict] = None):
     positions = batch.get("positions")
     if positions is None:
         positions = default_positions(cfg, B, S, device=h.device)
+    attn_fwd = mla_fwd if cfg.mla is not None else attention_fwd
+    names = ("ckv", "kpe") if cfg.mla is not None else ("k", "v")
     for i in range(cfg.num_layers):
         lp = layer_slice(params["layers"], i)
-        a, (k, v) = attention_fwd(lp["attn"], cfg,
-                                  rmsnorm(lp["ln1"], h, cfg.norm_eps),
-                                  positions, causal=cfg.causal)
+        a, kv = attn_fwd(lp["attn"], cfg, rmsnorm(lp["ln1"], h, cfg.norm_eps),
+                         positions, causal=cfg.causal)
         h = h + a
         h = h + _ffn(lp, cfg, rmsnorm(lp["ln2"], h, cfg.norm_eps))
         if cache is not None:
-            cache["k"][i, :, :S] = k
-            cache["v"][i, :, :S] = v
+            for name, rows in zip(names, kv):
+                cache[name][i, :, :S] = rows
     return rmsnorm(params["final_norm"], h, cfg.norm_eps)
 
 
 def _dec_prefill(params, cfg, batch, cache_len: Optional[int] = None):
     B, S = batch["tokens"].shape
     tok = params["embed"]["tok"]
+    # the model-dtype cache, int8 config or not (the reference's prefill)
     cache = _dec_init_cache(cfg, B, max(S, cache_len or 0), tok.dtype,
                             tok.device)
     h = _dec_backbone(params, cfg, batch, cache)
@@ -124,26 +139,39 @@ def _dec_prefill(params, cfg, batch, cache_len: Optional[int] = None):
 
 
 def _dec_decode(params, cfg, cache, tokens: torch.Tensor):
+    int8 = int8_kv(cfg)
+    if int8 and "k_scale" not in cache:
+        raise ValueError(
+            "an int8 KV cache decodes only from init_cache: this cache has "
+            "no k_scale / v_scale (prefill keeps the model's dtype, and the "
+            "reference's decode fails on it with an IndexError)")
     h = embed_tokens(params["embed"], cfg, tokens)          # (B, 1, D)
     pos = cache["len"]
     for i in range(cfg.num_layers):
         lp = layer_slice(params["layers"], i)
-        a, _, _ = attention_decode(lp["attn"], cfg,
-                                   rmsnorm(lp["ln1"], h, cfg.norm_eps), pos,
-                                   cache["k"][i], cache["v"][i], cache["len"])
+        a_in = rmsnorm(lp["ln1"], h, cfg.norm_eps)
+        if cfg.mla is not None:
+            a, _, _ = mla_decode(lp["attn"], cfg, a_in, pos, cache["ckv"][i],
+                                 cache["kpe"][i], cache["len"])
+        else:
+            scales = ((cache["k_scale"][i], cache["v_scale"][i]) if int8
+                      else None)
+            a, _, _ = attention_decode(lp["attn"], cfg, a_in, pos,
+                                       cache["k"][i], cache["v"][i],
+                                       cache["len"], scales=scales)
         h = h + a
         h = h + _ffn(lp, cfg, rmsnorm(lp["ln2"], h, cfg.norm_eps))
     h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
     logits = logits_from_hidden(params["embed"], cfg, h)[:, 0]
-    return logits, {"k": cache["k"], "v": cache["v"],
-                    "len": cache["len"] + 1}
+    return logits, {**cache, "len": cache["len"] + 1}
 
 
 def _dec_init_params(cfg, generator: torch.Generator, device) -> dict:
     """Draws in order: the embedding (tok, head), then layer by layer
-    (wq, wk, wv, wo, then the MLP's wi, wo, wg or the MoE layer's router,
-    wi, wg, wo), each layer drawn in f32 on the generator's device and
-    cast into its slot of the stacked leaves."""
+    (wq, wk, wv, wo or MLA's wdq, wuq, wdkv, wukv, wo; then the MLP's wi,
+    wo, wg or the MoE layer's router, wi, wg, wo), each layer drawn in
+    f32 on the generator's device and cast into its slot of the stacked
+    leaves."""
     embed = init_embedding(cfg, generator, device)
     layers = stacked_init(lambda: _init_dec_layer(cfg, generator, device),
                           cfg.num_layers)
@@ -151,33 +179,57 @@ def _dec_init_params(cfg, generator: torch.Generator, device) -> dict:
             "final_norm": init_rmsnorm(cfg.d_model, device)}
 
 
-def _dec_init_cache(cfg, B: int, S: int, dtype=torch.bfloat16, device=None):
-    shape = (cfg.num_layers, B, S, cfg.padded_kv, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device),
-            "len": torch.zeros((B,), dtype=torch.int32, device=device)}
+def _dec_init_cache(cfg, B: int, S: int, dtype=torch.bfloat16, device=None,
+                    int8: bool = False):
+    """The zeroed cache; ``int8`` gives int8 rows and their f32 scales."""
+    L = cfg.num_layers
+
+    def zeros(shape, dt):
+        return torch.zeros(shape, dtype=dt, device=device)
+
+    if cfg.mla is not None:
+        m = cfg.mla
+        return {"ckv": zeros((L, B, S, m.kv_lora_rank), dtype),
+                "kpe": zeros((L, B, S, m.qk_rope_head_dim), dtype),
+                "len": zeros((B,), torch.int32)}
+    shape = (L, B, S, cfg.padded_kv, cfg.head_dim)
+    if int8:
+        return {"k": zeros(shape, torch.int8), "v": zeros(shape, torch.int8),
+                "k_scale": zeros(shape[:-1], torch.float32),
+                "v_scale": zeros(shape[:-1], torch.float32),
+                "len": zeros((B,), torch.int32)}
+    return {"k": zeros(shape, dtype), "v": zeros(shape, dtype),
+            "len": zeros((B,), torch.int32)}
 
 
 # ----------------------------------------------------------------------
 # public dispatch
+def _family(cfg):
+    """The module serving ``cfg``'s family, None for the decoder-only
+    families (this module)."""
+    check_lowered(cfg)
+    return {"ssm": hybrid, "hybrid": hybrid, "encdec": encdec}.get(cfg.family)
+
+
 def init_params(cfg, generator: torch.Generator, device=None) -> dict:
     """Random parameters for ``cfg`` on ``device`` (None: the CUDA card),
     drawn from ``generator`` on its own device one layer at a time, so no
     f32 copy of the whole model is ever held."""
-    check_lowered(cfg)
-    if cfg.family == "ssm":
-        return hybrid.init_params(cfg, generator, resolve_device(device))
+    fam = _family(cfg)
+    if fam is not None:
+        return fam.init_params(cfg, generator, resolve_device(device))
     return _dec_init_params(cfg, generator, resolve_device(device))
 
 
 def prefill(params, cfg, batch, cache_len: Optional[int] = None):
     """batch: ``tokens`` (B, S) int, optional ``vision_embeds`` (B, n, D)
-    and ``positions``, on the parameters' device.  Returns the last
+    and ``positions``, and for ``encdec`` the encoder's ``enc_frames``
+    (B, S_enc, D), on the parameters' device.  Returns the last
     position's logits (B, V_padded) f32 and the cache, padded to
     ``cache_len`` rows (the ``ssm`` family's cache has no rows)."""
-    check_lowered(cfg)
-    if cfg.family == "ssm":
-        return hybrid.prefill(params, cfg, batch, cache_len)
+    fam = _family(cfg)
+    if fam is not None:
+        return fam.prefill(params, cfg, batch, cache_len)
     return _dec_prefill(params, cfg, batch, cache_len)
 
 
@@ -185,14 +237,15 @@ def decode_step(params, cfg, cache, tokens: torch.Tensor):
     """tokens (B, 1) -> (logits (B, V_padded) f32, cache).  The returned
     cache holds the same state tensors, updated in place, and
     ``len + 1``."""
-    check_lowered(cfg)
-    if cfg.family == "ssm":
-        return hybrid.decode_step(params, cfg, cache, tokens)
+    fam = _family(cfg)
+    if fam is not None:
+        return fam.decode_step(params, cfg, cache, tokens)
     return _dec_decode(params, cfg, cache, tokens)
 
 
 def init_cache(cfg, B: int, S: int, dtype=torch.bfloat16, device=None):
-    check_lowered(cfg)
-    if cfg.family == "ssm":
-        return hybrid.init_cache(cfg, B, S, dtype, resolve_device(device))
-    return _dec_init_cache(cfg, B, S, dtype, resolve_device(device))
+    fam = _family(cfg)
+    if fam is not None:
+        return fam.init_cache(cfg, B, S, dtype, resolve_device(device))
+    return _dec_init_cache(cfg, B, S, dtype, resolve_device(device),
+                           int8=int8_kv(cfg))

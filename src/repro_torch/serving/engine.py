@@ -9,12 +9,16 @@ heterogeneous or contended nodes.
 
 As in the reference, a wave left-pads its prompts with token 0 and passes
 no pad mask: prefill attends causally over the pads and decode's
-``kv_len = len + 1`` counts them; a Mamba2 (``ssm``) model scans them
-like any token.  The reference's Mamba2 prefill takes a padded length
-only up to the SSD chunk or as a multiple of it, and at least the conv
-history ``d_conv - 1``; a wave outside that raises ``ValueError``.  The
-greedy tokens come back to the host after every step, and the card is
-synchronised before ``t_done`` is stamped, so an RTT is wall time.
+``kv_len = len + 1`` counts them; a Mamba2 (``ssm``, ``hybrid``) model
+scans them like any token.  The reference's Mamba2 prefill takes a padded
+length only up to the SSD chunk or as a multiple of it, and at least the
+conv history ``d_conv - 1``; a wave outside that raises ``ValueError``.
+An ``encdec`` wave's encoder takes zero frames (B, 8, D) in bf16, as the
+reference's engine feeds it (so its cross-attention adds exactly zero).
+An int8 KV cache (``kv_cache_dtype="int8"``) is refused when the engine
+is built: the reference's decode cannot step from its prefill's cache.
+The greedy tokens come back to the host after every step, and the card
+is synchronised before ``t_done`` is stamped, so an RTT is wall time.
 """
 from __future__ import annotations
 
@@ -28,6 +32,9 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import model as M
 from repro_torch.models.attention import check_lowered
 from repro_torch.monitoring.metrics import MetricsStore, SimClock
+
+#: the encoder frames of an ``encdec`` wave (zeros), as the reference's
+ENC_FRAMES = 8
 
 
 @dataclass
@@ -62,6 +69,12 @@ class ServingEngine:
                  store: Optional[MetricsStore] = None, seed: int = 0):
         self.device = resolve_device(device)
         check_lowered(cfg)
+        if M.int8_kv(cfg):
+            raise ValueError(
+                "the serving engine cannot take an int8 KV cache: a wave "
+                "decodes from its prefill's cache, which holds no int8 "
+                "scales (the reference's decode fails on it with an "
+                "IndexError)")
         self.cfg = cfg
         self.params = _to(params, self.device)
         self.node = node
@@ -110,7 +123,7 @@ class ServingEngine:
         if self.cfg.family == "vlm" and plen < nft:
             raise ValueError(f"a wave of prompts at most {plen} tokens long "
                              f"cannot hold the {nft} vision-stub positions")
-        if self.cfg.family == "ssm":
+        if self.cfg.family in ("ssm", "hybrid"):
             chunk, W = self.cfg.ssm.chunk_size, self.cfg.ssm.d_conv
             if plen > chunk and plen % chunk:
                 raise ValueError(f"padded prompt length {plen} is longer "
@@ -151,6 +164,10 @@ class ServingEngine:
             batch["vision_embeds"] = torch.zeros(
                 (B, self.cfg.num_frontend_tokens, self.cfg.d_model),
                 dtype=torch.bfloat16, device=self.device)
+        if self.cfg.family == "encdec":
+            batch["enc_frames"] = torch.zeros(
+                (B, ENC_FRAMES, self.cfg.d_model), dtype=torch.bfloat16,
+                device=self.device)
         logits, cache = self._prefill(self.params, batch)
         outs = [[] for _ in range(B)]
         tok = self._greedy(logits)

@@ -391,3 +391,16 @@ def zoo_data(n: int, d: int, k: int, w: int, seed: int = 0):
     def norm(v):
         return ((v - v.min()) / (v.max() - v.min())).astype(np.float32)
     return X, norm(y), X_seq, norm(y_seq)
+
+
+def seed_lora(params: dict, cfg, seed: int = 0) -> None:
+    """Fill Zamba2's LoRA ``qb`` / ``ib`` (zeros at init, as in the
+    reference, so the per-group deltas add exactly 0) in place with
+    seeded normal values of std ``lora_rank ** -0.5``, so the deltas are
+    as large as the products they add to.  The draws come from a
+    generator on the parameters' device."""
+    g = torch.Generator(device=params["lora"]["qb"].device).manual_seed(seed)
+    for name in ("qb", "ib"):
+        x = params["lora"][name]
+        x.copy_(torch.randn(x.shape, generator=g, device=x.device)
+                * cfg.hybrid.lora_rank ** -0.5)

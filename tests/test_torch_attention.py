@@ -10,17 +10,25 @@ against the plain versions in ``test_torch_cuda.py``.
 Tolerances are ``tests/test_kernels.py``'s: 2e-5 in f32 and 2e-2 in bf16
 (rtol and atol), for the same reason: the sums run in another order, and
 bf16 rounds the output.
+
+The int8 KV cache (qwen2-vl-7b's smoke config, f32) is held against the
+reference model: its quantisation bit for bit, decode from ``init_cache``
+(``_torch_parity.TOL``), and the refusals where the reference cannot
+decode (after prefill) or serve.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from _torch_parity import TOL, batches, flat, models, rel, tokens
 from repro.kernels import ref
 from repro.kernels.decode_attention import \
     decode_attention as pallas_decode_attention
 from repro.kernels.flash_attention import \
     flash_attention as pallas_flash_attention
+from repro.models import model as JM
 from repro_torch.kernels.decode_attention import TILE as DECODE_TILE
 from repro_torch.kernels.decode_attention import _splits as decode_splits
 from repro_torch.kernels.decode_attention import _variant as decode_variant
@@ -28,6 +36,9 @@ from repro_torch.kernels.decode_attention import (decode_attention,
                                                   decode_attention_plain)
 from repro_torch.kernels.flash_attention import (_variant, flash_attention,
                                                  flash_attention_plain)
+from repro_torch.models import model as TM
+from repro_torch.models.attention import quantize_rows
+from repro_torch.serving.engine import ServingEngine
 
 DTYPES = {"float32": (jnp.float32, torch.float32, 2e-5),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
@@ -318,3 +329,120 @@ def test_decode_rejects_bad_query_or_lengths(bad):
         lens = lens[:1]
     with pytest.raises(ValueError):
         decode_attention(q, kv, kv, lens)
+
+
+# ----------------------------------------------------------------------
+# the serving forms this slice adds: cross-attention (non-causal, Sq !=
+# Skv), MLA's prefill (Dv != D) and Zamba2's head dim of 160
+@pytest.mark.parametrize("Sq,Skv,H,KV,D,Dv,causal", [
+    (24, 8, 4, 4, 16, 16, False),      # cross-attention over 8 frames
+    (8, 24, 4, 2, 16, 16, False),
+    (20, 20, 4, 4, 24, 8, True),       # MLA: qk_nope + qk_rope, v_head
+    (64, 64, 2, 2, 160, 160, True),    # Zamba2's shared block
+])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_flash_plain_takes_the_new_serving_forms(dtype, Sq, Skv, H, KV, D,
+                                                 Dv, causal):
+    rng = np.random.default_rng(4)
+    (jq, tq), (jk, tk), (jv, tv) = (
+        _both(_normal(rng, s), dtype)
+        for s in ((2, Sq, H, D), (2, Skv, KV, D), (2, Skv, KV, Dv)))
+    got = flash_attention(tq, tk, tv, causal=causal)
+    assert got.shape == (2, Sq, H, Dv)
+    _close(got.float().numpy(), ref.attention_ref(jq, jk, jv, causal=causal),
+           dtype)
+
+
+# ----------------------------------------------------------------------
+# the int8 KV cache
+def _reference_quantize(x):
+    """The reference's per-token int8 quantisation, its lines of
+    ``models/attention.py::attention_decode``, compiled as there."""
+
+    @jax.jit
+    def q(k):
+        s = jnp.max(jnp.abs(k), axis=-1) / 127.0 + 1e-9
+        kq = jnp.clip(jnp.round(k / s[..., None]), -127, 127).astype(jnp.int8)
+        return kq, s.astype(jnp.float32)
+    return q(x)
+
+
+@pytest.mark.parametrize("B,KV,dh,scale", [(3, 2, 16, 1.0), (8, 4, 128, 3.0),
+                                           (5, 1, 64, 1e-3)])
+def test_int8_quantisation_is_the_reference_rounding(B, KV, dh, scale):
+    x = scale * np.random.default_rng(B).standard_normal(
+        (B, KV, dh)).astype(np.float32)
+    x[0, 0, :3] = [0.5, -0.5, 0.0]          # ties round half to even
+    jq, js = _reference_quantize(jnp.asarray(x))
+    tq, ts = quantize_rows(torch.as_tensor(x))
+    assert tq.dtype == torch.int8 and ts.dtype == torch.float32
+    np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+
+
+INT8_ARCH = "qwen2-vl-7b"
+
+
+def _int8_model():
+    return models(INT8_ARCH, kv_cache_dtype="int8")
+
+
+def test_int8_init_cache_matches_reference():
+    jcfg, tcfg, _, _ = _int8_model()
+    theirs = flat(JM.init_cache(jcfg, 3, 16))
+    ours = flat(TM.init_cache(tcfg, 3, 16, device="cpu"))
+    assert set(ours) == set(theirs)
+    for name, x in theirs.items():
+        assert tuple(ours[name].shape) == x.shape, name
+        assert str(ours[name].dtype)[6:] == str(x.dtype), name
+
+
+def test_int8_decode_from_init_cache_matches_reference():
+    """Decode steps from the zeroed int8 cache, feeding the reference's
+    greedy tokens to both: logits within 1e-4 of the largest, identical
+    tokens, identical int8 rows; the scales to 1e-6 relative (they are
+    taken from k and v, which differ by the order of the sums)."""
+    jcfg, tcfg, jparams, tparams = _int8_model()
+    B, S, V = 3, 16, tcfg.vocab_size
+    jc, tc = JM.init_cache(jcfg, B, S), TM.init_cache(tcfg, B, S,
+                                                      device="cpu")
+    decode = jax.jit(lambda p, c, t: JM.decode_step(p, jcfg, c, t))
+    tok = np.random.default_rng(0).integers(0, V, B).astype(np.int32)
+    for _ in range(6):
+        jl, jc = decode(jparams, jc, jnp.asarray(tok[:, None]))
+        tl, tc = TM.decode_step(tparams, tcfg, tc, torch.tensor(tok[:, None]))
+        assert rel(tl.numpy(), jl) < TOL["float32"]
+        tok = np.asarray(jnp.argmax(jl[:, :V], -1), np.int32)
+        np.testing.assert_array_equal(tl[:, :V].argmax(-1).numpy(), tok)
+        for k in ("k", "v"):
+            assert tc[k].dtype == torch.int8
+            np.testing.assert_array_equal(tc[k].numpy(), np.asarray(jc[k]))
+        for k in ("k_scale", "v_scale"):
+            np.testing.assert_allclose(tc[k].numpy(), np.asarray(jc[k]),
+                                       rtol=1e-6, atol=0)
+    assert int(tc["len"][0]) == 6 and tc["k"][:, :, 6:].abs().sum() == 0
+
+
+def test_int8_decode_after_prefill_raises():
+    """Prefill keeps the model's dtype and no scales, as the reference's;
+    the reference's decode then fails on the missing scales (IndexError),
+    the port's raises ValueError saying so."""
+    jcfg, tcfg, jparams, tparams = _int8_model()
+    nft = tcfg.num_frontend_tokens
+    jb, tb = batches(tokens(0, 2, 12, tcfg.vocab_size),
+                     vision_embeds=np.zeros((2, nft, tcfg.d_model),
+                                            np.float32))
+    _, jc = JM.prefill(jparams, jcfg, jb, cache_len=16)
+    with pytest.raises(IndexError):
+        JM.decode_step(jparams, jcfg, jc, jnp.zeros((2, 1), jnp.int32))
+    _, tc = TM.prefill(tparams, tcfg, tb, cache_len=16)
+    assert set(tc) == {"k", "v", "len"} and tc["k"].dtype == torch.float32
+    with pytest.raises(ValueError, match="int8"):
+        TM.decode_step(tparams, tcfg, tc, torch.zeros((2, 1),
+                                                      dtype=torch.int64))
+
+
+def test_engine_refuses_an_int8_cache():
+    _, tcfg, _, tparams = _int8_model()
+    with pytest.raises(ValueError, match="int8"):
+        ServingEngine(tcfg, tparams, device="cpu")

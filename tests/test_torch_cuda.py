@@ -42,6 +42,7 @@ from repro_torch.kernels.segment_sum import segment_sum, segment_sum_plain
 from repro_torch.kernels.ssd import ssd, ssd_plain
 from repro_torch.models import model
 from repro_torch.serving.engine import Request, ServingEngine
+from repro_torch.testing import seed_lora
 
 pytestmark = pytest.mark.cuda
 
@@ -785,3 +786,157 @@ def test_lifecycle_cuda_matches_cpu(cuda):
     assert segment_sum.launches > before
     on_cpu = run_lifecycle(0, "cpu", n_noise_metrics=24, n_cycles=3)
     assert assert_lifecycles_equal(on_card, on_cpu) >= 1
+
+
+# ----------------------------------------------------------------------
+# the rest of the catalogue: Zamba2's shared block (head dim 160), MLA's
+# prefill (D 96 / Dv 64, v a view of the expanded latent) and the
+# encoder-decoder's cross-attention (Sq != Skv, not causal), in prefill
+# and in decode
+def _catalogue_inputs(form, dtype, cuda):
+    if form == "zamba2":
+        return (*(_randn((2, 300, 4, 160), dtype, cuda, i)
+                  for i in range(3)), True)
+    if form == "mla":
+        kv = _randn((2, 200, 6, 128), dtype, cuda, 2)
+        return (_randn((2, 200, 6, 96), dtype, cuda, 0),
+                _randn((2, 200, 6, 96), dtype, cuda, 1), kv[..., 64:], True)
+    Skv = {"cross": 8, "cross_long": 300}[form]
+    return (_randn((2, 130, 4, 64), dtype, cuda, 0),
+            *(_randn((2, Skv, 4, 64), dtype, cuda, i) for i in (1, 2)),
+            False)
+
+
+@pytest.mark.parametrize("dtype,variant", [(torch.float32, "fma"),
+                                           (torch.bfloat16, "tc")])
+@pytest.mark.parametrize("form", ["zamba2", "mla", "cross", "cross_long"])
+def test_flash_kernel_at_the_catalogue_forms(cuda, form, dtype, variant):
+    q, k, v, causal = _catalogue_inputs(form, dtype, cuda)
+    before = _flash_counts()
+    got = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    _assert_one_launch(before, variant)
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(),
+                               flash_attention_plain(q, k, v, causal).float(),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype,variant", [(torch.float32, "fma"),
+                                           (torch.bfloat16, "mma")])
+@pytest.mark.parametrize("B,S,H,D,lens", [
+    (8, 2048, 32, 160, [1040] * 8),           # Zamba2's shared block
+    (3, 700, 32, 160, [1, 64, 700]),
+    (8, 8, 16, 64, [8] * 8)])                 # cross over 8 frames
+def test_decode_kernel_at_the_catalogue_forms(cuda, B, S, H, D, lens, dtype,
+                                              variant):
+    q = _randn((B, 1, H, D), dtype, cuda, 3)
+    k = _randn((B, S, H, D), dtype, cuda, 4)
+    v = _randn((B, S, H, D), dtype, cuda, 5)
+    _decode_checked(q, k, v, torch.tensor(lens, dtype=torch.int32,
+                                          device=cuda), variant)
+
+
+@pytest.mark.parametrize("arch,lengths,max_seq", [
+    ("zamba2-2.7b", (9, 64, 40), 96),         # padded to 2 chunks of 32
+    ("minicpm3-4b", (9, 17, 12), 32),
+    ("seamless-m4t-medium", (9, 17, 12), 32)])
+def test_catalogue_serving_cuda_matches_cpu(cuda, arch, lengths, max_seq):
+    cfg = dataclasses.replace(get_config(arch, smoke=True),
+                              dtype="float32").resolve(tp=1)
+    params = model.init_params(cfg, torch.Generator().manual_seed(0),
+                               device="cpu")
+    if cfg.family == "hybrid":
+        seed_lora(params, cfg)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab_size, size=n).astype(np.int32)
+               for n in lengths]
+    L = cfg.num_layers
+    G = L // cfg.hybrid.shared_every if cfg.hybrid else 0
+    # (flash, decode a step, ssd): Zamba2's shared block once a group, MLA
+    # (its decode is PyTorch ops), seamless's encoder, self and cross
+    want_launches = {"hybrid": (G, G, L), "dense": (L, 0, 0),
+                     "encdec": (cfg.enc_layers + 2 * L, 2 * L, 0)}[cfg.family]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        eng = ServingEngine(cfg, params, device=dev, max_batch=3,
+                            max_seq=max_seq)
+        for i, p in enumerate(prompts):
+            eng.submit(Request(rid=i, tokens=p, max_new_tokens=5))
+        before = (flash_attention.launches, decode_attention.launches,
+                  ssd.launches)
+        out[dev] = [r.output for r in eng.step_wave()]
+        if dev == "cuda":
+            flash, decode, scans = want_launches
+            assert (flash_attention.launches - before[0],
+                    decode_attention.launches - before[1],
+                    ssd.launches - before[2]) == (flash, 4 * decode, scans)
+    for got, want in zip(out["cuda"], out["cpu"]):
+        np.testing.assert_array_equal(got, want)
+
+
+def test_encdec_prefill_with_frames_cuda_matches_cpu(cuda):
+    """The encoder on seeded normal frames (an engine wave's are zeros):
+    prefill and 4 decode steps, logits within 1e-4 of the largest."""
+    cfg = dataclasses.replace(get_config("seamless-m4t-medium", smoke=True),
+                              dtype="float32").resolve(tp=1)
+    params = model.init_params(cfg, torch.Generator().manual_seed(0),
+                               device="cpu")
+    rng = np.random.default_rng(1)
+    toks = rng.integers(0, cfg.vocab_size, size=(3, 20))
+    frames = rng.standard_normal((3, 8, cfg.d_model)).astype(np.float32)
+    seqs = {}
+    for dev in ("cpu", "cuda"):
+        p = _tree_to(params, dev)
+        batch = {"tokens": torch.as_tensor(toks, device=dev),
+                 "enc_frames": torch.as_tensor(frames, device=dev)}
+        logits, cache = model.prefill(p, cfg, batch, cache_len=28)
+        seq = [logits.cpu()]
+        for _ in range(4):
+            tok = logits[:, :cfg.vocab_size].argmax(-1, keepdim=True)
+            logits, cache = model.decode_step(p, cfg, cache, tok)
+            seq.append(logits.cpu())
+        seqs[dev] = seq
+    V = cfg.vocab_size
+    for a, b in zip(seqs["cuda"], seqs["cpu"]):
+        assert float((a[:, :V] - b[:, :V]).abs().max()
+                     / b[:, :V].abs().max()) < 1e-4
+        assert torch.equal(a[:, :V].argmax(-1), b[:, :V].argmax(-1))
+
+
+def _tree_to(tree, dev):
+    return {k: _tree_to(v, dev) if isinstance(v, dict) else v.to(dev)
+            for k, v in tree.items()}
+
+
+def test_int8_decode_cuda_matches_cpu(cuda):
+    """Decode from an int8 ``init_cache``: logits within 1e-4 of the
+    largest, identical tokens, int8 rows within one step (a projection's
+    last-bit drift can flip a rounding tie), scales within 1e-5."""
+    cfg = dataclasses.replace(get_config("qwen2-vl-7b", smoke=True),
+                              dtype="float32",
+                              kv_cache_dtype="int8").resolve(tp=1)
+    params = model.init_params(cfg, torch.Generator().manual_seed(0),
+                               device="cpu")
+    tok0 = torch.tensor([[3], [100], [511]])
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        p = _tree_to(params, dev)
+        cache = model.init_cache(cfg, 3, 16, device=dev)
+        tok, seq = tok0.to(dev), []
+        for _ in range(6):
+            logits, cache = model.decode_step(p, cfg, cache, tok)
+            tok = logits[:, :cfg.vocab_size].argmax(-1, keepdim=True)
+            seq.append(logits.cpu())
+        runs[dev] = seq, {k: v.cpu() for k, v in cache.items()}
+    V = cfg.vocab_size
+    for a, b in zip(runs["cuda"][0], runs["cpu"][0]):
+        assert float((a[:, :V] - b[:, :V]).abs().max()
+                     / b[:, :V].abs().max()) < 1e-4
+        assert torch.equal(a[:, :V].argmax(-1), b[:, :V].argmax(-1))
+    got, want = runs["cuda"][1], runs["cpu"][1]
+    for k in ("k", "v"):
+        assert got[k].dtype == torch.int8
+        assert int((got[k].int() - want[k].int()).abs().max()) <= 1
+    for k in ("k_scale", "v_scale"):
+        torch.testing.assert_close(got[k], want[k], rtol=1e-5, atol=0)

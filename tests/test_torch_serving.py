@@ -26,7 +26,7 @@ from repro.models import model as JM
 from repro.monitoring.metrics import SimClock as ReferenceClock
 from repro.serving.engine import Request as ReferenceRequest
 from repro.serving.engine import ServingEngine as ReferenceEngine
-from repro_torch.configs.base import MLAConfig, get_config
+from repro_torch.configs.base import get_config
 from repro_torch.interop import params_from_reference
 from repro_torch.models import model as TM
 from repro_torch.monitoring.metrics import SimClock
@@ -214,15 +214,10 @@ def test_engine_without_card_raises(f32, monkeypatch):
         ServingEngine(tcfg, tparams)
 
 
-@pytest.mark.parametrize("feature", ["int8_cache", "mla", "hybrid",
-                                     "encdec"])
-def test_unported_features_raise(feature):
-    cfg = get_config(ARCH, smoke=True).resolve(tp=1)
-    cfg = {"int8_cache": lambda c: dataclasses.replace(
-               c, kv_cache_dtype="int8"),
-           "mla": lambda c: dataclasses.replace(c, mla=MLAConfig())}.get(
-        feature, lambda c: dataclasses.replace(c, family=feature))(cfg)
-    with pytest.raises(NotImplementedError):
+def test_family_outside_the_catalogue_raises():
+    cfg = dataclasses.replace(get_config(ARCH, smoke=True),
+                              family="diffusion").resolve(tp=1)
+    with pytest.raises(NotImplementedError, match="catalogue"):
         TM.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="catalogue"):
         TM.init_cache(cfg, 1, 8, device="cpu")

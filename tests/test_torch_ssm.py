@@ -37,7 +37,6 @@ from repro.serving.engine import ServingEngine as ReferenceEngine
 from repro_torch.configs.base import get_config
 from repro_torch.interop import params_from_reference
 from repro_torch.kernels.ssd import _variant, ssd, ssd_plain
-from repro_torch.models import hybrid
 from repro_torch.models import model as TM
 from repro_torch.monitoring.metrics import SimClock
 from repro_torch.serving.engine import Request, ServingEngine
@@ -441,15 +440,3 @@ def test_wave_of_chunkable_padded_length_is_served(f32, plen):
                        max_new_tokens=2))
     (done,) = eng.step_wave()
     assert len(done.output) == 2 and eng.pending() == 0
-
-
-def test_hybrid_family_raises():
-    cfg = dataclasses.replace(get_config(ARCH, smoke=True),
-                              family="hybrid").resolve(tp=1)
-    gen = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError):
-        TM.init_params(cfg, gen, device="cpu")
-    with pytest.raises(NotImplementedError, match="Zamba2"):
-        hybrid.init_params(cfg, gen, device="cpu")
-    with pytest.raises(NotImplementedError, match="Zamba2"):
-        hybrid.init_cache(cfg, 1, 8, device="cpu")
