@@ -13,8 +13,9 @@ Phases (any failure raises and exits non-zero, with no result line):
 2. build every kernel under ``src/repro_torch/kernels/csrc`` with nvcc
    (one process per source, all at once) into the git-ignored ``build/``
    directory;
-3. hold each kernel against its plain PyTorch version on the card (the
-   main paths' shapes, the sweeps of ``tests/test_kernels.py``, ragged
+3. hold each kernel, and the backward kernels of flash attention and
+   ``gmm`` (phase 11's path), against its plain PyTorch version on the
+   card (the main paths' shapes, the sweeps of ``tests/test_kernels.py``, ragged
    lengths and edge cases; for flash attention, flash-decoding, SSD and
    ``gmm``, which of each one's two kernels, tensor-core or FMA, each call
    took) and time kernel, plain version and a one-call library yardstick
@@ -40,7 +41,7 @@ Phases (any failure raises and exits non-zero, with no result line):
    step-time overhead and the trace's sum rule), and profiled passes
    (device busy share, largest kernels and host ops, the host's waits
    on the device): full width cut to 100 requests, and retry-storm's
-   perf_aware at its registry shape;
+   perf_aware at its registry width over its first 150 requests;
 5. the serving path: ``ServingEngine`` with qwen2-vl-7b at full width
    (28 layers, bf16, random weights from a seeded generator), 3 waves of
    8 requests (prompts of 256-1024 tokens, 32 new tokens each), counting
@@ -117,7 +118,21 @@ Phases (any failure raises and exits non-zero, with no result line):
    and every family at n = 1,000 on the card against the CPU; phase 3
    holds the segment sum at the trees' and MIC's shapes beside its
    simulation shapes;
-11. a ``kernels`` JSON line, the card's line, then the result line.
+11. LM training at full width: qwen3-moe-30b-a3b (d_model 2048, 32/4
+   heads, 128 experts top-8, vocab 151936; its 48 layers cut to 2, bf16,
+   remat full) through ``make_train_state`` / ``make_train_step`` on
+   B 4 x S 1024 tokens from the prefetching ``SyntheticLMData``
+   iterator: 2 warm-up and 4 measured steps (loss, grad norm, step ms,
+   tokens/s, peak GB), each step's launches asserted (flash forward 2L,
+   its backward L, ``gmm`` forward 6L, its backward 3L: remat runs each
+   layer's forward again in the backward pass), one step profiled, and a
+   checkpoint of the whole train state (params, f32 master, m, v, step)
+   through ``Checkpointer`` and back onto the card bit for bit; then
+   qwen2-vl-7b's dense path at full width (2 layers, one step);
+   phase 3 holds the two backward kernels (flash attention's, ``gmm``'s)
+   against their plain versions at these shapes, and phase 6 a train
+   step at four f32 smoke configs on the card against the CPU;
+12. a ``kernels`` JSON line, the card's line, then the result line.
 """
 from __future__ import annotations
 
@@ -147,6 +162,10 @@ MAIN_J = 200
 #: the waves of phases 5b and 5c (the other serving paths take WAVES),
 #: cut for the same reason
 CUT_WAVES = 2
+#: the requests of phase 4's profiled retry-storm pass: the registry's
+#: 450 took 95 s under the profiler, cut to the ramp and the collapse to
+#: make room for phase 11
+RETRY_STORM_PROFILE_J = 150
 MID = dict(n_nodes=60, n_replicas_per_app=50, n_requests=200)
 MID_SEEDS, MID_TRIALS = tuple(range(4)), 16
 CAPACITY_SCENARIOS = ("overload-ramp", "flash-crowd-autoscale",
@@ -239,6 +258,14 @@ GMM_TOL = {"torch.float32": 2e-5, "torch.bfloat16": 2e-2}
 HYBRID_ARCH = "zamba2-2.7b"
 MLA_ARCH = "minicpm3-4b"
 ENCDEC_ARCH = "seamless-m4t-medium"
+#: phase 11: training at full width, depth cut to fit the f32 master and
+#: Adam moments on one card (qwen3-moe-30b-a3b: 48 -> 2 layers, ~1.9 B
+#: parameters; qwen2-vl-7b's dense path: 28 -> 2 layers, one step)
+LM_TRAIN = dict(batch=4, seq=1024, layers=2, steps=4, warmup=2)
+#: phase 6: a train step on the card against the CPU at the f32 smoke
+#: configs
+TRAIN_PARITY_ARCHS = ("qwen2-vl-7b", "qwen3-moe-30b-a3b", "minicpm3-4b",
+                      "seamless-m4t-medium")
 
 
 def wave_prompts(vocab: int):
@@ -1184,6 +1211,382 @@ def check_gmm(dev, prefill_cs, decode_c: int) -> dict:
                        **entries[decode_c]}}
 
 
+def _rel_err(got, want, dtype, label) -> float:
+    """Fail unless ``got`` is within the dtype's tolerance (ATTN_TOL) of
+    ``want``, as the largest absolute difference over the largest
+    absolute value of ``want``; returns the largest absolute
+    difference."""
+    diff = float((got.float() - want.float()).abs().max())
+    scale = float(want.float().abs().max())
+    tol = ATTN_TOL[str(dtype)]
+    assert diff <= tol * max(scale, 1e-30), \
+        f"{label}: max_abs_err {diff:.3e} over {scale:.3e} > {tol}"
+    return diff
+
+
+def check_backward(dev) -> list:
+    """Hold the backward kernels against their plain versions: flash
+    attention's at the training shape (4, 1024, 32/4, 128) bf16 causal,
+    MLA's (4, 1024, 40/40, 96/64, v a view) causal and a cross shape
+    (4, 1024 -> 8, 16/16, 64), the smoke configs' widths and ragged
+    lengths in f32 and bf16; ``gmm``'s at the training shape (128, 320,
+    2048) x (128, 2048, 768) in both orientations and a ragged sweep.
+    Each is timed (device ms by CUDA-graph replay) beside its plain
+    version and a library call: SDPA's backward alone (``torch.autograd.
+    grad`` on a graph built once, eager, CUDA events: its autograd runs on
+    the forward's stream, which a capture cannot take) and two
+    ``torch.bmm``.  Returns the two ``kernels`` entries."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (
+        _flash_forward, flash_attention_bwd, flash_attention_bwd_plain)
+    from repro_torch.kernels.gmm import gmm_bwd, gmm_bwd_plain
+
+    def flash_case(B, Sq, Skv, H, KV, D, Dv, dtype, causal, seed=0,
+                   v_view=False):
+        q = _randn((B, Sq, H, D), dtype, dev, seed)
+        k = _randn((B, Skv, KV, D), dtype, dev, seed + 1)
+        if v_view:    # MLA: v a view of the expanded latent, head stride
+            kv = _randn((B, Skv, KV, D - 32 + Dv), dtype, dev, seed + 2)
+            v = kv[..., D - 32:]
+        else:
+            v = _randn((B, Skv, KV, Dv), dtype, dev, seed + 2)
+        do = _randn((B, Sq, H, Dv), dtype, dev, seed + 3)
+        o, lse = _flash_forward(q, k, v, causal, True)
+        before = flash_attention_bwd.launches
+        got = flash_attention_bwd(q, k, v, o, do, lse, causal)
+        torch.cuda.synchronize()
+        assert flash_attention_bwd.launches == before + 1
+        want = flash_attention_bwd_plain(q, k, v, o, do, lse, causal)
+        label = (f"flash bwd ({B},{Sq}->{Skv},{H}/{KV},{D}/{Dv}) "
+                 f"{str(dtype)[6:]} causal={causal}")
+        err = max(_rel_err(g, w, dtype, f"{label} d{n}")
+                  for g, w, n in zip(got, want, "qkv"))
+        print(f"{label}: max_abs_err {err:.3e} (tol "
+              f"{ATTN_TOL[str(dtype)]} of the largest value)")
+        return (q, k, v, o, do, lse), err
+
+    bf16 = torch.bfloat16
+    train, train_err = flash_case(4, 1024, 1024, 32, 4, 128, 128, bf16, True)
+    flash_case(4, 1024, 1024, 40, 40, 96, 64, bf16, True, v_view=True)
+    flash_case(4, 1024, 8, 16, 16, 64, 64, bf16, False)
+    for dtype in (torch.float32, bf16):
+        for shape in ((2, 32, 32, 4, 2, 16, 16, True),    # smoke widths
+                      (2, 32, 32, 4, 2, 12, 12, True),
+                      (2, 32, 32, 4, 4, 16, 8, True),
+                      (2, 32, 8, 4, 4, 16, 16, False),
+                      (1, 777, 777, 28, 4, 128, 128, True),
+                      (2, 100, 100, 6, 3, 96, 64, True),
+                      (1, 65, 65, 2, 1, 160, 160, True),
+                      (1, 33, 40, 2, 2, 256, 256, False)):
+            flash_case(*shape[:7], dtype, shape[7], seed=5)
+
+    q, k, v, o, do, lse = train
+    B, S, H, D = q.shape
+    KV = k.shape[2]
+    qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_()
+                  for t in (q, k, v))
+    sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                          enable_gqa=True)
+    dot = do.transpose(1, 2)
+    flash_ms = _timed("flash_attention_bwd (4,1024,32/4,128)", {
+        "kernel": lambda: flash_attention_bwd(q, k, v, o, do, lse, True),
+        "plain": lambda: flash_attention_bwd_plain(q, k, v, o, do, lse,
+                                                   True)}, inner=5)
+    flash_ms["library"] = call_ms(
+        lambda: torch.autograd.grad(sdpa, (qt, kt, vt), dot,
+                                    retain_graph=True), repeats=7, inner=10)
+    print(f"flash_attention_bwd library (SDPA backward, eager) "
+          f"{flash_ms['library'] * 1e3:.2f} us")
+    pairs = B * H * (S * (S + 1) // 2)
+    ops = 2 * pairs * (3 * D + 2 * D)         # S, dP, dV, dK, dQ
+    # q, o, do read and dq written (H wide), k, v read and dk, dv
+    # written (KV wide), lse read
+    nbytes = 2 * (4 * q.numel() + 4 * k.numel()) + 4 * lse.numel()
+    bound_ms, bound_by = _bound(nbytes, ops, q.dtype)
+    print(f"flash bwd at the training shape: {ops / 1e9:.1f} GFLOP, "
+          f"{ops / flash_ms['kernel'] / 1e9:.1f} TFLOP/s, "
+          f"{bound_ms / flash_ms['kernel'] * 100:.1f} % of the "
+          f"{bound_ms * 1e3:.2f} us bound ({bound_by}); SDPA backward "
+          f"{ops / flash_ms['library'] / 1e9:.1f} TFLOP/s")
+    del sdpa, qt, kt, vt, train
+
+    def gmm_case(E, C, D, F, dtype, seed=0):
+        x = _randn((E, C, D), dtype, dev, seed) * D ** -0.25
+        w = _randn((E, D, F), dtype, dev, seed + 1) * D ** -0.25
+        dy = _randn((E, C, F), dtype, dev, seed + 2)
+        before = gmm_bwd.launches
+        got = gmm_bwd(x, w, dy)
+        torch.cuda.synchronize()
+        assert gmm_bwd.launches == before + 1
+        want = gmm_bwd_plain(x, w, dy)
+        label = f"gmm bwd ({E},{C},{D})x({D},{F}) {str(dtype)[6:]}"
+        err = max(_rel_err(g, wt, dtype, f"{label} {n}")
+                  for g, wt, n in zip(got, want, ("dx", "dw")))
+        print(f"{label}: max_abs_err {err:.3e} (tol "
+              f"{GMM_TOL[str(dtype)]} of the largest value)")
+        return (x, w, dy), err
+
+    from repro_torch.configs.base import get_config
+    cfg = get_config(MOE_ARCH)
+    E, Dm, Fd = cfg.moe.num_experts, cfg.d_model, cfg.d_ff
+    C = train_gmm_rows(cfg)
+    gtrain, gmm_err = gmm_case(E, C, Dm, Fd, bf16)
+    gmm_case(E, C, Fd, Dm, bf16, seed=1)
+    for dtype in (torch.float32, bf16):
+        for shape in ((4, 20, 48, 32), (3, 1, 32, 48), (2, 130, 256, 144),
+                      (8, 4, 16, 16), (2, 64, 2048, 768)):
+            gmm_case(*shape, dtype, seed=7)
+    x, w, dy = gtrain
+    gmm_ms = _timed(f"gmm_bwd ({E},{C},{Dm})x({Dm},{Fd})", {
+        "kernel": lambda: gmm_bwd(x, w, dy),
+        "plain": lambda: gmm_bwd_plain(x, w, dy),
+        "library": lambda: (torch.bmm(dy, w.transpose(1, 2)),
+                            torch.bmm(x.transpose(1, 2), dy))}, inner=5)
+    gops = 2 * 2 * E * C * Dm * Fd
+    gbytes = 2 * 2 * (x.numel() + w.numel()) + 2 * dy.numel()
+    gbound_ms, gbound_by = _bound(gbytes, gops, x.dtype)
+    print(f"gmm bwd at the training shape: {gops / 1e9:.1f} GFLOP, "
+          f"{gops / gmm_ms['kernel'] / 1e9:.1f} TFLOP/s, "
+          f"{gbound_ms / gmm_ms['kernel'] * 100:.1f} % of the "
+          f"{gbound_ms * 1e3:.2f} us bound ({gbound_by}); two torch.bmm "
+          f"{gops / gmm_ms['library'] / 1e9:.1f} TFLOP/s")
+    return [
+        {"name": "flash_attention_bwd", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:80",
+         "backward_of": "flash_attention", "launches": 0,
+         "max_abs_err": train_err, "ms": flash_ms["kernel"],
+         "plain_ms": flash_ms["plain"], "bound_ms": bound_ms,
+         "bound_by": bound_by, "library_ms": flash_ms["library"]},
+        {"name": "gmm_bwd", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/gmm_bwd.cu",
+         "replaces": "src/repro/kernels/moe_gmm.py:49",
+         "backward_of": "gmm", "launches": 0, "max_abs_err": gmm_err,
+         "ms": gmm_ms["kernel"], "plain_ms": gmm_ms["plain"],
+         "bound_ms": gbound_ms, "bound_by": gbound_by,
+         "library_ms": gmm_ms["library"]}]
+
+
+def train_gmm_rows(cfg) -> int:
+    """C = G * cap of the MoE layer at phase 11's B x S tokens."""
+    from repro_torch.models.moe import capacity, dispatch_groups
+    m = cfg.moe
+    T = LM_TRAIN["batch"] * LM_TRAIN["seq"]
+    G = dispatch_groups(T, m.num_groups)
+    return G * capacity(T // G, m.top_k, m.num_experts, m.capacity_factor)
+
+
+def train_parity(dev) -> float:
+    """Phase 6's training half: one train step (remat full) at each of
+    TRAIN_PARITY_ARCHS' f32 smoke configs on the card against the CPU
+    from the same parameters and batch (seamless on normal random
+    frames): the loss, every gradient leaf (``testing.train_grads_drift``)
+    and the step's grad norm.  Returns the worst drift."""
+    import dataclasses
+    from repro_torch.configs.base import TrainConfig, get_config
+    from repro_torch.testing import (MOE_UPSTREAM_TOL, TRAIN_GRAD_TOL,
+                                     train_step_parity)
+    worst = 0.0
+    for arch in TRAIN_PARITY_ARCHS:
+        cfg = dataclasses.replace(get_config(arch, smoke=True),
+                                  dtype="float32", remat="full").resolve(tp=1)
+        t0 = time.perf_counter()
+        d = train_step_parity(cfg, TrainConfig(), dev)
+        tol = MOE_UPSTREAM_TOL if cfg.moe is not None else TRAIN_GRAD_TOL
+        assert d["loss"] < TRAIN_GRAD_TOL and d["grad_norm"] < tol, (arch, d)
+        print(f"train parity {arch} (f32 smoke, cuda vs cpu): loss "
+              f"{d['loss']:.2e}, grad norm {d['grad_norm']:.2e}, gradient "
+              f"leaves {d['grads']:.2e} (worst of those held to "
+              f"{TRAIN_GRAD_TOL}); {time.perf_counter() - t0:.1f} s")
+        worst = max(worst, d["loss"], d["grads"])
+    return worst
+
+
+def _train_launches(cfg) -> dict:
+    """The kernels a train step launches with remat full and L layers:
+    each layer's forward runs twice (forward, then again in the backward
+    pass), each backward once."""
+    L = cfg.num_layers
+    per_layer_gmm = 3 if cfg.moe is not None else 0
+    return {"flash_attention": 2 * L, "flash_attention.tc": 2 * L,
+            "flash_attention_bwd": L,
+            "gmm": 2 * per_layer_gmm * L,
+            "gmm.wgmma": 2 * per_layer_gmm * L,
+            "gmm_bwd": per_layer_gmm * L}
+
+
+def free_card_memory() -> float:
+    """Collect garbage, drop cuBLAS's workspaces (one is kept for each
+    stream a library product ran on, and the timings and the predictor
+    fits run on side streams) and the allocator's cache.  Returns the GB
+    still allocated."""
+    import torch
+    gc.collect()
+    torch._C._cuda_clearCublasWorkspaces()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated() / 1e9
+
+
+def live_cuda_tensors(top: int = 12) -> str:
+    """The largest CUDA tensors the collector can reach, a line each
+    (GB, shape, dtype, the types of the objects that refer to it), and
+    their total."""
+    import torch
+    seen, rows = set(), []
+    for obj in gc.get_objects():
+        try:
+            if not (isinstance(obj, torch.Tensor) and obj.is_cuda):
+                continue
+        except Exception:  # noqa: BLE001 — proxies that refuse isinstance
+            continue
+        key = obj.untyped_storage().data_ptr()
+        if key in seen:
+            continue
+        seen.add(key)
+        nbytes = obj.untyped_storage().nbytes()
+        refs = {type(r).__name__ for r in gc.get_referrers(obj)}
+        rows.append((nbytes, tuple(obj.shape), str(obj.dtype), sorted(refs)))
+    rows.sort(key=lambda r: -r[0])
+    lines = [f"  {n / 1e9:.3f} GB {shape} {dt} held by {refs}"
+             for n, shape, dt, refs in rows[:top]]
+    total = sum(r[0] for r in rows)
+    return "\n".join([f"{len(rows)} CUDA storages the collector reaches, "
+                      f"{total / 1e9:.2f} GB"] + lines)
+
+
+def checkpoint_round_trip(arch: str, state) -> None:
+    """The whole train state through ``Checkpointer`` (asynchronous
+    save), then onto the card again: the state is first copied to host
+    memory and dropped from the card (the card cannot hold it twice),
+    restored onto the card from a template of meta tensors, and every
+    leaf held to the host copy bit for bit, dtype and device included.
+    Empties ``state``."""
+    import shutil
+    import torch
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.tree import leaves_with_path, tree_map
+    dev = next(x for _, x in leaves_with_path(state)).device
+    path = os.path.join(ROOT, "build", "train_checkpoint")
+    shutil.rmtree(path, ignore_errors=True)
+    os.makedirs(path)
+    nbytes = sum(x.numel() * x.element_size()
+                 for _, x in leaves_with_path(state))
+    print(f"train {arch}: checkpoint of {nbytes / 1e9:.2f} GB, "
+          f"{shutil.disk_usage(path).free / 1e9:.1f} GB free on the disk")
+    t0 = time.perf_counter()
+    ck = Checkpointer(path, keep=1)
+    ck.save(int(state["opt"]["step"]), state)
+    ck.wait()
+    t1 = time.perf_counter()
+    host = tree_map(lambda x: x.to("cpu", copy=True), state)
+    template = tree_map(lambda x: torch.empty_like(x, device="meta"), state)
+    state.clear()
+    free_card_memory()
+    t2 = time.perf_counter()
+    back = ck.restore(template, device=dev)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    for (p, a), (_, b) in zip(leaves_with_path(back),
+                              leaves_with_path(host)):
+        assert a.dtype == b.dtype and a.device == dev, p
+        assert torch.equal(a.cpu(), b), f"checkpoint leaf {p} differs"
+    shutil.rmtree(path, ignore_errors=True)
+    print(f"train {arch}: checkpoint of the whole train state (params, "
+          f"master, m, v, step; {nbytes / 1e9:.2f} GB) saved in "
+          f"{t1 - t0:.1f} s, restored onto the card in {t3 - t2:.1f} s, "
+          f"bit for bit")
+
+
+def train_full_width(dev, arch: str, layers: int, steps: int, warmup: int,
+                     wrappers, checkpoint: bool = False) -> dict:
+    """Train ``arch`` at full width, its depth cut to ``layers``: bf16,
+    remat full, B x S tokens from ``SyntheticLMData`` through the
+    prefetching iterator, ``warmup`` steps then ``steps`` measured ones
+    (loss, grad norm, step ms, tokens/s, peak GB each), every step's
+    launches asserted (``_train_launches``), one more step profiled
+    (device busy share, time by kernel).  With ``checkpoint``, the whole
+    train state goes through ``Checkpointer`` and back
+    (:func:`checkpoint_round_trip`).  Returns the launches of the
+    measured steps."""
+    import dataclasses
+    import math
+    import torch
+    from repro_torch.configs.base import TrainConfig, get_config
+    from repro_torch.data.pipeline import SyntheticLMData, make_batch_iterator
+    from repro_torch.training.train_step import (make_train_state,
+                                                 make_train_step)
+    from repro_torch.tree import leaves_with_path
+    gc.collect()
+    before = torch.cuda.memory_allocated() / 1e9
+    held = free_card_memory()
+    free, total = torch.cuda.mem_get_info()
+    print(f"train {arch}: {held:.2f} GB held by earlier phases ({before:.2f}"
+          f" GB with cuBLAS's workspaces), {free / 1e9:.1f} of "
+          f"{total / 1e9:.1f} GB free")
+    if held >= 1.0:
+        print(live_cuda_tensors())
+    assert held < 1.0, f"{held:.2f} GB still held before training {arch}"
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers,
+                              dtype="bfloat16", remat="full").resolve(tp=1)
+    tcfg = TrainConfig(learning_rate=3e-4, warmup_steps=warmup,
+                       total_steps=100)
+    B, S = LM_TRAIN["batch"], LM_TRAIN["seq"]
+    t0 = time.perf_counter()
+    state = make_train_state(cfg, tcfg, torch.Generator(dev).manual_seed(0),
+                             dev)
+    n_params = sum(x.numel() for _, x in leaves_with_path(state["params"]))
+    torch.cuda.synchronize()
+    print(f"train {arch}: {layers} of {get_config(arch).num_layers} layers, "
+          f"{n_params} parameters, B {B} x S {S}, init "
+          f"{time.perf_counter() - t0:.1f} s, state "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card")
+    step = make_train_step(cfg, tcfg)
+    data = SyntheticLMData(cfg.vocab_size, seed=0)
+    it = make_batch_iterator(data, B, S, seed=0, device=dev)
+    expect = _train_launches(cfg)
+    total = {}
+    try:
+        for i in range(warmup + steps):
+            batch = next(it)
+            reset_counts(wrappers)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            got = counts(wrappers)
+            for n, c in got.items():
+                assert c == expect.get(n, 0), \
+                    f"train step {i}: {c} {n} launches, not " \
+                    f"{expect.get(n, 0)}"
+            loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+            assert math.isfinite(loss) and math.isfinite(gnorm), (loss, gnorm)
+            tag = "warm-up" if i < warmup else "measured"
+            print(f"train {arch} step {i} ({tag}): loss {loss:.4f} aux "
+                  f"{float(m['aux_loss']):.5f} grad_norm {gnorm:.4f} lr "
+                  f"{float(m['lr']):.2e}, {dt * 1e3:.1f} ms, "
+                  f"{B * S / dt:.0f} tokens/s, peak "
+                  f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+            if i >= warmup:
+                for n, c in got.items():
+                    total[n] = total.get(n, 0) + c
+        batch = next(it)
+        _profiled(f"train step {arch} ({layers} layers, B {B} x S {S})",
+                  lambda: step(state, batch))
+    finally:
+        it.close()
+    print(f"train {arch}: launches a step {expect} (remat full: each "
+          f"layer's forward twice)")
+    if checkpoint:
+        checkpoint_round_trip(arch, state)
+    del state, it
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
 def sync_cost_us(dev) -> float:
     """Cost of one expiry-round host sync: ``bool(mask.any())`` on a
     (256, 1000) bool mask, CUDA launch and device-to-host copy included."""
@@ -1408,12 +1811,14 @@ def _kernel_wrappers() -> dict:
     """name -> wrapper of every kernel of the port, each with its
     ``launches`` count."""
     from repro_torch.kernels.decode_attention import decode_attention
-    from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.gmm import gmm
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+    from repro_torch.kernels.gmm import gmm, gmm_bwd
     from repro_torch.kernels.segment_sum import segment_sum
     from repro_torch.kernels.ssd import ssd
     return {"segment_sum": segment_sum, "flash_attention": flash_attention,
-            "decode_attention": decode_attention, "ssd": ssd, "gmm": gmm}
+            "decode_attention": decode_attention, "ssd": ssd, "gmm": gmm,
+            "flash_attention_bwd": flash_attention_bwd, "gmm_bwd": gmm_bwd}
 
 
 #: wrapper -> its counters by variant, beside ``launches``
@@ -2399,6 +2804,8 @@ def main() -> int:
     catalogue = check_catalogue_shapes(dev, hybrid_len, max(plens))
     for k in kernels[1:4]:
         k["catalogue_shapes"] = catalogue[k["name"]]
+    # the backward kernels (phase 11's path)
+    kernels += check_backward(dev)
     for k in kernels:
         lib = "no library call" if k["library_ms"] is None \
             else f"{k['library_ms'] * 1e3:.2f} us library"
@@ -2488,10 +2895,10 @@ def main() -> int:
     profile_pass("spot-preemption", "perf_aware", 100)
     profile_pass("spot-preemption", "least_conn", 100)
     # the client plane: launches a step of perf_aware's and
-    # least_conn's passes (cut to 30 requests), the retry storm's perf_aware profiled at its registry
-    # shape through the whole run (the ramp, the collapse past the 25 s
-    # timeouts and the storm after the peak), and the trace's overhead
-    # at LARGE
+    # least_conn's passes (cut to 30 requests), the retry storm's
+    # perf_aware profiled at its registry width over its first
+    # RETRY_STORM_PROFILE_J requests (the ramp and the collapse past the
+    # 25 s timeouts), and the trace's overhead at LARGE
     t0 = time.perf_counter()
     for scen in CLIENT_SCENARIOS:
         per_step = {pol: launches_per_step(scen, pol, 30, seeds=CLIENT_SEEDS)
@@ -2499,10 +2906,8 @@ def main() -> int:
         print(f"{scen} launches/step: " + ", ".join(
             f"{pol} {n:.1f}" for pol, n in per_step.items()))
     t1 = time.perf_counter()
-    from repro_torch.core.scenarios import get_scenario
-    profile_pass("retry-storm", "perf_aware",
-                 get_scenario("retry-storm").n_requests, seeds=CLIENT_SEEDS,
-                 n_trials=8, shape={})
+    profile_pass("retry-storm", "perf_aware", RETRY_STORM_PROFILE_J,
+                 seeds=CLIENT_SEEDS, n_trials=8, shape={})
     t2 = time.perf_counter()
     traced_pass(LARGE_SEEDS, LARGE_TRIALS)
     print(f"client launch counts {t1 - t0:.1f} s, retry-storm profile "
@@ -2675,6 +3080,8 @@ def main() -> int:
     serving_parity(dev, ENCDEC_ARCH, S=24, lengths=(9, 13, 17, 21),
                    max_seq=32)
     int8_parity(ARCH)
+    # phase 6's training half: a train step on the card against the CPU
+    print(f"train parity: worst drift {train_parity(dev):.3e}")
 
     # phase 7: the paper's Fig. 11 sweeps on the card
     print(f"phase 6 done: {time.perf_counter() - t_start:.1f} s into the run")
@@ -2688,6 +3095,22 @@ def main() -> int:
     training = predictor_training(dev, wrappers)
     kernels[0]["training_launches"] = training
     kernels[0]["launches"] += training
+
+    # phase 11: LM training at full width (its own main path: the counts
+    # are reset just before each step and read just after)
+    print(f"phase 10 done: {time.perf_counter() - t_start:.1f} s into the "
+          f"run")
+    trained = train_full_width(dev, MOE_ARCH, LM_TRAIN["layers"],
+                               LM_TRAIN["steps"], LM_TRAIN["warmup"],
+                               wrappers, checkpoint=True)
+    dense = train_full_width(dev, ARCH, LM_TRAIN["layers"], 1, 1, wrappers)
+    by_name = {k["name"]: k for k in kernels}
+    for name in ("flash_attention", "gmm", "flash_attention_bwd",
+                 "gmm_bwd"):
+        n = trained.get(name, 0) + dense.get(name, 0)
+        assert n > 0, f"{name} never launched in phase 11"
+        by_name[name]["training_launches"] = n
+        by_name[name]["launches"] += n
 
     print(f"chip_smoke: whole run {time.perf_counter() - t_start:.1f} s, "
           f"the kernels' build included")

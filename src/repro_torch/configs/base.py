@@ -1,5 +1,6 @@
 """Config schema of the port: a copy of the reference's
-``configs/base.py`` (the model dataclasses and the arch registry).
+``configs/base.py`` (the model dataclasses, ``TrainConfig`` and the arch
+registry).
 
 One schema covers every architecture family (dense / MoE / SSM / hybrid /
 enc-dec / VLM backbones), and the registry holds the reference's ten
@@ -203,6 +204,32 @@ class ModelConfig:
                 n += L * (attn + mlp + 2 * d)
         n += V * d * (1 if self.tie_embeddings else 2)
         return n
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """The training knobs, a copy of the reference's ``TrainConfig``
+    (same fields and defaults).  ``zero1`` and ``fsdp`` name sharding
+    layouts of the reference's multi-device step and are read by nothing
+    here; ``grad_compression`` is refused by
+    :func:`repro_torch.training.train_step.make_train_step`.
+    ``unroll_microbatches`` only changes how the reference compiles its
+    loop: the port's microbatches are always a Python loop."""
+    learning_rate: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 1_000
+    weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.95
+    grad_clip: float = 1.0
+    zero1: bool = True            # shard optimizer state over the dp axis
+    fsdp: bool = False            # shard parameters over the dp axis too
+    master_fp32: bool = True      # fp32 master weights (bf16 when HBM-bound)
+    moment_dtype: str = "float32" # Adam m/v dtype (bf16 when HBM-bound)
+    microbatches: int = 1         # gradient accumulation
+    unroll_microbatches: bool = False
+    grad_compression: bool = False  # int8 error-feedback cross-pod all-reduce
+    seed: int = 0
 
 
 # ----------------------------------------------------------------------

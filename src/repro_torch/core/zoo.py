@@ -67,6 +67,7 @@ import torch
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.segment_sum import segment_sum
+from repro_torch.tree import tree_map
 
 __all__ = ["NONSEQ_MODELS", "SEQ_MODELS", "ALL_MODELS", "FIT_CLASSES",
            "LinearRegression", "SVRLinear", "GBT", "RandTrees", "FNN",
@@ -79,17 +80,6 @@ __all__ = ["NONSEQ_MODELS", "SEQ_MODELS", "ALL_MODELS", "FIT_CLASSES",
 NONSEQ_MODELS = ("lr", "svm", "xgb", "rf", "fnn")
 SEQ_MODELS = ("rnn", "lstm", "gru", "cnn")
 ALL_MODELS = NONSEQ_MODELS + SEQ_MODELS
-
-
-def tree_map(fn: Callable, *trees):
-    """``fn`` over the leaves of equally shaped trees of tuples, lists
-    and dicts, keeping each container's type."""
-    t0 = trees[0]
-    if isinstance(t0, (tuple, list)):
-        return type(t0)(tree_map(fn, *xs) for xs in zip(*trees))
-    if isinstance(t0, dict):
-        return {k: tree_map(fn, *(t[k] for t in trees)) for k in t0}
-    return fn(*trees)
 
 
 def tree_leaves(tree) -> List:

@@ -9,7 +9,8 @@ the reference's parameters.  These helpers are duck-typed — they read
 attributes and leaves by the reference's names and import nothing of it.
 A predictor's exported artifact crosses the same way
 (:func:`artifact_from_reference`), and a trained predictor with it
-(:func:`predictor_from_reference`).
+(:func:`predictor_from_reference`), and an LM's train state
+(:func:`train_state_from_reference`).
 """
 from __future__ import annotations
 
@@ -85,6 +86,16 @@ def params_from_reference(tree, device: DeviceLike, dtype=None):
     if dtype is not None and t.is_floating_point():
         t = t.to(dtype)
     return t.to(dev)
+
+
+def train_state_from_reference(state, device: DeviceLike) -> dict:
+    """The port's train state from the reference's
+    (``make_train_state``'s ``{"params", "opt": {"master", "m", "v",
+    "step"}}``): every leaf through :func:`params_from_reference` onto
+    ``device`` (None: the CUDA card), each in its own dtype, the step an
+    int32 scalar."""
+    return {"params": params_from_reference(state["params"], device),
+            "opt": params_from_reference(state["opt"], device)}
 
 
 def artifact_from_reference(art, device: DeviceLike = None

@@ -71,6 +71,11 @@
 //   products are f32 FMAs, P unrounded: that keeps f32 inputs within 2e-5
 //   of the plain version, which bf16 or TF32 tiles would not.
 //
+// Both kernels also write, when given a non-null lse, each row's f32
+// log-sum-exp of the scaled scores, (B, H, Sq): m D^-1/2 + ln l, which
+// the backward pass (flash_attention_bwd.cu) recomputes P from.  Serving
+// passes null and writes nothing more.
+//
 // q, k, v and o are read and written in the model's (B, S, heads, D)
 // layout with element strides for batch, position and head; the head dim
 // must be contiguous.  The C entry points return cudaGetLastError() after
@@ -131,9 +136,9 @@ size_t smem_bytes(int D, int Dv) {
 template <typename T, int NJ>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
-          const T* __restrict__ v, T* __restrict__ o, Strides qs, Strides ks,
-          Strides vs, Strides os, int Sq, int Skv, int KV, int G, int D,
-          int Dv, int causal, float scale) {
+          const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
+          Strides qs, Strides ks, Strides vs, Strides os, int Sq, int Skv,
+          int KV, int G, int D, int Dv, int causal, float scale) {
   extern __shared__ __align__(16) float smem[];
   const int ldq = D + 1;  // odd for even D: conflict-free column walks
   const int ldkv = ldq > Dv ? ldq : Dv;
@@ -263,6 +268,10 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
     const int qp = static_cast<int>(rg / G), g = static_cast<int>(rg % G);
     T* orow = o + b * os.b + qp * os.s + (kvh * G + g) * os.h;
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
+    // the row's log-sum-exp of the scaled scores, for the backward pass
+    if (lse != nullptr && tx == 0)
+      lse[(static_cast<long long>(b) * KV * G + kvh * G + g) * Sq + qp] =
+          m[i] + logf(l[i]);
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       const int d = tx + 16 * j;
@@ -272,9 +281,9 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int NJ>
-int launch_nj(const void* q, const void* k, const void* v, void* o, int B,
-              int Sq, int Skv, int H, int KV, int D, int Dv, int causal,
-              const long long* st, cudaStream_t stream) {
+int launch_nj(const void* q, const void* k, const void* v, void* o,
+              float* lse, int B, int Sq, int Skv, int H, int KV, int D,
+              int Dv, int causal, const long long* st, cudaStream_t stream) {
   static int optin = 0;  // opt in to the card's full shared memory once
   if (optin == 0) {
     int dev = 0;
@@ -299,27 +308,32 @@ int launch_nj(const void* q, const void* k, const void* v, void* o, int B,
       vs{st[6], st[7], st[8]}, os{st[9], st[10], st[11]};
   flash_fwd<T, NJ><<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), qs, ks, vs, os, Sq, Skv,
-      KV, H / KV, D, Dv, causal, 1.f / sqrtf(static_cast<float>(D)));
+      static_cast<const T*>(v), static_cast<T*>(o), lse, qs, ks, vs, os, Sq,
+      Skv, KV, H / KV, D, Dv, causal, 1.f / sqrtf(static_cast<float>(D)));
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int Sq, int Skv, int H, int KV, int D, int Dv, int causal,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int Sq, int Skv, int H, int KV, int D, int Dv, int causal,
            const long long* st, void* stream) {
   if (D < 1 || D > 256 || Dv < 1 || Dv > 256 || KV < 1 || H % KV != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (Dv <= 16)
-    return launch_nj<T, 1>(q, k, v, o, B, Sq, Skv, H, KV, D, Dv, causal, st, s);
+    return launch_nj<T, 1>(q, k, v, o, lse, B, Sq, Skv, H, KV, D, Dv,
+                               causal, st, s);
   if (Dv <= 32)
-    return launch_nj<T, 2>(q, k, v, o, B, Sq, Skv, H, KV, D, Dv, causal, st, s);
+    return launch_nj<T, 2>(q, k, v, o, lse, B, Sq, Skv, H, KV, D, Dv,
+                               causal, st, s);
   if (Dv <= 64)
-    return launch_nj<T, 4>(q, k, v, o, B, Sq, Skv, H, KV, D, Dv, causal, st, s);
+    return launch_nj<T, 4>(q, k, v, o, lse, B, Sq, Skv, H, KV, D, Dv,
+                               causal, st, s);
   if (Dv <= 128)
-    return launch_nj<T, 8>(q, k, v, o, B, Sq, Skv, H, KV, D, Dv, causal, st, s);
-  return launch_nj<T, 16>(q, k, v, o, B, Sq, Skv, H, KV, D, Dv, causal, st, s);
+    return launch_nj<T, 8>(q, k, v, o, lse, B, Sq, Skv, H, KV, D, Dv,
+                               causal, st, s);
+  return launch_nj<T, 16>(q, k, v, o, lse, B, Sq, Skv, H, KV, D, Dv,
+                               causal, st, s);
 }
 
 }  // namespace
@@ -527,8 +541,8 @@ __global__ void __launch_bounds__(128 * (kWGs + 1), 1)
 flash_fwd_tc(const __grid_constant__ CUtensorMap qmap,
              const __grid_constant__ CUtensorMap kmap,
              const __grid_constant__ CUtensorMap vmap,
-             const __grid_constant__ CUtensorMap omap, int Sq, int Skv,
-             int KV, int G, int P, int causal, float scale_log2,
+             const __grid_constant__ CUtensorMap omap, float* lse, int Sq,
+             int Skv, int KV, int G, int P, int causal, float scale_log2,
              int n_pos_tiles, int BKV) {
   constexpr int kRows = 64 * kWGs;        // rows of a Q buffer, >= P G
   constexpr int kConsumers = 128 * kWGs;  // threads of the consumers
@@ -779,6 +793,14 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap qmap,
       l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
       l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
       const float inv = 1.f / fmaxf(l[h], 1e-30f);
+      // the row's log-sum-exp of the scaled scores (m is in score units),
+      // for the backward pass
+      if (lse != nullptr && (lane & 3) == 0 && row[h] < P * G &&
+          it.pos0 + row[h] / G < Sq)
+        lse[(static_cast<long long>(it.b) * KV * G + it.kvh * G + row[h] % G) *
+                Sq +
+            it.pos0 + row[h] / G] =
+            (m[h] * scale_log2 + log2f(l[h])) * 0.6931471805599453f;
       // the 16-byte chunk j of the row sits at chunk j ^ (row % 8): with
       // bits 4-6 of x set to row % 8, x ^ (j << 4) is its address (the
       // offsets stay constants, not 32 registers)
@@ -828,8 +850,8 @@ bool tile_map(CUtensorMap* map, const void* ptr, int width, int heads, int S,
 }
 
 template <int kD, int kStages, int kQBufs, int kWGs>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int Sq, int Skv, int H, int KV, int D, int Dv, int causal,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int Sq, int Skv, int H, int KV, int D, int Dv, int causal,
            const long long* st, cudaStream_t stream) {
   constexpr size_t bytes = smem_bytes(kD, kStages, kQBufs, kWGs);
   constexpr int kRows = 64 * kWGs;
@@ -861,7 +883,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   const float scale_log2 = 1.4426950408889634f / sqrtf(static_cast<float>(D));
   constexpr int kThreads = 128 * (kWGs + 1);
   flash_fwd_tc<kD, kStages, kQBufs, kWGs><<<n_ctas, kThreads, bytes, stream>>>(
-      qmap, kmap, vmap, omap, Sq, Skv, KV, G, P, causal, scale_log2,
+      qmap, kmap, vmap, omap, lse, Sq, Skv, KV, G, P, causal, scale_log2,
       static_cast<int>(n_pos_tiles), B * KV);
   return static_cast<int>(cudaGetLastError());
 }
@@ -870,9 +892,9 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 // warpgroups (192 rows an item), a ring of 4, two Q buffers (112 and 224
 // KB of shared memory).  At 256 the f32 accumulator takes 128 registers a
 // thread: two warpgroups, a ring of 2, one Q buffer (192 KB).
-int launch_tc(const void* q, const void* k, const void* v, void* o, int B,
-              int Sq, int Skv, int H, int KV, int D, int Dv, int causal,
-              const long long* st, void* stream) {
+int launch_tc(const void* q, const void* k, const void* v, void* o,
+              float* lse, int B, int Sq, int Skv, int H, int KV, int D,
+              int Dv, int causal, const long long* st, void* stream) {
   if (D < 16 || D > 256 || Dv < 16 || Dv > 256 || D % 16 != 0 ||
       Dv % 16 != 0 || KV < 1 || H % KV != 0 || H / KV > 128)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -887,41 +909,44 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, int B,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int w = D > Dv ? D : Dv;
   if (w <= 64)
-    return launch<64, 4, 2, 3>(q, k, v, o, B, Sq, Skv, H, KV, D, Dv, causal,
-                                 st, s);
+    return launch<64, 4, 2, 3>(q, k, v, o, lse, B, Sq, Skv, H, KV, D, Dv,
+                                 causal, st, s);
   if (w <= 128)
-    return launch<128, 4, 2, 3>(q, k, v, o, B, Sq, Skv, H, KV, D, Dv, causal,
-                                 st, s);
-  return launch<256, 2, 1, 2>(q, k, v, o, B, Sq, Skv, H, KV, D, Dv, causal,
-                               st, s);
+    return launch<128, 4, 2, 3>(q, k, v, o, lse, B, Sq, Skv, H, KV, D, Dv,
+                                 causal, st, s);
+  return launch<256, 2, 1, 2>(q, k, v, o, lse, B, Sq, Skv, H, KV, D, Dv,
+                                 causal, st, s);
 }
 
 }  // namespace tc
 }  // namespace
 
-// strides: 12 element strides, (batch, position, head) of q, k, v and o
+// strides: 12 element strides, (batch, position, head) of q, k, v and o;
+// lse: null, or the (B, H, Sq) f32 log-sum-exp of each row's scaled scores
 extern "C" int flash_attention_f32(const void* q, const void* k, const void* v,
-                                   void* o, int B, int Sq, int Skv, int H,
-                                   int KV, int D, int Dv, int causal,
-                                   const long long* strides, void* stream) {
-  return launch<float>(q, k, v, o, B, Sq, Skv, H, KV, D, Dv, causal, strides,
-                       stream);
+                                   void* o, float* lse, int B, int Sq,
+                                   int Skv, int H, int KV, int D, int Dv,
+                                   int causal, const long long* strides,
+                                   void* stream) {
+  return launch<float>(q, k, v, o, lse, B, Sq, Skv, H, KV, D, Dv, causal,
+                       strides, stream);
 }
 
 extern "C" int flash_attention_bf16(const void* q, const void* k,
-                                    const void* v, void* o, int B, int Sq,
-                                    int Skv, int H, int KV, int D, int Dv,
-                                    int causal, const long long* strides,
-                                    void* stream) {
-  return launch<__nv_bfloat16>(q, k, v, o, B, Sq, Skv, H, KV, D, Dv, causal,
-                               strides, stream);
+                                    const void* v, void* o, float* lse, int B,
+                                    int Sq, int Skv, int H, int KV, int D,
+                                    int Dv, int causal,
+                                    const long long* strides, void* stream) {
+  return launch<__nv_bfloat16>(q, k, v, o, lse, B, Sq, Skv, H, KV, D, Dv,
+                               causal, strides, stream);
 }
 
 extern "C" int flash_attention_bf16_tc(const void* q, const void* k,
-                                       const void* v, void* o, int B, int Sq,
-                                       int Skv, int H, int KV, int D, int Dv,
-                                       int causal, const long long* strides,
+                                       const void* v, void* o, float* lse,
+                                       int B, int Sq, int Skv, int H, int KV,
+                                       int D, int Dv, int causal,
+                                       const long long* strides,
                                        void* stream) {
-  return tc::launch_tc(q, k, v, o, B, Sq, Skv, H, KV, D, Dv, causal, strides,
-                       stream);
+  return tc::launch_tc(q, k, v, o, lse, B, Sq, Skv, H, KV, D, Dv, causal,
+                       strides, stream);
 }

@@ -1,5 +1,5 @@
-"""Flash attention (forward): the CUDA kernels' wrapper and their plain
-version.
+"""Flash attention, forward and backward: the CUDA kernels' wrappers, their
+plain versions and the autograd function that joins them.
 
 ``out[b, i, h] = softmax_j(q[b, i, h] . k[b, j, h // G] / sqrt(D)) v[b, j,
 h // G]`` over the keys ``j < Skv`` (and ``j <= i`` when ``causal``), with
@@ -46,6 +46,19 @@ kernel, P), as ``tests/test_kernels.py`` holds the Pallas kernel.
 on the CPU (counted in ``flash_attention.plain_calls``); for a CUDA tensor
 it launches the chosen kernel or raises.  ``flash_attention.launches``
 counts every launch, ``tc_launches`` and ``fma_launches`` each variant's.
+
+Training: when grad is enabled and q, k or v requires it,
+:func:`flash_attention` goes through :class:`FlashAttention`, whose
+forward asks either kernel for the (B, H, Sq) f32 log-sum-exp of each
+row's scaled scores as well (written only when asked, so serving is
+unchanged) and saves q, k, v, the output and the log-sum-exp.  Its
+backward is :func:`flash_attention_bwd`: on a CUDA tensor the kernel of
+``csrc/flash_attention_bwd.cu`` (a delta pass and one dq / dk / dv pass,
+counted once a call in ``flash_attention_bwd.launches``), on a CPU
+tensor :func:`flash_attention_bwd_plain`.  Under
+``torch.utils.checkpoint`` the forward runs again in the backward pass,
+log-sum-exp and all.  The CPU versions also take float64, for
+``torch.autograd.gradcheck``.
 """
 from __future__ import annotations
 
@@ -56,12 +69,15 @@ import torch
 
 from repro_torch.kernels.build import load
 
-__all__ = ["flash_attention", "flash_attention_plain"]
+__all__ = ["FlashAttention", "flash_attention", "flash_attention_bwd",
+           "flash_attention_bwd_plain", "flash_attention_plain"]
 
 _ENTRY = {("fma", torch.float32): "flash_attention_f32",
           ("fma", torch.bfloat16): "flash_attention_bf16",
           ("tc", torch.bfloat16): "flash_attention_bf16_tc"}
 _DTYPES = (torch.float32, torch.bfloat16)
+_BWD_ENTRY = {torch.float32: "flash_attention_bwd_f32",
+              torch.bfloat16: "flash_attention_bwd_bf16"}
 MAX_HEAD_DIM = 256
 #: the tensor-core kernel's items hold every head of a kv head's group
 #: for at least one position: 128 rows at D > 128
@@ -92,9 +108,12 @@ def check_attention_inputs(name: str, q: torch.Tensor, k: torch.Tensor,
     if not (1 <= D <= MAX_HEAD_DIM and 1 <= v.shape[3] <= MAX_HEAD_DIM):
         raise ValueError(f"{name}: head dims {D}, {v.shape[3]} must lie in "
                          f"[1, {MAX_HEAD_DIM}]")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"{name}: q, k, v must all be float32 or bfloat16, "
-                        f"got {q.dtype}, {k.dtype}, {v.dtype}")
+    cpu_f64 = q.dtype == torch.float64 and q.device.type == "cpu"
+    if (q.dtype not in _DTYPES and not cpu_f64) or k.dtype != q.dtype \
+            or v.dtype != q.dtype:
+        raise TypeError(f"{name}: q, k, v must all be float32 or bfloat16 "
+                        f"(or float64 on the CPU), got {q.dtype}, {k.dtype}, "
+                        f"{v.dtype}")
     if not (q.device == k.device == v.device):
         raise ValueError(f"{name}: q on {q.device}, k on {k.device}, v on "
                          f"{v.device}")
@@ -115,22 +134,66 @@ def strides_arg(*tensors_and_dims):
     return (ctypes.c_longlong * len(vals))(*vals)
 
 
-def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          causal: bool = True) -> torch.Tensor:
-    """The same function in plain PyTorch: full f32 scores with GQA by
-    reshape, as ``ref.attention_ref``, with the causal mask aligned at 0."""
+def _acc_dtype(t: torch.Tensor) -> torch.dtype:
+    """f32 sums, f64 for f64 inputs (gradcheck)."""
+    return torch.float64 if t.dtype == torch.float64 else torch.float32
+
+
+def _scores(q: torch.Tensor, k: torch.Tensor, causal: bool) -> torch.Tensor:
+    """The scaled scores (B, KV, G, Sq, Skv), masked to -1e30 above the
+    diagonal (aligned at 0) when ``causal``."""
     B, Sq, H, D = q.shape
     Skv, KV = k.shape[1], k.shape[2]
-    G = H // KV
-    qg = q.reshape(B, Sq, KV, G, D).float()
-    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) * (D ** -0.5)
+    acc = _acc_dtype(q)
+    qg = q.reshape(B, Sq, KV, H // KV, D).to(acc)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.to(acc)) * (D ** -0.5)
     if causal:
         mask = torch.ones((Sq, Skv), dtype=torch.bool,
                           device=q.device).tril()
         s = s.masked_fill(~mask, -1e30)
+    return s
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          causal: bool = True, return_lse: bool = False):
+    """The same function in plain PyTorch: full f32 scores with GQA by
+    reshape, as ``ref.attention_ref``, with the causal mask aligned at 0.
+    With ``return_lse`` also the (B, H, Sq) f32 log-sum-exp of each row's
+    scaled scores."""
+    B, Sq, H, _ = q.shape
+    s = _scores(q, k, causal)
     p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
-    return o.reshape(B, Sq, H, v.shape[-1]).to(q.dtype)
+    o = torch.einsum("bkgqs,bskd->bqkgd", p, v.to(s.dtype))
+    o = o.reshape(B, Sq, H, v.shape[-1]).to(q.dtype)
+    if not return_lse:
+        return o
+    return o, torch.logsumexp(s, dim=-1).reshape(B, H, Sq)
+
+
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, o: torch.Tensor,
+                              do: torch.Tensor, lse: torch.Tensor,
+                              causal: bool = True):
+    """The backward pass in plain PyTorch, the kernel's math: P from the
+    saved log-sum-exp, ``delta = rowsum(do o)``, ``dS = P (dP - delta)``;
+    dk and dv summed over each kv head's G query heads.  Returns (dq, dk,
+    dv) in the inputs' dtypes."""
+    B, Sq, H, D = q.shape
+    Skv, KV, Dv = k.shape[1], k.shape[2], v.shape[3]
+    G = H // KV
+    s = _scores(q, k, causal)
+    acc = s.dtype
+    p = torch.exp(s - lse.to(acc).reshape(B, KV, G, Sq, 1))
+    dog = do.reshape(B, Sq, KV, G, Dv).to(acc)
+    delta = (dog * o.reshape(B, Sq, KV, G, Dv).to(acc)).sum(-1)
+    dv = torch.einsum("bkgqs,bqkgd->bskd", p, dog)
+    dp = torch.einsum("bqkgd,bskd->bkgqs", dog, v.to(acc))
+    ds = p * (dp - delta.permute(0, 2, 3, 1)[..., None])
+    qg = q.reshape(B, Sq, KV, G, D).to(acc)
+    dq = torch.einsum("bkgqs,bskd->bqkgd", ds, k.to(acc)) * (D ** -0.5)
+    dk = torch.einsum("bkgqs,bqkgd->bskd", ds, qg) * (D ** -0.5)
+    return (dq.reshape(B, Sq, H, D).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 def _variant(dtype: torch.dtype, D: int, Dv: int, G: int, strides,
@@ -150,7 +213,16 @@ def _variant(dtype: torch.dtype, D: int, Dv: int, G: int, strides,
 @functools.lru_cache(maxsize=None)
 def _entry(variant: str, dtype: torch.dtype):
     fn = getattr(load("flash_attention"), _ENTRY[variant, dtype])
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
+                   + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_entry(dtype: torch.dtype):
+    fn = getattr(load("flash_attention_bwd"), _BWD_ENTRY[dtype])
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
                    + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -165,7 +237,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``flash_attention.plain_calls``); CUDA tensors launch the kernel that
     :func:`_variant` picks on the current stream (counted in
     ``flash_attention.launches`` and in ``tc_launches`` or
-    ``fma_launches``)."""
+    ``fma_launches``).  Under grad, when q, k or v requires it, through
+    :class:`FlashAttention`."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal)
+    return _flash_forward(q, k, v, causal, False)[0]
+
+
+def _flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   causal: bool, with_lse: bool):
+    """(out, lse or None): the forward of :func:`flash_attention`, the
+    (B, H, Sq) f32 log-sum-exp too when ``with_lse``."""
     check_attention_inputs("flash_attention", q, k, v)
     B, Sq, H, D = q.shape
     Skv, KV, Dv = k.shape[1], k.shape[2], v.shape[3]
@@ -177,10 +260,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("flash_attention needs at least one key")
     if q.device.type == "cpu":
         flash_attention.plain_calls += 1
-        return flash_attention_plain(q, k, v, causal)
+        if with_lse:
+            return flash_attention_plain(q, k, v, causal, return_lse=True)
+        return flash_attention_plain(q, k, v, causal), None
     out = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device) \
+        if with_lse else None
     if out.numel() == 0:
-        return out
+        return out, lse
     strides = strides_arg((q, (0, 1, 2)), (k, (0, 1, 2)), (v, (0, 1, 2)),
                           (out, (0, 1, 2)))
     variant = _variant(q.dtype, D, Dv, H // KV, strides[:9],
@@ -189,7 +276,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                B, Sq, Skv, H, KV, D, Dv, int(causal), strides, stream)
+                None if lse is None else lse.data_ptr(), B, Sq, Skv, H, KV,
+                D, Dv, int(causal), strides, stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention {variant} kernel launch failed: "
                            f"CUDA error {rc}")
@@ -198,10 +286,82 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         flash_attention.tc_launches += 1
     else:
         flash_attention.fma_launches += 1
-    return out
+    return out, lse
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
+                        causal: bool = True):
+    """(dq, dk, dv) of :func:`flash_attention` at (q, k, v) with output
+    ``o`` and log-sum-exp ``lse`` (B, H, Sq) f32, for the cotangent
+    ``do`` (B, Sq, H, Dv), each in its input's dtype.
+
+    CPU tensors take :func:`flash_attention_bwd_plain` (counted in
+    ``flash_attention_bwd.plain_calls``); CUDA tensors launch the kernel
+    of ``csrc/flash_attention_bwd.cu`` on the current stream (counted once
+    a call, two kernels, in ``flash_attention_bwd.launches``)."""
+    check_attention_inputs("flash_attention_bwd", q, k, v)
+    B, Sq, H, D = q.shape
+    Skv, KV, Dv = k.shape[1], k.shape[2], v.shape[3]
+    if tuple(o.shape) != (B, Sq, H, Dv) or tuple(do.shape) != tuple(o.shape) \
+            or tuple(lse.shape) != (B, H, Sq):
+        raise ValueError(f"flash_attention_bwd: o {tuple(o.shape)}, do "
+                         f"{tuple(do.shape)} and lse {tuple(lse.shape)} do "
+                         f"not fit q {tuple(q.shape)} and v {tuple(v.shape)}")
+    if causal and Sq != Skv:
+        raise ValueError(f"causal flash_attention_bwd needs Sq == Skv, got "
+                         f"{Sq} and {Skv}")
+    if q.device.type == "cpu":
+        flash_attention_bwd.plain_calls += 1
+        return flash_attention_bwd_plain(q, k, v, o, do.to(q.dtype), lse,
+                                         causal)
+    # the kernel reads rows with a contiguous head dim, in q's dtype
+    o, do = (t.to(q.dtype) if t.stride(3) == 1 or t.shape[3] == 1
+             else t.to(q.dtype).contiguous() for t in (o, do))
+    lse = lse.float().contiguous()
+    dq = torch.zeros((B, Sq, H, D), dtype=torch.float32, device=q.device)
+    dk = torch.empty((B, Skv, KV, D), dtype=q.dtype, device=q.device)
+    dv = torch.empty((B, Skv, KV, Dv), dtype=q.dtype, device=q.device)
+    if Sq == 0 or Skv == 0 or B == 0:
+        return dq.to(q.dtype), dk.zero_(), dv.zero_()
+    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    strides = strides_arg((q, (0, 1, 2)), (k, (0, 1, 2)), (v, (0, 1, 2)),
+                          (o, (0, 1, 2)), (do, (0, 1, 2)))
+    fn = _bwd_entry(q.dtype)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, Sq, Skv, H,
+                KV, D, Dv, int(causal), strides, stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention_bwd kernel launch failed: CUDA "
+                           f"error {rc}")
+    flash_attention_bwd.launches += 1
+    return dq.to(q.dtype), dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """:func:`flash_attention` with its backward: the forward keeps the
+    log-sum-exp, the backward is :func:`flash_attention_bwd`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool):
+        out, lse = _flash_forward(q, k, v, causal, True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, do, lse, ctx.causal)
+        return dq, dk, dv, None
 
 
 flash_attention.launches = 0
 flash_attention.tc_launches = 0
 flash_attention.fma_launches = 0
 flash_attention.plain_calls = 0
+flash_attention_bwd.launches = 0
+flash_attention_bwd.plain_calls = 0

@@ -1,5 +1,6 @@
-"""Grouped (expert-batched) matrix product: the CUDA kernel's wrapper and
-its plain version.
+"""Grouped (expert-batched) matrix product, forward and backward: the CUDA
+kernels' wrappers, their plain versions and the autograd function that
+joins them.
 
 ``out[e] = x[e] @ w[e]``: x (E, C, D), w (E, D, F) -> (E, C, F) in x's
 dtype, accumulated in f32.  x and w are both bf16 or both f32.
@@ -26,6 +27,16 @@ another order; bf16 outputs round once, from f32).
 
 :func:`gmm` runs the plain version only for tensors that lie on the CPU;
 for a CUDA tensor it launches the kernel or raises.
+
+Training: when grad is enabled and x or w requires it, :func:`gmm` goes
+through :class:`GMM`, whose backward is :func:`gmm_bwd`: ``dx[e] =
+dy[e] w[e]^T`` and ``dw[e] = x[e]^T dy[e]``, on a CUDA tensor by the
+kernel of ``csrc/gmm_bwd.cu`` (two launches a call, counted once in
+``gmm_bwd.launches``), on a CPU tensor by :func:`gmm_bwd_plain`.  The
+backward takes the forward's operands as they are, so its only extra
+condition (:func:`_check_bwd`) is dy's shape and dtype: the contraction
+of dw runs over C, which the kernel masks at any length.  The CPU
+versions also take float64, for ``torch.autograd.gradcheck``.
 """
 from __future__ import annotations
 
@@ -36,9 +47,10 @@ import torch
 
 from repro_torch.kernels.build import load
 
-__all__ = ["gmm", "gmm_plain"]
+__all__ = ["GMM", "gmm", "gmm_bwd", "gmm_bwd_plain", "gmm_plain"]
 
 _ENTRY = {"fma": "gmm_f32", "wgmma": "gmm_bf16"}
+_BWD_ENTRY = {torch.float32: "gmm_bwd_f32", torch.bfloat16: "gmm_bwd_bf16"}
 _DTYPES = (torch.float32, torch.bfloat16)
 _INT_MAX = 2 ** 31 - 1
 
@@ -48,9 +60,11 @@ def _check(x: torch.Tensor, w: torch.Tensor) -> None:
             or w.shape[1] != x.shape[2]:
         raise ValueError(f"gmm takes x (E, C, D) and w (E, D, F), got "
                          f"{tuple(x.shape)} and {tuple(w.shape)}")
-    if x.dtype not in _DTYPES or w.dtype != x.dtype:
+    cpu_f64 = x.dtype == torch.float64 and x.device.type == "cpu"
+    if (x.dtype not in _DTYPES and not cpu_f64) or w.dtype != x.dtype:
         raise TypeError(f"gmm: x and w must both be float32 or both "
-                        f"bfloat16, got {x.dtype} and {w.dtype}")
+                        f"bfloat16 (or float64 on the CPU), got {x.dtype} "
+                        f"and {w.dtype}")
     if x.device != w.device:
         raise ValueError(f"gmm: x on {x.device}, w on {w.device}")
     if not (x.is_contiguous() and w.is_contiguous()):
@@ -64,10 +78,36 @@ def _check(x: torch.Tensor, w: torch.Tensor) -> None:
                          f"{tuple(w.shape)}")
 
 
+def _acc(t: torch.Tensor) -> torch.Tensor:
+    """t up-cast for the sums: f32, or f64 for f64 inputs (gradcheck)."""
+    return t if t.dtype == torch.float64 else t.float()
+
+
 def gmm_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """The same function in plain PyTorch, ``ref.gmm_ref``'s math: an f32
     batched product of the up-cast inputs, cast to x's dtype."""
-    return torch.bmm(x.float(), w.float()).to(x.dtype)
+    return torch.bmm(_acc(x), _acc(w)).to(x.dtype)
+
+
+def gmm_bwd_plain(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor):
+    """The backward in plain PyTorch: (dx, dw) = (dy w^T, x^T dy) per
+    expert, f32 products of the up-cast inputs, in x's and w's dtypes."""
+    dyf = _acc(dy)
+    return (torch.bmm(dyf, _acc(w).transpose(1, 2)).to(x.dtype),
+            torch.bmm(_acc(x).transpose(1, 2), dyf).to(w.dtype))
+
+
+def _check_bwd(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor) -> None:
+    """The backward's conditions beyond the forward's :func:`_check`: dy
+    (E, C, F) on x's device, in x's dtype."""
+    _check(x, w)
+    E, C, _ = x.shape
+    if tuple(dy.shape) != (E, C, w.shape[2]):
+        raise ValueError(f"gmm_bwd: dy {tuple(dy.shape)} does not fit x "
+                         f"{tuple(x.shape)} and w {tuple(w.shape)}")
+    if dy.dtype != x.dtype or dy.device != x.device:
+        raise TypeError(f"gmm_bwd: dy is {dy.dtype} on {dy.device}, x is "
+                        f"{x.dtype} on {x.device}")
 
 
 def _variant(dtype: torch.dtype, C: int, D: int, F: int) -> str:
@@ -94,7 +134,14 @@ def gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     CPU tensors take :func:`gmm_plain` (counted in ``gmm.plain_calls``);
     CUDA tensors launch the kernel that :func:`_variant` picks on the
     current stream (counted in ``gmm.launches`` and in ``wgmma_launches``
-    or ``fma_launches``)."""
+    or ``fma_launches``).  Under grad, when x or w requires it, through
+    :class:`GMM`."""
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return GMM.apply(x, w)
+    return _gmm_forward(x, w)
+
+
+def _gmm_forward(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     _check(x, w)
     if x.device.type == "cpu":
         gmm.plain_calls += 1
@@ -125,7 +172,67 @@ def gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def _bwd_entry(dtype: torch.dtype):
+    fn = getattr(load("gmm_bwd"), _BWD_ENTRY[dtype])
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def gmm_bwd(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor):
+    """(dx (E, C, D), dw (E, D, F)) of :func:`gmm` at (x, w) for the
+    cotangent ``dy`` (E, C, F), in x's and w's dtype.
+
+    CPU tensors take :func:`gmm_bwd_plain` (counted in
+    ``gmm_bwd.plain_calls``); CUDA tensors launch the kernel of
+    ``csrc/gmm_bwd.cu`` on the current stream, once for dx and once for
+    dw (counted once a call in ``gmm_bwd.launches``)."""
+    dy = dy.contiguous()
+    _check_bwd(x, w, dy)
+    if x.device.type == "cpu":
+        gmm_bwd.plain_calls += 1
+        return gmm_bwd_plain(x, w, dy)
+    E, C, D = x.shape
+    F = w.shape[2]
+    dx = torch.empty_like(x)
+    dw = torch.empty_like(w)
+    if E == 0:
+        return dx, dw
+    if C == 0:
+        return dx, dw.zero_()
+    if any(t.data_ptr() % 16 for t in (x, w, dy)):
+        raise ValueError("gmm_bwd: x, w and dy must start on a 16-byte "
+                         "boundary")
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = _bwd_entry(x.dtype)(x.data_ptr(), w.data_ptr(), dy.data_ptr(),
+                                 dx.data_ptr(), dw.data_ptr(), E, C, D, F,
+                                 stream)
+    if rc != 0:
+        raise RuntimeError(f"gmm_bwd kernel launch failed: CUDA error {rc}")
+    gmm_bwd.launches += 1
+    return dx, dw
+
+
+class GMM(torch.autograd.Function):
+    """:func:`gmm` with its backward :func:`gmm_bwd`."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return _gmm_forward(x, w)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        return gmm_bwd(x, w, dy)
+
+
 gmm.launches = 0
 gmm.wgmma_launches = 0
 gmm.fma_launches = 0
 gmm.plain_calls = 0
+gmm_bwd.launches = 0
+gmm_bwd.plain_calls = 0

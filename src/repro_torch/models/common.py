@@ -1,6 +1,7 @@
 """Shared building blocks of the port's models: initializers, stacked
 layer trees, RMSNorm, RoPE / M-RoPE, embeddings and logits, the MLP
-(SwiGLU or GELU).
+(SwiGLU or GELU), and for training the chunked cross-entropy and the
+per-layer rematerialisation (``maybe_remat``).
 
 Translated from the reference's ``models/common.py``; the tensor layouts
 and the parameter leaf names are the reference's, so a parameter tree
@@ -16,6 +17,8 @@ from typing import Callable, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 #: logits of the padded vocabulary rows (as the reference's ``-1e30``)
 PAD_LOGIT = -1e30
@@ -156,20 +159,73 @@ def init_embedding(cfg, generator: torch.Generator, device=None) -> dict:
 
 
 def embed_tokens(p, cfg, tokens: torch.Tensor) -> torch.Tensor:
-    return p["tok"][tokens]
+    """The token rows of the table, by ``index_select``: its backward is
+    an ``index_add`` (atomics on the card), where indexing's is a sort."""
+    return p["tok"].index_select(0, tokens.reshape(-1)).view(
+        *tokens.shape, p["tok"].shape[-1])
+
+
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(..., K) x (K, N) -> (..., N) f32 from operands of one dtype (on
+    the card ``out_dtype``: f32 sums of the operands as they are; the CPU
+    has no such product and upcasts them, which gives the same
+    function)."""
+    if not a.is_cuda:
+        return a.float() @ b.float()
+    return torch.mm(a.reshape(-1, a.shape[-1]), b,
+                    out_dtype=torch.float32).reshape(*a.shape[:-1],
+                                                      b.shape[-1])
+
+
+def _split_f32(g: torch.Tensor, dtype):
+    """f32 ``g`` as three tensors of ``dtype``, one at a time, whose sum
+    is ``g``: for bf16 each takes the next 8 of f32's 24 significand bits,
+    so the sum is exact (bf16 has f32's exponent range)."""
+    r = g
+    for _ in range(3):
+        p = r.to(dtype)
+        yield p
+        r = r - p.to(torch.float32)
+
+
+class _MatmulF32(torch.autograd.Function):
+    """:func:`_mm_f32` with its backward.  The reference's autodiff
+    multiplies the f32 cotangent with the other operand; here the
+    cotangent is split into three parts of the operands' dtype
+    (:func:`_split_f32`), each product summed in f32 on the tensor cores
+    and the three added, so no bit of the cotangent is lost.  Each
+    gradient is then cast to its operand's dtype."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return _mm_f32(a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        a2 = a.reshape(-1, a.shape[-1]).t()
+        ga = gb = None
+        for p in _split_f32(g, a.dtype):
+            pa = _mm_f32(p, b.t())
+            pb = _mm_f32(a2, p.reshape(-1, p.shape[-1]))
+            ga = pa if ga is None else ga.add_(pa)
+            gb = pb if gb is None else gb.add_(pb)
+        return ga.to(a.dtype), gb.to(b.dtype)
 
 
 def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` accumulated and returned in f32, as the reference's
     ``preferred_element_type=jnp.float32``.  On the card a bf16 product
-    keeps its operands (``out_dtype``); the CPU has no such product and
-    upcasts them, which gives the same function."""
+    keeps its operands (``out_dtype``, under grad through
+    :class:`_MatmulF32`); the CPU upcasts them, which gives the same
+    function."""
     if a.dtype == torch.float32 and b.dtype == torch.float32:
         return a @ b
     if a.is_cuda:
-        return torch.mm(a.reshape(-1, a.shape[-1]), b,
-                        out_dtype=torch.float32).reshape(*a.shape[:-1],
-                                                          b.shape[-1])
+        if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+            return _MatmulF32.apply(a, b)
+        return _mm_f32(a, b)
     return a.float() @ b.float()
 
 
@@ -178,6 +234,10 @@ def logits_from_hidden(p, cfg, h: torch.Tensor) -> torch.Tensor:
     table = p["tok"] if cfg.tie_embeddings else p["head"]
     logits = matmul_f32(h, table.t())
     if cfg.padded_vocab > cfg.vocab_size:
+        if logits.requires_grad:
+            # the product may be an autograd.Function's output, which
+            # autograd does not let be written in place: write a copy
+            logits = logits.clone()
         logits[..., cfg.vocab_size:] = PAD_LOGIT
     return logits
 
@@ -202,3 +262,72 @@ def mlp(p, x: torch.Tensor, swiglu: bool = True) -> torch.Tensor:
     if swiglu:
         return (F.silu(x @ p["wg"]) * (x @ p["wi"])) @ p["wo"]
     return F.gelu(x @ p["wi"], approximate="tanh") @ p["wo"]
+
+
+# ----------------------------------------------------------------------
+# Training: the chunked cross-entropy and per-layer rematerialisation
+def chunked_cross_entropy(logits_fn: Callable, h: torch.Tensor,
+                          labels: torch.Tensor, cfg,
+                          valid_mask: Optional[torch.Tensor] = None):
+    """Cross-entropy over sequence chunks of ``min(cfg.loss_chunk, S)``
+    positions, as the reference's scan: no (B, S, V) f32 logits at once.
+
+    logits_fn: h chunk (B, C, D) -> logits (B, C, V) f32; labels (B, S)
+    int.  Returns (mean nll over the valid positions, their count), both
+    f32 scalars: each chunk's nll summed, then added in chunk order."""
+    B, S, _ = h.shape
+    C = min(cfg.loss_chunk, S)
+    if S % C:
+        raise ValueError(f"the sequence ({S}) must be a multiple of "
+                         f"loss_chunk ({cfg.loss_chunk}) or shorter")
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(0, S, C):
+        logits = logits_fn(h[:, i:i + C])
+        lse = torch.logsumexp(logits, dim=-1)
+        lc = labels[:, i:i + C].long()
+        picked = logits.gather(-1, lc[..., None])[..., 0]
+        nll = lse - picked
+        if valid_mask is None:
+            vc = torch.ones_like(nll)
+        else:
+            vc = valid_mask[:, i:i + C].to(torch.float32)
+            nll = nll * vc
+        tot = tot + nll.sum()
+        cnt = cnt + vc.sum()
+    return tot / cnt.clamp_min(1.0), cnt
+
+
+#: the matmuls with no batch dims: what ``remat="dots"`` keeps (the
+#: reference's ``checkpoint_dots_with_no_batch_dims``)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    del ctx, args, kwargs
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def maybe_remat(cfg, fn: Callable) -> Callable:
+    """``fn`` under the config's rematerialisation, as the reference's
+    ``maybe_remat``: ``"full"`` keeps only its inputs and runs it again in
+    the backward pass (``torch.utils.checkpoint``, non-reentrant),
+    ``"dots"`` keeps the outputs of its plain matmuls and recomputes the
+    rest, ``"none"`` keeps everything.  The numbers are the same in all
+    three.  Without grad (serving) ``fn`` runs as it is."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat not in ("full", "dots"):
+        raise ValueError(f"unknown remat policy {cfg.remat!r}")
+    kw = {}
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _dots_policy)
+
+    def wrapped(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False, **kw)
+
+    return wrapped

@@ -25,6 +25,10 @@ reference's einsum promotes bf16 frames against f32 weights) and the
 residual stream promotes as the reference's does.  (The reference's
 scanned encoder refuses bf16 frames in an f32 model: its scan carry
 changes dtype.)
+
+``train_forward`` is the reference's: the decoder's chunked
+cross-entropy (no aux loss), every encoder and decoder layer under
+``maybe_remat`` as the reference's bodies are.
 """
 from __future__ import annotations
 
@@ -35,11 +39,12 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import (attention_decode, attention_fwd,
                                           init_attention)
-from repro_torch.models.common import (default_positions, dtype_of,
+from repro_torch.models.common import (chunked_cross_entropy,
+                                       default_positions, dtype_of,
                                        embed_tokens, init_embedding,
                                        init_mlp, init_rmsnorm, layer_slice,
-                                       logits_from_hidden, mlp, rmsnorm,
-                                       stacked_init)
+                                       logits_from_hidden, maybe_remat, mlp,
+                                       rmsnorm, stacked_init)
 
 #: the encoder (audio-context) length bound of the reference
 ENC_MAX = 4096
@@ -96,15 +101,19 @@ def encode(params, cfg, frames: torch.Tensor) -> torch.Tensor:
     B, S, _ = frames.shape
     dt = dtype_of(cfg)
     positions = default_positions(cfg, B, S, device=frames.device)
-    h = frames
-    for i in range(cfg.enc_layers):
-        lp = layer_slice(params["enc_layers"], i)
+
+    def body(lp, h):
         a, _ = attention_fwd(lp["attn"], cfg,
                              rmsnorm(lp["ln1"], h, cfg.norm_eps).to(dt),
                              positions, causal=False)
         h = h + a
-        h = h + mlp(lp["mlp"], rmsnorm(lp["ln2"], h, cfg.norm_eps).to(dt),
-                    swiglu=False)
+        return h + mlp(lp["mlp"], rmsnorm(lp["ln2"], h, cfg.norm_eps).to(dt),
+                       swiglu=False)
+
+    body = maybe_remat(cfg, body)
+    h = frames
+    for i in range(cfg.enc_layers):
+        h = body(layer_slice(params["enc_layers"], i), h)
     return rmsnorm(params["enc_norm"], h, cfg.norm_eps)
 
 
@@ -112,28 +121,51 @@ def _decoder(params, cfg, tokens: torch.Tensor, enc_out: torch.Tensor,
              cache: Optional[dict] = None) -> torch.Tensor:
     """The final-normed decoder states (B, S, D); each layer's self k/v
     go to rows [0, S) of ``cache["k"]`` / ``["v"]`` and its cross k/v to
-    ``cache["ck"]`` / ``["cv"]`` when a cache is given."""
+    ``cache["ck"]`` / ``["cv"]`` when a cache is given, else each layer
+    runs under ``maybe_remat``."""
     B, S = tokens.shape
     h = embed_tokens(params["embed"], cfg, tokens)
     positions = default_positions(cfg, B, S, device=h.device)
     enc_out = enc_out.to(dtype_of(cfg))
-    for i in range(cfg.num_layers):
-        lp = layer_slice(params["dec_layers"], i)
-        a, (k, v) = attention_fwd(lp["self"], cfg,
-                                  rmsnorm(lp["ln1"], h, cfg.norm_eps),
-                                  positions, causal=True)
+
+    def layer(lp, h, enc_out):
+        a, kv = attention_fwd(lp["self"], cfg,
+                              rmsnorm(lp["ln1"], h, cfg.norm_eps),
+                              positions, causal=True)
         h = h + a
-        c, (ck, cv) = attention_fwd(lp["cross"], cfg,
-                                    rmsnorm(lp["ln2"], h, cfg.norm_eps),
-                                    None, causal=False, x_kv=enc_out,
-                                    use_rope=False)
+        c, ckv = attention_fwd(lp["cross"], cfg,
+                               rmsnorm(lp["ln2"], h, cfg.norm_eps),
+                               None, causal=False, x_kv=enc_out,
+                               use_rope=False)
         h = h + c
         h = h + mlp(lp["mlp"], rmsnorm(lp["ln3"], h, cfg.norm_eps),
                     swiglu=False)
-        if cache is not None:
-            cache["k"][i, :, :S], cache["v"][i, :, :S] = k, v
-            cache["ck"][i], cache["cv"][i] = ck, cv
+        return h, kv, ckv
+
+    body = maybe_remat(cfg, lambda lp, h, enc_out: layer(lp, h, enc_out)[0])
+    for i in range(cfg.num_layers):
+        lp = layer_slice(params["dec_layers"], i)
+        if cache is None:
+            h = body(lp, h, enc_out)
+            continue
+        h, (k, v), (ck, cv) = layer(lp, h, enc_out)
+        cache["k"][i, :, :S], cache["v"][i, :, :S] = k, v
+        cache["ck"][i], cache["cv"][i] = ck, cv
     return rmsnorm(params["final_norm"], h, cfg.norm_eps)
+
+
+def train_forward(params, cfg, batch):
+    """batch: ``tokens``, ``labels`` (B, S) int, ``enc_frames`` (B,
+    S_enc, D) and optional ``loss_mask``.  Returns (loss, metrics
+    ``loss``, ``aux_loss`` (0), ``tokens``)."""
+    _check_family(cfg)
+    enc_out = encode(params, cfg, batch["enc_frames"])
+    h = _decoder(params, cfg, batch["tokens"], enc_out)
+    loss, cnt = chunked_cross_entropy(
+        lambda hc: logits_from_hidden(params["embed"], cfg, hc),
+        h, batch["labels"], cfg, batch.get("loss_mask"))
+    return loss, {"loss": loss, "aux_loss": torch.zeros_like(loss),
+                  "tokens": cnt}
 
 
 def prefill(params, cfg, batch, cache_len: Optional[int] = None):

@@ -29,6 +29,12 @@ KV, dh)).  Prefill writes each layer's slice as the layer runs; a decode
 step updates them in place (the reference threads them through its scan
 carry).  The Mamba2 cache has no sequence axis, so the ``ssm`` family's
 prefill ignores ``cache_len``, as in the reference.
+
+``train_forward`` is the reference's (the chunked cross-entropy, no aux
+loss; each ``ssm`` layer or ``hybrid`` group under ``maybe_remat``).  It
+runs on CPU tensors, through the SSD kernel's plain version.  On the card
+it raises ``NotImplementedError`` before any work: the SSD kernel has no
+backward kernel yet, and autograd cannot see its launch.
 """
 from __future__ import annotations
 
@@ -41,12 +47,12 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.attention import _out_proj, _proj, init_attention
-from repro_torch.models.common import (apply_rope, default_positions,
-                                       dtype_of, embed_tokens,
-                                       init_embedding, init_mlp,
-                                       init_rmsnorm, layer_slice,
-                                       logits_from_hidden, normal_init,
-                                       rmsnorm, stacked_init)
+from repro_torch.models.common import (apply_rope, chunked_cross_entropy,
+                                       default_positions, dtype_of,
+                                       embed_tokens, init_embedding,
+                                       init_mlp, init_rmsnorm, layer_slice,
+                                       logits_from_hidden, maybe_remat,
+                                       normal_init, rmsnorm, stacked_init)
 from repro_torch.models.ssm import init_mamba2, mamba2_decode, mamba2_fwd
 
 _FAMILIES = ("ssm", "hybrid")
@@ -208,35 +214,69 @@ def init_params(cfg, generator: torch.Generator, device=None) -> dict:
 def _backbone(params, cfg, batch, cache: Optional[dict] = None):
     """The final-normed hidden states (B, S, D); each layer's conv tails
     and final SSD state (and each group's shared k/v, rows [0, S)) go to
-    ``cache`` when one is given."""
+    ``cache`` when one is given, else each ``ssm`` layer or ``hybrid``
+    group runs under ``maybe_remat``."""
     tokens = batch["tokens"]
     B, S = tokens.shape
     emb = embed_tokens(params["embed"], cfg, tokens)
     h = emb
     if cfg.family == "ssm":
+        body = maybe_remat(cfg, lambda lp, hh: _mamba_layer_fwd(cfg, lp,
+                                                                hh)[0])
         for i in range(cfg.num_layers):
-            h, states = _mamba_layer_fwd(
-                cfg, layer_slice(params["layers"], i), h)
-            if cache is not None:
-                _write_layer_cache(cache, (i,), states)
+            lp = layer_slice(params["layers"], i)
+            if cache is None:
+                h = body(lp, h)
+                continue
+            h, states = _mamba_layer_fwd(cfg, lp, h)
+            _write_layer_cache(cache, (i,), states)
         return rmsnorm(params["final_norm"], h, cfg.norm_eps)
     positions = batch.get("positions")
     if positions is None:
         positions = default_positions(cfg, B, S, device=h.device)
+
+    def group(mp, lp, hh):
+        """One ``hybrid`` group: (h, each layer's states, the shared
+        block's (k, v))."""
+        states = []
+        for j in range(cfg.hybrid.shared_every):
+            hh, st = _mamba_layer_fwd(cfg, layer_slice(mp, j), hh)
+            states.append(st)
+        blk, kv = _shared_block_fwd(cfg, params["shared"], lp, hh, emb,
+                                    positions)
+        return hh + blk, states, kv
+
+    body = maybe_remat(cfg, lambda mp, lp, hh: group(mp, lp, hh)[0])
     for g in range(_n_groups(cfg)):
         mp = layer_slice(params["mamba"], g)
-        for j in range(cfg.hybrid.shared_every):
-            h, states = _mamba_layer_fwd(cfg, layer_slice(mp, j), h)
-            if cache is not None:
-                _write_layer_cache(cache, (g, j), states)
-        blk, (k, v) = _shared_block_fwd(cfg, params["shared"],
-                                        layer_slice(params["lora"], g), h,
-                                        emb, positions)
-        h = h + blk
-        if cache is not None:
-            cache["k"][g, :, :S] = k
-            cache["v"][g, :, :S] = v
+        lp = layer_slice(params["lora"], g)
+        if cache is None:
+            h = body(mp, lp, h)
+            continue
+        h, states, (k, v) = group(mp, lp, h)
+        for j, st in enumerate(states):
+            _write_layer_cache(cache, (g, j), st)
+        cache["k"][g, :, :S] = k
+        cache["v"][g, :, :S] = v
     return rmsnorm(params["final_norm"], h, cfg.norm_eps)
+
+
+def train_forward(params, cfg, batch):
+    """batch: ``tokens``, ``labels`` (B, S) int and optional
+    ``loss_mask`` on the parameters' device (the CPU).  Returns (loss,
+    metrics ``loss``, ``aux_loss`` (0), ``tokens``)."""
+    _check_family(cfg)
+    if batch["tokens"].is_cuda:
+        raise NotImplementedError(
+            f"training the {cfg.family!r} family on the card needs the SSD "
+            f"kernel's backward, which is not written yet (ROADMAP Queue 1 "
+            f"item 8); train it on the CPU (device='cpu')")
+    h = _backbone(params, cfg, batch)
+    loss, cnt = chunked_cross_entropy(
+        lambda hc: logits_from_hidden(params["embed"], cfg, hc),
+        h, batch["labels"], cfg, batch.get("loss_mask"))
+    return loss, {"loss": loss, "aux_loss": torch.zeros_like(loss),
+                  "tokens": cnt}
 
 
 def prefill(params, cfg, batch, cache_len: Optional[int] = None):

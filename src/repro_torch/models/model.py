@@ -4,6 +4,7 @@ families (``dense`` / ``moe`` / ``vlm``, with GQA or MLA attention).
 Translated from the reference's ``models/model.py``.  Public API:
 
   init_params(cfg, generator, device=None) -> params (nested dicts)
+  train_forward(params, cfg, batch)        -> (loss, metrics)
   prefill(params, cfg, batch, cache_len=None) -> (last_logits (B, V), cache)
   decode_step(params, cfg, cache, tokens)  -> (logits (B, V), cache)
   init_cache(cfg, B, S, dtype=bf16, device=None) -> zeroed cache
@@ -37,6 +38,15 @@ An ``moe`` layer's feed-forward is :func:`repro_torch.models.moe.moe_ffn`
 (its expert products through the ``gmm`` kernel) where a dense layer's is
 the SwiGLU MLP; prefill and decode drop its aux loss, as the reference's
 do.
+
+``train_forward`` is the reference's: the loss is the chunked
+cross-entropy of the labels plus, for ``moe``, the layers' mean aux
+loss; metrics ``loss``, ``aux_loss`` and ``tokens``.  Each layer runs
+under ``maybe_remat`` (the config's ``remat``), so with ``"full"`` its
+forward, flash and ``gmm`` kernels included, runs again in the backward
+pass.  The gradients come from autograd: through the kernels'
+``autograd.Function``s (``FlashAttention``, ``GMM``), whose backward
+kernels run on CUDA tensors and plain versions on CPU ones.
 """
 from __future__ import annotations
 
@@ -49,11 +59,12 @@ from repro_torch.models import encdec, hybrid
 from repro_torch.models.attention import (attention_decode, attention_fwd,
                                           check_lowered, init_attention,
                                           init_mla, mla_decode, mla_fwd)
-from repro_torch.models.common import (default_positions, embed_tokens,
+from repro_torch.models.common import (chunked_cross_entropy,
+                                       default_positions, embed_tokens,
                                        init_embedding, init_mlp,
                                        init_rmsnorm, layer_slice,
-                                       logits_from_hidden, mlp, rmsnorm,
-                                       stacked_init)
+                                       logits_from_hidden, maybe_remat, mlp,
+                                       rmsnorm, stacked_init)
 from repro_torch.models.moe import init_moe, moe_ffn
 
 #: the decoder-only families (``_dec_*``)
@@ -79,12 +90,22 @@ def _init_dec_layer(cfg, generator: torch.Generator, device) -> dict:
             "ffn": init_ffn(cfg, generator, device)}
 
 
-def _ffn(lp, cfg, x: torch.Tensor) -> torch.Tensor:
-    """The layer's feed-forward: the MoE layer (its aux loss dropped) or
-    the SwiGLU MLP."""
+def _ffn(lp, cfg, x: torch.Tensor):
+    """The layer's feed-forward and its aux loss: the MoE layer (an f32
+    scalar), or the SwiGLU MLP and None."""
     if cfg.moe is not None:
-        return moe_ffn(lp["ffn"], cfg, x)[0]
-    return mlp(lp["ffn"], x)
+        return moe_ffn(lp["ffn"], cfg, x)
+    return mlp(lp["ffn"], x), None
+
+
+def _dec_layer(cfg, positions, lp, h: torch.Tensor):
+    """One decoder layer: (h, aux loss, the attention's cache rows)."""
+    attn_fwd = mla_fwd if cfg.mla is not None else attention_fwd
+    a, kv = attn_fwd(lp["attn"], cfg, rmsnorm(lp["ln1"], h, cfg.norm_eps),
+                     positions, causal=cfg.causal)
+    h = h + a
+    f, aux = _ffn(lp, cfg, rmsnorm(lp["ln2"], h, cfg.norm_eps))
+    return h + f, aux, kv
 
 
 def _merge_vision(cfg, h: torch.Tensor, batch) -> torch.Tensor:
@@ -101,9 +122,10 @@ def _merge_vision(cfg, h: torch.Tensor, batch) -> torch.Tensor:
 
 
 def _dec_backbone(params, cfg, batch, cache: Optional[dict] = None):
-    """The final-normed hidden states (B, S, D); each layer's k/v (or MLA
-    latent and rotary key) go to rows [0, S) of ``cache`` when one is
-    given."""
+    """(the final-normed hidden states (B, S, D), the layers' mean aux
+    loss); each layer's k/v (or MLA latent and rotary key) go to rows
+    [0, S) of ``cache`` when one is given, else each layer runs under
+    ``maybe_remat``."""
     tokens = batch["tokens"]
     B, S = tokens.shape
     h = embed_tokens(params["embed"], cfg, tokens)
@@ -112,18 +134,34 @@ def _dec_backbone(params, cfg, batch, cache: Optional[dict] = None):
     positions = batch.get("positions")
     if positions is None:
         positions = default_positions(cfg, B, S, device=h.device)
-    attn_fwd = mla_fwd if cfg.mla is not None else attention_fwd
     names = ("ckv", "kpe") if cfg.mla is not None else ("k", "v")
+
+    def body(lp, hh):
+        hh, aux, _ = _dec_layer(cfg, positions, lp, hh)
+        return hh, aux
+
+    body = maybe_remat(cfg, body)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(cfg.num_layers):
         lp = layer_slice(params["layers"], i)
-        a, kv = attn_fwd(lp["attn"], cfg, rmsnorm(lp["ln1"], h, cfg.norm_eps),
-                         positions, causal=cfg.causal)
-        h = h + a
-        h = h + _ffn(lp, cfg, rmsnorm(lp["ln2"], h, cfg.norm_eps))
-        if cache is not None:
+        if cache is None:
+            h, a = body(lp, h)
+        else:
+            h, a, kv = _dec_layer(cfg, positions, lp, h)
             for name, rows in zip(names, kv):
                 cache[name][i, :, :S] = rows
-    return rmsnorm(params["final_norm"], h, cfg.norm_eps)
+        if a is not None:
+            aux = aux + a
+    return rmsnorm(params["final_norm"], h, cfg.norm_eps), \
+        aux / cfg.num_layers
+
+
+def _dec_train_forward(params, cfg, batch):
+    h, aux = _dec_backbone(params, cfg, batch)
+    loss, cnt = chunked_cross_entropy(
+        lambda hc: logits_from_hidden(params["embed"], cfg, hc),
+        h, batch["labels"], cfg, batch.get("loss_mask"))
+    return loss + aux, {"loss": loss, "aux_loss": aux, "tokens": cnt}
 
 
 def _dec_prefill(params, cfg, batch, cache_len: Optional[int] = None):
@@ -132,7 +170,7 @@ def _dec_prefill(params, cfg, batch, cache_len: Optional[int] = None):
     # the model-dtype cache, int8 config or not (the reference's prefill)
     cache = _dec_init_cache(cfg, B, max(S, cache_len or 0), tok.dtype,
                             tok.device)
-    h = _dec_backbone(params, cfg, batch, cache)
+    h, _ = _dec_backbone(params, cfg, batch, cache)
     logits = logits_from_hidden(params["embed"], cfg, h[:, -1:, :])[:, 0]
     cache["len"].fill_(S)
     return logits, cache
@@ -160,7 +198,7 @@ def _dec_decode(params, cfg, cache, tokens: torch.Tensor):
                                        cache["k"][i], cache["v"][i],
                                        cache["len"], scales=scales)
         h = h + a
-        h = h + _ffn(lp, cfg, rmsnorm(lp["ln2"], h, cfg.norm_eps))
+        h = h + _ffn(lp, cfg, rmsnorm(lp["ln2"], h, cfg.norm_eps))[0]
     h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
     logits = logits_from_hidden(params["embed"], cfg, h)[:, 0]
     return logits, {**cache, "len": cache["len"] + 1}
@@ -219,6 +257,19 @@ def init_params(cfg, generator: torch.Generator, device=None) -> dict:
     if fam is not None:
         return fam.init_params(cfg, generator, resolve_device(device))
     return _dec_init_params(cfg, generator, resolve_device(device))
+
+
+def train_forward(params, cfg, batch):
+    """batch: ``tokens`` and ``labels`` (B, S) int, optional
+    ``loss_mask`` (B, S), ``vision_embeds`` and ``positions``, and for
+    ``encdec`` the encoder's ``enc_frames``, on the parameters' device; S
+    a multiple of ``cfg.loss_chunk`` or shorter.  Returns (loss, metrics
+    ``loss``, ``aux_loss``, ``tokens``), f32 scalars, the loss
+    differentiable in the parameters."""
+    fam = _family(cfg)
+    if fam is not None:
+        return fam.train_forward(params, cfg, batch)
+    return _dec_train_forward(params, cfg, batch)
 
 
 def prefill(params, cfg, batch, cache_len: Optional[int] = None):

@@ -28,6 +28,16 @@ in f32.  The numbers are the same (each slot
 holds one token, so the one-hot products are exact); the work is not.
 Dropped assignments go to one spare slot past the end and are read back
 with weight 0, so nothing waits for the host to count them.
+
+The two gathers are ``index_select``s, whose backward is an
+``index_add`` (on the card by atomics): advanced indexing's
+sort-based backward, here and in the embedding, took 79 ms of a 430 ms
+qwen3-moe train step (2 layers, B 4 x S 1024) on the H100.  Under grad the three products go through ``kernels.gmm.GMM`` (the
+``gmm`` kernel's backward), and gradients reach the gate values (through
+the combine) and the router's probabilities (through the gates and the
+aux loss) as in the reference; the expert ids, the slot indices and the
+one-hot counts are integers and carry none, as the reference's one-hot
+dispatch carries none.
 """
 from __future__ import annotations
 
@@ -108,7 +118,8 @@ def moe_ffn(p, cfg, x: torch.Tensor):
     slot_tok.index_put_((row.reshape(-1),), tok.reshape(-1))
     xb = torch.cat([x.reshape(T, D).to(torch.bfloat16),
                     x.new_zeros((1, D), dtype=torch.bfloat16)])
-    xe = xb[slot_tok[:n_slots]].view(E, G * cap, D).to(p["wi"].dtype)
+    xe = xb.index_select(0, slot_tok[:n_slots]).view(E, G * cap, D) \
+        .to(p["wi"].dtype)
 
     h = gmm(xe, p["wi"])
     g = gmm(xe, p["wg"])
@@ -117,8 +128,9 @@ def moe_ffn(p, cfg, x: torch.Tensor):
     # combine: each token's kept rows, weighted by its gates in oe's dtype
     # and summed in f32 (a dropped assignment reads row 0 with weight 0)
     weight = torch.where(keep, gate.transpose(1, 2).reshape(G, K * Sg), 0.0)
-    rows = oe.reshape(n_slots, D)[torch.where(keep, row, 0)].float()
-    rows.mul_(weight.to(oe.dtype).float().unsqueeze(-1))     # (G, K·Sg, D)
+    rows = oe.reshape(n_slots, D).index_select(
+        0, torch.where(keep, row, 0).reshape(-1)).view(G, K * Sg, D).float()
+    rows = rows * weight.to(oe.dtype).float().unsqueeze(-1)  # (G, K·Sg, D)
     y = rows.reshape(G, K, Sg, D).sum(1)
 
     # load-balancing aux loss (Switch): E * sum_e f_e * p_e

@@ -404,3 +404,91 @@ def seed_lora(params: dict, cfg, seed: int = 0) -> None:
         x = params["lora"][name]
         x.copy_(torch.randn(x.shape, generator=g, device=x.device)
                 * cfg.hybrid.lora_rank ** -0.5)
+
+
+#: card against CPU in training: each gradient leaf's largest absolute
+#: difference over its largest absolute value.  1e-4 (f32 sums in
+#: another order); the MoE layer rounds its dispatched tokens' cotangent
+#: to bf16, so a leaf upstream of a MoE layer is held to 1e-2; the
+#: leaves downstream of every MoE layer (the final norm, the untied LM
+#: head, the last layer's expert and router slices) to 1e-4.
+TRAIN_GRAD_TOL = 1e-4
+MOE_UPSTREAM_TOL = 1e-2
+_EXPERT_LEAVES = ("['router']", "['wi']", "['wg']", "['wo']")
+_DOWNSTREAM_LEAVES = ("['final_norm']", "['embed']['head']")
+
+
+def train_batch(cfg, B: int, S: int, seed: int = 0, frames: int = 8) -> dict:
+    """A CPU batch for ``train_forward``: tokens and labels from
+    :class:`~repro_torch.data.pipeline.SyntheticLMData`, and for ``encdec``
+    normal random encoder frames (B, frames, d_model) in the model's
+    dtype."""
+    from repro_torch.data.pipeline import SyntheticLMData
+    b = SyntheticLMData(cfg.vocab_size, seed=seed).sample(
+        np.random.default_rng(seed), B, S)
+    batch = {k: torch.as_tensor(v) for k, v in b.items()}
+    if cfg.family == "encdec":
+        g = torch.Generator().manual_seed(seed)
+        batch["enc_frames"] = torch.randn((B, frames, cfg.d_model),
+                                          generator=g).to(
+            getattr(torch, cfg.dtype))
+    return batch
+
+
+def train_grads_drift(cfg, got: dict, want: dict) -> float:
+    """Hold ``got``'s gradient tree (any device) to ``want``'s by the
+    rules above; returns the worst drift of the leaves held to 1e-4."""
+    from repro_torch.tree import keystr, leaves_with_path
+    worst = 0.0
+    for (p, g), (q, w) in zip(leaves_with_path(got),
+                              leaves_with_path(want)):
+        assert p == q and g.shape == w.shape, (p, q)
+        g, w = g.detach().float().cpu(), w.detach().float().cpu()
+
+        def drift(a, b):
+            return float((a - b).abs().max() / b.abs().max().clamp_min(
+                1e-30))
+        k = keystr(p)
+        if cfg.moe is None or k.startswith(_DOWNSTREAM_LEAVES):
+            e = drift(g, w)
+            assert e < TRAIN_GRAD_TOL, (k, e)
+        else:
+            assert drift(g, w) < MOE_UPSTREAM_TOL, (k, drift(g, w))
+            if not (k.startswith("['layers']['ffn']")
+                    and any(n in k for n in _EXPERT_LEAVES)):
+                continue
+            e = drift(g[-1], w[-1])
+            assert e < TRAIN_GRAD_TOL, (k, "last layer", e)
+        worst = max(worst, e)
+    return worst
+
+
+def train_step_parity(cfg, tcfg, device: DeviceLike, B: int = 2,
+                      S: int = 32, seed: int = 0) -> dict:
+    """One train step of ``cfg`` on ``device`` against the CPU from the
+    same parameters and batch: the loss, the metrics and every gradient
+    leaf (:func:`train_grads_drift`), then the step's loss and grad norm.
+    Returns the drifts: ``loss``, ``grad_norm`` (relative) and
+    ``grads``."""
+    from repro_torch.training.train_step import (make_train_state,
+                                                 make_train_step,
+                                                 value_and_grad)
+    from repro_torch.tree import tree_map
+    state = make_train_state(cfg, tcfg, torch.Generator().manual_seed(seed),
+                             "cpu")
+    batch = train_batch(cfg, B, S, seed)
+    # a copy (the step writes the state in place)
+    on_dev = tree_map(lambda x: x.to(device, copy=True), state)
+    dev_batch = {k: v.to(device) for k, v in batch.items()}
+    loss_c, met_c, g_c = value_and_grad(cfg, state["params"], batch)
+    loss_d, met_d, g_d = value_and_grad(cfg, on_dev["params"], dev_batch)
+    out = {"grads": train_grads_drift(cfg, g_d, g_c)}
+    step = make_train_step(cfg, tcfg)
+    _, m_c = step(state, batch)
+    _, m_d = step(on_dev, dev_batch)
+    for k in ("loss", "grad_norm"):
+        out[k] = abs(float(m_d[k]) - float(m_c[k])) / abs(float(m_c[k]))
+    out["loss"] = max(out["loss"], abs(float(loss_d) - float(loss_c))
+                      / abs(float(loss_c)))
+    assert float(met_d["tokens"]) == float(met_c["tokens"])
+    return out

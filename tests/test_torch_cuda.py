@@ -940,3 +940,116 @@ def test_int8_decode_cuda_matches_cpu(cuda):
         assert int((got[k].int() - want[k].int()).abs().max()) <= 1
     for k in ("k_scale", "v_scale"):
         torch.testing.assert_close(got[k], want[k], rtol=1e-5, atol=0)
+
+
+# ----------------------------------------------------------------------
+# LM training: the backward kernels, the forward's log-sum-exp, a train
+# step on the card against the CPU.  Backward tolerances: the largest
+# absolute difference over the largest absolute plain value, 2e-5 in f32
+# and 2e-2 in bf16 (the forward kernels' own; P and dS round to bf16 in
+# the bf16 kernel, and dq sums with atomics in a run-dependent order).
+
+def _bwd_err(got, want) -> float:
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max().clamp_min(1e-30))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Skv,H,KV,D,Dv,causal", [
+    (2, 32, 32, 4, 2, 16, 16, True), (2, 32, 32, 4, 2, 12, 12, True),
+    (2, 32, 32, 4, 4, 16, 8, True), (2, 32, 8, 4, 4, 16, 16, False),
+    (4, 1024, 1024, 32, 4, 128, 128, True),
+    (2, 300, 300, 40, 40, 96, 64, True), (4, 1024, 8, 16, 16, 64, 64, False),
+    (1, 65, 65, 2, 1, 160, 160, True), (1, 33, 40, 2, 2, 256, 256, False)])
+def test_flash_backward_kernel_matches_plain(cuda, B, Sq, Skv, H, KV, D, Dv,
+                                             causal, dtype):
+    from repro_torch.kernels.flash_attention import (
+        _flash_forward, flash_attention_bwd, flash_attention_bwd_plain)
+    q = _randn((B, Sq, H, D), dtype, cuda, 0)
+    k = _randn((B, Skv, KV, D), dtype, cuda, 1)
+    v = _randn((B, Skv, KV, Dv), dtype, cuda, 2)
+    do = _randn((B, Sq, H, Dv), dtype, cuda, 3)
+    o, lse = _flash_forward(q, k, v, causal, True)
+    _, want_lse = flash_attention_plain(q, k, v, causal, return_lse=True)
+    assert _bwd_err(lse, want_lse) < 1e-5
+    before = flash_attention_bwd.launches
+    got = flash_attention_bwd(q, k, v, o, do, lse, causal)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.launches == before + 1
+    want = flash_attention_bwd_plain(q, k, v, o, do, lse, causal)
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        assert _bwd_err(g, w) < ATTN_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("E,C,D,F", [
+    (4, 20, 48, 32), (3, 1, 32, 48), (2, 130, 256, 144), (8, 4, 16, 16),
+    (128, 320, 2048, 768), (128, 320, 768, 2048)])
+def test_gmm_backward_kernel_matches_plain(cuda, E, C, D, F, dtype):
+    from repro_torch.kernels.gmm import gmm_bwd, gmm_bwd_plain
+    x = _randn((E, C, D), dtype, cuda, 0)
+    w = _randn((E, D, F), dtype, cuda, 1)
+    dy = _randn((E, C, F), dtype, cuda, 2)
+    before = gmm_bwd.launches
+    got = gmm_bwd(x, w, dy)
+    torch.cuda.synchronize()
+    assert gmm_bwd.launches == before + 1
+    for g, w_ in zip(got, gmm_bwd_plain(x, w, dy)):
+        assert g.dtype == dtype
+        assert _bwd_err(g, w_) < GMM_TOL[dtype]
+
+
+@pytest.mark.parametrize("arch", ["qwen2-vl-7b", "qwen3-moe-30b-a3b",
+                                  "minicpm3-4b", "seamless-m4t-medium"])
+def test_train_step_cuda_matches_cpu(cuda, arch):
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.testing import (MOE_UPSTREAM_TOL, TRAIN_GRAD_TOL,
+                                     train_step_parity)
+    cfg = dataclasses.replace(get_config(arch, smoke=True),
+                              dtype="float32").resolve(tp=1)
+    d = train_step_parity(cfg, TrainConfig(), cuda)
+    assert d["loss"] < TRAIN_GRAD_TOL
+    assert d["grad_norm"] < (MOE_UPSTREAM_TOL if cfg.moe is not None
+                             else TRAIN_GRAD_TOL)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "zamba2-2.7b"])
+def test_ssm_train_forward_refuses_the_card(cuda, arch):
+    from repro_torch.testing import train_batch
+    cfg = get_config(arch, smoke=True).resolve(tp=1)
+    params = model.init_params(cfg, torch.Generator().manual_seed(0), cuda)
+    batch = {k: v.to(cuda) for k, v in train_batch(cfg, 1, 16).items()}
+    with pytest.raises(NotImplementedError, match="SSD"):
+        model.train_forward(params, cfg, batch)
+
+
+def test_f32_logits_product_backward_on_card(cuda):
+    """The bf16 LM-head product under grad on the card
+    (``models.common._MatmulF32``: ``mm(out_dtype=f32)`` forward, the f32
+    cotangent split into three bf16 parts in the backward) against the
+    exact product in f64 of the same bf16 operands and f32 cotangent:
+    the logits to 1e-5 of their largest, each gradient within one bf16
+    ulp of the exact one rounded to bf16, at most 1% of elements off."""
+    from repro_torch.models.common import matmul_f32
+    g = torch.Generator().manual_seed(0)
+    h = torch.randn((2, 64, 256), generator=g).bfloat16()
+    table = (0.05 * torch.randn((1000, 256), generator=g)).bfloat16()
+    gy = 1e-3 * torch.randn((2, 64, 1000), generator=g)
+    hc = h.to(cuda).requires_grad_()
+    tc = table.to(cuda).requires_grad_()
+    y = matmul_f32(hc, tc.t())
+    assert y.dtype == torch.float32 and "MatmulF32" in type(
+        y.grad_fn).__name__
+    y.backward(gy.to(cuda))
+    h64, t64, g64 = h.double(), table.double(), gy.double()
+    want_y = h64 @ t64.t()
+    err = (y.detach().cpu().double() - want_y).abs().max()
+    assert err < 1e-5 * want_y.abs().max()
+    for got, exact in ((hc.grad, g64 @ t64),
+                       (tc.grad, torch.einsum("bsv,bsd->vd", g64, h64))):
+        got = got.cpu().double()
+        want = exact.bfloat16().double()
+        assert bool(((got - want).abs()
+                     <= want.abs() * 2.0 ** -7 + 1e-30).all())
+        assert float((got != want).double().mean()) <= 0.01

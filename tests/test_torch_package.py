@@ -74,6 +74,10 @@ def _entry_points():
     from repro_torch.core.correlate import correlate_all
     from repro_torch.core.manager import PredictionManager
     from repro_torch.core.selection import select_model
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.pipeline import SyntheticLMData, make_batch_iterator
+    from repro_torch.interop import train_state_from_reference
+    from repro_torch.training.train_step import make_train_state
     import numpy as np
     small = dict(n_trials=2, n_requests=10)
     cfg = get_scenario("baseline").compile(seed=0, **small)
@@ -111,6 +115,12 @@ def _entry_points():
         "select_model": lambda: select_model(["lr"], np.ones((8, 2)), None,
                                              np.ones(8), 1.0),
         "zoo.GBT": lambda: zoo.GBT(),
+        "make_train_state": lambda: make_train_state(arch, TrainConfig(),
+                                                     gen),
+        "make_batch_iterator": lambda: make_batch_iterator(
+            SyntheticLMData(32), 2, 4),
+        "train_state_from_reference": lambda: train_state_from_reference(
+            {"params": {"w": [1.0]}, "opt": {"step": 0}}, None),
     }
 
 
@@ -125,7 +135,9 @@ def _entry_points():
                                   "MorpheusRouter", "ClusterState",
                                   "RTTPredictor", "make_trained_predictor",
                                   "PredictionManager", "correlate_all",
-                                  "select_model", "zoo.GBT"])
+                                  "select_model", "zoo.GBT",
+                                  "make_train_state", "make_batch_iterator",
+                                  "train_state_from_reference"])
 def test_entry_point_without_card_raises(name, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
