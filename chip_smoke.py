@@ -13,9 +13,9 @@ Phases (any failure raises and exits non-zero, with no result line):
 2. build every kernel under ``src/repro_torch/kernels/csrc`` with nvcc
    (one process per source, all at once) into the git-ignored ``build/``
    directory;
-3. hold each kernel, and the backward kernels of flash attention and
-   ``gmm`` (phase 11's path), against its plain PyTorch version on the
-   card (the main paths' shapes, the sweeps of ``tests/test_kernels.py``, ragged
+3. hold each kernel, and the backward kernels of flash attention,
+   ``gmm`` and SSD (phase 11's path), against its plain PyTorch version
+   on the card (the main paths' shapes, the sweeps of ``tests/test_kernels.py``, ragged
    lengths and edge cases; for flash attention, flash-decoding, SSD and
    ``gmm``, which of each one's two kernels, tensor-core or FMA, each call
    took) and time kernel, plain version and a one-call library yardstick
@@ -24,8 +24,8 @@ Phases (any failure raises and exits non-zero, with no result line):
    160, D 96 / Dv 64 with v a view, cross-attention over 8 frames, N 64)
    beside SDPA;
 4. the simulation path: ``run_scenario`` at full width (250 nodes, 200
-   replicas per app, 8 seeds x 32 trials; 200 requests, cut from 1000 to
-   keep the whole run near 10 minutes) on baseline,
+   replicas per app, 8 seeds x 32 trials; MAIN_J requests, cut from 1000
+   to keep the whole run under 10 minutes) on baseline,
    stale-predictions, churn, cold-start, drift-fallback (the closed-loop
    fleet under drift), the four capacity-plane scenarios (overload-ramp,
    flash-crowd-autoscale, scale-to-zero-idle, spot-preemption: waste,
@@ -36,12 +36,13 @@ Phases (any failure raises and exits non-zero, with no result line):
    trials, one pass a policy (goodput, timeout, fail-fast and shed
    rates, attempts per request, wasted work, ms a step), counting kernel
    launches; then, outside the launch count, the launches a step of each
-   client pass, a traced pass at bench_telemetry.py's LARGE shape
-   (least_conn and perf_aware untraced and at sample_every 16 and 1:
-   step-time overhead and the trace's sum rule), and profiled passes
-   (device busy share, largest kernels and host ops, the host's waits
-   on the device): full width cut to 100 requests, and retry-storm's
-   perf_aware at its registry width over its first 150 requests;
+   client pass, a traced pass at bench_telemetry.py's LARGE shape cut to
+   TRACE_J requests (least_conn and perf_aware untraced and at
+   sample_every 16 and 1: step-time overhead and the trace's sum rule),
+   and profiled passes (device busy share, largest kernels and host ops,
+   the host's waits on the device): full width cut to PROFILE_J
+   requests, and retry-storm's perf_aware at its registry width over its
+   first RETRY_STORM_PROFILE_J requests;
 5. the serving path: ``ServingEngine`` with qwen2-vl-7b at full width
    (28 layers, bf16, random weights from a seeded generator), 3 waves of
    8 requests (prompts of 256-1024 tokens, 32 new tokens each), counting
@@ -73,8 +74,9 @@ Phases (any failure raises and exits non-zero, with no result line):
    baseline at sample_every 1 and 16 with equal NaN masks and rows
    within 1e-5) and the six serving paths at their smoke configs in f32
    (logits within 1e-4 relative, identical tokens; Zamba2 with nonzero
-   LoRA, seamless's encoder on normal frames) and the int8 cache decoded
-   from ``init_cache``;
+   LoRA, seamless's encoder on normal frames), the int8 cache decoded
+   from ``init_cache``, and a train step at TRAIN_PARITY_ARCHS' six f32
+   smoke configs;
 7. the paper's Fig. 11 at the reference's benchmark setting
    (``SimConfig(n_trials=200, n_requests=300)``, 76 runs of the core:
    accuracy, replicas per app and heterogeneity sweeps, four policies
@@ -100,7 +102,8 @@ Phases (any failure raises and exits non-zero, with no result line):
    flash kernel once a layer and the decode kernel once a layer a step,
    no other kernel, asserted); one ``predict_all`` a route on the
    plane pass and the largest share to the fast replica under the
-   seeded knowledge base asserted; then one scenario per mirrored plane
+   seeded knowledge base asserted, each replica's seeded RTT printed
+   before it; then one scenario per mirrored plane
    (hedged perf_aware with predictors, capacity with admission,
    resilience with a breaker) at deepseek-67b's smoke config in f32 on
    the card against the CPU under a simulated clock: picks, counts,
@@ -125,13 +128,19 @@ Phases (any failure raises and exits non-zero, with no result line):
    iterator: 2 warm-up and 4 measured steps (loss, grad norm, step ms,
    tokens/s, peak GB), each step's launches asserted (flash forward 2L,
    its backward L, ``gmm`` forward 6L, its backward 3L: remat runs each
-   layer's forward again in the backward pass), one step profiled, and a
-   checkpoint of the whole train state (params, f32 master, m, v, step)
-   through ``Checkpointer`` and back onto the card bit for bit; then
+   layer's forward again in the backward pass), one step profiled; then
    qwen2-vl-7b's dense path at full width (2 layers, one step);
-   phase 3 holds the two backward kernels (flash attention's, ``gmm``'s)
-   against their plain versions at these shapes, and phase 6 a train
-   step at four f32 smoke configs on the card against the CPU;
+   mamba2-1.3b at full width and depth (48 layers, MAMBA_TRAIN's steps;
+   SSD forward 2L on the tensor cores, its backward L); zamba2-2.7b at
+   full width, HYBRID_TRAIN_LAYERS layers (two shared-block calls, flash
+   at head dim 160), one step; and a checkpoint of the whole train state
+   (params, f32 master, m, v, step) of mamba2-1.3b cut to
+   CHECKPOINT_LAYERS layers through ``Checkpointer`` and back onto the
+   card bit for bit; phase 3 holds the three backward kernels (flash
+   attention's, ``gmm``'s, SSD's) against their plain versions at these
+   shapes, and phase 6 a train step at six f32 smoke configs on the card
+   against the CPU.  Each phase's end is printed in seconds into the
+   run;
 12. a ``kernels`` JSON line, the card's line, then the result line.
 """
 from __future__ import annotations
@@ -163,9 +172,19 @@ MAIN_J = 200
 #: cut for the same reason
 CUT_WAVES = 2
 #: the requests of phase 4's profiled retry-storm pass: the registry's
-#: 450 took 95 s under the profiler, cut to the ramp and the collapse to
-#: make room for phase 11
-RETRY_STORM_PROFILE_J = 150
+#: 450 took 95 s under the profiler, cut to 150 (the ramp and the
+#: collapse) for phase 11, then to 100 (34.1 s at 150) to keep the run
+#: under ~600 s with phase 11's Mamba2 training: the collapse past the
+#: 25 s timeouts is in it
+RETRY_STORM_PROFILE_J = 100
+#: the requests of phase 4's five profiled full-width passes (100 before;
+#: the five took ~60 s, mostly the profiler's own processing, which grows
+#: with the steps): the launches a step and the busy share are per step
+PROFILE_J = 50
+#: the requests of phase 4's traced pass (bench_telemetry.py's LARGE
+#: cell has 1000; 22.7 s at 1000): the overhead a step and the sum rule
+#: do not depend on the length
+TRACE_J = 500
 MID = dict(n_nodes=60, n_replicas_per_app=50, n_requests=200)
 MID_SEEDS, MID_TRIALS = tuple(range(4)), 16
 CAPACITY_SCENARIOS = ("overload-ramp", "flash-crowd-autoscale",
@@ -260,12 +279,26 @@ MLA_ARCH = "minicpm3-4b"
 ENCDEC_ARCH = "seamless-m4t-medium"
 #: phase 11: training at full width, depth cut to fit the f32 master and
 #: Adam moments on one card (qwen3-moe-30b-a3b: 48 -> 2 layers, ~1.9 B
-#: parameters; qwen2-vl-7b's dense path: 28 -> 2 layers, one step)
+#: parameters; qwen2-vl-7b's dense path: 28 -> 2 layers, one step);
+#: mamba2-1.3b at full depth (48 layers, 1.34 B parameters)
 LM_TRAIN = dict(batch=4, seq=1024, layers=2, steps=4, warmup=2)
+MAMBA_TRAIN = dict(steps=3, warmup=2)
+#: zamba2-2.7b's depth in phase 11 (54 layers, a shared block every 6):
+#: two groups, so the shared block runs twice, one step
+HYBRID_TRAIN_LAYERS = 12
+#: the train state whose checkpoint phase 11 round-trips bit for bit:
+#: mamba2-1.3b at full width, 48 -> 4 layers after one step (2.9 GB,
+#: every leaf kind: bf16 params, f32 ones, f32 master, m, v, step).  The
+#: whole 26.17 GB qwen3-moe-30b-a3b state took 95.6 s at ~0.6 GB/s
+#: through np.savez on an H100 host, the run's largest item
+CHECKPOINT_LAYERS = 4
 #: phase 6: a train step on the card against the CPU at the f32 smoke
 #: configs
 TRAIN_PARITY_ARCHS = ("qwen2-vl-7b", "qwen3-moe-30b-a3b", "minicpm3-4b",
-                      "seamless-m4t-medium")
+                      "seamless-m4t-medium", "mamba2-1.3b", "zamba2-2.7b")
+#: the SSD backward kernel against its plain version, relative to the
+#: largest value (tests/test_torch_cuda.py's): f32 2e-4, bf16 1e-2
+SSD_BWD_TOL = {"torch.float32": 2e-4, "torch.bfloat16": 1e-2}
 
 
 def wave_prompts(vocab: int):
@@ -1368,6 +1401,127 @@ def check_backward(dev) -> list:
          "library_ms": gmm_ms["library"]}]
 
 
+def ssd_bwd_work(args, Q: int, final: bool) -> tuple:
+    """The bytes and operations of one SSD backward call on ``args`` (x,
+    dt, A, Bm, Cm) at chunk ``Q``: x, dt, A, B, C, the chunks' f32 states,
+    the f32 dy (and dstate when ``final``) read once, dx, ddt, dA, dB, dC
+    written once; the products counted once each: C B^T, and dC and dB
+    from the group's heads' summed tiles, once per (batch, group, chunk)
+    over the causal half; per (batch, head, chunk) dy xd^T and dxd over
+    the causal half and the four (Q, P, N) state terms."""
+    x, dt, A, Bm, _ = args
+    B, L, H, P = x.shape
+    G, N = Bm.shape[2:]
+    nc = -(-L // Q)
+    half = Q * (Q + 1) // 2
+    xb, bb = x.element_size(), Bm.element_size()
+    nbytes = (2 * xb * x.numel() + 2 * 4 * dt.numel() + 2 * 4 * A.numel()
+              + 4 * bb * Bm.numel() + 4 * B * nc * H * P * N
+              + 4 * x.numel() + (4 * B * H * P * N if final else 0))
+    ops = (B * G * nc * 3 * half * 2 * N
+           + B * H * nc * (2 * half * 2 * P + 4 * 2 * Q * P * N))
+    return nbytes, ops
+
+
+def check_ssd_backward(dev) -> dict:
+    """Hold the SSD backward kernel against its plain version on the
+    card: at mamba2-1.3b's training shape (LM_TRAIN's B x S, 64 heads of
+    64, N 128, chunk 256) and zamba2-2.7b's (80 heads, N 64) in bf16, with
+    and without a final-state cotangent; G = 2 < H, f32, ragged chunks and
+    the smoke widths; the strong decay (A -16, dt 0.1), outputs asserted
+    finite.  Each call's per-chunk states from the forward kernel (the
+    variant the model takes) are held to the plain version's first.  Time
+    kernel and plain version at mamba2's shape beside the bound (no single
+    PyTorch call computes it).  Returns the ``kernels`` entry."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.ssd import (_ssd_forward, ssd_bwd,
+                                         ssd_bwd_plain, ssd_plain)
+
+    def case(B, L, H, P, G, N, chunk, dtype, strong=False, final=True,
+             seed=0):
+        x = _randn((B, L, H, P), dtype, dev, seed)
+        Bm = _randn((B, L, G, N), dtype, dev, seed + 1)
+        Cm = _randn((B, L, G, N), dtype, dev, seed + 2)
+        if strong:
+            dt = torch.full((B, L, H), 0.1, device=dev)
+            A = torch.full((H,), -16.0, device=dev)
+        else:
+            dt = F.softplus(_randn((B, L, H), torch.float32, dev, seed + 3))
+            A = -_randn((H,), torch.float32, dev, seed + 4).exp()
+        dy = _randn((B, L, H, P), torch.float32, dev, seed + 5)
+        dstate = _randn((B, H, P, N), torch.float32, dev, seed + 6) \
+            if final else None
+        args = (x, dt, A, Bm, Cm)
+        _, _, states = _ssd_forward(*args, chunk, True)
+        want_states = ssd_plain(*args, chunk, return_states=True)[2]
+        tol = SSD_TOL[str(dtype)]
+        torch.testing.assert_close(states, want_states, rtol=tol, atol=tol)
+        before = ssd_bwd.launches
+        got = ssd_bwd(*args, states, dy, dstate, chunk)
+        torch.cuda.synchronize()
+        assert ssd_bwd.launches == before + 1
+        want = ssd_bwd_plain(*args, states, dy, dstate, chunk)
+        label = (f"ssd bwd ({B},{L},{H},{P}) G={G} N={N} chunk {chunk} "
+                 f"{str(dtype)[6:]}{' A=-16 dt=0.1' if strong else ''}"
+                 f"{' dstate' if final else ''}")
+        tol = SSD_BWD_TOL[str(dtype)]
+        err, rel = 0.0, {}
+        for g, w, n in zip(got, want, ("dx", "ddt", "dA", "dB", "dC")):
+            assert bool(torch.isfinite(g).all()), f"{label} {n} not finite"
+            diff = float((g.float() - w.float()).abs().max())
+            scale = float(w.float().abs().max())
+            assert diff <= tol * max(scale, 1e-30), \
+                f"{label} {n}: max_abs_err {diff:.3e} over {scale:.3e} > {tol}"
+            err = max(err, diff)
+            rel[n] = diff / max(scale, 1e-30)
+        print(f"{label}: finite, max_abs_err {err:.3e}; of the largest "
+              f"value (tol {tol}): " + ", ".join(
+                  f"{n} {r:.1e}" for n, r in rel.items()))
+        return (args, states, dy, dstate), err
+
+    bf16 = torch.bfloat16
+    mamba, hybrid = get_config(MAMBA_ARCH), get_config(HYBRID_ARCH)
+    B, S = LM_TRAIN["batch"], LM_TRAIN["seq"]
+
+    def shape_of(cfg):
+        s = cfg.ssm
+        return (B, S, s.n_heads(cfg.d_model), s.head_dim, s.n_groups,
+                s.d_state, s.chunk_size)
+    train, train_err = case(*shape_of(mamba), bf16, final=False)
+    case(*shape_of(mamba), bf16, seed=1)
+    case(*shape_of(hybrid), bf16, final=False, seed=2)
+    for dtype in (torch.float32, bf16):
+        for shape in ((1, 64, 2, 8, 1, 4, 16), (2, 40, 4, 16, 1, 16, 256),
+                      (2, 200, 4, 64, 2, 128, 100),   # ragged tiles
+                      (2, 512, 8, 64, 2, 128, 256),   # G = 2
+                      (1, 64, 8, 16, 1, 16, 32)):     # the smoke configs'
+            case(*shape, dtype, seed=5)
+        case(1, 512, 8, 64, 1, 128, 256, dtype, strong=True, seed=6)
+    args, states, dy, dstate = train
+    Q = mamba.ssm.chunk_size
+    dev_ms = _timed(f"ssd_bwd {tuple(args[0].shape)} N {args[3].shape[3]}",
+                    {"kernel": lambda: ssd_bwd(*args, states, dy, None, Q),
+                     "plain": lambda: ssd_bwd_plain(*args, states, dy, None,
+                                                    Q)}, inner=3)
+    nbytes, ops = ssd_bwd_work(args, Q, final=False)
+    bound_ms, bound_by = _bound(nbytes, ops, args[0].dtype)
+    ms = dev_ms["kernel"]
+    print(f"ssd bwd at mamba2-1.3b's training shape: {ms * 1e3:.2f} us, "
+          f"{ops / 1e9:.2f} GFLOP counted ({ops / ms / 1e9:.1f} TFLOP/s), "
+          f"{nbytes / 1e6:.1f} MB ({nbytes / ms / 1e6:.1f} GB/s), "
+          f"{bound_ms / ms * 100:.2f} % of the {bound_ms * 1e3:.2f} us bound "
+          f"({bound_by}); plain {dev_ms['plain'] * 1e3:.2f} us; no single "
+          f"PyTorch call")
+    return {"name": "ssd_bwd", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ssd_bwd.cu",
+            "replaces": "src/repro/kernels/ssd.py:78",
+            "backward_of": "ssd", "launches": 0, "max_abs_err": train_err,
+            "ms": ms, "plain_ms": dev_ms["plain"], "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
+
+
 def train_gmm_rows(cfg) -> int:
     """C = G * cap of the MoE layer at phase 11's B x S tokens."""
     from repro_torch.models.moe import capacity, dispatch_groups
@@ -1405,9 +1559,16 @@ def train_parity(dev) -> float:
 
 def _train_launches(cfg) -> dict:
     """The kernels a train step launches with remat full and L layers:
-    each layer's forward runs twice (forward, then again in the backward
-    pass), each backward once."""
+    each layer's (a Zamba2 group's) forward runs twice (forward, then
+    again in the backward pass), each backward once.  A Mamba2 layer runs
+    the SSD scan (on the tensor cores at full width), Zamba2's shared
+    block flash attention once a group."""
     L = cfg.num_layers
+    if cfg.family in ("ssm", "hybrid"):
+        attn = L // cfg.hybrid.shared_every if cfg.family == "hybrid" else 0
+        return {"flash_attention": 2 * attn, "flash_attention.tc": 2 * attn,
+                "flash_attention_bwd": attn, "ssd": 2 * L,
+                "ssd.tc": 2 * L, "ssd_bwd": L}
     per_layer_gmm = 3 if cfg.moe is not None else 0
     return {"flash_attention": 2 * L, "flash_attention.tc": 2 * L,
             "flash_attention_bwd": L,
@@ -1517,6 +1678,7 @@ def train_full_width(dev, arch: str, layers: int, steps: int, warmup: int,
     from repro_torch.training.train_step import (make_train_state,
                                                  make_train_step)
     from repro_torch.tree import leaves_with_path
+    t_run = time.perf_counter()
     gc.collect()
     before = torch.cuda.memory_allocated() / 1e9
     held = free_card_memory()
@@ -1578,12 +1740,14 @@ def train_full_width(dev, arch: str, layers: int, steps: int, warmup: int,
     finally:
         it.close()
     print(f"train {arch}: launches a step {expect} (remat full: each "
-          f"layer's forward twice)")
+          f"layer's or group's forward twice)")
     if checkpoint:
         checkpoint_round_trip(arch, state)
     del state, it
     gc.collect()
     torch.cuda.empty_cache()
+    print(f"train {arch} ({layers} layers): {time.perf_counter() - t_run:.1f}"
+          f" s in all")
     return total
 
 
@@ -1766,7 +1930,8 @@ def client_parity(client: dict) -> float:
 
 
 def traced_pass(T_seeds, n_trials) -> None:
-    """bench_telemetry.py's LARGE cell (baseline) untraced and traced at
+    """bench_telemetry.py's LARGE cell (baseline, cut to TRACE_J
+    requests) untraced and traced at
     sample_every 16 and 1, least_conn and perf_aware, on one stacked
     cluster: each pass's loop time, the overhead against the untraced
     pass in the same call, the sum rule and the trace's shape."""
@@ -1778,11 +1943,12 @@ def traced_pass(T_seeds, n_trials) -> None:
     from repro_torch.core.simulator import _build_cluster
     from repro_torch.core.telemetry import TraceConfig
     spec = get_scenario("baseline")
-    cfgs = [spec.compile(seed=s, n_trials=n_trials, **LARGE)
+    shape = dict(LARGE, n_requests=TRACE_J)
+    cfgs = [spec.compile(seed=s, n_trials=n_trials, **shape)
             for s in T_seeds]
     stacked = stack_clusters([_build_cluster(c) for c in cfgs])
     blocks = [(rng_seed(c.seed, "policy"), c.n_trials) for c in cfgs]
-    J = LARGE["n_requests"]
+    J = TRACE_J
     for pol in ("least_conn", "perf_aware"):
         loop = {}
         for k in (None, 16, 1, None):
@@ -1815,10 +1981,11 @@ def _kernel_wrappers() -> dict:
                                                      flash_attention_bwd)
     from repro_torch.kernels.gmm import gmm, gmm_bwd
     from repro_torch.kernels.segment_sum import segment_sum
-    from repro_torch.kernels.ssd import ssd
+    from repro_torch.kernels.ssd import ssd, ssd_bwd
     return {"segment_sum": segment_sum, "flash_attention": flash_attention,
             "decode_attention": decode_attention, "ssd": ssd, "gmm": gmm,
-            "flash_attention_bwd": flash_attention_bwd, "gmm_bwd": gmm_bwd}
+            "flash_attention_bwd": flash_attention_bwd, "gmm_bwd": gmm_bwd,
+            "ssd_bwd": ssd_bwd}
 
 
 #: wrapper -> its counters by variant, beside ``launches``
@@ -2222,6 +2389,7 @@ def _route_pass(dev, cfg, params, name, prompts, seed_prompts, wrappers):
             device=dev) for i, e in enumerate(engines)}
     router = MorpheusRouter(engines, policy=policy, seed=0,
                             predictors=predictors, device=dev)
+    seeded = []
     if policy == "perf_aware" and not plane:
         # the knowledge base from one observed wave per replica, as
         # examples/serve_cluster.py seeds it
@@ -2230,6 +2398,7 @@ def _route_pass(dev, cfg, params, name, prompts, seed_prompts, wrappers):
                                max_new_tokens=ROUTER_NEW_TOKENS))
             done = eng.step_wave()
             router.kb.put("serve", eng.node, clock.now(), done[0].rtt)
+            seeded.append((len(p), done[0].rtt))
     calls = [0]
     predict_all = router.plane.predict_all
 
@@ -2251,7 +2420,7 @@ def _route_pass(dev, cfg, params, name, prompts, seed_prompts, wrappers):
     for r in reqs:
         assert r.output is not None and len(r.output) == ROUTER_NEW_TOKENS
         assert ((r.output >= 0) & (r.output < cfg.vocab_size)).all()
-    return {"rtts": np.array([r.rtt for r in reqs]),
+    return {"rtts": np.array([r.rtt for r in reqs]), "seeded": seeded,
             "routed": list(router.routed), "waves": waves,
             "route_us": route_s / len(reqs) * 1e6,
             "dispatches": router.plane.dispatches, "calls": calls[0]}
@@ -2315,6 +2484,10 @@ def router_full_width(dev, params, wrappers) -> dict:
             assert run["calls"] == routes, (run["calls"], routes)
             assert run["dispatches"] == routes, (run["dispatches"], routes)
         if name == "perf_aware":
+            # the knowledge base's seeds: a wall-clock wave a replica
+            print("  knowledge-base seeds (prompt tokens, RTT s): "
+                  + ", ".join(f"{tag} {n} {rtt:.4f}" for tag, (n, rtt) in
+                              zip(("fast", "med", "slow"), run["seeded"])))
             assert share[0] == max(share), \
                 f"KB-seeded perf_aware gave the fast replica {share}"
     launches = counts(wrappers)
@@ -2806,6 +2979,7 @@ def main() -> int:
         k["catalogue_shapes"] = catalogue[k["name"]]
     # the backward kernels (phase 11's path)
     kernels += check_backward(dev)
+    kernels.append(check_ssd_backward(dev))
     for k in kernels:
         lib = "no library call" if k["library_ms"] is None \
             else f"{k['library_ms'] * 1e3:.2f} us library"
@@ -2814,6 +2988,7 @@ def main() -> int:
               f"bound {k['bound_ms'] * 1e3:.2f} us ({k['bound_by']})")
     sync_us = sync_cost_us(dev)
     print(f"host sync (bool(mask.any()) on (256, 1000)): {sync_us:.1f} us")
+    print(f"phase 3 done: {time.perf_counter() - t_start:.1f} s into the run")
 
     # phase 4: the simulation path at full width
     wrappers = _kernel_wrappers()
@@ -2887,13 +3062,13 @@ def main() -> int:
           f" GiB")
 
     # where the loop's time goes (not part of the main-path count)
-    profile_pass("stale-predictions", "perf_aware", 100)
-    profile_pass("stale-predictions", "least_conn", 100)
-    profile_pass("drift-fallback", "perf_aware", 100)
+    profile_pass("stale-predictions", "perf_aware", PROFILE_J)
+    profile_pass("stale-predictions", "least_conn", PROFILE_J)
+    profile_pass("drift-fallback", "perf_aware", PROFILE_J)
     # the capacity plane: perf_aware folds a prediction a step,
     # least_conn the completions at each epoch (one host read an epoch)
-    profile_pass("spot-preemption", "perf_aware", 100)
-    profile_pass("spot-preemption", "least_conn", 100)
+    profile_pass("spot-preemption", "perf_aware", PROFILE_J)
+    profile_pass("spot-preemption", "least_conn", PROFILE_J)
     # the client plane: launches a step of perf_aware's and
     # least_conn's passes (cut to 30 requests), the retry storm's
     # perf_aware profiled at its registry width over its first
@@ -3100,14 +3275,22 @@ def main() -> int:
     # are reset just before each step and read just after)
     print(f"phase 10 done: {time.perf_counter() - t_start:.1f} s into the "
           f"run")
-    trained = train_full_width(dev, MOE_ARCH, LM_TRAIN["layers"],
-                               LM_TRAIN["steps"], LM_TRAIN["warmup"],
-                               wrappers, checkpoint=True)
-    dense = train_full_width(dev, ARCH, LM_TRAIN["layers"], 1, 1, wrappers)
+    runs = [train_full_width(dev, MOE_ARCH, LM_TRAIN["layers"],
+                             LM_TRAIN["steps"], LM_TRAIN["warmup"],
+                             wrappers),
+            train_full_width(dev, ARCH, LM_TRAIN["layers"], 1, 1, wrappers),
+            train_full_width(dev, MAMBA_ARCH,
+                             get_config(MAMBA_ARCH).num_layers,
+                             MAMBA_TRAIN["steps"], MAMBA_TRAIN["warmup"],
+                             wrappers),
+            train_full_width(dev, HYBRID_ARCH, HYBRID_TRAIN_LAYERS, 1, 1,
+                             wrappers),
+            train_full_width(dev, MAMBA_ARCH, CHECKPOINT_LAYERS, 1, 0,
+                             wrappers, checkpoint=True)]
     by_name = {k["name"]: k for k in kernels}
-    for name in ("flash_attention", "gmm", "flash_attention_bwd",
-                 "gmm_bwd"):
-        n = trained.get(name, 0) + dense.get(name, 0)
+    for name in ("flash_attention", "gmm", "ssd", "flash_attention_bwd",
+                 "gmm_bwd", "ssd_bwd"):
+        n = sum(r.get(name, 0) for r in runs)
         assert n > 0, f"{name} never launched in phase 11"
         by_name[name]["training_launches"] = n
         by_name[name]["launches"] += n

@@ -80,6 +80,11 @@
 //   conflicts.  ~133 KB of dynamic shared memory at P=64, N=128: one CTA
 //   per SM.  x, B and C may be f32 or bf16 and are cast on load.
 //
+// Training asks either kernel for each chunk's incoming state as well
+// (a (B, L / Q, H, P, N) f32 output, written only when given a pointer,
+// so serving is unchanged): the backward kernel (ssd_bwd.cu) starts
+// every chunk from it.
+//
 // x, dt, B and C are read in the model's (B, L, heads, dim) layout with
 // element strides for batch, position and head (or group); their last dim
 // must be contiguous.  y (B, L, H, P) and the state (B, H, P, N) are
@@ -126,8 +131,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 ssd_fwd(const T* __restrict__ x, const float* __restrict__ dt,
         const float* __restrict__ A, const T* __restrict__ Bm,
         const T* __restrict__ Cm, float* __restrict__ y,
-        float* __restrict__ state_out, Strides xs, Strides ds, Strides bs,
-        Strides cs, int L, int H, int G, int P, int N, int Q) {
+        float* __restrict__ state_out, float* __restrict__ states,
+        Strides xs, Strides ds, Strides bs, Strides cs, int L, int H, int G,
+        int P, int N, int Q) {
   extern __shared__ __align__(16) float smem[];
   const int ldn = N + 1;
   float* St = smem;               // P x ldn
@@ -156,6 +162,14 @@ ssd_fwd(const T* __restrict__ x, const float* __restrict__ dt,
   for (int c = 0; c < n_chunks; ++c) {
     const long long l0 = static_cast<long long>(c) * Q;
     __syncthreads();  // the last chunk's update of St and reads of cum are done
+    if (states != nullptr) {  // the chunk's incoming state, for training
+      float* sc = states + ((static_cast<long long>(b) * n_chunks + c) * H + h) *
+                               P * N;
+      for (int i = tid; i < P * N; i += kThreads) {
+        const int p = i / N, n = i - p * N;
+        sc[i] = St[p * ldn + n];
+      }
+    }
     for (int i = tid; i < Q; i += kThreads) {
       const float d = db[(l0 + i) * ds.l];
       dts[i] = d;
@@ -351,8 +365,9 @@ ssd_fwd(const T* __restrict__ x, const float* __restrict__ dt,
 
 template <typename T>
 int launch(const void* x, const void* dt, const void* A, const void* Bm,
-           const void* Cm, void* y, void* state, int Bsz, int L, int H, int G,
-           int P, int N, int Q, const long long* st, void* stream) {
+           const void* Cm, void* y, void* state, void* states, int Bsz, int L,
+           int H, int G, int P, int N, int Q, const long long* st,
+           void* stream) {
   if (Bsz < 1 || L < 1 || Q < 1 || L % Q != 0 || G < 1 || H % G != 0 ||
       P < 1 || P > kMaxP || N < 1 || N > kMaxN)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -379,7 +394,8 @@ int launch(const void* x, const void* dt, const void* A, const void* Bm,
       static_cast<const T*>(x), static_cast<const float*>(dt),
       static_cast<const float*>(A), static_cast<const T*>(Bm),
       static_cast<const T*>(Cm), static_cast<float*>(y),
-      static_cast<float*>(state), xs, ds, bs, cs, L, H, G, P, N, Q);
+      static_cast<float*>(state), static_cast<float*>(states), xs, ds, bs, cs,
+      L, H, G, P, N, Q);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -467,8 +483,9 @@ __global__ void __launch_bounds__(kTcThreads, 1)
 ssd_tc(const __nv_bfloat16* __restrict__ x, const float* __restrict__ dt,
        const float* __restrict__ A, const __nv_bfloat16* __restrict__ Bm,
        const __nv_bfloat16* __restrict__ Cm, float* __restrict__ y,
-       float* __restrict__ state_out, Strides xs, Strides ds, Strides bs,
-       Strides cs, int Bsz, int L, int H, int G, int P, int N, int Q) {
+       float* __restrict__ state_out, float* __restrict__ states, Strides xs,
+       Strides ds, Strides bs, Strides cs, int Bsz, int L, int H, int G, int P,
+       int N, int Q) {
   using T = Tc<kN>;
   extern __shared__ __align__(128) uint8_t smem_raw[];
   const int Qp = (Q + 15) & ~15;
@@ -523,6 +540,19 @@ ssd_tc(const __nv_bfloat16* __restrict__ x, const float* __restrict__ dt,
     for (int c = 0; c < nc; ++c) {
       const long long l0 = static_cast<long long>(c) * Q;
       const int slot = c % per_window;
+      if (states != nullptr) {  // the chunk's incoming state, for training
+        float* sc = states + ((static_cast<long long>(b) * nc + c) * H + h) *
+                                 P * N;
+#pragma unroll
+        for (int j = 0; j < T::kST; ++j)
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const int p = sp0 + g8 + 8 * hh, n = sn0 + 8 * j + t2;
+            if (p < P && n < N)
+              *reinterpret_cast<float2*>(sc + p * N + n) =
+                  make_float2(st[j][2 * hh], st[j][2 * hh + 1]);
+          }
+      }
       if (slot == 0) {
         // dt of the window's chunks, then each chunk's inclusive prefix
         // sum of dA, in order, one thread a chunk (__fmul_rn: dA is
@@ -806,9 +836,9 @@ ssd_tc(const __nv_bfloat16* __restrict__ x, const float* __restrict__ dt,
 
 template <int kN>
 int launch_tc_n(const void* x, const void* dt, const void* A, const void* Bm,
-                const void* Cm, void* y, void* state, int Bsz, int L, int H,
-                int G, int P, int N, int Q, const Strides (&s)[4],
-                cudaStream_t stream) {
+                const void* Cm, void* y, void* state, void* states, int Bsz,
+                int L, int H, int G, int P, int N, int Q,
+                const Strides (&s)[4], cudaStream_t stream) {
   static int optin = 0, n_sm = 0;  // opt in to all shared memory once
   if (optin == 0) {
     int dev = 0;
@@ -838,8 +868,8 @@ int launch_tc_n(const void* x, const void* dt, const void* A, const void* Bm,
       static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(dt),
       static_cast<const float*>(A), static_cast<const __nv_bfloat16*>(Bm),
       static_cast<const __nv_bfloat16*>(Cm), static_cast<float*>(y),
-      static_cast<float*>(state), s[0], s[1], s[2], s[3], Bsz, L, H, G, P, N,
-      Q);
+      static_cast<float*>(state), static_cast<float*>(states), s[0], s[1],
+      s[2], s[3], Bsz, L, H, G, P, N, Q);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -851,8 +881,9 @@ bool aligned16(const void* p) {
 // the tensor-core kernel's own conditions (the wrapper's _variant checks
 // the same)
 int launch_tc(const void* x, const void* dt, const void* A, const void* Bm,
-              const void* Cm, void* y, void* state, int Bsz, int L, int H,
-              int G, int P, int N, int Q, const long long* st, void* stream) {
+              const void* Cm, void* y, void* state, void* states, int Bsz,
+              int L, int H, int G, int P, int N, int Q, const long long* st,
+              void* stream) {
   if (Bsz < 1 || L < 1 || Q < 1 || Q > kTcMaxQ || L % Q != 0 || G < 1 ||
       H % G != 0 || P < 8 || P > kTcP || P % 8 != 0 || N < 8 || N > 128 ||
       N % 8 != 0)
@@ -866,10 +897,10 @@ int launch_tc(const void* x, const void* dt, const void* A, const void* Bm,
                         {st[6], st[7], st[8]}, {st[9], st[10], st[11]}};
   const cudaStream_t cs = static_cast<cudaStream_t>(stream);
   if (N <= 64)
-    return launch_tc_n<64>(x, dt, A, Bm, Cm, y, state, Bsz, L, H, G, P, N, Q,
-                           s, cs);
-  return launch_tc_n<128>(x, dt, A, Bm, Cm, y, state, Bsz, L, H, G, P, N, Q,
-                          s, cs);
+    return launch_tc_n<64>(x, dt, A, Bm, Cm, y, state, states, Bsz, L, H, G,
+                           P, N, Q, s, cs);
+  return launch_tc_n<128>(x, dt, A, Bm, Cm, y, state, states, Bsz, L, H, G,
+                          P, N, Q, s, cs);
 }
 
 }  // namespace
@@ -877,28 +908,30 @@ int launch_tc(const void* x, const void* dt, const void* A, const void* Bm,
 // x, B, C in f32 (ssd_f32) or bf16 (ssd_bf16: the FMA kernel; ssd_bf16_tc:
 // the tensor-core kernel); dt (B, L, H) and A (H,) f32.  strides: 12
 // element strides, (batch, position, head or group) of x, dt, B and C.
-// y (B, L, H, P) and state (B, H, P, N) are contiguous f32.
+// y (B, L, H, P) and state (B, H, P, N) are contiguous f32; states, when
+// not null, receives each chunk's incoming state (B, L / Q, H, P, N) f32
+// (the backward's input; serving passes null).
 extern "C" int ssd_f32(const void* x, const void* dt, const void* A,
                        const void* Bm, const void* Cm, void* y, void* state,
-                       int Bsz, int L, int H, int G, int P, int N, int Q,
-                       const long long* strides, void* stream) {
-  return launch<float>(x, dt, A, Bm, Cm, y, state, Bsz, L, H, G, P, N, Q,
-                       strides, stream);
+                       void* states, int Bsz, int L, int H, int G, int P,
+                       int N, int Q, const long long* strides, void* stream) {
+  return launch<float>(x, dt, A, Bm, Cm, y, state, states, Bsz, L, H, G, P, N,
+                       Q, strides, stream);
 }
 
 extern "C" int ssd_bf16(const void* x, const void* dt, const void* A,
                         const void* Bm, const void* Cm, void* y, void* state,
-                        int Bsz, int L, int H, int G, int P, int N, int Q,
-                        const long long* strides, void* stream) {
-  return launch<__nv_bfloat16>(x, dt, A, Bm, Cm, y, state, Bsz, L, H, G, P,
-                               N, Q, strides, stream);
+                        void* states, int Bsz, int L, int H, int G, int P,
+                        int N, int Q, const long long* strides, void* stream) {
+  return launch<__nv_bfloat16>(x, dt, A, Bm, Cm, y, state, states, Bsz, L, H,
+                               G, P, N, Q, strides, stream);
 }
 
 extern "C" int ssd_bf16_tc(const void* x, const void* dt, const void* A,
                            const void* Bm, const void* Cm, void* y,
-                           void* state, int Bsz, int L, int H, int G, int P,
-                           int N, int Q, const long long* strides,
-                           void* stream) {
-  return launch_tc(x, dt, A, Bm, Cm, y, state, Bsz, L, H, G, P, N, Q, strides,
-                   stream);
+                           void* state, void* states, int Bsz, int L, int H,
+                           int G, int P, int N, int Q,
+                           const long long* strides, void* stream) {
+  return launch_tc(x, dt, A, Bm, Cm, y, state, states, Bsz, L, H, G, P, N, Q,
+                   strides, stream);
 }

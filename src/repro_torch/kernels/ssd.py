@@ -42,6 +42,20 @@ pairs keep ~16 bits of each rounded operand).
 
 :func:`ssd` runs the plain version only for tensors that lie on the CPU;
 for a CUDA tensor it launches one of the kernels or raises.
+
+Training: when grad is enabled and x, dt, A, Bm or Cm requires it,
+:func:`ssd` goes through :class:`SSD`, whose forward asks the kernel for
+each chunk's incoming state (B, nc, H, P, N) f32 as well (written only
+when asked, so serving is unchanged) and whose backward is
+:func:`ssd_bwd`: on a CUDA tensor the kernel of ``csrc/ssd_bwd.cu``
+(f32 FMAs; dB and dC summed over each group's heads by f32 atomics;
+counted in ``ssd_bwd.launches``), on a CPU tensor :func:`ssd_bwd_plain`
+(``ssd_bwd.plain_calls``).  The backward walks the chunks in reverse
+with the state's cotangent carried, and selects every decay on the
+causal triangle before the exp, as the forward does: the reference's
+``jnp.where(causal, exp(seg), 0)`` gives NaN gradients once a chunk's
+decay passes ~88 (ROADMAP Queue 3), the port's stay finite.  The plain
+versions also take float64.
 """
 from __future__ import annotations
 
@@ -51,13 +65,14 @@ import functools
 import torch
 
 from repro_torch.kernels.build import load
-from repro_torch.kernels.flash_attention import strides_arg
+from repro_torch.kernels.flash_attention import _acc_dtype, strides_arg
 
-__all__ = ["ssd", "ssd_plain"]
+__all__ = ["SSD", "ssd", "ssd_bwd", "ssd_bwd_plain", "ssd_plain"]
 
 _ENTRY = {("fma", torch.float32): "ssd_f32",
           ("fma", torch.bfloat16): "ssd_bf16",
           ("tc", torch.bfloat16): "ssd_bf16_tc"}
+_BWD_ENTRY = {torch.float32: "ssd_bwd_f32", torch.bfloat16: "ssd_bwd_bf16"}
 _DTYPES = (torch.float32, torch.bfloat16)
 MAX_HEAD_DIM = 64
 MAX_STATE_DIM = 128
@@ -108,24 +123,28 @@ def _check_inputs(x, dt, A, Bm, Cm, chunk: int) -> int:
 
 
 def ssd_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
-              Bm: torch.Tensor, Cm: torch.Tensor, chunk: int = 256):
+              Bm: torch.Tensor, Cm: torch.Tensor, chunk: int = 256,
+              return_states: bool = False):
     """The same function in plain PyTorch: the chunked algebra of the
     reference's ``ssd_chunked``, a Python loop over chunks, f32
-    throughout."""
+    throughout (f64 for f64 inputs).  With ``return_states`` also each
+    chunk's incoming state (B, nc, H, P, N), the first one zeros."""
     Bsz, L, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
     rep = H // G
     Q = min(chunk, L)
     nc = L // Q
-    dt = dt.float()
-    xd = (x.float() * dt[..., None]).reshape(Bsz, nc, Q, H, P)
-    dA = (dt * A.float()).reshape(Bsz, nc, Q, H)
-    Bh = Bm.float().repeat_interleave(rep, dim=2).reshape(Bsz, nc, Q, H, N)
-    Ch = Cm.float().repeat_interleave(rep, dim=2).reshape(Bsz, nc, Q, H, N)
+    acc = _acc_dtype(x)
+    dt = dt.to(acc)
+    xd = (x.to(acc) * dt[..., None]).reshape(Bsz, nc, Q, H, P)
+    dA = (dt * A.to(acc)).reshape(Bsz, nc, Q, H)
+    Bh = Bm.to(acc).repeat_interleave(rep, dim=2).reshape(Bsz, nc, Q, H, N)
+    Ch = Cm.to(acc).repeat_interleave(rep, dim=2).reshape(Bsz, nc, Q, H, N)
     upper = ~torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
-    state = torch.zeros((Bsz, H, P, N), dtype=torch.float32, device=x.device)
-    ys = []
+    state = torch.zeros((Bsz, H, P, N), dtype=acc, device=x.device)
+    ys, states = [], []
     for c in range(nc):
+        states.append(state)
         xq, Bq, Cq = xd[:, c], Bh[:, c], Ch[:, c]
         cum = dA[:, c].cumsum(dim=1)                           # (B, Q, H)
         seg = cum[:, :, None, :] - cum[:, None, :, :]          # (B, Q, K, H)
@@ -140,7 +159,95 @@ def ssd_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         state = state * tot.exp()[..., None, None] + torch.einsum(
             "bqhn,bqhp->bhpn", Bq, xq * decay_out[..., None])
         ys.append(y)
-    return torch.stack(ys, dim=1).reshape(Bsz, L, H, P), state
+    y = torch.stack(ys, dim=1).reshape(Bsz, L, H, P)
+    if return_states:
+        return y, state, torch.stack(states, dim=1)
+    return y, state
+
+
+def ssd_bwd_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                  Bm: torch.Tensor, Cm: torch.Tensor, states: torch.Tensor,
+                  dy: torch.Tensor, dstate=None, chunk: int = 256):
+    """The backward pass in plain PyTorch, the kernel's math: the chunks
+    in reverse order with the cotangent ``dS`` (B, H, P, N) of the state
+    leaving the chunk carried from one to the next (``dstate`` at the
+    end, zeros without one); ``states`` (B, nc, H, P, N) are the chunks'
+    incoming states (:func:`ssd_plain`'s ``return_states``).  Per chunk,
+    with ``L[q, k] = exp(cum_q - cum_k)`` selected on the causal triangle
+    before the exp, ``CB = C B^T`` and ``DX = dy xd^T``::
+
+        dC_q  = sum_k (DX o L)_qk B_k + exp(cum_q) dy_q S_in
+        dB_k  = sum_q (DX o L)_qk C_q + exp(tot - cum_k) dS^T xd_k
+        dxd_k = sum_q (CB o L)_qk dy_q + exp(tot - cum_k) dS B_k
+        dcum  = rowsum(M) - colsum(M) + exp(cum) (dy S_in C)
+                - exp(tot - cum) (xd^T dS B),  M = CB o DX o L
+        dcum[Q - 1] += exp(tot) <dS, S_in> + sum_k exp(tot - cum_k)
+                       (xd_k^T dS B_k)
+        dS   <- exp(tot) dS + sum_q exp(cum_q) dy_q C_q^T
+
+    then ``d(dA)`` is the reverse cumsum of ``dcum``, ``dx = dxd dt``,
+    ``ddt = dxd . x + d(dA) A`` and ``dA_h = sum d(dA) dt``.  dB and dC
+    are summed over each group's heads.  Returns (dx, ddt, dA, dBm, dCm)
+    in the dtypes of x, dt, A, Bm and Cm, f32 sums (f64 for f64
+    inputs)."""
+    Bsz, L, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    rep = H // G
+    Q = min(chunk, L)
+    nc = L // Q
+    acc = _acc_dtype(x)
+    xs = x.to(acc).reshape(Bsz, nc, Q, H, P)
+    dts = dt.to(acc).reshape(Bsz, nc, Q, H)
+    Af = A.to(acc)
+    Bh = Bm.to(acc).repeat_interleave(rep, dim=2).reshape(Bsz, nc, Q, H, N)
+    Ch = Cm.to(acc).repeat_interleave(rep, dim=2).reshape(Bsz, nc, Q, H, N)
+    dys = dy.to(acc).reshape(Bsz, nc, Q, H, P)
+    states = states.to(acc)
+    dS = torch.zeros((Bsz, H, P, N), dtype=acc, device=x.device) \
+        if dstate is None else dstate.to(acc)
+    upper = ~torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
+    dxs, ddts, dBs, dCs = [None] * nc, [None] * nc, [None] * nc, [None] * nc
+    dA = torch.zeros((H,), dtype=acc, device=x.device)
+    for c in reversed(range(nc)):
+        xq, dtq, Bq, Cq, dyq = xs[:, c], dts[:, c], Bh[:, c], Ch[:, c], \
+            dys[:, c]
+        S_in = states[:, c]
+        xd = xq * dtq[..., None]
+        cum = (dtq * Af).cumsum(dim=1)                         # (B, Q, H)
+        seg = cum[:, :, None, :] - cum[:, None, :, :]          # (B, Q, K, H)
+        Lm = seg.masked_fill(upper[None, :, :, None], float("-inf")).exp()
+        CB = torch.einsum("bqhn,bkhn->bqkh", Cq, Bq)
+        DX = torch.einsum("bqhp,bkhp->bqkh", dyq, xd)
+        T1, T2 = DX * Lm, CB * Lm
+        M = CB * T1
+        e_in = cum.exp()                                       # (B, Q, H)
+        tot = cum[:, -1, :]                                    # (B, H)
+        w = (tot[:, None, :] - cum).exp()                      # (B, Q, H)
+        dyS = torch.einsum("bqhp,bhpn->bqhn", dyq, S_in)
+        dSB = torch.einsum("bhpn,bkhn->bkhp", dS, Bq)
+        dC = torch.einsum("bqkh,bkhn->bqhn", T1, Bq) + e_in[..., None] * dyS
+        dB = torch.einsum("bqkh,bqhn->bkhn", T1, Cq) + w[..., None] \
+            * torch.einsum("bkhp,bhpn->bkhn", xd, dS)
+        dxd = torch.einsum("bqkh,bqhp->bkhp", T2, dyq) + w[..., None] * dSB
+        W = w * (xd * dSB).sum(-1)                             # (B, K, H)
+        dcum = M.sum(2) - M.sum(1) + e_in * (dyS * Cq).sum(-1) - W
+        dtot = tot.exp() * (dS * S_in).sum((-1, -2)) + W.sum(1)
+        dcum = torch.cat([dcum[:, :-1], dcum[:, -1:] + dtot[:, None]], 1)
+        da = dcum.flip(1).cumsum(1).flip(1)                    # d(dA)
+        dxs[c] = dxd * dtq[..., None]
+        ddts[c] = (dxd * xq).sum(-1) + da * Af
+        dA = dA + (da * dtq).sum((0, 1))
+        dBs[c], dCs[c] = dB, dC
+        dS = tot.exp()[..., None, None] * dS + torch.einsum(
+            "bqh,bqhp,bqhn->bhpn", e_in, dyq, Cq)
+
+    def grouped(parts):
+        return torch.stack(parts, 1).reshape(Bsz, L, G, rep, N).sum(3)
+
+    return (torch.stack(dxs, 1).reshape(Bsz, L, H, P).to(x.dtype),
+            torch.stack(ddts, 1).reshape(Bsz, L, H).to(dt.dtype),
+            dA.to(A.dtype), grouped(dBs).to(Bm.dtype),
+            grouped(dCs).to(Cm.dtype))
 
 
 def _variant(dtype: torch.dtype, L: int, Q: int, P: int, N: int,
@@ -163,7 +270,16 @@ def _variant(dtype: torch.dtype, L: int, Q: int, P: int, N: int,
 @functools.lru_cache(maxsize=None)
 def _entry(variant: str, dtype: torch.dtype):
     fn = getattr(load("ssd"), _ENTRY[variant, dtype])
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+                   + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_entry(dtype: torch.dtype):
+    fn = getattr(load("ssd_bwd"), _BWD_ENTRY[dtype])
+    fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 7
                    + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -178,17 +294,32 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
     CPU tensors take :func:`ssd_plain` (counted in ``ssd.plain_calls``);
     CUDA tensors launch the kernel that :func:`_variant` picks on the
     current stream (counted in ``ssd.launches`` and in ``tc_launches`` or
-    ``fma_launches``)."""
+    ``fma_launches``).  Under grad, when x, dt, A, Bm or Cm requires it,
+    through :class:`SSD`."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, dt, A, Bm, Cm)):
+        return SSD.apply(x, dt, A, Bm, Cm, chunk)
+    return _ssd_forward(x, dt, A, Bm, Cm, chunk, False)[:2]
+
+
+def _ssd_forward(x, dt, A, Bm, Cm, chunk: int, with_states: bool):
+    """(y, final state, states or None): the forward of :func:`ssd`, each
+    chunk's incoming state (B, nc, H, P, N) f32 too when
+    ``with_states``."""
     Q = _check_inputs(x, dt, A, Bm, Cm, chunk)
     if x.device.type == "cpu":
         ssd.plain_calls += 1
-        return ssd_plain(x, dt, A, Bm, Cm, chunk)
+        if with_states:
+            return ssd_plain(x, dt, A, Bm, Cm, chunk, return_states=True)
+        return (*ssd_plain(x, dt, A, Bm, Cm, chunk), None)
     Bsz, L, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
     dt = dt.float()
     A = A.float().contiguous()
     y = torch.empty((Bsz, L, H, P), dtype=torch.float32, device=x.device)
     state = torch.empty((Bsz, H, P, N), dtype=torch.float32, device=x.device)
+    states = torch.empty((Bsz, L // Q, H, P, N), dtype=torch.float32,
+                         device=x.device) if with_states else None
     strides = strides_arg((x, (0, 1, 2)), (dt, (0, 1, 2)), (Bm, (0, 1, 2)),
                           (Cm, (0, 1, 2)))
     variant = _variant(x.dtype, L, Q, P, N,
@@ -198,7 +329,8 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
-                Cm.data_ptr(), y.data_ptr(), state.data_ptr(), Bsz, L, H, G,
+                Cm.data_ptr(), y.data_ptr(), state.data_ptr(),
+                None if states is None else states.data_ptr(), Bsz, L, H, G,
                 P, N, Q, strides, stream)
     if rc != 0:
         raise RuntimeError(f"ssd {variant} kernel launch failed: CUDA error "
@@ -208,10 +340,96 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
         ssd.tc_launches += 1
     else:
         ssd.fma_launches += 1
-    return y, state
+    return y, state, states
+
+
+def ssd_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+            Bm: torch.Tensor, Cm: torch.Tensor, states: torch.Tensor,
+            dy: torch.Tensor, dstate=None, chunk: int = 256):
+    """(dx, ddt, dA, dBm, dCm) of :func:`ssd` at (x, dt, A, Bm, Cm) for the
+    cotangents ``dy`` (B, L, H, P) of y and ``dstate`` (B, H, P, N) of
+    the final state (None: zeros), given each chunk's incoming state
+    ``states`` (B, nc, H, P, N) from the forward; each gradient in its
+    input's dtype (dt and A f32 on the card).
+
+    CPU tensors take :func:`ssd_bwd_plain` (counted in
+    ``ssd_bwd.plain_calls``); CUDA tensors launch the kernel of
+    ``csrc/ssd_bwd.cu`` on the current stream (``ssd_bwd.launches``)."""
+    Q = _check_inputs(x, dt, A, Bm, Cm, chunk)
+    Bsz, L, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    if tuple(dy.shape) != (Bsz, L, H, P) \
+            or tuple(states.shape) != (Bsz, L // Q, H, P, N) \
+            or (dstate is not None
+                and tuple(dstate.shape) != (Bsz, H, P, N)):
+        raise ValueError(
+            f"ssd_bwd: dy {tuple(dy.shape)}, states {tuple(states.shape)} "
+            f"and dstate {None if dstate is None else tuple(dstate.shape)} "
+            f"do not fit x {tuple(x.shape)} and Bm {tuple(Bm.shape)} at "
+            f"chunk {Q}")
+    if any(t is not None and t.device != x.device
+           for t in (dy, states, dstate)):
+        raise ValueError("ssd_bwd: dy, states and dstate must lie on x's "
+                         "device")
+    if x.device.type == "cpu":
+        ssd_bwd.plain_calls += 1
+        return ssd_bwd_plain(x, dt, A, Bm, Cm, states, dy, dstate, chunk)
+    dt = dt.float()
+    A = A.float().contiguous()
+    dy = dy.float()
+    if dy.stride(3) != 1 and P > 1:
+        dy = dy.contiguous()
+    states = states.float().contiguous()
+    if dstate is not None:
+        dstate = dstate.float().contiguous()
+    dx = torch.empty((Bsz, L, H, P), dtype=x.dtype, device=x.device)
+    ddt = torch.empty((Bsz, L, H), dtype=torch.float32, device=x.device)
+    dA = torch.zeros((H,), dtype=torch.float32, device=x.device)
+    # f32 sums over each group's heads, by atomics
+    dB = torch.zeros((Bsz, L, G, N), dtype=torch.float32, device=x.device)
+    dC = torch.zeros((Bsz, L, G, N), dtype=torch.float32, device=x.device)
+    strides = strides_arg((x, (0, 1, 2)), (dt, (0, 1, 2)), (Bm, (0, 1, 2)),
+                          (Cm, (0, 1, 2)), (dy, (0, 1, 2)))
+    fn = _bwd_entry(x.dtype)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+                Cm.data_ptr(), states.data_ptr(), dy.data_ptr(),
+                None if dstate is None else dstate.data_ptr(),
+                dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(),
+                dC.data_ptr(), Bsz, L, H, G, P, N, Q, strides, stream)
+    if rc != 0:
+        raise RuntimeError(f"ssd_bwd kernel launch failed: CUDA error {rc}")
+    ssd_bwd.launches += 1
+    return dx, ddt, dA, dB.to(Bm.dtype), dC.to(Cm.dtype)
+
+
+class SSD(torch.autograd.Function):
+    """:func:`ssd` with its backward: the forward keeps each chunk's
+    incoming state, the backward is :func:`ssd_bwd`.  A cotangent that
+    autograd does not give (the final state unused) is zeros."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, chunk: int):
+        y, state, states = _ssd_forward(x, dt, A, Bm, Cm, chunk, True)
+        ctx.save_for_backward(x, dt, A, Bm, Cm, states)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        return y, state
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        x, dt, A, Bm, Cm, states = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+        dx, ddt, dA, dB, dC = ssd_bwd(x, dt, A, Bm, Cm, states, dy, dstate,
+                                      ctx.chunk)
+        return dx, ddt.to(dt.dtype), dA.to(A.dtype), dB, dC, None
 
 
 ssd.launches = 0
 ssd.tc_launches = 0
 ssd.fma_launches = 0
 ssd.plain_calls = 0
+ssd_bwd.launches = 0
+ssd_bwd.plain_calls = 0

@@ -31,10 +31,10 @@ carry).  The Mamba2 cache has no sequence axis, so the ``ssm`` family's
 prefill ignores ``cache_len``, as in the reference.
 
 ``train_forward`` is the reference's (the chunked cross-entropy, no aux
-loss; each ``ssm`` layer or ``hybrid`` group under ``maybe_remat``).  It
-runs on CPU tensors, through the SSD kernel's plain version.  On the card
-it raises ``NotImplementedError`` before any work: the SSD kernel has no
-backward kernel yet, and autograd cannot see its launch.
+loss; each ``ssm`` layer or ``hybrid`` group under ``maybe_remat``).
+Under grad the Mamba2 layer's scan goes through ``kernels.ssd.SSD``: on
+the card the SSD kernel forward and ``csrc/ssd_bwd.cu`` backward, on the
+CPU their plain versions.
 """
 from __future__ import annotations
 
@@ -263,14 +263,9 @@ def _backbone(params, cfg, batch, cache: Optional[dict] = None):
 
 def train_forward(params, cfg, batch):
     """batch: ``tokens``, ``labels`` (B, S) int and optional
-    ``loss_mask`` on the parameters' device (the CPU).  Returns (loss,
+    ``loss_mask`` on the parameters' device.  Returns (loss,
     metrics ``loss``, ``aux_loss`` (0), ``tokens``)."""
     _check_family(cfg)
-    if batch["tokens"].is_cuda:
-        raise NotImplementedError(
-            f"training the {cfg.family!r} family on the card needs the SSD "
-            f"kernel's backward, which is not written yet (ROADMAP Queue 1 "
-            f"item 8); train it on the CPU (device='cpu')")
     h = _backbone(params, cfg, batch)
     loss, cnt = chunked_cross_entropy(
         lambda hc: logits_from_hidden(params["embed"], cfg, hc),

@@ -7,10 +7,12 @@ and dt and one depthwise conv per part (the reference's TP-friendly split
 of the packed in_proj).  The parameter leaves keep the reference's names,
 shapes and dtypes.
 
-The prefill path calls ``kernels.ssd`` where the reference calls its XLA
-``ssd_chunked``: on CUDA tensors the kernel always launches, on CPU
-tensors its plain version runs.  The decode path is the O(1) recurrent
-step in plain PyTorch ops (the reference has no kernel for it).
+The prefill and training path calls ``kernels.ssd`` where the reference
+calls its XLA ``ssd_chunked``: on CUDA tensors the kernel always
+launches, on CPU tensors its plain version runs; under grad through the
+``SSD`` autograd function, whose backward is the ``ssd_bwd`` kernel (the
+reference differentiates ``ssd_chunked``).  The decode path is the O(1)
+recurrent step in plain PyTorch ops (the reference has no kernel for it).
 """
 from __future__ import annotations
 

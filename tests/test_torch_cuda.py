@@ -12,7 +12,8 @@ Tolerances: 0/1 masks are integer sums, exact; other values 1e-12
 relative in f64 and 1e-5 in f32 (shared-memory atomics add in a
 run-dependent order); campaign stats 1e-5 relative (the reference's own
 contract between backends).  Attention kernels 2e-5 in f32 and 2e-2 in
-bf16, the SSD kernel 2e-4 in f32 and 4e-2 with bf16 x, B and C, the
+bf16, the SSD kernel 2e-4 in f32 and 4e-2 with bf16 x, B and C (its
+backward 2e-4 and 1e-2 of the largest value), the
 grouped matmul 2e-5 in f32 and 2e-2 in bf16 (tests/test_kernels.py's);
 the models' logits at f32 1e-4 relative to their largest value, with
 identical greedy tokens.  Predictor training: the segment sum at the
@@ -1001,7 +1002,8 @@ def test_gmm_backward_kernel_matches_plain(cuda, E, C, D, F, dtype):
 
 
 @pytest.mark.parametrize("arch", ["qwen2-vl-7b", "qwen3-moe-30b-a3b",
-                                  "minicpm3-4b", "seamless-m4t-medium"])
+                                  "minicpm3-4b", "seamless-m4t-medium",
+                                  "mamba2-1.3b", "zamba2-2.7b"])
 def test_train_step_cuda_matches_cpu(cuda, arch):
     from repro_torch.configs.base import TrainConfig
     from repro_torch.testing import (MOE_UPSTREAM_TOL, TRAIN_GRAD_TOL,
@@ -1014,14 +1016,58 @@ def test_train_step_cuda_matches_cpu(cuda, arch):
                              else TRAIN_GRAD_TOL)
 
 
-@pytest.mark.parametrize("arch", ["mamba2-1.3b", "zamba2-2.7b"])
-def test_ssm_train_forward_refuses_the_card(cuda, arch):
-    from repro_torch.testing import train_batch
-    cfg = get_config(arch, smoke=True).resolve(tp=1)
-    params = model.init_params(cfg, torch.Generator().manual_seed(0), cuda)
-    batch = {k: v.to(cuda) for k, v in train_batch(cfg, 1, 16).items()}
-    with pytest.raises(NotImplementedError, match="SSD"):
-        model.train_forward(params, cfg, batch)
+#: the SSD backward kernel against its plain version, relative to the
+#: largest value: 2e-4 in f32 (the forward's: the prefix sums run in
+#: another order, dA sums B L terms of both signs) and 1e-2 with bf16 x,
+#: B and C (both sides take the same bf16 inputs in f32 and round dx, dB
+#: and dC once)
+SSD_BWD_TOL = {torch.float32: 2e-4, torch.bfloat16: 1e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,L,H,P,G,N,chunk,strong,final", [
+    (1, 64, 2, 8, 1, 4, 16, False, True), (2, 128, 4, 16, 2, 8, 32, False,
+                                           False),
+    (2, 40, 4, 16, 1, 16, 256, False, True),
+    (2, 200, 4, 64, 2, 128, 100, False, True),
+    (1, 512, 8, 64, 1, 128, 256, True, True),      # strong decay
+    (2, 512, 8, 64, 1, 64, 256, False, False),     # zamba2-2.7b's P and N
+    (4, 1024, 64, 64, 1, 128, 256, False, False)])  # mamba2-1.3b training
+def test_ssd_backward_kernel_matches_plain(cuda, B, L, H, P, G, N, chunk,
+                                           strong, final, dtype):
+    """``ssd_bwd`` on the card against ``ssd_bwd_plain`` on the same
+    inputs and the forward's per-chunk states (each variant's states
+    output against the plain version's), finite at the strong decay."""
+    from repro_torch.kernels.ssd import _ssd_forward, ssd_bwd, ssd_bwd_plain
+    x = _randn((B, L, H, P), dtype, cuda, 11)
+    Bm = _randn((B, L, G, N), dtype, cuda, 12)
+    Cm = _randn((B, L, G, N), dtype, cuda, 13)
+    if strong:
+        dt = torch.full((B, L, H), 0.1, device=cuda)
+        A = torch.full((H,), -16.0, device=cuda)
+    else:
+        dt = torch.nn.functional.softplus(_randn((B, L, H), torch.float32,
+                                                 cuda, 14))
+        A = -_randn((H,), torch.float32, cuda, 15).exp()
+    dy = _randn((B, L, H, P), torch.float32, cuda, 16)
+    dstate = _randn((B, H, P, N), torch.float32, cuda, 17) if final \
+        else None
+    Q = min(chunk, L)
+    _, _, states = _ssd_forward(x, dt, A, Bm, Cm, chunk, True)
+    _, _, want_states = ssd_plain(x, dt, A, Bm, Cm, chunk,
+                                  return_states=True)
+    tol = SSD_TOL[dtype]
+    torch.testing.assert_close(states, want_states, rtol=tol, atol=tol)
+    assert states.shape == (B, L // Q, H, P, N)
+    before = ssd_bwd.launches
+    got = ssd_bwd(x, dt, A, Bm, Cm, states, dy, dstate, chunk)
+    torch.cuda.synchronize()
+    assert ssd_bwd.launches == before + 1
+    want = ssd_bwd_plain(x, dt, A, Bm, Cm, states, dy, dstate, chunk)
+    for g, w, t in zip(got, want, (x, dt, A, Bm, Cm)):
+        assert g.dtype == t.dtype and g.shape == t.shape
+        assert torch.isfinite(g).all()
+        assert _bwd_err(g, w) < SSD_BWD_TOL[dtype]
 
 
 def test_f32_logits_product_backward_on_card(cuda):

@@ -12,7 +12,6 @@ import pytest
 
 from _torch_train import (LOSS_TOL, arch_models, check_grads, make_batch,
                           port_value_and_grad, reference_value_and_grad)
-from repro_torch.models import model as TM
 
 
 def _lora(tree, scale=0.5, seed=3):
@@ -49,17 +48,3 @@ def test_zamba2_lora_carries_gradient():
     for k in ("['lora']['qa']", "['lora']['ia']"):
         assert float(tg[k].abs().max()) > 0, k
 
-
-def test_ssm_train_forward_refuses_the_card_before_any_work(monkeypatch):
-    """On CUDA tensors the ssm / hybrid families raise: the SSD kernel has
-    no backward kernel yet.  The check is on the batch's device, before
-    any kernel runs (here a CPU batch posing as a CUDA one)."""
-    _, tcfg, _, tp = arch_models("mamba2-1.3b")
-    _, tb = make_batch(tcfg, 1, 8)
-
-    class CudaTokens:
-        is_cuda = True
-        shape = tb["tokens"].shape
-
-    with pytest.raises(NotImplementedError, match="SSD"):
-        TM.train_forward(tp, tcfg, {**tb, "tokens": CudaTokens()})

@@ -7,6 +7,15 @@ The state starts from the reference's ``make_train_state`` carried
 across by ``interop.train_state_from_reference``; the batches come from
 the same ``SyntheticLMData`` draws on both sides.  Tolerances:
 
+- the ssm (mamba2-1.3b) and hybrid (zamba2-2.7b) archs go through the
+  SSD autograd function's plain backward.  Zamba2's LoRA ``qb`` / ``ib``
+  start at zeros, so ``qa`` / ``ia`` get no gradient at the first step
+  and are not compared (the non-vacuity check exempts leaves whose
+  reference gradient is exactly zero).  A leaf that starts at zeros (the
+  conv biases, ``qb`` / ``ib``) holds only Adam's steps, each ~lr
+  whatever the gradient, so after the first step 1e-5 of its largest
+  value would hold Adam's m / sqrt(v) to 1e-5: such leaves are held to
+  1e-4 after it (Zamba2 measured 2.3e-5, its loss and grad norm 5e-7);
 - loss, grad norm and lr each step: 1e-5 relative (f32 smoke configs;
   the parameters drift apart by the last bits each step).  For the MoE
   arch the gradient inherits the bf16 rounding of the dispatched tokens'
@@ -53,6 +62,9 @@ RTOL = 1e-5
 #: MoE layer) and after the later ones (every leaf)
 MOE_FIRST_PARAM_TOL = 1e-4
 MOE_LATER_PARAM_TOL = 5e-3
+#: leaves that start at zeros (conv biases, Zamba2's LoRA ``qb`` / ``ib``)
+#: after the first step: their values are Adam's steps alone
+ZERO_INIT_LATER_TOL = 1e-4
 
 
 def _train_cfgs(**kw):
@@ -60,9 +72,11 @@ def _train_cfgs(**kw):
     return ReferenceTrainConfig(**kw), TrainConfig(**kw)
 
 
-def _held(moe: bool, step: int, key: str) -> list:
+def _held(moe: bool, step: int, key: str, zero_init: bool) -> list:
     """(slice, tolerance) pairs a parameter leaf is held to after
     ``step`` (the module docstring's rules)."""
+    if zero_init and step > 0:
+        return [(slice(None), ZERO_INIT_LATER_TOL)]
     if not moe:
         return [(slice(None), RTOL)]
     if step > 0:
@@ -76,12 +90,14 @@ def _held(moe: bool, step: int, key: str) -> list:
     return held
 
 
-@pytest.mark.parametrize("arch", ["deepseek-67b", "qwen3-moe-30b-a3b"])
+@pytest.mark.parametrize("arch", ["deepseek-67b", "qwen3-moe-30b-a3b",
+                                  "mamba2-1.3b", "zamba2-2.7b"])
 def test_three_steps_match_reference(arch):
     jcfg, tcfg = configs(arch, "float32")
     moe = tcfg.moe is not None
     jt, tt = _train_cfgs()
     jstate = ref_state(jax.random.PRNGKey(0), jcfg, jt)
+    zero_init = [not np.any(x) for x in jax.tree.leaves(jstate["params"])]
     tstate = train_state_from_reference(jax.tree.map(np.asarray, jstate),
                                         "cpu")
     jstep = jax.jit(ref_step(jcfg, jt))
@@ -111,15 +127,17 @@ def test_three_steps_match_reference(arch):
         big = [np.abs(x) > 1e-3 * np.abs(x).max() for x in
                jax.tree.leaves(g)]
         keep = big if keep is None else [a & b for a, b in zip(keep, big)]
+        if step == 0:     # Zamba2's LoRA qa / ia: qb, ib start at zeros
+            dead = sum(not x.any() for x in jax.tree.leaves(g))
         # the embedding's gradient lives on each batch's tokens only: its
         # rows seen at every step may be none
-        assert sum(x.any() for x in keep) >= len(keep) - 1
-        for (p, got), want, sel in zip(leaves_with_path(tstate["params"]),
-                                       jax.tree.leaves(jstate["params"]),
-                                       keep):
+        assert sum(x.any() for x in keep) >= len(keep) - 1 - dead
+        for (p, got), want, sel, zero in zip(
+                leaves_with_path(tstate["params"]),
+                jax.tree.leaves(jstate["params"]), keep, zero_init):
             want = np.asarray(want)
             scale = np.abs(want).max()
-            for part, tol in _held(moe, step, keystr(p)):
+            for part, tol in _held(moe, step, keystr(p), zero):
                 m = sel[part]
                 if not m.any():
                     continue
