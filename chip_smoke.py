@@ -42,7 +42,18 @@ Phases (any failure raises and exits non-zero, with no result line):
    and profiled passes (device busy share, largest kernels and host ops,
    the host's waits on the device): full width cut to PROFILE_J
    requests, and retry-storm's perf_aware at its registry width over its
-   first RETRY_STORM_PROFILE_J requests;
+   first RETRY_STORM_PROFILE_J requests; baseline's passes replay the
+   loop from CUDA graphs;
+4b. the compiled mode: baseline at full width and MAIN_J, perf_aware and
+   least_conn, stepped eagerly against ``prepare_compiled``'s closure
+   (the loop captured in CUDA graphs once, then replayed): ms and kernel
+   and launch calls a step of each, the capture's seconds, every summary
+   stat of graph and eager (equal, asserted), a second closure served by
+   the loop cache (a hit, asserted); then ``fleet_throughput`` at the
+   reference's full width (250 nodes, 5 x 200 replicas, 4 trials) over
+   FLEET_J requests: events/s, ms a step, mean and p99 RTT, peak memory;
+   the same stats under one seed and other stats under another, and its
+   graph equal to the same steps run eagerly;
 5. the serving path: ``ServingEngine`` with qwen2-vl-7b at full width
    (28 layers, bf16, random weights from a seeded generator), 3 waves of
    8 requests (prompts of 256-1024 tokens, 32 new tokens each), counting
@@ -185,6 +196,11 @@ PROFILE_J = 50
 #: cell has 1000; 22.7 s at 1000): the overhead a step and the sum rule
 #: do not depend on the length
 TRACE_J = 500
+#: the fleet mode's requests in phase 4b (the reference's default is 1M,
+#: bench_simcore.py's benchmark row 50 k): cut so that the phase stays
+#: near 20 s of the ~600 s run; events/s and ms a step do not depend on
+#: the length once a few graph blocks have run
+FLEET_J = 20_000
 MID = dict(n_nodes=60, n_replicas_per_app=50, n_requests=200)
 MID_SEEDS, MID_TRIALS = tuple(range(4)), 16
 CAPACITY_SCENARIOS = ("overload-ramp", "flash-crowd-autoscale",
@@ -205,7 +221,8 @@ KERNEL_SCENARIOS = ("stale-predictions", "churn", "staleness-storm",
 #: at their registry shape instead: phase 4's own passes)
 PARITY_SCENARIOS = ("stale-predictions", "churn", "cold-start",
                     "drift-fallback") + CAPACITY_SCENARIOS \
-    + ("gray-failure", "staleness-storm", "baseline@1", "baseline@16")
+    + ("gray-failure", "staleness-storm", "baseline", "baseline@1",
+       "baseline@16")
 PARITY_RTOL = 1e-5
 #: the capacity plane's integer telemetry, equal on the card and the CPU
 TELEMETRY = ("decisions", "scale_ups", "scale_downs", "wakeups",
@@ -1752,8 +1769,9 @@ def train_full_width(dev, arch: str, layers: int, steps: int, warmup: int,
 
 
 def sync_cost_us(dev) -> float:
-    """Cost of one expiry-round host sync: ``bool(mask.any())`` on a
-    (256, 1000) bool mask, CUDA launch and device-to-host copy included."""
+    """Cost of one host sync (a completion fold's read):
+    ``bool(mask.any())`` on a (256, 1000) bool mask, CUDA launch and
+    device-to-host copy included."""
     import torch
     mask = torch.zeros((256, 1000), dtype=torch.bool, device=dev)
     for _ in range(20):
@@ -1777,8 +1795,10 @@ def profile_pass(scenario: str, policy: str, n_requests: int,
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.campaign import run_scenario
     kw = dict(shape, n_requests=n_requests)
+    # a warm-up pass at the same shape: a graphable cell captures its
+    # loop here, and the profiled pass replays it
     run_scenario(scenario, policies=(policy,), include_oracle=False,
-                 seeds=seeds[:1], n_trials=min(n_trials, 8), **kw)  # warm-up
+                 seeds=seeds, n_trials=n_trials, **kw)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1790,14 +1810,18 @@ def profile_pass(scenario: str, policy: str, n_requests: int,
     on_device = [e for e in events if str(e.device_type).endswith("CUDA")]
     kernels = [e for e in on_device if not e.key.startswith("Mem")]
     kern_us = sum(e.self_device_time_total for e in kernels)
-    launches = sum(e.count for e in events if e.key == "cudaLaunchKernel")
+    n_kern = sum(e.count for e in kernels)
+    launches = sum(e.count for e in events if e.key in (
+        "cudaLaunchKernel", "cudaLaunchKernelExC", "cudaGraphLaunch"))
     T = len(seeds) * n_trials
     print(f"profile {scenario}/{policy} ({n_requests} requests, T = {T}, "
           f"{'full width' if shape == LARGE else 'registry shape'}, "
-          f"profiler on): loop {loop_s:.3f} s, "
-          f"{launches / n_requests:.0f} kernel launches/step, kernels "
+          f"profiler on, {res[policy].backend}): loop {loop_s:.3f} s, "
+          f"{n_kern / n_requests:.0f} kernels and "
+          f"{launches / n_requests:.1f} launch calls a step, kernels "
           f"busy {kern_us / 1e6:.4f} s = {kern_us / 1e6 / loop_s * 100:.1f}"
-          f" % of the loop")
+          f" % of the loop (the pass's set-up and summary kernels "
+          f"included)")
     # every wait of the host on the device goes through the runtime
     # API, a library's own included: the core's count of its syncs is
     # held against the profiler's
@@ -1806,7 +1830,7 @@ def profile_pass(scenario: str, policy: str, n_requests: int,
         "cudaEventSynchronize"))
     print(f"profile {scenario}/{policy}: {syncs} host waits on the device "
           f"in the pass (set-up copies and results included), "
-          f"{res[policy].host_syncs} counted by the core's expiry rounds, "
+          f"{res[policy].host_syncs} counted by the core's completion folds, "
           f"{res[policy].n_fallback} fallback routings")
     if kern_us == 0:
         print("profile: no device time recorded (not measured)")
@@ -1954,7 +1978,10 @@ def traced_pass(T_seeds, n_trials) -> None:
         for k in (None, 16, 1, None):
             c = stacked if k is None else replace(
                 stacked, cfg=replace(stacked.cfg, trace=TraceConfig(k)))
-            out = simcore.run_compiled(c, pol, seed_blocks=blocks)
+            # eagerly, traced or not: the untraced baseline would
+            # otherwise replay from a CUDA graph (phase 4b)
+            out = simcore.run_compiled(c, pol, seed_blocks=blocks,
+                                       eager=True)
             loop.setdefault(k, []).append(out["loop_s"])
             if k is not None:
                 tr = out["trace"]
@@ -1971,6 +1998,163 @@ def traced_pass(T_seeds, n_trials) -> None:
               f"{base / J * 1e3:.3f} ms/step (two passes "
               f"{', '.join(f'{x:.3f}' for x in loop[None])} s), k=16 "
               f"x{loop[16][0] / base:.3f}, k=1 x{loop[1][0] / base:.3f}")
+
+
+def _summary_drift(a: dict, b: dict) -> float:
+    """The largest relative difference between two ``run_compiled``
+    summaries over every stat (timings and labels left out; NaN masks
+    must match); the stats that differ are printed."""
+    import numpy as np
+    worst = 0.0
+    assert set(a) == set(b), set(a) ^ set(b)
+    for k, v in b.items():
+        if k in ("loop_s", "capture_s", "backend", "device"):
+            continue
+        if isinstance(v, dict):
+            worst = max(worst, _summary_drift(a[k], v))
+            continue
+        x, y = np.asarray(a[k], float), np.asarray(v, float)
+        assert x.shape == y.shape, k
+        assert (np.isnan(x) == np.isnan(y)).all(), k
+        x, y = np.nan_to_num(x), np.nan_to_num(y)
+        d = np.abs(x - y) / np.maximum(np.abs(y), 1e-300)
+        if d.size and d.max() > 0:
+            i = int(d.argmax())
+            print(f"  {k} differs: relative {d.max():.3e} at {i} "
+                  f"({x.flat[i]!r} against {y.flat[i]!r})")
+            worst = max(worst, float(d.max()))
+    return worst
+
+
+def _step_launches(fn, J: int) -> tuple:
+    """(kernels the device ran, kernel and graph launch calls of the
+    host) a step of one call of ``fn``, by torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    kernels = sum(e.count for e in events
+                  if str(e.device_type).endswith("CUDA")
+                  and not e.key.startswith("Mem"))
+    calls = sum(e.count for e in events if e.key in (
+        "cudaLaunchKernel", "cudaLaunchKernelExC", "cudaGraphLaunch"))
+    return kernels / J, calls / J
+
+
+def compiled_mode() -> None:
+    """Phase 4b: the simulation core's compiled mode.  Baseline at phase
+    4's full width and depth (MAIN_J), perf_aware and least_conn: an
+    eager pass against ``prepare_compiled``'s closure (its first call
+    captures the loop in CUDA graphs, every call replays), ms and
+    launches a step, the capture's seconds, graph against eager on every
+    summary stat, a second closure served by the cache; then
+    ``fleet_throughput`` at the reference's full width (250 nodes, 5 x
+    200 replicas, 4 trials) over FLEET_J requests: events/s, ms a step,
+    RTTs, peak memory, the same stats under one seed and other stats
+    under another, and its graph against the same steps run eagerly."""
+    import numpy as np
+    import torch
+    from repro_torch.core import simcore
+    from repro_torch.core.campaign import stack_clusters
+    from repro_torch.core.rng import rng_seed
+    from repro_torch.core.scenarios import get_scenario
+    from repro_torch.core.simulator import _build_cluster
+    t_phase = time.perf_counter()
+    spec = get_scenario("baseline")
+    cfgs = [spec.compile(seed=s, n_trials=LARGE_TRIALS,
+                         **dict(LARGE, n_requests=MAIN_J))
+            for s in LARGE_SEEDS]
+    stacked = stack_clusters([_build_cluster(c) for c in cfgs])
+    blocks = [(rng_seed(c.seed, "policy"), c.n_trials) for c in cfgs]
+    J = MAIN_J
+    # phase 4's baseline passes captured these loops: drop them, so that
+    # the capture is timed here
+    simcore.clear_cache()
+    saved = 0.0
+    for pol in ("perf_aware", "least_conn"):
+        # two eager passes, the faster one timed
+        eager = min((simcore.run_compiled(stacked, pol, seed_blocks=blocks,
+                                          eager=True) for _ in range(2)),
+                    key=lambda r: r["loop_s"])
+        misses = simcore.cache_stats()["misses"]
+        run = simcore.prepare_compiled(stacked, pol, seed_blocks=blocks)
+        first = run()                     # captures, then replays
+        second = run()
+        hits = simcore.cache_stats()["hits"]
+        third = simcore.prepare_compiled(stacked, pol, seed_blocks=blocks)()
+        stats = simcore.cache_stats()
+        assert stats["misses"] == misses + 1 and stats["hits"] == hits + 1, \
+            stats
+        assert eager["backend"] == "eager" and all(
+            r["backend"] == "graph" for r in (first, second, third))
+        assert first["capture_s"] > 0 and second["capture_s"] == 0 \
+            and third["capture_s"] == 0
+        assert eager["host_syncs"] == first["host_syncs"] == 0
+        drift = _summary_drift(first, eager)
+        assert drift <= 1e-12, f"baseline/{pol}: graph vs eager {drift}"
+        rerun = (_summary_drift(second, first),
+                 _summary_drift(third, first))
+        assert rerun == (0, 0), f"baseline/{pol}: reruns {rerun}"
+        e_k, e_calls = _step_launches(
+            lambda: simcore.run_compiled(stacked, pol, seed_blocks=blocks,
+                                         eager=True), J)
+        g_k, g_calls = _step_launches(run, J)
+        e_ms = eager["loop_s"] / J * 1e3
+        g_ms = min(second["loop_s"], third["loop_s"]) / J * 1e3
+        saved += eager["loop_s"] - first["loop_s"] - first["capture_s"]
+        print(f"compiled baseline/{pol} (T = {stacked.cfg.n_trials}, R = "
+              f"{len(stacked.app_of)}, J = {J}): eager {e_ms:.4f} ms/step "
+              f"({e_k:.1f} kernels, {e_calls:.1f} launch calls a step), "
+              f"graph {g_ms:.4f} ms/step ({g_k:.1f} kernels, "
+              f"{g_calls:.3f} launch calls a step), x{e_ms / g_ms:.2f}; "
+              f"capture {first['capture_s']:.3f} s, first replay "
+              f"{first['loop_s']:.3f} s; graph vs eager drift "
+              f"{drift:.3e}; {stats}")
+    print(f"phase 4's baseline passes take the graph: a first pass of "
+          f"perf_aware and least_conn, capture included, saves "
+          f"{saved:.2f} s against eager")
+    # the fleet mode at the reference's full width, its peak memory with
+    # nothing else cached
+    simcore.clear_cache()
+    t_fleet = time.perf_counter()
+    runs = []
+    for seed in (0, 0, 1):
+        torch.cuda.reset_peak_memory_stats()
+        eps, st = simcore.fleet_throughput(n_requests=FLEET_J, seed=seed)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        vals = [st[k] for k in ("mean_rtt", "p99_rtt", "wall_s",
+                                "events_per_s")]
+        assert st["backend"] == "graph" and np.isfinite(vals).all(), st
+        print(f"fleet seed {seed} ({FLEET_J} requests x {st['n_trials']} "
+              f"trials x {st['n_replicas']} replicas): {eps:.0f} events/s,"
+              f" {st['loop_s'] / FLEET_J * 1e3:.4f} ms/step, capture "
+              f"{st['capture_s']:.3f} s, wall {st['wall_s']:.2f} s, mean "
+              f"RTT {st['mean_rtt']:.4f}, p99 {st['p99_rtt']:.4f}, peak "
+              f"{peak:.3f} GiB, backend {st['backend']}")
+        runs.append(st)
+    for k in ("mean_rtt", "p99_rtt"):
+        assert runs[0][k] == runs[1][k], (k, runs[0][k], runs[1][k])
+        assert runs[2][k] != runs[0][k], (k, runs[2][k])
+    # the graph's noise: every replay advances the generator as the same
+    # steps run eagerly do
+    kw = dict(n_requests=2000, n_nodes=250, n_replicas_per_app=200,
+              n_apps=5, n_trials=4, policy="perf_aware", seed=0,
+              arrival_rate=2000.0, noise_seed=7, device="cuda")
+    g_st, g_resp = simcore._fleet(**kw)
+    e_st, e_resp = simcore._fleet(eager=True, **kw)
+    assert g_st["backend"] == "graph" and e_st["backend"] == "eager"
+    assert np.array_equal(g_resp, e_resp), \
+        np.abs(g_resp - e_resp).max()
+    print(f"fleet graph vs eager at 2000 requests: equal responses; eager "
+          f"{e_st['loop_s'] / 2000 * 1e3:.4f} ms/step, graph "
+          f"{g_st['loop_s'] / 2000 * 1e3:.4f} ms/step; fleet part "
+          f"{time.perf_counter() - t_fleet:.1f} s")
+    simcore.clear_cache()
+    print(f"phase 4b: {time.perf_counter() - t_phase:.1f} s")
 
 
 def _kernel_wrappers() -> dict:
@@ -3010,8 +3194,8 @@ def main() -> int:
             ineff = "" if r.inefficiency_pct is None \
                 else f" ineff {r.inefficiency_pct:.2f}%"
             fb = f" fallback {r.n_fallback}" if r.n_fallback else ""
-            print(f"  {scen}/{pol}: wall {r.wall_s:.2f} s, loop "
-                  f"{r.loop_s:.2f} s = {r.loop_s / J * 1e6:.0f} us/step, "
+            print(f"  {scen}/{pol} ({r.backend}): wall {r.wall_s:.2f} s, "
+                  f"loop {r.loop_s:.2f} s = {r.loop_s / J * 1e6:.0f} us/step, "
                   f"host syncs {r.host_syncs} (~{r.host_syncs * sync_us / 1e6:.2f} s), "
                   f"mean_rtt {r.stat('mean_rtt'):.4f} p99_rtt "
                   f"{r.stat('p99_rtt'):.4f}{ineff}{fb}")
@@ -3090,6 +3274,10 @@ def main() -> int:
           f"{time.perf_counter() - t_start:.1f} s into the run")
 
     print(f"phase 4 done: {time.perf_counter() - t_start:.1f} s into the run")
+    # phase 4b: the compiled mode (CUDA graphs, the cache, the fleet mode)
+    compiled_mode()
+    print(f"phase 4b done: {time.perf_counter() - t_start:.1f} s into the "
+          f"run")
     # phase 5: the serving path at full width (each wave: the flash
     # kernel once per layer, the decode kernel once per layer and step)
     served = serve_full_width(
@@ -3261,6 +3449,10 @@ def main() -> int:
     # phase 7: the paper's Fig. 11 sweeps on the card
     print(f"phase 6 done: {time.perf_counter() - t_start:.1f} s into the run")
     fig11_sweeps(wrappers)
+    # the sweeps' captured loops hold card memory the later phases need
+    from repro_torch.core import simcore
+    print(f"fig11 loop cache: {simcore.cache_stats()}")
+    simcore.clear_cache()
     # phase 8: the prediction plane at the full campaign's width
     print(f"phase 7 done: {time.perf_counter() - t_start:.1f} s into the run")
     prediction_plane_fleet(wrappers)

@@ -115,9 +115,12 @@ class PolicyResult:
     #: host (cluster build excluded), and of its request loop alone
     wall_s: Optional[float] = None
     loop_s: Optional[float] = None
-    #: host syncs the pass made (the expiry rounds' checks and the
-    #: completion folds' round counts)
+    #: host syncs the pass made (the capacity plane's completion folds'
+    #: round counts)
     host_syncs: int = 0
+    #: how the core ran the pass: ``"graph"`` (replayed from CUDA
+    #: graphs) or ``"eager"``
+    backend: Optional[str] = None
     #: the capacity plane's telemetry over the stacked trials (epochs,
     #: per-trial scale-ups / downs, wakes and final active counts,
     #: routings onto a drained replica, mean utilisation); None without
@@ -217,6 +220,7 @@ def run_scenario(scenario, policies: Sequence[str] = DEFAULT_POLICIES,
             n_fallback=summary["n_fallback"],
             wall_s=timer.wall[f"run:{pol_name}"],
             loop_s=summary["loop_s"], host_syncs=summary["host_syncs"],
+            backend=summary["backend"],
             telemetry=summary.get("capacity"), trace=summary.get("trace"))
     if include_oracle:
         for pol_name in wanted:

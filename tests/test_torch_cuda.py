@@ -22,7 +22,10 @@ the card equal to the CPU's by column, bin and base, leaves 1e-6; the
 correlation battery 1e-5 (pearson, spearman, kendall) and 1e-4
 (distance, mic); the Adam fits' CUDA-graph replay equal to the eager
 loop bit for bit; a lifecycle on the card against the CPU by
-``repro_torch.testing.assert_lifecycles_equal`` (RMSEs 1e-4).
+``repro_torch.testing.assert_lifecycles_equal`` (RMSEs 1e-4).  The
+simulation core's CUDA-graph replay equal to the same steps run eagerly
+on every summary stat (the same kernels on the same inputs), and to the
+CPU within 1e-5.
 """
 import dataclasses
 
@@ -1099,3 +1102,129 @@ def test_f32_logits_product_backward_on_card(cuda):
         assert bool(((got - want).abs()
                      <= want.abs() * 2.0 ** -7 + 1e-30).all())
         assert float((got != want).double().mean()) <= 0.01
+
+
+# ----------------------------------------------------------------------
+# the simulation core's compiled mode: the loop captured in CUDA graphs
+#: T = 8, J = 150: two blocks of 64 steps and a tail graph of 22
+GRAPH_SHAPE = dict(n_trials=8, n_requests=150, n_nodes=30,
+                   n_replicas_per_app=20)
+GRAPH_CELLS = [(p, None) for p in ("round_robin", "random", "least_conn",
+                                   "perf_aware", "oracle")] \
+    + [("perf_aware", 0.5), ("oracle", 0.5)]
+
+
+def _same_summary(got, want, label):
+    """Every stat equal, NaN where NaN (timings and labels aside)."""
+    assert set(got) == set(want), label
+    for k, v in want.items():
+        if k in ("loop_s", "capture_s", "backend"):
+            continue
+        if isinstance(v, dict):
+            _same_summary(got[k], v, f"{label}/{k}")
+        else:
+            np.testing.assert_array_equal(got[k], v, err_msg=f"{label}/{k}")
+
+
+def _graph_cluster(seed=0, hedge=None):
+    from repro_torch.core.scenarios import get_scenario
+    from repro_torch.core.simulator import _build_cluster
+    kw = dict(GRAPH_SHAPE)
+    if hedge is not None:
+        # a loaded cluster, so that the hedge fires
+        kw.update(hedge_factor=hedge, arrival_rate=8.0)
+    return _build_cluster(get_scenario("baseline").compile(seed=seed, **kw))
+
+
+@pytest.mark.parametrize("policy,hedge", GRAPH_CELLS)
+def test_graph_matches_eager_on_baseline(cuda, policy, hedge):
+    from repro_torch.core import simcore
+    simcore.clear_cache()
+    cluster = _graph_cluster(hedge=hedge)
+    eager = simcore.run_compiled(cluster, policy, device="cuda", eager=True)
+    graph = simcore.run_compiled(cluster, policy, device="cuda")
+    assert eager["backend"] == "eager" and graph["backend"] == "graph"
+    assert graph["capture_s"] > 0 and graph["host_syncs"] == 0
+    _same_summary(graph, eager, f"{policy}/{hedge}")
+    if hedge is not None:
+        assert graph["n_hedged"] > 0
+    on_cpu = simcore.run_compiled(cluster, policy, device="cpu")
+    for k in SUMMARY_STATS:
+        np.testing.assert_allclose(graph[k], on_cpu[k], rtol=1e-5,
+                                   atol=1e-7, err_msg=f"{policy}/{k}")
+
+
+def test_graph_capture_failure_raises(cuda, monkeypatch):
+    """A host read inside the step makes the capture fail: the run
+    raises, it does not step eagerly instead."""
+    from repro_torch.core import simcore
+    simcore.clear_cache()
+    cluster = _graph_cluster(seed=1)
+    lognormal = simcore._lognormal
+
+    def reads_the_host(inter, log_rbar, z):
+        float(inter.sum())
+        return lognormal(inter, log_rbar, z)
+
+    monkeypatch.setattr(simcore, "_lognormal", reads_the_host)
+    with pytest.raises(RuntimeError):
+        simcore.run_compiled(cluster, "least_conn", device="cuda")
+    monkeypatch.undo()
+    torch.cuda.synchronize()
+    # the card is fine afterwards, and the entry captures anew
+    got = simcore.run_compiled(cluster, "least_conn", device="cuda")
+    assert got["backend"] == "graph" and got["capture_s"] > 0
+    _same_summary(got, simcore.run_compiled(cluster, "least_conn",
+                                            device="cuda", eager=True),
+                  "after the failed capture")
+
+
+def test_graph_cache_hit_replays_without_a_capture(cuda):
+    """Two closures share one cached graph, each copying its own inputs
+    into it before it replays."""
+    from repro_torch.core import simcore
+    simcore.clear_cache()
+    a = _graph_cluster(seed=2)
+    # other noise on the same placement: the inputs' shapes (the mates
+    # table's padding among them) key the cache
+    rng = np.random.default_rng(3)
+    b = dataclasses.replace(a, z_rtt=rng.standard_normal(a.z_rtt.shape),
+                            z_pred=rng.standard_normal(a.z_pred.shape))
+    run_a = simcore.prepare_compiled(a, "perf_aware", device="cuda")
+    first = run_a()
+    assert first["capture_s"] > 0
+    stats = simcore.cache_stats()
+    run_b = simcore.prepare_compiled(b, "perf_aware", device="cuda")
+    assert simcore.cache_stats()["hits"] == stats["hits"] + 1
+    assert simcore.cache_stats()["misses"] == stats["misses"]
+    got_b = run_b()
+    assert got_b["capture_s"] == 0 and got_b["backend"] == "graph"
+    _same_summary(got_b, simcore.run_compiled(b, "perf_aware",
+                                              device="cuda", eager=True),
+                  "second closure")
+    again = run_a()
+    assert again["capture_s"] == 0
+    _same_summary(again, first, "first closure again")
+    assert not np.array_equal(first["mean_rtt"], got_b["mean_rtt"])
+
+
+def test_fleet_generator_advances_and_repeats(cuda):
+    """Each replay advances the registered generator: the graph's
+    responses equal the same steps run eagerly (a stale offset would
+    repeat one block's noise), and one seed repeats."""
+    from repro_torch.core import simcore
+    kw = dict(n_requests=300, n_nodes=40, n_replicas_per_app=30, n_apps=3,
+              n_trials=4, seed=0, arrival_rate=2000.0, device="cuda")
+    for policy in ("perf_aware", "random"):
+        g1, r1 = simcore._fleet(policy=policy, noise_seed=11, **kw)
+        g2, r2 = simcore._fleet(policy=policy, noise_seed=11, **kw)
+        e, re = simcore._fleet(policy=policy, noise_seed=11, eager=True,
+                               **kw)
+        other, _ = simcore._fleet(policy=policy, noise_seed=12, **kw)
+        assert g1["backend"] == "graph" and e["backend"] == "eager"
+        assert np.array_equal(r1, r2) and np.array_equal(r1, re), policy
+        assert other["mean_rtt"] != g1["mean_rtt"]
+    _, st = simcore.fleet_throughput(n_requests=300, n_nodes=40,
+                                     n_replicas_per_app=30, n_apps=3,
+                                     n_trials=4)
+    assert st["backend"] == "graph" and np.isfinite(st["mean_rtt"])

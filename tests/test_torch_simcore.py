@@ -290,9 +290,9 @@ def _brute_expire(cnt, counted, busy, now, node_of, K):
 
 
 def test_expire_duplicate_pops_accumulate():
-    """One app block whose expired replicas all sit on one node: the
-    first round pops its first and last replica at the same (a, t, n),
-    which must count twice; later rounds finish the block."""
+    """One app block whose expired replicas all sit on one node: the one
+    pass pops them all at the same (a, t, n), which must count each of
+    them."""
     T, A, K, N = 2, 2, 5, 3
     node_of = torch.zeros((T, A * K), dtype=torch.int64)
     node_of[1] = torch.tensor([2, 2, 2, 1, 0, 1, 1, 1, 1, 0])
@@ -307,11 +307,11 @@ def test_expire_duplicate_pops_accumulate():
             cnt[r // K, t, node_of[t, r]] += 1
     want_cnt, want_counted = _brute_expire(cnt, counted, busy, 1.0,
                                            node_of, K)
-    syncs = simcore._expire(cnt, counted, busy, 1.0, node_of, K)
+    idx, _ = simcore._count_index(node_of.numpy(), A, K, N)
+    simcore._expire(cnt, counted, busy, 1.0, torch.as_tensor(idx))
     assert torch.equal(cnt, want_cnt)
     assert torch.equal(counted[:, :A * K], want_counted[:, :A * K])
     assert cnt[0, 0, 0] == 0 and cnt[1, 0, 0] == 2
-    assert syncs == 3     # 5 expired in one block: rounds of 2, 2, 1
 
 
 def test_expire_random_states_match_brute_force():
@@ -328,7 +328,8 @@ def test_expire_random_states_match_brute_force():
                 cnt[r // K, t, node_of[t, r]] += 1
     want_cnt, want_counted = _brute_expire(cnt, counted, busy, 1.0,
                                            node_of, K)
-    simcore._expire(cnt, counted, busy, 1.0, node_of, K)
+    idx, _ = simcore._count_index(node_of.numpy(), A, K, N)
+    simcore._expire(cnt, counted, busy, 1.0, torch.as_tensor(idx))
     assert torch.equal(cnt, want_cnt)
     assert torch.equal(counted[:, :A * K], want_counted[:, :A * K])
 
