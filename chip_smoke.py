@@ -17,9 +17,11 @@ Phases (any failure raises and exits non-zero, with no result line):
    ``gmm`` and SSD (phase 11's path), against its plain PyTorch version
    on the card (the main paths' shapes, the sweeps of ``tests/test_kernels.py``, ragged
    lengths and edge cases; for flash attention, flash-decoding, SSD and
-   ``gmm``, which of each one's two kernels, tensor-core or FMA, each call
-   took) and time kernel, plain version and a one-call library yardstick
-   (for SSD, the FMA kernel on f32 beside the tensor-core one on bf16);
+   ``gmm`` and the flash and SSD backward, which of each one's two
+   kernels, tensor-core or FMA, each call took) and time kernel, plain
+   version and a one-call library yardstick (for SSD, the FMA kernel on
+   f32 beside the tensor-core one on bf16; for the flash and SSD
+   backward, the FMA kernel that the bf16 tensor-core one replaced);
    and flash, decode and SSD at the shapes of phases 5d-5f (head dim
    160, D 96 / Dv 64 with v a view, cross-attention over 8 frames, N 64)
    beside SDPA;
@@ -139,10 +141,12 @@ Phases (any failure raises and exits non-zero, with no result line):
    iterator: 2 warm-up and 4 measured steps (loss, grad norm, step ms,
    tokens/s, peak GB), each step's launches asserted (flash forward 2L,
    its backward L, ``gmm`` forward 6L, its backward 3L: remat runs each
-   layer's forward again in the backward pass), one step profiled; then
+   layer's forward again in the backward pass; every flash call on the
+   tensor cores), one step profiled (device time by kernel and by
+   wrapper, a call's kernels summed under its wrapper's name); then
    qwen2-vl-7b's dense path at full width (2 layers, one step);
    mamba2-1.3b at full width and depth (48 layers, MAMBA_TRAIN's steps;
-   SSD forward 2L on the tensor cores, its backward L); zamba2-2.7b at
+   SSD forward 2L and its backward L, all on the tensor cores); zamba2-2.7b at
    full width, HYBRID_TRAIN_LAYERS layers (two shared-block calls, flash
    at head dim 160), one step; and a checkpoint of the whole train state
    (params, f32 master, m, v, step) of mamba2-1.3b cut to
@@ -1274,6 +1278,20 @@ def _rel_err(got, want, dtype, label) -> float:
     return diff
 
 
+def _earlier_kernel(module, fn):
+    """``fn`` with ``module``'s backward wrapper routed to its FMA kernel
+    (``_bwd_variant`` answering ``"fma"``): the design that the bf16
+    tensor-core kernel replaced, timed in the same call beside it."""
+    def run():
+        chosen = module._bwd_variant
+        module._bwd_variant = lambda *args, **kw: "fma"
+        try:
+            return fn()
+        finally:
+            module._bwd_variant = chosen
+    return run
+
+
 def check_backward(dev) -> list:
     """Hold the backward kernels against their plain versions: flash
     attention's at the training shape (4, 1024, 32/4, 128) bf16 causal,
@@ -1285,9 +1303,12 @@ def check_backward(dev) -> list:
     version and a library call: SDPA's backward alone (``torch.autograd.
     grad`` on a graph built once, eager, CUDA events: its autograd runs on
     the forward's stream, which a capture cannot take) and two
-    ``torch.bmm``.  Returns the two ``kernels`` entries."""
+    ``torch.bmm``.  Flash attention's bf16 tensor-core kernel is timed
+    beside the FMA kernel it replaced (``earlier_ms``).  Returns the two
+    ``kernels`` entries."""
     import torch
     import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.flash_attention import (
         _flash_forward, flash_attention_bwd, flash_attention_bwd_plain)
     from repro_torch.kernels.gmm import gmm_bwd, gmm_bwd_plain
@@ -1304,9 +1325,14 @@ def check_backward(dev) -> list:
         do = _randn((B, Sq, H, Dv), dtype, dev, seed + 3)
         o, lse = _flash_forward(q, k, v, causal, True)
         before = flash_attention_bwd.launches
+        variant = "tc" if dtype == torch.bfloat16 and D % 16 == 0 \
+            and Dv % 16 == 0 else "fma"
+        taken = getattr(flash_attention_bwd, f"{variant}_launches")
         got = flash_attention_bwd(q, k, v, o, do, lse, causal)
         torch.cuda.synchronize()
         assert flash_attention_bwd.launches == before + 1
+        assert getattr(flash_attention_bwd, f"{variant}_launches") \
+            == taken + 1, f"flash bwd did not take its {variant} kernel"
         want = flash_attention_bwd_plain(q, k, v, o, do, lse, causal)
         label = (f"flash bwd ({B},{Sq}->{Skv},{H}/{KV},{D}/{Dv}) "
                  f"{str(dtype)[6:]} causal={causal}")
@@ -1341,6 +1367,8 @@ def check_backward(dev) -> list:
     dot = do.transpose(1, 2)
     flash_ms = _timed("flash_attention_bwd (4,1024,32/4,128)", {
         "kernel": lambda: flash_attention_bwd(q, k, v, o, do, lse, True),
+        "earlier (FMA) kernel": _earlier_kernel(
+            fa, lambda: flash_attention_bwd(q, k, v, o, do, lse, True)),
         "plain": lambda: flash_attention_bwd_plain(q, k, v, o, do, lse,
                                                    True)}, inner=5)
     flash_ms["library"] = call_ms(
@@ -1358,7 +1386,8 @@ def check_backward(dev) -> list:
           f"{ops / flash_ms['kernel'] / 1e9:.1f} TFLOP/s, "
           f"{bound_ms / flash_ms['kernel'] * 100:.1f} % of the "
           f"{bound_ms * 1e3:.2f} us bound ({bound_by}); SDPA backward "
-          f"{ops / flash_ms['library'] / 1e9:.1f} TFLOP/s")
+          f"{ops / flash_ms['library'] / 1e9:.1f} TFLOP/s; the earlier FMA "
+          f"kernel {flash_ms['earlier (FMA) kernel'] * 1e3:.2f} us")
     del sdpa, qt, kt, vt, train
 
     def gmm_case(E, C, D, F, dtype, seed=0):
@@ -1408,7 +1437,8 @@ def check_backward(dev) -> list:
          "backward_of": "flash_attention", "launches": 0,
          "max_abs_err": train_err, "ms": flash_ms["kernel"],
          "plain_ms": flash_ms["plain"], "bound_ms": bound_ms,
-         "bound_by": bound_by, "library_ms": flash_ms["library"]},
+         "bound_by": bound_by, "library_ms": flash_ms["library"],
+         "earlier_ms": flash_ms["earlier (FMA) kernel"]},
         {"name": "gmm_bwd", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/gmm_bwd.cu",
          "replaces": "src/repro/kernels/moe_gmm.py:49",
@@ -1448,11 +1478,14 @@ def check_ssd_backward(dev) -> dict:
     the smoke widths; the strong decay (A -16, dt 0.1), outputs asserted
     finite.  Each call's per-chunk states from the forward kernel (the
     variant the model takes) are held to the plain version's first.  Time
-    kernel and plain version at mamba2's shape beside the bound (no single
-    PyTorch call computes it).  Returns the ``kernels`` entry."""
+    the kernels, the FMA kernel that the bf16 tensor-core ones replaced
+    (``earlier_ms``) and the plain version at mamba2's shape beside the
+    bound (no single PyTorch call computes it).  Returns the ``kernels``
+    entry."""
     import torch
     import torch.nn.functional as F
     from repro_torch.configs.base import get_config
+    from repro_torch.kernels import ssd as ssd_mod
     from repro_torch.kernels.ssd import (_ssd_forward, ssd_bwd,
                                          ssd_bwd_plain, ssd_plain)
 
@@ -1476,9 +1509,14 @@ def check_ssd_backward(dev) -> dict:
         tol = SSD_TOL[str(dtype)]
         torch.testing.assert_close(states, want_states, rtol=tol, atol=tol)
         before = ssd_bwd.launches
+        variant = "tc" if dtype == torch.bfloat16 and P % 8 == 0 \
+            and N % 8 == 0 and min(chunk, L) <= 256 else "fma"
+        taken = getattr(ssd_bwd, f"{variant}_launches")
         got = ssd_bwd(*args, states, dy, dstate, chunk)
         torch.cuda.synchronize()
         assert ssd_bwd.launches == before + 1
+        assert getattr(ssd_bwd, f"{variant}_launches") == taken + 1, \
+            f"ssd bwd did not take its {variant} kernel"
         want = ssd_bwd_plain(*args, states, dy, dstate, chunk)
         label = (f"ssd bwd ({B},{L},{H},{P}) G={G} N={N} chunk {chunk} "
                  f"{str(dtype)[6:]}{' A=-16 dt=0.1' if strong else ''}"
@@ -1520,6 +1558,9 @@ def check_ssd_backward(dev) -> dict:
     Q = mamba.ssm.chunk_size
     dev_ms = _timed(f"ssd_bwd {tuple(args[0].shape)} N {args[3].shape[3]}",
                     {"kernel": lambda: ssd_bwd(*args, states, dy, None, Q),
+                     "earlier (FMA) kernel": _earlier_kernel(
+                         ssd_mod, lambda: ssd_bwd(*args, states, dy, None,
+                                                  Q)),
                      "plain": lambda: ssd_bwd_plain(*args, states, dy, None,
                                                     Q)}, inner=3)
     nbytes, ops = ssd_bwd_work(args, Q, final=False)
@@ -1529,14 +1570,16 @@ def check_ssd_backward(dev) -> dict:
           f"{ops / 1e9:.2f} GFLOP counted ({ops / ms / 1e9:.1f} TFLOP/s), "
           f"{nbytes / 1e6:.1f} MB ({nbytes / ms / 1e6:.1f} GB/s), "
           f"{bound_ms / ms * 100:.2f} % of the {bound_ms * 1e3:.2f} us bound "
-          f"({bound_by}); plain {dev_ms['plain'] * 1e3:.2f} us; no single "
-          f"PyTorch call")
+          f"({bound_by}); plain {dev_ms['plain'] * 1e3:.2f} us; the earlier "
+          f"FMA kernel {dev_ms['earlier (FMA) kernel'] * 1e3:.2f} us; no "
+          f"single PyTorch call")
     return {"name": "ssd_bwd", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/ssd_bwd.cu",
             "replaces": "src/repro/kernels/ssd.py:78",
             "backward_of": "ssd", "launches": 0, "max_abs_err": train_err,
             "ms": ms, "plain_ms": dev_ms["plain"], "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None}
+            "bound_by": bound_by, "library_ms": None,
+            "earlier_ms": dev_ms["earlier (FMA) kernel"]}
 
 
 def train_gmm_rows(cfg) -> int:
@@ -1579,16 +1622,18 @@ def _train_launches(cfg) -> dict:
     each layer's (a Zamba2 group's) forward runs twice (forward, then
     again in the backward pass), each backward once.  A Mamba2 layer runs
     the SSD scan (on the tensor cores at full width), Zamba2's shared
-    block flash attention once a group."""
+    block flash attention once a group.  Every bf16 forward and backward
+    of flash attention and SSD takes its tensor-core kernel (``.tc``)."""
     L = cfg.num_layers
     if cfg.family in ("ssm", "hybrid"):
         attn = L // cfg.hybrid.shared_every if cfg.family == "hybrid" else 0
         return {"flash_attention": 2 * attn, "flash_attention.tc": 2 * attn,
-                "flash_attention_bwd": attn, "ssd": 2 * L,
-                "ssd.tc": 2 * L, "ssd_bwd": L}
+                "flash_attention_bwd": attn, "flash_attention_bwd.tc": attn,
+                "ssd": 2 * L, "ssd.tc": 2 * L, "ssd_bwd": L,
+                "ssd_bwd.tc": L}
     per_layer_gmm = 3 if cfg.moe is not None else 0
     return {"flash_attention": 2 * L, "flash_attention.tc": 2 * L,
-            "flash_attention_bwd": L,
+            "flash_attention_bwd": L, "flash_attention_bwd.tc": L,
             "gmm": 2 * per_layer_gmm * L,
             "gmm.wgmma": 2 * per_layer_gmm * L,
             "gmm_bwd": per_layer_gmm * L}
@@ -2176,7 +2221,36 @@ def _kernel_wrappers() -> dict:
 VARIANT_COUNTERS = {"flash_attention": ("tc", "fma"),
                     "decode_attention": ("mma", "fma"),
                     "ssd": ("tc", "fma"),
-                    "gmm": ("wgmma", "fma")}
+                    "gmm": ("wgmma", "fma"),
+                    "flash_attention_bwd": ("tc", "fma"),
+                    "ssd_bwd": ("tc", "fma")}
+
+#: wrapper -> the CUDA kernels (function names) its launches run, for
+#: the profiles' device time by wrapper
+KERNEL_NAMES = {"segment_sum": ("segment_sum_rows",),
+                "flash_attention": ("flash_fwd", "flash_fwd_tc"),
+                "decode_attention": ("decode_fma", "decode_mma"),
+                "ssd": ("ssd_fwd", "ssd_tc"),
+                "gmm": ("gmm_f32_kernel", "gmm_wgmma", "gmm_wgmma_swap"),
+                "flash_attention_bwd": ("bwd_delta", "flash_bwd",
+                                        "flash_bwd_tc"),
+                "gmm_bwd": ("gemm", "gemm_bf16"),
+                "ssd_bwd": ("ssd_bwd", "ssd_bwd_u", "ssd_bwd_scan",
+                            "ssd_bwd_tc", "ssd_bwd_finish")}
+
+
+def kernel_wrapper(key: str):
+    """The wrapper whose kernel a profiler event ``key`` (a demangled
+    signature, e.g. ``void (anonymous namespace)::tc::flash_bwd_tc<128>(
+    ...)``) names, or None."""
+    import re
+    m = re.search(r"::(\w+)\s*[<(]", key)
+    if m is None:
+        return None
+    for wrapper, names in KERNEL_NAMES.items():
+        if m.group(1) in names:
+            return wrapper
+    return None
 
 
 def counts(kernels) -> dict:
@@ -2348,6 +2422,17 @@ def _profiled(label: str, fn):
     for e in sorted(on_device, key=lambda e: -e.self_device_time_total)[:10]:
         print(f"  device {e.self_device_time_total / 1e3:8.3f} ms "
               f"{e.count:5d} x  {e.key[:90]}")
+    by_wrapper = {}
+    for e in kernels:
+        w = kernel_wrapper(e.key)
+        if w is not None:
+            us, n = by_wrapper.get(w, (0.0, 0))
+            by_wrapper[w] = (us + e.self_device_time_total, n + e.count)
+    if by_wrapper:
+        print(f"profile {label}: device time by wrapper (every kernel of a "
+              f"call under its wrapper's name): " + ", ".join(
+                  f"{w} {us / 1e3:.3f} ms ({n} kernels)" for w, (us, n) in
+                  sorted(by_wrapper.items(), key=lambda kv: -kv[1][0])))
     return out
 
 

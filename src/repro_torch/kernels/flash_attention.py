@@ -52,10 +52,14 @@ Training: when grad is enabled and q, k or v requires it,
 forward asks either kernel for the (B, H, Sq) f32 log-sum-exp of each
 row's scaled scores as well (written only when asked, so serving is
 unchanged) and saves q, k, v, the output and the log-sum-exp.  Its
-backward is :func:`flash_attention_bwd`: on a CUDA tensor the kernel of
-``csrc/flash_attention_bwd.cu`` (a delta pass and one dq / dk / dv pass,
-counted once a call in ``flash_attention_bwd.launches``), on a CPU
-tensor :func:`flash_attention_bwd_plain`.  Under
+backward is :func:`flash_attention_bwd`: on a CUDA tensor the kernels
+of ``csrc/flash_attention_bwd.cu`` (a delta pass and one dq / dk / dv
+pass, counted once a call in ``flash_attention_bwd.launches``, and in
+``tc_launches`` or ``fma_launches``), on a CPU tensor
+:func:`flash_attention_bwd_plain`.  :func:`_bwd_variant` sends bf16 with
+D and Dv multiples of 16 and 16-byte rows to the tensor-core kernel
+(``flash_bwd_tc``: ldmatrix fragments, dq by one bulk reduction a row);
+f32 and the other inputs take the FMA kernel (``flash_bwd``).  Under
 ``torch.utils.checkpoint`` the forward runs again in the backward pass,
 log-sum-exp and all.  The CPU versions also take float64, for
 ``torch.autograd.gradcheck``.
@@ -76,8 +80,9 @@ _ENTRY = {("fma", torch.float32): "flash_attention_f32",
           ("fma", torch.bfloat16): "flash_attention_bf16",
           ("tc", torch.bfloat16): "flash_attention_bf16_tc"}
 _DTYPES = (torch.float32, torch.bfloat16)
-_BWD_ENTRY = {torch.float32: "flash_attention_bwd_f32",
-              torch.bfloat16: "flash_attention_bwd_bf16"}
+_BWD_ENTRY = {("fma", torch.float32): "flash_attention_bwd_f32",
+              ("fma", torch.bfloat16): "flash_attention_bwd_bf16",
+              ("tc", torch.bfloat16): "flash_attention_bwd_bf16_tc"}
 MAX_HEAD_DIM = 256
 #: the tensor-core kernel's items hold every head of a kv head's group
 #: for at least one position: 128 rows at D > 128
@@ -219,9 +224,23 @@ def _entry(variant: str, dtype: torch.dtype):
     return fn
 
 
+def _bwd_variant(dtype: torch.dtype, D: int, Dv: int, strides,
+                 ptrs) -> str:
+    """The backward kernel a CUDA call takes: ``"tc"`` (tensor cores) for
+    bf16 with D and Dv multiples of 16, ``strides`` (the batch, position
+    and head element strides of q, k, v and do) positive multiples of 8
+    and base addresses ``ptrs`` (q, k, v, do) 16-byte aligned; else
+    ``"fma"``."""
+    if dtype != torch.bfloat16 or D % 16 or Dv % 16:
+        return "fma"
+    if any(s <= 0 or s % 8 for s in strides) or any(p % 16 for p in ptrs):
+        return "fma"
+    return "tc"
+
+
 @functools.lru_cache(maxsize=None)
-def _bwd_entry(dtype: torch.dtype):
-    fn = getattr(load("flash_attention_bwd"), _BWD_ENTRY[dtype])
+def _bwd_entry(variant: str, dtype: torch.dtype):
+    fn = getattr(load("flash_attention_bwd"), _BWD_ENTRY[variant, dtype])
     fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
                    + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -297,9 +316,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``do`` (B, Sq, H, Dv), each in its input's dtype.
 
     CPU tensors take :func:`flash_attention_bwd_plain` (counted in
-    ``flash_attention_bwd.plain_calls``); CUDA tensors launch the kernel
-    of ``csrc/flash_attention_bwd.cu`` on the current stream (counted once
-    a call, two kernels, in ``flash_attention_bwd.launches``)."""
+    ``flash_attention_bwd.plain_calls``); CUDA tensors launch the kernels
+    that :func:`_bwd_variant` picks on the current stream (counted once a
+    call, two kernels, in ``flash_attention_bwd.launches`` and in
+    ``tc_launches`` or ``fma_launches``)."""
     check_attention_inputs("flash_attention_bwd", q, k, v)
     B, Sq, H, D = q.shape
     Skv, KV, Dv = k.shape[1], k.shape[2], v.shape[3]
@@ -319,15 +339,22 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     o, do = (t.to(q.dtype) if t.stride(3) == 1 or t.shape[3] == 1
              else t.to(q.dtype).contiguous() for t in (o, do))
     lse = lse.float().contiguous()
-    dq = torch.zeros((B, Sq, H, D), dtype=torch.float32, device=q.device)
     dk = torch.empty((B, Skv, KV, D), dtype=q.dtype, device=q.device)
     dv = torch.empty((B, Skv, KV, Dv), dtype=q.dtype, device=q.device)
     if Sq == 0 or Skv == 0 or B == 0:
-        return dq.to(q.dtype), dk.zero_(), dv.zero_()
+        return q.new_zeros((B, Sq, H, D)), dk.zero_(), dv.zero_()
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     strides = strides_arg((q, (0, 1, 2)), (k, (0, 1, 2)), (v, (0, 1, 2)),
                           (o, (0, 1, 2)), (do, (0, 1, 2)))
-    fn = _bwd_entry(q.dtype)
+    G = H // KV
+    variant = _bwd_variant(q.dtype, D, Dv, strides[:9] + strides[12:],
+                           (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                            do.data_ptr()))
+    # f32 sums of dq: the tensor-core kernel's in its (batch, kv head,
+    # position, head in group) row order
+    dq = torch.zeros((B, KV, Sq, G, D) if variant == "tc" else
+                     (B, Sq, H, D), dtype=torch.float32, device=q.device)
+    fn = _bwd_entry(variant, q.dtype)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
@@ -335,9 +362,15 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, Sq, Skv, H,
                 KV, D, Dv, int(causal), strides, stream)
     if rc != 0:
-        raise RuntimeError(f"flash_attention_bwd kernel launch failed: CUDA "
-                           f"error {rc}")
+        raise RuntimeError(f"flash_attention_bwd {variant} kernel launch "
+                           f"failed: CUDA error {rc}")
     flash_attention_bwd.launches += 1
+    if variant == "tc":
+        flash_attention_bwd.tc_launches += 1
+        out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
+        out.view(B, Sq, KV, G, D).copy_(dq.transpose(1, 2))
+        return out, dk, dv
+    flash_attention_bwd.fma_launches += 1
     return dq.to(q.dtype), dk, dv
 
 
@@ -364,4 +397,6 @@ flash_attention.tc_launches = 0
 flash_attention.fma_launches = 0
 flash_attention.plain_calls = 0
 flash_attention_bwd.launches = 0
+flash_attention_bwd.tc_launches = 0
+flash_attention_bwd.fma_launches = 0
 flash_attention_bwd.plain_calls = 0

@@ -47,10 +47,18 @@ Training: when grad is enabled and x, dt, A, Bm or Cm requires it,
 :func:`ssd` goes through :class:`SSD`, whose forward asks the kernel for
 each chunk's incoming state (B, nc, H, P, N) f32 as well (written only
 when asked, so serving is unchanged) and whose backward is
-:func:`ssd_bwd`: on a CUDA tensor the kernel of ``csrc/ssd_bwd.cu``
-(f32 FMAs; dB and dC summed over each group's heads by f32 atomics;
-counted in ``ssd_bwd.launches``), on a CPU tensor :func:`ssd_bwd_plain`
-(``ssd_bwd.plain_calls``).  The backward walks the chunks in reverse
+:func:`ssd_bwd`: on a CUDA tensor the kernels of ``csrc/ssd_bwd.cu``
+(counted once a call in ``ssd_bwd.launches``, and in ``tc_launches`` or
+``fma_launches``), on a CPU tensor :func:`ssd_bwd_plain`
+(``ssd_bwd.plain_calls``).  :func:`_bwd_variant` sends bf16 with P and N
+multiples of 8, a chunk of at most 256 and 16-byte rows to the
+tensor-core path (four kernels on an f32 scratch of
+:func:`bwd_scratch_floats` elements: each chunk's own state-cotangent
+term, the carry across chunks, the chunk-local products on ``mma.sync``
+with bf16 hi + lo pairs for the f32 operands, the reverse cumsum); f32
+and the other inputs take the FMA kernel (one CTA a (batch, head)
+walking the chunks in reverse).  dB and dC are summed over each group's
+heads by f32 atomics in both.  The backward walks the chunks in reverse
 with the state's cotangent carried, and selects every decay on the
 causal triangle before the exp, as the forward does: the reference's
 ``jnp.where(causal, exp(seg), 0)`` gives NaN gradients once a chunk's
@@ -72,7 +80,9 @@ __all__ = ["SSD", "ssd", "ssd_bwd", "ssd_bwd_plain", "ssd_plain"]
 _ENTRY = {("fma", torch.float32): "ssd_f32",
           ("fma", torch.bfloat16): "ssd_bf16",
           ("tc", torch.bfloat16): "ssd_bf16_tc"}
-_BWD_ENTRY = {torch.float32: "ssd_bwd_f32", torch.bfloat16: "ssd_bwd_bf16"}
+_BWD_ENTRY = {("fma", torch.float32): "ssd_bwd_f32",
+              ("fma", torch.bfloat16): "ssd_bwd_bf16",
+              ("tc", torch.bfloat16): "ssd_bwd_bf16_tc"}
 _DTYPES = (torch.float32, torch.bfloat16)
 MAX_HEAD_DIM = 64
 MAX_STATE_DIM = 128
@@ -276,11 +286,46 @@ def _entry(variant: str, dtype: torch.dtype):
     return fn
 
 
+def _bwd_variant(dtype: torch.dtype, P: int, N: int, Q: int, strides=(),
+                 ptrs=()) -> str:
+    """The backward kernels a CUDA call takes: ``"tc"`` (tensor cores) for
+    bf16 with P and N multiples of 8 (P <= 64, N <= 128), a chunk ``Q`` of
+    at most MAX_TC_CHUNK positions, ``strides`` (x's, B's and C's batch,
+    position and head element strides) multiples of 8 and base addresses
+    ``ptrs`` (x, B, C) 16-byte aligned; else ``"fma"``."""
+    if dtype != torch.bfloat16 or P % 8 or N % 8 or Q > MAX_TC_CHUNK:
+        return "fma"
+    if any(s % 8 for s in strides) or any(p % 16 for p in ptrs):
+        return "fma"
+    return "tc"
+
+
+def bwd_scratch_floats(Bsz: int, L: int, H: int, P: int, N: int,
+                       Q: int) -> int:
+    """f32 elements of the tensor-core backward's scratch: bf16 hi + lo
+    planes of dy (B, L, H, P) and of the states and their cotangents at
+    the chunk boundaries (B, nc, H, P, N); then f32 the chunks' own
+    cotangent terms (B, nc, H, P, N), ``<dS, S_in>`` (B, nc, H) and two
+    (B, L, H) rows (dcum - W and W), the last three each rounded up to a
+    multiple of 4 (16-byte aligned parts)."""
+    nc = L // Q
+    X, Y = Bsz * nc * H * P * N, Bsz * L * H * P
+
+    def r4(n):
+        return -(-n // 4) * 4
+    return Y + 3 * X + r4(Bsz * nc * H) + 2 * r4(Bsz * L * H)
+
+
 @functools.lru_cache(maxsize=None)
-def _bwd_entry(dtype: torch.dtype):
-    fn = getattr(load("ssd_bwd"), _BWD_ENTRY[dtype])
-    fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 7
-                   + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p])
+def _bwd_entry(variant: str, dtype: torch.dtype):
+    fn = getattr(load("ssd_bwd"), _BWD_ENTRY[variant, dtype])
+    if variant == "tc":  # the f32 scratch and its length after dC
+        fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_longlong]
+                       + [ctypes.c_int] * 7
+                       + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p])
+    else:
+        fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 7
+                       + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -353,8 +398,10 @@ def ssd_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     input's dtype (dt and A f32 on the card).
 
     CPU tensors take :func:`ssd_bwd_plain` (counted in
-    ``ssd_bwd.plain_calls``); CUDA tensors launch the kernel of
-    ``csrc/ssd_bwd.cu`` on the current stream (``ssd_bwd.launches``)."""
+    ``ssd_bwd.plain_calls``); CUDA tensors launch the kernels that
+    :func:`_bwd_variant` picks on the current stream (counted once a
+    call in ``ssd_bwd.launches`` and in ``tc_launches`` or
+    ``fma_launches``)."""
     Q = _check_inputs(x, dt, A, Bm, Cm, chunk)
     Bsz, L, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
@@ -376,8 +423,16 @@ def ssd_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         return ssd_bwd_plain(x, dt, A, Bm, Cm, states, dy, dstate, chunk)
     dt = dt.float()
     A = A.float().contiguous()
+    variant = _bwd_variant(x.dtype, P, N, Q,
+                           [t.stride(d) for t in (x, Bm, Cm)
+                            for d in (0, 1, 2)],
+                           [t.data_ptr() for t in (x, Bm, Cm)])
     dy = dy.float()
-    if dy.stride(3) != 1 and P > 1:
+    if variant == "tc":  # 16-byte rows for the tensor-core kernels
+        dy = dy.contiguous()
+        if dy.data_ptr() % 16:
+            dy = dy.clone()
+    elif dy.stride(3) != 1 and P > 1:
         dy = dy.contiguous()
     states = states.float().contiguous()
     if dstate is not None:
@@ -390,17 +445,28 @@ def ssd_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     dC = torch.zeros((Bsz, L, G, N), dtype=torch.float32, device=x.device)
     strides = strides_arg((x, (0, 1, 2)), (dt, (0, 1, 2)), (Bm, (0, 1, 2)),
                           (Cm, (0, 1, 2)), (dy, (0, 1, 2)))
-    fn = _bwd_entry(x.dtype)
+    fn = _bwd_entry(variant, x.dtype)
+    scratch = ()
+    if variant == "tc":
+        n = bwd_scratch_floats(Bsz, L, H, P, N, Q)
+        buf = torch.empty((n,), dtype=torch.float32, device=x.device)
+        scratch = (buf.data_ptr(), n)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
                 Cm.data_ptr(), states.data_ptr(), dy.data_ptr(),
                 None if dstate is None else dstate.data_ptr(),
                 dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(),
-                dC.data_ptr(), Bsz, L, H, G, P, N, Q, strides, stream)
+                dC.data_ptr(), *scratch, Bsz, L, H, G, P, N, Q, strides,
+                stream)
     if rc != 0:
-        raise RuntimeError(f"ssd_bwd kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(f"ssd_bwd {variant} kernel launch failed: CUDA "
+                           f"error {rc}")
     ssd_bwd.launches += 1
+    if variant == "tc":
+        ssd_bwd.tc_launches += 1
+    else:
+        ssd_bwd.fma_launches += 1
     return dx, ddt, dA, dB.to(Bm.dtype), dC.to(Cm.dtype)
 
 
@@ -432,4 +498,6 @@ ssd.tc_launches = 0
 ssd.fma_launches = 0
 ssd.plain_calls = 0
 ssd_bwd.launches = 0
+ssd_bwd.tc_launches = 0
+ssd_bwd.fma_launches = 0
 ssd_bwd.plain_calls = 0

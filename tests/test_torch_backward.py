@@ -26,6 +26,7 @@ import torch
 from repro.kernels import ref
 from repro.models.attention import blockwise_attention
 from repro_torch.kernels.flash_attention import (FlashAttention,
+                                                 _bwd_variant,
                                                  flash_attention,
                                                  flash_attention_bwd,
                                                  flash_attention_bwd_plain,
@@ -224,3 +225,34 @@ def test_f32_logits_product_backward():
     gy = torch.from_numpy(gy_np)
     parts = list(common._split_f32(gy, torch.bfloat16))
     assert torch.equal(sum(p.float() for p in parts), gy)
+
+
+@pytest.mark.parametrize("dtype,D,Dv,strides,ptrs,want", [
+    (torch.bfloat16, 128, 128, (), (), "tc"),     # qwen3-moe-30b-a3b
+    (torch.bfloat16, 96, 64, (), (), "tc"),       # MLA
+    (torch.bfloat16, 160, 160, (), (), "tc"),
+    (torch.bfloat16, 256, 256, (), (), "tc"),
+    (torch.float32, 128, 128, (), (), "fma"),
+    (torch.bfloat16, 12, 12, (), (), "fma"),      # D not 16k
+    (torch.bfloat16, 16, 8, (), (), "fma"),       # Dv not 16k
+    (torch.bfloat16, 128, 128, (1024, 128, 130), (), "fma"),
+    (torch.bfloat16, 128, 128, (0, 128, 128), (), "fma"),
+    (torch.bfloat16, 128, 128, (), (0, 0, 2, 0), "fma")])
+def test_flash_bwd_variant_rule(dtype, D, Dv, strides, ptrs, want):
+    """bf16 with D and Dv multiples of 16 and 16-byte rows of q, k, v and
+    do takes the tensor-core backward; the rest the FMA kernel."""
+    assert _bwd_variant(dtype, D, Dv, strides, ptrs) == want
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_cpu_calls_count_neither_variant(dtype):
+    """On the CPU both dtypes take the plain backward: ``plain_calls``
+    moves, no launch counter does."""
+    q, k, v, do = (torch.from_numpy(a).to(dtype)
+                   for a in _attn_inputs(1, 16, 16, 4, 2, 16, 16, seed=4))
+    o, lse = flash_attention_plain(q, k, v, True, return_lse=True)
+    counters = ("plain_calls", "launches", "tc_launches", "fma_launches")
+    before = [getattr(flash_attention_bwd, c) for c in counters]
+    flash_attention_bwd(q, k, v, o, do, lse, True)
+    after = [getattr(flash_attention_bwd, c) for c in counters]
+    assert [a - b for a, b in zip(after, before)] == [1, 0, 0, 0]

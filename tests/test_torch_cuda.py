@@ -964,7 +964,14 @@ def _bwd_err(got, want) -> float:
     (2, 32, 32, 4, 4, 16, 8, True), (2, 32, 8, 4, 4, 16, 16, False),
     (4, 1024, 1024, 32, 4, 128, 128, True),
     (2, 300, 300, 40, 40, 96, 64, True), (4, 1024, 8, 16, 16, 64, 64, False),
-    (1, 65, 65, 2, 1, 160, 160, True), (1, 33, 40, 2, 2, 256, 256, False)])
+    (1, 65, 65, 2, 1, 160, 160, True), (1, 33, 40, 2, 2, 256, 256, False),
+    # the tensor-core kernel's edges: lengths off its 64-row tiles, G 1,
+    # 3, 7, 8, 64 and 65, D 64 / 96 / 128 / 160 / 256
+    (1, 100, 100, 8, 1, 64, 64, True), (2, 130, 130, 8, 8, 96, 96, True),
+    (1, 77, 77, 16, 2, 128, 128, True), (1, 70, 150, 4, 4, 160, 160, False),
+    (2, 90, 90, 16, 2, 256, 256, True), (1, 50, 200, 8, 1, 128, 64, False),
+    (1, 90, 90, 21, 3, 128, 128, True), (2, 70, 70, 6, 2, 64, 64, True),
+    (1, 40, 40, 64, 1, 64, 64, True), (1, 20, 20, 65, 1, 16, 16, True)])
 def test_flash_backward_kernel_matches_plain(cuda, B, Sq, Skv, H, KV, D, Dv,
                                              causal, dtype):
     from repro_torch.kernels.flash_attention import (
@@ -1035,7 +1042,15 @@ SSD_BWD_TOL = {torch.float32: 2e-4, torch.bfloat16: 1e-2}
     (2, 200, 4, 64, 2, 128, 100, False, True),
     (1, 512, 8, 64, 1, 128, 256, True, True),      # strong decay
     (2, 512, 8, 64, 1, 64, 256, False, False),     # zamba2-2.7b's P and N
-    (4, 1024, 64, 64, 1, 128, 256, False, False)])  # mamba2-1.3b training
+    (4, 1024, 64, 64, 1, 128, 256, False, False),  # mamba2-1.3b training
+    # the tensor-core kernels' edges: several chunks with and without a
+    # final-state cotangent, G > 1 with 8-head blocks that do not divide
+    # a group's heads, N 64 and 128, chunks off the 64-position tiles
+    (2, 768, 6, 64, 2, 64, 256, False, True),
+    (2, 768, 12, 64, 2, 128, 256, False, False),
+    (1, 384, 10, 32, 1, 64, 128, False, True),
+    (2, 288, 5, 64, 1, 128, 96, False, False),
+    (1, 600, 6, 64, 3, 128, 200, True, True)])
 def test_ssd_backward_kernel_matches_plain(cuda, B, L, H, P, G, N, chunk,
                                            strong, final, dtype):
     """``ssd_bwd`` on the card against ``ssd_bwd_plain`` on the same

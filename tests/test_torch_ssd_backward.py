@@ -31,8 +31,8 @@ import pytest
 import torch
 
 from repro.models.ssm import ssd_chunked
-from repro_torch.kernels.ssd import (SSD, ssd, ssd_bwd, ssd_bwd_plain,
-                                     ssd_plain)
+from repro_torch.kernels.ssd import (SSD, _bwd_variant, bwd_scratch_floats,
+                                     ssd, ssd_bwd, ssd_bwd_plain, ssd_plain)
 
 TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 #: dA at the strong decay, against autograd through the plain forward in
@@ -233,3 +233,59 @@ def test_ssd_bwd_refuses_cotangents_that_do_not_fit(case):
         dstate = dstate[..., :4]
     with pytest.raises(ValueError, match="ssd_bwd"):
         ssd_bwd(x, dt, A, Bm, Cm, states, dy, dstate, chunk=32)
+
+
+@pytest.mark.parametrize("dtype,P,N,chunk,strides,ptrs,want", [
+    (torch.bfloat16, 64, 128, 256, (), (), "tc"),      # mamba2-1.3b
+    (torch.bfloat16, 64, 64, 256, (), (), "tc"),       # zamba2-2.7b
+    (torch.bfloat16, 16, 8, 32, (), (), "tc"),
+    (torch.float32, 64, 128, 256, (), (), "fma"),
+    (torch.bfloat16, 12, 128, 256, (), (), "fma"),     # P not 8k
+    (torch.bfloat16, 64, 4, 16, (), (), "fma"),        # N not 8k
+    (torch.bfloat16, 64, 128, 512, (), (), "fma"),     # chunk > 256
+    (torch.bfloat16, 64, 128, 256, (8, 8, 4), (), "fma"),
+    (torch.bfloat16, 64, 128, 256, (), (0, 16, 8), "fma")])
+def test_ssd_bwd_variant_rule(dtype, P, N, chunk, strides, ptrs, want):
+    """bf16 with P and N multiples of 8, a chunk of at most 256 and
+    16-byte rows of x, B and C takes the tensor-core backward; the rest
+    the FMA kernel."""
+    assert _bwd_variant(dtype, P, N, chunk, strides, ptrs) == want
+
+
+@pytest.mark.parametrize("Bsz,L,H,P,N,Q", [
+    (4, 1024, 64, 64, 128, 256), (4, 1024, 80, 64, 64, 256),
+    (2, 200, 4, 64, 128, 100), (1, 40, 3, 8, 8, 40), (3, 96, 5, 16, 24, 32)])
+def test_ssd_bwd_scratch_floats(Bsz, L, H, P, N, Q):
+    """The tensor-core backward's scratch: bf16 hi + lo planes of dy and
+    of the chunk boundaries' states and cotangents, then f32 U, inner,
+    dcum and W, each part starting 16 bytes in (as the C side lays them
+    out)."""
+    nc = L // Q
+    X, Y = Bsz * nc * H * P * N, Bsz * L * H * P
+    bf16_parts = [Y, Y, X, X, X, X]          # elements of 2 bytes
+    f32_parts = [X, Bsz * nc * H, Bsz * L * H, Bsz * L * H]
+    offset = 0
+    for n in bf16_parts:
+        assert offset % 16 == 0
+        offset += 2 * n
+    for n in f32_parts:
+        assert offset % 16 == 0
+        offset += 4 * n
+        offset = -(-offset // 16) * 16
+    got = bwd_scratch_floats(Bsz, L, H, P, N, Q)
+    assert 4 * got == offset
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_bwd_cpu_calls_count_neither_variant(dtype):
+    """On the CPU both dtypes take the plain backward: ``plain_calls``
+    moves, no launch counter does."""
+    arrays, dy, _ = _inputs(1, 64, 4, 16, 1, 8, "float32", seed=7)
+    x, dt, A, Bm, Cm = _port(arrays, "float32")
+    x, Bm, Cm = x.to(dtype), Bm.to(dtype), Cm.to(dtype)
+    states = ssd_plain(x, dt, A, Bm, Cm, 32, return_states=True)[2]
+    counters = ("plain_calls", "launches", "tc_launches", "fma_launches")
+    before = [getattr(ssd_bwd, c) for c in counters]
+    ssd_bwd(x, dt, A, Bm, Cm, states, torch.from_numpy(dy), None, 32)
+    after = [getattr(ssd_bwd, c) for c in counters]
+    assert [a - b for a, b in zip(after, before)] == [1, 0, 0, 0]
