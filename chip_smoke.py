@@ -1278,13 +1278,14 @@ def _rel_err(got, want, dtype, label) -> float:
     return diff
 
 
-def _earlier_kernel(module, fn):
-    """``fn`` with ``module``'s backward wrapper routed to its FMA kernel
-    (``_bwd_variant`` answering ``"fma"``): the design that the bf16
-    tensor-core kernel replaced, timed in the same call beside it."""
+def _earlier_kernel(module, fn, variant: str = "fma"):
+    """``fn`` with ``module``'s backward wrapper routed to the kernel that
+    its bf16 tensor-core kernel replaced (``_bwd_variant`` answering
+    ``variant``: flash attention's and SSD's FMA kernels, ``gmm``'s
+    ``"mma"``), timed in the same call beside it."""
     def run():
         chosen = module._bwd_variant
-        module._bwd_variant = lambda *args, **kw: "fma"
+        module._bwd_variant = lambda *args, **kw: variant
         try:
             return fn()
         finally:
@@ -1298,19 +1299,22 @@ def check_backward(dev) -> list:
     MLA's (4, 1024, 40/40, 96/64, v a view) causal and a cross shape
     (4, 1024 -> 8, 16/16, 64), the smoke configs' widths and ragged
     lengths in f32 and bf16; ``gmm``'s at the training shape (128, 320,
-    2048) x (128, 2048, 768) in both orientations and a ragged sweep.
+    2048) x (128, 2048, 768) in both orientations and a ragged sweep,
+    each call asserted on its kernel (bf16 ``wgmma``, f32 ``fma``).
     Each is timed (device ms by CUDA-graph replay) beside its plain
     version and a library call: SDPA's backward alone (``torch.autograd.
     grad`` on a graph built once, eager, CUDA events: its autograd runs on
     the forward's stream, which a capture cannot take) and two
     ``torch.bmm``.  Flash attention's bf16 tensor-core kernel is timed
-    beside the FMA kernel it replaced (``earlier_ms``).  Returns the two
+    beside the FMA kernel it replaced, ``gmm``'s (both orientations)
+    beside its mma.sync kernel (``earlier_ms``).  Returns the two
     ``kernels`` entries."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.flash_attention import (
         _flash_forward, flash_attention_bwd, flash_attention_bwd_plain)
+    from repro_torch.kernels import gmm as gmm_mod
     from repro_torch.kernels.gmm import gmm_bwd, gmm_bwd_plain
 
     def flash_case(B, Sq, Skv, H, KV, D, Dv, dtype, causal, seed=0,
@@ -1394,10 +1398,13 @@ def check_backward(dev) -> list:
         x = _randn((E, C, D), dtype, dev, seed) * D ** -0.25
         w = _randn((E, D, F), dtype, dev, seed + 1) * D ** -0.25
         dy = _randn((E, C, F), dtype, dev, seed + 2)
-        before = gmm_bwd.launches
+        variant = "wgmma" if dtype == bf16 else "fma"
+        before = (gmm_bwd.launches, getattr(gmm_bwd, f"{variant}_launches"))
         got = gmm_bwd(x, w, dy)
         torch.cuda.synchronize()
-        assert gmm_bwd.launches == before + 1
+        assert (gmm_bwd.launches, getattr(gmm_bwd, f"{variant}_launches")) \
+            == (before[0] + 1, before[1] + 1), \
+            f"gmm bwd did not take its {variant} kernel"
         want = gmm_bwd_plain(x, w, dy)
         label = f"gmm bwd ({E},{C},{D})x({D},{F}) {str(dtype)[6:]}"
         err = max(_rel_err(g, wt, dtype, f"{label} {n}")
@@ -1411,25 +1418,40 @@ def check_backward(dev) -> list:
     E, Dm, Fd = cfg.moe.num_experts, cfg.d_model, cfg.d_ff
     C = train_gmm_rows(cfg)
     gtrain, gmm_err = gmm_case(E, C, Dm, Fd, bf16)
-    gmm_case(E, C, Fd, Dm, bf16, seed=1)
+    gother, other_err = gmm_case(E, C, Fd, Dm, bf16, seed=1)
     for dtype in (torch.float32, bf16):
         for shape in ((4, 20, 48, 32), (3, 1, 32, 48), (2, 130, 256, 144),
-                      (8, 4, 16, 16), (2, 64, 2048, 768)):
+                      (8, 4, 16, 16), (2, 64, 2048, 768), (3, 129, 48, 144),
+                      (3, 65, 144, 48), (4, 624, 2048, 768)):
             gmm_case(*shape, dtype, seed=7)
-    x, w, dy = gtrain
-    gmm_ms = _timed(f"gmm_bwd ({E},{C},{Dm})x({Dm},{Fd})", {
-        "kernel": lambda: gmm_bwd(x, w, dy),
-        "plain": lambda: gmm_bwd_plain(x, w, dy),
-        "library": lambda: (torch.bmm(dy, w.transpose(1, 2)),
-                            torch.bmm(x.transpose(1, 2), dy))}, inner=5)
-    gops = 2 * 2 * E * C * Dm * Fd
-    gbytes = 2 * 2 * (x.numel() + w.numel()) + 2 * dy.numel()
-    gbound_ms, gbound_by = _bound(gbytes, gops, x.dtype)
-    print(f"gmm bwd at the training shape: {gops / 1e9:.1f} GFLOP, "
-          f"{gops / gmm_ms['kernel'] / 1e9:.1f} TFLOP/s, "
-          f"{gbound_ms / gmm_ms['kernel'] * 100:.1f} % of the "
-          f"{gbound_ms * 1e3:.2f} us bound ({gbound_by}); two torch.bmm "
-          f"{gops / gmm_ms['library'] / 1e9:.1f} TFLOP/s")
+
+    def gmm_timed(x, w, dy) -> dict:
+        """The wgmma kernel beside the mma.sync kernel it replaced, the
+        plain version and two torch.bmm; bound and rates printed."""
+        E, C, D = x.shape
+        F = w.shape[2]
+        ms = _timed(f"gmm_bwd ({E},{C},{D})x({D},{F})", {
+            "kernel": lambda: gmm_bwd(x, w, dy),
+            "earlier (mma) kernel": _earlier_kernel(
+                gmm_mod, lambda: gmm_bwd(x, w, dy), "mma"),
+            "plain": lambda: gmm_bwd_plain(x, w, dy),
+            "library": lambda: (torch.bmm(dy, w.transpose(1, 2)),
+                                torch.bmm(x.transpose(1, 2), dy))},
+            inner=5)
+        ops = 2 * 2 * E * C * D * F
+        nbytes = 2 * 2 * (x.numel() + w.numel()) + 2 * dy.numel()
+        ms["bound"], ms["bound_by"] = _bound(nbytes, ops, x.dtype)
+        print(f"gmm bwd ({E},{C},{D})x({D},{F}): {ops / 1e9:.1f} GFLOP, "
+              f"{ops / ms['kernel'] / 1e9:.1f} TFLOP/s, "
+              f"{ms['bound'] / ms['kernel'] * 100:.1f} % of the "
+              f"{ms['bound'] * 1e3:.2f} us bound ({ms['bound_by']}); two "
+              f"torch.bmm {ops / ms['library'] / 1e9:.1f} TFLOP/s; the "
+              f"earlier mma.sync kernel "
+              f"{ms['earlier (mma) kernel'] * 1e3:.2f} us")
+        return ms
+
+    gmm_ms = gmm_timed(*gtrain)
+    other_ms = gmm_timed(*gother)
     return [
         {"name": "flash_attention_bwd", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
@@ -1442,10 +1464,17 @@ def check_backward(dev) -> list:
         {"name": "gmm_bwd", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/gmm_bwd.cu",
          "replaces": "src/repro/kernels/moe_gmm.py:49",
-         "backward_of": "gmm", "launches": 0, "max_abs_err": gmm_err,
-         "ms": gmm_ms["kernel"], "plain_ms": gmm_ms["plain"],
-         "bound_ms": gbound_ms, "bound_by": gbound_by,
-         "library_ms": gmm_ms["library"]}]
+         "backward_of": "gmm", "variant": "wgmma", "launches": 0,
+         "max_abs_err": gmm_err, "ms": gmm_ms["kernel"],
+         "plain_ms": gmm_ms["plain"], "bound_ms": gmm_ms["bound"],
+         "bound_by": gmm_ms["bound_by"], "library_ms": gmm_ms["library"],
+         "earlier_ms": gmm_ms["earlier (mma) kernel"],
+         "other_orientation": {
+             "shape": [E, C, Fd, Dm], "max_abs_err": other_err,
+             "ms": other_ms["kernel"], "plain_ms": other_ms["plain"],
+             "bound_ms": other_ms["bound"], "bound_by": other_ms["bound_by"],
+             "library_ms": other_ms["library"],
+             "earlier_ms": other_ms["earlier (mma) kernel"]}}]
 
 
 def ssd_bwd_work(args, Q: int, final: bool) -> tuple:
@@ -1623,7 +1652,8 @@ def _train_launches(cfg) -> dict:
     again in the backward pass), each backward once.  A Mamba2 layer runs
     the SSD scan (on the tensor cores at full width), Zamba2's shared
     block flash attention once a group.  Every bf16 forward and backward
-    of flash attention and SSD takes its tensor-core kernel (``.tc``)."""
+    of flash attention and SSD takes its tensor-core kernel (``.tc``),
+    every ``gmm`` forward and backward its ``wgmma`` kernel."""
     L = cfg.num_layers
     if cfg.family in ("ssm", "hybrid"):
         attn = L // cfg.hybrid.shared_every if cfg.family == "hybrid" else 0
@@ -1636,7 +1666,8 @@ def _train_launches(cfg) -> dict:
             "flash_attention_bwd": L, "flash_attention_bwd.tc": L,
             "gmm": 2 * per_layer_gmm * L,
             "gmm.wgmma": 2 * per_layer_gmm * L,
-            "gmm_bwd": per_layer_gmm * L}
+            "gmm_bwd": per_layer_gmm * L,
+            "gmm_bwd.wgmma": per_layer_gmm * L}
 
 
 def free_card_memory() -> float:
@@ -2223,6 +2254,7 @@ VARIANT_COUNTERS = {"flash_attention": ("tc", "fma"),
                     "ssd": ("tc", "fma"),
                     "gmm": ("wgmma", "fma"),
                     "flash_attention_bwd": ("tc", "fma"),
+                    "gmm_bwd": ("wgmma", "fma"),
                     "ssd_bwd": ("tc", "fma")}
 
 #: wrapper -> the CUDA kernels (function names) its launches run, for
@@ -2234,7 +2266,7 @@ KERNEL_NAMES = {"segment_sum": ("segment_sum_rows",),
                 "gmm": ("gmm_f32_kernel", "gmm_wgmma", "gmm_wgmma_swap"),
                 "flash_attention_bwd": ("bwd_delta", "flash_bwd",
                                         "flash_bwd_tc"),
-                "gmm_bwd": ("gemm", "gemm_bf16"),
+                "gmm_bwd": ("gemm", "gemm_bf16", "gmm_bwd_wgmma"),
                 "ssd_bwd": ("ssd_bwd", "ssd_bwd_u", "ssd_bwd_scan",
                             "ssd_bwd_tc", "ssd_bwd_finish")}
 
@@ -2390,10 +2422,13 @@ def _leaves(tree):
 def _profiled(label: str, fn):
     """Run ``fn`` once unprofiled and once under torch.profiler, each to
     its end on the card; print the wall times, the kernels and launch
-    calls, the device's busy share of the profiled run, and the largest
-    kernels.  Returns ``fn``'s last result."""
+    calls, the device's busy share of the profiled run, the largest
+    kernels and the device time by wrapper (``KERNEL_NAMES``), and fail
+    if a wrapper launched in the profiled run but none of its kernels
+    was timed.  Returns ``fn``'s last result."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    wrappers = _kernel_wrappers()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     fn()
@@ -2401,10 +2436,12 @@ def _profiled(label: str, fn):
     unprofiled = time.perf_counter() - t0
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        before = {n: k.launches for n, k in wrappers.items()}
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
         step = time.perf_counter() - t0
+        moved = [n for n, k in wrappers.items() if k.launches != before[n]]
     events = prof.key_averages()
     on_device = [e for e in events if str(e.device_type).endswith("CUDA")]
     kernels = [e for e in on_device if not e.key.startswith("Mem")]
@@ -2433,6 +2470,10 @@ def _profiled(label: str, fn):
               f"call under its wrapper's name): " + ", ".join(
                   f"{w} {us / 1e3:.3f} ms ({n} kernels)" for w, (us, n) in
                   sorted(by_wrapper.items(), key=lambda kv: -kv[1][0])))
+    if kern_us > 0:
+        silent = [n for n in moved if by_wrapper.get(n, (0.0, 0))[0] <= 0]
+        assert not silent, (f"profile {label}: {silent} launched, but no "
+                            f"kernel of theirs was timed (KERNEL_NAMES)")
     return out
 
 

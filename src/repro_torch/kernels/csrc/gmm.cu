@@ -437,44 +437,6 @@ gmm_wgmma_swap(const __grid_constant__ CUtensorMap xmap,
   }
 }
 
-// The tensor map of a contiguous bf16 (n2, n1, n0) tensor, dims innermost
-// first, boxes of 64 x box1 x 1, 128-byte swizzle; zeros past every edge
-// on loads, nothing written past them on stores.
-bool map_3d(CUtensorMap* map, const void* ptr, int n0, int n1, int n2,
-            int box1) {
-  const EncodeTiled encode = encoder();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(n0),
-                              static_cast<cuuint64_t>(n1),
-                              static_cast<cuuint64_t>(n2)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(n0) * 2,
-                                 static_cast<cuuint64_t>(n0) * n1 * 2};
-  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(box1), 1};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-                const_cast<void*>(ptr), dims, strides, box, unit,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-int n_sms() {
-  int dev = 0, n = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-  return n;
-}
-
-template <typename Kernel>
-int opt_in(Kernel kernel, size_t bytes, bool* done) {
-  if (*done) return 0;
-  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       static_cast<int>(bytes));
-  const cudaError_t err = cudaGetLastError();
-  if (err == cudaSuccess) *done = true;
-  return static_cast<int>(err);
-}
-
 int launch_prefill(const void* x, const void* w, void* out, int E, int C,
                    int D, int F, cudaStream_t stream) {
   static bool opted_in = false;

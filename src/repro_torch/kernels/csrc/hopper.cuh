@@ -3,7 +3,8 @@
 // mma.sync m16n8k16 (bf16 in, f32 out), and for Hopper (sm_90a)
 // mbarriers, TMA copies between tensor maps and shared memory, wgmma
 // matrix descriptors and the wgmma fence / commit / wait, register pins,
-// and on the host the driver's cuTensorMapEncodeTiled.
+// and on the host cuTensorMapEncodeTiled (looked up at run time), 3-d
+// bf16 tensor maps, the SM count and the dynamic shared memory opt-in.
 //
 // Everything here lives in an anonymous namespace: each source that
 // includes it is its own shared library.  kernels/build.py hashes every
@@ -253,6 +254,46 @@ inline EncodeTiled encoder() {
       fn = reinterpret_cast<EncodeTiled>(ptr);
   }
   return fn;
+}
+
+// The tensor map of a contiguous bf16 (n2, n1, n0) tensor, dims innermost
+// first, boxes of 64 x box1 x 1, 128-byte swizzle; zeros past every edge
+// on loads, nothing written past them on stores.
+inline bool map_3d(CUtensorMap* map, const void* ptr, int n0, int n1, int n2,
+                   int box1) {
+  const EncodeTiled encode = encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(n0),
+                              static_cast<cuuint64_t>(n1),
+                              static_cast<cuuint64_t>(n2)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(n0) * 2,
+                                 static_cast<cuuint64_t>(n0) * n1 * 2};
+  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(box1), 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                const_cast<void*>(ptr), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// the current device's SM count
+inline int n_sms() {
+  int dev = 0, n = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  return n;
+}
+
+// let kernel use `bytes` of dynamic shared memory, once (*done)
+template <typename Kernel>
+int opt_in(Kernel kernel, size_t bytes, bool* done) {
+  if (*done) return 0;
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       static_cast<int>(bytes));
+  const cudaError_t err = cudaGetLastError();
+  if (err == cudaSuccess) *done = true;
+  return static_cast<int>(err);
 }
 
 }  // namespace hopper

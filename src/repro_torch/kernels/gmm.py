@@ -31,12 +31,15 @@ for a CUDA tensor it launches the kernel or raises.
 Training: when grad is enabled and x or w requires it, :func:`gmm` goes
 through :class:`GMM`, whose backward is :func:`gmm_bwd`: ``dx[e] =
 dy[e] w[e]^T`` and ``dw[e] = x[e]^T dy[e]``, on a CUDA tensor by the
-kernel of ``csrc/gmm_bwd.cu`` (two launches a call, counted once in
-``gmm_bwd.launches``), on a CPU tensor by :func:`gmm_bwd_plain`.  The
-backward takes the forward's operands as they are, so its only extra
-condition (:func:`_check_bwd`) is dy's shape and dtype: the contraction
-of dw runs over C, which the kernel masks at any length.  The CPU
-versions also take float64, for ``torch.autograd.gradcheck``.
+kernels of ``csrc/gmm_bwd.cu`` that :func:`_bwd_variant` picks (bf16:
+``wgmma``, persistent CTAs on a TMA ring, dx computed transposed so that
+w streams once; f32: FMA tiles; two launches a call, counted once in
+``gmm_bwd.launches`` and in ``wgmma_launches`` or ``fma_launches``), on
+a CPU tensor by :func:`gmm_bwd_plain`.  The backward takes the
+forward's operands as they are, so its only extra condition
+(:func:`_check_bwd`) is dy's shape and dtype: the contraction of dw runs
+over C, which the kernels mask at any length.  The CPU versions also
+take float64, for ``torch.autograd.gradcheck``.
 """
 from __future__ import annotations
 
@@ -50,7 +53,8 @@ from repro_torch.kernels.build import load
 __all__ = ["GMM", "gmm", "gmm_bwd", "gmm_bwd_plain", "gmm_plain"]
 
 _ENTRY = {"fma": "gmm_f32", "wgmma": "gmm_bf16"}
-_BWD_ENTRY = {torch.float32: "gmm_bwd_f32", torch.bfloat16: "gmm_bwd_bf16"}
+_BWD_ENTRY = {"fma": "gmm_bwd_f32", "wgmma": "gmm_bwd_bf16",
+              "mma": "gmm_bwd_bf16_mma"}
 _DTYPES = (torch.float32, torch.bfloat16)
 _INT_MAX = 2 ** 31 - 1
 
@@ -172,9 +176,26 @@ def _gmm_forward(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _bwd_variant(dtype: torch.dtype, C: int, D: int, F: int, ptrs) -> str:
+    """The backward kernel a CUDA call takes: ``"wgmma"`` (tensor cores,
+    TMA) for bf16, whose base addresses ``ptrs`` (x, w, dy) must be
+    16-byte aligned (TMA's condition; else ValueError, as the forward);
+    ``"fma"`` for f32, whose 2e-5 tolerance TF32 tiles would break.  C,
+    D and F do not change the choice: the kernels take every shape
+    :func:`_check_bwd` lets through.  ``"mma"``, the earlier bf16 kernel
+    on mma.sync, is never chosen here."""
+    del C, D, F
+    if dtype != torch.bfloat16:
+        return "fma"
+    if any(p % 16 for p in ptrs):
+        raise ValueError("gmm_bwd: bf16 x, w and dy must start on a "
+                         "16-byte boundary")
+    return "wgmma"
+
+
 @functools.lru_cache(maxsize=None)
-def _bwd_entry(dtype: torch.dtype):
-    fn = getattr(load("gmm_bwd"), _BWD_ENTRY[dtype])
+def _bwd_entry(variant: str):
+    fn = getattr(load("gmm_bwd"), _BWD_ENTRY[variant])
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -186,9 +207,10 @@ def gmm_bwd(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor):
     cotangent ``dy`` (E, C, F), in x's and w's dtype.
 
     CPU tensors take :func:`gmm_bwd_plain` (counted in
-    ``gmm_bwd.plain_calls``); CUDA tensors launch the kernel of
-    ``csrc/gmm_bwd.cu`` on the current stream, once for dx and once for
-    dw (counted once a call in ``gmm_bwd.launches``)."""
+    ``gmm_bwd.plain_calls``); CUDA tensors launch the kernels that
+    :func:`_bwd_variant` picks on the current stream, once for dx and
+    once for dw (counted once a call in ``gmm_bwd.launches`` and in
+    ``wgmma_launches`` or ``fma_launches``)."""
     dy = dy.contiguous()
     _check_bwd(x, w, dy)
     if x.device.type == "cpu":
@@ -202,17 +224,21 @@ def gmm_bwd(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor):
         return dx, dw
     if C == 0:
         return dx, dw.zero_()
-    if any(t.data_ptr() % 16 for t in (x, w, dy)):
-        raise ValueError("gmm_bwd: x, w and dy must start on a 16-byte "
-                         "boundary")
+    variant = _bwd_variant(x.dtype, C, D, F,
+                           (x.data_ptr(), w.data_ptr(), dy.data_ptr()))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = _bwd_entry(x.dtype)(x.data_ptr(), w.data_ptr(), dy.data_ptr(),
+        rc = _bwd_entry(variant)(x.data_ptr(), w.data_ptr(), dy.data_ptr(),
                                  dx.data_ptr(), dw.data_ptr(), E, C, D, F,
                                  stream)
     if rc != 0:
-        raise RuntimeError(f"gmm_bwd kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(f"gmm_bwd {variant} kernel launch failed: CUDA "
+                           f"error {rc}")
     gmm_bwd.launches += 1
+    if variant == "wgmma":
+        gmm_bwd.wgmma_launches += 1
+    elif variant == "fma":
+        gmm_bwd.fma_launches += 1
     return dx, dw
 
 
@@ -235,4 +261,6 @@ gmm.wgmma_launches = 0
 gmm.fma_launches = 0
 gmm.plain_calls = 0
 gmm_bwd.launches = 0
+gmm_bwd.wgmma_launches = 0
+gmm_bwd.fma_launches = 0
 gmm_bwd.plain_calls = 0

@@ -8,7 +8,9 @@ versions.
   vjp sums the G heads): causal Sq = Skv, non-causal Sq != Skv
   (cross-attention), D != Dv (MLA), GQA.  The forward's log-sum-exp
   against ``jax.nn.logsumexp`` of the scaled scores.
-- ``gmm_bwd_plain`` against ``jax.vjp`` of ``ref.gmm_ref``, C ragged.
+- ``gmm_bwd_plain`` against ``jax.vjp`` of ``ref.gmm_ref``, C ragged;
+  ``gmm.py::_bwd_variant``'s choice by dtype and alignment, and a CPU
+  call moving only ``gmm_bwd.plain_calls``.
 - ``FlashAttention`` and ``GMM`` (the autograd functions the models go
   through under grad) with ``torch.autograd.gradcheck`` in f64.
 
@@ -31,6 +33,7 @@ from repro_torch.kernels.flash_attention import (FlashAttention,
                                                  flash_attention_bwd,
                                                  flash_attention_bwd_plain,
                                                  flash_attention_plain)
+from repro_torch.kernels import gmm as gmm_mod
 from repro_torch.kernels.gmm import GMM, gmm, gmm_bwd, gmm_bwd_plain
 
 TOL = 1e-5
@@ -148,6 +151,42 @@ def test_gmm_backward_plain_matches_gmm_ref_vjp(E, C, D, F):
     gx, gw = gmm_bwd(*map(torch.as_tensor, (x, w, dy)))
     assert gmm_bwd.plain_calls == before + 1
     assert torch.equal(gx, dx) and torch.equal(gw, dw)
+
+
+@pytest.mark.parametrize("dtype,C,D,F,ptrs,want", [
+    (torch.bfloat16, 320, 2048, 768, (0, 256, 4096), "wgmma"),  # training
+    (torch.bfloat16, 320, 768, 2048, (16, 32, 48), "wgmma"),    # wo
+    (torch.bfloat16, 1, 48, 144, (0, 0, 0), "wgmma"),           # ragged
+    (torch.float32, 320, 2048, 768, (0, 256, 4096), "fma"),
+    (torch.float32, 17, 48, 16, (4, 8, 12), "fma"),             # 4-byte
+    (torch.float32, 1, 16, 16, (0, 2, 0), "fma")])
+def test_gmm_bwd_variant_rule(dtype, C, D, F, ptrs, want):
+    """bf16 with 16-byte-aligned x, w and dy takes the wgmma backward at
+    every shape, f32 the FMA kernel at any alignment; ``"mma"`` (the
+    earlier bf16 kernel) is never chosen."""
+    assert gmm_mod._bwd_variant(dtype, C, D, F, ptrs) == want
+
+
+@pytest.mark.parametrize("ptrs", [(8, 0, 0), (0, 2, 0), (0, 0, 30)])
+def test_gmm_bwd_variant_refuses_unaligned_bf16(ptrs):
+    """TMA needs 16-byte-aligned bf16 bases: the wrapper raises, as the
+    forward does, rather than take another kernel."""
+    with pytest.raises(ValueError):
+        gmm_mod._bwd_variant(torch.bfloat16, 320, 2048, 768, ptrs)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gmm_bwd_cpu_calls_count_neither_variant(dtype):
+    """On the CPU both dtypes take the plain backward: ``plain_calls``
+    moves, no launch counter does."""
+    rng = np.random.default_rng(5)
+    x, w, dy = (torch.as_tensor(rng.standard_normal(s).astype(np.float32))
+                .to(dtype) for s in ((3, 17, 48), (3, 48, 144), (3, 17, 144)))
+    counters = ("plain_calls", "launches", "wgmma_launches", "fma_launches")
+    before = [getattr(gmm_bwd, c) for c in counters]
+    gmm_bwd(x, w, dy)
+    after = [getattr(gmm_bwd, c) for c in counters]
+    assert [a - b for a, b in zip(after, before)] == [1, 0, 0, 0]
 
 
 def test_gmm_bwd_bf16_rounds_once():

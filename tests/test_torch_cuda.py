@@ -993,22 +993,42 @@ def test_flash_backward_kernel_matches_plain(cuda, B, Sq, Skv, H, KV, D, Dv,
         assert _bwd_err(g, w) < ATTN_TOL[dtype]
 
 
+#: C at every edge of the backward's tiles (64-deep stages of dw, dx's
+#: 160-row chunks and 320-row tiles)
+GMM_BWD_C = (1, 15, 16, 17, 63, 64, 65, 127, 128, 129, 320, 624)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("E,C,D,F", [
     (4, 20, 48, 32), (3, 1, 32, 48), (2, 130, 256, 144), (8, 4, 16, 16),
-    (128, 320, 2048, 768), (128, 320, 768, 2048)])
+    (128, 320, 2048, 768), (128, 320, 768, 2048)]
+    + [(3, C, 48, 144) for C in GMM_BWD_C]      # D, F not the tiles'
+    + [(3, C, 144, 48) for C in GMM_BWD_C]
+    + [(4, C, 2048, 768) for C in (1, 65, 129, 624)]   # both training
+    + [(4, C, 768, 2048) for C in (1, 65, 129, 624)])  # orientations
 def test_gmm_backward_kernel_matches_plain(cuda, E, C, D, F, dtype):
+    """dx and dw within GMM_TOL of the largest plain value, finite; bf16
+    on the wgmma kernels, f32 on the FMA kernel; dy as a non-contiguous
+    view gives the same outputs."""
     from repro_torch.kernels.gmm import gmm_bwd, gmm_bwd_plain
     x = _randn((E, C, D), dtype, cuda, 0)
     w = _randn((E, D, F), dtype, cuda, 1)
     dy = _randn((E, C, F), dtype, cuda, 2)
-    before = gmm_bwd.launches
+    variant = "wgmma" if dtype == torch.bfloat16 else "fma"
+    before = (gmm_bwd.launches, getattr(gmm_bwd, f"{variant}_launches"))
     got = gmm_bwd(x, w, dy)
     torch.cuda.synchronize()
-    assert gmm_bwd.launches == before + 1
+    assert (gmm_bwd.launches, getattr(gmm_bwd, f"{variant}_launches")) \
+        == (before[0] + 1, before[1] + 1)
     for g, w_ in zip(got, gmm_bwd_plain(x, w, dy)):
-        assert g.dtype == dtype
+        assert g.dtype == dtype and g.shape == w_.shape
+        assert bool(torch.isfinite(g).all())
         assert _bwd_err(g, w_) < GMM_TOL[dtype]
+    dy_view = torch.zeros((E, C, 2 * F), dtype=dtype, device=cuda)[..., ::2]
+    dy_view.copy_(dy)
+    assert not dy_view.is_contiguous()
+    for g, g_view in zip(got, gmm_bwd(x, w, dy_view)):
+        assert torch.equal(g, g_view)
 
 
 @pytest.mark.parametrize("arch", ["qwen2-vl-7b", "qwen3-moe-30b-a3b",
