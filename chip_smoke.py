@@ -148,15 +148,31 @@ Phases (any failure raises and exits non-zero, with no result line):
    mamba2-1.3b at full width and depth (48 layers, MAMBA_TRAIN's steps;
    SSD forward 2L and its backward L, all on the tensor cores); zamba2-2.7b at
    full width, HYBRID_TRAIN_LAYERS layers (two shared-block calls, flash
-   at head dim 160), one step; and a checkpoint of the whole train state
-   (params, f32 master, m, v, step) of mamba2-1.3b cut to
-   CHECKPOINT_LAYERS layers through ``Checkpointer`` and back onto the
-   card bit for bit; phase 3 holds the three backward kernels (flash
-   attention's, ``gmm``'s, SSD's) against their plain versions at these
-   shapes, and phase 6 a train step at six f32 smoke configs on the card
-   against the CPU.  Each phase's end is printed in seconds into the
+   at head dim 160), one step; phase 3 holds the three backward kernels
+   (flash attention's, ``gmm``'s, SSD's) against their plain versions at
+   these shapes, and phase 6 a train step at six f32 smoke configs on the
+   card against the CPU.  Each phase's end is printed in seconds into the
    run;
-12. a ``kernels`` JSON line, the card's line, then the result line.
+12. the launchers and the multi-device layer (its own main path: the
+   counts are reset just before each launcher and read just after):
+   (a) ``launch.train.run`` on mamba2-1.3b at full width cut to
+   CHECKPOINT_LAYERS layers, B 4 x S 1024, one card: 4 steps with a
+   checkpoint every 2, then a second call to 6 steps, which resumes at
+   step 4 from a state equal to the saved one bit for bit (the whole
+   train state through ``Checkpointer`` and back onto the card), the
+   SSD launches of the 6 steps asserted; (b) the FSDP step with 2
+   microbatches on a one-rank NCCL group, mesh (1, 1) data x model, two
+   steps from (a)'s state beside two runs of the single-device step (the
+   first loss equal bit for bit; master, m, v and params within 4x the
+   single-device step's own run-to-run drift: its atomic sums are not
+   repeatable on the card); (c) the int8 compressed
+   all-reduce over a one-rank ``pod`` axis on a gradient of that state
+   (mean and residual within one scale); (d) ``launch.serve.run`` with
+   qwen2-vl-7b at full width, 3 replicas, 24 requests of LAUNCH_PROMPT
+   tokens, perf_aware under the simulated clock: every request finished,
+   every flash call on the tensor cores and every decode call on
+   ``mma``;
+13. a ``kernels`` JSON line, the card's line, then the result line.
 """
 from __future__ import annotations
 
@@ -307,12 +323,15 @@ MAMBA_TRAIN = dict(steps=3, warmup=2)
 #: zamba2-2.7b's depth in phase 11 (54 layers, a shared block every 6):
 #: two groups, so the shared block runs twice, one step
 HYBRID_TRAIN_LAYERS = 12
-#: the train state whose checkpoint phase 11 round-trips bit for bit:
-#: mamba2-1.3b at full width, 48 -> 4 layers after one step (2.9 GB,
-#: every leaf kind: bf16 params, f32 ones, f32 master, m, v, step).  The
-#: whole 26.17 GB qwen3-moe-30b-a3b state took 95.6 s at ~0.6 GB/s
-#: through np.savez on an H100 host, the run's largest item
+#: phase 12's train launcher: mamba2-1.3b at full width, 48 -> 4 layers
+#: (2.9 GB of train state, every leaf kind: bf16 params, f32 ones, f32
+#: master, m, v, step), checkpointed and restored bit for bit.  The whole
+#: 26.17 GB qwen3-moe-30b-a3b state took 95.6 s at ~0.6 GB/s through
+#: np.savez on an H100 host
 CHECKPOINT_LAYERS = 4
+#: phase 12's serve launcher: qwen2-vl-7b's prompts, its 256-position
+#: vision stub and 8 text tokens, in a 320-row cache
+LAUNCH_PROMPT, LAUNCH_MAX_SEQ = 264, 320
 #: phase 6: a train step on the card against the CPU at the f32 smoke
 #: configs
 TRAIN_PARITY_ARCHS = ("qwen2-vl-7b", "qwen3-moe-30b-a3b", "minicpm3-4b",
@@ -1709,59 +1728,14 @@ def live_cuda_tensors(top: int = 12) -> str:
                       f"{total / 1e9:.2f} GB"] + lines)
 
 
-def checkpoint_round_trip(arch: str, state) -> None:
-    """The whole train state through ``Checkpointer`` (asynchronous
-    save), then onto the card again: the state is first copied to host
-    memory and dropped from the card (the card cannot hold it twice),
-    restored onto the card from a template of meta tensors, and every
-    leaf held to the host copy bit for bit, dtype and device included.
-    Empties ``state``."""
-    import shutil
-    import torch
-    from repro_torch.checkpoint import Checkpointer
-    from repro_torch.tree import leaves_with_path, tree_map
-    dev = next(x for _, x in leaves_with_path(state)).device
-    path = os.path.join(ROOT, "build", "train_checkpoint")
-    shutil.rmtree(path, ignore_errors=True)
-    os.makedirs(path)
-    nbytes = sum(x.numel() * x.element_size()
-                 for _, x in leaves_with_path(state))
-    print(f"train {arch}: checkpoint of {nbytes / 1e9:.2f} GB, "
-          f"{shutil.disk_usage(path).free / 1e9:.1f} GB free on the disk")
-    t0 = time.perf_counter()
-    ck = Checkpointer(path, keep=1)
-    ck.save(int(state["opt"]["step"]), state)
-    ck.wait()
-    t1 = time.perf_counter()
-    host = tree_map(lambda x: x.to("cpu", copy=True), state)
-    template = tree_map(lambda x: torch.empty_like(x, device="meta"), state)
-    state.clear()
-    free_card_memory()
-    t2 = time.perf_counter()
-    back = ck.restore(template, device=dev)
-    torch.cuda.synchronize()
-    t3 = time.perf_counter()
-    for (p, a), (_, b) in zip(leaves_with_path(back),
-                              leaves_with_path(host)):
-        assert a.dtype == b.dtype and a.device == dev, p
-        assert torch.equal(a.cpu(), b), f"checkpoint leaf {p} differs"
-    shutil.rmtree(path, ignore_errors=True)
-    print(f"train {arch}: checkpoint of the whole train state (params, "
-          f"master, m, v, step; {nbytes / 1e9:.2f} GB) saved in "
-          f"{t1 - t0:.1f} s, restored onto the card in {t3 - t2:.1f} s, "
-          f"bit for bit")
-
-
 def train_full_width(dev, arch: str, layers: int, steps: int, warmup: int,
-                     wrappers, checkpoint: bool = False) -> dict:
+                     wrappers) -> dict:
     """Train ``arch`` at full width, its depth cut to ``layers``: bf16,
     remat full, B x S tokens from ``SyntheticLMData`` through the
     prefetching iterator, ``warmup`` steps then ``steps`` measured ones
     (loss, grad norm, step ms, tokens/s, peak GB each), every step's
     launches asserted (``_train_launches``), one more step profiled
-    (device busy share, time by kernel).  With ``checkpoint``, the whole
-    train state goes through ``Checkpointer`` and back
-    (:func:`checkpoint_round_trip`).  Returns the launches of the
+    (device busy share, time by kernel).  Returns the launches of the
     measured steps."""
     import dataclasses
     import math
@@ -1834,14 +1808,214 @@ def train_full_width(dev, arch: str, layers: int, steps: int, warmup: int,
         it.close()
     print(f"train {arch}: launches a step {expect} (remat full: each "
           f"layer's or group's forward twice)")
-    if checkpoint:
-        checkpoint_round_trip(arch, state)
     del state, it
     gc.collect()
     torch.cuda.empty_cache()
     print(f"train {arch} ({layers} layers): {time.perf_counter() - t_run:.1f}"
           f" s in all")
     return total
+
+
+def launch_train_phase(dev, wrappers, card: str) -> tuple:
+    """Phase 12a: ``launch.train.run`` on mamba2-1.3b at full width,
+    CHECKPOINT_LAYERS layers, B x S of LM_TRAIN: 4 steps with a checkpoint
+    every 2, then a second call to 6 steps that resumes at step 4, its
+    restored state held to the first call's final state bit for bit
+    (dtype and device included); the 6 steps' launches asserted against
+    phase 11's formula.  Returns (the launches, the config, the state
+    after step 6)."""
+    import dataclasses
+    import shutil
+    import torch
+    from repro_torch.configs.base import TrainConfig, get_config
+    from repro_torch.launch import train as ltrain
+    from repro_torch.tree import leaves_with_path
+    held = free_card_memory()
+    assert held < 1.0, f"{held:.2f} GB still held before phase 12"
+    cfg = dataclasses.replace(get_config(MAMBA_ARCH),
+                              num_layers=CHECKPOINT_LAYERS, dtype="bfloat16",
+                              remat="full").resolve(tp=1)
+    tcfg = TrainConfig(learning_rate=3e-4, warmup_steps=2, total_steps=100)
+    B, S = LM_TRAIN["batch"], LM_TRAIN["seq"]
+    path = os.path.join(ROOT, "build", "launch_train")
+    shutil.rmtree(path, ignore_errors=True)
+
+    def say(line):
+        print(f"phase 12a {line}")
+
+    kw = dict(batch=B, seq=S, ckpt_dir=path, ckpt_every=2, device=dev,
+              log_every=1, out=say)
+    reset_counts(wrappers)
+    t0 = time.perf_counter()
+    first = ltrain.run(cfg, tcfg, steps=4, **kw)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    assert first["start"] == 0 and first["step"] == 4, first["step"]
+    host = {p: x.to("cpu", copy=True)
+            for p, x in leaves_with_path(first["state"])}
+    nbytes = sum(x.numel() * x.element_size() for x in host.values())
+    del first
+    free_card_memory()
+    seen = []
+
+    def restored(step, state):
+        seen.append((step, all(
+            x.device.type == torch.device(dev).type
+            and x.dtype == host[p].dtype and torch.equal(x.cpu(), host[p])
+            for p, x in leaves_with_path(state))))
+
+    t2 = time.perf_counter()
+    second = ltrain.run(cfg, tcfg, steps=6, on_restore=restored, **kw)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    got = counts(wrappers)
+    assert seen == [(4, True)], f"phase 12a resume: {seen}"
+    assert second["start"] == 4 and second["step"] == 6
+    expect = {n: 6 * c for n, c in _train_launches(cfg).items()}
+    for n, c in got.items():
+        assert c == expect.get(n, 0), \
+            f"phase 12a: {c} {n} launches in 6 steps, not {expect.get(n, 0)}"
+    shutil.rmtree(path, ignore_errors=True)
+    print(f"phase 12a launch.train {cfg.name} ({CHECKPOINT_LAYERS} layers, B "
+          f"{B} x S {S}): 4 steps + checkpoints at 2 and 4 in "
+          f"{t1 - t0:.1f} s; resumed at step 4 from a {nbytes / 1e9:.2f} GB "
+          f"state equal to the saved one bit for bit, 2 steps + checkpoint "
+          f"at 6 in {t3 - t2:.1f} s; launches {got} [{card}]")
+    return got, cfg, second["state"]
+
+
+def _drift_line(d: dict) -> str:
+    return ", ".join(f"{k} {v:.3e}" for k, v in d.items())
+
+
+def launch_multi_device_phase(dev, cfg, state, card: str) -> None:
+    """Phases 12b and 12c on a one-rank NCCL process group (joined
+    through a file store): the FSDP step with 2 microbatches on a (1, 1)
+    data x model mesh beside the single-device step, two steps from
+    ``state``, the sharded step handed the single-device step's
+    gradients (``testing.sharded_step_parity``: every microbatch and
+    the params it ran on equal bit for bit, its loss equal bit for bit
+    where the params are, master / m / v within STATE_TOL of each leaf's
+    largest value and the params within one ulp of theirs); then the
+    int8 compressed all-reduce over a (1, 1) pod x data mesh on
+    ``state``'s gradient of one batch."""
+    import dataclasses
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.pipeline import SyntheticLMData, make_batch_iterator
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim.compression import make_compressed_allreduce
+    from repro_torch.parallel.sharding import make_rules
+    from repro_torch.testing import STATE_TOL, sharded_step_parity
+    from repro_torch.training.train_step import value_and_grad
+    from repro_torch.tree import leaves, tree_map
+    store = os.path.join(ROOT, "build", "nccl_store")
+    if os.path.exists(store):
+        os.remove(store)
+    B, S = LM_TRAIN["batch"], LM_TRAIN["seq"]
+    it = make_batch_iterator(SyntheticLMData(cfg.vocab_size, seed=0), B, S,
+                             seed=1, device=dev)
+    batch = next(it)
+    it.close()
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), dev)
+        rules = make_rules(mesh, mode="train", fsdp=True)
+        tcfg = TrainConfig(learning_rate=3e-4, warmup_steps=2,
+                           total_steps=100, microbatches=2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        steps = sharded_step_parity(cfg, tcfg, rules, state, batch)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for i, d in enumerate(steps):
+            print(f"phase 12b FSDP step, 2 microbatches, one-rank NCCL mesh "
+                  f"(1, 1), step {i + 1}, on the single-device step's "
+                  f"gradients: drift from the single-device step "
+                  f"{_drift_line(d['drift'])}; state equal bit for bit: "
+                  f"{d['exact']}; microbatches, params and loss equal bit "
+                  f"for bit: {d['batch_equal']}, {d['params_equal']}, "
+                  f"{d['loss_equal']}")
+        print(f"phase 12b: {t1 - t0:.1f} s for the two steps of each [{card}]")
+        for d in steps:
+            assert d["batch_equal"], d
+            assert d["loss_equal"] or not d["params_equal"], d
+            for kind in ("master", "m", "v"):
+                assert d["drift"][kind] <= STATE_TOL, (kind, d)
+            assert d["drift"]["params"] <= 1.0, d
+        assert steps[0]["params_equal"], steps
+        grads = tree_map(lambda g: g.float(),
+                         value_and_grad(cfg, state["params"], batch)[2])
+        fn = make_compressed_allreduce(make_mesh((1, 1), ("pod", "data"),
+                                                 dev), axis_name="pod")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mean, res = fn(grads, tree_map(torch.zeros_like, grads))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        worst_mean = worst_res = 0.0
+        for g, m, r in zip(leaves(grads), leaves(mean), leaves(res)):
+            scale = float(g.abs().max().clamp_min(1e-12)) / 127.0
+            worst_mean = max(worst_mean, float((m - g).abs().max()) / scale)
+            worst_res = max(worst_res, float(r.abs().max()) / scale)
+        n = sum(g.numel() for g in leaves(grads))
+        print(f"phase 12c compressed all-reduce over a one-rank pod axis, "
+              f"{len(leaves(grads))} leaves, {n} elements: mean within "
+              f"{worst_mean:.4f} scale of the input, residual within "
+              f"{worst_res:.4f} scale; {(t1 - t0) * 1e3:.1f} ms [{card}]")
+        assert worst_mean <= 1.0 + 1e-6 and worst_res <= 1.0 + 1e-6
+        del grads, mean, res
+    finally:
+        dist.destroy_process_group()
+        if os.path.exists(store):
+            os.remove(store)
+
+
+def launch_serve_phase(dev, wrappers, card: str) -> dict:
+    """Phase 12d: ``launch.serve.run`` with qwen2-vl-7b at full width
+    (random bf16 weights from a seeded generator), 3 replicas, 24
+    requests of LAUNCH_PROMPT tokens, perf_aware, under the launcher's
+    simulated clock: every request finished, every flash call on the
+    tensor cores and every decode call on ``mma``.  Returns the
+    launches."""
+    import math
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import serve as lserve
+    from repro_torch.models import model as M
+    held = free_card_memory()
+    assert held < 1.0, f"{held:.2f} GB still held before phase 12d"
+    cfg = get_config(ARCH).resolve(tp=1)
+    params = M.init_params(cfg, torch.Generator(dev).manual_seed(0), dev)
+    reset_counts(wrappers)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = lserve.run(cfg, params, replicas=3, requests=24,
+                     policy="perf_aware", prompt_len=LAUNCH_PROMPT,
+                     max_seq=LAUNCH_MAX_SEQ, device=dev)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    got = counts(wrappers)
+    rtts = [r for r in res["rtts"].tolist()]
+    assert len(rtts) == 24 and all(r is not None and math.isfinite(r)
+                                   and r >= 0 for r in rtts), rtts
+    assert got["flash_attention"] > 0 and \
+        got["flash_attention.tc"] == got["flash_attention"], got
+    assert got["decode_attention"] > 0 and \
+        got["decode_attention.mma"] == got["decode_attention"], got
+    print(f"phase 12d launch.serve {cfg.name} (full width, bf16), 3 "
+          f"replicas, 24 requests of {LAUNCH_PROMPT} tokens, perf_aware: "
+          f"mean_rtt {res['mean_rtt']:.3f} s p95 {res['p95']:.3f} s "
+          f"(simulated clock), shares "
+          f"{' '.join(f'{x:.3f}' for x in res['shares'])}; every request "
+          f"finished; {got['flash_attention']} flash calls all tc, "
+          f"{got['decode_attention']} decode calls all mma; "
+          f"{t1 - t0:.1f} s wall [{card}]")
+    del params, res
+    free_card_memory()
+    return got
 
 
 def sync_cost_us(dev) -> float:
@@ -3602,9 +3776,7 @@ def main() -> int:
                              MAMBA_TRAIN["steps"], MAMBA_TRAIN["warmup"],
                              wrappers),
             train_full_width(dev, HYBRID_ARCH, HYBRID_TRAIN_LAYERS, 1, 1,
-                             wrappers),
-            train_full_width(dev, MAMBA_ARCH, CHECKPOINT_LAYERS, 1, 0,
-                             wrappers, checkpoint=True)]
+                             wrappers)]
     by_name = {k["name"]: k for k in kernels}
     for name in ("flash_attention", "gmm", "ssd", "flash_attention_bwd",
                  "gmm_bwd", "ssd_bwd"):
@@ -3612,6 +3784,22 @@ def main() -> int:
         assert n > 0, f"{name} never launched in phase 11"
         by_name[name]["training_launches"] = n
         by_name[name]["launches"] += n
+
+    # phase 12: the launchers and the multi-device layer (their own main
+    # path: the counts are reset just before each launcher, read after)
+    print(f"phase 11 done: {time.perf_counter() - t_start:.1f} s into the "
+          f"run")
+    t_phase = time.perf_counter()
+    train_got, mcfg, mstate = launch_train_phase(dev, wrappers, card)
+    launch_multi_device_phase(dev, mcfg, mstate, card)
+    del mstate
+    serve_got = launch_serve_phase(dev, wrappers, card)
+    for name in ("ssd", "ssd_bwd", "flash_attention", "decode_attention"):
+        n = train_got.get(name, 0) + serve_got.get(name, 0)
+        assert n > 0, f"{name} never launched in phase 12"
+        by_name[name]["launcher_launches"] = n
+        by_name[name]["launches"] += n
+    print(f"phase 12: {time.perf_counter() - t_phase:.1f} s [{card}]")
 
     print(f"chip_smoke: whole run {time.perf_counter() - t_start:.1f} s, "
           f"the kernels' build included")

@@ -16,7 +16,9 @@ checkpoint written by either side restores on the other:
   training goes on (the copy to host memory happens in ``save``);
 - :meth:`Checkpointer.restore` fills a template's structure, casting each
   leaf to the template's dtype and shape, onto the template leaf's device
-  or a given one;
+  or a given one; with ``shardings`` (``parallel.sharding.Sharding`` objects)
+  each rank keeps its shard of every full leaf, whatever mesh wrote the
+  checkpoint (elastic restore: leaves are stored whole);
 - :func:`install_sigterm_handler` checkpoints and exits cleanly on
   preemption.
 """
@@ -34,7 +36,7 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
-from repro_torch.tree import leaves_with_path, unflatten
+from repro_torch.tree import leaves, leaves_with_path, unflatten
 
 _SEP = "::"
 #: dtypes npz stores as they are
@@ -162,12 +164,14 @@ class Checkpointer:
 
     # ------------------------------------------------------------------
     def restore(self, template: Any, step: Optional[int] = None,
-                device=None) -> Any:
+                device=None, shardings: Any = None) -> Any:
         """A tree with ``template``'s structure, each leaf read from the
         checkpoint of ``step`` (default: the latest), cast to the template
-        leaf's dtype and shape and placed on ``device`` (default: the
-        template leaf's device).  A leaf missing from the checkpoint
-        raises ``KeyError``."""
+        leaf's dtype and shape (the full shape) and placed on ``device``
+        (default: the template leaf's device).  With ``shardings``, a
+        matching tree of ``Sharding`` objects, each leaf is cut to this rank's
+        shard of the new mesh: the elastic path.  A leaf missing from the
+        checkpoint raises ``KeyError``."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
@@ -188,6 +192,8 @@ class Checkpointer:
                     raise TypeError(f"leaf {key}: cannot read dtype {true}")
                 dst = device if device is not None else ref.device
                 out.append(t.to(ref.dtype).reshape(ref.shape).to(dst))
+        if shardings is not None:
+            out = [s.local(x) for x, s in zip(out, leaves(shardings))]
         return unflatten(template, out)
 
 

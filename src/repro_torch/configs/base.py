@@ -1,5 +1,6 @@
 """Config schema of the port: a copy of the reference's
-``configs/base.py`` (the model dataclasses, ``TrainConfig`` and the arch
+``configs/base.py`` (the model dataclasses, ``MeshConfig``, the dry-run's
+``ShapeSpec`` cells, ``TrainConfig``, ``RunConfig`` and the arch
 registry).
 
 One schema covers every architecture family (dense / MoE / SSM / hybrid /
@@ -15,7 +16,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional, Tuple
 
 VOCAB_PAD_MULTIPLE = 256
@@ -206,13 +207,64 @@ class ModelConfig:
         return n
 
 
+# ----------------------------------------------------------------------
+@dataclass(frozen=True)
+class MeshConfig:
+    data: int = 16
+    model: int = 16
+    pods: int = 1                 # >1 adds the outer "pod" axis (pure DP)
+
+    @property
+    def axis_names(self):
+        return ("pod", "data", "model") if self.pods > 1 else ("data", "model")
+
+    @property
+    def shape(self):
+        return ((self.pods, self.data, self.model) if self.pods > 1
+                else (self.data, self.model))
+
+    @property
+    def dp_axes(self) -> Tuple[str, ...]:
+        return ("pod", "data") if self.pods > 1 else ("data",)
+
+    @property
+    def dp(self) -> int:
+        return self.pods * self.data
+
+    @property
+    def chips(self) -> int:
+        return self.pods * self.data * self.model
+
+
+@dataclass(frozen=True)
+class ShapeSpec:
+    name: str                     # train_4k | prefill_32k | decode_32k | long_500k
+    kind: str                     # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+
+SHAPES = {
+    "train_4k": ShapeSpec("train_4k", "train", 4_096, 256),
+    "prefill_32k": ShapeSpec("prefill_32k", "prefill", 32_768, 32),
+    "decode_32k": ShapeSpec("decode_32k", "decode", 32_768, 128),
+    "long_500k": ShapeSpec("long_500k", "decode", 524_288, 1),
+}
+
+
 @dataclass(frozen=True)
 class TrainConfig:
     """The training knobs, a copy of the reference's ``TrainConfig``
-    (same fields and defaults).  ``zero1`` and ``fsdp`` name sharding
-    layouts of the reference's multi-device step and are read by nothing
-    here; ``grad_compression`` is refused by
-    :func:`repro_torch.training.train_step.make_train_step`.
+    (same fields and defaults).
+
+    ``zero1`` and ``fsdp`` are read by nothing, in the reference as here:
+    the multi-device layout is the rules' (``parallel.sharding.
+    make_rules(fsdp=, zero1=)``; ``launch.specs.rules_for`` turns FSDP on
+    above 8 B parameters), and ``training.train_step.make_train_step``
+    reads it from the rules it is given.  ``grad_compression`` is refused
+    by ``make_train_step``: the reference's step never reads it either
+    (its int8 all-reduce, ``optim.compression``, is called by hand), and
+    a flag that silently did nothing would hide that.
     ``unroll_microbatches`` only changes how the reference compiles its
     loop: the port's microbatches are always a Python loop."""
     learning_rate: float = 3e-4
@@ -230,6 +282,13 @@ class TrainConfig:
     unroll_microbatches: bool = False
     grad_compression: bool = False  # int8 error-feedback cross-pod all-reduce
     seed: int = 0
+
+
+@dataclass(frozen=True)
+class RunConfig:
+    model: ModelConfig
+    mesh: MeshConfig = field(default_factory=MeshConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
 
 
 # ----------------------------------------------------------------------
@@ -259,3 +318,14 @@ def get_config(name: str, smoke: bool = False) -> ModelConfig:
         raise KeyError(f"unknown arch {name!r}; available: {sorted(_REGISTRY)}")
     return _REGISTRY[key](smoke=smoke)
 
+
+def supported_shapes(cfg: ModelConfig):
+    """Which of the four shape cells apply to this architecture.
+
+    long_500k is run only for sub-quadratic (SSM/hybrid) families; pure
+    full-attention archs skip it (documented in DESIGN.md / EXPERIMENTS.md).
+    """
+    names = ["train_4k", "prefill_32k", "decode_32k"]
+    if cfg.family in ("ssm", "hybrid"):
+        names.append("long_500k")
+    return [SHAPES[n] for n in names]

@@ -13,14 +13,15 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
 
     ``None`` means the CUDA card.  Without a card that is an error: the
     port never moves to the CPU on its own, the caller asks for it with
-    ``device="cpu"``.
+    ``device="cpu"``.  ``"meta"`` gives tensors with a shape and a dtype
+    and no storage (the layouts of ``launch.specs`` and the train step).
     """
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device is available; pass device='cpu' to run the "
             "port on the CPU")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {dev}")
     return dev
 

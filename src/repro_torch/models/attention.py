@@ -75,6 +75,22 @@ def init_attention(cfg, generator: torch.Generator, device=None,
     return p
 
 
+def attention_logical(cfg) -> dict:
+    lg = {"wq": ("embed", "heads", None), "wk": ("embed", "kv_heads", None),
+          "wv": ("embed", "kv_heads", None), "wo": ("heads", None, "embed")}
+    if cfg.qkv_bias:
+        lg.update(bq=("heads", None), bk=("kv_heads", None),
+                  bv=("kv_heads", None))
+    return lg
+
+
+def mla_logical() -> dict:
+    return {"wdq": ("embed", None), "wuq": (None, "heads", None),
+            "wdkv": ("embed", None), "wukv": (None, "heads", None),
+            "wo": ("heads", None, "embed"),
+            "q_norm": ("noshard",), "kv_norm": ("noshard",)}
+
+
 def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``einsum("bsd,dhk->bshk", x, w)`` as one matmul."""
     D, H, dh = w.shape

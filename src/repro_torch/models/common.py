@@ -20,6 +20,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from repro_torch.parallel.sharding import axis_rules, current_rules, dp_sum
+
 #: logits of the padded vocabulary rows (as the reference's ``-1e30``)
 PAD_LOGIT = -1e30
 
@@ -32,7 +34,10 @@ def normal_init(shape: Sequence[int], stddev: float, dtype: torch.dtype,
                 generator: torch.Generator,
                 device: Optional[torch.device] = None) -> torch.Tensor:
     """``stddev`` x a normal truncated to [-2, 2], drawn in f32 on the
-    generator's device, then cast to ``dtype`` and moved to ``device``."""
+    generator's device, then cast to ``dtype`` and moved to ``device``.
+    On the meta device nothing is drawn: the shape and dtype only."""
+    if device is not None and torch.device(device).type == "meta":
+        return torch.empty(tuple(shape), dtype=dtype, device="meta")
     x = torch.empty(tuple(shape), dtype=torch.float32,
                     device=generator.device)
     torch.nn.init.trunc_normal_(x, 0.0, 1.0, -2.0, 2.0, generator=generator)
@@ -63,6 +68,14 @@ def stacked_init(init_layer: Callable[[], dict], n: int) -> dict:
     return layers
 
 
+def stacked_logical(lg: dict) -> dict:
+    """A layer's logical-axis tree with ``"layers"`` in front of every
+    leaf: the tree of its stacked leaves (the reference's
+    ``stacked_logical``)."""
+    return {k: stacked_logical(v) if isinstance(v, dict) else ("layers",) + v
+            for k, v in lg.items()}
+
+
 def layer_slice(tree: dict, i: int) -> dict:
     """Layer ``i`` of a stacked layer tree (views, no copies)."""
     return {k: layer_slice(v, i) if isinstance(v, dict) else v[i]
@@ -74,6 +87,10 @@ def layer_slice(tree: dict, i: int) -> dict:
 def init_rmsnorm(d: int, device=None) -> dict:
     """The scale is kept in f32 whatever the model's dtype."""
     return {"scale": torch.ones((d,), dtype=torch.float32, device=device)}
+
+
+def rmsnorm_logical() -> dict:
+    return {"scale": ("noshard",)}
 
 
 def rmsnorm(p, x: torch.Tensor, eps: float) -> torch.Tensor:
@@ -156,6 +173,13 @@ def init_embedding(cfg, generator: torch.Generator, device=None) -> dict:
         p["head"] = normal_init((V, D), cfg.d_model ** -0.5, dt, generator,
                                 device)
     return p
+
+
+def embedding_logical(cfg) -> dict:
+    lg = {"tok": ("vocab", "embed")}
+    if not cfg.tie_embeddings:
+        lg["head"] = ("vocab", "embed")
+    return lg
 
 
 def embed_tokens(p, cfg, tokens: torch.Tensor) -> torch.Tensor:
@@ -257,6 +281,13 @@ def init_mlp(cfg, generator: torch.Generator, device=None,
     return p
 
 
+def mlp_logical(swiglu: bool = True) -> dict:
+    lg = {"wi": ("embed", "mlp"), "wo": ("mlp", "embed")}
+    if swiglu:
+        lg["wg"] = ("embed", "mlp")
+    return lg
+
+
 def mlp(p, x: torch.Tensor, swiglu: bool = True) -> torch.Tensor:
     """SwiGLU, or ``jax.nn.gelu``'s default, the tanh approximation."""
     if swiglu:
@@ -274,7 +305,13 @@ def chunked_cross_entropy(logits_fn: Callable, h: torch.Tensor,
 
     logits_fn: h chunk (B, C, D) -> logits (B, C, V) f32; labels (B, S)
     int.  Returns (mean nll over the valid positions, their count), both
-    f32 scalars: each chunk's nll summed, then added in chunk order."""
+    f32 scalars: each chunk's nll summed, then added in chunk order.
+
+    Under sharding rules ``h`` holds this rank's rows of the global batch:
+    the count is summed over the data-parallel ranks first
+    (``parallel.sharding.dp_sum``), and the loss returned is this rank's
+    share, its rows' nll over the global count, so the ranks' shares add
+    up to the global batch's mean and their gradients to its gradient."""
     B, S, _ = h.shape
     C = min(cfg.loss_chunk, S)
     if S % C:
@@ -295,6 +332,7 @@ def chunked_cross_entropy(logits_fn: Callable, h: torch.Tensor,
             nll = nll * vc
         tot = tot + nll.sum()
         cnt = cnt + vc.sum()
+    cnt = dp_sum(cnt)
     return tot / cnt.clamp_min(1.0), cnt
 
 
@@ -315,7 +353,12 @@ def maybe_remat(cfg, fn: Callable) -> Callable:
     the backward pass (``torch.utils.checkpoint``, non-reentrant),
     ``"dots"`` keeps the outputs of its plain matmuls and recomputes the
     rest, ``"none"`` keeps everything.  The numbers are the same in all
-    three.  Without grad (serving) ``fn`` runs as it is."""
+    three.  Without grad (serving) ``fn`` runs as it is.
+
+    The recompute runs in the backward pass, which for CUDA tensors runs
+    on autograd's own thread, where the caller's context variables are
+    not set; so the sharding rules active at the forward are bound to it
+    and entered again around the recompute."""
     if cfg.remat == "none":
         return fn
     if cfg.remat not in ("full", "dots"):
@@ -328,6 +371,12 @@ def maybe_remat(cfg, fn: Callable) -> Callable:
     def wrapped(*args):
         if not torch.is_grad_enabled():
             return fn(*args)
-        return checkpoint(fn, *args, use_reentrant=False, **kw)
+        rules = current_rules()
+
+        def under_rules(*a):
+            with axis_rules(rules):
+                return fn(*a)
+
+        return checkpoint(under_rules, *args, use_reentrant=False, **kw)
 
     return wrapped

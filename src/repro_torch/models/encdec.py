@@ -38,13 +38,15 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import (attention_decode, attention_fwd,
-                                          init_attention)
+                                          attention_logical, init_attention)
 from repro_torch.models.common import (chunked_cross_entropy,
                                        default_positions, dtype_of,
-                                       embed_tokens, init_embedding,
-                                       init_mlp, init_rmsnorm, layer_slice,
+                                       embed_tokens, embedding_logical,
+                                       init_embedding, init_mlp,
+                                       init_rmsnorm, layer_slice,
                                        logits_from_hidden, maybe_remat, mlp,
-                                       rmsnorm, stacked_init)
+                                       mlp_logical, rmsnorm, rmsnorm_logical,
+                                       stacked_init, stacked_logical)
 
 #: the encoder (audio-context) length bound of the reference
 ENC_MAX = 4096
@@ -75,6 +77,25 @@ def _init_dec_layer(cfg, generator: torch.Generator, device) -> dict:
             "ln1": init_rmsnorm(cfg.d_model, device),
             "ln2": init_rmsnorm(cfg.d_model, device),
             "ln3": init_rmsnorm(cfg.d_model, device)}
+
+
+def params_logical(cfg) -> dict:
+    _check_family(cfg)
+    attn, mlp_ = attention_logical(cfg), mlp_logical(swiglu=False)
+    norm = rmsnorm_logical
+    return {"embed": embedding_logical(cfg),
+            "enc_layers": stacked_logical({"attn": attn, "mlp": mlp_,
+                                           "ln1": norm(), "ln2": norm()}),
+            "dec_layers": stacked_logical({"self": attn, "cross": attn,
+                                           "mlp": mlp_, "ln1": norm(),
+                                           "ln2": norm(), "ln3": norm()}),
+            "enc_norm": norm(), "final_norm": norm()}
+
+
+def cache_logical(cfg) -> dict:
+    _check_family(cfg)
+    kv = ("layers", "batch", "kv_seq", "kv_heads", None)
+    return {"k": kv, "v": kv, "ck": kv, "cv": kv, "len": ("noshard",)}
 
 
 def init_params(cfg, generator: torch.Generator, device=None) -> dict:

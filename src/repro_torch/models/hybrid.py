@@ -46,14 +46,19 @@ import torch.nn.functional as F
 from repro_torch.device import resolve_device
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.models.attention import _out_proj, _proj, init_attention
+from repro_torch.models.attention import (_out_proj, _proj,
+                                          attention_logical, init_attention)
 from repro_torch.models.common import (apply_rope, chunked_cross_entropy,
                                        default_positions, dtype_of,
-                                       embed_tokens, init_embedding,
-                                       init_mlp, init_rmsnorm, layer_slice,
+                                       embed_tokens, embedding_logical,
+                                       init_embedding, init_mlp,
+                                       init_rmsnorm, layer_slice,
                                        logits_from_hidden, maybe_remat,
-                                       normal_init, rmsnorm, stacked_init)
-from repro_torch.models.ssm import init_mamba2, mamba2_decode, mamba2_fwd
+                                       mlp_logical, normal_init, rmsnorm,
+                                       rmsnorm_logical, stacked_init,
+                                       stacked_logical)
+from repro_torch.models.ssm import (init_mamba2, mamba2_decode, mamba2_fwd,
+                                    mamba2_logical)
 
 _FAMILIES = ("ssm", "hybrid")
 
@@ -313,6 +318,43 @@ def decode_step(params, cfg, cache, tokens: torch.Tensor):
     h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
     logits = logits_from_hidden(params["embed"], cfg, h)[:, 0]
     return logits, {**cache, "len": cache["len"] + 1}
+
+
+def params_logical(cfg) -> dict:
+    """The params' logical axes, as the reference's: a Zamba2 Mamba2
+    leaf is stacked over groups and over the layers of a group, and both
+    axes are named ``"layers"``."""
+    _check_family(cfg)
+    mamba = stacked_logical({"ln": rmsnorm_logical(),
+                             "mixer": mamba2_logical()})
+    lg = {"embed": embedding_logical(cfg), "final_norm": rmsnorm_logical()}
+    if cfg.family == "ssm":
+        lg["layers"] = mamba
+        return lg
+    lg["mamba"] = stacked_logical(mamba)
+    lg["shared"] = {"attn": attention_logical(cfg), "mlp": mlp_logical(),
+                    "ln1": rmsnorm_logical(), "ln2": rmsnorm_logical(),
+                    "down": (None, "embed")}
+    lg["lora"] = stacked_logical({"qa": (None, None), "qb": (None, "heads"),
+                                  "ia": (None, None), "ib": (None, "mlp")})
+    return lg
+
+
+def cache_logical(cfg) -> dict:
+    _check_family(cfg)
+    if cfg.family == "ssm":
+        return {"conv": {"x": ("layers", "batch", None, "ssm_inner"),
+                         "B": ("layers", "batch", None, None),
+                         "C": ("layers", "batch", None, None)},
+                "ssm": ("layers", "batch", "ssm_inner", None, None),
+                "len": ("noshard",)}
+    return {"conv": {"x": ("layers", None, "batch", None, "ssm_inner"),
+                     "B": ("layers", None, "batch", None, None),
+                     "C": ("layers", None, "batch", None, None)},
+            "ssm": ("layers", None, "batch", "ssm_inner", None, None),
+            "k": ("layers", "batch", "kv_seq", "kv_heads", None),
+            "v": ("layers", "batch", "kv_seq", "kv_heads", None),
+            "len": ("noshard",)}
 
 
 def init_cache(cfg, B: int, S: int, dtype=torch.bfloat16, device=None):

@@ -8,6 +8,8 @@ Translated from the reference's ``models/model.py``.  Public API:
   prefill(params, cfg, batch, cache_len=None) -> (last_logits (B, V), cache)
   decode_step(params, cfg, cache, tokens)  -> (logits (B, V), cache)
   init_cache(cfg, B, S, dtype=bf16, device=None) -> zeroed cache
+  params_logical(cfg)                      -> the params' logical axes
+  cache_logical(cfg)                       -> the cache's logical axes
 
 The ``ssm`` (Mamba2) and ``hybrid`` (Zamba2) families go to
 :mod:`repro_torch.models.hybrid` and ``encdec`` (SeamlessM4T) to
@@ -57,15 +59,17 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.models import encdec, hybrid
 from repro_torch.models.attention import (attention_decode, attention_fwd,
-                                          check_lowered, init_attention,
-                                          init_mla, mla_decode, mla_fwd)
+                                          attention_logical, check_lowered,
+                                          init_attention, init_mla,
+                                          mla_decode, mla_fwd, mla_logical)
 from repro_torch.models.common import (chunked_cross_entropy,
                                        default_positions, embed_tokens,
-                                       init_embedding, init_mlp,
-                                       init_rmsnorm, layer_slice,
+                                       embedding_logical, init_embedding,
+                                       init_mlp, init_rmsnorm, layer_slice,
                                        logits_from_hidden, maybe_remat, mlp,
-                                       rmsnorm, stacked_init)
-from repro_torch.models.moe import init_moe, moe_ffn
+                                       mlp_logical, rmsnorm, rmsnorm_logical,
+                                       stacked_init, stacked_logical)
+from repro_torch.models.moe import init_moe, moe_ffn, moe_logical
 
 #: the decoder-only families (``_dec_*``)
 DEC_FAMILIES = ("dense", "moe", "vlm")
@@ -88,6 +92,13 @@ def _init_dec_layer(cfg, generator: torch.Generator, device) -> dict:
             "ln1": init_rmsnorm(cfg.d_model, device),
             "ln2": init_rmsnorm(cfg.d_model, device),
             "ffn": init_ffn(cfg, generator, device)}
+
+
+def _dec_layer_logical(cfg) -> dict:
+    return {"attn": mla_logical() if cfg.mla is not None
+            else attention_logical(cfg),
+            "ln1": rmsnorm_logical(), "ln2": rmsnorm_logical(),
+            "ffn": moe_logical() if cfg.moe is not None else mlp_logical()}
 
 
 def _ffn(lp, cfg, x: torch.Tensor):
@@ -217,6 +228,26 @@ def _dec_init_params(cfg, generator: torch.Generator, device) -> dict:
             "final_norm": init_rmsnorm(cfg.d_model, device)}
 
 
+def _dec_params_logical(cfg) -> dict:
+    return {"embed": embedding_logical(cfg),
+            "layers": stacked_logical(_dec_layer_logical(cfg)),
+            "final_norm": rmsnorm_logical()}
+
+
+def _dec_cache_logical(cfg) -> dict:
+    if cfg.mla is not None:
+        return {"ckv": ("layers", "batch", "kv_seq", None),
+                "kpe": ("layers", "batch", "kv_seq", None),
+                "len": ("noshard",)}
+    lg = {"k": ("layers", "batch", "kv_seq", "kv_heads", None),
+          "v": ("layers", "batch", "kv_seq", "kv_heads", None),
+          "len": ("noshard",)}
+    if cfg.kv_cache_dtype == "int8":
+        lg["k_scale"] = ("layers", "batch", "kv_seq", "kv_heads")
+        lg["v_scale"] = ("layers", "batch", "kv_seq", "kv_heads")
+    return lg
+
+
 def _dec_init_cache(cfg, B: int, S: int, dtype=torch.bfloat16, device=None,
                     int8: bool = False):
     """The zeroed cache; ``int8`` gives int8 rows and their f32 scales."""
@@ -257,6 +288,25 @@ def init_params(cfg, generator: torch.Generator, device=None) -> dict:
     if fam is not None:
         return fam.init_params(cfg, generator, resolve_device(device))
     return _dec_init_params(cfg, generator, resolve_device(device))
+
+
+def params_logical(cfg) -> dict:
+    """The params' tree with each leaf replaced by its logical axis names
+    (a tuple, ``"layers"`` in front of a stacked leaf's): the reference's
+    ``params_logical``, which traces its init functions for the trees they
+    return beside the params; the port writes them beside its own."""
+    fam = _family(cfg)
+    if fam is not None:
+        return fam.params_logical(cfg)
+    return _dec_params_logical(cfg)
+
+
+def cache_logical(cfg) -> dict:
+    """The cache's logical axis names, leaf by leaf (the reference's)."""
+    fam = _family(cfg)
+    if fam is not None:
+        return fam.cache_logical(cfg)
+    return _dec_cache_logical(cfg)
 
 
 def train_forward(params, cfg, batch):

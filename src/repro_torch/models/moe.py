@@ -48,6 +48,8 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.gmm import gmm
 from repro_torch.models.common import dtype_of, normal_init
+from repro_torch.parallel.sharding import (axis_rules, dp_gather_rows,
+                                           dp_index, dp_size, dp_sum)
 
 
 def init_moe(cfg, generator: torch.Generator, device=None) -> dict:
@@ -62,6 +64,11 @@ def init_moe(cfg, generator: torch.Generator, device=None) -> dict:
             "wg": normal_init((E, D, Fd), D ** -0.5, dt, generator, device),
             "wo": normal_init((E, Fd, D), Fd ** -0.5, dt, generator,
                               device)}
+
+
+def moe_logical() -> dict:
+    return {"router": ("embed", None), "wi": ("experts", "embed", None),
+            "wg": ("experts", "embed", None), "wo": ("experts", None, "embed")}
 
 
 def dispatch_groups(T: int, num_groups: int) -> int:
@@ -81,12 +88,30 @@ def capacity(Sg: int, top_k: int, num_experts: int,
 
 
 def moe_ffn(p, cfg, x: torch.Tensor):
-    """x: (B, S, D) -> (y (B, S, D) in x's dtype, aux_loss f32 scalar)."""
+    """x: (B, S, D) -> (y (B, S, D) in x's dtype, aux_loss f32 scalar).
+
+    Under sharding rules ``x`` holds this rank's rows of the global batch,
+    and the groups are the global batch's: their count comes from the
+    global token count, each rank holds ``G / dp`` whole groups (the
+    reference's groups are contiguous runs of rows, split over the
+    ``groups -> dp`` axes), and the aux loss returned is this rank's share
+    of the global one: the top-1 fractions summed over the ranks, the
+    router probabilities this rank's sum over the global count.  Where
+    ``G`` does not split over the ranks (fewer groups than ranks), every
+    rank gathers the global rows, routes them all and keeps its own rows'
+    output, with ``1 / dp`` of the aux loss as its share."""
     m = cfg.moe
     B, S, D = x.shape
     E, K = m.num_experts, m.top_k
     T = B * S
-    G = dispatch_groups(T, m.num_groups)
+    dp = dp_size()
+    G = dispatch_groups(T * dp, m.num_groups)
+    if G % dp:
+        xs, r = dp_gather_rows(x), dp_index()
+        with axis_rules(None):
+            y, aux = moe_ffn(p, cfg, xs)
+        return y.narrow(0, r * B, B), aux / dp
+    G //= dp
     Sg = T // G
     xg = x.reshape(G, Sg, D)
 
@@ -134,6 +159,12 @@ def moe_ffn(p, cfg, x: torch.Tensor):
     y = rows.reshape(G, K, Sg, D).sum(1)
 
     # load-balancing aux loss (Switch): E * sum_e f_e * p_e
-    frac = F.one_hot(ids[..., 0], E).float().mean(dim=(0, 1))
-    aux = E * (frac * probs.mean(dim=(0, 1))).sum() * m.router_aux_weight
+    if dp == 1:
+        frac = F.one_hot(ids[..., 0], E).float().mean(dim=(0, 1))
+        pm = probs.mean(dim=(0, 1))
+    else:
+        frac = dp_sum(F.one_hot(ids[..., 0], E).float().sum(dim=(0, 1))) \
+            / (T * dp)
+        pm = probs.sum(dim=(0, 1)) / (T * dp)
+    aux = E * (frac * pm).sum() * m.router_aux_weight
     return y.reshape(B, S, D).to(x.dtype), aux

@@ -70,6 +70,18 @@ def init_mamba2(cfg, generator: torch.Generator, device=None) -> dict:
     return p
 
 
+def mamba2_logical() -> dict:
+    return {"in_z": ("embed", "ssm_inner"), "in_x": ("embed", "ssm_inner"),
+            "in_B": ("embed", None), "in_C": ("embed", None),
+            "in_dt": ("embed", None),
+            "conv_x_w": (None, "ssm_inner"), "conv_x_b": ("ssm_inner",),
+            "conv_B_w": (None, None), "conv_B_b": (None,),
+            "conv_C_w": (None, None), "conv_C_b": (None,),
+            "A_log": ("noshard",), "Dskip": ("noshard",),
+            "dt_bias": ("noshard",), "norm": ("ssm_inner",),
+            "out_proj": ("ssm_inner", "embed")}
+
+
 def causal_conv1d(x: torch.Tensor, w: torch.Tensor,
                   b: torch.Tensor) -> torch.Tensor:
     """Depthwise causal conv + silu.  x: (B, L, C); w: (W, C).  The

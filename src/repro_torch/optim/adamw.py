@@ -21,8 +21,16 @@ the first on one card, and every copy is a pass over 1.9 B elements.  A
 caller that needs the old state keeps a copy.
 
 The reference's ``constrain_opt`` / ``constrain_param`` hooks place the
-state under a multi-device sharding (ZeRO-1); the port runs on one
-device and has none.
+state under a multi-device sharding (ZeRO-1: master and moments split
+over the data axis, the params as the rules lay them out).  Their
+counterparts here are ``opt_shardings`` / ``param_shardings``, trees of
+``parallel.sharding.Sharding`` beside the leaves, which then are this
+rank's shards: the gradients arrive in the optimizer's layout (the train
+step reduce-scattered them), the clip's global norm sums each leaf's
+squares over the ranks that split it and counts a leaf no rank splits
+once, the update runs on the local shard, and a parameter whose layout
+differs from its master's is all-gathered from the new master (cast to
+its dtype first, as the reference's) and cut to its own layout.
 """
 from __future__ import annotations
 
@@ -53,9 +61,26 @@ def lr_schedule(tcfg) -> Callable[[torch.Tensor], torch.Tensor]:
     return fn
 
 
-def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum over leaves of each leaf's f32 sum of squares."""
+def global_norm(tree, shardings=None) -> torch.Tensor:
+    """sqrt of the sum over leaves of each leaf's f32 sum of squares.
+    With ``shardings`` the leaves are shards: the sums of the leaves split
+    over the same mesh axes are all-reduced together over those axes, a
+    leaf split over none is counted once, and the leaves' sums are added
+    in the tree's order, as without shardings."""
     sq = [x.to(torch.float32).square().sum() for x in leaves(tree)]
+    if shardings is not None:
+        import torch.distributed as dist
+        from repro_torch.parallel.sharding import axis_group
+        by_axes: dict = {}
+        for i, sh in enumerate(leaves(shardings)):
+            by_axes.setdefault(sh.axes(), (sh.mesh, []))[1].append(i)
+        for axes, (mesh, idx) in by_axes.items():
+            if not axes:
+                continue
+            t = torch.stack([sq[i] for i in idx])
+            dist.all_reduce(t, group=axis_group(mesh, axes))
+            for j, i in enumerate(idx):
+                sq[i] = t[j]
     return torch.stack(sq).sum().sqrt()
 
 
@@ -82,13 +107,16 @@ def _decay_mask(path: str) -> bool:
     return not any(k in path for k in _NO_DECAY)
 
 
-def adamw_update(params, grads, opt: dict, tcfg, eps: float = 1e-8):
+def adamw_update(params, grads, opt: dict, tcfg, eps: float = 1e-8, *,
+                 opt_shardings=None, param_shardings=None):
     """One AdamW step, written into ``params`` and ``opt`` in place.
     Returns (params, opt, metrics ``grad_norm`` and ``lr``, f32
-    scalars); ``opt["step"]`` is a new tensor."""
+    scalars); ``opt["step"]`` is a new tensor.  ``opt_shardings`` /
+    ``param_shardings``: the layouts of the master (and of ``grads``, m
+    and v) and of the params when the leaves are shards (see above)."""
     step = opt["step"] + 1
     lr = lr_schedule(tcfg)(step)
-    gnorm = global_norm(grads)           # f32 sums of the f32 grads
+    gnorm = global_norm(grads, opt_shardings)  # f32 sums of the f32 grads
     scale = torch.clamp(tcfg.grad_clip / torch.clamp(gnorm, min=1e-12),
                         max=1.0)
 
@@ -108,7 +136,13 @@ def adamw_update(params, grads, opt: dict, tcfg, eps: float = 1e-8):
         x.copy_(out)
         return out
 
-    def upd(path, p, mst, g, m, v):
+    def write_param(p, mst, psh, osh):
+        if psh is None or psh == osh:
+            p.copy_(mst)
+        else:
+            p.copy_(psh.local(osh.gather(mst.to(p.dtype))))
+
+    def upd(path, p, mst, g, m, v, psh, osh):
         g = g.to(torch.float32) * scale  # a new f32 leaf: grads stay as given
         v32 = moment(v, b2, g.square().mul_(1 - b2))
         m32 = moment(m, b1, g.mul_(1 - b1))
@@ -122,12 +156,17 @@ def adamw_update(params, grads, opt: dict, tcfg, eps: float = 1e-8):
             mst.sub_(delta)
         else:
             mst.copy_(mst.to(torch.float32).sub_(delta))
-        p.copy_(mst)
+        write_param(p, mst, psh, osh)
 
+    n = len(leaves(params))
+    psh = leaves(param_shardings) if param_shardings is not None \
+        else [None] * n
+    osh = leaves(opt_shardings) if opt_shardings is not None else [None] * n
     with torch.no_grad():
-        for (path, p), mst, g, m, v in zip(
+        for (path, p), mst, g, m, v, ps, os_ in zip(
                 leaves_with_path(params), leaves(opt["master"]),
-                leaves(grads), leaves(opt["m"]), leaves(opt["v"])):
-            upd(path, p, mst, g, m, v)
+                leaves(grads), leaves(opt["m"]), leaves(opt["v"]), psh,
+                osh):
+            upd(path, p, mst, g, m, v, ps, os_)
     opt["step"] = step
     return params, opt, {"grad_norm": gnorm, "lr": lr}

@@ -1,0 +1,438 @@
+"""Logical-axis sharding of the port, on ``torch.distributed``.
+
+Translated from the reference's ``parallel/sharding.py`` (t5x-style,
+minimal).  Model code names tensor dims by *logical* axes; a rule set maps
+them onto the physical axes of a device mesh.  The rules live in a context
+variable, so the same code runs on one device (no rules) and on a mesh.
+
+Logical axes used across the framework:
+
+  batch      global batch                 -> ("pod","data") / ("data",)
+  act_seq    activation sequence dim      -> None (kept local)
+  kv_seq     KV-cache sequence dim        -> "model" (sequence-parallel cache)
+  heads      q attention heads            -> "model"
+  kv_heads   kv heads (GQA, small)        -> None (replicated)
+  mlp        FFN hidden                   -> "model"
+  vocab      vocabulary                   -> "model"
+  experts    MoE experts                  -> "model"  (expert parallelism)
+  groups     MoE dispatch groups          -> dp axes
+  embed      weight d_model dim           -> "data" when FSDP else None
+  ssm_inner  mamba inner channels         -> "model"
+  layers     stacked-layer leading dim    -> None
+
+The reference hands its layouts to GSPMD, which inserts the collectives.
+Here a rank holds local shards and the collectives are explicit:
+
+- a mesh is a ``torch.distributed.device_mesh.DeviceMesh`` (``launch.mesh.
+  make_mesh``), or an :class:`AbstractMesh` (shape and axis names, no
+  process group) where only layouts are computed;
+- :class:`Sharding` (mesh + spec) is the counterpart of a
+  ``NamedSharding``: ``local`` slices a full tensor to this rank's shard,
+  ``gather`` all-gathers a shard back to the full tensor, and
+  :func:`place` / :func:`gather` do so over trees;
+- :func:`dp_sum` sums a statistic over the data-parallel ranks (the ranks
+  of the ``batch`` axes); without rules it is the identity.  The models
+  use it where a loss or a router statistic is a mean over the *global*
+  batch (``models.common.chunked_cross_entropy``, ``models.moe``);
+- :func:`shard` checks an activation's rank against its logical axes and
+  returns it: the port's tensors are already local shards, and the train
+  step sets their layout (``training.train_step``).
+
+A spec is a plain tuple whose entries equal the reference's
+``PartitionSpec``'s: an axis name, a tuple of names, or None.  A tuple
+entry splits its dim over those axes, the first the slowest, and a rank's
+index over them is its rank in the group of those axes (the ranks of a
+mesh made by ``init_device_mesh`` ascend in row-major order, so that is
+its row-major coordinate).  Every collective runs over the axes a spec
+names, whatever their size: on a one-rank mesh the step still runs each
+of them, over one-rank groups.
+"""
+from __future__ import annotations
+
+import contextlib
+import contextvars
+import math
+from typing import Dict, Optional, Sequence, Tuple, Union
+
+import torch
+
+from repro_torch.tree import tree_map
+
+Physical = Union[None, str, Tuple[str, ...]]
+
+
+class AbstractMesh:
+    """A mesh's shape and axis names, with no devices or process group:
+    enough to compute rules, specs and shard shapes (the reference's
+    ``jax.sharding.AbstractMesh``)."""
+
+    def __init__(self, shape: Sequence[int], axis_names: Sequence[str]):
+        if len(shape) != len(axis_names):
+            raise ValueError(f"shape {shape} and axes {axis_names} differ "
+                             f"in length")
+        self.shape = tuple(int(n) for n in shape)
+        self.mesh_dim_names = tuple(axis_names)
+
+    def __repr__(self):
+        return f"AbstractMesh({self.shape}, {self.mesh_dim_names})"
+
+
+def mesh_axes(mesh) -> Dict[str, int]:
+    """{axis name: size} of a ``DeviceMesh`` or an :class:`AbstractMesh`."""
+    return dict(zip(mesh.mesh_dim_names, tuple(mesh.shape)))
+
+
+class AxisRules:
+    def __init__(self, mesh, rules: Dict[str, Physical]):
+        self.mesh = mesh
+        self.rules = dict(rules)
+
+    def physical(self, logical: Optional[str]) -> Physical:
+        if logical is None:
+            return None
+        if logical not in self.rules:
+            raise KeyError(f"no rule for logical axis {logical!r}")
+        return self.rules[logical]
+
+    @property
+    def batch_axes(self) -> Tuple[str, ...]:
+        """The mesh axes the global batch splits over (the data-parallel
+        axes)."""
+        return _axes(self.physical("batch"))
+
+
+_ACTIVE: contextvars.ContextVar[Optional[AxisRules]] = contextvars.ContextVar(
+    "axis_rules", default=None)
+
+
+@contextlib.contextmanager
+def axis_rules(rules: Optional[AxisRules]):
+    token = _ACTIVE.set(rules)
+    try:
+        yield rules
+    finally:
+        _ACTIVE.reset(token)
+
+
+def current_rules() -> Optional[AxisRules]:
+    return _ACTIVE.get()
+
+
+def _axes(entry: Physical) -> Tuple[str, ...]:
+    """A spec entry as a tuple of axis names."""
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def logical_to_pspec(axes: Sequence[Optional[str]],
+                     rules: Optional[AxisRules] = None) -> tuple:
+    """The spec of a tensor whose dims carry the logical ``axes``: a mesh
+    axis is used by the first dim that names it, later dims drop it.  A
+    dim left with one mesh axis names it alone, as ``PartitionSpec``
+    normalises a one-axis tuple."""
+    rules = rules or current_rules()
+    if rules is None:
+        return ()
+    parts, used = [], set()
+    for name in axes:
+        phys = rules.physical(name)
+        if isinstance(phys, tuple):
+            phys = tuple(a for a in phys if a not in used)
+            used.update(phys)
+            parts.append(None if not phys else
+                         phys[0] if len(phys) == 1 else phys)
+        else:
+            if phys in used:
+                phys = None
+            if phys is not None:
+                used.add(phys)
+            parts.append(phys)
+    return tuple(parts)
+
+
+def shard(x: torch.Tensor, *axes: Optional[str]) -> torch.Tensor:
+    """Check activation ``x`` against its logical axes and return it.
+
+    No-op outside an ``axis_rules`` context.  Inside one the port's
+    tensors are already this rank's shards (the step placed them), so
+    there is no constraint to apply; the rank check is the reference's.
+    """
+    if current_rules() is None:
+        return x
+    assert x.ndim == len(axes), (tuple(x.shape), axes)
+    return x
+
+
+def _is_axes_leaf(x) -> bool:
+    return isinstance(x, tuple) and all(a is None or isinstance(a, str)
+                                        for a in x)
+
+
+def map_logical(fn, logical_tree, *trees):
+    """``fn(axes, *leaves)`` over a tree of logical-axis tuples and trees
+    of the same structure."""
+    if _is_axes_leaf(logical_tree):
+        return fn(logical_tree, *trees)
+    if isinstance(logical_tree, dict):
+        return {k: map_logical(fn, v, *(t[k] for t in trees))
+                for k, v in logical_tree.items()}
+    return type(logical_tree)(map_logical(fn, v, *(t[i] for t in trees))
+                              for i, v in enumerate(logical_tree))
+
+
+def specs_for_tree(logical_tree, rules: AxisRules):
+    """Map a tree of logical-axis tuples to :class:`Sharding` objects.
+
+    Argument shardings must divide evenly, so this is used for params /
+    caches / inputs whose dims were padded at config-resolution time.
+    """
+    return map_logical(
+        lambda axes: Sharding(rules.mesh, logical_to_pspec(axes, rules)),
+        logical_tree)
+
+
+# ----------------------------------------------------------------------
+def make_rules(mesh, *, mode: str, fsdp: bool, zero1: bool = True,
+               dp_axes: Tuple[str, ...] = ("data",)) -> AxisRules:
+    """Build the rule set for ``mode`` in {"train","prefill","decode"}.
+
+    fsdp:  shard weight `embed` dims over the data axis (params + grads);
+    zero1: shard *optimizer state* over the data axis even when params are
+           replicated (applied in the optimizer, uses the "opt_embed" rule).
+    """
+    rules: Dict[str, Physical] = {
+        "batch": dp_axes,
+        "act_seq": None,
+        # sequence-parallel residual stream (Megatron-SP), train and
+        # prefill; decode activations are a single position
+        "residual_seq": "model" if mode in ("train", "prefill") else None,
+        "kv_seq": "model",
+        "heads": "model",
+        "kv_heads": None,
+        "mlp": "model",
+        "vocab": "model",
+        "experts": "model",
+        "groups": dp_axes,
+        "layers": None,
+        "ssm_inner": "model",
+        "embed": "data" if fsdp else None,
+        "opt_embed": "data" if (fsdp or zero1) else None,
+        "noshard": None,
+    }
+    if mode in ("decode", "prefill"):
+        # no optimizer in serving; FSDP-style 2D weights only if requested
+        rules["opt_embed"] = rules["embed"]
+    return AxisRules(mesh, rules)
+
+
+# ----------------------------------------------------------------------
+# process groups and placement
+def axis_group(mesh, axes: Sequence[str]):
+    """The process group of this rank over the mesh ``axes`` (the ranks
+    that differ only in those coordinates): the mesh's own for one axis;
+    for several, made by every rank in the same order on first use and
+    kept on the mesh."""
+    axes = tuple(axes)
+    names = tuple(mesh.mesh_dim_names)
+    if list(axes) != sorted(axes, key=names.index):
+        raise ValueError(f"axes {axes} are not in the mesh's order {names}")
+    if len(axes) == 1:
+        return mesh.get_group(axes[0])
+    groups = mesh.__dict__.setdefault("_axis_groups", {})
+    if axes not in groups:
+        import torch.distributed as dist
+        dims = [names.index(a) for a in axes]
+        rest = [i for i in range(len(names)) if i not in dims]
+        ranks = mesh.mesh.permute(rest + dims).reshape(
+            -1, math.prod(mesh.mesh.shape[d] for d in dims))
+        groups[axes], _ = dist.new_subgroups_by_enumeration(ranks.tolist())
+    return groups[axes]
+
+
+def axis_index(mesh, axes: Sequence[str]) -> int:
+    """This rank's index over the mesh ``axes``, the first the slowest."""
+    import torch.distributed as dist
+    return dist.get_group_rank(axis_group(mesh, axes), dist.get_rank())
+
+
+def axis_size(mesh, axes: Sequence[str]) -> int:
+    sizes = mesh_axes(mesh)
+    return math.prod(sizes[a] for a in axes)
+
+
+def _all_gather(x: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
+    import torch.distributed as dist
+    xm = x.movedim(dim, 0).contiguous()
+    out = xm.new_empty((n * xm.shape[0], *xm.shape[1:]))
+    dist.all_gather_into_tensor(out, xm, group=group)
+    return out.movedim(0, dim).contiguous()
+
+
+def _reduce_scatter(x: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
+    import torch.distributed as dist
+    xm = x.movedim(dim, 0).contiguous()
+    out = xm.new_empty((xm.shape[0] // n, *xm.shape[1:]))
+    dist.reduce_scatter_tensor(out, xm, group=group)
+    return out.movedim(0, dim).contiguous()
+
+
+class Sharding:
+    """A tensor's layout on a mesh: ``spec[d]`` names the mesh axes dim
+    ``d`` splits over (a spec shorter than the tensor leaves the rest
+    whole), the counterpart of the reference's ``NamedSharding``."""
+
+    def __init__(self, mesh, spec: Sequence[Physical]):
+        self.mesh = mesh
+        self.spec = tuple(spec)
+
+    def __eq__(self, other):
+        return (isinstance(other, Sharding) and self.mesh is other.mesh
+                and self.spec == other.spec)
+
+    def __hash__(self):
+        return hash((id(self.mesh), self.spec))
+
+    def __repr__(self):
+        return f"Sharding({self.spec})"
+
+    def parts(self, ndim: int) -> Tuple[Tuple[str, ...], ...]:
+        """Each dim's axes (empty when whole)."""
+        if len(self.spec) > ndim:
+            raise ValueError(f"spec {self.spec} is longer than {ndim} dims")
+        return tuple(_axes(e) for e in self.spec) + ((),) * (
+            ndim - len(self.spec))
+
+    def axes(self) -> Tuple[str, ...]:
+        """The mesh axes the tensor is split over, in the mesh's order."""
+        names = tuple(self.mesh.mesh_dim_names)
+        used = {a for e in self.spec for a in _axes(e)}
+        return tuple(a for a in names if a in used)
+
+    def shard_shape(self, shape: Sequence[int]) -> Tuple[int, ...]:
+        sizes = mesh_axes(self.mesh)
+        out = []
+        for n, ax in zip(shape, self.parts(len(shape))):
+            k = math.prod(sizes[a] for a in ax)
+            if n % k:
+                raise ValueError(f"dim {n} does not split over {ax} ({k})")
+            out.append(n // k)
+        return tuple(out)
+
+    def local(self, x: torch.Tensor, skip: Sequence[str] = ()) -> torch.Tensor:
+        """This rank's shard of the full tensor ``x`` (a copy; ``x``
+        itself when nothing splits).  Dims split over an axis in ``skip``
+        are left as they are."""
+        sizes = mesh_axes(self.mesh)
+        out = x
+        for d, ax in enumerate(self.parts(x.ndim)):
+            if not ax or set(ax) & set(skip):
+                continue
+            k = math.prod(sizes[a] for a in ax)
+            if x.shape[d] % k:
+                raise ValueError(f"dim {x.shape[d]} does not split over "
+                                 f"{ax} ({k})")
+            n = x.shape[d] // k
+            out = out.narrow(d, axis_index(self.mesh, ax) * n, n)
+        return x if out is x else out.contiguous().clone()
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """The full tensor from every rank's shard ``x`` (an all-gather
+        over each split dim's axes; ``x`` itself when nothing splits)."""
+        for d, ax in enumerate(self.parts(x.ndim)):
+            if ax:
+                x = _all_gather(x, d, axis_group(self.mesh, ax),
+                                axis_size(self.mesh, ax))
+        return x
+
+    def sum_into(self, x: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
+        """Each rank's full-shape term ``x``, summed over the ranks of the
+        mesh ``axes`` and returned in this layout: a reduce-scatter over
+        the axes that split a dim, an all-reduce over the rest of
+        ``axes``, and this rank's slice along the spec's other axes."""
+        import torch.distributed as dist
+        x = x.contiguous()
+        done = []
+        for d, ax in enumerate(self.parts(x.ndim)):
+            red = tuple(a for a in ax if a in axes)
+            if not red:
+                continue
+            if red != ax:
+                raise NotImplementedError(
+                    f"dim {d} splits over {ax}, of which only {red} reduce")
+            x = _reduce_scatter(x, d, axis_group(self.mesh, red),
+                                axis_size(self.mesh, red))
+            done += red
+        rest = tuple(a for a in axes if a not in done)
+        if rest:
+            dist.all_reduce(x, group=axis_group(self.mesh, rest))
+        return self.local(x, skip=tuple(axes))
+
+
+def place(tree, shardings):
+    """Each full leaf of ``tree`` cut to this rank's shard (the
+    counterpart of ``jax.device_put`` with shardings)."""
+    return tree_map(lambda x, s: s.local(x), tree, shardings)
+
+
+def gather(tree, shardings):
+    """The full leaves of a tree of this rank's shards (every rank gets
+    them; a collective, so every rank calls it)."""
+    return tree_map(lambda x, s: s.gather(x), tree, shardings)
+
+
+# ----------------------------------------------------------------------
+# data-parallel statistics under the active rules
+def dp_size() -> int:
+    """The number of data-parallel ranks (1 without rules)."""
+    rules = current_rules()
+    if rules is None:
+        return 1
+    return axis_size(rules.mesh, rules.batch_axes)
+
+
+def dp_index() -> int:
+    """This rank's index over the data-parallel axes (0 without rules)."""
+    rules = current_rules()
+    if rules is None:
+        return 0
+    return axis_index(rules.mesh, rules.batch_axes)
+
+
+class _GatherRows(torch.autograd.Function):
+    """All-gather along dim 0; its backward reduce-scatters (sums) the
+    cotangent back to each rank's rows."""
+
+    @staticmethod
+    def forward(ctx, x, group, n):
+        ctx.group, ctx.n = group, n
+        return _all_gather(x, 0, group, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_scatter(g, 0, ctx.group, ctx.n), None, None
+
+
+def dp_gather_rows(x: torch.Tensor) -> torch.Tensor:
+    """Every data-parallel rank's rows of ``x``, in rank order (the
+    global batch's rows), differentiably: the gradient of each rank's
+    rows is summed over the ranks.  ``x`` itself without rules."""
+    rules = current_rules()
+    if rules is None:
+        return x
+    axes = rules.batch_axes
+    return _GatherRows.apply(x, axis_group(rules.mesh, axes),
+                             axis_size(rules.mesh, axes))
+
+
+def dp_sum(x: torch.Tensor) -> torch.Tensor:
+    """``x`` summed over the data-parallel ranks (a detached copy), or
+    ``x`` itself without rules.  For statistics that carry no gradient:
+    token counts, router fractions, metrics."""
+    rules = current_rules()
+    if rules is None:
+        return x
+    import torch.distributed as dist
+    y = x.detach().clone()
+    dist.all_reduce(y, group=axis_group(rules.mesh, rules.batch_axes))
+    return y

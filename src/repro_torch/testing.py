@@ -492,3 +492,109 @@ def train_step_parity(cfg, tcfg, device: DeviceLike, B: int = 2,
                       / abs(float(loss_c)))
     assert float(met_d["tokens"]) == float(met_c["tokens"])
     return out
+
+
+#: the sharded step's master, m and v are held to the single-device
+#: step's within this share of each leaf's largest value
+STATE_TOL = 1e-6
+
+
+def _param_ulps(a: torch.Tensor, b: torch.Tensor) -> float:
+    """The largest difference of params ``a`` from ``b``, over one unit in
+    the last place of ``b``'s dtype at each element plus STATE_TOL of
+    the leaf's largest value: a param is its master rounded, so a master
+    within STATE_TOL puts it within 1 of this."""
+    fi = torch.finfo(b.dtype)
+    a, b = a.float(), b.float()
+    e = torch.frexp(b.abs().clamp_min(fi.tiny)).exponent
+    room = torch.ldexp(torch.full_like(b, fi.eps), e - 1) \
+        + STATE_TOL * b.abs().max()
+    return float(((a - b).abs() / room).max()) if b.numel() else 0.0
+
+
+def _state_drift(got: dict, want: dict) -> dict:
+    """Per kind, the largest difference of ``got``'s train state from
+    ``want``'s: ``master``, ``m`` and ``v`` over each leaf's largest
+    value, ``params`` as :func:`_param_ulps` gives it."""
+    from repro_torch.tree import leaves
+    out = {}
+    for name in ("master", "m", "v"):
+        worst = 0.0
+        for a, b in zip(leaves(got["opt"][name]), leaves(want["opt"][name])):
+            a, b = a.float(), b.float()
+            if a.numel():
+                worst = max(worst, float((a - b).abs().max()
+                                         / b.abs().max().clamp_min(1e-30)))
+        out[name] = worst
+    out["params"] = max(_param_ulps(a, b) for a, b in zip(
+        leaves(got["params"]), leaves(want["params"])))
+    return out
+
+
+def sharded_step_parity(cfg, tcfg, rules, state: dict, batch: dict,
+                        steps: int = 2) -> list:
+    """``steps`` steps of the data-parallel step under ``rules`` on one
+    rank beside the single-device step, each from its own copy of
+    ``state`` (whole leaves) on the same global ``batch``.
+
+    The gradients are computed once, by the single-device step, and
+    handed to the sharded step as they are (on the card the embedding's
+    and the kernels' atomic sums make two backward passes differ in
+    their last bits), so what differs is the step's own logic: the
+    microbatch split, the params' gather, the optimizer's layout and
+    collectives, the norm and the write-back; on one rank each
+    collective is the identity, and the state comes out bit for bit.
+    The sharded step's forward runs all the same, to compare its loss.
+    Returns, a dict a step: ``drift``, the sharded state's from the
+    single-device one (:func:`_state_drift`: ``master``, ``m`` and ``v``
+    are held to STATE_TOL, ``params`` to 1); ``exact``, whether the two
+    states are equal bit for bit; ``batch_equal`` and ``params_equal``, whether
+    every microbatch the sharded step took, and the params it took them
+    with, equal the single-device step's bit for bit; ``loss_equal``,
+    whether its forward's loss and token counts equal the single-device
+    step's bit for bit."""
+    from repro_torch.models import model as M
+    from repro_torch.parallel.sharding import gather, place
+    from repro_torch.training.train_step import (make_train_step,
+                                                 state_shardings,
+                                                 value_and_grad)
+    from repro_torch.tree import leaves, tree_map, unflatten
+    sh = state_shardings(cfg, rules)
+    first = tree_map(lambda x: x.clone(), state)
+    dp_state = place(tree_map(lambda x: x.clone(), state), sh)
+    recorded, seen = [], {}
+
+    def record(cfg, params, mb):
+        out = value_and_grad(cfg, params, mb)
+        recorded.append((mb, tree_map(lambda x: x.clone(), params), out))
+        return out
+
+    def replay(cfg, params, mb):
+        want_mb, want_params, (loss, metrics, grads) = recorded.pop(0)
+        seen["batch"] &= all(torch.equal(mb[k], want_mb[k]) for k in mb)
+        seen["params"] &= all(torch.equal(a, b) for a, b in zip(
+            leaves(params), leaves(want_params)))
+        xs = [p.detach().requires_grad_() for p in leaves(params)]
+        with torch.enable_grad():
+            got, got_metrics = M.train_forward(unflatten(params, xs), cfg, mb)
+        seen["loss"] &= torch.equal(got.detach(), loss) and torch.equal(
+            got_metrics["tokens"], metrics["tokens"])
+        del xs, got, got_metrics
+        return loss, metrics, tree_map(lambda g: g.clone(), grads)
+
+    plain = make_train_step(cfg, tcfg, grad_fn=record)
+    sharded = make_train_step(cfg, tcfg, rules, grad_fn=replay)
+    out = []
+    for _ in range(steps):
+        seen.update(batch=True, params=True, loss=True)
+        first, _ = plain(first, batch)
+        dp_state, _ = sharded(dp_state, batch)
+        assert not recorded
+        whole = gather(dp_state, sh)
+        out.append({"drift": _state_drift(whole, first),
+                    "exact": all(torch.equal(a, b) for a, b in zip(
+                        leaves(whole), leaves(first))),
+                    "batch_equal": seen["batch"],
+                    "params_equal": seen["params"],
+                    "loss_equal": seen["loss"]})
+    return out

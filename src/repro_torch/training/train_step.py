@@ -19,10 +19,46 @@ Translated from the reference's ``training/train_step.py``:
 
 The step writes the new parameters and optimizer state into the state's
 own tensors (see :func:`repro_torch.optim.adamw.adamw_update`) and
-returns the same dict.  The reference's multi-device placement
-(``rules``, ZeRO-1 / FSDP constraints) and the int8 gradient compression
-need collectives across cards, which the port has not yet (ROADMAP Queue
-1 item 9): both raise ``NotImplementedError``.
+returns the same dict.
+
+With ``rules`` (``parallel.sharding.make_rules`` on a ``(data, model)``
+or ``(pod, data, model)`` mesh) the step is the reference's ZeRO-1 /
+FSDP step, its collectives explicit on ``torch.distributed``; every rank
+calls it with the same *global* batch:
+
+- the state is held in the reference's argument layouts
+  (:func:`state_shardings`): the params by ``params_logical`` (``embed ->
+  data`` under FSDP), master / m / v with ``embed -> opt_embed`` (ZeRO-1);
+  :func:`make_train_state` places a new state, and
+  ``parallel.sharding.gather`` gathers one back;
+- the params are all-gathered for the forward and backward;
+- microbatches are split from the global batch first and then over the
+  data-parallel ranks, as the reference reshapes the global batch to
+  ``(n, B/n, ...)`` and shards each microbatch: rank ``r`` takes rows
+  ``i*B/n + r*B/(n*dp)`` on of microbatch ``i``;
+- the loss and the MoE statistics are the global batch's (the models'
+  ``dp_sum``): each rank's loss is its share, so the shares' gradients
+  add up to the global gradient;
+- each microbatch's f32 gradients are reduce-scattered into the
+  optimizer's layout and all-reduced over the other data-parallel axes
+  (``pod``), as the reference's ``c_opt`` places them;
+- AdamW updates the local shard (the clip's norm global), and the params
+  keep their shard under FSDP or are all-gathered from the new master
+  (ZeRO-1).
+
+It is the single-device step's body: without rules every split and
+collective above is the identity.
+
+The metrics are the reference's and the same on every rank: ``loss``,
+``aux_loss`` and ``tokens`` of the last microbatch, ``total_loss`` the
+mean, ``grad_norm`` and ``lr``, each of the global batch.  A ``model``
+axis above 1 is tensor parallelism, which the port has not yet (ROADMAP
+Queue 1 item 9's second half): it raises ``NotImplementedError``.
+
+``tcfg.grad_compression`` raises ``NotImplementedError``: the
+reference's step never reads the flag (its int8 all-reduce,
+``optim.compression``, is called by hand), and a step that accepted it
+and did nothing would hide that.
 """
 from __future__ import annotations
 
@@ -32,16 +68,48 @@ import torch
 
 from repro_torch.models import model as M
 from repro_torch.optim.adamw import adamw_init, adamw_update
+from repro_torch.parallel.sharding import (AxisRules, Sharding, axis_index,
+                                           axis_rules, axis_size, dp_sum,
+                                           gather, map_logical, mesh_axes,
+                                           place)
 from repro_torch.tree import leaves, tree_map, unflatten
 
 
+def state_shardings(cfg, rules: AxisRules) -> dict:
+    """The train state's layouts under ``rules``, the reference's
+    ``build_cell`` argument shardings: the params by ``params_logical``,
+    master / m / v with ``embed`` read as ``opt_embed``, the step
+    replicated (a mesh axis that does not divide a dim is dropped)."""
+    from repro_torch.launch.specs import arg_sharding
+    shapes = M.init_params(cfg, torch.Generator(), "meta")
+    p_logical = M.params_logical(cfg)
+    swap = {"embed": "opt_embed"}
+
+    def par(axes, x):
+        return arg_sharding(tuple(x.shape), axes, rules)
+
+    def opt(axes, x):
+        return arg_sharding(tuple(x.shape),
+                            tuple(swap.get(a, a) for a in axes), rules)
+
+    o = map_logical(opt, p_logical, shapes)
+    return {"params": map_logical(par, p_logical, shapes),
+            "opt": {"master": o, "m": o, "v": o,
+                    "step": Sharding(rules.mesh, ())}}
+
+
 def make_train_state(cfg, tcfg, generator: torch.Generator,
-                     device=None) -> dict:
+                     device=None, rules: Optional[AxisRules] = None) -> dict:
     """``{"params", "opt"}``: parameters drawn from ``generator`` on
-    ``device`` (None: the CUDA card) and a new AdamW state."""
+    ``device`` (None: the CUDA card) and a new AdamW state.  With
+    ``rules`` every rank draws the same full state and keeps its shards
+    (:func:`state_shardings`)."""
     params = M.init_params(cfg, generator, device)
-    return {"params": params,
-            "opt": adamw_init(params, tcfg.master_fp32, tcfg.moment_dtype)}
+    state = {"params": params,
+             "opt": adamw_init(params, tcfg.master_fp32, tcfg.moment_dtype)}
+    if rules is None:
+        return state
+    return place(state, state_shardings(cfg, rules))
 
 
 def value_and_grad(cfg, params, batch):
@@ -56,39 +124,90 @@ def value_and_grad(cfg, params, batch):
     return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
 
-def make_train_step(cfg, tcfg, rules: Optional[object] = None) -> Callable:
-    """Returns ``train_step(state, batch) -> (state, metrics)``."""
-    if rules is not None:
+def _check_rules(rules: AxisRules) -> None:
+    sizes = mesh_axes(rules.mesh)
+    if sizes.get("model", 1) > 1:
         raise NotImplementedError(
-            "sharding rules place the step across several cards; the port "
-            "trains on one (ROADMAP Queue 1 item 9)")
+            f"a 'model' axis of {sizes['model']} is tensor parallelism, "
+            f"which the port has not yet (ROADMAP Queue 1 item 9's second "
+            f"half); use a mesh whose model axis is 1")
+    if set(sizes) - {"pod", "data", "model"}:
+        raise ValueError(f"the train step takes a (pod,) data, model mesh, "
+                         f"not {tuple(sizes)}")
+
+
+def make_train_step(cfg, tcfg, rules: Optional[AxisRules] = None,
+                    grad_fn: Callable = value_and_grad) -> Callable:
+    """Returns ``train_step(state, batch) -> (state, metrics)``; with
+    ``rules`` the data-parallel step over their mesh.  ``grad_fn(cfg,
+    params, batch) -> (loss, metrics, grads)`` gives each microbatch's
+    gradients (:func:`value_and_grad`; a test may hand two steps the
+    same ones)."""
     if tcfg.grad_compression:
         raise NotImplementedError(
-            "int8 gradient compression is a cross-card all-reduce; the port "
-            "trains on one card (ROADMAP Queue 1 item 9)")
-    n = tcfg.microbatches
+            "grad_compression is read by no train step, the reference's "
+            "included (its int8 all-reduce, optim.compression."
+            "make_compressed_allreduce, is called by hand); the port "
+            "refuses the flag rather than ignore it")
+    n = max(tcfg.microbatches, 1)
+    p_sh = o_sh = None
+    if rules is not None:
+        _check_rules(rules)
+        sh = state_shardings(cfg, rules)
+        p_sh, o_sh = sh["params"], sh["opt"]["master"]
 
-    def compute_grads(params, batch):
-        if n <= 1:
-            return value_and_grad(cfg, params, batch)
-        acc, loss_sum = None, 0.0
-        for i in range(n):
-            mb = {k: v.reshape(n, v.shape[0] // n, *v.shape[1:])[i]
-                  for k, v in batch.items()}
-            loss, metrics, grads = value_and_grad(cfg, params, mb)
-            grads = tree_map(lambda g: g.to(torch.float32), grads)
-            acc = grads if acc is None else tree_map(torch.add, acc, grads)
-            loss_sum = loss_sum + loss
-        return loss_sum / n, metrics, tree_map(lambda g: g / n, acc)
+    def rows(batch, i, dp, r):
+        out = {}
+        for k, v in batch.items():
+            B = v.shape[0]
+            if B % (n * dp):
+                raise ValueError(f"a global batch of {B} rows does not "
+                                 f"split into {n} microbatches over {dp} "
+                                 f"data-parallel ranks")
+            per = B // (n * dp)
+            out[k] = v.narrow(0, i * (B // n) + r * per, per)
+        return out
+
+    def to_opt(grads):
+        """One microbatch's gradients in the optimizer's layout: as they
+        are for one microbatch on one device, else in f32 (and under
+        rules summed over the data-parallel ranks)."""
+        if rules is None:
+            return grads if n == 1 else tree_map(
+                lambda g: g.to(torch.float32), grads)
+        return tree_map(lambda g, s: s.sum_into(g.to(torch.float32),
+                                                rules.batch_axes),
+                        grads, o_sh)
 
     def train_step(state, batch):
-        loss, metrics, grads = compute_grads(state["params"], batch)
-        params, opt, opt_metrics = adamw_update(state["params"], grads,
-                                                state["opt"], tcfg)
+        if rules is None:
+            dp, r, params = 1, 0, state["params"]
+        else:
+            dp = axis_size(rules.mesh, rules.batch_axes)
+            r = axis_index(rules.mesh, rules.batch_axes)
+            params = gather(state["params"], p_sh)
+        acc, loss_sum = None, 0.0
+        for i in range(n):
+            with axis_rules(rules):
+                loss, metrics, grads = grad_fn(cfg, params,
+                                               rows(batch, i, dp, r))
+                loss = dp_sum(loss)
+                metrics = {k: v if k == "tokens" else dp_sum(v)
+                           for k, v in metrics.items()}
+            grads = to_opt(grads)
+            acc = grads if acc is None else tree_map(torch.add, acc, grads)
+            loss_sum = loss_sum + loss
+        if n > 1:
+            acc = tree_map(lambda g: g / n, acc)
+            loss_sum = loss_sum / n
+        del params
+        new_params, opt, opt_metrics = adamw_update(
+            state["params"], acc, state["opt"], tcfg, opt_shardings=o_sh,
+            param_shardings=p_sh)
         metrics = dict(metrics)
         metrics.update({k: v.detach() for k, v in opt_metrics.items()})
-        metrics["total_loss"] = loss
-        state["params"], state["opt"] = params, opt
+        metrics["total_loss"] = loss_sum
+        state["params"], state["opt"] = new_params, opt
         return state, metrics
 
     return train_step

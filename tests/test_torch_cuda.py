@@ -1263,3 +1263,80 @@ def test_fleet_generator_advances_and_repeats(cuda):
                                      n_replicas_per_app=30, n_apps=3,
                                      n_trials=4)
     assert st["backend"] == "graph" and np.isfinite(st["mean_rtt"])
+
+
+# ----------------------------------------------------------------------
+# the multi-device layer on a one-rank NCCL group
+@pytest.fixture(scope="module")
+def nccl_rank(tmp_path_factory):
+    """A one-rank NCCL process group, joined through a file store."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: NCCL runs on the card")
+    import torch.distributed as dist
+    store = tmp_path_factory.mktemp("nccl") / "store"
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0,
+                            world_size=1)
+    yield
+    dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "qwen3-moe-30b-a3b"])
+def test_sharded_step_one_rank_nccl_matches_plain(cuda, nccl_rank, arch,
+                                                  dtype):
+    """The FSDP step with two microbatches on a (1, 1) data x model mesh
+    runs its collectives (all-gathers, reduce-scatters, all-reduces) on
+    NCCL beside the single-device step, two steps, on the single-device
+    step's gradients (``testing.sharded_step_parity``; two backward
+    passes on the card differ in their last bits): every microbatch and
+    the params it ran on equal bit for bit, the loss equal bit for bit
+    where the params are, master, m and v within STATE_TOL of each
+    leaf's largest value and the params within one ulp of theirs."""
+    import dataclasses
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel.sharding import make_rules
+    from repro_torch.testing import (STATE_TOL, sharded_step_parity,
+                                     train_batch)
+    from repro_torch.training.train_step import make_train_state
+    cfg = dataclasses.replace(get_config(arch, smoke=True),
+                              dtype=dtype).resolve(tp=1)
+    tcfg = TrainConfig(microbatches=2, learning_rate=1e-3, warmup_steps=1)
+    rules = make_rules(make_mesh((1, 1), ("data", "model")), mode="train",
+                       fsdp=True)
+    state = make_train_state(cfg, tcfg, torch.Generator(cuda).manual_seed(0),
+                             cuda)
+    batch = {k: v.to(cuda) for k, v in train_batch(cfg, 4, 64).items()}
+    steps = sharded_step_parity(cfg, tcfg, rules, state, batch)
+    assert steps[0]["params_equal"], steps
+    for d in steps:
+        assert d["batch_equal"], d
+        assert d["loss_equal"] or not d["params_equal"], d
+        for kind in ("master", "m", "v"):
+            assert d["drift"][kind] <= STATE_TOL, (kind, d)
+        assert d["drift"]["params"] <= 1.0, d
+
+
+def test_compressed_allreduce_one_rank_on_card(cuda, nccl_rank):
+    """The int8 all-reduce over a one-rank ``pod`` axis on the card: the
+    mean within one scale of the input, the residual within one scale,
+    both equal to the CPU's quantiser bit for bit."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim.compression import (dequantize,
+                                               make_compressed_allreduce,
+                                               quantize)
+    fn = make_compressed_allreduce(make_mesh((1, 1), ("pod", "data")),
+                                   axis_name="pod")
+    g = {"a": torch.randn(64, 96, generator=torch.Generator().manual_seed(1)),
+         "b": torch.randn(300, generator=torch.Generator().manual_seed(2))
+         * 1e-3}
+    r = {k: torch.full_like(v, 1e-4) for k, v in g.items()}
+    mean, res = fn({k: v.to(cuda) for k, v in g.items()},
+                   {k: v.to(cuda) for k, v in r.items()})
+    for k in g:
+        x = g[k] + r[k]
+        q, scale = quantize(x)
+        assert float((mean[k].cpu() - x).abs().max()) <= float(scale) + 1e-6
+        assert float(res[k].abs().max()) <= float(scale) + 1e-6
+        assert torch.equal(mean[k].cpu(), dequantize(q, scale))
+        assert torch.equal(res[k].cpu(), x - dequantize(q, scale))

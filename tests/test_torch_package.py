@@ -47,6 +47,16 @@ def test_import_loads_no_jax_and_no_reference():
 _IMPORT = re.compile(r"^\s*(?:from|import)\s+(jax|repro)(?:[.\s,]|$)")
 
 
+def test_the_multi_device_layer_is_checked():
+    """The parallel and launch modules are among those the import checks
+    walk."""
+    for m in ("repro_torch.parallel.sharding", "repro_torch.parallel.pipeline",
+              "repro_torch.optim.compression", "repro_torch.launch.mesh",
+              "repro_torch.launch.specs", "repro_torch.launch.train",
+              "repro_torch.launch.serve", "repro_torch.launch.elastic"):
+        assert m in _modules(), m
+
+
 @pytest.mark.parametrize("module", _modules())
 def test_source_names_no_jax_or_reference_import(module):
     path = os.path.join(SRC, *module.split("."))
@@ -78,6 +88,10 @@ def _entry_points():
     from repro_torch.data.pipeline import SyntheticLMData, make_batch_iterator
     from repro_torch.interop import train_state_from_reference
     from repro_torch.training.train_step import make_train_state
+    from repro_torch.launch import elastic as launch_elastic
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.mesh import make_mesh
     import numpy as np
     small = dict(n_trials=2, n_requests=10)
     cfg = get_scenario("baseline").compile(seed=0, **small)
@@ -121,6 +135,16 @@ def _entry_points():
             SyntheticLMData(32), 2, 4),
         "train_state_from_reference": lambda: train_state_from_reference(
             {"params": {"w": [1.0]}, "opt": {"step": 0}}, None),
+        "launch.train.run": lambda: launch_train.run(
+            mamba, TrainConfig(), batch=2, seq=8, ckpt_dir=os.devnull),
+        "launch.train.main": lambda: launch_train.main(
+            ["--arch", "mamba2-1.3b", "--smoke", "--mesh", "2x1"]),
+        "launch.serve.main": lambda: launch_serve.main(
+            ["--arch", "qwen2-vl-7b", "--smoke"]),
+        "launch.elastic.main": lambda: launch_elastic.main(
+            ["--arch", "mamba2-1.3b", "--smoke", "--ckpt-dir", os.devnull,
+             "--mesh", "1x1"]),
+        "make_mesh": lambda: make_mesh((1, 1), ("data", "model")),
     }
 
 
@@ -137,7 +161,10 @@ def _entry_points():
                                   "PredictionManager", "correlate_all",
                                   "select_model", "zoo.GBT",
                                   "make_train_state", "make_batch_iterator",
-                                  "train_state_from_reference"])
+                                  "train_state_from_reference",
+                                  "launch.train.run", "launch.train.main",
+                                  "launch.serve.main", "launch.elastic.main",
+                                  "make_mesh"])
 def test_entry_point_without_card_raises(name, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

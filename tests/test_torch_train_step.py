@@ -204,12 +204,15 @@ def test_tiny_lm_training_loss_decreases():
     assert leaves(state["params"])[0].dtype == torch.bfloat16
 
 
-@pytest.mark.parametrize("case", ["rules", "grad_compression"])
+@pytest.mark.parametrize("case", ["grad_compression"])
 def test_make_train_step_refuses_multi_card_options(case):
+    """``grad_compression`` is read by no train step, the reference's
+    included: the port refuses the flag rather than ignore it (the rules
+    path is tested in ``tests/test_torch_distributed.py``)."""
     cfg = get_config("deepseek-67b", smoke=True).resolve(tp=1)
     tt = TrainConfig(grad_compression=case == "grad_compression")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        make_train_step(cfg, tt, rules=object() if case == "rules" else None)
+    with pytest.raises(NotImplementedError, match="refuses the flag"):
+        make_train_step(cfg, tt)
 
 
 def test_train_example_runs_and_resumes(tmp_path, capsys):
