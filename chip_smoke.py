@@ -171,7 +171,21 @@ Phases (any failure raises and exits non-zero, with no result line):
    qwen2-vl-7b at full width, 3 replicas, 24 requests of LAUNCH_PROMPT
    tokens, perf_aware under the simulated clock: every request finished,
    every flash call on the tensor cores and every decode call on
-   ``mma``;
+   ``mma``; (e) tensor parallelism over the model axis (its own main
+   path: the counts reset just before the bf16 step and read just
+   after, each kernel's launches and its variant asserted against the
+   step's count): the TP step's code path on a one-rank NCCL group, mesh
+   (1, 1) data x model, with qwen3-moe-30b-a3b at full width,
+   TP_TRAIN_LAYERS layer, bf16, the FSDP step with 2 microbatches handed
+   the single-device step's gradients (microbatches, params and the TP
+   forward's loss equal bit for bit, master / m / v within STATE_TOL,
+   the peak printed), and, in a window of their own, the TP path's
+   gradients against the single-device ones at the f32 smoke configs of
+   TP_PARITY_ARCHS (their FMA launches asserted); then flash attention
+   and ``gmm``, forward
+   and backward, at a TP rank's local full-width shapes
+   (TP_LOCAL_FLASH, TP_LOCAL_GMM) against their plain versions, timed
+   beside them and their bounds;
 13. a ``kernels`` JSON line, the card's line, then the result line.
 """
 from __future__ import annotations
@@ -334,6 +348,17 @@ CHECKPOINT_LAYERS = 4
 LAUNCH_PROMPT, LAUNCH_MAX_SEQ = 264, 320
 #: phase 6: a train step on the card against the CPU at the f32 smoke
 #: configs
+#: phase 12e: the tensor-parallel step's depth at full width (two f32
+#: master / moment states of qwen3-moe-30b-a3b are held beside the step:
+#: ~35 GB at one layer, ~52 GB at two)
+TP_TRAIN_LAYERS = 1
+#: phase 12e (a): the f32 smoke configs whose tensor-parallel gradients
+#: are held to the single-device ones on the card
+TP_PARITY_ARCHS = ("deepseek-67b", "qwen2-vl-7b", "qwen3-moe-30b-a3b")
+#: phase 12e (b): (arch, tp) of the flash shapes a TP rank runs, and the
+#: model axis of qwen3-moe-30b-a3b's local experts
+TP_LOCAL_FLASH = (("qwen3-moe-30b-a3b", 4), ("mistral-large-123b", 8))
+TP_LOCAL_GMM = 4
 TRAIN_PARITY_ARCHS = ("qwen2-vl-7b", "qwen3-moe-30b-a3b", "minicpm3-4b",
                       "seamless-m4t-medium", "mamba2-1.3b", "zamba2-2.7b")
 #: the SSD backward kernel against its plain version, relative to the
@@ -1689,6 +1714,18 @@ def _train_launches(cfg) -> dict:
             "gmm_bwd.wgmma": per_layer_gmm * L}
 
 
+def _parity_launches(cfg, microbatches: int, steps: int) -> dict:
+    """The kernels ``testing.sharded_step_parity`` launches in ``steps``
+    steps of ``microbatches`` each: the single-device step's
+    ``value_and_grad`` (:func:`_train_launches`) and the sharded step's
+    forward alone (half the forward launches: with remat full the
+    forward runs once without its backward) a microbatch."""
+    fwd = ("flash_attention", "flash_attention.tc", "gmm", "gmm.wgmma")
+    n = microbatches * steps
+    return {k: n * (v + v // 2 if k in fwd else v)
+            for k, v in _train_launches(cfg).items()}
+
+
 def free_card_memory() -> float:
     """Collect garbage, drop cuBLAS's workspaces (one is kept for each
     stream a library product ran on, and the timings and the predictor
@@ -1896,8 +1933,9 @@ def launch_multi_device_phase(dev, cfg, state, card: str) -> None:
     gradients (``testing.sharded_step_parity``: every microbatch and
     the params it ran on equal bit for bit, its loss equal bit for bit
     where the params are, master / m / v within STATE_TOL of each leaf's
-    largest value and the params within one ulp of theirs); then the
-    int8 compressed all-reduce over a (1, 1) pod x data mesh on
+    largest value and the params within one ulp of theirs; the
+    single-device step writes ``state`` in place); then the int8
+    compressed all-reduce over a (1, 1) pod x data mesh on the stepped
     ``state``'s gradient of one batch."""
     import dataclasses
     import torch
@@ -1971,6 +2009,278 @@ def launch_multi_device_phase(dev, cfg, state, card: str) -> None:
         dist.destroy_process_group()
         if os.path.exists(store):
             os.remove(store)
+
+
+def check_tp_local_kernels(dev, card: str) -> dict:
+    """Phase 12e (b): the kernels of the tensor-parallel train step at a
+    TP rank's local full-width shapes, against their plain versions at
+    tests/test_torch_cuda.py's tolerances, each timed (device ms by
+    CUDA-graph replay; SDPA's backward eager, by CUDA events) beside its
+    plain version, a library call (SDPA, ``torch.bmm``) and its bound:
+    flash attention forward and backward at qwen3-moe-30b-a3b's tp 4 (8 of 32
+    q heads, the one kv head they read) and mistral-large-123b's tp 8 (12
+    of 96, one of 8 kv heads), (4, 1024, H/1, 128) bf16 causal; ``gmm``
+    forward and backward at qwen3-moe-30b-a3b's tp 4, 32 of 128 experts
+    at phase 11's C rows.  Returns {kernel: [rows]} for the kernels
+    line."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.flash_attention import (
+        _flash_forward, flash_attention, flash_attention_bwd,
+        flash_attention_bwd_plain, flash_attention_plain)
+    from repro_torch.kernels.gmm import gmm, gmm_bwd, gmm_bwd_plain, gmm_plain
+    from repro_torch.models.attention import local_kv_heads
+    bf16 = torch.bfloat16
+    out = {"flash_attention": [], "flash_attention_bwd": [], "gmm": [],
+           "gmm_bwd": []}
+    B, S = LM_TRAIN["batch"], LM_TRAIN["seq"]
+    for arch, tp in TP_LOCAL_FLASH:
+        cfg = get_config(arch).resolve(tp=tp)
+        H = cfg.padded_heads // tp
+        kv = local_kv_heads(H, cfg.padded_kv, tp, 0)
+        KV, D = kv.stop - kv.start, cfg.head_dim
+        q = _randn((B, S, H, D), bf16, dev, 40)
+        k, v = (_randn((B, S, KV, D), bf16, dev, 41 + i) for i in range(2))
+        do = _randn((B, S, H, D), bf16, dev, 43)
+        before = (flash_attention.tc_launches, flash_attention_bwd.tc_launches)
+        o = flash_attention(q, k, v, causal=True)
+        o2, lse = _flash_forward(q, k, v, True, True)
+        grads = flash_attention_bwd(q, k, v, o2, do, lse, True)
+        torch.cuda.synchronize()
+        assert (flash_attention.tc_launches - before[0],
+                flash_attention_bwd.tc_launches - before[1]) == (2, 1), \
+            f"flash at {arch} tp {tp} missed its tensor-core kernels"
+        label = f"({B},{S},{H}/{KV},{D}) bf16 causal, {arch} tp {tp}"
+        err = _attn_err(o, flash_attention_plain(q, k, v, True), bf16)
+        want = flash_attention_bwd_plain(q, k, v, o2, do, lse, True)
+        err_b = max(_rel_err(g, w, bf16, f"flash bwd {label} d{n}")
+                    for g, w, n in zip(grads, want, "qkv"))
+        ms = {"fwd": device_ms(lambda: flash_attention(q, k, v, causal=True),
+                               repeats=7, inner=10),
+              "fwd plain": device_ms(
+                  lambda: flash_attention_plain(q, k, v, True), repeats=5,
+                  inner=3),
+              "bwd": device_ms(
+                  lambda: flash_attention_bwd(q, k, v, o2, do, lse, True),
+                  repeats=7, inner=5),
+              "bwd plain": device_ms(
+                  lambda: flash_attention_bwd_plain(q, k, v, o2, do, lse,
+                                                    True),
+                  repeats=5, inner=3)}
+        qn, kn, vn = (t.transpose(1, 2) for t in (q, k, v))
+        ms["fwd library"] = device_ms(
+            lambda: F.scaled_dot_product_attention(
+                qn, kn, vn, is_causal=True, enable_gqa=True), repeats=7,
+            inner=10)
+        qt, kt, vt = (t.detach().requires_grad_() for t in (qn, kn, vn))
+        sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True)
+        ms["bwd library"] = call_ms(
+            lambda: torch.autograd.grad(sdpa, (qt, kt, vt),
+                                        do.transpose(1, 2),
+                                        retain_graph=True),
+            repeats=7, inner=10)
+        del sdpa, qn, kn, vn, qt, kt, vt
+        pairs = B * H * (S * (S + 1) // 2)
+        fb, fby = _bound(2 * (2 * q.numel() + 2 * k.numel()),
+                         2 * pairs * 2 * D, bf16)
+        bb, bby = _bound(2 * (4 * q.numel() + 4 * k.numel())
+                         + 4 * lse.numel(), 2 * pairs * 5 * D, bf16)
+        print(f"phase 12e (b) flash {label}: forward max_abs_err {err:.3e}, "
+              f"{ms['fwd'] * 1e3:.2f} us (plain {ms['fwd plain'] * 1e3:.2f} "
+              f"us, SDPA {ms['fwd library'] * 1e3:.2f} us, bound "
+              f"{fb * 1e3:.2f} us, {fby}); backward max_abs_err "
+              f"{err_b:.3e} (tol {ATTN_TOL[str(bf16)]} of the largest), "
+              f"{ms['bwd'] * 1e3:.2f} us (plain {ms['bwd plain'] * 1e3:.2f} "
+              f"us, SDPA's backward {ms['bwd library'] * 1e3:.2f} us, bound "
+              f"{bb * 1e3:.2f} us, {bby}) [{card}]")
+        out["flash_attention"].append(
+            {"shape": [B, S, H, KV, D], "arch": arch, "tp": tp,
+             "max_abs_err": err, "ms": ms["fwd"], "plain_ms": ms["fwd plain"],
+             "bound_ms": fb, "bound_by": fby,
+             "library_ms": ms["fwd library"]})
+        out["flash_attention_bwd"].append(
+            {"shape": [B, S, H, KV, D], "arch": arch, "tp": tp,
+             "max_abs_err": err_b, "ms": ms["bwd"],
+             "plain_ms": ms["bwd plain"], "bound_ms": bb, "bound_by": bby,
+             "library_ms": ms["bwd library"]})
+        del q, k, v, do, o, o2, lse, grads, want
+    cfg = get_config(MOE_ARCH)
+    E, Dm, Fd = cfg.moe.num_experts // TP_LOCAL_GMM, cfg.d_model, cfg.d_ff
+    C = train_gmm_rows(cfg)
+    x = _randn((E, C, Dm), bf16, dev, 50) * Dm ** -0.25
+    w = _randn((E, Dm, Fd), bf16, dev, 51) * Dm ** -0.25
+    dy = _randn((E, C, Fd), bf16, dev, 52)
+    before = (gmm.wgmma_launches, gmm_bwd.wgmma_launches)
+    y = gmm(x, w)
+    dx, dw = gmm_bwd(x, w, dy)
+    torch.cuda.synchronize()
+    assert (gmm.wgmma_launches - before[0],
+            gmm_bwd.wgmma_launches - before[1]) == (1, 1), \
+        "gmm at the tp rank's experts missed its wgmma kernels"
+    label = f"({E},{C},{Dm})x({E},{Dm},{Fd}) bf16, {MOE_ARCH} tp " \
+            f"{TP_LOCAL_GMM}"
+    err = _rel_err(y, gmm_plain(x, w), bf16, f"gmm {label}")
+    err_b = max(_rel_err(g, wt, bf16, f"gmm bwd {label} {n}")
+                for g, wt, n in zip((dx, dw), gmm_bwd_plain(x, w, dy),
+                                    ("dx", "dw")))
+    ms = {"fwd": device_ms(lambda: gmm(x, w), repeats=7, inner=10),
+          "fwd plain": device_ms(lambda: gmm_plain(x, w), repeats=5,
+                                 inner=3),
+          "bwd": device_ms(lambda: gmm_bwd(x, w, dy), repeats=7, inner=5),
+          "bwd plain": device_ms(lambda: gmm_bwd_plain(x, w, dy), repeats=5,
+                                 inner=3),
+          "fwd library": device_ms(lambda: torch.bmm(x, w), repeats=7,
+                                   inner=10),
+          "bwd library": device_ms(
+              lambda: (torch.bmm(dy, w.transpose(1, 2)),
+                       torch.bmm(x.transpose(1, 2), dy)), repeats=7,
+              inner=5)}
+    ops = 2 * E * C * Dm * Fd
+    fb, fby = _bound(2 * (x.numel() + w.numel() + y.numel()), ops, bf16)
+    bb, bby = _bound(2 * 2 * (x.numel() + w.numel()) + 2 * dy.numel(),
+                     2 * ops, bf16)
+    print(f"phase 12e (b) gmm {label}: forward max_abs_err {err:.3e}, "
+          f"{ms['fwd'] * 1e3:.2f} us (plain {ms['fwd plain'] * 1e3:.2f} us, "
+          f"torch.bmm {ms['fwd library'] * 1e3:.2f} us, bound "
+          f"{fb * 1e3:.2f} us, {fby}); backward max_abs_err {err_b:.3e} (tol "
+          f"{GMM_TOL[str(bf16)]} of the largest), {ms['bwd'] * 1e3:.2f} us "
+          f"(plain {ms['bwd plain'] * 1e3:.2f} us, two torch.bmm "
+          f"{ms['bwd library'] * 1e3:.2f} us, bound {bb * 1e3:.2f} us, "
+          f"{bby}) [{card}]")
+    out["gmm"].append({"shape": [E, C, Dm, Fd], "arch": MOE_ARCH,
+                       "tp": TP_LOCAL_GMM, "max_abs_err": err,
+                       "ms": ms["fwd"], "plain_ms": ms["fwd plain"],
+                       "bound_ms": fb, "bound_by": fby,
+                       "library_ms": ms["fwd library"]})
+    out["gmm_bwd"].append({"shape": [E, C, Dm, Fd], "arch": MOE_ARCH,
+                           "tp": TP_LOCAL_GMM, "max_abs_err": err_b,
+                           "ms": ms["bwd"], "plain_ms": ms["bwd plain"],
+                           "bound_ms": bb, "bound_by": bby,
+                           "library_ms": ms["bwd library"]})
+    return out
+
+
+def tensor_parallel_phase(dev, wrappers, card: str) -> tuple:
+    """Phase 12e (a): the tensor-parallel train step's code path on a
+    one-rank NCCL process group, a (1, 1) data x model mesh (every
+    model-axis collective runs, over one-rank groups): qwen3-moe-30b-a3b
+    at full width, bf16, TP_TRAIN_LAYERS layers, the FSDP step with 2
+    microbatches on phase 11's B x S beside the single-device step, two
+    steps, handed the single-device step's gradients
+    (``testing.sharded_step_parity``, two states held): every
+    microbatch, the params it ran on and the tensor-parallel forward's
+    loss equal bit for bit, master / m / v within STATE_TOL, the params
+    within one ulp.  The counts are reset just before those steps and
+    read just after: every launch is the count ``_parity_launches``
+    gives, on the tensor cores (``tc``, ``wgmma``).  Then, in a window of
+    their own, ``value_and_grad`` on the tensor-parallel path against the
+    single-device one at the f32 smoke configs of TP_PARITY_ARCHS
+    (``testing.tp_grad_parity``: TRAIN_GRAD_TOL, MoE upstream
+    MOE_UPSTREAM_TOL), each launch the FMA variant.  On one rank the
+    model index is 0 and a rank holds every expert, vocabulary row and
+    head, so the branches that only a model axis above 1 takes (the
+    vocabulary mask, the kv-head slice, the expert mask) run on gloo in
+    the CPU tests, not here.  Returns (the bf16 step's launches, the
+    peak GB)."""
+    import dataclasses
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.base import TrainConfig, get_config
+    from repro_torch.data.pipeline import SyntheticLMData, make_batch_iterator
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel.sharding import make_rules
+    from repro_torch.testing import (MOE_UPSTREAM_TOL, STATE_TOL,
+                                     TRAIN_GRAD_TOL, sharded_step_parity,
+                                     tp_grad_parity)
+    from repro_torch.training.train_step import make_train_state
+    held = free_card_memory()
+    assert held < 1.0, f"{held:.2f} GB still held before phase 12e"
+    store = os.path.join(ROOT, "build", "nccl_store_tp")
+    if os.path.exists(store):
+        os.remove(store)
+    cfg = dataclasses.replace(get_config(MOE_ARCH),
+                              num_layers=TP_TRAIN_LAYERS, dtype="bfloat16",
+                              remat="full").resolve(tp=1)
+    tcfg = TrainConfig(learning_rate=3e-4, warmup_steps=2, total_steps=100,
+                       microbatches=2)
+    B, S = LM_TRAIN["batch"], LM_TRAIN["seq"]
+    it = make_batch_iterator(SyntheticLMData(cfg.vocab_size, seed=0), B, S,
+                             seed=2, device=dev)
+    batch = next(it)
+    it.close()
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), dev)
+        rules = make_rules(mesh, mode="train", fsdp=True)
+        state = make_train_state(cfg, tcfg,
+                                 torch.Generator(dev).manual_seed(0), dev)
+        torch.cuda.synchronize()
+        reset_counts(wrappers)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        steps = sharded_step_parity(cfg, tcfg, rules, state, batch)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        got = counts(wrappers)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        del state
+        free_card_memory()
+        for i, d in enumerate(steps):
+            print(f"phase 12e (a) {cfg.name} full width, {TP_TRAIN_LAYERS} "
+                  f"layer(s), bf16, B {B} x S {S}, FSDP TP step, 2 "
+                  f"microbatches, one-rank NCCL (1, 1) data x model, step "
+                  f"{i + 1}, on the single-device step's gradients: drift "
+                  f"{_drift_line(d['drift'])}; state equal bit for bit: "
+                  f"{d['exact']}; microbatches, params and loss equal bit "
+                  f"for bit: {d['batch_equal']}, {d['params_equal']}, "
+                  f"{d['loss_equal']}")
+        print(f"phase 12e (a): {t1 - t0:.1f} s for the two steps of each, "
+              f"peak {peak:.2f} GB on the card [{card}]")
+        for d in steps:
+            assert d["batch_equal"] and d["params_equal"] \
+                and d["loss_equal"], d
+            for kind in ("master", "m", "v"):
+                assert d["drift"][kind] <= STATE_TOL, (kind, d)
+            assert d["drift"]["params"] <= 1.0, d
+        expect = _parity_launches(cfg, tcfg.microbatches, len(steps))
+        for n, c in got.items():
+            assert c == expect.get(n, 0), \
+                f"phase 12e (a): {c} {n} launches, not {expect.get(n, 0)}"
+        print(f"phase 12e (a) launches in the bf16 steps, as counted: "
+              f"{ {n: c for n, c in got.items() if c} }")
+        reset_counts(wrappers)
+        expect = {}
+        for arch in TP_PARITY_ARCHS:
+            small = dataclasses.replace(get_config(arch, smoke=True),
+                                        dtype="float32",
+                                        remat="full").resolve(tp=1)
+            # two passes of value_and_grad (with rules and without), every
+            # kernel on its FMA variant
+            for n, c in _train_launches(small).items():
+                n = n.replace(".tc", ".fma").replace(".wgmma", ".fma")
+                expect[n] = expect.get(n, 0) + 2 * c
+            t0 = time.perf_counter()
+            d = tp_grad_parity(small, rules, dev)
+            moe = "" if small.moe is None \
+                else f", upstream of the MoE layer {MOE_UPSTREAM_TOL}"
+            assert d["loss"] < TRAIN_GRAD_TOL, (arch, d)
+            print(f"phase 12e (a) value_and_grad {arch} (f32 smoke), the "
+                  f"tensor-parallel path against the single-device one on "
+                  f"the card: loss {d['loss']:.2e}, gradient leaves "
+                  f"{d['grads']:.2e} (held to {TRAIN_GRAD_TOL}{moe}); "
+                  f"{time.perf_counter() - t0:.1f} s")
+        torch.cuda.synchronize()
+        for n, c in counts(wrappers).items():
+            assert c == expect.get(n, 0), \
+                f"phase 12e (a) f32: {c} {n} launches, not {expect.get(n, 0)}"
+    finally:
+        dist.destroy_process_group()
+        if os.path.exists(store):
+            os.remove(store)
+    return got, peak
 
 
 def launch_serve_phase(dev, wrappers, card: str) -> dict:
@@ -3799,6 +4109,19 @@ def main() -> int:
         assert n > 0, f"{name} never launched in phase 12"
         by_name[name]["launcher_launches"] = n
         by_name[name]["launches"] += n
+    # phase 12e: tensor parallelism over the model axis (its own main
+    # path: the counts are reset just before and read just after)
+    t0 = time.perf_counter()
+    tp_got, tp_peak = tensor_parallel_phase(dev, wrappers, card)
+    for name in ("flash_attention", "flash_attention_bwd", "gmm", "gmm_bwd"):
+        n = tp_got.get(name, 0)
+        assert n > 0, f"{name} never launched in phase 12e"
+        by_name[name]["tp_launches"] = n
+        by_name[name]["launches"] += n
+    for name, rows in check_tp_local_kernels(dev, card).items():
+        by_name[name]["tp_local_shapes"] = rows
+    print(f"phase 12e: {time.perf_counter() - t0:.1f} s (peak "
+          f"{tp_peak:.2f} GB); launches {tp_got} [{card}]")
     print(f"phase 12: {time.perf_counter() - t_phase:.1f} s [{card}]")
 
     print(f"chip_smoke: whole run {time.perf_counter() - t_start:.1f} s, "

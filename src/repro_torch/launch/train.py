@@ -6,15 +6,18 @@ Translated from the reference's ``launch/train.py``.  On one card
 (``--mesh 1x1``, the default) the step is the single-device one; with
 ``data x model > 1`` ranks the process group comes from the environment
 ``torchrun`` sets (NCCL on cards, one a rank; gloo with ``--device cpu``),
-and the step is the data-parallel ZeRO-1 / FSDP one of
-``training.train_step`` under ``launch.specs.rules_for``'s rules.  A
-``model`` axis above 1 is refused there (tensor parallelism is not
-ported yet).
+and the step is the ZeRO-1 / FSDP one of ``training.train_step`` under
+``launch.specs.rules_for``'s rules.  A ``model`` axis above 1 is tensor
+parallelism, for the decoder-only families without MLA (``dense``,
+``vlm``, ``moe``; the config is resolved for it); the step refuses it
+for the others.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-1.3b \\
       --smoke --steps 50 --mesh 1x1
   PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \\
       --arch mamba2-1.3b --smoke --steps 50 --mesh 2x1 --device cpu
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+      --arch deepseek-67b --smoke --steps 50 --mesh 2x2 --device cpu
 
 Every rank draws the same batches (``SyntheticLMData``, seed 0, the
 iterator seeded by the start step as the reference's is, so a resumed run

@@ -33,6 +33,7 @@ from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.common import (apply_mrope, apply_rope, dtype_of,
                                        init_rmsnorm, normal_init, rmsnorm)
+from repro_torch.parallel.sharding import tp_index, tp_size
 
 #: the model families the port lowers: the reference's catalogue
 LOWERED_FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid", "encdec")
@@ -97,8 +98,38 @@ def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (x @ w.reshape(D, H * dh)).reshape(*x.shape[:-1], H, dh)
 
 
+def local_kv_heads(H_local: int, KV: int, tp: int = 1, rank: int = 0):
+    """The kv heads that tensor-parallel rank ``rank`` of ``tp`` reads
+    with its ``H_local`` q heads (q head ``h`` reads kv head ``h // (H /
+    KV)``, H = H_local x tp): a ``slice`` of them when each kv head read
+    serves the same number of its q heads, else an index tensor of one kv
+    head a q head (group 1).  ``slice(0, KV)`` on one rank."""
+    H = H_local * tp
+    if H % KV:
+        raise ValueError(f"{H} q heads do not group over {KV} kv heads")
+    G = H // KV
+    lo = rank * H_local
+    if lo % G == 0 and H_local % G == 0:
+        return slice(lo // G, (lo + H_local) // G)
+    if (lo + H_local - 1) // G == lo // G:
+        return slice(lo // G, lo // G + 1)
+    return torch.arange(lo, lo + H_local) // G
+
+
 def _project_qkv(p, cfg, x: torch.Tensor, x_kv: Optional[torch.Tensor] = None):
+    """q on the rank's own heads, k and v on the kv heads those read
+    (:func:`local_kv_heads`; all of them on one rank): ``wq`` / ``bq`` are
+    this rank's block of the heads, ``wk`` / ``wv`` / ``bk`` / ``bv``
+    replicated, as the reference lays them out."""
     x_kv = x if x_kv is None else x_kv
+    KV = p["wk"].shape[1]
+    kv = local_kv_heads(p["wq"].shape[1], KV, tp_size(), tp_index())
+    names = ("wk", "wv", "bk", "bv") if cfg.qkv_bias else ("wk", "wv")
+    if not isinstance(kv, slice):
+        p = {**p, **{n: p[n].index_select(-2, kv.to(p[n].device))
+                     for n in names}}
+    elif kv != slice(0, KV):
+        p = {**p, **{n: p[n][..., kv, :] for n in names}}
     q, k, v = _proj(x, p["wq"]), _proj(x_kv, p["wk"]), _proj(x_kv, p["wv"])
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
@@ -128,7 +159,9 @@ def attention_fwd(p, cfg, x: torch.Tensor, positions, *, causal=True,
     (non-causal, ``use_rope=False``).
 
     Returns (out (B, S, D), (k, v)) with k, v (B, Skv, KV, dh) as the
-    layer's cache rows."""
+    layer's cache rows.  Under tensor parallelism the flash kernel runs on
+    this rank's heads and ``out`` is the row-parallel o-projection's
+    partial sum over the model ranks (the caller reduce-scatters it)."""
     q, k, v = _project_qkv(p, cfg, x, x_kv)
     if use_rope:
         q, k = _rope_qk(cfg, q, k, positions)

@@ -20,7 +20,9 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from repro_torch.parallel.sharding import axis_rules, current_rules, dp_sum
+from repro_torch.parallel.sharding import (axis_rules, current_rules, dp_sum,
+                                           model_group, reduce_from_model,
+                                           tp_index)
 
 #: logits of the padded vocabulary rows (as the reference's ``-1e30``)
 PAD_LOGIT = -1e30
@@ -184,9 +186,23 @@ def embedding_logical(cfg) -> dict:
 
 def embed_tokens(p, cfg, tokens: torch.Tensor) -> torch.Tensor:
     """The token rows of the table, by ``index_select``: its backward is
-    an ``index_add`` (atomics on the card), where indexing's is a sort."""
-    return p["tok"].index_select(0, tokens.reshape(-1)).view(
-        *tokens.shape, p["tok"].shape[-1])
+    an ``index_add`` (atomics on the card), where indexing's is a sort.
+
+    Under tensor parallelism the table is this rank's block of the
+    vocabulary (``vocab -> model``): a token outside it gives a zero row,
+    so the rows are partial sums over the model ranks (the caller sums
+    them, ``parallel.sharding.scatter_seq``)."""
+    tok = p["tok"]
+    V = tok.shape[0]
+    lo = tp_index() * V
+    if lo == 0 and V >= cfg.padded_vocab:
+        return tok.index_select(0, tokens.reshape(-1)).view(
+            *tokens.shape, tok.shape[-1])
+    ids = tokens.reshape(-1).long() - lo
+    mine = (ids >= 0) & (ids < V)
+    rows = tok.index_select(0, torch.where(mine, ids, 0))
+    return torch.where(mine[:, None], rows, 0).view(*tokens.shape,
+                                                    tok.shape[-1])
 
 
 def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -254,15 +270,18 @@ def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def logits_from_hidden(p, cfg, h: torch.Tensor) -> torch.Tensor:
-    """h: (B, S, D) -> logits (B, S, V_padded) f32 (padded vocab = -1e30)."""
+    """h: (B, S, D) -> logits (B, S, V_padded) f32 (padded vocab = -1e30).
+    Under tensor parallelism the table is this rank's block of the
+    vocabulary, and so are the logits' columns."""
     table = p["tok"] if cfg.tie_embeddings else p["head"]
     logits = matmul_f32(h, table.t())
-    if cfg.padded_vocab > cfg.vocab_size:
+    pad = cfg.vocab_size - tp_index() * table.shape[0]
+    if pad < logits.shape[-1]:
         if logits.requires_grad:
             # the product may be an autograd.Function's output, which
             # autograd does not let be written in place: write a copy
             logits = logits.clone()
-        logits[..., cfg.vocab_size:] = PAD_LOGIT
+        logits[..., max(pad, 0):] = PAD_LOGIT
     return logits
 
 
@@ -297,6 +316,33 @@ def mlp(p, x: torch.Tensor, swiglu: bool = True) -> torch.Tensor:
 
 # ----------------------------------------------------------------------
 # Training: the chunked cross-entropy and per-layer rematerialisation
+class _LogSumExp(torch.autograd.Function):
+    """``torch.logsumexp`` over the last dim of logits whose columns are
+    split over ``group``'s ranks: the max and the sum of exponentials
+    all-reduced, the gradient ``exp(x - lse)`` on this rank's columns, as
+    ``logsumexp``'s own (every rank holds the whole ``lse`` and its whole
+    gradient).  With no group, the same operations in the same order as
+    ``logsumexp``, so the value is its own bit for bit."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        import torch.distributed as dist
+        m = x.amax(dim=-1, keepdim=True)
+        if group is not None:
+            dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+        s = (x - m).exp_().sum(dim=-1)
+        if group is not None:
+            dist.all_reduce(s, group=group)
+        lse = s.log_().add_(m.squeeze(-1))
+        ctx.save_for_backward(x, lse)
+        return lse
+
+    @staticmethod
+    def backward(ctx, g):
+        x, lse = ctx.saved_tensors
+        return g.unsqueeze(-1) * (x - lse.unsqueeze(-1)).exp(), None
+
+
 def chunked_cross_entropy(logits_fn: Callable, h: torch.Tensor,
                           labels: torch.Tensor, cfg,
                           valid_mask: Optional[torch.Tensor] = None):
@@ -311,19 +357,29 @@ def chunked_cross_entropy(logits_fn: Callable, h: torch.Tensor,
     the count is summed over the data-parallel ranks first
     (``parallel.sharding.dp_sum``), and the loss returned is this rank's
     share, its rows' nll over the global count, so the ranks' shares add
-    up to the global batch's mean and their gradients to its gradient."""
+    up to the global batch's mean and their gradients to its gradient.
+
+    Under tensor parallelism ``logits_fn`` gives this rank's block of the
+    vocabulary (Megatron's vocab-parallel loss): the max and the sum of
+    exponentials are all-reduced over the model ranks, the label's logit
+    is the owning rank's (summed, the others' zero), and every model rank
+    returns the same loss, whose gradient reaches only its own columns."""
     B, S, _ = h.shape
     C = min(cfg.loss_chunk, S)
     if S % C:
         raise ValueError(f"the sequence ({S}) must be a multiple of "
                          f"loss_chunk ({cfg.loss_chunk}) or shorter")
+    group, rank = model_group(), tp_index()
     tot = torch.zeros((), dtype=torch.float32, device=h.device)
     cnt = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(0, S, C):
         logits = logits_fn(h[:, i:i + C])
-        lse = torch.logsumexp(logits, dim=-1)
-        lc = labels[:, i:i + C].long()
-        picked = logits.gather(-1, lc[..., None])[..., 0]
+        lse = _LogSumExp.apply(logits, group)
+        V = logits.shape[-1]
+        lc = labels[:, i:i + C].long() - rank * V
+        mine = (lc >= 0) & (lc < V)
+        picked = logits.gather(-1, torch.where(mine, lc, 0)[..., None])[..., 0]
+        picked = reduce_from_model(torch.where(mine, picked, 0.0))
         nll = lse - picked
         if valid_mask is None:
             vc = torch.ones_like(nll)

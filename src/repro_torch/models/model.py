@@ -70,6 +70,8 @@ from repro_torch.models.common import (chunked_cross_entropy,
                                        mlp_logical, rmsnorm, rmsnorm_logical,
                                        stacked_init, stacked_logical)
 from repro_torch.models.moe import init_moe, moe_ffn, moe_logical
+from repro_torch.parallel.sharding import (gather_seq, scatter_seq, tp_index,
+                                           tp_size)
 
 #: the decoder-only families (``_dec_*``)
 DEC_FAMILIES = ("dense", "moe", "vlm")
@@ -110,38 +112,56 @@ def _ffn(lp, cfg, x: torch.Tensor):
 
 
 def _dec_layer(cfg, positions, lp, h: torch.Tensor):
-    """One decoder layer: (h, aux loss, the attention's cache rows)."""
+    """One decoder layer: (h, aux loss, the attention's cache rows).
+
+    Under tensor parallelism ``h`` is this rank's block of the sequence
+    (the Megatron-SP residual, the reference's ``residual_seq``): each
+    sublayer's normed input is all-gathered along the sequence for its
+    column-parallel products, and its row-parallel output reduce-scattered
+    back into the residual's blocks."""
     attn_fwd = mla_fwd if cfg.mla is not None else attention_fwd
-    a, kv = attn_fwd(lp["attn"], cfg, rmsnorm(lp["ln1"], h, cfg.norm_eps),
+    a, kv = attn_fwd(lp["attn"], cfg,
+                     gather_seq(rmsnorm(lp["ln1"], h, cfg.norm_eps)),
                      positions, causal=cfg.causal)
-    h = h + a
-    f, aux = _ffn(lp, cfg, rmsnorm(lp["ln2"], h, cfg.norm_eps))
-    return h + f, aux, kv
+    h = h + scatter_seq(a)
+    f, aux = _ffn(lp, cfg, gather_seq(rmsnorm(lp["ln2"], h, cfg.norm_eps)))
+    return h + scatter_seq(f), aux, kv
 
 
-def _merge_vision(cfg, h: torch.Tensor, batch) -> torch.Tensor:
-    """The vision stub: the leading ``vision_embeds.shape[1]`` positions
-    take the given embeddings."""
+def _merge_vision(cfg, h: torch.Tensor, batch, S: int,
+                  lo: int = 0) -> torch.Tensor:
+    """The vision stub: the leading ``vision_embeds.shape[1]`` of the
+    sequence's ``S`` positions take the given embeddings; ``h`` holds
+    positions ``lo`` on (a tensor-parallel rank's block)."""
     ve = batch.get("vision_embeds")
     if ve is None or cfg.num_frontend_tokens == 0:
         return h
     n = ve.shape[1]
-    if n > h.shape[1]:
+    if n > S:
         raise ValueError(f"{n} vision embeddings do not fit a sequence of "
-                         f"{h.shape[1]} tokens")
-    return torch.cat([ve.to(h.dtype), h[:, n:, :]], dim=1)
+                         f"{S} tokens")
+    k = min(max(n - lo, 0), h.shape[1])
+    if k == 0:
+        return h
+    return torch.cat([ve[:, lo:lo + k].to(h.dtype), h[:, k:, :]], dim=1)
 
 
 def _dec_backbone(params, cfg, batch, cache: Optional[dict] = None):
     """(the final-normed hidden states (B, S, D), the layers' mean aux
     loss); each layer's k/v (or MLA latent and rotary key) go to rows
     [0, S) of ``cache`` when one is given, else each layer runs under
-    ``maybe_remat``."""
+    ``maybe_remat``.  Under tensor parallelism the hidden states are this
+    rank's block of ``S / tp`` positions: the embedding's partial rows
+    (vocab-parallel) are reduce-scattered into it."""
     tokens = batch["tokens"]
     B, S = tokens.shape
-    h = embed_tokens(params["embed"], cfg, tokens)
+    tp = tp_size()
+    if S % tp:
+        raise ValueError(f"a sequence of {S} tokens does not split over "
+                         f"{tp} tensor-parallel ranks")
+    h = scatter_seq(embed_tokens(params["embed"], cfg, tokens))
     if cfg.family == "vlm":
-        h = _merge_vision(cfg, h, batch)
+        h = _merge_vision(cfg, h, batch, S, tp_index() * (S // tp))
     positions = batch.get("positions")
     if positions is None:
         positions = default_positions(cfg, B, S, device=h.device)
@@ -169,6 +189,7 @@ def _dec_backbone(params, cfg, batch, cache: Optional[dict] = None):
 
 def _dec_train_forward(params, cfg, batch):
     h, aux = _dec_backbone(params, cfg, batch)
+    h = gather_seq(h)
     loss, cnt = chunked_cross_entropy(
         lambda hc: logits_from_hidden(params["embed"], cfg, hc),
         h, batch["labels"], cfg, batch.get("loss_mask"))

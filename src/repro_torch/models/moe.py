@@ -48,8 +48,8 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.gmm import gmm
 from repro_torch.models.common import dtype_of, normal_init
-from repro_torch.parallel.sharding import (axis_rules, dp_gather_rows,
-                                           dp_index, dp_size, dp_sum)
+from repro_torch.parallel.sharding import (dp_gather_rows, dp_index, dp_size,
+                                           dp_sum, replicated_term, tp_index)
 
 
 def init_moe(cfg, generator: torch.Generator, device=None) -> dict:
@@ -99,19 +99,33 @@ def moe_ffn(p, cfg, x: torch.Tensor):
     router probabilities this rank's sum over the global count.  Where
     ``G`` does not split over the ranks (fewer groups than ranks), every
     rank gathers the global rows, routes them all and keeps its own rows'
-    output, with ``1 / dp`` of the aux loss as its share."""
+    output, with ``1 / dp`` of the aux loss as its share.
+
+    Under tensor parallelism (``experts -> model``) ``x`` is the whole
+    sequence, the same on every model rank, and so are the routing, the
+    capacity and the slots; this rank fills and runs only the slots of its
+    own ``E / tp`` experts (the weights it holds), and ``y`` is its
+    partial sum, which the caller reduce-scatters.  The aux loss, computed
+    in full on every model rank, enters the backward once
+    (``parallel.sharding.replicated_term``)."""
+    B, S, D = x.shape
+    dp = dp_size()
+    G = dispatch_groups(B * S * dp, cfg.moe.num_groups)
+    if G % dp:
+        y, aux = _moe(p, cfg, dp_gather_rows(x), G, 1)
+        return y.narrow(0, dp_index() * B, B), aux / dp
+    return _moe(p, cfg, x, G // dp, dp)
+
+
+def _moe(p, cfg, x: torch.Tensor, G: int, dp: int):
+    """The layer on ``x``'s rows in ``G`` groups; ``dp`` data-parallel
+    ranks hold the rest of the global batch's groups."""
     m = cfg.moe
     B, S, D = x.shape
     E, K = m.num_experts, m.top_k
+    El = p["wi"].shape[0]                    # this rank's experts
+    e0 = tp_index() * El
     T = B * S
-    dp = dp_size()
-    G = dispatch_groups(T * dp, m.num_groups)
-    if G % dp:
-        xs, r = dp_gather_rows(x), dp_index()
-        with axis_rules(None):
-            y, aux = moe_ffn(p, cfg, xs)
-        return y.narrow(0, r * B, B), aux / dp
-    G //= dp
     Sg = T // G
     xg = x.reshape(G, Sg, D)
 
@@ -130,25 +144,28 @@ def moe_ffn(p, cfg, x: torch.Tensor):
         1, ids_ks.unsqueeze(1)).squeeze(1)                     # (G, K·Sg)
     keep = before < cap
     g_idx = torch.arange(G, device=x.device).unsqueeze(1)
-    n_slots = E * G * cap
+    n_slots = El * G * cap
+    if El < E:                       # only this rank's experts' slots
+        ids_ks = ids_ks - e0
+        keep = keep & (ids_ks >= 0) & (ids_ks < El)
     row = torch.where(keep, (ids_ks * G + g_idx) * cap + before, n_slots)
 
     # dispatch: each slot's token (T, a zero row, for an empty slot; the
-    # drops all land in one spare slot past the end), then the token rows,
-    # rounded to bf16 as the reference's einsum does, gathered into the
-    # (E, G·cap, D) slot tensor
+    # drops and the other ranks' experts all land in one spare slot past
+    # the end), then the token rows, rounded to bf16 as the reference's
+    # einsum does, gathered into the (El, G·cap, D) slot tensor
     tok = g_idx * Sg + torch.arange(K * Sg, device=x.device) % Sg
     slot_tok = torch.full((n_slots + 1,), T, dtype=torch.int64,
                           device=x.device)
     slot_tok.index_put_((row.reshape(-1),), tok.reshape(-1))
     xb = torch.cat([x.reshape(T, D).to(torch.bfloat16),
                     x.new_zeros((1, D), dtype=torch.bfloat16)])
-    xe = xb.index_select(0, slot_tok[:n_slots]).view(E, G * cap, D) \
+    xe = xb.index_select(0, slot_tok[:n_slots]).view(El, G * cap, D) \
         .to(p["wi"].dtype)
 
     h = gmm(xe, p["wi"])
     g = gmm(xe, p["wg"])
-    oe = gmm(F.silu(g) * h, p["wo"])                           # (E, G·cap, D)
+    oe = gmm(F.silu(g) * h, p["wo"])                           # (El, G·cap, D)
 
     # combine: each token's kept rows, weighted by its gates in oe's dtype
     # and summed in f32 (a dropped assignment reads row 0 with weight 0)
@@ -167,4 +184,4 @@ def moe_ffn(p, cfg, x: torch.Tensor):
             / (T * dp)
         pm = probs.sum(dim=(0, 1)) / (T * dp)
     aux = E * (frac * pm).sum() * m.router_aux_weight
-    return y.reshape(B, S, D).to(x.dtype), aux
+    return y.reshape(B, S, D).to(x.dtype), replicated_term(aux)

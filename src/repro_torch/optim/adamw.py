@@ -29,8 +29,9 @@ rank's shards: the gradients arrive in the optimizer's layout (the train
 step reduce-scattered them), the clip's global norm sums each leaf's
 squares over the ranks that split it and counts a leaf no rank splits
 once, the update runs on the local shard, and a parameter whose layout
-differs from its master's is all-gathered from the new master (cast to
-its dtype first, as the reference's) and cut to its own layout.
+differs from its master's is all-gathered from the new master along the
+dims they split differently (cast to its dtype first, as the
+reference's) and cut to its own layout.
 """
 from __future__ import annotations
 
@@ -140,7 +141,7 @@ def adamw_update(params, grads, opt: dict, tcfg, eps: float = 1e-8, *,
         if psh is None or psh == osh:
             p.copy_(mst)
         else:
-            p.copy_(psh.local(osh.gather(mst.to(p.dtype))))
+            p.copy_(osh.reshard(mst.to(p.dtype), psh))
 
     def upd(path, p, mst, g, m, v, psh, osh):
         g = g.to(torch.float32) * scale  # a new f32 leaf: grads stay as given

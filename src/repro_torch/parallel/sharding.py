@@ -36,7 +36,17 @@ Here a rank holds local shards and the collectives are explicit:
   batch (``models.common.chunked_cross_entropy``, ``models.moe``);
 - :func:`shard` checks an activation's rank against its logical axes and
   returns it: the port's tensors are already local shards, and the train
-  step sets their layout (``training.train_step``).
+  step sets their layout (``training.train_step``);
+- tensor parallelism over ``model`` (Megatron's, with its sequence-parallel
+  residual) is explicit in the models: :func:`tp_size` / :func:`tp_index`
+  and the differentiable collectives over the model axis,
+  :func:`gather_seq` / :func:`scatter_seq` (an all-gather along the
+  sequence whose backward reduce-scatters, and the reverse: Megatron's
+  ``f`` and ``g`` under its sequence-parallel residual) and
+  :func:`reduce_from_model` (an all-reduce whose backward passes the
+  cotangent on).  Each captures its process group in its forward: a CUDA
+  backward (and ``maybe_remat``'s recompute with it) runs on autograd's
+  own thread, which does not see the caller's rules.
 
 A spec is a plain tuple whose entries equal the reference's
 ``PartitionSpec``'s: an axis name, a tuple of names, or None.  A tuple
@@ -319,14 +329,13 @@ class Sharding:
             out.append(n // k)
         return tuple(out)
 
-    def local(self, x: torch.Tensor, skip: Sequence[str] = ()) -> torch.Tensor:
+    def local(self, x: torch.Tensor) -> torch.Tensor:
         """This rank's shard of the full tensor ``x`` (a copy; ``x``
-        itself when nothing splits).  Dims split over an axis in ``skip``
-        are left as they are."""
+        itself when nothing splits)."""
         sizes = mesh_axes(self.mesh)
         out = x
         for d, ax in enumerate(self.parts(x.ndim)):
-            if not ax or set(ax) & set(skip):
+            if not ax:
                 continue
             k = math.prod(sizes[a] for a in ax)
             if x.shape[d] % k:
@@ -345,28 +354,66 @@ class Sharding:
                                 axis_size(self.mesh, ax))
         return x
 
+    def without(self, axes: Sequence[str]) -> "Sharding":
+        """This layout with the mesh ``axes`` dropped from every dim: the
+        layout of a shard that is already local along them."""
+        parts = []
+        for e in self.spec:
+            ax = tuple(a for a in _axes(e) if a not in axes)
+            parts.append(None if not ax else ax[0] if len(ax) == 1 else ax)
+        return Sharding(self.mesh, parts)
+
+    def reshard(self, x: torch.Tensor, target: "Sharding") -> torch.Tensor:
+        """This rank's shard ``x`` in this layout, cut to ``target``'s: a
+        dim split alike in both is left as it is, any other all-gathered
+        over this layout's axes and sliced to the target's."""
+        want = target.parts(x.ndim)
+        for d, ax in enumerate(self.parts(x.ndim)):
+            if ax == want[d]:
+                continue
+            if ax:
+                x = _all_gather(x, d, axis_group(self.mesh, ax),
+                                axis_size(self.mesh, ax))
+            x = Sharding(self.mesh, (None,) * d + (want[d] or None,)).local(x)
+        return x
+
     def sum_into(self, x: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
         """Each rank's full-shape term ``x``, summed over the ranks of the
-        mesh ``axes`` and returned in this layout: a reduce-scatter over
-        the axes that split a dim, an all-reduce over the rest of
-        ``axes``, and this rank's slice along the spec's other axes."""
+        mesh ``axes`` and returned in this layout: along a dim split over
+        some of ``axes``, this rank's block of the dim's other axes
+        reduce-scattered over those; an all-reduce over the rest of
+        ``axes``; this rank's slice along the spec's other axes."""
         import torch.distributed as dist
+        names = tuple(self.mesh.mesh_dim_names)
+        sizes = mesh_axes(self.mesh)
         x = x.contiguous()
         done = []
         for d, ax in enumerate(self.parts(x.ndim)):
-            red = tuple(a for a in ax if a in axes)
+            red = tuple(a for a in names if a in ax and a in axes)
             if not red:
                 continue
-            if red != ax:
-                raise NotImplementedError(
-                    f"dim {d} splits over {ax}, of which only {red} reduce")
-            x = _reduce_scatter(x, d, axis_group(self.mesh, red),
+            # the dim as a grid over its axes (the first the slowest): keep
+            # this rank's index along the axes that do not reduce, move the
+            # ones that do in front in the mesh's order, and reduce-scatter
+            n = x.shape[d]
+            k = math.prod(sizes[a] for a in ax)
+            if n % k:
+                raise ValueError(f"dim {n} does not split over {ax} ({k})")
+            g = x.reshape(*x.shape[:d], *(sizes[a] for a in ax), n // k,
+                          *x.shape[d + 1:])
+            for i in reversed(range(len(ax))):
+                if ax[i] not in red:
+                    g = g.narrow(d + i, axis_index(self.mesh, (ax[i],)), 1)
+            keep = [ax.index(a) for a in red]
+            g = g.movedim([d + i for i in keep], list(range(d, d + len(red))))
+            g = g.reshape(*x.shape[:d], -1, *x.shape[d + 1:])
+            x = _reduce_scatter(g, d, axis_group(self.mesh, red),
                                 axis_size(self.mesh, red))
-            done += red
-        rest = tuple(a for a in axes if a not in done)
+            done += ax
+        rest = tuple(a for a in names if a in axes and a not in done)
         if rest:
             dist.all_reduce(x, group=axis_group(self.mesh, rest))
-        return self.local(x, skip=tuple(axes))
+        return self.without(done).local(x)
 
 
 def place(tree, shardings):
@@ -399,18 +446,50 @@ def dp_index() -> int:
     return axis_index(rules.mesh, rules.batch_axes)
 
 
-class _GatherRows(torch.autograd.Function):
-    """All-gather along dim 0; its backward reduce-scatters (sums) the
-    cotangent back to each rank's rows."""
+class _Gather(torch.autograd.Function):
+    """All-gather along ``dim``; its backward reduce-scatters (sums) the
+    cotangent back to each rank's block."""
 
     @staticmethod
-    def forward(ctx, x, group, n):
-        ctx.group, ctx.n = group, n
-        return _all_gather(x, 0, group, n)
+    def forward(ctx, x, dim, group, n):
+        ctx.dim, ctx.group, ctx.n = dim, group, n
+        return _all_gather(x, dim, group, n)
 
     @staticmethod
     def backward(ctx, g):
-        return _reduce_scatter(g, 0, ctx.group, ctx.n), None, None
+        return _reduce_scatter(g, ctx.dim, ctx.group, ctx.n), None, None, None
+
+
+class _Scatter(torch.autograd.Function):
+    """Reduce-scatter (sum) along ``dim``; its backward all-gathers."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group, n):
+        ctx.dim, ctx.group, ctx.n = dim, group, n
+        return _reduce_scatter(x, dim, group, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, ctx.dim, ctx.group, ctx.n), None, None, None
+
+
+def _all_reduce(x: torch.Tensor, group, op=None) -> torch.Tensor:
+    import torch.distributed as dist
+    y = x.detach().clone()
+    dist.all_reduce(y, op=op or dist.ReduceOp.SUM, group=group)
+    return y
+
+
+class _Reduce(torch.autograd.Function):
+    """All-reduce (sum); its backward passes the cotangent on."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
 
 
 def dp_gather_rows(x: torch.Tensor) -> torch.Tensor:
@@ -421,8 +500,8 @@ def dp_gather_rows(x: torch.Tensor) -> torch.Tensor:
     if rules is None:
         return x
     axes = rules.batch_axes
-    return _GatherRows.apply(x, axis_group(rules.mesh, axes),
-                             axis_size(rules.mesh, axes))
+    return _Gather.apply(x, 0, axis_group(rules.mesh, axes),
+                         axis_size(rules.mesh, axes))
 
 
 def dp_sum(x: torch.Tensor) -> torch.Tensor:
@@ -432,7 +511,81 @@ def dp_sum(x: torch.Tensor) -> torch.Tensor:
     rules = current_rules()
     if rules is None:
         return x
-    import torch.distributed as dist
-    y = x.detach().clone()
-    dist.all_reduce(y, group=axis_group(rules.mesh, rules.batch_axes))
-    return y
+    return _all_reduce(x, axis_group(rules.mesh, rules.batch_axes))
+
+
+# ----------------------------------------------------------------------
+# tensor parallelism over the model axis (Megatron, sequence-parallel)
+#: the mesh axis that heads, mlp, vocab and experts split over
+MODEL = "model"
+
+
+def _model(rules: Optional[AxisRules]):
+    """(group, size) of the model axis under ``rules``, or None without
+    rules or without a model axis in their mesh."""
+    if rules is None or MODEL not in mesh_axes(rules.mesh):
+        return None
+    return axis_group(rules.mesh, (MODEL,)), axis_size(rules.mesh, (MODEL,))
+
+
+def model_group():
+    """The process group of the model axis, or None (no rules, or no
+    model axis in their mesh)."""
+    m = _model(current_rules())
+    return None if m is None else m[0]
+
+
+def tp_size() -> int:
+    """The number of tensor-parallel ranks (1 without rules)."""
+    m = _model(current_rules())
+    return 1 if m is None else m[1]
+
+
+def tp_index() -> int:
+    """This rank's index over the model axis (0 without rules)."""
+    rules = current_rules()
+    return 0 if _model(rules) is None else axis_index(rules.mesh, (MODEL,))
+
+
+def reduce_from_model(x: torch.Tensor) -> torch.Tensor:
+    """Megatron's ``g``: the model ranks' partial ``x`` summed; its
+    gradient passed on as it is (each rank's is already whole)."""
+    m = _model(current_rules())
+    return x if m is None else _Reduce.apply(x, m[0])
+
+
+def gather_seq(x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+    """The whole sequence from each model rank's block of it (the
+    sequence-parallel residual entering a column-parallel product); the
+    gradient reduce-scattered back to each rank's block."""
+    m = _model(current_rules())
+    return x if m is None else _Gather.apply(x, dim, *m)
+
+
+def scatter_seq(x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+    """The model ranks' partial sums of a whole sequence (a row-parallel
+    product's output), summed and split along the sequence into each
+    rank's block; the gradient all-gathered."""
+    m = _model(current_rules())
+    return x if m is None else _Scatter.apply(x, dim, *m)
+
+
+class _ScaleGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, c):
+        ctx.c = c
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.c, None
+
+
+def replicated_term(x: torch.Tensor) -> torch.Tensor:
+    """``x``, a loss term every model rank computes in full from the same
+    replicated inputs (the MoE aux loss), with its gradient divided by
+    the model ranks: the collectives' backward sums the ranks' gradients
+    of the replicated inputs, which would count it once a rank.  ``x``
+    itself with one model rank."""
+    n = tp_size()
+    return x if n == 1 else _ScaleGrad.apply(x, 1.0 / n)

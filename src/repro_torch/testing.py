@@ -494,6 +494,28 @@ def train_step_parity(cfg, tcfg, device: DeviceLike, B: int = 2,
     return out
 
 
+def tp_grad_parity(cfg, rules, device: DeviceLike, B: int = 2, S: int = 32,
+                   seed: int = 0) -> dict:
+    """On a one-rank mesh with a ``model`` axis: the loss and gradients
+    of ``train_forward`` under ``rules`` (the tensor-parallel path: the
+    sequence-split residual, the vocab-parallel loss, the collectives
+    over the model axis) against those without rules, from the same
+    parameters and batch on ``device``; each gradient leaf held by
+    :func:`train_grads_drift`.  Returns the drifts: ``loss`` (relative)
+    and ``grads``."""
+    from repro_torch.models import model as M
+    from repro_torch.parallel.sharding import axis_rules
+    from repro_torch.training.train_step import value_and_grad
+    params = M.init_params(cfg, torch.Generator().manual_seed(seed), device)
+    batch = {k: v.to(device) for k, v in train_batch(cfg, B, S, seed).items()}
+    with axis_rules(rules):
+        loss_t, met_t, g_t = value_and_grad(cfg, params, batch)
+    loss, met, g = value_and_grad(cfg, params, batch)
+    assert float(met_t["tokens"]) == float(met["tokens"])
+    return {"grads": train_grads_drift(cfg, g_t, g),
+            "loss": abs(float(loss_t) - float(loss)) / abs(float(loss))}
+
+
 #: the sharded step's master, m and v are held to the single-device
 #: step's within this share of each leaf's largest value
 STATE_TOL = 1e-6
@@ -512,89 +534,144 @@ def _param_ulps(a: torch.Tensor, b: torch.Tensor) -> float:
     return float(((a - b).abs() / room).max()) if b.numel() else 0.0
 
 
-def _state_drift(got: dict, want: dict) -> dict:
-    """Per kind, the largest difference of ``got``'s train state from
-    ``want``'s: ``master``, ``m`` and ``v`` over each leaf's largest
-    value, ``params`` as :func:`_param_ulps` gives it."""
-    from repro_torch.tree import leaves
-    out = {}
-    for name in ("master", "m", "v"):
-        worst = 0.0
-        for a, b in zip(leaves(got["opt"][name]), leaves(want["opt"][name])):
-            a, b = a.float(), b.float()
-            if a.numel():
-                worst = max(worst, float((a - b).abs().max()
-                                         / b.abs().max().clamp_min(1e-30)))
-        out[name] = worst
-    out["params"] = max(_param_ulps(a, b) for a, b in zip(
-        leaves(got["params"]), leaves(want["params"])))
-    return out
+def _state_drift(got: dict, want: dict, shardings: dict) -> tuple:
+    """Per kind, the largest difference of ``got``'s train state (this
+    rank's shards in ``shardings``' layouts, gathered one leaf at a time
+    so no second whole state is held) from ``want``'s: ``master``, ``m``
+    and ``v`` over each leaf's largest value, ``params`` as
+    :func:`_param_ulps` gives it; and whether every leaf is equal bit for
+    bit."""
+    from repro_torch.tree import leaves, leaves_with_path
+    out = {"master": 0.0, "m": 0.0, "v": 0.0, "params": 0.0}
+    exact = True
+    for (path, x), s, y in zip(leaves_with_path(got), leaves(shardings),
+                               leaves(want)):
+        x = s.gather(x)
+        exact &= torch.equal(x, y)
+        kind = path[1] if path[0] == "opt" else path[0]
+        if kind == "step":
+            continue
+        if kind == "params":
+            e = _param_ulps(x, y)
+        elif x.numel():
+            x, y = x.float(), y.float()
+            e = float((x - y).abs().max() / y.abs().max().clamp_min(1e-30))
+        else:
+            e = 0.0
+        out[kind] = max(out[kind], e)
+    return out, exact
 
 
 def sharded_step_parity(cfg, tcfg, rules, state: dict, batch: dict,
                         steps: int = 2) -> list:
-    """``steps`` steps of the data-parallel step under ``rules`` on one
-    rank beside the single-device step, each from its own copy of
-    ``state`` (whole leaves) on the same global ``batch``.
+    """``steps`` steps of the sharded step under ``rules`` beside the
+    single-device step on the same global ``batch``; every rank of the
+    mesh calls it.  The single-device step takes ``state`` (whole leaves)
+    itself and writes it in place; the sharded step takes this rank's
+    shards of it, so two states are held.
 
     The gradients are computed once, by the single-device step, and
-    handed to the sharded step as they are (on the card the embedding's
-    and the kernels' atomic sums make two backward passes differ in
-    their last bits), so what differs is the step's own logic: the
-    microbatch split, the params' gather, the optimizer's layout and
-    collectives, the norm and the write-back; on one rank each
-    collective is the identity, and the state comes out bit for bit.
-    The sharded step's forward runs all the same, to compare its loss.
-    Returns, a dict a step: ``drift``, the sharded state's from the
-    single-device one (:func:`_state_drift`: ``master``, ``m`` and ``v``
-    are held to STATE_TOL, ``params`` to 1); ``exact``, whether the two
-    states are equal bit for bit; ``batch_equal`` and ``params_equal``, whether
-    every microbatch the sharded step took, and the params it took them
-    with, equal the single-device step's bit for bit; ``loss_equal``,
-    whether its forward's loss and token counts equal the single-device
-    step's bit for bit."""
+    handed to the sharded step (on the card the embedding's and the
+    kernels' atomic sums make two backward passes differ in their last
+    bits): each rank takes its block of a leaf split over the model axis
+    and the whole of the others, on the first data-parallel rank (and,
+    for a leaf replicated over the model axis, the first model rank)
+    only, zeros on the rest, so the step's sums over the ranks give them
+    back exactly.  What differs is the step's own logic: the microbatch
+    split, the params' gather, the optimizer's layout and collectives,
+    the norm and the write-back; on one rank each collective is the
+    identity, and the state comes out bit for bit (on more, the clip's
+    norm sums the shards in another order).  The sharded step's forward
+    runs all the same, to compare its loss.  Returns, a dict a step:
+    ``drift``, the sharded state's from the single-device one
+    (:func:`_state_drift`: ``master``, ``m`` and ``v`` are held to
+    STATE_TOL, ``params`` to 1); ``exact``, whether the two states are
+    equal bit for bit; ``batch_equal`` and ``params_equal``, whether
+    every microbatch the sharded step took (this rank's rows), and the
+    params it took them with (this rank's blocks), equal the
+    single-device step's bit for bit; ``loss_equal``, whether its
+    forward's loss, summed over the data-parallel ranks, and token counts
+    equal the single-device step's bit for bit, and ``loss_drift``, the
+    loss's relative difference."""
     from repro_torch.models import model as M
-    from repro_torch.parallel.sharding import gather, place
+    from repro_torch.parallel.sharding import (MODEL, axis_index,
+                                               axis_size, dp_sum)
     from repro_torch.training.train_step import (make_train_step,
                                                  state_shardings,
                                                  value_and_grad)
     from repro_torch.tree import leaves, tree_map, unflatten
     sh = state_shardings(cfg, rules)
-    first = tree_map(lambda x: x.clone(), state)
-    dp_state = place(tree_map(lambda x: x.clone(), state), sh)
+    p_sh, dp_axes = sh["params"], rules.batch_axes
+    mesh = rules.mesh
+    dp, dp_r = axis_size(mesh, dp_axes), axis_index(mesh, dp_axes)
+    tp_r = axis_index(mesh, (MODEL,)) if MODEL in mesh.mesh_dim_names \
+        else 0
+
+    def own(x, s):
+        y = s.local(x)
+        return y.clone() if y is x else y
+
+    def blocks(tree):
+        """This rank's blocks of the model-split leaves of ``tree``."""
+        return tree_map(lambda x, s: s.without(dp_axes).local(x), tree,
+                        p_sh)
+
+    def hand(g, s):
+        lead = dp_r == 0 and (MODEL in s.axes() or tp_r == 0)
+        g = own(g, s.without(dp_axes))
+        return g if lead else torch.zeros_like(g)
+
+    dp_state = tree_map(own, state, sh)
+    first = state
     recorded, seen = [], {}
 
     def record(cfg, params, mb):
         out = value_and_grad(cfg, params, mb)
-        recorded.append((mb, tree_map(lambda x: x.clone(), params), out))
+        # one copy of the params a step: its microbatches share them
+        if seen.get("params_of") is not params:
+            seen["params_of"] = params
+            seen["params_copy"] = tree_map(lambda x: x.clone(), params)
+        recorded.append((mb, seen["params_copy"], out))
         return out
 
     def replay(cfg, params, mb):
         want_mb, want_params, (loss, metrics, grads) = recorded.pop(0)
-        seen["batch"] &= all(torch.equal(mb[k], want_mb[k]) for k in mb)
+        per = next(iter(want_mb.values())).shape[0] // dp
+        seen["batch"] &= all(torch.equal(
+            mb[k], want_mb[k].narrow(0, dp_r * per, per)) for k in mb)
         seen["params"] &= all(torch.equal(a, b) for a, b in zip(
-            leaves(params), leaves(want_params)))
+            leaves(params), leaves(blocks(want_params))))
         xs = [p.detach().requires_grad_() for p in leaves(params)]
         with torch.enable_grad():
             got, got_metrics = M.train_forward(unflatten(params, xs), cfg, mb)
-        seen["loss"] &= torch.equal(got.detach(), loss) and torch.equal(
+        got = dp_sum(got.detach())
+        seen["loss"] &= torch.equal(got, loss) and torch.equal(
             got_metrics["tokens"], metrics["tokens"])
+        seen["loss_drift"] = max(seen["loss_drift"], float(
+            (got - loss).abs() / loss.abs().clamp_min(1e-30)))
         del xs, got, got_metrics
-        return loss, metrics, tree_map(lambda g: g.clone(), grads)
+
+        def first_rank(v):
+            return v if dp_r == 0 else torch.zeros_like(v)
+
+        return (first_rank(loss),
+                {k: v if k == "tokens" else first_rank(v)
+                 for k, v in metrics.items()},
+                tree_map(hand, grads, p_sh))
 
     plain = make_train_step(cfg, tcfg, grad_fn=record)
     sharded = make_train_step(cfg, tcfg, rules, grad_fn=replay)
     out = []
     for _ in range(steps):
-        seen.update(batch=True, params=True, loss=True)
+        seen.update(batch=True, params=True, loss=True, loss_drift=0.0)
         first, _ = plain(first, batch)
         dp_state, _ = sharded(dp_state, batch)
         assert not recorded
-        whole = gather(dp_state, sh)
-        out.append({"drift": _state_drift(whole, first),
-                    "exact": all(torch.equal(a, b) for a, b in zip(
-                        leaves(whole), leaves(first))),
+        seen.pop("params_of"), seen.pop("params_copy")
+        drift, exact = _state_drift(dp_state, first, sh)
+        out.append({"drift": drift, "exact": exact,
                     "batch_equal": seen["batch"],
                     "params_equal": seen["params"],
-                    "loss_equal": seen["loss"]})
+                    "loss_equal": seen["loss"],
+                    "loss_drift": seen["loss_drift"]})
     return out

@@ -31,7 +31,8 @@ calls it with the same *global* batch:
   data`` under FSDP), master / m / v with ``embed -> opt_embed`` (ZeRO-1);
   :func:`make_train_state` places a new state, and
   ``parallel.sharding.gather`` gathers one back;
-- the params are all-gathered for the forward and backward;
+- the params are all-gathered over the data-parallel axes for the forward
+  and backward;
 - microbatches are split from the global batch first and then over the
   data-parallel ranks, as the reference reshapes the global batch to
   ``(n, B/n, ...)`` and shards each microbatch: rank ``r`` takes rows
@@ -41,7 +42,8 @@ calls it with the same *global* batch:
   add up to the global gradient;
 - each microbatch's f32 gradients are reduce-scattered into the
   optimizer's layout and all-reduced over the other data-parallel axes
-  (``pod``), as the reference's ``c_opt`` places them;
+  (``pod``), and over ``model`` where the leaf is replicated there, as
+  the reference's ``c_opt`` places them;
 - AdamW updates the local shard (the clip's norm global), and the params
   keep their shard under FSDP or are all-gathered from the new master
   (ZeRO-1).
@@ -51,9 +53,23 @@ collective above is the identity.
 
 The metrics are the reference's and the same on every rank: ``loss``,
 ``aux_loss`` and ``tokens`` of the last microbatch, ``total_loss`` the
-mean, ``grad_norm`` and ``lr``, each of the global batch.  A ``model``
-axis above 1 is tensor parallelism, which the port has not yet (ROADMAP
-Queue 1 item 9's second half): it raises ``NotImplementedError``.
+mean, ``grad_norm`` and ``lr``, each of the global batch.
+
+The ``model`` axis is tensor parallelism (Megatron's, with the
+sequence-parallel residual), for the decoder-only families without MLA
+(``dense``, ``vlm``, ``moe``): a leaf whose layout splits a dim over
+``model`` (heads, mlp, vocab, experts) stays this rank's block, the
+models compute on their blocks with explicit collectives over the model
+axis (``models.model._dec_layer``), and the params are gathered over the
+data-parallel axes only.  A leaf replicated over ``model`` has a partial
+gradient on each model rank (the norms under the sequence split, the kv
+projections that each rank slices to its q heads' kv heads, the router's
+combine part; the aux loss enters each rank's backward at ``1 / tp``,
+``parallel.sharding.replicated_term``), so it is summed over the model
+axis with the data-parallel ones.  With a model axis above 1 the other
+families and MLA raise ``NotImplementedError`` (ROADMAP Queue 1 item 9,
+step 1b), and a config whose model-split dims do not divide the axis
+(resolve it with ``tp``) ``ValueError``.
 
 ``tcfg.grad_compression`` raises ``NotImplementedError``: the
 reference's step never reads the flag (its int8 all-reduce,
@@ -68,11 +84,12 @@ import torch
 
 from repro_torch.models import model as M
 from repro_torch.optim.adamw import adamw_init, adamw_update
-from repro_torch.parallel.sharding import (AxisRules, Sharding, axis_index,
-                                           axis_rules, axis_size, dp_sum,
-                                           gather, map_logical, mesh_axes,
-                                           place)
-from repro_torch.tree import leaves, tree_map, unflatten
+from repro_torch.parallel.sharding import (MODEL, AxisRules, Sharding,
+                                           axis_index, axis_rules, axis_size,
+                                           dp_sum, gather, map_logical,
+                                           mesh_axes, place)
+from repro_torch.tree import (keystr, leaves, leaves_with_path, tree_map,
+                              unflatten)
 
 
 def state_shardings(cfg, rules: AxisRules) -> dict:
@@ -124,16 +141,33 @@ def value_and_grad(cfg, params, batch):
     return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
 
-def _check_rules(rules: AxisRules) -> None:
+#: where tensor parallelism goes next (the refusals name it)
+TP_NEXT = "ROADMAP Queue 1 item 9, step 1b"
+
+
+def _check_rules(cfg, rules: AxisRules) -> None:
     sizes = mesh_axes(rules.mesh)
-    if sizes.get("model", 1) > 1:
-        raise NotImplementedError(
-            f"a 'model' axis of {sizes['model']} is tensor parallelism, "
-            f"which the port has not yet (ROADMAP Queue 1 item 9's second "
-            f"half); use a mesh whose model axis is 1")
-    if set(sizes) - {"pod", "data", "model"}:
+    if set(sizes) - {"pod", "data", MODEL}:
         raise ValueError(f"the train step takes a (pod,) data, model mesh, "
                          f"not {tuple(sizes)}")
+    tp = sizes.get(MODEL, 1)
+    if tp == 1:
+        return
+    if cfg.family not in M.DEC_FAMILIES or cfg.mla is not None:
+        what = "MLA" if cfg.mla is not None else f"the {cfg.family!r} family"
+        raise NotImplementedError(
+            f"a 'model' axis of {tp} is tensor parallelism, which the port "
+            f"has for the dense, vlm and moe families without MLA; "
+            f"{what} ({cfg.name}) is {TP_NEXT}")
+    sh = state_shardings(cfg, rules)["params"]
+    split = map_logical(
+        lambda axes, s: any(rules.physical(a) == MODEL for a in axes if a)
+        and MODEL not in s.axes(), M.params_logical(cfg), sh)
+    bad = [keystr(p) for p, x in leaves_with_path(split) if x]
+    if bad:
+        raise ValueError(
+            f"{cfg.name}: {', '.join(bad)} do not split over a model axis "
+            f"of {tp}; resolve the config with tp={tp}")
 
 
 def make_train_step(cfg, tcfg, rules: Optional[AxisRules] = None,
@@ -152,9 +186,20 @@ def make_train_step(cfg, tcfg, rules: Optional[AxisRules] = None,
     n = max(tcfg.microbatches, 1)
     p_sh = o_sh = None
     if rules is not None:
-        _check_rules(rules)
+        _check_rules(cfg, rules)
         sh = state_shardings(cfg, rules)
         p_sh, o_sh = sh["params"], sh["opt"]["master"]
+        # the params are gathered over the data-parallel axes only (a
+        # model-split dim stays this rank's block), and each gradient is
+        # summed over them and, where the leaf is replicated over the
+        # model axis (its gradient partial on each model rank), over it
+        g_sh = tree_map(lambda s: s.without((MODEL,)), p_sh)
+        with_model = tuple(a for a in rules.mesh.mesh_dim_names
+                           if a in rules.batch_axes or a == MODEL)
+
+        def reduce(g, s):
+            axes = rules.batch_axes if MODEL in s.axes() else with_model
+            return s.without((MODEL,)).sum_into(g, axes)
 
     def rows(batch, i, dp, r):
         out = {}
@@ -171,12 +216,11 @@ def make_train_step(cfg, tcfg, rules: Optional[AxisRules] = None,
     def to_opt(grads):
         """One microbatch's gradients in the optimizer's layout: as they
         are for one microbatch on one device, else in f32 (and under
-        rules summed over the data-parallel ranks)."""
+        rules summed over the ranks, ``reduce``)."""
         if rules is None:
             return grads if n == 1 else tree_map(
                 lambda g: g.to(torch.float32), grads)
-        return tree_map(lambda g, s: s.sum_into(g.to(torch.float32),
-                                                rules.batch_axes),
+        return tree_map(lambda g, s: reduce(g.to(torch.float32), s),
                         grads, o_sh)
 
     def train_step(state, batch):
@@ -185,7 +229,7 @@ def make_train_step(cfg, tcfg, rules: Optional[AxisRules] = None,
         else:
             dp = axis_size(rules.mesh, rules.batch_axes)
             r = axis_index(rules.mesh, rules.batch_axes)
-            params = gather(state["params"], p_sh)
+            params = gather(state["params"], g_sh)
         acc, loss_sum = None, 0.0
         for i in range(n):
             with axis_rules(rules):

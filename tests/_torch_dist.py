@@ -10,6 +10,8 @@ import dataclasses
 import json
 import math
 import os
+import subprocess
+import sys
 import threading
 
 import numpy as np
@@ -23,11 +25,13 @@ from repro_torch.models import model as M
 from repro_torch.optim.compression import make_compressed_allreduce
 from repro_torch.parallel.pipeline import pipeline_apply
 from repro_torch.parallel.sharding import (Sharding, axis_index,
-                                           axis_rules, gather, make_rules)
+                                           axis_rules, axis_size, gather,
+                                           make_rules)
 from repro_torch.training.train_step import (make_train_state,
                                              make_train_step,
                                              state_shardings, value_and_grad)
-from repro_torch.tree import keystr, leaves, leaves_with_path, unflatten
+from repro_torch.tree import (keystr, leaves, leaves_with_path, tree_map,
+                              unflatten)
 
 #: the global batch of the step cases: 8 rows (one a rank and microbatch
 #: on four data-parallel ranks with two microbatches) of 16 tokens
@@ -39,13 +43,14 @@ STEP_TRAIN = dict(learning_rate=1e-3, warmup_steps=1)
 GROUPS = "+groups"
 
 
-def step_config(arch: str, dp: int):
-    """The f32 smoke config of a step case, resolved for ``dp``."""
+def step_config(arch: str, dp: int, tp: int = 1):
+    """The f32 smoke config of a step case, resolved for ``tp`` and
+    ``dp``."""
     cfg = get_config(arch.removesuffix(GROUPS), smoke=True)
     if arch.endswith(GROUPS):
         cfg = dataclasses.replace(
             cfg, moe=dataclasses.replace(cfg.moe, num_groups=0))
-    return dataclasses.replace(cfg, dtype="float32").resolve(tp=1, dp=dp)
+    return dataclasses.replace(cfg, dtype="float32").resolve(tp=tp, dp=dp)
 
 
 def _join(rank: int, world: int, store: str) -> None:
@@ -54,11 +59,12 @@ def _join(rank: int, world: int, store: str) -> None:
                             rank=rank, world_size=world)
 
 
-def step_batch(cfg, seed: int = 0) -> dict:
-    """The global batch: tokens and labels, for ``vlm`` vision embeds and
-    a loss mask that keeps a different share of each row."""
+def step_batch(cfg, seed: int = 0, S: int = STEP_S) -> dict:
+    """The global batch of STEP_B rows of ``S`` tokens: tokens and
+    labels, for ``vlm`` vision embeds and a loss mask that keeps a
+    different share of each row."""
     rng = np.random.default_rng(seed)
-    toks = rng.integers(0, cfg.vocab_size, (STEP_B, STEP_S + 1))
+    toks = rng.integers(0, cfg.vocab_size, (STEP_B, S + 1))
     batch = {"tokens": torch.as_tensor(toks[:, :-1], dtype=torch.int32),
              "labels": torch.as_tensor(toks[:, 1:], dtype=torch.int32)}
     if cfg.family == "vlm":
@@ -68,7 +74,7 @@ def step_batch(cfg, seed: int = 0) -> dict:
             dtype=torch.float32)
         keep = np.linspace(0.1, 0.9, STEP_B)[:, None]
         batch["loss_mask"] = torch.as_tensor(
-            rng.random((STEP_B, STEP_S)) < keep, dtype=torch.float32)
+            rng.random((STEP_B, S)) < keep, dtype=torch.float32)
     return batch
 
 
@@ -236,5 +242,497 @@ def remat_backward(rank, world, store, out_dir, archs):
                                      / b.abs().max().clamp_min(1e-30)))
         out[arch] = {"drift": worst}
     with open(os.path.join(out_dir, f"remat{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+
+
+# ----------------------------------------------------------------------
+# tensor parallelism over the model axis
+def _record_kernel_shapes() -> dict:
+    """Wrap the models' flash attention and ``gmm`` to record the shapes
+    each is called with on this rank: {"flash": {(q, k)}, "gmm": {(x,
+    w)}}."""
+    from repro_torch.models import attention as A, moe
+    seen = {"flash": set(), "gmm": set(), "on": False}
+    flash, gmm = A.flash_attention, moe.gmm
+
+    def rec_flash(q, k, v, **kw):
+        if seen["on"]:
+            seen["flash"].add((tuple(q.shape), tuple(k.shape)))
+        return flash(q, k, v, **kw)
+
+    def rec_gmm(x, w):
+        if seen["on"]:
+            seen["gmm"].add((tuple(x.shape), tuple(w.shape)))
+        return gmm(x, w)
+
+    A.flash_attention, moe.gmm = rec_flash, rec_gmm
+    return seen
+
+
+def _recording(seen: dict, fn):
+    """``fn`` with the shapes recorded only while it runs."""
+    def run(*args):
+        seen["on"] = True
+        try:
+            return fn(*args)
+        finally:
+            seen["on"] = False
+    return run
+
+
+def tp_step_cases(rank, world, store, shape, axes, cases, out_dir):
+    """``_tp_cases`` on a mesh of ``shape`` named ``axes``; every rank
+    writes its report (``rank<r>.json``)."""
+    _join(rank, world, store)
+    mesh = make_mesh(shape, axes, "cpu")
+    report = _tp_cases(rank, mesh, cases, out_dir)
+    if math.prod(shape[:-1]) == 1:
+        report["aux piece"] = _aux_piece(mesh)
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(report, f)
+    dist.destroy_process_group()
+
+
+def _aux_piece(mesh) -> dict:
+    """On a (1, tp) data x model mesh: the MoE layer's aux loss alone, its
+    input gathered from each model rank's block of the sequence
+    (``gather_seq``), against the unsplit layer's.  Returns the largest
+    differences, over the unsplit gradient's largest, of the router's
+    gradient summed over the model ranks (a replicated leaf's, as the
+    step sums it) and of this rank's block of the input's gradient.
+    Every model rank computes the aux loss in full, so each must enter
+    the backward at 1 / tp (``parallel.sharding.replicated_term``); at 1
+    the sums would count it tp times."""
+    from repro_torch.models.moe import init_moe, moe_ffn
+    from repro_torch.parallel.sharding import gather_seq
+    tp = mesh.shape[-1]
+    rules = make_rules(mesh, mode="train", fsdp=False)
+    cfg = step_config("qwen3-moe-30b-a3b", 1, tp)
+    p = init_moe(cfg, torch.Generator().manual_seed(3), "cpu")
+    x = torch.randn((2, 8, cfg.d_model),
+                    generator=torch.Generator().manual_seed(4))
+    r = axis_index(mesh, ("model",))
+    El, Sl = cfg.moe.num_experts // tp, x.shape[1] // tp
+    grads = {}
+    for split in (False, True):
+        q = {k: (v if k == "router" or not split
+                 else v[r * El:(r + 1) * El]).clone().requires_grad_()
+             for k, v in p.items()}
+        xb = (x[:, r * Sl:(r + 1) * Sl] if split else x).clone() \
+            .requires_grad_()
+        with axis_rules(rules if split else None):
+            aux = moe_ffn(q, cfg, gather_seq(xb))[1]
+        aux.backward()
+        grads[split] = (q["router"].grad, xb.grad)
+    (rw, xw), (rg, xg) = grads[False], grads[True]
+    dist.all_reduce(rg)
+    return {"router grad": _rel(rg, rw),
+            "input grad": _rel(xg, xw[:, r * Sl:(r + 1) * Sl])}
+
+
+def _tp_cases(rank, mesh, cases, out_dir) -> dict:
+    """For each (arch, fsdp, microbatches, steps, S): ``steps`` steps of
+    the step on ``mesh`` (``step_batch`` of S tokens a row), its config
+    resolved for the mesh's model and data-parallel sizes.  Before the
+    first step, rank 0 holds the gradients of one microbatch on the mesh
+    against the single-device ones at the same params; before each step
+    it gathers the state and runs the single-device step of that config
+    on the global batch from it, and holds the step on the mesh to it
+    (:func:`_state_drift`; master and params on the elements whose
+    gradient, the step's, stayed above 1e-3 of the leaf's largest at
+    every step so far).  Returns, a case: the gradients' and each
+    step's drift (rank 0), every rank's metrics (rank 0's beside the
+    single-device step's), its leaves' local shapes and the shapes its
+    flash attention and ``gmm`` calls took."""
+    seen = _record_kernel_shapes()
+    axes = tuple(mesh.mesh_dim_names)
+    sizes = dict(zip(axes, mesh.shape))
+    dp_axes = tuple(a for a in axes if a != "model")
+    dp = math.prod(sizes[a] for a in dp_axes)
+    report = {}
+    for arch, fsdp, nmb, steps, S in cases:
+        name = f"{arch}-{'fsdp' if fsdp else 'zero1'}-mb{nmb}"
+        cfg = step_config(arch, dp, sizes["model"])
+        tcfg = TrainConfig(microbatches=nmb, **STEP_TRAIN)
+        rules = make_rules(mesh, mode="train", fsdp=fsdp, zero1=True,
+                           dp_axes=dp_axes)
+        sh = state_shardings(cfg, rules)
+        state = make_train_state(cfg, tcfg,
+                                 torch.Generator().manual_seed(0), "cpu",
+                                 rules=rules)
+        shapes = {keystr(p): list(x.shape)
+                  for p, x in leaves_with_path(state)}
+        batch = step_batch(cfg, S=S)
+        sharded = _recording(seen, make_train_step(cfg, tcfg, rules))
+        plain = make_train_step(cfg, tcfg)
+        seen["flash"].clear()
+        seen["gmm"].clear()
+        rep = {"shapes": shapes, "metrics": [], "drift": []}
+        rep["grads"] = _grad_drift(cfg, rules, state, sh, batch, rank)
+        for _ in range(steps):
+            # a copy: a leaf no rank splits is gathered as itself, and
+            # both steps write their state in place
+            whole = tree_map(torch.clone, gather(state, sh))
+            state, m1 = sharded(state, batch)
+            row = {k: [None, float(v)] for k, v in m1.items()}
+            after = gather(state, sh)
+            if rank == 0:
+                big = [x.abs() > 1e-3 * x.abs().max()
+                       for x in _step_grads(cfg, whole, batch, nmb)]
+                keep = big if not rep["drift"] else [
+                    a & b for a, b in zip(keep, big)]
+                ref, m0 = plain(whole, batch)
+                for k in row:
+                    row[k][0] = float(m0[k])
+                rep["drift"].append(_state_drift(after, ref, keep))
+            rep["metrics"].append(row)
+        rep["kernels"] = {k: sorted(seen[k]) for k in ("flash", "gmm")}
+        report[name] = rep
+    return report
+
+
+def _grad_drift(cfg, rules, state, sh, batch, rank):
+    """Rank 0: the largest difference of one microbatch's gradient on the
+    mesh (this rank's rows; each leaf summed over the data-parallel ranks
+    and, replicated over ``model``, over it, or gathered over it) from
+    the single-device gradient of the global batch at the same params,
+    over the leaf's largest: {leaf: drift}."""
+    from repro_torch.parallel.sharding import MODEL, axis_group
+    p_sh = sh["params"]
+    params = gather(state["params"], p_sh)
+    dp_axes = rules.batch_axes
+    per = STEP_B // axis_size(rules.mesh, dp_axes)
+    r = axis_index(rules.mesh, dp_axes)
+    mb = {k: v.narrow(0, r * per, per) for k, v in batch.items()}
+    mine = tree_map(lambda x, s: s.without(dp_axes).local(x), params, p_sh)
+    with axis_rules(rules):
+        g = value_and_grad(cfg, mine, mb)[2]
+    want = value_and_grad(cfg, params, batch)[2]
+    out = {}
+    for (p, x), s, w in zip(leaves_with_path(g), leaves(p_sh),
+                            leaves(want)):
+        if MODEL in s.axes():
+            x = s.without(dp_axes).gather(x)
+            dist.all_reduce(x, group=axis_group(rules.mesh, dp_axes))
+        else:
+            dist.all_reduce(x)
+        out[keystr(p)] = _rel(x, w)
+    return out if rank == 0 else {}
+
+
+def _state_drift(got: dict, want: dict, keep: list) -> dict:
+    """Per kind, the largest difference of ``got``'s train state from
+    ``want``'s over each leaf's largest value, with the leaf: ``m`` and
+    ``v`` over every element, ``master`` and ``params`` over the
+    elements in ``keep`` (each leaf's)."""
+    out = {}
+    for kind in ("m", "v", "master", "params"):
+        a = got["params"] if kind == "params" else got["opt"][kind]
+        b = want["params"] if kind == "params" else want["opt"][kind]
+        worst = (0.0, "")
+        for (p, x), y, k in zip(leaves_with_path(a), leaves(b), keep):
+            if kind in ("master", "params"):
+                x, y = x[k], y[k]
+            if x.numel():
+                worst = max(worst, (_rel(x.float(), y.float()), keystr(p)))
+        out[kind] = worst
+    return out
+
+
+def _step_grads(cfg, state, batch, n: int):
+    """The gradient the single-device step takes: the mean of its ``n``
+    microbatches' (a loss mask weighs each microbatch's mean by its own
+    count, so this is not the whole batch's gradient)."""
+    B = next(iter(batch.values())).shape[0]
+    acc = None
+    for i in range(n):
+        mb = {k: v.narrow(0, i * (B // n), B // n) for k, v in batch.items()}
+        g = value_and_grad(cfg, state["params"], mb)[2]
+        acc = g if acc is None else [a + b for a, b in zip(leaves(acc),
+                                                           leaves(g))]
+    return [a / n for a in leaves(acc)]
+
+
+def tp_reference_case(rank, world, store, out_dir):
+    """Eight ranks, the reference's own multi-device case
+    (``tests/test_distributed.py::test_sharded_train_step_runs``):
+    deepseek-67b's smoke config resolved for tp 4, dp 2 on a (2, 4) data
+    x model mesh, FSDP, 2 microbatches, 8 x 32 tokens, four steps; in f32
+    on ``step_batch`` beside the single-device step (``_tp_cases``), and
+    as the reference runs it, bf16 on a batch of ones with the default
+    TrainConfig (its total loss a step)."""
+    _join(rank, world, store)
+    mesh = make_mesh((2, 4), ("data", "model"), "cpu")
+    report = _tp_cases(rank, mesh, [("deepseek-67b", True, 2, 4, 32)],
+                       out_dir)
+    cfg = get_config("deepseek-67b", smoke=True).resolve(tp=4, dp=2)
+    tcfg = TrainConfig(microbatches=2)
+    rules = make_rules(mesh, mode="train", fsdp=True, dp_axes=("data",))
+    state = make_train_state(cfg, tcfg, torch.Generator().manual_seed(0),
+                             "cpu", rules=rules)
+    step = make_train_step(cfg, tcfg, rules)
+    ones = torch.ones((8, 32), dtype=torch.int32)
+    losses = []
+    for _ in range(4):
+        state, m = step(state, {"tokens": ones, "labels": ones})
+        losses.append(float(m["total_loss"]))
+    report["bf16_ones"] = losses
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(report, f)
+    dist.destroy_process_group()
+
+
+#: the cases held against the reference's GSPMD step: the reference's own
+#: (2, 4) case (``tests/test_distributed.py``), and a padded-head config
+#: (qwen2-vl-7b's 4 q / 2 kv smoke heads pad to 8 at tp 8: a group of 4,
+#: not 2) with ZeRO-1
+REF_STEPS = {
+    "deepseek-67b-fsdp-mb2": dict(arch="deepseek-67b", mesh=(2, 4),
+                                  axes=("data", "model"), fsdp=True,
+                                  microbatches=2, steps=4, S=32),
+    "qwen2-vl-7b-zero1-mb1": dict(arch="qwen2-vl-7b", mesh=(1, 8),
+                                  axes=("data", "model"), fsdp=False,
+                                  microbatches=1, steps=2, S=16)}
+
+
+def start_reference_steps(ref_dir: str):
+    """Start the reference's steps of REF_STEPS in a child process with 8
+    host devices (``tests/_torch_reference_tp_steps.py``), each case
+    writing into ``ref_dir/<name>``, where its batch (``step_batch``) is
+    written first.  Returns (the process, the JSON its stdin takes)."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    reqs = []
+    for name, c in REF_STEPS.items():
+        out = os.path.join(ref_dir, name)
+        os.makedirs(out)
+        sizes = dict(zip(c["axes"], c["mesh"]))
+        cfg = step_config(c["arch"], sizes["data"], sizes["model"])
+        np.savez(os.path.join(out, "batch.npz"), **{
+            k: v.numpy() for k, v in step_batch(cfg, S=c["S"]).items()})
+        reqs.append({"arch": c["arch"], "mesh": c["mesh"], "axes": c["axes"],
+                     "fsdp": c["fsdp"], "steps": c["steps"],
+                     "train": dict(STEP_TRAIN,
+                                   microbatches=c["microbatches"]),
+                     "batch": os.path.join(out, "batch.npz"), "out": out})
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_force_host_platform_device_count=8",
+               PYTHONPATH=os.path.join(root, "src"))
+    p = subprocess.Popen(
+        [sys.executable, os.path.join(root, "tests",
+                                      "_torch_reference_tp_steps.py")],
+        stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, env=env, cwd=root)
+    return p, json.dumps(reqs)
+
+
+def tp_against_reference(rank, world, store, ref_dir, out_dir):
+    """Eight ranks: the port's step with a model axis against the
+    reference's GSPMD step for each case of REF_STEPS
+    (:func:`start_reference_steps` wrote the reference's states before
+    and after each of its steps into ``ref_dir/<name>``).  Every step starts from the reference's state before it (carried
+    across whole, each rank taking its shards) on ``step_batch``, the
+    batch the reference took; rank 0 gathers the state after it and holds
+    it to the reference's (:func:`_state_drift`, master and params on the
+    elements whose gradient, the port's single-device step's, stayed
+    above 1e-3 of the leaf's largest at every step so far).  Every rank
+    writes its metrics a step (``ref<r>.json``), rank 0 the drifts."""
+    _join(rank, world, store)
+    report = {}
+    for name, case in REF_STEPS.items():
+        ref = os.path.join(ref_dir, name)
+        shape, axes = tuple(case["mesh"]), tuple(case["axes"])
+        mesh = make_mesh(shape, axes, "cpu")
+        dp_axes = tuple(a for a in axes if a != "model")
+        dp = math.prod(n for a, n in zip(axes, shape) if a != "model")
+        cfg = step_config(case["arch"], dp, dict(zip(axes, shape))["model"])
+        nmb = case["microbatches"]
+        tcfg = TrainConfig(microbatches=nmb, **STEP_TRAIN)
+        rules = make_rules(mesh, mode="train", fsdp=case["fsdp"], zero1=True,
+                           dp_axes=dp_axes)
+        sh = state_shardings(cfg, rules)
+        template = make_train_state(cfg, tcfg,
+                                    torch.Generator().manual_seed(0), "cpu")
+
+        def load(k):
+            with np.load(os.path.join(ref, f"state{k}.npz")) as f:
+                return unflatten(template, [
+                    torch.from_numpy(f[keystr(p)].copy())
+                    for p, _ in leaves_with_path(template)])
+
+        batch = step_batch(cfg, S=case["S"])
+        step = make_train_step(cfg, tcfg, rules)
+        rep = {"metrics": [], "drift": []}
+        keep = None
+        for k in range(case["steps"]):
+            whole = load(k)
+            state = tree_map(lambda x, s: s.local(x).clone(), whole, sh)
+            state, m = step(state, batch)
+            rep["metrics"].append({n: float(v) for n, v in m.items()})
+            after = gather(state, sh)
+            if rank == 0:
+                big = [x.abs() > 1e-3 * x.abs().max()
+                       for x in _step_grads(cfg, whole, batch, nmb)]
+                keep = big if keep is None else [
+                    a & b for a, b in zip(keep, big)]
+                rep["drift"].append(_state_drift(after, load(k + 1), keep))
+        report[name] = rep
+    with open(os.path.join(out_dir, f"ref{rank}.json"), "w") as f:
+        json.dump(report, f)
+    dist.destroy_process_group()
+
+
+def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def _everyone(x: torch.Tensor) -> list:
+    """Every rank's ``x``, in rank order."""
+    out = [torch.empty_like(x) for _ in range(dist.get_world_size())]
+    dist.all_gather(out, x.contiguous())
+    return out
+
+
+def tp_pieces(rank, world, store, out_dir):
+    """Four ranks: the model-axis pieces against their unsplit forms.
+
+    On a (2, 2) data x model mesh: ``Sharding.sum_into`` with a dim split
+    over more axes than it reduces, ``Sharding.reshard``, the
+    differentiable collectives forward and backward, and ``global_norm``
+    over model-split, data-split and replicated leaves, and
+    ``testing.sharded_step_parity`` (the step on the single-device step's
+    gradients) at two smoke configs.  On a (1, 4)
+    mesh: the vocab-parallel embedding, logits and cross-entropy (a
+    vocabulary of 500 padded to 512, labels in every rank's block and in
+    the padded tail) with their gradients, and the refusal of a sequence
+    that does not split over the model ranks.  Writes each check's
+    largest relative difference (or the error message) to
+    ``pieces<r>.json``."""
+    from repro_torch.models import common as C
+    from repro_torch.optim.adamw import global_norm
+    from repro_torch.parallel import sharding as TS
+    _join(rank, world, store)
+    out = {}
+    g = torch.Generator().manual_seed(100 + rank)
+    mesh = make_mesh((2, 2), ("data", "model"), "cpu")
+    x = torch.randn((8, 6), generator=g)
+    every = torch.stack(_everyone(x))                         # (4, 8, 6)
+    d, m = axis_index(mesh, ("data",)), axis_index(mesh, ("model",))
+    for spec, red in (((("data", "model"),), ("data",)),
+                      ((("data", "model"),), ("model",)),
+                      ((("data", "model"),), ("data", "model")),
+                      (("data", "model"), ("model",)),
+                      ((None, "model"), ("data", "model"))):
+        sh = Sharding(mesh, spec)
+        # the sum over the ranks that differ from this one only in `red`
+        peers = [r for r in range(4)
+                 if all(("data", "model")[i] in red or (r // 2, r % 2)[i]
+                        == (d, m)[i] for i in range(2))]
+        want = sh.local(every[peers].sum(0))
+        out[f"sum_into {spec} over {red}"] = _rel(sh.sum_into(x, red), want)
+    same = every[0]                               # rank 0's, on every rank
+    for src, dst in (((("data", "model"),), ("data",)),
+                     (("data", None), (None, "model")),
+                     ((None, "model"), ("data", "model"))):
+        a, b = Sharding(mesh, src), Sharding(mesh, dst)
+        out[f"reshard {src} -> {dst}"] = float(
+            (a.reshard(a.local(same), b) - b.local(same)).abs().max())
+    tree = {"split": torch.randn((4, 6), generator=torch.Generator()
+                                 .manual_seed(1)),
+            "rep": torch.randn((5,), generator=torch.Generator()
+                               .manual_seed(2)),
+            "both": torch.randn((8, 2), generator=torch.Generator()
+                                .manual_seed(3))}
+    shs = {"split": Sharding(mesh, (None, "model")),
+           "rep": Sharding(mesh, ()),
+           "both": Sharding(mesh, (("data", "model"),))}
+    local = {k: shs[k].local(v) for k, v in tree.items()}
+    out["global_norm"] = _rel(global_norm(local, shs), global_norm(tree))
+    rules = make_rules(mesh, mode="train", fsdp=False)
+    w = float(m + 1)                   # a different weight a model rank
+    with axis_rules(rules):
+        a = torch.full((3,), w, requires_grad=True)
+        y = TS.reduce_from_model(a)
+        y.sum().backward()
+        out["reduce_from_model"] = float((y - 3.0).abs().max())
+        out["reduce_from_model grad"] = float((a.grad - 1.0).abs().max())
+        a = (torch.arange(4.0) + 10 * m).reshape(1, 2, 2).requires_grad_()
+        y = TS.gather_seq(a)
+        want = torch.cat([torch.arange(4.0), torch.arange(4.0) + 10]) \
+            .reshape(1, 4, 2)
+        out["gather_seq"] = float((y - want).abs().max())
+        (y * w).sum().backward()
+        out["gather_seq grad"] = float((a.grad - 3.0).abs().max())
+        a = torch.full((1, 4, 2), w, requires_grad=True)
+        y = TS.scatter_seq(a)
+        out["scatter_seq"] = float((y - 3.0).abs().max())
+        (y * (torch.arange(4.0).reshape(1, 2, 2) + 4 * m)).sum().backward()
+        out["scatter_seq grad"] = float(
+            (a.grad - torch.arange(8.0).reshape(1, 4, 2)).abs().max())
+
+    # the step on the single-device step's gradients (the optimizer's
+    # layouts and collectives with a model axis), two steps each
+    from repro_torch.testing import sharded_step_parity
+    for arch, fsdp in (("deepseek-67b", True), ("deepseek-67b", False),
+                       ("qwen3-moe-30b-a3b", True)):
+        cfg = step_config(arch, 2, 2)
+        tcfg = TrainConfig(microbatches=2, **STEP_TRAIN)
+        state = make_train_state(cfg, tcfg, torch.Generator().manual_seed(0),
+                                 "cpu")
+        out[f"parity {arch} fsdp={fsdp}"] = sharded_step_parity(
+            cfg, tcfg, make_rules(mesh, mode="train", fsdp=fsdp), state,
+            step_batch(cfg))
+
+    # the vocabulary pieces on four model ranks
+    mesh4 = make_mesh((1, 4), ("data", "model"), "cpu")
+    rules4 = make_rules(mesh4, mode="train", fsdp=False)
+    cfg = dataclasses.replace(get_config("deepseek-67b", smoke=True),
+                              dtype="float32", vocab_size=500,
+                              loss_chunk=4).resolve(tp=4)
+    V, D = cfg.padded_vocab, cfg.d_model
+    gen = torch.Generator().manual_seed(7)
+    full = {"tok": torch.randn((V, D), generator=gen),
+            "head": torch.randn((V, D), generator=gen) * D ** -0.5}
+    h0 = torch.randn((2, 8, D), generator=gen)
+    r = axis_index(mesh4, ("model",))
+    blk = slice(r * V // 4, (r + 1) * V // 4)
+    tokens = torch.tensor([[0, 127, 128, 255, 256, 383, 384, 499]] * 2)
+    for case, labels in (
+            ("every rank's block", tokens.flip(1)),
+            ("padded tail", torch.tensor([[3, 200, 300, 499, 500, 505, 511,
+                                           400]] * 2))):
+        mask = torch.tensor([[1.0] * 7 + [0.0], [1.0] * 8])
+        res = {}
+        for split in (False, True):
+            p = {k: (v[blk] if split else v).clone().requires_grad_()
+                 for k, v in full.items()}
+            h = h0.clone().requires_grad_()
+            with axis_rules(rules4 if split else None):
+                logits = C.logits_from_hidden(p, cfg, h)
+                loss, cnt = C.chunked_cross_entropy(
+                    lambda hc: C.logits_from_hidden(p, cfg, hc), h, labels,
+                    cfg, mask)
+                rows = C.embed_tokens(p, cfg, tokens)
+            loss.backward()
+            res[split] = (logits.detach(), loss.detach(), h.grad,
+                          p["head"].grad, rows.detach())
+        (lw, sw, hw, gw, rw), (lg, sg, hg, gg, rg) = res[False], res[True]
+        dist.all_reduce(hg)
+        dist.all_reduce(rg)
+        out[f"logits, {case}"] = _rel(lg, lw[..., blk])
+        out[f"loss, {case}"] = _rel(sg, sw)
+        out[f"h grad, {case}"] = _rel(hg, hw)
+        out[f"head grad, {case}"] = _rel(gg, gw[blk])
+        out[f"embedding rows, {case}"] = float((rg - rw).abs().max())
+    params = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    with axis_rules(rules4):
+        try:
+            M.train_forward(params, cfg, {
+                "tokens": torch.zeros((2, 6), dtype=torch.int32),
+                "labels": torch.zeros((2, 6), dtype=torch.int32)})
+            out["uneven sequence"] = "no error"
+        except ValueError as e:
+            out["uneven sequence"] = str(e)
+    with open(os.path.join(out_dir, f"pieces{rank}.json"), "w") as f:
         json.dump(out, f)
     dist.destroy_process_group()

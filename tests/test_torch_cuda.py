@@ -1340,3 +1340,69 @@ def test_compressed_allreduce_one_rank_on_card(cuda, nccl_rank):
         assert float(res[k].abs().max()) <= float(scale) + 1e-6
         assert torch.equal(mean[k].cpu(), dequantize(q, scale))
         assert torch.equal(res[k].cpu(), x - dequantize(q, scale))
+
+
+# ----------------------------------------------------------------------
+# tensor parallelism over the model axis: the kernels at a TP rank's
+# local shapes (small sizes), and the TP path on a one-rank NCCL group
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("arch,tp", [("qwen3-moe-30b-a3b", 4),
+                                     ("mistral-large-123b", 8)])
+def test_flash_at_tp_local_heads(cuda, arch, tp, dtype):
+    """Flash attention forward and backward at a TP rank's heads (8 of
+    32 over one kv head; 12 of 96 over one of 8) and full head dim, at a
+    short sequence: against the plain versions."""
+    from repro_torch.kernels.flash_attention import (
+        _flash_forward, flash_attention_bwd, flash_attention_bwd_plain)
+    from repro_torch.models.attention import local_kv_heads
+    cfg = get_config(arch).resolve(tp=tp)
+    H = cfg.padded_heads // tp
+    kv = local_kv_heads(H, cfg.padded_kv, tp, tp - 1)
+    KV, D = kv.stop - kv.start, cfg.head_dim
+    q = _randn((2, 96, H, D), dtype, cuda, 0)
+    k = _randn((2, 96, KV, D), dtype, cuda, 1)
+    v = _randn((2, 96, KV, D), dtype, cuda, 2)
+    do = _randn((2, 96, H, D), dtype, cuda, 3)
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(
+        flash_attention(q, k, v, causal=True).float(),
+        flash_attention_plain(q, k, v, True).float(), rtol=tol, atol=tol)
+    o, lse = _flash_forward(q, k, v, True, True)
+    for g, w in zip(flash_attention_bwd(q, k, v, o, do, lse, True),
+                    flash_attention_bwd_plain(q, k, v, o, do, lse, True)):
+        assert g.shape == w.shape and _bwd_err(g, w) < tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gmm_at_tp_local_experts(cuda, dtype):
+    """``gmm`` forward and backward at qwen3-moe-30b-a3b's tp 4 rank: 32
+    of 128 experts, D 2048, F 768, a few rows each."""
+    from repro_torch.kernels.gmm import gmm_bwd, gmm_bwd_plain
+    x = _randn((32, 40, 2048), dtype, cuda, 0)
+    w = (_randn((32, 2048, 768), torch.float32, cuda, 1)
+         * 2048 ** -0.5).to(dtype)
+    dy = _randn((32, 40, 768), dtype, cuda, 2)
+    tol = GMM_TOL[dtype]
+    torch.testing.assert_close(gmm(x, w).float(), gmm_plain(x, w).float(),
+                               rtol=tol, atol=tol)
+    for g, w_ in zip(gmm_bwd(x, w, dy), gmm_bwd_plain(x, w, dy)):
+        assert g.shape == w_.shape and _bwd_err(g, w_) < tol
+
+
+@pytest.mark.parametrize("arch", ["deepseek-67b", "qwen2-vl-7b",
+                                  "qwen3-moe-30b-a3b"])
+def test_tp_path_one_rank_nccl_matches_plain(cuda, nccl_rank, arch):
+    """``value_and_grad`` on the tensor-parallel path (a (1, 1) data x
+    model mesh on NCCL: the sequence-split residual and the vocab-parallel
+    loss over one-rank groups) against the single-device one on the card
+    at the f32 smoke config (``testing.tp_grad_parity``: TRAIN_GRAD_TOL,
+    a MoE arch's upstream leaves MOE_UPSTREAM_TOL)."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel.sharding import make_rules
+    from repro_torch.testing import TRAIN_GRAD_TOL, tp_grad_parity
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32",
+                              remat="full").resolve(tp=1)
+    rules = make_rules(make_mesh((1, 1), ("data", "model")), mode="train",
+                       fsdp=True)
+    d = tp_grad_parity(cfg, rules, cuda)
+    assert d["loss"] < TRAIN_GRAD_TOL, d

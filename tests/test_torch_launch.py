@@ -1,5 +1,6 @@
 """The port's launchers on the CPU: ``launch.train`` (checkpoints,
-auto-resume, SIGTERM preemption, a two-rank ``--mesh 2x1`` run on gloo),
+auto-resume, SIGTERM preemption, a two-rank ``--mesh 2x1`` run on gloo,
+a two-rank tensor-parallel ``--mesh 1x2`` run),
 ``launch.elastic`` (a checkpoint restored onto another mesh) and
 ``launch.serve`` (its line equals the reference launcher's).
 
@@ -153,6 +154,28 @@ def test_two_rank_train_and_elastic_restore(tmp_path):
     out, err = p.communicate(timeout=120)
     assert p.returncode == 0, err[-3000:]
     assert want.format("1x1") in out.splitlines()
+
+
+def test_two_rank_tensor_parallel_train(tmp_path):
+    """``--mesh 1x2`` on two gloo ranks: deepseek-67b's smoke config,
+    resolved for tp 2, trains with its heads, MLP and vocabulary split
+    over the model axis and checkpoints whole leaves; mamba2-1.3b is
+    refused by name."""
+    ck = str(tmp_path / "ck")
+    args = ["--arch", "deepseek-67b", "--smoke", "--device", "cpu",
+            "--batch", "4", "--seq", "16", "--mesh", "1x2", "--ckpt-dir",
+            ck, "--ckpt-every", "2", "--steps", "4"]
+    runs = _ranks("repro_torch.launch.train", args, 2, tmp_path / "s1")
+    for rc, out, err in runs:
+        assert rc == 0, err[-3000:]
+    assert "[train] done at step 4" in runs[0][1]
+    assert sorted(os.listdir(ck))[-1] == "step_0000000004"
+    runs = _ranks("repro_torch.launch.train",
+                  [*SMOKE, "--mesh", "1x2", "--steps", "2", "--ckpt-dir",
+                   str(tmp_path / "ck2")], 2, tmp_path / "s2")
+    for rc, out, err in runs:
+        assert rc != 0 and "'ssm' family" in err and "step 1b" in err, \
+            err[-3000:]
 
 
 def test_serve_line_equals_reference_launcher(reference_serve_line,

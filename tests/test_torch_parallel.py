@@ -275,15 +275,21 @@ def test_shard_checks_rank_only_under_rules():
             TS.shard(x, "batch")
 
 
+@pytest.mark.parametrize("arch,what", [
+    ("minicpm3-4b", "MLA"), ("mamba2-1.3b", "'ssm' family"),
+    ("zamba2-2.7b", "'hybrid' family"),
+    ("seamless-m4t-medium", "'encdec' family")])
 @pytest.mark.parametrize("shape,axes", [((1, 2), ("data", "model")),
                                         ((2, 2, 4), ("pod", "data",
                                                      "model"))])
-def test_model_axis_above_one_is_refused(shape, axes):
-    """Tensor parallelism is the next slice: the step names it."""
-    cfg = TB.get_config("deepseek-67b", smoke=True).resolve(tp=shape[-1])
+def test_model_axis_above_one_is_refused(shape, axes, arch, what):
+    """Tensor parallelism covers the decoder-only families without MLA;
+    the step refuses the others by name, and names where they go next."""
+    cfg = TB.get_config(arch, smoke=True).resolve(tp=shape[-1])
     rules = TS.make_rules(TS.AbstractMesh(shape, axes), mode="train",
                           fsdp=False)
-    with pytest.raises(NotImplementedError, match="second half"):
+    with pytest.raises(NotImplementedError,
+                       match=f"{what}.*item 9, step 1b"):
         make_train_step(cfg, TB.TrainConfig(), rules)
 
 
