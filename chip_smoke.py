@@ -185,7 +185,23 @@ Phases (any failure raises and exits non-zero, with no result line):
    and ``gmm``, forward
    and backward, at a TP rank's local full-width shapes
    (TP_LOCAL_FLASH, TP_LOCAL_GMM) against their plain versions, timed
-   beside them and their bounds;
+   beside them and their bounds; (f) serving under tensor parallelism
+   (its own main path: the counts reset just before the waves and read
+   just after, each kernel's launches and variant asserted against the
+   count predicted from the configs): on a one-rank NCCL group, mesh
+   (1, 1) data x model, a wave (prefill and TP_SERVE_STEPS greedy decode
+   steps into a TP_SERVE_CACHE-row cache, ``testing.tp_serve_parity``)
+   of qwen2-vl-7b at full width and depth, bf16, phase 5's first 8
+   prompts, and of qwen3-moe-30b-a3b at full width cut to
+   TP_SERVE_MOE_LAYERS layers, each under the prefill / decode rules
+   beside the single-device wave: tokens equal and logits and cache bit
+   for bit, then TP_SERVE_ROUNDS interleaved waves of each path timing a
+   decode step (median and range), the NCCL flight recorder's setting
+   (the caller's: ``nccl_recorder``) and the peak printed; then
+   the decode kernel's log-sum-exp at the serving shape and at the
+   blocks of tp 4 and 8 cut from that cache, merged by their
+   log-sum-exps, against the plain version and the whole-cache call,
+   timed beside SDPA at the block shape;
 13. a ``kernels`` JSON line, the card's line, then the result line.
 """
 from __future__ import annotations
@@ -359,6 +375,14 @@ TP_PARITY_ARCHS = ("deepseek-67b", "qwen2-vl-7b", "qwen3-moe-30b-a3b")
 #: model axis of qwen3-moe-30b-a3b's local experts
 TP_LOCAL_FLASH = (("qwen3-moe-30b-a3b", 4), ("mistral-large-123b", 8))
 TP_LOCAL_GMM = 4
+#: phase 12f: the tensor-parallel serving waves' cache, greedy steps and
+#: the MoE arch's depth (48 -> 2 layers), and the model axes whose
+#: sequence-parallel cache blocks the decode kernel is held at
+TP_SERVE_CACHE, TP_SERVE_STEPS, TP_SERVE_MOE_LAYERS = 2048, 32, 2
+TP_SERVE_BLOCKS = (4, 8)
+#: phase 12f (a): the timed waves of each path after the parity waves,
+#: interleaved (``testing.tp_serve_parity``'s ``rounds``)
+TP_SERVE_ROUNDS = 3
 TRAIN_PARITY_ARCHS = ("qwen2-vl-7b", "qwen3-moe-30b-a3b", "minicpm3-4b",
                       "seamless-m4t-medium", "mamba2-1.3b", "zamba2-2.7b")
 #: the SSD backward kernel against its plain version, relative to the
@@ -394,6 +418,15 @@ def mamba_waves(vocab: int, chunk: int):
         waves.append([np.concatenate([extra, p]) if j == i else p
                       for j, p in enumerate(prompts)])
     return waves
+
+
+def nccl_recorder() -> str:
+    """The NCCL flight recorder's setting the NCCL phases run under: the
+    environment's ``TORCH_FR_BUFFER_SIZE`` (read when the first NCCL group
+    is made; 0 turns the recorder off), which this script leaves as the
+    caller set it."""
+    v = os.environ.get("TORCH_FR_BUFFER_SIZE")
+    return "as it comes" if v is None else f"TORCH_FR_BUFFER_SIZE={v}"
 
 
 def card_line() -> str:
@@ -1976,7 +2009,8 @@ def launch_multi_device_phase(dev, cfg, state, card: str) -> None:
                   f"{d['exact']}; microbatches, params and loss equal bit "
                   f"for bit: {d['batch_equal']}, {d['params_equal']}, "
                   f"{d['loss_equal']}")
-        print(f"phase 12b: {t1 - t0:.1f} s for the two steps of each [{card}]")
+        print(f"phase 12b: {t1 - t0:.1f} s for the two steps of each, NCCL "
+              f"flight recorder {nccl_recorder()} [{card}]")
         for d in steps:
             assert d["batch_equal"], d
             assert d["loss_equal"] or not d["params_equal"], d
@@ -2238,7 +2272,8 @@ def tensor_parallel_phase(dev, wrappers, card: str) -> tuple:
                   f"for bit: {d['batch_equal']}, {d['params_equal']}, "
                   f"{d['loss_equal']}")
         print(f"phase 12e (a): {t1 - t0:.1f} s for the two steps of each, "
-              f"peak {peak:.2f} GB on the card [{card}]")
+              f"peak {peak:.2f} GB on the card, NCCL flight recorder "
+              f"{nccl_recorder()} [{card}]")
         for d in steps:
             assert d["batch_equal"] and d["params_equal"] \
                 and d["loss_equal"], d
@@ -2281,6 +2316,228 @@ def tensor_parallel_phase(dev, wrappers, card: str) -> tuple:
         if os.path.exists(store):
             os.remove(store)
     return got, peak
+
+
+def tp_serve_phase(dev, wrappers, card: str) -> tuple:
+    """Phase 12f (a): serving under tensor parallelism on a one-rank NCCL
+    group, mesh (1, 1) data x model (every model-axis collective of the
+    path runs, over one-rank groups): a wave of qwen2-vl-7b at full
+    width, bf16, phase 5's first 8 prompts (left-padded, the vision stub
+    zero), and one of qwen3-moe-30b-a3b at TP_SERVE_MOE_LAYERS layers,
+    each a prefill into a TP_SERVE_CACHE-row cache and TP_SERVE_STEPS
+    greedy steps under ``rules_for(cfg, mesh, "prefill" | "decode")``
+    beside the single-device wave (``testing.tp_serve_parity``): tokens
+    equal, logits and the cache bit for bit; then TP_SERVE_ROUNDS more
+    waves of each path, interleaved, time a decode step (the median and
+    the range printed).  The counts are reset just before the waves and
+    read just after: each wave launches flash once a layer, decode once
+    a layer and step, ``gmm`` three times a layer and forward, all on
+    the tensor cores.  On one rank the model index
+    is 0 and a rank's block is the whole cache, so the branches that
+    only a model axis above 1 takes (the row's owner, the empty blocks,
+    the vocabulary gather) run on gloo in the CPU tests, not here.
+    Returns (the launches, the peak GB)."""
+    import dataclasses
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model
+    from repro_torch.testing import tp_serve_parity
+    held = free_card_memory()
+    assert held < 1.0, f"{held:.2f} GB still held before phase 12f"
+    store = os.path.join(ROOT, "build", "nccl_store_tp_serve")
+    if os.path.exists(store):
+        os.remove(store)
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0,
+                            world_size=1)
+    expect, got, peak = {}, {}, 0.0
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), dev)
+        reset_counts(wrappers)
+        torch.cuda.reset_peak_memory_stats()
+        for arch, layers in ((ARCH, None), (MOE_ARCH, TP_SERVE_MOE_LAYERS)):
+            cfg = get_config(arch)
+            if layers is not None:
+                cfg = dataclasses.replace(cfg, num_layers=layers)
+            cfg = cfg.resolve(tp=1, dp=1)
+            prompts = wave_prompts(cfg.vocab_size)[0]
+            batch = _batch(cfg, prompts, dev)
+            params = model.init_params(
+                cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+            L, n = cfg.num_layers, TP_SERVE_STEPS
+            # both paths, 1 + TP_SERVE_ROUNDS waves each: one prefill and
+            # n greedy steps a wave
+            w = 2 * (1 + TP_SERVE_ROUNDS)
+            for k, c in (("flash_attention", w * L),
+                         ("decode_attention", w * L * n),
+                         ("gmm", w * 3 * L * (n + 1) if cfg.moe else 0)):
+                expect[k] = expect.get(k, 0) + c
+            t0 = time.perf_counter()
+            d = tp_serve_parity(cfg, mesh, params, batch, TP_SERVE_CACHE, n,
+                                rounds=TP_SERVE_ROUNDS)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            del params
+            free_card_memory()
+            ms = d["decode_ms"]
+            print(f"phase 12f (a) {cfg.name} full width, {L} layers, bf16, "
+                  f"{len(prompts)} prompts padded to "
+                  f"{batch['tokens'].shape[1]}, cache {TP_SERVE_CACHE}, "
+                  f"{n} greedy steps, one-rank NCCL (1, 1) data x model: "
+                  f"tokens equal {d['tokens_equal']}, logits bit for bit "
+                  f"{d['logits_exact']} (max diff / max |logit| "
+                  f"{d['logits']:.3e}), cache bit for bit "
+                  f"{d['cache_exact']}; decode ms a step, median (range) "
+                  f"of {TP_SERVE_ROUNDS} interleaved warm waves: TP path "
+                  f"{_median_range(ms['tp'])}, single-device "
+                  f"{_median_range(ms['single'])}, NCCL flight recorder "
+                  f"{nccl_recorder()}; {wall:.1f} s for all "
+                  f"{2 * (1 + TP_SERVE_ROUNDS)} waves [{card}]")
+            assert d["tokens_equal"] and d["logits_exact"] \
+                and d["cache_exact"], d
+        torch.cuda.synchronize()
+        got = counts(wrappers)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+    finally:
+        dist.destroy_process_group()
+        if os.path.exists(store):
+            os.remove(store)
+    variant = {"flash_attention": "tc", "decode_attention": "mma",
+               "gmm": "wgmma"}
+    for n, c in expect.items():
+        assert got[n] == c and got[f"{n}.{variant[n]}"] == c, \
+            f"phase 12f (a): {got[n]} {n} launches, not {c} (predicted)"
+    stray = {n: c for n, c in got.items() if c and n.split(".")[0]
+             not in expect}
+    assert not stray, f"phase 12f (a): launches outside the path {stray}"
+    print(f"phase 12f (a) launches, predicted {expect}, counted "
+          f"{ {n: c for n, c in got.items() if c} }; peak {peak:.2f} GB "
+          f"[{card}]")
+    return got, peak
+
+
+def _median_range(xs) -> str:
+    """``median (least-most)`` of a list of milliseconds."""
+    import statistics
+    return (f"{statistics.median(xs):.2f} ({min(xs):.2f}-{max(xs):.2f}) "
+            f"ms")
+
+
+def _merge_blocks(outs, lses):
+    """Plain flash-decoding combine of per-block attentions (each (B, 1,
+    H, Dv)) by their log-sum-exps (each (B, H) f32): the formula of
+    ``parallel.sharding.combine_over_model`` over a list, not ranks."""
+    import torch
+    lse = torch.stack(lses)
+    M = lse.amax(0)
+    M = torch.where(torch.isfinite(M), M, 0.0)
+    w = torch.exp(lse - M)[:, :, None, :, None]
+    num = (torch.stack([o.float() for o in outs]) * w).sum(0)
+    return (num / w.sum(0).clamp_min(1e-30)).to(outs[0].dtype)
+
+
+def check_decode_lse(dev, card: str) -> dict:
+    """Phase 12f (b): the decode kernel's log-sum-exp output at the
+    serving shape (SERVE's B x max_seq cache, 28 / 4 heads, D 128, bf16,
+    kv_len 1018) and f32 beside it: ``lse`` against the plain version,
+    ``out`` bit for bit with and without it; then the cache cut into the
+    sequence-parallel blocks of tp in TP_SERVE_BLOCKS, each block's call
+    against the plain version and the blocks merged by their
+    log-sum-exps against the whole-cache call.  Timed by CUDA-graph
+    replay: the whole-cache call without and with ``lse``, one block
+    call (the first, all of its rows valid) and SDPA with a length mask
+    at the block shape.  Returns the numbers for the ``kernels`` line."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      decode_attention_plain)
+    B, S, H, KV, D = SERVE["max_batch"], SERVE["max_seq"], 28, 4, 128
+    n_kv = 1018
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q = _randn((B, 1, H, D), dtype, dev, 61)
+        k = _randn((B, S, KV, D), dtype, dev, 62)
+        v = _randn((B, S, KV, D), dtype, dev, 63)
+        lens = torch.full((B,), n_kv, dtype=torch.int32, device=dev)
+        before = (decode_attention.launches, decode_attention.mma_launches)
+        whole, lse = decode_attention(q, k, v, lens, return_lse=True)
+        bare = decode_attention(q, k, v, lens)
+        torch.cuda.synchronize()
+        assert decode_attention.launches == before[0] + 2
+        mma = dtype == torch.bfloat16
+        assert decode_attention.mma_launches == before[1] + 2 * mma
+        assert torch.equal(whole, bare), "decode: out changed with lse"
+        p_out, p_lse = decode_attention_plain(q, k, v, lens, return_lse=True)
+        err = _attn_err(whole, p_out, dtype)
+        lse_err = float((lse - p_lse).abs().max())
+        assert lse_err <= ATTN_TOL[str(dtype)], ("lse", dtype, lse_err)
+        line = [f"out {err:.3e}, lse {lse_err:.3e}"]
+        for tp in TP_SERVE_BLOCKS:
+            n = S // tp
+            outs, lses = [], []
+            for r in range(tp):
+                kl = (lens - r * n).clamp(0, n).to(torch.int32)
+                o, l_ = decode_attention(q, k[:, r * n:(r + 1) * n],
+                                         v[:, r * n:(r + 1) * n], kl,
+                                         return_lse=True)
+                po, pl = decode_attention_plain(
+                    q, k[:, r * n:(r + 1) * n], v[:, r * n:(r + 1) * n], kl,
+                    return_lse=True)
+                live = kl > 0
+                if live.any():
+                    _attn_err(o[live], po[live], dtype)
+                assert torch.equal(torch.isinf(l_), torch.isinf(pl))
+                fin = torch.isfinite(pl)
+                if fin.any():
+                    assert float((l_[fin] - pl[fin]).abs().max()) \
+                        <= ATTN_TOL[str(dtype)], ("block lse", tp, r)
+                outs.append(o)
+                lses.append(l_)
+            merged = _merge_blocks(outs, lses)
+            m_err = _attn_err(merged, whole, dtype)
+            line.append(f"tp {tp} blocks merged vs whole {m_err:.3e}")
+        print(f"phase 12f (b) decode lse ({B},{S},{H}/{KV},{D}) "
+              f"{str(dtype)[6:]} kv_len {n_kv} "
+              f"[{'mma' if mma else 'fma'}]: " + "; ".join(line)
+              + f" (tol {ATTN_TOL[str(dtype)]})")
+        if not mma:
+            continue
+        n = S // TP_SERVE_BLOCKS[0]
+        kb, vb = k[:, :n], v[:, :n]
+        kl = (lens.clamp(0, n)).to(torch.int32)
+        mask = (torch.arange(n, device=dev)[None, :] < kl[:, None])
+        mask = mask[:, None, None, :]
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, kb, vb))
+        dev_ms = _timed("decode_attention lse", {
+            "whole": lambda: decode_attention(q, k, v, lens),
+            "whole_lse": lambda: decode_attention(q, k, v, lens,
+                                                  return_lse=True),
+            "block_lse": lambda: decode_attention(q, kb, vb, kl,
+                                                  return_lse=True),
+            "block_plain": lambda: decode_attention_plain(
+                q, kb, vb, kl, return_lse=True),
+            "block_sdpa": lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, enable_gqa=True)}, inner=50)
+        used = int(kl.sum())
+        nbytes = 2 * (q.numel() + used * KV * 2 * D + B * H * D) \
+            + 4 * (B + B * H)
+        bound_ms, bound_by = _bound(nbytes, 2 * H * used * 2 * D, dtype)
+        print(f"phase 12f (b) decode at the serving shape: "
+              f"{dev_ms['whole'] * 1e3:.2f} us, with lse "
+              f"{dev_ms['whole_lse'] * 1e3:.2f} us; the tp "
+              f"{TP_SERVE_BLOCKS[0]} block ({B},{n},{H}/{KV},{D}) kv_len "
+              f"{n}: {dev_ms['block_lse'] * 1e3:.2f} us with lse (plain "
+              f"{dev_ms['block_plain'] * 1e3:.2f} us, SDPA "
+              f"{dev_ms['block_sdpa'] * 1e3:.2f} us, bound "
+              f"{bound_ms * 1e3:.2f} us, {bound_by}) [{card}]")
+        out = {"ms": dev_ms["whole"], "lse_ms": dev_ms["whole_lse"],
+               "block_ms": dev_ms["block_lse"],
+               "block_plain_ms": dev_ms["block_plain"],
+               "block_library_ms": dev_ms["block_sdpa"],
+               "block_bound_ms": bound_ms, "block_bound_by": bound_by,
+               "block_shape": [B, n, H, KV, D]}
+    return out
 
 
 def launch_serve_phase(dev, wrappers, card: str) -> dict:
@@ -4122,6 +4379,18 @@ def main() -> int:
         by_name[name]["tp_local_shapes"] = rows
     print(f"phase 12e: {time.perf_counter() - t0:.1f} s (peak "
           f"{tp_peak:.2f} GB); launches {tp_got} [{card}]")
+    # phase 12f: serving under tensor parallelism (its own main path: the
+    # counts are reset just before its waves and read just after)
+    t0 = time.perf_counter()
+    serve_tp_got, serve_tp_peak = tp_serve_phase(dev, wrappers, card)
+    for name in ("flash_attention", "decode_attention", "gmm"):
+        n = serve_tp_got.get(name, 0)
+        assert n > 0, f"{name} never launched in phase 12f"
+        by_name[name]["tp_serve_launches"] = n
+        by_name[name]["launches"] += n
+    by_name["decode_attention"]["lse"] = check_decode_lse(dev, card)
+    print(f"phase 12f: {time.perf_counter() - t0:.1f} s (peak "
+          f"{serve_tp_peak:.2f} GB) [{card}]")
     print(f"phase 12: {time.perf_counter() - t_phase:.1f} s [{card}]")
 
     print(f"chip_smoke: whole run {time.perf_counter() - t_start:.1f} s, "

@@ -7,7 +7,11 @@
 // GQA-native (query head h reads kv head h / G).  Scores, probabilities
 // and the accumulator are f32 whatever the input type (bf16 or f32); the
 // output is written in the input type.  len[b] is clamped to [0, S]; a
-// row with len[b] = 0 writes zeros.
+// row with len[b] = 0 writes zeros.  Given an lse pointer, each row also
+// gets lse[b, h] = log sum_{j < len[b]} exp(q . k_j * D^-1/2) in f32
+// (-inf where len[b] = 0): what a combine of attentions over blocks of
+// one cache weighs each block by (the tensor-parallel decode's, each
+// model rank attending over its own block of rows).
 //
 // Replaces the Pallas kernel src/repro/kernels/decode_attention.py::
 // decode_attention (body _kernel), which the model's decode step calls
@@ -124,13 +128,15 @@ size_t larger(size_t a, size_t b) { return a > b ? a : b; }
 
 // Called by every thread of a CTA once its partial is written: the last
 // CTA of the (batch, kv head) to get here combines the n_split partials
-// in split order into o, and resets the ticket.  smem: at least
+// in split order into o, writes each head's log-sum-exp to lse when it
+// is given (in natural-log units, -inf for a row with no keys), and
+// resets the ticket.  smem: at least
 // combine_smem(n_split, G) bytes, written only after the barrier below,
 // when every thread's reads of it are done.
 template <typename T>
 __device__ void finish(const float* part_ml, const float* part_acc,
-                       int* tickets, T* o, Strides os, int bkv, int KV,
-                       int G, int Dv, int n_split, float* smem) {
+                       int* tickets, T* o, float* lse, Strides os, int bkv,
+                       int KV, int G, int Dv, int n_split, float* smem) {
   __shared__ int last;
   __threadfence();  // this CTA's partial is visible before its ticket
   __syncthreads();
@@ -154,6 +160,10 @@ __device__ void finish(const float* part_ml, const float* part_acc,
     for (int s = 0; s < n_split; ++s)
       L += smem[(s * G + g) * 2 + 1] * exp2f(smem[(s * G + g) * 2] - M);
     const float inv = 1.f / fmaxf(L, 1e-30f);
+    // m is in log2 units (the scores carry log2 e): lse = (M + log2 L) ln 2
+    if (lse != nullptr)
+      lse[bkv * G + g] =
+          L > 0.f ? (M + log2f(L)) * 0.6931471805599453f : -INFINITY;
     for (int s = 0; s < n_split; ++s)
       smem[(s * G + g) * 2] = exp2f(smem[(s * G + g) * 2] - M) * inv;
   }
@@ -206,7 +216,8 @@ __global__ void __launch_bounds__(kThreads)
 decode_fma(const T* __restrict__ q, const T* __restrict__ k,
            const T* __restrict__ v, const int32_t* __restrict__ kv_len,
            float* __restrict__ part_ml, float* __restrict__ part_acc,
-           int* __restrict__ tickets, T* __restrict__ o, Strides qs,
+           int* __restrict__ tickets, T* __restrict__ o,
+           float* __restrict__ lse, Strides qs,
            Strides ks, Strides vs, Strides os, int S, int KV, int G, int D,
            int Dv, int n_split, float scale_log2) {
   extern __shared__ __align__(16) float smem[];
@@ -301,8 +312,8 @@ decode_fma(const T* __restrict__ q, const T* __restrict__ k,
     part_ml[(part * G + g) * 2] = Ms[g];
     part_ml[(part * G + g) * 2 + 1] = Ls[g];
   }
-  finish<T>(part_ml, part_acc, tickets, o, os, bkv, KV, G, Dv, n_split,
-            smem);
+  finish<T>(part_ml, part_acc, tickets, o, lse, os, bkv, KV, G, Dv,
+            n_split, smem);
 }
 
 // ---------------------------------------------------------------------
@@ -328,9 +339,9 @@ decode_mma(const __nv_bfloat16* __restrict__ q,
            const __nv_bfloat16* __restrict__ v,
            const int32_t* __restrict__ kv_len, float* __restrict__ part_ml,
            float* __restrict__ part_acc, int* __restrict__ tickets,
-           __nv_bfloat16* __restrict__ o, Strides qs, Strides ks,
-           Strides vs, Strides os, int S, int KV, int G, int D, int Dv,
-           int n_split, float scale_log2) {
+           __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+           Strides qs, Strides ks, Strides vs, Strides os, int S, int KV,
+           int G, int D, int Dv, int n_split, float scale_log2) {
   using L = Mma<kD, kStages>;
   extern __shared__ __align__(128) uint8_t smem_raw[];
   const uint32_t sbase = smem_u32(smem_raw);
@@ -515,24 +526,25 @@ decode_mma(const __nv_bfloat16* __restrict__ q,
     part_ml[(part * G + g) * 2] = M;
     part_ml[(part * G + g) * 2 + 1] = s;
   }
-  finish<__nv_bfloat16>(part_ml, part_acc, tickets, o, os, bkv, KV, G, Dv,
-                        n_split, red);
+  finish<__nv_bfloat16>(part_ml, part_acc, tickets, o, lse, os, bkv, KV, G,
+                        Dv, n_split, red);
 }
 
 // ---------------------------------------------------------------------
 struct Args {
   const void *q, *k, *v, *kv_len;
-  void *part_ml, *part_acc, *tickets, *o;
+  void *part_ml, *part_acc, *tickets, *o, *lse;
   int B, S, H, KV, D, Dv, n_split;
   Strides qs, ks, vs, os;
   float scale_log2;
 };
 
 Args args(const void* q, const void* k, const void* v, const void* kv_len,
-          void* part_ml, void* part_acc, void* tickets, void* o, int B, int S,
-          int H, int KV, int D, int Dv, int n_split, const long long* st) {
-  return Args{q, k, v, kv_len, part_ml, part_acc, tickets, o, B, S, H, KV,
-              D, Dv, n_split, Strides{st[0], 0, st[1]},
+          void* part_ml, void* part_acc, void* tickets, void* o, void* lse,
+          int B, int S, int H, int KV, int D, int Dv, int n_split,
+          const long long* st) {
+  return Args{q, k, v, kv_len, part_ml, part_acc, tickets, o, lse, B, S, H,
+              KV, D, Dv, n_split, Strides{st[0], 0, st[1]},
               Strides{st[2], st[3], st[4]}, Strides{st[5], st[6], st[7]},
               Strides{st[8], 0, st[9]},
               1.4426950408889634f / sqrtf(static_cast<float>(D))};
@@ -577,8 +589,9 @@ int launch_fma(const Args& a, cudaStream_t stream) {
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const int32_t*>(a.kv_len),
       static_cast<float*>(a.part_ml), static_cast<float*>(a.part_acc),
-      static_cast<int*>(a.tickets), static_cast<T*>(a.o), a.qs, a.ks, a.vs,
-      a.os, a.S, a.KV, G, a.D, a.Dv, a.n_split, a.scale_log2);
+      static_cast<int*>(a.tickets), static_cast<T*>(a.o),
+      static_cast<float*>(a.lse), a.qs, a.ks, a.vs, a.os, a.S, a.KV, G, a.D,
+      a.Dv, a.n_split, a.scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -598,7 +611,8 @@ int launch_mma_d(const Args& a, cudaStream_t stream) {
           static_cast<const int32_t*>(a.kv_len),
           static_cast<float*>(a.part_ml), static_cast<float*>(a.part_acc),
           static_cast<int*>(a.tickets), static_cast<__nv_bfloat16*>(a.o),
-          a.qs, a.ks, a.vs, a.os, a.S, a.KV, a.H / a.KV, a.D, a.Dv,
+          static_cast<float*>(a.lse), a.qs, a.ks, a.vs, a.os, a.S, a.KV,
+          a.H / a.KV, a.D, a.Dv,
           a.n_split, a.scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
@@ -625,15 +639,16 @@ int launch_mma(const Args& a, cudaStream_t stream) {
 // strides: 10 element strides, q (batch, head), k and v (batch, position,
 // head), o (batch, head).  part_ml (B * KV, n_split, G, 2) and part_acc
 // (B * KV, n_split, G, Dv) are f32 scratch; tickets (B * KV,) int32,
-// zero before the call and zero again after it.
+// zero before the call and zero again after it.  lse: null, or (B, H)
+// f32 contiguous, each row's log-sum-exp of its scaled scores.
 #define DECODE_ENTRY(name, launcher)                                         \
   extern "C" int name(const void* q, const void* k, const void* v,           \
                       const void* kv_len, void* part_ml, void* part_acc,     \
-                      void* tickets, void* o, int B, int S, int H, int KV,   \
-                      int D, int Dv, int n_split, const long long* strides,  \
-                      void* stream) {                                        \
-    return launcher(args(q, k, v, kv_len, part_ml, part_acc, tickets, o, B, \
-                         S, H, KV, D, Dv, n_split, strides),                 \
+                      void* tickets, void* o, void* lse, int B, int S,       \
+                      int H, int KV, int D, int Dv, int n_split,             \
+                      const long long* strides, void* stream) {              \
+    return launcher(args(q, k, v, kv_len, part_ml, part_acc, tickets, o,    \
+                         lse, B, S, H, KV, D, Dv, n_split, strides),         \
                     static_cast<cudaStream_t>(stream));                      \
   }
 

@@ -6,9 +6,18 @@ h // G] / sqrt(D)) v[b, j, h // G]``.  Shapes are the reference's:
 q (B, 1, H, D), k (B, S, KV, D), v (B, S, KV, Dv), kv_len (B,) int32 ->
 (B, 1, H, Dv) in q's dtype.
 
+With ``return_lse=True`` it also returns ``lse`` (B, H) f32, each row's
+log-sum-exp ``log sum_{j < kv_len} exp(q . k_j / sqrt(D))`` (-inf where
+``kv_len == 0``), which the last CTA of each (batch, kv head) writes
+beside the output; ``out`` is the same bits either way.
+
 Replaces the Pallas kernel ``src/repro/kernels/decode_attention.py::
 decode_attention``.  The model's decode step (``models/attention.py::
-attention_decode``) calls it once per layer with ``kv_len = len + 1``.
+attention_decode``) calls it once per layer with ``kv_len = len + 1``;
+under tensor parallelism each model rank calls it on its own block of the
+cache's rows with ``return_lse=True``, and
+``parallel.sharding.combine_over_model`` merges the ranks' outputs by
+their ``lse``.
 
 The kernels (``csrc/decode_attention.cu``) are bound by bytes: K and V
 up to ``kv_len`` are read once, ~16.7 MB per call at the serving path's
@@ -62,9 +71,12 @@ MAX_MMA_GROUP = 16
 
 
 def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                           kv_len: torch.Tensor) -> torch.Tensor:
+                           kv_len: torch.Tensor, *, return_lse: bool = False):
     """The same function in plain PyTorch, ``ref.decode_attention_ref``'s
-    math: full f32 scores, positions at or beyond ``kv_len`` masked."""
+    math: full f32 scores, positions at or beyond ``kv_len`` masked (a row
+    with ``kv_len == 0`` averages V uniformly, as the reference's does).
+    With ``return_lse`` also the scores' log-sum-exp (B, H) f32 over the
+    valid positions, -inf where ``kv_len == 0``."""
     B, _, H, D = q.shape
     S, KV = k.shape[1], k.shape[2]
     qg = q.reshape(B, KV, H // KV, D).float()
@@ -73,7 +85,11 @@ def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     s = s.masked_fill(~mask[:, None, None, :], -1e30)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgs,bskd->bkgd", p, v.float())
-    return o.reshape(B, 1, H, v.shape[-1]).to(q.dtype)
+    out = o.reshape(B, 1, H, v.shape[-1]).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.logsumexp(s, dim=-1).reshape(B, H)
+    return out, torch.where(kv_len[:, None] > 0, lse, -torch.inf)
 
 
 def _splits(B: int, KV: int, S: int, n_sm: int) -> int:
@@ -104,7 +120,7 @@ def _variant(dtype: torch.dtype, D: int, Dv: int, G: int, strides,
 @functools.lru_cache(maxsize=None)
 def _entry(variant: str, dtype: torch.dtype):
     fn = getattr(load("decode_attention"), _ENTRY[variant, dtype])
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
                    + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -134,9 +150,11 @@ def _tickets(device: torch.device, n: int) -> torch.Tensor:
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     kv_len: torch.Tensor) -> torch.Tensor:
+                     kv_len: torch.Tensor, *, return_lse: bool = False):
     """q (B, 1, H, D), k (B, S, KV, D), v (B, S, KV, Dv), kv_len (B,)
-    int32 -> (B, 1, H, Dv) in q's dtype.
+    int32 -> (B, 1, H, Dv) in q's dtype; with ``return_lse`` (out, lse),
+    lse (B, H) f32 each row's log-sum-exp of its scaled scores (-inf
+    where ``kv_len == 0``), written by the same launch.
 
     CPU tensors take :func:`decode_attention_plain` (counted in
     ``decode_attention.plain_calls``); CUDA tensors launch the kernel that
@@ -156,10 +174,13 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"kv_len on {kv_len.device}, q on {q.device}")
     if q.device.type == "cpu":
         decode_attention.plain_calls += 1
-        return decode_attention_plain(q, k, v, kv_len)
+        return decode_attention_plain(q, k, v, kv_len, return_lse=return_lse)
     out = torch.empty((B, 1, H, Dv), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((B, H), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     if out.numel() == 0 or S == 0:
-        return out.zero_()
+        out.zero_()
+        return (out, lse.fill_(-torch.inf)) if return_lse else out
     kv_len = kv_len.contiguous()
     G = H // KV
     n_split = _splits(B, KV, S, _sm_count(q.device.index))
@@ -177,7 +198,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(),
                 part_ml.data_ptr(), part_acc.data_ptr(), tickets.data_ptr(),
-                out.data_ptr(), B, S, H, KV, D, Dv, n_split, strides, stream)
+                out.data_ptr(), None if lse is None else lse.data_ptr(), B, S,
+                H, KV, D, Dv, n_split, strides, stream)
     if rc != 0:
         raise RuntimeError(f"decode_attention {variant} kernel launch "
                            f"failed: CUDA error {rc}")
@@ -186,7 +208,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         decode_attention.mma_launches += 1
     else:
         decode_attention.fma_launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 decode_attention.launches = 0

@@ -4,8 +4,12 @@ stand-ins.
 
 Translated from ``src/repro/launch/specs.py:29-139``.  ``input_specs``
 gives tensors on the ``meta`` device (shape and dtype, no storage) where
-the reference has ``ShapeDtypeStruct``.  The reference's ``build_cell`` /
-``lower_cell`` (the dry-run's compiled step) have no counterpart yet.
+the reference has ``ShapeDtypeStruct``.  :func:`cache_shardings` and
+:func:`serve_param_shardings` are the serving cells' argument layouts
+(the reference's ``build_cell``, ``specs.py:204-227``), which the port's
+prefill and decode take under tensor parallelism.  The reference's
+``build_cell`` / ``lower_cell`` (the dry-run's compiled step) have no
+counterpart yet.
 """
 from __future__ import annotations
 
@@ -16,8 +20,10 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeSpec
 from repro_torch.models.encdec import enc_len_for
-from repro_torch.parallel.sharding import (AxisRules, Sharding, make_rules,
+from repro_torch.parallel.sharding import (MODEL, AxisRules, Sharding,
+                                           axis_rules, make_rules,
                                            map_logical, mesh_axes)
+from repro_torch.tree import tree_map
 
 
 def use_fsdp(cfg: ModelConfig, kind: str) -> bool:
@@ -66,6 +72,48 @@ def tree_arg_shardings(tree, logical_tree, rules: AxisRules):
     return map_logical(lambda axes, x: arg_sharding(tuple(x.shape), axes,
                                                     rules),
                        logical_tree, tree)
+
+
+def cache_shardings(cfg: ModelConfig, rules: AxisRules, B: int,
+                    S: int) -> Dict[str, Sharding]:
+    """The layouts of a serving cache of ``B`` sequences and ``S``
+    positions under ``rules``: :func:`tree_arg_shardings` of the cache's
+    leaves by ``cache_logical`` (the reference's ``build_cell`` decode
+    cache sharding: rows over the data-parallel axes where ``B`` splits,
+    ``kv_seq -> model``), which ``models.model``'s ``init_cache``,
+    ``prefill`` and ``decode_step`` hold each rank's block of.  Two
+    departures: ``len`` splits like the cache's rows (a rank holds its
+    rows' lengths; the reference's is replicated), and ``S`` that does not
+    split over the model axis raises ``ValueError`` where the reference
+    would replicate the cache."""
+    from repro_torch.models import model as M
+    sizes = mesh_axes(rules.mesh)
+    tp = sizes.get(MODEL, 1)
+    M.check_tp(cfg, tp)
+    if rules.physical("kv_seq") == MODEL and S % tp:
+        raise ValueError(f"a KV cache of {S} rows does not split over "
+                         f"{tp} model ranks (kv_seq -> model)")
+    with axis_rules(None):
+        shapes = M.init_cache(cfg, B, S, device="meta")
+    sh = tree_arg_shardings(shapes, M.cache_logical(cfg), rules)
+    rows = sh.get("k", sh.get("ckv"))
+    if rows is not None and "len" in sh:
+        sh["len"] = Sharding(rules.mesh, (rows.spec[1],))
+    return sh
+
+
+def serve_param_shardings(cfg: ModelConfig, rules: AxisRules):
+    """The layouts of the params that prefill and decode take under
+    ``rules``: each leaf's ``arg_sharding`` by ``params_logical`` (heads,
+    mlp, vocab and experts split over ``model``) with the data-parallel
+    axes dropped, so a rank holds its model block of each leaf whole
+    along them.  The reference's serving FSDP (``embed -> data`` past
+    64 B parameters, :func:`use_fsdp`) gathers every weight inside the
+    step instead."""
+    from repro_torch.models import model as M
+    shapes = M.init_params(cfg, torch.Generator(), "meta")
+    sh = tree_arg_shardings(shapes, M.params_logical(cfg), rules)
+    return tree_map(lambda s: s.without(rules.batch_axes), sh)
 
 
 # ----------------------------------------------------------------------

@@ -33,7 +33,9 @@ from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.common import (apply_mrope, apply_rope, dtype_of,
                                        init_rmsnorm, normal_init, rmsnorm)
-from repro_torch.parallel.sharding import tp_index, tp_size
+from repro_torch.parallel.sharding import (combine_over_model, gather_model,
+                                           kv_offset, kv_split, tp_index,
+                                           tp_size)
 
 #: the model families the port lowers: the reference's catalogue
 LOWERED_FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid", "encdec")
@@ -136,14 +138,32 @@ def _project_qkv(p, cfg, x: torch.Tensor, x_kv: Optional[torch.Tensor] = None):
     return q, k, v
 
 
+def _rope(cfg, x, positions):
+    if cfg.mrope:
+        return apply_mrope(x, positions, cfg.rope_theta, cfg.mrope_sections)
+    return apply_rope(x, positions, cfg.rope_theta)
+
+
 def _rope_qk(cfg, q, k, positions):
     if positions is None:
         return q, k
-    if cfg.mrope:
-        return (apply_mrope(q, positions, cfg.rope_theta, cfg.mrope_sections),
-                apply_mrope(k, positions, cfg.rope_theta, cfg.mrope_sections))
-    return (apply_rope(q, positions, cfg.rope_theta),
-            apply_rope(k, positions, cfg.rope_theta))
+    return _rope(cfg, q, positions), _rope(cfg, k, positions)
+
+
+def _all_kv(p) -> bool:
+    """Whether this rank's q heads read every kv head (one rank, or kv
+    heads few enough that one serves all of a rank's q heads)."""
+    KV = p["wk"].shape[1]
+    kv = local_kv_heads(p["wq"].shape[1], KV, tp_size(), tp_index())
+    return isinstance(kv, slice) and kv == slice(0, KV)
+
+
+def _project_kv(p, cfg, x: torch.Tensor):
+    """k and v of every kv head (``wk`` / ``wv`` are replicated)."""
+    k, v = _proj(x, p["wk"]), _proj(x, p["wv"])
+    if cfg.qkv_bias:
+        k, v = k + p["bk"], v + p["bv"]
+    return k, v
 
 
 def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
@@ -153,19 +173,33 @@ def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
 
 
 def attention_fwd(p, cfg, x: torch.Tensor, positions, *, causal=True,
-                  x_kv: Optional[torch.Tensor] = None, use_rope=True):
+                  x_kv: Optional[torch.Tensor] = None, use_rope=True,
+                  kv_rows: Optional[tuple] = None):
     """Full-sequence attention (prefill, encoder, cross).  x: (B, S, D);
     ``x_kv`` (B, Skv, D) gives the keys and values of cross-attention
     (non-causal, ``use_rope=False``).
 
     Returns (out (B, S, D), (k, v)) with k, v (B, Skv, KV, dh) as the
-    layer's cache rows.  Under tensor parallelism the flash kernel runs on
-    this rank's heads and ``out`` is the row-parallel o-projection's
-    partial sum over the model ranks (the caller reduce-scatters it)."""
+    layer's cache rows; ``kv_rows = (lo, hi)`` gives instead the rows of
+    positions [lo, hi) for every kv head (a prefill's block of the
+    sequence-parallel cache).  Under tensor parallelism the flash kernel
+    runs on this rank's heads and ``out`` is the row-parallel
+    o-projection's partial sum over the model ranks (the caller
+    reduce-scatters it); ``x`` is the whole sequence (gathered), so the
+    cache block's rows come from it and the replicated ``wk`` / ``wv``
+    with no collective of their own."""
     q, k, v = _project_qkv(p, cfg, x, x_kv)
     if use_rope:
         q, k = _rope_qk(cfg, q, k, positions)
     out = flash_attention(q, k, v, causal=causal)
+    if kv_rows is not None:
+        lo, hi = kv_rows
+        if _all_kv(p):
+            k, v = k[:, lo:hi], v[:, lo:hi]
+        else:
+            k, v = _project_kv(p, cfg, x[:, lo:hi])
+            if use_rope:
+                k = _rope(cfg, k, positions[:, lo:hi])
     return _out_proj(out, p["wo"]), (k, v)
 
 
@@ -190,7 +224,7 @@ def quantize_rows(x: torch.Tensor):
 def attention_decode(p, cfg, x: torch.Tensor, pos: torch.Tensor,
                      k_cache: torch.Tensor, v_cache: torch.Tensor,
                      cache_len: torch.Tensor, *, update_cache=True,
-                     use_rope=True, scales=None):
+                     use_rope=True, scales=None, block=None):
     """Single-token decode.  x: (B, 1, D); caches (B, S, KV, dh); pos and
     cache_len (B,) int32 (pos == cache_len for self-attention).
 
@@ -198,16 +232,35 @@ def attention_decode(p, cfg, x: torch.Tensor, pos: torch.Tensor,
     ``v_cache`` in place (and of ``scales`` = (k_scale, v_scale), (B, S,
     KV) f32, when the cache is int8), then attends over the first
     ``cache_len + 1`` rows.  Returns (out (B, 1, D), k_cache, v_cache):
-    the same cache tensors."""
-    q, k, v = _project_qkv(p, cfg, x)
+    the same cache tensors.
+
+    Under rules that split ``kv_seq`` over a model axis the caches are
+    this rank's block of ``S`` rows (``parallel.sharding.kv_block``, from
+    row ``r * S``) for every kv head, and ``x`` is whole on every rank.
+    The rank's q heads are all-gathered to all H (the reference
+    replicates q), the new row's k and v computed for every kv head, and
+    only the rank whose block holds row ``cache_len`` writes it (its
+    scales too).  The kernel attends over the block's valid rows
+    (``clamp(cache_len + 1 - r * S, 0, S)``, 0 for a block still empty)
+    and returns its log-sum-exp; ``combine_over_model`` merges the ranks'
+    results.  ``out`` is then this rank's heads through the row-parallel
+    ``wo``: its partial sum over the model ranks, which the caller
+    all-reduces (``parallel.sharding.scatter_seq`` under decode rules).
+    ``block`` is :func:`decode_block`'s for this step, which a model's
+    layers share (found here when not given)."""
+    q = _proj(x, p["wq"])
+    if cfg.qkv_bias:
+        q = q + p["bq"]
+    k, v = _project_kv(p, cfg, x)
     if use_rope:
-        if cfg.mrope:
-            pos3 = pos[:, None, None].expand(pos.shape[0], 1, 3)
-            q = apply_mrope(q, pos3, cfg.rope_theta, cfg.mrope_sections)
-            k = apply_mrope(k, pos3, cfg.rope_theta, cfg.mrope_sections)
-        else:
-            q = apply_rope(q, pos[:, None], cfg.rope_theta)
-            k = apply_rope(k, pos[:, None], cfg.rope_theta)
+        pos_r = (pos[:, None, None].expand(pos.shape[0], 1, 3) if cfg.mrope
+                 else pos[:, None])
+        q, k = _rope(cfg, q, pos_r), _rope(cfg, k, pos_r)
+    if update_cache and kv_split():
+        if block is None:
+            block = decode_block(cache_len, k_cache.shape[1])
+        return _decode_block(p, q, k, v, k_cache, v_cache, block,
+                             scales), k_cache, v_cache
     if update_cache:
         # In place: the reference updates the cache functionally
         # (``k_cache.at[b, cache_len].set``) and returns a new array;
@@ -221,13 +274,57 @@ def attention_decode(p, cfg, x: torch.Tensor, pos: torch.Tensor,
         else:
             k_cache[b_idx, idx] = k[:, 0].to(k_cache.dtype)
             v_cache[b_idx, idx] = v[:, 0].to(v_cache.dtype)
-    if scales is not None:
-        kf = k_cache.to(q.dtype) * scales[0][..., None].to(q.dtype)
-        vf = v_cache.to(q.dtype) * scales[1][..., None].to(q.dtype)
-    else:
-        kf, vf = k_cache.to(q.dtype), v_cache.to(q.dtype)
+    kf, vf = _dequant(k_cache, v_cache, scales, q.dtype)
     out = decode_attention(q, kf, vf, cache_len + 1)
     return _out_proj(out, p["wo"]), k_cache, v_cache
+
+
+def _dequant(k_cache, v_cache, scales, dtype):
+    """The layer's cache in ``dtype`` (an int8 cache times its scales)."""
+    if scales is None:
+        return k_cache.to(dtype), v_cache.to(dtype)
+    return (k_cache.to(dtype) * scales[0][..., None].to(dtype),
+            v_cache.to(dtype) * scales[1][..., None].to(dtype))
+
+
+def decode_block(cache_len: torch.Tensor, S_blk: int) -> dict:
+    """Where a decode step's new rows go in this model rank's block of
+    ``S_blk`` rows of the sequence-parallel cache, the same for every
+    layer: ``rows`` (batch index, row index clamped into the block),
+    ``mine`` (B, 1, 1) whether the block holds row ``cache_len``, and
+    ``kv_len`` the block's valid rows after the write."""
+    at = cache_len.long() - kv_offset(S_blk)
+    return {"rows": (torch.arange(at.shape[0], device=at.device),
+                     at.clamp(0, S_blk - 1)),
+            "mine": ((at >= 0) & (at < S_blk))[:, None, None],
+            "kv_len": (at + 1).clamp_(0, S_blk).to(torch.int32)}
+
+
+def _decode_block(p, q, k, v, k_cache, v_cache, block, scales):
+    """:func:`attention_decode` on this model rank's block of the
+    sequence-parallel cache: q (B, 1, H_local, dh) on the rank's heads, k
+    and v (B, 1, KV, dh) the new row of every kv head.  Returns the
+    row-parallel o-projection's partial (B, 1, D)."""
+    Hl = q.shape[2]
+    q = gather_model(q, 2)                                 # all H heads
+    # the row goes to the block that holds it; a write elsewhere puts the
+    # row's old value back (no host sync to find the owner)
+    rows, mine = block["rows"], block["mine"]
+    if scales is not None:
+        (kq, ks), (vq, vs) = quantize_rows(k[:, 0]), quantize_rows(v[:, 0])
+        writes = ((k_cache, kq), (v_cache, vq), (scales[0], ks),
+                  (scales[1], vs))
+    else:
+        writes = ((k_cache, k[:, 0].to(k_cache.dtype)),
+                  (v_cache, v[:, 0].to(v_cache.dtype)))
+    for cache, new in writes:
+        keep = mine if new.ndim == 3 else mine[..., 0]
+        cache[rows] = torch.where(keep, new, cache[rows])
+    kf, vf = _dequant(k_cache, v_cache, scales, q.dtype)
+    out, lse = decode_attention(q, kf, vf, block["kv_len"], return_lse=True)
+    out = combine_over_model(out, lse)
+    r = tp_index()
+    return _out_proj(out[:, :, r * Hl:(r + 1) * Hl], p["wo"])
 
 
 # ----------------------------------------------------------------------

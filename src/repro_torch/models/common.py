@@ -21,8 +21,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.parallel.sharding import (axis_rules, current_rules, dp_sum,
-                                           model_group, reduce_from_model,
-                                           tp_index)
+                                           gather_model, model_group,
+                                           reduce_from_model, tp_index)
 
 #: logits of the padded vocabulary rows (as the reference's ``-1e30``)
 PAD_LOGIT = -1e30
@@ -191,7 +191,8 @@ def embed_tokens(p, cfg, tokens: torch.Tensor) -> torch.Tensor:
     Under tensor parallelism the table is this rank's block of the
     vocabulary (``vocab -> model``): a token outside it gives a zero row,
     so the rows are partial sums over the model ranks (the caller sums
-    them, ``parallel.sharding.scatter_seq``)."""
+    them, ``parallel.sharding.scatter_seq``: reduce-scattered into the
+    sequence blocks in train and prefill, all-reduced in decode)."""
     tok = p["tok"]
     V = tok.shape[0]
     lo = tp_index() * V
@@ -283,6 +284,15 @@ def logits_from_hidden(p, cfg, h: torch.Tensor) -> torch.Tensor:
             logits = logits.clone()
         logits[..., max(pad, 0):] = PAD_LOGIT
     return logits
+
+
+def whole_logits(p, cfg, h: torch.Tensor) -> torch.Tensor:
+    """h (B, 1, D), the same on every model rank -> the logits (B,
+    V_padded) f32 of the whole vocabulary on every rank: under tensor
+    parallelism each rank's block of the vocabulary (:func:`
+    logits_from_hidden`) all-gathered, so greedy tokens agree across the
+    ranks."""
+    return gather_model(logits_from_hidden(p, cfg, h)[:, 0], -1)
 
 
 # ----------------------------------------------------------------------

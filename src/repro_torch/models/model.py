@@ -41,6 +41,16 @@ An ``moe`` layer's feed-forward is :func:`repro_torch.models.moe.moe_ffn`
 the SwiGLU MLP; prefill and decode drop its aux loss, as the reference's
 do.
 
+Under ``launch.specs.rules_for(cfg, mesh, "prefill" | "decode")`` with a
+model axis (``dense`` without MLA, ``vlm``, ``moe``; the config resolved
+with ``tp``) ``prefill``, ``decode_step`` and ``init_cache`` serve with
+tensor parallelism: the params are each rank's model blocks
+(``launch.specs.serve_param_shardings``), the cache each rank's
+``kv_seq`` block of rows for every kv head and its rows of the batch
+(``launch.specs.cache_shardings``), the logits whole on every rank;
+MLA and the other families raise ``NotImplementedError`` naming
+``TP_NEXT`` (:func:`check_tp`).
+
 ``train_forward`` is the reference's: the loss is the chunked
 cross-entropy of the labels plus, for ``moe``, the layers' mean aux
 loss; metrics ``loss``, ``aux_loss`` and ``tokens``.  Each layer runs
@@ -60,21 +70,40 @@ from repro_torch.device import resolve_device
 from repro_torch.models import encdec, hybrid
 from repro_torch.models.attention import (attention_decode, attention_fwd,
                                           attention_logical, check_lowered,
-                                          init_attention, init_mla,
-                                          mla_decode, mla_fwd, mla_logical)
+                                          decode_block, init_attention,
+                                          init_mla, mla_decode, mla_fwd,
+                                          mla_logical)
 from repro_torch.models.common import (chunked_cross_entropy,
                                        default_positions, embed_tokens,
                                        embedding_logical, init_embedding,
                                        init_mlp, init_rmsnorm, layer_slice,
                                        logits_from_hidden, maybe_remat, mlp,
                                        mlp_logical, rmsnorm, rmsnorm_logical,
-                                       stacked_init, stacked_logical)
+                                       stacked_init, stacked_logical,
+                                       whole_logits)
 from repro_torch.models.moe import init_moe, moe_ffn, moe_logical
-from repro_torch.parallel.sharding import (gather_seq, scatter_seq, tp_index,
-                                           tp_size)
+from repro_torch.parallel.sharding import (dp_size, gather_seq, kv_block,
+                                           kv_offset, kv_split, scatter_seq,
+                                           seq_block, seq_row, tp_size)
 
 #: the decoder-only families (``_dec_*``)
 DEC_FAMILIES = ("dense", "moe", "vlm")
+#: where tensor parallelism goes next (the refusals name it)
+TP_NEXT = "ROADMAP Queue 1 item 9, step 1b"
+
+
+def check_tp(cfg, tp: int) -> None:
+    """``NotImplementedError`` for a model axis of ``tp`` > 1 where the
+    port has no tensor parallelism yet: MLA and the ``ssm``, ``hybrid``
+    and ``encdec`` families (the train step, prefill, decode and
+    ``init_cache`` share this check)."""
+    if tp == 1 or (cfg.family in DEC_FAMILIES and cfg.mla is None):
+        return
+    what = "MLA" if cfg.mla is not None else f"the {cfg.family!r} family"
+    raise NotImplementedError(
+        f"a 'model' axis of {tp} is tensor parallelism, which the port has "
+        f"for the dense, vlm and moe families without MLA; {what} "
+        f"({cfg.name}) is {TP_NEXT}")
 
 
 def int8_kv(cfg) -> bool:
@@ -111,20 +140,24 @@ def _ffn(lp, cfg, x: torch.Tensor):
     return mlp(lp["ffn"], x), None
 
 
-def _dec_layer(cfg, positions, lp, h: torch.Tensor):
-    """One decoder layer: (h, aux loss, the attention's cache rows).
+def _dec_layer(cfg, attn, lp, h: torch.Tensor, S: Optional[int] = None):
+    """One decoder layer: (h, aux loss, the attention's cache rows);
+    ``attn(p, x) -> (out, cache rows)`` is the layer's attention on its
+    normed input (prefill's or the train step's full-sequence form, or a
+    decode step's).
 
-    Under tensor parallelism ``h`` is this rank's block of the sequence
-    (the Megatron-SP residual, the reference's ``residual_seq``): each
-    sublayer's normed input is all-gathered along the sequence for its
-    column-parallel products, and its row-parallel output reduce-scattered
-    back into the residual's blocks."""
-    attn_fwd = mla_fwd if cfg.mla is not None else attention_fwd
-    a, kv = attn_fwd(lp["attn"], cfg,
-                     gather_seq(rmsnorm(lp["ln1"], h, cfg.norm_eps)),
-                     positions, causal=cfg.causal)
+    Under tensor parallelism in train and prefill ``h`` is this rank's
+    block of the ``S`` positions (the Megatron-SP residual, the
+    reference's ``residual_seq``): each sublayer's normed input is
+    all-gathered along the sequence for its column-parallel products, and
+    its row-parallel output reduce-scattered back into the residual's
+    blocks.  Under the decode rules the residual is whole on every rank:
+    the gather is the identity and the outputs' partial sums are
+    all-reduced (``parallel.sharding.scatter_seq``)."""
+    eps = cfg.norm_eps
+    a, kv = attn(lp["attn"], gather_seq(rmsnorm(lp["ln1"], h, eps), length=S))
     h = h + scatter_seq(a)
-    f, aux = _ffn(lp, cfg, gather_seq(rmsnorm(lp["ln2"], h, cfg.norm_eps)))
+    f, aux = _ffn(lp, cfg, gather_seq(rmsnorm(lp["ln2"], h, eps), length=S))
     return h + scatter_seq(f), aux, kv
 
 
@@ -151,24 +184,37 @@ def _dec_backbone(params, cfg, batch, cache: Optional[dict] = None):
     loss); each layer's k/v (or MLA latent and rotary key) go to rows
     [0, S) of ``cache`` when one is given, else each layer runs under
     ``maybe_remat``.  Under tensor parallelism the hidden states are this
-    rank's block of ``S / tp`` positions: the embedding's partial rows
-    (vocab-parallel) are reduce-scattered into it."""
+    rank's block of ``ceil(S / tp)`` positions (``parallel.sharding.
+    seq_block``): the embedding's partial rows (vocab-parallel) are
+    reduce-scattered into it.  The train step's sequence must split
+    evenly; prefill's may not (its last block is padded), and the cache
+    is this rank's block of rows (``kv_block``), which takes the rows of
+    [0, S) that fall in it."""
     tokens = batch["tokens"]
     B, S = tokens.shape
     tp = tp_size()
-    if S % tp:
+    if S % tp and cache is None:
         raise ValueError(f"a sequence of {S} tokens does not split over "
                          f"{tp} tensor-parallel ranks")
     h = scatter_seq(embed_tokens(params["embed"], cfg, tokens))
     if cfg.family == "vlm":
-        h = _merge_vision(cfg, h, batch, S, tp_index() * (S // tp))
+        h = _merge_vision(cfg, h, batch, S, seq_block(S)[0])
     positions = batch.get("positions")
     if positions is None:
         positions = default_positions(cfg, B, S, device=h.device)
     names = ("ckv", "kpe") if cfg.mla is not None else ("k", "v")
+    attn_fwd = mla_fwd if cfg.mla is not None else attention_fwd
+    kw = {}
+    if cache is not None and cfg.mla is None:
+        n = cache["k"].shape[2]
+        lo = kv_offset(n)
+        kw["kv_rows"] = (min(lo, S), min(lo + n, S))
+
+    def attn(p, x):
+        return attn_fwd(p, cfg, x, positions, causal=cfg.causal, **kw)
 
     def body(lp, hh):
-        hh, aux, _ = _dec_layer(cfg, positions, lp, hh)
+        hh, aux, _ = _dec_layer(cfg, attn, lp, hh, S)
         return hh, aux
 
     body = maybe_remat(cfg, body)
@@ -178,9 +224,9 @@ def _dec_backbone(params, cfg, batch, cache: Optional[dict] = None):
         if cache is None:
             h, a = body(lp, h)
         else:
-            h, a, kv = _dec_layer(cfg, positions, lp, h)
+            h, a, kv = _dec_layer(cfg, attn, lp, h, S)
             for name, rows in zip(names, kv):
-                cache[name][i, :, :S] = rows
+                cache[name][i, :, :rows.shape[1]] = rows
         if a is not None:
             aux = aux + a
     return rmsnorm(params["final_norm"], h, cfg.norm_eps), \
@@ -197,43 +243,63 @@ def _dec_train_forward(params, cfg, batch):
 
 
 def _dec_prefill(params, cfg, batch, cache_len: Optional[int] = None):
+    """The last position's logits (B, V_padded) and the model-dtype cache
+    of ``max(S, cache_len)`` rows, int8 config or not (the reference's
+    prefill).
+
+    Under prefill rules with a model axis (``tokens`` this rank's rows of
+    the batch, whole along the sequence) the cache returned is this
+    rank's block (``kv_block``) of the rows, for every kv head, and
+    ``len`` its rows' lengths; the logits are the whole vocabulary's on
+    every model rank: the last position's hidden state taken from the
+    rank whose sequence block holds it, its vocabulary blocks
+    all-gathered."""
     B, S = batch["tokens"].shape
     tok = params["embed"]["tok"]
-    # the model-dtype cache, int8 config or not (the reference's prefill)
     cache = _dec_init_cache(cfg, B, max(S, cache_len or 0), tok.dtype,
                             tok.device)
     h, _ = _dec_backbone(params, cfg, batch, cache)
-    logits = logits_from_hidden(params["embed"], cfg, h[:, -1:, :])[:, 0]
+    logits = whole_logits(params["embed"], cfg, seq_row(h, S - 1))
     cache["len"].fill_(S)
     return logits, cache
 
 
 def _dec_decode(params, cfg, cache, tokens: torch.Tensor):
+    """One token a row: (logits (B, V_padded), the cache with ``len +
+    1``), each layer's row written in place.
+
+    Under decode rules with a model axis the residual is whole on every
+    rank (``residual_seq -> None``) and the cache this rank's block of
+    rows: each layer attends over the blocks (``attention_decode``), its
+    row-parallel outputs and the embedding's vocab-parallel rows summed
+    over the model ranks (``scatter_seq``, an all-reduce here), and the
+    logits are the whole vocabulary's on every rank."""
     int8 = int8_kv(cfg)
     if int8 and "k_scale" not in cache:
         raise ValueError(
             "an int8 KV cache decodes only from init_cache: this cache has "
             "no k_scale / v_scale (prefill keeps the model's dtype, and the "
             "reference's decode fails on it with an IndexError)")
-    h = embed_tokens(params["embed"], cfg, tokens)          # (B, 1, D)
+    h = scatter_seq(embed_tokens(params["embed"], cfg, tokens))   # (B, 1, D)
     pos = cache["len"]
+    block = (decode_block(pos, cache["k"].shape[2])
+             if kv_split() and cfg.mla is None else None)
     for i in range(cfg.num_layers):
-        lp = layer_slice(params["layers"], i)
-        a_in = rmsnorm(lp["ln1"], h, cfg.norm_eps)
         if cfg.mla is not None:
-            a, _, _ = mla_decode(lp["attn"], cfg, a_in, pos, cache["ckv"][i],
-                                 cache["kpe"][i], cache["len"])
+            def attn(p, x):
+                return mla_decode(p, cfg, x, pos, cache["ckv"][i],
+                                  cache["kpe"][i], cache["len"])[0], None
         else:
-            scales = ((cache["k_scale"][i], cache["v_scale"][i]) if int8
-                      else None)
-            a, _, _ = attention_decode(lp["attn"], cfg, a_in, pos,
-                                       cache["k"][i], cache["v"][i],
-                                       cache["len"], scales=scales)
-        h = h + a
-        h = h + _ffn(lp, cfg, rmsnorm(lp["ln2"], h, cfg.norm_eps))[0]
+            def attn(p, x):
+                scales = ((cache["k_scale"][i], cache["v_scale"][i]) if int8
+                          else None)
+                return attention_decode(p, cfg, x, pos, cache["k"][i],
+                                        cache["v"][i], cache["len"],
+                                        scales=scales, block=block)[0], None
+        h, _, _ = _dec_layer(cfg, attn, layer_slice(params["layers"], i), h)
     h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
-    logits = logits_from_hidden(params["embed"], cfg, h)[:, 0]
-    return logits, {**cache, "len": cache["len"] + 1}
+    return (whole_logits(params["embed"], cfg, h),
+            {**cache, "len": cache["len"] + 1})
 
 
 def _dec_init_params(cfg, generator: torch.Generator, device) -> dict:
@@ -271,8 +337,12 @@ def _dec_cache_logical(cfg) -> dict:
 
 def _dec_init_cache(cfg, B: int, S: int, dtype=torch.bfloat16, device=None,
                     int8: bool = False):
-    """The zeroed cache; ``int8`` gives int8 rows and their f32 scales."""
+    """The zeroed cache of ``B`` rows (this rank's) and ``S`` positions;
+    ``int8`` gives int8 rows and their f32 scales.  Under rules that split
+    ``kv_seq`` over a model axis only this rank's block of the positions
+    (``kv_block``: ``ValueError`` where ``S`` does not split)."""
     L = cfg.num_layers
+    S = kv_block(S)[1]
 
     def zeros(shape, dt):
         return torch.zeros(shape, dtype=dt, device=device)
@@ -299,6 +369,13 @@ def _family(cfg):
     families (this module)."""
     check_lowered(cfg)
     return {"ssm": hybrid, "hybrid": hybrid, "encdec": encdec}.get(cfg.family)
+
+
+def _serving_family(cfg):
+    """:func:`_family`, after :func:`check_tp` on the active rules' model
+    axis."""
+    check_tp(cfg, tp_size())
+    return _family(cfg)
 
 
 def init_params(cfg, generator: torch.Generator, device=None) -> dict:
@@ -348,8 +425,15 @@ def prefill(params, cfg, batch, cache_len: Optional[int] = None):
     and ``positions``, and for ``encdec`` the encoder's ``enc_frames``
     (B, S_enc, D), on the parameters' device.  Returns the last
     position's logits (B, V_padded) f32 and the cache, padded to
-    ``cache_len`` rows (the ``ssm`` family's cache has no rows)."""
-    fam = _family(cfg)
+    ``cache_len`` rows (the ``ssm`` family's cache has no rows).
+
+    Under ``launch.specs.rules_for(cfg, mesh, "prefill")`` with a model
+    axis (the decoder-only families without MLA, ``cfg`` resolved with
+    ``tp``; ``params`` each rank's blocks, ``launch.specs.
+    serve_param_shardings``; ``batch`` this rank's rows): the cache is
+    this rank's block in ``launch.specs.cache_shardings``' layout and the
+    logits are whole on every rank (:func:`_dec_prefill`)."""
+    fam = _serving_family(cfg)
     if fam is not None:
         return fam.prefill(params, cfg, batch, cache_len)
     return _dec_prefill(params, cfg, batch, cache_len)
@@ -358,16 +442,23 @@ def prefill(params, cfg, batch, cache_len: Optional[int] = None):
 def decode_step(params, cfg, cache, tokens: torch.Tensor):
     """tokens (B, 1) -> (logits (B, V_padded) f32, cache).  The returned
     cache holds the same state tensors, updated in place, and
-    ``len + 1``."""
-    fam = _family(cfg)
+    ``len + 1``.  Under the decode rules with a model axis the cache is
+    this rank's block, as :func:`prefill` and :func:`init_cache` give it
+    (:func:`_dec_decode`)."""
+    fam = _serving_family(cfg)
     if fam is not None:
         return fam.decode_step(params, cfg, cache, tokens)
     return _dec_decode(params, cfg, cache, tokens)
 
 
 def init_cache(cfg, B: int, S: int, dtype=torch.bfloat16, device=None):
-    fam = _family(cfg)
+    """The zeroed cache of ``B`` sequences and ``S`` positions.  Under
+    rules with a model axis, this rank's block of it in ``launch.specs.
+    cache_shardings``' layout: its rows of the batch (where ``B`` splits
+    over the data-parallel ranks) and its block of the positions."""
+    fam = _serving_family(cfg)
     if fam is not None:
         return fam.init_cache(cfg, B, S, dtype, resolve_device(device))
-    return _dec_init_cache(cfg, B, S, dtype, resolve_device(device),
-                           int8=int8_kv(cfg))
+    dp = dp_size()
+    return _dec_init_cache(cfg, B // dp if B % dp == 0 else B, S, dtype,
+                           resolve_device(device), int8=int8_kv(cfg))

@@ -42,11 +42,17 @@ Here a rank holds local shards and the collectives are explicit:
   and the differentiable collectives over the model axis,
   :func:`gather_seq` / :func:`scatter_seq` (an all-gather along the
   sequence whose backward reduce-scatters, and the reverse: Megatron's
-  ``f`` and ``g`` under its sequence-parallel residual) and
-  :func:`reduce_from_model` (an all-reduce whose backward passes the
+  ``f`` and ``g`` under its sequence-parallel residual; under the decode
+  rules, which keep the residual whole, the identity and an all-reduce)
+  and :func:`reduce_from_model` (an all-reduce whose backward passes the
   cotangent on).  Each captures its process group in its forward: a CUDA
   backward (and ``maybe_remat``'s recompute with it) runs on autograd's
-  own thread, which does not see the caller's rules.
+  own thread, which does not see the caller's rules;
+- the serving cache is sequence-parallel (``kv_seq -> model``): a model
+  rank holds the contiguous block :func:`kv_block` of the cache's rows for
+  every kv head, attends over it alone, and :func:`combine_over_model`
+  merges the ranks' partial attentions by their log-sum-exps
+  (flash-decoding's combine across ranks).
 
 A spec is a plain tuple whose entries equal the reference's
 ``PartitionSpec``'s: an axis name, a tuple of names, or None.  A tuple
@@ -61,6 +67,7 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import functools
 import math
 from typing import Dict, Optional, Sequence, Tuple, Union
 
@@ -96,6 +103,17 @@ class AxisRules:
     def __init__(self, mesh, rules: Dict[str, Physical]):
         self.mesh = mesh
         self.rules = dict(rules)
+
+    @functools.cached_property
+    def model_axis(self):
+        """(group, size, this rank's index) of the mesh's model axis, or
+        None without one; found once a rule set (a decode step asks for
+        it dozens of times a layer)."""
+        if MODEL not in mesh_axes(self.mesh):
+            return None
+        return (axis_group(self.mesh, (MODEL,)),
+                axis_size(self.mesh, (MODEL,)),
+                axis_index(self.mesh, (MODEL,)))
 
     def physical(self, logical: Optional[str]) -> Physical:
         if logical is None:
@@ -523,9 +541,8 @@ MODEL = "model"
 def _model(rules: Optional[AxisRules]):
     """(group, size) of the model axis under ``rules``, or None without
     rules or without a model axis in their mesh."""
-    if rules is None or MODEL not in mesh_axes(rules.mesh):
-        return None
-    return axis_group(rules.mesh, (MODEL,)), axis_size(rules.mesh, (MODEL,))
+    m = None if rules is None else rules.model_axis
+    return None if m is None else m[:2]
 
 
 def model_group():
@@ -544,7 +561,8 @@ def tp_size() -> int:
 def tp_index() -> int:
     """This rank's index over the model axis (0 without rules)."""
     rules = current_rules()
-    return 0 if _model(rules) is None else axis_index(rules.mesh, (MODEL,))
+    m = None if rules is None else rules.model_axis
+    return 0 if m is None else m[2]
 
 
 def reduce_from_model(x: torch.Tensor) -> torch.Tensor:
@@ -554,20 +572,140 @@ def reduce_from_model(x: torch.Tensor) -> torch.Tensor:
     return x if m is None else _Reduce.apply(x, m[0])
 
 
-def gather_seq(x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+def _seq_split(rules: Optional[AxisRules]) -> bool:
+    """Whether ``rules`` split the residual stream's sequence over the
+    model axis (train and prefill; the decode rules keep it whole)."""
+    return rules.rules.get("residual_seq") == MODEL
+
+
+def seq_block(S: int) -> Tuple[int, int]:
+    """(first position, rows) of this model rank's block of a residual
+    sequence of ``S`` positions: ``ceil(S / tp)`` rows a rank, the last
+    blocks padded past ``S`` (as GSPMD pads an uneven split); (0, S)
+    without a sequence split."""
+    rules = current_rules()
+    m = _model(rules)
+    if m is None or not _seq_split(rules):
+        return 0, S
+    n = -(-S // m[1])
+    return tp_index() * n, n
+
+
+def gather_seq(x: torch.Tensor, dim: int = 1,
+               length: Optional[int] = None) -> torch.Tensor:
     """The whole sequence from each model rank's block of it (the
     sequence-parallel residual entering a column-parallel product); the
-    gradient reduce-scattered back to each rank's block."""
-    m = _model(current_rules())
-    return x if m is None else _Gather.apply(x, dim, *m)
+    gradient reduce-scattered back to each rank's block.  ``length``
+    trims the padding of an uneven split (:func:`seq_block`).  The
+    identity under rules that keep the residual whole (decode)."""
+    rules = current_rules()
+    m = _model(rules)
+    if m is None or not _seq_split(rules):
+        return x
+    y = _Gather.apply(x, dim, *m)
+    if length is None or y.shape[dim] == length:
+        return y
+    return y.narrow(dim, 0, length)
 
 
 def scatter_seq(x: torch.Tensor, dim: int = 1) -> torch.Tensor:
     """The model ranks' partial sums of a whole sequence (a row-parallel
     product's output), summed and split along the sequence into each
-    rank's block; the gradient all-gathered."""
+    rank's block (:func:`seq_block`: an uneven sequence padded with
+    zeros first); the gradient all-gathered.  Under rules that keep the
+    residual whole (decode) the partial sums all-reduced
+    (:func:`reduce_from_model`)."""
+    rules = current_rules()
+    m = _model(rules)
+    if m is None:
+        return x
+    if not _seq_split(rules):
+        return _Reduce.apply(x, m[0])
+    pad = -x.shape[dim] % m[1]
+    if pad:
+        shape = list(x.shape)
+        shape[dim] = pad
+        x = torch.cat([x, x.new_zeros(shape)], dim)
+    return _Scatter.apply(x, dim, *m)
+
+
+def seq_row(x: torch.Tensor, j: int, dim: int = 1) -> torch.Tensor:
+    """Position ``j`` of the sequence whose block (:func:`seq_block`) this
+    model rank holds in ``x``, on every model rank: the owner's row,
+    summed with the others' zeros.  ``x.narrow(dim, j, 1)`` without a
+    sequence split, copied as the all-reduce copies it, so one rank's
+    products downstream take the same layout and give the same bits."""
+    rules = current_rules()
+    m = _model(rules)
+    if m is None or not _seq_split(rules):
+        return x.narrow(dim, j, 1).contiguous()
+    n = x.shape[dim]
+    at = j - tp_index() * n
+    row = (x.narrow(dim, at, 1) if 0 <= at < n
+           else torch.zeros_like(x.narrow(dim, 0, 1)))
+    return _Reduce.apply(row, m[0])
+
+
+def gather_model(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """The model ranks' blocks of ``x`` along ``dim`` concatenated in rank
+    order (heads, vocabulary), every rank getting them; ``x`` itself
+    without a model axis."""
     m = _model(current_rules())
-    return x if m is None else _Scatter.apply(x, dim, *m)
+    return x if m is None else _Gather.apply(x, dim, *m)
+
+
+def kv_split() -> bool:
+    """Whether the active rules split the KV cache's rows over a model
+    axis (``kv_seq -> model``, any size)."""
+    rules = current_rules()
+    return _model(rules) is not None and rules.physical("kv_seq") == MODEL
+
+
+def kv_offset(n: int) -> int:
+    """The first row of this model rank's block when each rank holds
+    ``n`` rows of the sequence-parallel cache (0 without a split)."""
+    return tp_index() * n if kv_split() else 0
+
+
+def kv_block(S: int) -> Tuple[int, int]:
+    """(first row, rows) of this model rank's block of a KV cache of ``S``
+    rows under ``kv_seq -> model`` (the sequence-parallel cache); (0, S)
+    without rules or a model axis.  ``ValueError`` where ``S`` does not
+    split evenly: the reference's ``arg_sharding`` would replicate such a
+    cache on every rank instead."""
+    if not kv_split():
+        return 0, S
+    tp = tp_size()
+    if S % tp:
+        raise ValueError(f"a KV cache of {S} rows does not split over "
+                         f"{tp} model ranks (kv_seq -> model): give a "
+                         f"cache length that is a multiple of {tp}")
+    n = S // tp
+    return tp_index() * n, n
+
+
+def combine_over_model(out: torch.Tensor, lse: torch.Tensor) -> torch.Tensor:
+    """Flash-decoding's combine across the model ranks: each rank's
+    attention ``out`` (B, 1, H, Dv) over its block of the cache, with the
+    log-sum-exp ``lse`` (B, H) f32 of its scores, merged into the
+    attention over the whole cache.  ``M`` the all-reduced maximum of
+    ``lse``, ``w = exp(lse - M)``; the all-reduced ``sum w * out`` over the
+    all-reduced ``sum w`` (the two sums in one all-reduce), in f32,
+    returned in ``out``'s dtype.  A rank
+    whose block holds no valid row carries ``lse = -inf`` and weighs
+    nothing.  On one rank ``w`` is 1 and the result is ``out`` bit for
+    bit.  ``out`` itself without a model axis.  Serving only: no
+    gradient."""
+    import torch.distributed as dist
+    m = _model(current_rules())
+    if m is None:
+        return out
+    M = _all_reduce(lse, m[0], dist.ReduceOp.MAX).clamp_min_(-1e30)
+    w = torch.exp(lse - M)[:, None, :, None]
+    # sum w * out and sum w in one all-reduce
+    both = torch.cat([out.float() * w, w], dim=-1)
+    dist.all_reduce(both, group=m[0])
+    return (both[..., :-1] / both[..., -1:].clamp_min(1e-30)).to(out.dtype)
 
 
 class _ScaleGrad(torch.autograd.Function):

@@ -675,3 +675,140 @@ def sharded_step_parity(cfg, tcfg, rules, state: dict, batch: dict,
                     "loss_equal": seen["loss"],
                     "loss_drift": seen["loss_drift"]})
     return out
+
+
+
+def serve_wave(params, cfg, batch: dict, cache_len: int, steps: int,
+               from_init: bool = False, mesh=None,
+               rows: Optional[int] = None) -> dict:
+    """One serving wave: ``prefill`` of ``batch`` into a cache of
+    ``cache_len`` rows, then ``steps`` greedy ``decode_step``s.  With
+    ``from_init`` an ``init_cache`` of ``rows`` sequences (the batch's
+    own rows by default) fed the prompt one token a step takes the
+    prefill's place: the start the reference's int8 cache takes.  With a
+    ``mesh``, the prefill runs under ``launch.specs.rules_for(cfg, mesh,
+    "prefill")`` and the steps under its ``"decode"`` rules (``params``
+    and ``batch`` each rank's, ``rows`` the global batch's).  Returns
+    ``logits`` (a (B, V_padded) tensor a step, the prefill's or the last
+    prompt step's first), ``tokens`` (B, steps + 1) greedy, ``cache`` and
+    ``decode_s``, the seconds of the greedy steps (the card waited for at
+    the end)."""
+    import time
+    from repro_torch.launch.specs import rules_for
+    from repro_torch.models import model as M
+    from repro_torch.parallel.sharding import axis_rules
+    pre = dec = None
+    if mesh is not None:
+        pre, dec = (rules_for(cfg, mesh, k) for k in ("prefill", "decode"))
+    toks = batch["tokens"]
+    if from_init:
+        with axis_rules(dec):
+            cache = M.init_cache(cfg, rows or toks.shape[0], cache_len,
+                                 params["embed"]["tok"].dtype, toks.device)
+            for t in range(toks.shape[1]):
+                logits, cache = M.decode_step(params, cfg, cache,
+                                              toks[:, t:t + 1])
+    else:
+        with axis_rules(pre):
+            logits, cache = M.prefill(params, cfg, batch, cache_len)
+    out = [logits]
+    tok = logits.argmax(-1, keepdim=True).to(torch.int32)
+    picked = [tok]
+    if toks.is_cuda:
+        torch.cuda.synchronize(toks.device)
+    t0 = time.perf_counter()
+    with axis_rules(dec):
+        for _ in range(steps):
+            logits, cache = M.decode_step(params, cfg, cache, tok)
+            out.append(logits)
+            tok = logits.argmax(-1, keepdim=True).to(torch.int32)
+            picked.append(tok)
+    if toks.is_cuda:
+        torch.cuda.synchronize(toks.device)
+    return {"logits": out, "tokens": torch.cat(picked, 1), "cache": cache,
+            "decode_s": time.perf_counter() - t0}
+
+
+def tp_serve_parity(cfg, mesh, params: dict, batch: dict, cache_len: int,
+                    steps: int, from_init: bool = False,
+                    rounds: int = 0) -> dict:
+    """One wave (:func:`serve_wave`) on the tensor-parallel path over
+    ``mesh`` against the single-device path of the same resolved ``cfg``;
+    every rank of the mesh calls it with the same whole ``params`` and
+    global ``batch``.  The single-device wave takes them as they are,
+    without rules; the tensor-parallel one each rank's blocks of the
+    params (``launch.specs.serve_param_shardings``) and its rows of the
+    batch.  Returns ``logits``, the largest difference of this rank's
+    logits from the single-device wave's rows over the largest |logit| of
+    the real vocabulary; ``logits_exact``, whether they are equal bit for
+    bit; ``tokens_equal``; ``cache``, the largest difference of the
+    gathered cache from the single-device one over each leaf's largest
+    value (``cache_exact``: bit for bit; ``len`` must be equal, or
+    ``tokens_equal`` is False), over the floating leaves; for an int8
+    cache ``int8_steps``, the largest difference of its rows in
+    quantisation steps, and ``int8_off``, how many differ (a last-bit
+    difference of a row before it is rounded can move it one step);
+    ``cache_shapes``, this rank's cache
+    leaves' shapes; and with ``rounds``, ``decode_ms``: each path's
+    (``tp``, ``single``) milliseconds a greedy step in each of ``rounds``
+    more waves, run after the parity waves (which warm both paths up),
+    the two paths interleaved and the first of them alternating round by
+    round (the host's clock drifts between waves)."""
+    from repro_torch.launch.specs import (batch_logical, cache_shardings,
+                                          rules_for, serve_param_shardings,
+                                          tree_arg_shardings)
+    from repro_torch.parallel.sharding import _axes, axis_index, place
+    from repro_torch.tree import leaves_with_path
+    rules = rules_for(cfg, mesh, "prefill")
+    B = batch["tokens"].shape[0]
+    b_sh = tree_arg_shardings(batch, {
+        k: v for k, v in batch_logical(cfg, "prefill").items()
+        if k in batch}, rules)
+    mine = (place(params, serve_param_shardings(cfg, rules)),
+            place(batch, b_sh))
+    waves = {"tp": lambda: serve_wave(mine[0], cfg, mine[1], cache_len,
+                                      steps, from_init, mesh, B),
+             "single": lambda: serve_wave(params, cfg, batch, cache_len,
+                                          steps, from_init)}
+    got, single = waves["tp"](), waves["single"]()
+    dp_axes = _axes(b_sh["tokens"].spec[0])
+    n = got["tokens"].shape[0]
+    r0 = axis_index(mesh, dp_axes) * n if dp_axes else 0
+    V = cfg.vocab_size
+    drift, exact = 0.0, True
+    for a, b in zip(got["logits"], single["logits"]):
+        b = b[r0:r0 + n]
+        exact &= torch.equal(a, b)
+        drift = max(drift, float((a[:, :V] - b[:, :V]).abs().max()
+                                 / b[:, :V].abs().max()))
+    tokens_equal = torch.equal(got["tokens"], single["tokens"][r0:r0 + n])
+    c_sh = cache_shardings(cfg, rules, B, cache_len)
+    c_drift, c_exact, steps_off, n_off = 0.0, True, 0, 0
+    for (path, x), (_, y) in zip(leaves_with_path(got["cache"]),
+                                 leaves_with_path(single["cache"])):
+        x = c_sh[path[0]].gather(x)
+        c_exact &= torch.equal(x, y)
+        if path[0] == "len":
+            tokens_equal &= torch.equal(x, y)
+            continue
+        if x.dtype == torch.int8:
+            d = (x.int() - y.int()).abs()
+            steps_off = max(steps_off, int(d.max()))
+            n_off += int(torch.count_nonzero(d))
+            continue
+        x, y = x.float(), y.float()
+        c_drift = max(c_drift, float((x - y).abs().max()
+                                     / y.abs().max().clamp_min(1e-30)))
+    out = {"logits": drift, "logits_exact": bool(exact),
+           "tokens_equal": bool(tokens_equal), "cache": c_drift,
+           "cache_exact": bool(c_exact), "int8_steps": steps_off,
+           "int8_off": n_off,
+           "cache_shapes": {k: list(v.shape)
+                            for k, v in got["cache"].items()}}
+    del got, single
+    if rounds:
+        ms = out["decode_ms"] = {"tp": [], "single": []}
+        for r in range(rounds):
+            for k in (("tp", "single") if r % 2 == 0 else ("single", "tp")):
+                ms[k].append(waves[k]()["decode_s"] / max(steps, 1) * 1e3)
+    return out

@@ -66,10 +66,14 @@ gradient on each model rank (the norms under the sequence split, the kv
 projections that each rank slices to its q heads' kv heads, the router's
 combine part; the aux loss enters each rank's backward at ``1 / tp``,
 ``parallel.sharding.replicated_term``), so it is summed over the model
-axis with the data-parallel ones.  With a model axis above 1 the other
-families and MLA raise ``NotImplementedError`` (ROADMAP Queue 1 item 9,
-step 1b), and a config whose model-split dims do not divide the axis
-(resolve it with ``tp``) ``ValueError``.
+axis with the data-parallel ones.  With a model axis above 1, MLA and
+the ``ssm``, ``hybrid`` and ``encdec`` families raise
+``NotImplementedError`` naming ``TP_NEXT`` (``models.model.check_tp``,
+which prefill, decode and ``init_cache`` share; ROADMAP Queue 1 item 9,
+step 1b: MLA, then ``ssm_inner -> model``, then ``encdec``), and a config
+whose model-split dims do not divide the axis (resolve it with ``tp``)
+``ValueError``.  Serving under tensor parallelism (prefill and decode
+with the sequence-parallel KV cache) is ``models.model``'s.
 
 ``tcfg.grad_compression`` raises ``NotImplementedError``: the
 reference's step never reads the flag (its int8 all-reduce,
@@ -142,7 +146,7 @@ def value_and_grad(cfg, params, batch):
 
 
 #: where tensor parallelism goes next (the refusals name it)
-TP_NEXT = "ROADMAP Queue 1 item 9, step 1b"
+TP_NEXT = M.TP_NEXT
 
 
 def _check_rules(cfg, rules: AxisRules) -> None:
@@ -153,12 +157,7 @@ def _check_rules(cfg, rules: AxisRules) -> None:
     tp = sizes.get(MODEL, 1)
     if tp == 1:
         return
-    if cfg.family not in M.DEC_FAMILIES or cfg.mla is not None:
-        what = "MLA" if cfg.mla is not None else f"the {cfg.family!r} family"
-        raise NotImplementedError(
-            f"a 'model' axis of {tp} is tensor parallelism, which the port "
-            f"has for the dense, vlm and moe families without MLA; "
-            f"{what} ({cfg.name}) is {TP_NEXT}")
+    M.check_tp(cfg, tp)
     sh = state_shardings(cfg, rules)["params"]
     split = map_logical(
         lambda axes, s: any(rules.physical(a) == MODEL for a in axes if a)

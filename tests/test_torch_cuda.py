@@ -1406,3 +1406,102 @@ def test_tp_path_one_rank_nccl_matches_plain(cuda, nccl_rank, arch):
                        fsdp=True)
     d = tp_grad_parity(cfg, rules, cuda)
     assert d["loss"] < TRAIN_GRAD_TOL, d
+
+
+# ----------------------------------------------------------------------
+# serving under tensor parallelism: the decode kernel's log-sum-exp and
+# the sequence-parallel cache's blocks, and the TP wave on one rank
+def _lse_inputs(dtype, cuda, B=6, S=512, H=8, KV=2, D=64):
+    q = _randn((B, 1, H, D), dtype, cuda, 71)
+    k = _randn((B, S, KV, D), dtype, cuda, 72)
+    v = _randn((B, S, KV, D), dtype, cuda, 73)
+    lens = torch.tensor([0, 1, 63, 64, 300, S][:B], dtype=torch.int32,
+                        device=cuda)
+    return q, k, v, lens
+
+
+@pytest.mark.parametrize("dtype,variant", [(torch.float32, "fma"),
+                                           (torch.bfloat16, "mma"),
+                                           (torch.bfloat16, "fma")])
+def test_decode_lse_matches_plain(cuda, dtype, variant):
+    """``return_lse=True`` on both kernels: one launch of ``variant``,
+    ``out`` equal bit for bit to the call without the flag, and ``lse``
+    within the dtype's tolerance of the plain version's (-inf where
+    ``kv_len == 0``)."""
+    q, k, v, lens = _lse_inputs(dtype, cuda)
+    if variant == "fma":        # a head dim the mma kernel does not take
+        q, k, v = (t[..., :60] for t in (q, k, v))
+    before = (decode_attention.launches, decode_attention.mma_launches,
+              decode_attention.fma_launches)
+    out, lse = decode_attention(q, k, v, lens, return_lse=True)
+    torch.cuda.synchronize()
+    assert (decode_attention.launches, decode_attention.mma_launches,
+            decode_attention.fma_launches) == (
+        before[0] + 1, before[1] + (variant == "mma"),
+        before[2] + (variant == "fma"))
+    assert torch.equal(out, decode_attention(q, k, v, lens))
+    p_out, p_lse = decode_attention_plain(q, k, v, lens, return_lse=True)
+    assert lse.shape == (q.shape[0], q.shape[2]) and lse.dtype == torch.float32
+    assert torch.isinf(lse[0]).all() and (lse[0] < 0).all()
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(lse[1:], p_lse[1:], rtol=tol, atol=tol)
+    torch.testing.assert_close(out[1:].float(), p_out[1:].float(), rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tp", [4, 8])
+def test_decode_blocks_merged_match_whole_cache(cuda, tp, dtype):
+    """A cache cut into the tp blocks of the sequence-parallel layout,
+    each block's call with its valid rows and ``lse`` (empty blocks
+    included), merged by their log-sum-exps as ``combine_over_model``
+    merges the ranks': within the dtype's tolerance of the whole-cache
+    call."""
+    q, k, v, lens = _lse_inputs(dtype, cuda, B=5, S=64 * tp)
+    lens = torch.tensor([1, 40, 64 * tp // 2 + 3, 64 * tp - 1, 64 * tp],
+                        dtype=torch.int32, device=cuda)
+    n = k.shape[1] // tp
+    outs, lses = [], []
+    for r in range(tp):
+        kl = (lens - r * n).clamp(0, n).to(torch.int32)
+        o, lse = decode_attention(q, k[:, r * n:(r + 1) * n],
+                                  v[:, r * n:(r + 1) * n], kl,
+                                  return_lse=True)
+        assert torch.equal(torch.isinf(lse).all(1), kl == 0)
+        outs.append(o)
+        lses.append(lse)
+    lse = torch.stack(lses)
+    w = torch.exp(lse - lse.amax(0))[:, :, None, :, None]
+    merged = ((torch.stack([o.float() for o in outs]) * w).sum(0)
+              / w.sum(0)).to(dtype)
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(merged.float(),
+                               decode_attention(q, k, v, lens).float(),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("arch,int8", [("qwen2-vl-7b", False),
+                                       ("qwen2-vl-7b", True),
+                                       ("qwen3-moe-30b-a3b", False)])
+def test_tp_wave_one_rank_nccl_bit_for_bit(cuda, nccl_rank, arch, int8):
+    """A serving wave on the tensor-parallel path (a (1, 1) data x model
+    mesh on NCCL: the prefill and decode rules, the sequence-parallel
+    cache, the decode kernel's ``lse`` and the combine over one-rank
+    groups) against the single-device wave at the f32 smoke config
+    (``testing.tp_serve_parity``; the int8 cache from ``init_cache``):
+    tokens equal, logits and cache bit for bit."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.testing import tp_serve_parity
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
+    if int8:
+        cfg = dataclasses.replace(cfg, kv_cache_dtype="int8")
+    cfg = cfg.resolve(tp=1, dp=1)
+    params = model.init_params(cfg, torch.Generator(cuda).manual_seed(0),
+                               cuda)
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.as_tensor(
+        rng.integers(0, cfg.vocab_size, (3, 14)), dtype=torch.int32,
+        device=cuda)}
+    d = tp_serve_parity(cfg, make_mesh((1, 1), ("data", "model")), params,
+                        batch, 32, 8, from_init=int8)
+    assert d["tokens_equal"] and d["logits_exact"] and d["cache_exact"], d
