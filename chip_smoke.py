@@ -201,7 +201,22 @@ Phases (any failure raises and exits non-zero, with no result line):
    the decode kernel's log-sum-exp at the serving shape and at the
    blocks of tp 4 and 8 cut from that cache, merged by their
    log-sum-exps, against the plain version and the whole-cache call,
-   timed beside SDPA at the block shape;
+   timed beside SDPA at the block shape; (g) tensor parallelism for MLA
+   and the Mamba2 families (its own main path: the counts reset just
+   before its steps and waves and read just after, each kernel's
+   launches and variant asserted against the count predicted from the
+   configs, nothing outside them): on a one-rank NCCL group, mesh
+   (1, 1) data x model, minicpm3-4b, mamba2-1.3b and zamba2-2.7b at
+   full width cut to TP_LATENT_SSM's depths (Zamba2's LoRA seeded
+   nonzero), bf16, one TP train step handed the single-device step's
+   gradients and one wave (prefill into TP_SERVE_CACHE rows,
+   TP_SERVE_STEPS greedy steps) beside one device, all bit for bit;
+   then the SSD kernel and its backward at the heads of a TP rank
+   (TP_LOCAL_SSD; once with dt sliced from every head's), flash
+   attention forward and backward at Zamba2's and MLA's local heads
+   (TP_LOCAL_LATENT_FLASH) and the decode kernel with ``lse`` on a
+   Zamba2 rank's cache block (TP_LOCAL_DECODE), against their plain
+   versions, timed beside them, SDPA and their bounds;
 13. a ``kernels`` JSON line, the card's line, then the result line.
 """
 from __future__ import annotations
@@ -383,6 +398,18 @@ TP_SERVE_BLOCKS = (4, 8)
 #: phase 12f (a): the timed waves of each path after the parity waves,
 #: interleaved (``testing.tp_serve_parity``'s ``rounds``)
 TP_SERVE_ROUNDS = 3
+#: phase 12g (a): MLA and the Mamba2 families on the tensor-parallel path
+#: at full width, bf16, their depth cut: (arch, layers); zamba2-2.7b's 6
+#: are one group with its shared block
+TP_LATENT_SSM = (("minicpm3-4b", 2), ("mamba2-1.3b", 4), ("zamba2-2.7b", 6))
+#: phase 12g (b): (arch, tp) of the SSD shapes a TP rank runs (its heads
+#: of mamba2-1.3b's 64 and zamba2-2.7b's 80), and of the flash shapes
+#: (Zamba2's shared block, 32 heads of 160; MLA's 40 heads, D 96 / Dv
+#: 64), and the model axis of the Zamba2 decode block (B 8 x the
+#: TP_SERVE_CACHE-row cache's block, every one of its 32 heads)
+TP_LOCAL_SSD = (("mamba2-1.3b", 4), ("zamba2-2.7b", 8))
+TP_LOCAL_LATENT_FLASH = (("zamba2-2.7b", 4), ("minicpm3-4b", 4))
+TP_LOCAL_DECODE = 4
 TRAIN_PARITY_ARCHS = ("qwen2-vl-7b", "qwen3-moe-30b-a3b", "minicpm3-4b",
                       "seamless-m4t-medium", "mamba2-1.3b", "zamba2-2.7b")
 #: the SSD backward kernel against its plain version, relative to the
@@ -1342,14 +1369,14 @@ def check_gmm(dev, prefill_cs, decode_c: int) -> dict:
                        **entries[decode_c]}}
 
 
-def _rel_err(got, want, dtype, label) -> float:
-    """Fail unless ``got`` is within the dtype's tolerance (ATTN_TOL) of
-    ``want``, as the largest absolute difference over the largest
-    absolute value of ``want``; returns the largest absolute
-    difference."""
+def _rel_err(got, want, dtype, label, tols=None) -> float:
+    """Fail unless ``got`` is within the dtype's tolerance (``tols``,
+    ATTN_TOL by default) of ``want``, as the largest absolute difference
+    over the largest absolute value of ``want``; returns the largest
+    absolute difference."""
     diff = float((got.float() - want.float()).abs().max())
     scale = float(want.float().abs().max())
-    tol = ATTN_TOL[str(dtype)]
+    tol = (tols or ATTN_TOL)[str(dtype)]
     assert diff <= tol * max(scale, 1e-30), \
         f"{label}: max_abs_err {diff:.3e} over {scale:.3e} > {tol}"
     return diff
@@ -1753,7 +1780,8 @@ def _parity_launches(cfg, microbatches: int, steps: int) -> dict:
     ``value_and_grad`` (:func:`_train_launches`) and the sharded step's
     forward alone (half the forward launches: with remat full the
     forward runs once without its backward) a microbatch."""
-    fwd = ("flash_attention", "flash_attention.tc", "gmm", "gmm.wgmma")
+    fwd = ("flash_attention", "flash_attention.tc", "gmm", "gmm.wgmma",
+           "ssd", "ssd.tc")
     n = microbatches * steps
     return {k: n * (v + v // 2 if k in fwd else v)
             for k, v in _train_launches(cfg).items()}
@@ -2045,6 +2073,92 @@ def launch_multi_device_phase(dev, cfg, state, card: str) -> None:
             os.remove(store)
 
 
+def _flash_work(q, k, v, causal: bool) -> tuple:
+    """(forward bytes, forward ops, backward bytes, backward ops) of flash
+    attention on q (B, S, H, D), k (B, S, KV, D), v (B, S, KV, Dv): each
+    input read and each output written once (the backward's f32
+    log-sum-exp too), the products over the causal pairs: S = QK^T and
+    PV forward; S again, dV, dP, dQ and dK backward."""
+    B, S, H, D = q.shape
+    Dv = v.shape[3]
+    pairs = B * H * (S * (S + 1) // 2 if causal else S * S)
+    e = q.element_size()
+    o = B * S * H * Dv
+    fb = e * (q.numel() + k.numel() + v.numel() + o)
+    bb = e * 2 * (q.numel() + k.numel() + v.numel() + o) + 4 * B * H * S
+    return fb, 2 * pairs * (D + Dv), bb, 2 * pairs * (3 * D + 2 * Dv)
+
+
+def _flash_at(q, k, v, do, label: str, card: str) -> tuple:
+    """Flash attention forward and backward (causal, bf16) on ``q``, ``k``,
+    ``v`` with the cotangent ``do``: both on their tensor-core kernels,
+    against the plain versions at ATTN_TOL, each timed (device ms by
+    CUDA-graph replay; SDPA's backward eager, by CUDA events) beside its
+    plain version, SDPA and its bound (:func:`_flash_work`), one line
+    printed under ``label``.  Returns the (forward, backward) rows'
+    measured fields for the kernels line."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (
+        _flash_forward, flash_attention, flash_attention_bwd,
+        flash_attention_bwd_plain, flash_attention_plain)
+    bf16 = q.dtype
+    before = (flash_attention.tc_launches, flash_attention_bwd.tc_launches)
+    o = flash_attention(q, k, v, causal=True)
+    o2, lse = _flash_forward(q, k, v, True, True)
+    grads = flash_attention_bwd(q, k, v, o2, do, lse, True)
+    torch.cuda.synchronize()
+    assert (flash_attention.tc_launches - before[0],
+            flash_attention_bwd.tc_launches - before[1]) == (2, 1), \
+        f"flash {label} missed its tensor-core kernels"
+    err = _attn_err(o, flash_attention_plain(q, k, v, True), bf16)
+    want = flash_attention_bwd_plain(q, k, v, o2, do, lse, True)
+    err_b = max(_rel_err(g, w, bf16, f"flash bwd {label} d{n}")
+                for g, w, n in zip(grads, want, "qkv"))
+    del o, grads, want
+    ms = {"fwd": device_ms(lambda: flash_attention(q, k, v, causal=True),
+                           repeats=7, inner=10),
+          "fwd plain": device_ms(
+              lambda: flash_attention_plain(q, k, v, True), repeats=5,
+              inner=3),
+          "bwd": device_ms(
+              lambda: flash_attention_bwd(q, k, v, o2, do, lse, True),
+              repeats=7, inner=5),
+          "bwd plain": device_ms(
+              lambda: flash_attention_bwd_plain(q, k, v, o2, do, lse, True),
+              repeats=5, inner=3)}
+    qn, kn, vn = (t.transpose(1, 2) for t in (q, k, v))
+    ms["fwd library"] = device_ms(
+        lambda: F.scaled_dot_product_attention(
+            qn, kn, vn, is_causal=True, enable_gqa=True), repeats=7,
+        inner=10)
+    qt, kt, vt = (t.detach().requires_grad_() for t in (qn, kn, vn))
+    sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                          enable_gqa=True)
+    ms["bwd library"] = call_ms(
+        lambda: torch.autograd.grad(sdpa, (qt, kt, vt), do.transpose(1, 2),
+                                    retain_graph=True),
+        repeats=7, inner=10)
+    del sdpa, qt, kt, vt
+    fbytes, fops, bbytes, bops = _flash_work(q, k, v, True)
+    fb, fby = _bound(fbytes, fops, bf16)
+    bb, bby = _bound(bbytes, bops, bf16)
+    print(f"{label}: forward max_abs_err {err:.3e}, "
+          f"{ms['fwd'] * 1e3:.2f} us (plain {ms['fwd plain'] * 1e3:.2f} "
+          f"us, SDPA {ms['fwd library'] * 1e3:.2f} us, bound "
+          f"{fb * 1e3:.2f} us, {fby}); backward max_abs_err "
+          f"{err_b:.3e} (tol {ATTN_TOL[str(bf16)]} of the largest), "
+          f"{ms['bwd'] * 1e3:.2f} us (plain {ms['bwd plain'] * 1e3:.2f} "
+          f"us, SDPA's backward {ms['bwd library'] * 1e3:.2f} us, bound "
+          f"{bb * 1e3:.2f} us, {bby}) [{card}]")
+    return ({"max_abs_err": err, "ms": ms["fwd"], "plain_ms": ms["fwd plain"],
+             "bound_ms": fb, "bound_by": fby,
+             "library_ms": ms["fwd library"]},
+            {"max_abs_err": err_b, "ms": ms["bwd"],
+             "plain_ms": ms["bwd plain"], "bound_ms": bb, "bound_by": bby,
+             "library_ms": ms["bwd library"]})
+
+
 def check_tp_local_kernels(dev, card: str) -> dict:
     """Phase 12e (b): the kernels of the tensor-parallel train step at a
     TP rank's local full-width shapes, against their plain versions at
@@ -2058,11 +2172,7 @@ def check_tp_local_kernels(dev, card: str) -> dict:
     at phase 11's C rows.  Returns {kernel: [rows]} for the kernels
     line."""
     import torch
-    import torch.nn.functional as F
     from repro_torch.configs.base import get_config
-    from repro_torch.kernels.flash_attention import (
-        _flash_forward, flash_attention, flash_attention_bwd,
-        flash_attention_bwd_plain, flash_attention_plain)
     from repro_torch.kernels.gmm import gmm, gmm_bwd, gmm_bwd_plain, gmm_plain
     from repro_torch.models.attention import local_kv_heads
     bf16 = torch.bfloat16
@@ -2077,69 +2187,13 @@ def check_tp_local_kernels(dev, card: str) -> dict:
         q = _randn((B, S, H, D), bf16, dev, 40)
         k, v = (_randn((B, S, KV, D), bf16, dev, 41 + i) for i in range(2))
         do = _randn((B, S, H, D), bf16, dev, 43)
-        before = (flash_attention.tc_launches, flash_attention_bwd.tc_launches)
-        o = flash_attention(q, k, v, causal=True)
-        o2, lse = _flash_forward(q, k, v, True, True)
-        grads = flash_attention_bwd(q, k, v, o2, do, lse, True)
-        torch.cuda.synchronize()
-        assert (flash_attention.tc_launches - before[0],
-                flash_attention_bwd.tc_launches - before[1]) == (2, 1), \
-            f"flash at {arch} tp {tp} missed its tensor-core kernels"
-        label = f"({B},{S},{H}/{KV},{D}) bf16 causal, {arch} tp {tp}"
-        err = _attn_err(o, flash_attention_plain(q, k, v, True), bf16)
-        want = flash_attention_bwd_plain(q, k, v, o2, do, lse, True)
-        err_b = max(_rel_err(g, w, bf16, f"flash bwd {label} d{n}")
-                    for g, w, n in zip(grads, want, "qkv"))
-        ms = {"fwd": device_ms(lambda: flash_attention(q, k, v, causal=True),
-                               repeats=7, inner=10),
-              "fwd plain": device_ms(
-                  lambda: flash_attention_plain(q, k, v, True), repeats=5,
-                  inner=3),
-              "bwd": device_ms(
-                  lambda: flash_attention_bwd(q, k, v, o2, do, lse, True),
-                  repeats=7, inner=5),
-              "bwd plain": device_ms(
-                  lambda: flash_attention_bwd_plain(q, k, v, o2, do, lse,
-                                                    True),
-                  repeats=5, inner=3)}
-        qn, kn, vn = (t.transpose(1, 2) for t in (q, k, v))
-        ms["fwd library"] = device_ms(
-            lambda: F.scaled_dot_product_attention(
-                qn, kn, vn, is_causal=True, enable_gqa=True), repeats=7,
-            inner=10)
-        qt, kt, vt = (t.detach().requires_grad_() for t in (qn, kn, vn))
-        sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                              enable_gqa=True)
-        ms["bwd library"] = call_ms(
-            lambda: torch.autograd.grad(sdpa, (qt, kt, vt),
-                                        do.transpose(1, 2),
-                                        retain_graph=True),
-            repeats=7, inner=10)
-        del sdpa, qn, kn, vn, qt, kt, vt
-        pairs = B * H * (S * (S + 1) // 2)
-        fb, fby = _bound(2 * (2 * q.numel() + 2 * k.numel()),
-                         2 * pairs * 2 * D, bf16)
-        bb, bby = _bound(2 * (4 * q.numel() + 4 * k.numel())
-                         + 4 * lse.numel(), 2 * pairs * 5 * D, bf16)
-        print(f"phase 12e (b) flash {label}: forward max_abs_err {err:.3e}, "
-              f"{ms['fwd'] * 1e3:.2f} us (plain {ms['fwd plain'] * 1e3:.2f} "
-              f"us, SDPA {ms['fwd library'] * 1e3:.2f} us, bound "
-              f"{fb * 1e3:.2f} us, {fby}); backward max_abs_err "
-              f"{err_b:.3e} (tol {ATTN_TOL[str(bf16)]} of the largest), "
-              f"{ms['bwd'] * 1e3:.2f} us (plain {ms['bwd plain'] * 1e3:.2f} "
-              f"us, SDPA's backward {ms['bwd library'] * 1e3:.2f} us, bound "
-              f"{bb * 1e3:.2f} us, {bby}) [{card}]")
-        out["flash_attention"].append(
-            {"shape": [B, S, H, KV, D], "arch": arch, "tp": tp,
-             "max_abs_err": err, "ms": ms["fwd"], "plain_ms": ms["fwd plain"],
-             "bound_ms": fb, "bound_by": fby,
-             "library_ms": ms["fwd library"]})
-        out["flash_attention_bwd"].append(
-            {"shape": [B, S, H, KV, D], "arch": arch, "tp": tp,
-             "max_abs_err": err_b, "ms": ms["bwd"],
-             "plain_ms": ms["bwd plain"], "bound_ms": bb, "bound_by": bby,
-             "library_ms": ms["bwd library"]})
-        del q, k, v, do, o, o2, lse, grads, want
+        fwd, bwd = _flash_at(q, k, v, do, f"phase 12e (b) flash ({B},{S},"
+                             f"{H}/{KV},{D}) bf16 causal, {arch} tp {tp}",
+                             card)
+        row = {"shape": [B, S, H, KV, D], "arch": arch, "tp": tp}
+        out["flash_attention"].append({**row, **fwd})
+        out["flash_attention_bwd"].append({**row, **bwd})
+        del q, k, v, do
     cfg = get_config(MOE_ARCH)
     E, Dm, Fd = cfg.moe.num_experts // TP_LOCAL_GMM, cfg.d_model, cfg.d_ff
     C = train_gmm_rows(cfg)
@@ -2366,13 +2420,9 @@ def tp_serve_phase(dev, wrappers, card: str) -> tuple:
             params = model.init_params(
                 cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
             L, n = cfg.num_layers, TP_SERVE_STEPS
-            # both paths, 1 + TP_SERVE_ROUNDS waves each: one prefill and
-            # n greedy steps a wave
-            w = 2 * (1 + TP_SERVE_ROUNDS)
-            for k, c in (("flash_attention", w * L),
-                         ("decode_attention", w * L * n),
-                         ("gmm", w * 3 * L * (n + 1) if cfg.moe else 0)):
-                expect[k] = expect.get(k, 0) + c
+            # both paths, 1 + TP_SERVE_ROUNDS waves each
+            for k, c in _serve_launches(cfg, n).items():
+                expect[k] = expect.get(k, 0) + 2 * (1 + TP_SERVE_ROUNDS) * c
             t0 = time.perf_counter()
             d = tp_serve_parity(cfg, mesh, params, batch, TP_SERVE_CACHE, n,
                                 rounds=TP_SERVE_ROUNDS)
@@ -2403,14 +2453,7 @@ def tp_serve_phase(dev, wrappers, card: str) -> tuple:
         dist.destroy_process_group()
         if os.path.exists(store):
             os.remove(store)
-    variant = {"flash_attention": "tc", "decode_attention": "mma",
-               "gmm": "wgmma"}
-    for n, c in expect.items():
-        assert got[n] == c and got[f"{n}.{variant[n]}"] == c, \
-            f"phase 12f (a): {got[n]} {n} launches, not {c} (predicted)"
-    stray = {n: c for n, c in got.items() if c and n.split(".")[0]
-             not in expect}
-    assert not stray, f"phase 12f (a): launches outside the path {stray}"
+    _assert_launches(got, expect, "phase 12f (a)")
     print(f"phase 12f (a) launches, predicted {expect}, counted "
           f"{ {n: c for n, c in got.items() if c} }; peak {peak:.2f} GB "
           f"[{card}]")
@@ -2537,6 +2580,331 @@ def check_decode_lse(dev, card: str) -> dict:
                "block_library_ms": dev_ms["block_sdpa"],
                "block_bound_ms": bound_ms, "block_bound_by": bound_by,
                "block_shape": [B, n, H, KV, D]}
+    return out
+
+
+def _serve_launches(cfg, steps: int) -> dict:
+    """The kernels one serving wave launches (a prefill and ``steps``
+    greedy decode steps), each on its tensor-core variant: flash once a
+    layer's prefill (a Zamba2 group's shared block), SSD once a Mamba2
+    layer's prefill, the decode kernel once a step of a GQA layer or a
+    shared block (MLA and Mamba2 decode in PyTorch ops, no kernel),
+    ``gmm`` three times a MoE layer's forward."""
+    L = cfg.num_layers
+    if cfg.family in ("ssm", "hybrid"):
+        attn = L // cfg.hybrid.shared_every if cfg.family == "hybrid" else 0
+        out = {"ssd": L, "flash_attention": attn,
+               "decode_attention": attn * steps}
+    else:
+        out = {"flash_attention": L,
+               "decode_attention": 0 if cfg.mla is not None else L * steps,
+               "gmm": 3 * L * (steps + 1) if cfg.moe is not None else 0}
+    variant = {"ssd": "tc", "flash_attention": "tc", "decode_attention": "mma",
+               "gmm": "wgmma"}
+    for k in list(out):
+        out[f"{k}.{variant[k]}"] = out[k]
+    return {k: v for k, v in out.items() if v}
+
+
+def _assert_launches(got: dict, expect: dict, label: str) -> None:
+    """Every count of ``expect`` (``counts``' keys, variants included)
+    launched exactly, and nothing else."""
+    wrong = {n: (got.get(n, 0), c) for n, c in expect.items()
+             if got.get(n, 0) != c}
+    assert not wrong, f"{label}: (counted, predicted) {wrong}"
+    stray = {n: c for n, c in got.items() if c and n not in expect}
+    assert not stray, f"{label}: launches outside the path {stray}"
+
+
+def tp_latent_ssm_phase(dev, wrappers, card: str) -> tuple:
+    """Phase 12g (a): tensor parallelism for MLA and the Mamba2 families
+    on a one-rank NCCL group, mesh (1, 1) data x model (every model-axis
+    collective of the paths runs, over one-rank groups, the gated norm's
+    sum over ``ssm_inner`` among them), at full width, bf16, the depth of
+    TP_LATENT_SSM (zamba2-2.7b's LoRA seeded nonzero): for each arch one
+    train step, remat full, on phase 11's B x S, the TP step handed the
+    single-device step's gradients (``testing.sharded_step_parity``: the
+    state, the microbatch, the params and the TP forward's loss equal bit
+    for bit); then one serving wave, a prefill of phase 5's first wave
+    (Mamba2's longest prompt lengthened to a multiple of the chunk) into a
+    TP_SERVE_CACHE-row cache and TP_SERVE_STEPS greedy steps, on the TP
+    path beside one device (``testing.tp_serve_parity``: tokens, logits
+    and cache bit for bit).  The counts are reset just before the first
+    step and read just after the last wave: each kernel's launches the
+    count predicted from the configs (``_parity_launches``,
+    ``_serve_launches``), all on the tensor cores (``tc``, ``mma``), none
+    outside them.  On one rank the model index is 0 and a rank holds
+    every head, channel and vocabulary row, so the branches that only a
+    model axis above 1 takes run on gloo in the CPU tests.  Returns (the
+    launches, the peak GB)."""
+    import dataclasses
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.base import TrainConfig, get_config
+    from repro_torch.data.pipeline import SyntheticLMData, make_batch_iterator
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model
+    from repro_torch.parallel.sharding import make_rules
+    from repro_torch.testing import (STATE_TOL, seed_lora,
+                                     sharded_step_parity, tp_serve_parity)
+    from repro_torch.training.train_step import make_train_state
+    held = free_card_memory()
+    assert held < 1.0, f"{held:.2f} GB still held before phase 12g"
+    store = os.path.join(ROOT, "build", "nccl_store_tp_latent")
+    if os.path.exists(store):
+        os.remove(store)
+    B, S = LM_TRAIN["batch"], LM_TRAIN["seq"]
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0,
+                            world_size=1)
+    expect, got, peak = {}, {}, 0.0
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), dev)
+        rules = make_rules(mesh, mode="train", fsdp=False)
+        torch.cuda.synchronize()
+        reset_counts(wrappers)
+        torch.cuda.reset_peak_memory_stats()
+        for arch, layers in TP_LATENT_SSM:
+            cfg = dataclasses.replace(get_config(arch), num_layers=layers,
+                                      dtype="bfloat16",
+                                      remat="full").resolve(tp=1, dp=1)
+            tcfg = TrainConfig(learning_rate=3e-4, warmup_steps=2,
+                               total_steps=100)
+            it = make_batch_iterator(SyntheticLMData(cfg.vocab_size, seed=0),
+                                     B, S, seed=2, device=dev)
+            batch = next(it)
+            it.close()
+            state = make_train_state(cfg, tcfg,
+                                     torch.Generator(dev).manual_seed(0), dev)
+            if cfg.family == "hybrid":
+                seed_lora(state["params"], cfg)
+                for n in ("qb", "ib"):
+                    state["opt"]["master"]["lora"][n].copy_(
+                        state["params"]["lora"][n])
+            t0 = time.perf_counter()
+            d = sharded_step_parity(cfg, tcfg, rules, state, batch,
+                                    steps=1)[0]
+            torch.cuda.synchronize()
+            t_train = time.perf_counter() - t0
+            del state
+            free_card_memory()
+            for n, c in _parity_launches(cfg, 1, 1).items():
+                expect[n] = expect.get(n, 0) + c
+            params = model.init_params(
+                cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+            if cfg.family == "hybrid":
+                seed_lora(params, cfg)
+            prompts = (mamba_waves(cfg.vocab_size, cfg.ssm.chunk_size)
+                       if cfg.ssm is not None
+                       else wave_prompts(cfg.vocab_size))[0]
+            wave = _batch(cfg, prompts, dev)
+            t0 = time.perf_counter()
+            w = tp_serve_parity(cfg, mesh, params, wave, TP_SERVE_CACHE,
+                                TP_SERVE_STEPS)
+            torch.cuda.synchronize()
+            t_serve = time.perf_counter() - t0
+            del params
+            free_card_memory()
+            for n, c in _serve_launches(cfg, TP_SERVE_STEPS).items():
+                expect[n] = expect.get(n, 0) + 2 * c
+            print(f"phase 12g (a) {cfg.name} full width, {layers} layers, "
+                  f"bf16: TP train step (one-rank NCCL (1, 1) data x model, "
+                  f"B {B} x S {S}, on the single-device step's gradients) "
+                  f"drift {_drift_line(d['drift'])}, state bit for bit "
+                  f"{d['exact']}, microbatch / params / loss bit for bit "
+                  f"{d['batch_equal']} / {d['params_equal']} / "
+                  f"{d['loss_equal']}, {t_train:.1f} s; TP wave of "
+                  f"{len(prompts)} prompts padded to "
+                  f"{wave['tokens'].shape[1]}, cache {TP_SERVE_CACHE}, "
+                  f"{TP_SERVE_STEPS} greedy steps: tokens equal "
+                  f"{w['tokens_equal']}, logits bit for bit "
+                  f"{w['logits_exact']}, cache bit for bit "
+                  f"{w['cache_exact']}, {t_serve:.1f} s for both paths "
+                  f"[{card}]")
+            assert d["exact"] and d["batch_equal"] and d["params_equal"] \
+                and d["loss_equal"], (arch, d)
+            for kind in ("master", "m", "v"):
+                assert d["drift"][kind] <= STATE_TOL, (arch, kind, d)
+            assert w["tokens_equal"] and w["logits_exact"] \
+                and w["cache_exact"], (arch, w)
+        torch.cuda.synchronize()
+        got = counts(wrappers)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+    finally:
+        dist.destroy_process_group()
+        if os.path.exists(store):
+            os.remove(store)
+    _assert_launches(got, expect, "phase 12g (a)")
+    print(f"phase 12g (a) launches, predicted {expect}, counted "
+          f"{ {n: c for n, c in got.items() if c} }; peak {peak:.2f} GB "
+          f"[{card}]")
+    return got, peak
+
+
+def check_tp_latent_ssm_kernels(dev, card: str) -> dict:
+    """Phase 12g (b): the kernels of the MLA and Mamba2 tensor-parallel
+    paths at a TP rank's local full-width shapes, bf16, against their
+    plain versions at tests/test_torch_cuda.py's tolerances, each timed
+    (device ms by CUDA-graph replay; SDPA's backward eager, by CUDA
+    events) beside its plain version, a library call where one computes
+    the same function (SDPA) and its bound: the SSD forward and backward
+    on the heads of TP_LOCAL_SSD at phase 11's B x S, chunk 256 (and once
+    with dt sliced from every head's, as a strided view: the kernel reads
+    it in place); flash attention forward and backward at TP_LOCAL_LATENT_
+    FLASH (Zamba2's shared block, D 160; MLA's D 96 / Dv 64 with v a view
+    of the expanded latent); the decode kernel with ``lse`` on a Zamba2
+    rank's block of the TP_SERVE_CACHE-row cache at tp TP_LOCAL_DECODE.
+    Every call takes its tensor-core kernel.  Returns {kernel: [rows]}
+    for the kernels line."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      decode_attention_plain)
+    from repro_torch.kernels.ssd import (_ssd_forward, ssd, ssd_bwd,
+                                         ssd_bwd_plain, ssd_plain)
+    bf16 = torch.bfloat16
+    out = {k: [] for k in ("ssd", "ssd_bwd", "flash_attention",
+                           "flash_attention_bwd", "decode_attention")}
+    B, S = LM_TRAIN["batch"], LM_TRAIN["seq"]
+    for arch, tp in TP_LOCAL_SSD:
+        cfg = get_config(arch)
+        s = cfg.ssm
+        Hw = s.n_heads(cfg.d_model)
+        H, P, N, Q = Hw // tp, s.head_dim, s.d_state, s.chunk_size
+        x = _randn((B, S, H, P), bf16, dev, 70)
+        Bm = _randn((B, S, 1, N), bf16, dev, 71)
+        Cm = _randn((B, S, 1, N), bf16, dev, 72)
+        dt_all = F.softplus(_randn((B, S, Hw), torch.float32, dev, 73))
+        A = -_randn((H,), torch.float32, dev, 74).exp()
+        dy = _randn((B, S, H, P), torch.float32, dev, 75)
+        label = f"({B},{S},{H},{P}) N {N} chunk {Q} bf16, {arch} tp {tp}"
+        errs = {}
+        for tag, dt in (("", dt_all[..., :H].contiguous()),
+                        (" dt sliced", dt_all[..., Hw - H:])):
+            args = (x, dt, A, Bm, Cm)
+            before = (ssd.tc_launches, ssd_bwd.tc_launches)
+            y, state, states = _ssd_forward(*args, Q, True)
+            grads = ssd_bwd(*args, states, dy, None, Q)
+            torch.cuda.synchronize()
+            assert (ssd.tc_launches - before[0],
+                    ssd_bwd.tc_launches - before[1]) == (1, 1), \
+                f"ssd at {label}{tag} missed its tensor-core kernels"
+            want_y, want_state = ssd_plain(*args, Q)
+            tol = SSD_TOL[str(bf16)]
+            torch.testing.assert_close(y, want_y, rtol=tol, atol=tol)
+            torch.testing.assert_close(state, want_state, rtol=tol, atol=tol)
+            err = max(float((y - want_y).abs().max()),
+                      float((state - want_state).abs().max()))
+            want = ssd_bwd_plain(*args, states, dy, None, Q)
+            err_b = max(_rel_err(g, w, bf16, f"ssd bwd {label}{tag} {n}",
+                                 SSD_BWD_TOL)
+                        for g, w, n in zip(grads, want,
+                                           ("dx", "ddt", "dA", "dB", "dC")))
+            errs[tag] = (err, err_b)
+        args = (x, dt_all[..., :H].contiguous(), A, Bm, Cm)
+        _, _, states = _ssd_forward(*args, Q, True)
+        ms = _timed(f"phase 12g (b) ssd {label}", {
+            "fwd": lambda: ssd(*args, chunk=Q),
+            "fwd plain": lambda: ssd_plain(*args, Q),
+            "bwd": lambda: ssd_bwd(*args, states, dy, None, Q),
+            "bwd plain": lambda: ssd_bwd_plain(*args, states, dy, None, Q)},
+            inner=3)
+        fb, fby = _bound(*ssd_work(args, Q), bf16)
+        bb, bby = _bound(*ssd_bwd_work(args, Q, final=False), bf16)
+        err, err_b = errs[""]
+        print(f"phase 12g (b) ssd {label}: forward max_abs_err {err:.3e} "
+              f"(dt sliced {errs[' dt sliced'][0]:.3e}), "
+              f"{ms['fwd'] * 1e3:.2f} us (plain {ms['fwd plain'] * 1e3:.2f} "
+              f"us, bound {fb * 1e3:.2f} us, {fby}); backward max_abs_err "
+              f"{err_b:.3e} (dt sliced {errs[' dt sliced'][1]:.3e}; tol "
+              f"{SSD_BWD_TOL[str(bf16)]} of the largest), "
+              f"{ms['bwd'] * 1e3:.2f} us "
+              f"(plain {ms['bwd plain'] * 1e3:.2f} us, bound "
+              f"{bb * 1e3:.2f} us, {bby}); no single PyTorch call [{card}]")
+        row = {"shape": [B, S, H, P, N], "arch": arch, "tp": tp}
+        out["ssd"].append({**row, "max_abs_err": err, "ms": ms["fwd"],
+                           "plain_ms": ms["fwd plain"], "bound_ms": fb,
+                           "bound_by": fby, "library_ms": None})
+        out["ssd_bwd"].append({**row, "max_abs_err": err_b, "ms": ms["bwd"],
+                               "plain_ms": ms["bwd plain"], "bound_ms": bb,
+                               "bound_by": bby, "library_ms": None})
+        del x, Bm, Cm, dt_all, dy, args, states, y, grads, want
+    for arch, tp in TP_LOCAL_LATENT_FLASH:
+        cfg = get_config(arch).resolve(tp=tp)
+        if cfg.mla is not None:
+            m = cfg.mla
+            H = cfg.padded_heads // tp
+            D, Dv = m.qk_nope_head_dim + m.qk_rope_head_dim, m.v_head_dim
+            q = _randn((B, S, H, D), bf16, dev, 80)
+            k = _randn((B, S, H, D), bf16, dev, 81)
+            # v a view of the expanded latent, as mla_fwd reads it
+            v = _randn((B, S, H, m.qk_nope_head_dim + Dv), bf16, dev,
+                       82)[..., m.qk_nope_head_dim:]
+            kvh = H
+        else:
+            hb = cfg.hybrid
+            H, kvh = hb.shared_num_heads // tp, hb.shared_kv_heads // tp
+            D = Dv = cfg.head_dim
+            q = _randn((B, S, H, D), bf16, dev, 80)
+            k, v = (_randn((B, S, kvh, D), bf16, dev, 81 + i)
+                    for i in range(2))
+        do = _randn((B, S, H, Dv), bf16, dev, 83)
+        fwd, bwd = _flash_at(
+            q, k, v, do, f"phase 12g (b) flash ({B},{S},{H}/{kvh},{D}"
+            f"{'' if D == Dv else f'/{Dv}'}) bf16 causal, {arch} tp {tp}",
+            card)
+        row = {"shape": [B, S, H, kvh, D, Dv], "arch": arch, "tp": tp}
+        out["flash_attention"].append({**row, **fwd})
+        out["flash_attention_bwd"].append({**row, **bwd})
+        del q, k, v, do
+    cfg = get_config(HYBRID_ARCH)
+    hb = cfg.hybrid
+    Bd, n = SERVE["max_batch"], TP_SERVE_CACHE // TP_LOCAL_DECODE
+    H, KV, D = hb.shared_num_heads, hb.shared_kv_heads, cfg.head_dim
+    q = _randn((Bd, 1, H, D), bf16, dev, 90)
+    k = _randn((Bd, n, KV, D), bf16, dev, 91)
+    v = _randn((Bd, n, KV, D), bf16, dev, 92)
+    # one full block, one a third full, one empty (a row still in an
+    # earlier rank's block), the rest at random lengths
+    lens = torch.tensor([n, n // 3, 0] + [int(t) for t in torch.randint(
+        1, n + 1, (Bd - 3,), generator=torch.Generator().manual_seed(9))],
+        dtype=torch.int32, device=dev)
+    before = decode_attention.mma_launches
+    o, lse = decode_attention(q, k, v, lens, return_lse=True)
+    torch.cuda.synchronize()
+    assert decode_attention.mma_launches == before + 1, \
+        "decode at the Zamba2 block missed its mma kernel"
+    po, pl = decode_attention_plain(q, k, v, lens, return_lse=True)
+    live = lens > 0
+    err = _attn_err(o[live], po[live], bf16)
+    assert torch.equal(torch.isinf(lse), torch.isinf(pl))
+    fin = torch.isfinite(pl)
+    lse_err = float((lse[fin] - pl[fin]).abs().max())
+    assert lse_err <= ATTN_TOL[str(bf16)], ("lse", lse_err)
+    mask = (torch.arange(n, device=dev)[None, :] < lens[:, None])
+    mask = mask[:, None, None, :]
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    ms = _timed("phase 12g (b) decode lse", {
+        "kernel": lambda: decode_attention(q, k, v, lens, return_lse=True),
+        "plain": lambda: decode_attention_plain(q, k, v, lens,
+                                                return_lse=True),
+        "sdpa": lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=True)}, inner=50)
+    used = int(lens.sum())
+    nbytes = 2 * (q.numel() + used * KV * 2 * D + Bd * H * D) \
+        + 4 * (Bd + Bd * H)
+    bound_ms, bound_by = _bound(nbytes, 2 * H * used * 2 * D, bf16)
+    print(f"phase 12g (b) decode lse ({Bd},{n},{H}/{KV},{D}) bf16, "
+          f"{HYBRID_ARCH} tp {TP_LOCAL_DECODE} block, kv_len "
+          f"{lens.tolist()}: out max_abs_err {err:.3e}, lse {lse_err:.3e} "
+          f"(tol {ATTN_TOL[str(bf16)]}), {ms['kernel'] * 1e3:.2f} us (plain "
+          f"{ms['plain'] * 1e3:.2f} us, SDPA {ms['sdpa'] * 1e3:.2f} us, "
+          f"bound {bound_ms * 1e3:.2f} us, {bound_by}) [{card}]")
+    out["decode_attention"].append(
+        {"shape": [Bd, n, H, KV, D], "arch": HYBRID_ARCH,
+         "tp": TP_LOCAL_DECODE, "max_abs_err": max(err, lse_err),
+         "ms": ms["kernel"], "plain_ms": ms["plain"], "bound_ms": bound_ms,
+         "bound_by": bound_by, "library_ms": ms["sdpa"]})
     return out
 
 
@@ -4391,6 +4759,21 @@ def main() -> int:
     by_name["decode_attention"]["lse"] = check_decode_lse(dev, card)
     print(f"phase 12f: {time.perf_counter() - t0:.1f} s (peak "
           f"{serve_tp_peak:.2f} GB) [{card}]")
+    # phase 12g: tensor parallelism for MLA and the Mamba2 families (its
+    # own main path: the counts are reset just before its steps and waves
+    # and read just after)
+    t0 = time.perf_counter()
+    latent_got, latent_peak = tp_latent_ssm_phase(dev, wrappers, card)
+    for name in ("ssd", "ssd_bwd", "flash_attention", "flash_attention_bwd",
+                 "decode_attention"):
+        n = latent_got.get(name, 0)
+        assert n > 0, f"{name} never launched in phase 12g"
+        by_name[name]["tp_latent_ssm_launches"] = n
+        by_name[name]["launches"] += n
+    for name, rows in check_tp_latent_ssm_kernels(dev, card).items():
+        by_name[name].setdefault("tp_local_shapes", []).extend(rows)
+    print(f"phase 12g: {time.perf_counter() - t0:.1f} s (peak "
+          f"{latent_peak:.2f} GB) [{card}]")
     print(f"phase 12: {time.perf_counter() - t_phase:.1f} s [{card}]")
 
     print(f"chip_smoke: whole run {time.perf_counter() - t_start:.1f} s, "

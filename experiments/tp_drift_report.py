@@ -16,6 +16,12 @@ difference over the leaf's largest value:
 - ``chained``: two steps of each, each from its own previous state, held
   as ``tests/test_torch_distributed.py`` holds the data-parallel step.
 
+MLA and the Mamba2 families (``_torch_dist.LATENT_SSM_ARCHS``, one
+microbatch, on the (1, 2), (2, 2) and (1, 4) meshes) print ``step`` as
+their tests hold it (without the master and params of the leaves that
+start at zero) and, for each step, those leaves' master and params
+drift.
+
 Then, for the cases of ``tests/_torch_dist.py::REF_STEPS``, each step of
 the port's from the reference's state against the reference's own GSPMD
 step on the same mesh (run in a child process with 8 host devices): the
@@ -47,6 +53,8 @@ MESHES = {"1x2": ((1, 2), ("data", "model")),
 ARCHS = ("deepseek-67b", "qwen1.5-32b", "qwen2-vl-7b", "qwen3-moe-30b-a3b",
          "qwen3-moe-30b-a3b" + D.GROUPS)
 CASES = [(a, False, n, 2, D.STEP_S) for a in ARCHS for n in (1, 2)]
+LATENT_MESHES = ("1x2", "2x2", "1x4")
+LATENT_CASES = [(a, False, 1, 2, D.STEP_S) for a in D.LATENT_SSM_ARCHS]
 
 
 def _chained(rank, mesh, arch, nmb) -> dict:
@@ -83,11 +91,12 @@ def _chained(rank, mesh, arch, nmb) -> dict:
     return D._state_drift(whole, ref, keep) if rank == 0 else {}
 
 
-def _rank(rank, world, store, shape, axes, out_dir):
+def _rank(rank, world, store, mesh_name, shape, axes, out_dir):
     from repro_torch.launch.mesh import make_mesh
     D._join(rank, world, store)
     mesh = make_mesh(shape, axes, "cpu")
-    report = D._tp_cases(rank, mesh, CASES, out_dir)
+    latent = LATENT_CASES if mesh_name in LATENT_MESHES else []
+    report = D._tp_cases(rank, mesh, CASES + latent, out_dir)
     for arch, _, nmb, _, _ in CASES:
         report[f"{arch}-zero1-mb{nmb}"]["chained"] = _chained(
             rank, mesh, arch, nmb)
@@ -106,25 +115,29 @@ def main() -> int:
     base = tempfile.mkdtemp(prefix="tp_drift_")
     ref_dir = os.path.join(base, "reference")
     os.makedirs(ref_dir)
-    child, reqs = D.start_reference_steps(ref_dir)
+    # the eight-device cases of the reference's steps
+    names = [k for k, c in D.REF_STEPS.items()
+             if int(np.prod(c["mesh"])) == 8]
+    child, log = D.start_reference_steps(ref_dir, names)
     ctxs, dirs = [], {}
     for name, (shape, axes) in MESHES.items():
         d = os.path.join(base, name)
         os.makedirs(d)
         n = int(np.prod(shape))
         ctxs.append(mp.start_processes(
-            _rank, args=(n, os.path.join(d, "store"), shape, axes, d),
+            _rank, args=(n, os.path.join(d, "store"), name, shape, axes,
+                         d),
             nprocs=n, join=False, start_method="spawn"))
         dirs[name] = d
-    _, err = child.communicate(reqs, timeout=600)
-    if child.returncode:
-        print(err[-4000:], file=sys.stderr)
+    if child.wait(timeout=600):
+        with open(log) as f:
+            print(f.read()[-4000:], file=sys.stderr)
         return 1
     against = os.path.join(base, "against")
     os.makedirs(against)
     ctxs.append(mp.start_processes(
         D.tp_against_reference,
-        args=(8, os.path.join(against, "store"), ref_dir, against),
+        args=(8, os.path.join(against, "store"), ref_dir, against, names),
         nprocs=8, join=False, start_method="spawn"))
     for ctx in ctxs:
         while not ctx.join():
@@ -138,8 +151,12 @@ def main() -> int:
             grads = max(rep["grads"].values())
             step = max(rep["drift"], key=lambda s: max(v[0] for v in
                                                        s.values()))
+            chained = _worst(rep["chained"]) if "chained" in rep else ""
             print(f"{name:6s} {case:38s} {grads:.2e}  {_worst(step):44s} "
-                  f"{_worst(rep['chained'])}")
+                  f"{chained}")
+            for i, drift in enumerate(rep.get("exempt_drift", [])):
+                print(f"{'':45s} step {i}, the leaves that start at zero: "
+                      f"{_worst(drift)}")
     print("\nagainst the reference's GSPMD step, each step from its state")
     with open(os.path.join(against, "ref0.json")) as f:
         report = json.load(f)

@@ -80,25 +80,28 @@ def cache_shardings(cfg: ModelConfig, rules: AxisRules, B: int,
     positions under ``rules``: :func:`tree_arg_shardings` of the cache's
     leaves by ``cache_logical`` (the reference's ``build_cell`` decode
     cache sharding: rows over the data-parallel axes where ``B`` splits,
-    ``kv_seq -> model``), which ``models.model``'s ``init_cache``,
-    ``prefill`` and ``decode_step`` hold each rank's block of.  Two
-    departures: ``len`` splits like the cache's rows (a rank holds its
-    rows' lengths; the reference's is replicated), and ``S`` that does not
-    split over the model axis raises ``ValueError`` where the reference
-    would replicate the cache."""
+    ``kv_seq`` and ``ssm_inner -> model``), which ``models.model``'s
+    ``init_cache``, ``prefill`` and ``decode_step`` hold each rank's block
+    of.  Two departures: ``len`` splits like the cache's rows (a rank
+    holds its rows' lengths; the reference's is replicated), and a cache
+    with rows (``kv_seq``) whose ``S`` does not split over the model axis
+    raises ``ValueError`` where the reference would replicate the cache
+    (the ``ssm`` family's cache has no rows, and any ``S``)."""
     from repro_torch.models import model as M
     sizes = mesh_axes(rules.mesh)
     tp = sizes.get(MODEL, 1)
     M.check_tp(cfg, tp)
-    if rules.physical("kv_seq") == MODEL and S % tp:
+    logical = M.cache_logical(cfg)
+    has_rows = any("kv_seq" in v for v in logical.values()
+                   if isinstance(v, tuple))
+    if has_rows and rules.physical("kv_seq") == MODEL and S % tp:
         raise ValueError(f"a KV cache of {S} rows does not split over "
                          f"{tp} model ranks (kv_seq -> model)")
     with axis_rules(None):
         shapes = M.init_cache(cfg, B, S, device="meta")
-    sh = tree_arg_shardings(shapes, M.cache_logical(cfg), rules)
-    rows = sh.get("k", sh.get("ckv"))
-    if rows is not None and "len" in sh:
-        sh["len"] = Sharding(rules.mesh, (rows.spec[1],))
+    sh = tree_arg_shardings(shapes, logical, rules)
+    if "len" in sh:
+        sh["len"] = arg_sharding((B,), ("batch",), rules)
     return sh
 
 

@@ -118,20 +118,29 @@ def local_kv_heads(H_local: int, KV: int, tp: int = 1, rank: int = 0):
     return torch.arange(lo, lo + H_local) // G
 
 
+def local_kv(p, names=("wk", "wv")) -> dict:
+    """``p`` with its replicated kv leaves ``names`` cut to the kv heads
+    this rank's q heads read (:func:`local_kv_heads`: ``wq`` is this
+    rank's block of the heads); ``p`` itself where those are all of
+    them (one rank)."""
+    KV = p["wk"].shape[1]
+    kv = local_kv_heads(p["wq"].shape[1], KV, tp_size(), tp_index())
+    if not isinstance(kv, slice):
+        return {**p, **{n: p[n].index_select(-2, kv.to(p[n].device))
+                        for n in names}}
+    if kv != slice(0, KV):
+        return {**p, **{n: p[n][..., kv, :] for n in names}}
+    return p
+
+
 def _project_qkv(p, cfg, x: torch.Tensor, x_kv: Optional[torch.Tensor] = None):
     """q on the rank's own heads, k and v on the kv heads those read
     (:func:`local_kv_heads`; all of them on one rank): ``wq`` / ``bq`` are
     this rank's block of the heads, ``wk`` / ``wv`` / ``bk`` / ``bv``
     replicated, as the reference lays them out."""
     x_kv = x if x_kv is None else x_kv
-    KV = p["wk"].shape[1]
-    kv = local_kv_heads(p["wq"].shape[1], KV, tp_size(), tp_index())
-    names = ("wk", "wv", "bk", "bv") if cfg.qkv_bias else ("wk", "wv")
-    if not isinstance(kv, slice):
-        p = {**p, **{n: p[n].index_select(-2, kv.to(p[n].device))
-                     for n in names}}
-    elif kv != slice(0, KV):
-        p = {**p, **{n: p[n][..., kv, :] for n in names}}
+    p = local_kv(p, ("wk", "wv", "bk", "bv") if cfg.qkv_bias
+                 else ("wk", "wv"))
     q, k, v = _proj(x, p["wq"]), _proj(x_kv, p["wk"]), _proj(x_kv, p["wv"])
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
@@ -375,9 +384,18 @@ def _mla_latent(p, cfg, x: torch.Tensor, positions):
     return c_kv, k_pe
 
 
-def mla_fwd(p, cfg, x: torch.Tensor, positions, *, causal=True):
+def mla_fwd(p, cfg, x: torch.Tensor, positions, *, causal=True,
+            kv_rows: Optional[tuple] = None):
     """Expanded MLA for prefill.  Returns (out (B, S, D), (c_kv (B, S,
-    kv_lora_rank), k_pe (B, S, qk_rope)))."""
+    kv_lora_rank), k_pe (B, S, qk_rope))); ``kv_rows = (lo, hi)`` gives
+    the latent rows of positions [lo, hi) instead (a prefill's block of
+    the sequence-parallel cache).
+
+    Under tensor parallelism ``wuq``, ``wukv`` and ``wo`` are this rank's
+    blocks of the heads and the latent (``wdq``, ``wdkv``, the norms)
+    replicated: the latent is computed in full from the gathered ``x``,
+    the flash kernel runs on the rank's H / tp heads, and ``out`` is the
+    row-parallel ``wo``'s partial sum over the model ranks."""
     m = cfg.mla
     q_nope, q_rope = _mla_q(p, cfg, x, positions)
     c_kv, k_pe = _mla_latent(p, cfg, x, positions)
@@ -391,38 +409,76 @@ def mla_fwd(p, cfg, x: torch.Tensor, positions, *, causal=True):
     # widths, so the tensor-core kernel reads it without a copy
     v = kv[..., m.qk_nope_head_dim:]
     out = flash_attention(q, k, v, causal=causal)
+    if kv_rows is not None:
+        lo, hi = kv_rows
+        c_kv, k_pe = c_kv[:, lo:hi], k_pe[:, lo:hi]
     return _out_proj(out, p["wo"]), (c_kv, k_pe)
 
 
 def mla_decode(p, cfg, x: torch.Tensor, pos: torch.Tensor,
                ckv_cache: torch.Tensor, kpe_cache: torch.Tensor,
-               cache_len: torch.Tensor):
+               cache_len: torch.Tensor, block: Optional[dict] = None):
     """Absorbed-matrix MLA decode, attending in the latent space over the
     caches (B, S, kv_lora_rank) and (B, S, qk_rope).  Writes row
     ``cache_len[b]`` of both in place and returns (out (B, 1, D),
     ckv_cache, kpe_cache).  Scores and softmax in f32; the probabilities
-    and the latent cache in x's dtype for the product, as the
-    reference."""
+    and the latent cache in x's dtype for the product, as the reference.
+
+    With ``block`` (:func:`decode_block`'s, under rules that split
+    ``kv_seq`` over a model axis) the caches are this rank's block of
+    rows: the new latent row is written on its owner only, q's latent and
+    rotary parts (the rank's heads) are all-gathered to all H heads, the
+    softmax runs over the block's valid rows with its log-sum-exp (-inf
+    for an empty block, which then weighs 0), ``combine_over_model``
+    merges the ranks' latent outputs, and the rank's heads go through
+    ``w_uv`` and the row-parallel ``wo``: ``out`` is the partial sum over
+    the model ranks.  Per block the probabilities round to x's dtype
+    before the product, where the reference rounds the whole cache's, so
+    bf16 differs in the last bits; with one rank the result is the
+    unsplit path's bit for bit.  Without ``block`` the row is an indexed
+    write and no log-sum-exp is taken: the block path's where-write and
+    log-sum-exp are ~10 more small ops a layer, which made minicpm3-4b's
+    single-device decode ~11 % slower on an H100, where decode is bound
+    by the host's launches (``experiments/decode_step_ab.py``)."""
     m = cfg.mla
     q_nope, q_rope = _mla_q(p, cfg, x, pos[:, None])
     c_kv_new, k_pe_new = _mla_latent(p, cfg, x, pos[:, None])
+    if block is None:
+        b_idx = torch.arange(ckv_cache.shape[0], device=ckv_cache.device)
+        idx = cache_len.long()
+        ckv_cache[b_idx, idx] = c_kv_new[:, 0].to(ckv_cache.dtype)
+        kpe_cache[b_idx, idx] = k_pe_new[:, 0].to(kpe_cache.dtype)
+        kv_len = cache_len + 1
+    else:
+        rows, mine = block["rows"], block["mine"][..., 0]
+        for cache, new in ((ckv_cache, c_kv_new), (kpe_cache, k_pe_new)):
+            cache[rows] = torch.where(mine, new[:, 0].to(cache.dtype),
+                                      cache[rows])
+        kv_len = block["kv_len"]
     S = ckv_cache.shape[1]
-    b_idx = torch.arange(ckv_cache.shape[0], device=ckv_cache.device)
-    idx = cache_len.long()
-    ckv_cache[b_idx, idx] = c_kv_new[:, 0].to(ckv_cache.dtype)
-    kpe_cache[b_idx, idx] = k_pe_new[:, 0].to(kpe_cache.dtype)
     w_uk = p["wukv"][..., :m.qk_nope_head_dim]                  # (r,H,n)
-    q_lat = torch.einsum("bqhn,rhn->bqhr", q_nope, w_uk)
+    Hl = q_nope.shape[2]
+    # every head's query: contiguous on both paths, so the products below
+    # take one layout with or without the gather
+    q_lat = gather_model(torch.einsum("bqhn,rhn->bqhr", q_nope, w_uk)
+                         .contiguous(), 2)
+    q_rope = gather_model(q_rope.contiguous(), 2)
     # the reference's f32 products (preferred_element_type): exact
     # products of the operands, summed in f32
     s = (torch.einsum("bqhr,bkr->bhqk", q_lat.float(), ckv_cache.float())
          + torch.einsum("bqhp,bkp->bhqk", q_rope.float(), kpe_cache.float()))
     s = s * ((m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5)
-    mask = torch.arange(S, device=s.device)[None, :] < (cache_len + 1)[:, None]
+    mask = torch.arange(S, device=s.device)[None, :] < kv_len[:, None]
     s = s.masked_fill(~mask[:, None, None, :], NEG_INF)
     probs = torch.softmax(s, dim=-1)
     o_lat = torch.einsum("bhqk,bkr->bqhr", probs.to(x.dtype),
                          ckv_cache.to(x.dtype))
+    if block is not None:
+        lse = torch.logsumexp(s[:, :, 0], dim=-1)               # (B, H)
+        lse = torch.where(kv_len[:, None] > 0, lse, float("-inf"))
+        o_lat = combine_over_model(o_lat, lse)
+    r = tp_index()
+    o_lat = o_lat.contiguous()[:, :, r * Hl:(r + 1) * Hl]
     w_uv = p["wukv"][..., m.qk_nope_head_dim:]                  # (r,H,v)
     o = torch.einsum("bqhr,rhv->bqhv", o_lat, w_uv)
     return _out_proj(o, p["wo"]), ckv_cache, kpe_cache

@@ -42,14 +42,15 @@ the SwiGLU MLP; prefill and decode drop its aux loss, as the reference's
 do.
 
 Under ``launch.specs.rules_for(cfg, mesh, "prefill" | "decode")`` with a
-model axis (``dense`` without MLA, ``vlm``, ``moe``; the config resolved
-with ``tp``) ``prefill``, ``decode_step`` and ``init_cache`` serve with
-tensor parallelism: the params are each rank's model blocks
+model axis (every family but ``encdec``; the config resolved with ``tp``)
+``prefill``, ``decode_step`` and ``init_cache`` serve with tensor
+parallelism: the params are each rank's model blocks
 (``launch.specs.serve_param_shardings``), the cache each rank's
-``kv_seq`` block of rows for every kv head and its rows of the batch
-(``launch.specs.cache_shardings``), the logits whole on every rank;
-MLA and the other families raise ``NotImplementedError`` naming
-``TP_NEXT`` (:func:`check_tp`).
+``kv_seq`` block of rows for every kv head (MLA: of both latent caches)
+and its rows of the batch (``launch.specs.cache_shardings``; a Mamba2
+cache its ``ssm_inner`` channels and heads), the logits whole on every
+rank; ``encdec`` raises ``NotImplementedError`` naming ``TP_NEXT``
+(:func:`check_tp`).
 
 ``train_forward`` is the reference's: the loss is the chunked
 cross-entropy of the labels plus, for ``moe``, the layers' mean aux
@@ -67,7 +68,7 @@ from typing import Optional
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.models import encdec, hybrid
+from repro_torch.models import encdec, hybrid, ssm
 from repro_torch.models.attention import (attention_decode, attention_fwd,
                                           attention_logical, check_lowered,
                                           decode_block, init_attention,
@@ -89,21 +90,30 @@ from repro_torch.parallel.sharding import (dp_size, gather_seq, kv_block,
 #: the decoder-only families (``_dec_*``)
 DEC_FAMILIES = ("dense", "moe", "vlm")
 #: where tensor parallelism goes next (the refusals name it)
-TP_NEXT = "ROADMAP Queue 1 item 9, step 1b"
+TP_NEXT = "ROADMAP Queue 1 item 9, step 1b: encdec"
 
 
 def check_tp(cfg, tp: int) -> None:
-    """``NotImplementedError`` for a model axis of ``tp`` > 1 where the
-    port has no tensor parallelism yet: MLA and the ``ssm``, ``hybrid``
-    and ``encdec`` families (the train step, prefill, decode and
-    ``init_cache`` share this check)."""
-    if tp == 1 or (cfg.family in DEC_FAMILIES and cfg.mla is None):
+    """For a model axis of ``tp`` > 1: ``NotImplementedError`` for the
+    ``encdec`` family, which has no tensor parallelism yet; ``ValueError``
+    where Mamba2's heads do not split (``ssm.check_tp``) or Zamba2's
+    shared block's heads do not divide ``tp`` (``resolve`` pads
+    ``num_heads``, never ``hybrid.shared_num_heads``).  The train step,
+    prefill, decode and ``init_cache`` share this check."""
+    if tp == 1:
         return
-    what = "MLA" if cfg.mla is not None else f"the {cfg.family!r} family"
-    raise NotImplementedError(
-        f"a 'model' axis of {tp} is tensor parallelism, which the port has "
-        f"for the dense, vlm and moe families without MLA; {what} "
-        f"({cfg.name}) is {TP_NEXT}")
+    if cfg.family == "encdec":
+        raise NotImplementedError(
+            f"a 'model' axis of {tp} is tensor parallelism, which the port "
+            f"has for every family but encdec; the 'encdec' family "
+            f"({cfg.name}) is {TP_NEXT}")
+    if cfg.family in ("ssm", "hybrid"):
+        ssm.check_tp(cfg, tp)
+    if cfg.family == "hybrid" and cfg.hybrid.shared_num_heads % tp:
+        raise ValueError(
+            f"{cfg.name}: the shared block's {cfg.hybrid.shared_num_heads} "
+            f"heads do not split over {tp} model ranks (resolving the "
+            f"config pads num_heads, not hybrid.shared_num_heads)")
 
 
 def int8_kv(cfg) -> bool:
@@ -205,8 +215,8 @@ def _dec_backbone(params, cfg, batch, cache: Optional[dict] = None):
     names = ("ckv", "kpe") if cfg.mla is not None else ("k", "v")
     attn_fwd = mla_fwd if cfg.mla is not None else attention_fwd
     kw = {}
-    if cache is not None and cfg.mla is None:
-        n = cache["k"].shape[2]
+    if cache is not None:
+        n = cache[names[0]].shape[2]
         lo = kv_offset(n)
         kw["kv_rows"] = (min(lo, S), min(lo + n, S))
 
@@ -282,13 +292,14 @@ def _dec_decode(params, cfg, cache, tokens: torch.Tensor):
             "reference's decode fails on it with an IndexError)")
     h = scatter_seq(embed_tokens(params["embed"], cfg, tokens))   # (B, 1, D)
     pos = cache["len"]
-    block = (decode_block(pos, cache["k"].shape[2])
-             if kv_split() and cfg.mla is None else None)
+    block = (decode_block(pos, cache["ckv" if cfg.mla else "k"].shape[2])
+             if kv_split() else None)
     for i in range(cfg.num_layers):
         if cfg.mla is not None:
             def attn(p, x):
                 return mla_decode(p, cfg, x, pos, cache["ckv"][i],
-                                  cache["kpe"][i], cache["len"])[0], None
+                                  cache["kpe"][i], cache["len"],
+                                  block)[0], None
         else:
             def attn(p, x):
                 scales = ((cache["k_scale"][i], cache["v_scale"][i]) if int8
@@ -428,11 +439,12 @@ def prefill(params, cfg, batch, cache_len: Optional[int] = None):
     ``cache_len`` rows (the ``ssm`` family's cache has no rows).
 
     Under ``launch.specs.rules_for(cfg, mesh, "prefill")`` with a model
-    axis (the decoder-only families without MLA, ``cfg`` resolved with
-    ``tp``; ``params`` each rank's blocks, ``launch.specs.
+    axis (every family but ``encdec``, ``cfg`` resolved with ``tp``;
+    ``params`` each rank's blocks, ``launch.specs.
     serve_param_shardings``; ``batch`` this rank's rows): the cache is
     this rank's block in ``launch.specs.cache_shardings``' layout and the
-    logits are whole on every rank (:func:`_dec_prefill`)."""
+    logits are whole on every rank (:func:`_dec_prefill`,
+    ``hybrid.prefill``)."""
     fam = _serving_family(cfg)
     if fam is not None:
         return fam.prefill(params, cfg, batch, cache_len)
@@ -457,8 +469,9 @@ def init_cache(cfg, B: int, S: int, dtype=torch.bfloat16, device=None):
     cache_shardings``' layout: its rows of the batch (where ``B`` splits
     over the data-parallel ranks) and its block of the positions."""
     fam = _serving_family(cfg)
+    dp = dp_size()
+    B = B // dp if B % dp == 0 else B
     if fam is not None:
         return fam.init_cache(cfg, B, S, dtype, resolve_device(device))
-    dp = dp_size()
-    return _dec_init_cache(cfg, B // dp if B % dp == 0 else B, S, dtype,
-                           resolve_device(device), int8=int8_kv(cfg))
+    return _dec_init_cache(cfg, B, S, dtype, resolve_device(device),
+                           int8=int8_kv(cfg))

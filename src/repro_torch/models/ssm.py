@@ -13,6 +13,22 @@ launches, on CPU tensors its plain version runs; under grad through the
 ``SSD`` autograd function, whose backward is the ``ssd_bwd`` kernel (the
 reference differentiates ``ssd_chunked``).  The decode path is the O(1)
 recurrent step in plain PyTorch ops (the reference has no kernel for it).
+
+Under tensor parallelism (rules with a model axis, ``ssm_inner ->
+model``) a rank runs its block of the heads, the reference's layout:
+``in_z``, ``in_x``, ``conv_x_*`` and ``norm`` are the rank's blocks of
+the inner channels, ``out_proj`` its rows (its output a partial sum over
+the model ranks, which the caller sums); ``in_B``, ``in_C``, ``in_dt``
+and ``conv_B_*`` / ``conv_C_*`` are replicated, and ``dt``, ``A_log``,
+``Dskip`` and ``dt_bias`` (``("noshard",)``) are cut to the rank's heads
+(``parallel.sharding.model_block``).  B and C are the groups the rank's
+heads read: every group where there is one, else the rank's whole groups
+(:func:`check_tp`).  The gated RMSNorm's mean is over the whole
+``d_inner``, so a rank's mean over its channels is summed over the model
+ranks (``parallel.sharding.sum_over_model``, whose backward sums too).
+The SSD kernel runs on the rank's H / tp heads; in decode the conv
+state's ``x`` tail holds the rank's channels, the ``B`` / ``C`` tails are
+whole and the SSD state holds the rank's heads.
 """
 from __future__ import annotations
 
@@ -22,7 +38,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.ssd import ssd
-from repro_torch.models.common import dtype_of, normal_init, rmsnorm
+from repro_torch.models.common import dtype_of, normal_init
+from repro_torch.parallel.sharding import model_block, sum_over_model
 
 
 def _uniform(n: int, lo: float, hi: float, generator: torch.Generator,
@@ -92,10 +109,52 @@ def causal_conv1d(x: torch.Tensor, w: torch.Tensor,
     return F.silu(out + b).to(x.dtype)
 
 
+def check_tp(cfg, tp: int) -> None:
+    """``ValueError`` where Mamba2's heads do not split over ``tp`` model
+    ranks, or where with more than one group a rank's heads would read
+    part of a group (each rank's heads must cover whole groups)."""
+    s = cfg.ssm
+    H, G = s.n_heads(cfg.d_model), s.n_groups
+    if H % tp:
+        raise ValueError(f"{cfg.name}: {H} Mamba2 heads do not split over "
+                         f"{tp} model ranks")
+    if G > 1 and (H // tp) % (H // G):
+        raise ValueError(f"{cfg.name}: {H} Mamba2 heads in {G} groups over "
+                         f"{tp} model ranks: a rank's {H // tp} heads would "
+                         f"read part of a group (each must cover whole "
+                         f"groups)")
+
+
+def _groups(cfg, t: torch.Tensor) -> torch.Tensor:
+    """The groups (..., G, N) of B or C that this model rank's heads read:
+    the one group, or the rank's block of the groups."""
+    return t if cfg.ssm.n_groups == 1 else model_block(t, -2)
+
+
 def _project(p, cfg, x: torch.Tensor):
-    """x: (B, L, D) -> z, xr, Br, Cr, dt (pre-conv, pre-softplus)."""
+    """x: (B, L, D) -> z, xr, Br, Cr, dt (pre-conv, pre-softplus); z, xr
+    and dt on this model rank's channels and heads."""
     return (x @ p["in_z"], x @ p["in_x"], x @ p["in_B"], x @ p["in_C"],
-            x @ p["in_dt"])
+            x @ model_block(p["in_dt"], 1))
+
+
+def _head_params(p):
+    """dt_bias, A and Dskip of this model rank's heads."""
+    return (model_block(p["dt_bias"]), -torch.exp(model_block(p["A_log"])),
+            model_block(p["Dskip"]))
+
+
+def gated_rmsnorm(scale: torch.Tensor, x: torch.Tensor, eps: float,
+                  d_inner: int) -> torch.Tensor:
+    """``common.rmsnorm`` over the whole ``d_inner`` channels, of which
+    ``x`` holds this model rank's block: the rank's mean of squares,
+    weighed by its share of the channels, summed over the model ranks
+    (with one rank the weight is 1 and the sum a copy, so the result is
+    ``rmsnorm``'s bit for bit)."""
+    xf = x.float()
+    var = sum_over_model(xf.square().mean(dim=-1, keepdim=True)
+                         * (x.shape[-1] / d_inner))
+    return (xf * torch.rsqrt(var + eps) * scale).to(x.dtype)
 
 
 def mamba2_fwd(p, cfg, x: torch.Tensor):
@@ -105,25 +164,24 @@ def mamba2_fwd(p, cfg, x: torch.Tensor):
     (x, B, C) are the raw pre-conv tails of length W-1 and final_state
     (B, H, P, N) f32 is the SSD state after the last position."""
     s = cfg.ssm
-    di, nh = s.d_inner(cfg.d_model), s.n_heads(cfg.d_model)
     W = s.d_conv
     z, xr, Br, Cr, dt = _project(p, cfg, x)
     tails = (xr[:, -(W - 1):], Br[:, -(W - 1):], Cr[:, -(W - 1):])
     xc = causal_conv1d(xr, p["conv_x_w"], p["conv_x_b"])
     Bc = causal_conv1d(Br, p["conv_B_w"], p["conv_B_b"])
     Cc = causal_conv1d(Cr, p["conv_C_w"], p["conv_C_b"])
-    Bsz, L = x.shape[:2]
-    xs = xc.reshape(Bsz, L, nh, s.head_dim)
-    Bm = Bc.reshape(Bsz, L, s.n_groups, s.d_state)
-    Cm = Cc.reshape(Bsz, L, s.n_groups, s.d_state)
-    dtv = F.softplus(dt.float() + p["dt_bias"])
-    A = -torch.exp(p["A_log"])
+    Bsz, L, di = xc.shape
+    xs = xc.reshape(Bsz, L, di // s.head_dim, s.head_dim)
+    Bm = _groups(cfg, Bc.reshape(Bsz, L, s.n_groups, s.d_state))
+    Cm = _groups(cfg, Cc.reshape(Bsz, L, s.n_groups, s.d_state))
+    dt_bias, A, Dskip = _head_params(p)
+    dtv = F.softplus(dt.float() + dt_bias)
     # the kernel casts x on load, as the reference casts it before the scan
     y, final_state = ssd(xs, dtv, A, Bm, Cm, chunk=s.chunk_size)
-    y = y + p["Dskip"][None, None, :, None] * xs.float()
+    y = y + Dskip[None, None, :, None] * xs.float()
     y = y.reshape(Bsz, L, di)
-    y = rmsnorm({"scale": p["norm"]},
-                (y * F.silu(z.float())).to(x.dtype), cfg.norm_eps)
+    y = gated_rmsnorm(p["norm"], (y * F.silu(z.float())).to(x.dtype),
+                      cfg.norm_eps, s.d_inner(cfg.d_model))
     return y @ p["out_proj"], (tails, final_state)
 
 
@@ -146,7 +204,6 @@ def mamba2_decode(p, cfg, x: torch.Tensor, conv_state: dict,
     saves copying it) and returns (y (B, 1, D), conv_state, ssm_state):
     the same tensors."""
     s = cfg.ssm
-    di, nh = s.d_inner(cfg.d_model), s.n_heads(cfg.d_model)
     z, xr, Br, Cr, dt = (t[:, 0] for t in _project(p, cfg, x))
     acts = []
     for name, new in (("x", xr), ("B", Br), ("C", Cr)):
@@ -155,20 +212,25 @@ def mamba2_decode(p, cfg, x: torch.Tensor, conv_state: dict,
         conv_state[name].copy_(full[:, 1:])
         acts.append(act)
     xc, Bc, Cc = acts
-    Bsz = x.shape[0]
-    rep = nh // s.n_groups
+    Bsz, di = xc.shape
+    nh = di // s.head_dim
+    Bg = _groups(cfg, Bc.reshape(Bsz, s.n_groups, s.d_state))
+    Cg = _groups(cfg, Cc.reshape(Bsz, s.n_groups, s.d_state))
+    G = Bg.shape[1]
+    rep = nh // G
     xs = xc.reshape(Bsz, nh, s.head_dim)
-    Bh = Bc.reshape(Bsz, s.n_groups, 1, s.d_state).expand(
-        Bsz, s.n_groups, rep, s.d_state).reshape(Bsz, nh, s.d_state)
-    Ch = Cc.reshape(Bsz, s.n_groups, 1, s.d_state).expand(
-        Bsz, s.n_groups, rep, s.d_state).reshape(Bsz, nh, s.d_state)
-    dtv = F.softplus(dt.float() + p["dt_bias"])                # (B, H)
-    dA = torch.exp(dtv * -torch.exp(p["A_log"]))
+    Bh = Bg.reshape(Bsz, G, 1, s.d_state).expand(
+        Bsz, G, rep, s.d_state).reshape(Bsz, nh, s.d_state)
+    Ch = Cg.reshape(Bsz, G, 1, s.d_state).expand(
+        Bsz, G, rep, s.d_state).reshape(Bsz, nh, s.d_state)
+    dt_bias, A, Dskip = _head_params(p)
+    dtv = F.softplus(dt.float() + dt_bias)                     # (B, H)
+    dA = torch.exp(dtv * A)
     ssm_state.mul_(dA[..., None, None]).add_(
         (dtv[..., None] * xs)[..., :, None] * Bh[..., None, :])
     y = (ssm_state @ Ch[..., None])[..., 0]                    # (B, H, P)
-    y = y + p["Dskip"][None, :, None] * xs
-    y = rmsnorm({"scale": p["norm"]},
-                (y.reshape(Bsz, di) * F.silu(z.float())).to(x.dtype),
-                cfg.norm_eps)
+    y = y + Dskip[None, :, None] * xs
+    y = gated_rmsnorm(p["norm"],
+                      (y.reshape(Bsz, di) * F.silu(z.float())).to(x.dtype),
+                      cfg.norm_eps, s.d_inner(cfg.d_model))
     return (y @ p["out_proj"])[:, None, :], conv_state, ssm_state

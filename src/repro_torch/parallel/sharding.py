@@ -44,8 +44,10 @@ Here a rank holds local shards and the collectives are explicit:
   sequence whose backward reduce-scatters, and the reverse: Megatron's
   ``f`` and ``g`` under its sequence-parallel residual; under the decode
   rules, which keep the residual whole, the identity and an all-reduce)
-  and :func:`reduce_from_model` (an all-reduce whose backward passes the
-  cotangent on).  Each captures its process group in its forward: a CUDA
+  :func:`reduce_from_model` (an all-reduce whose backward passes the
+  cotangent on) and :func:`sum_over_model` (an all-reduce whose backward
+  all-reduces too); :func:`model_block` cuts a replicated per-head vector
+  to the rank's heads.  Each captures its process group in its forward: a CUDA
   backward (and ``maybe_remat``'s recompute with it) runs on autograd's
   own thread, which does not see the caller's rules;
 - the serving cache is sequence-parallel (``kv_seq -> model``): a model
@@ -570,6 +572,49 @@ def reduce_from_model(x: torch.Tensor) -> torch.Tensor:
     gradient passed on as it is (each rank's is already whole)."""
     m = _model(current_rules())
     return x if m is None else _Reduce.apply(x, m[0])
+
+
+class _SumBoth(torch.autograd.Function):
+    """All-reduce (sum); its backward all-reduces the cotangent too."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.group), None
+
+
+def sum_over_model(x: torch.Tensor) -> torch.Tensor:
+    """The model ranks' partial ``x`` summed, where each rank goes on
+    with the sum in a part of the graph of its own (the gated norm's sum
+    of squares over ``ssm_inner`` channels split over the ranks, each
+    rank normalising its own channels by it): the gradient of each
+    rank's term is then the ranks' cotangents summed, so the backward
+    all-reduces as well.  (:func:`reduce_from_model` passes the cotangent
+    on, which is right only where everything downstream is the same on
+    every rank.)  ``x`` itself without a model axis."""
+    m = _model(current_rules())
+    return x if m is None else _SumBoth.apply(x, m[0])
+
+
+def model_block(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """This model rank's block of a replicated ``x`` along ``dim``: rows
+    ``[r n / tp, (r + 1) n / tp)`` of its ``n`` (a per-head vector such as
+    Mamba2's ``dt_bias``, ``A_log`` and ``Dskip``, ``("noshard",)`` in the
+    reference, cut to the rank's heads; its gradient is zero elsewhere,
+    and the step sums a replicated leaf's over the model axis).  ``x``
+    itself with one model rank; ``ValueError`` where ``n`` does not
+    split."""
+    tp = tp_size()
+    if tp == 1:
+        return x
+    n = x.shape[dim]
+    if n % tp:
+        raise ValueError(f"{n} rows do not split over {tp} model ranks")
+    return x.narrow(dim, tp_index() * (n // tp), n // tp)
 
 
 def _seq_split(rules: Optional[AxisRules]) -> bool:

@@ -500,13 +500,16 @@ def tp_grad_parity(cfg, rules, device: DeviceLike, B: int = 2, S: int = 32,
     of ``train_forward`` under ``rules`` (the tensor-parallel path: the
     sequence-split residual, the vocab-parallel loss, the collectives
     over the model axis) against those without rules, from the same
-    parameters and batch on ``device``; each gradient leaf held by
+    parameters and batch on ``device`` (Zamba2's LoRA seeded nonzero,
+    :func:`seed_lora`); each gradient leaf held by
     :func:`train_grads_drift`.  Returns the drifts: ``loss`` (relative)
     and ``grads``."""
     from repro_torch.models import model as M
     from repro_torch.parallel.sharding import axis_rules
     from repro_torch.training.train_step import value_and_grad
     params = M.init_params(cfg, torch.Generator().manual_seed(seed), device)
+    if cfg.family == "hybrid":
+        seed_lora(params, cfg, seed)
     batch = {k: v.to(device) for k, v in train_batch(cfg, B, S, seed).items()}
     with axis_rules(rules):
         loss_t, met_t, g_t = value_and_grad(cfg, params, batch)
@@ -748,8 +751,8 @@ def tp_serve_parity(cfg, mesh, params: dict, batch: dict, cache_len: int,
     cache ``int8_steps``, the largest difference of its rows in
     quantisation steps, and ``int8_off``, how many differ (a last-bit
     difference of a row before it is rounded can move it one step);
-    ``cache_shapes``, this rank's cache
-    leaves' shapes; and with ``rounds``, ``decode_ms``: each path's
+    ``cache_shapes``, this rank's cache leaves' shapes by their dotted
+    key paths (``k``, ``conv.x``); and with ``rounds``, ``decode_ms``: each path's
     (``tp``, ``single``) milliseconds a greedy step in each of ``rounds``
     more waves, run after the parity waves (which warm both paths up),
     the two paths interleaved and the first of them alternating round by
@@ -786,7 +789,10 @@ def tp_serve_parity(cfg, mesh, params: dict, batch: dict, cache_len: int,
     c_drift, c_exact, steps_off, n_off = 0.0, True, 0, 0
     for (path, x), (_, y) in zip(leaves_with_path(got["cache"]),
                                  leaves_with_path(single["cache"])):
-        x = c_sh[path[0]].gather(x)
+        s = c_sh
+        for k in path:
+            s = s[k]
+        x = s.gather(x)
         c_exact &= torch.equal(x, y)
         if path[0] == "len":
             tokens_equal &= torch.equal(x, y)
@@ -803,8 +809,8 @@ def tp_serve_parity(cfg, mesh, params: dict, batch: dict, cache_len: int,
            "tokens_equal": bool(tokens_equal), "cache": c_drift,
            "cache_exact": bool(c_exact), "int8_steps": steps_off,
            "int8_off": n_off,
-           "cache_shapes": {k: list(v.shape)
-                            for k, v in got["cache"].items()}}
+           "cache_shapes": {".".join(p): list(v.shape) for p, v in
+                            leaves_with_path(got["cache"])}}
     del got, single
     if rounds:
         ms = out["decode_ms"] = {"tp": [], "single": []}

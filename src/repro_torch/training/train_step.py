@@ -56,21 +56,24 @@ The metrics are the reference's and the same on every rank: ``loss``,
 mean, ``grad_norm`` and ``lr``, each of the global batch.
 
 The ``model`` axis is tensor parallelism (Megatron's, with the
-sequence-parallel residual), for the decoder-only families without MLA
-(``dense``, ``vlm``, ``moe``): a leaf whose layout splits a dim over
-``model`` (heads, mlp, vocab, experts) stays this rank's block, the
-models compute on their blocks with explicit collectives over the model
-axis (``models.model._dec_layer``), and the params are gathered over the
-data-parallel axes only.  A leaf replicated over ``model`` has a partial
-gradient on each model rank (the norms under the sequence split, the kv
-projections that each rank slices to its q heads' kv heads, the router's
-combine part; the aux loss enters each rank's backward at ``1 / tp``,
-``parallel.sharding.replicated_term``), so it is summed over the model
-axis with the data-parallel ones.  With a model axis above 1, MLA and
-the ``ssm``, ``hybrid`` and ``encdec`` families raise
-``NotImplementedError`` naming ``TP_NEXT`` (``models.model.check_tp``,
-which prefill, decode and ``init_cache`` share; ROADMAP Queue 1 item 9,
-step 1b: MLA, then ``ssm_inner -> model``, then ``encdec``), and a config
+sequence-parallel residual), for every family but ``encdec``: a leaf
+whose layout splits a dim over ``model`` (heads, mlp, vocab, experts,
+``ssm_inner``) stays this rank's block, the models compute on their
+blocks with explicit collectives over the model axis
+(``models.model._dec_layer``, ``models.hybrid``), and the params are
+gathered over the data-parallel axes only.  A leaf replicated over
+``model`` has a partial gradient on each model rank (the norms under the
+sequence split, the kv projections that each rank slices to its q heads'
+kv heads, the router's combine part, MLA's latent projections and norms,
+Mamba2's ``in_B`` / ``in_C`` / ``in_dt``, ``conv_B`` / ``conv_C`` and its
+per-head ``A_log`` / ``Dskip`` / ``dt_bias`` cut to the rank's heads,
+Zamba2's LoRA ``qa`` / ``ia`` and ``down``; the aux loss enters each
+rank's backward at ``1 / tp``, ``parallel.sharding.replicated_term``), so
+it is summed over the model axis with the data-parallel ones.  With a
+model axis above 1, ``encdec`` raises ``NotImplementedError`` naming
+``TP_NEXT`` (``models.model.check_tp``, which prefill, decode and
+``init_cache`` share; ROADMAP Queue 1 item 9, step 1b), heads that do not
+split (Mamba2's, Zamba2's shared block's) ``ValueError``, and a config
 whose model-split dims do not divide the axis (resolve it with ``tp``)
 ``ValueError``.  Serving under tensor parallelism (prefill and decode
 with the sequence-parallel KV cache) is ``models.model``'s.

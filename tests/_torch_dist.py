@@ -41,6 +41,9 @@ STEP_TRAIN = dict(learning_rate=1e-3, warmup_steps=1)
 #: data-parallel rank (``num_groups=0``, resolved to dp): each rank routes
 #: its own groups, where the smoke config's one group spans the ranks
 GROUPS = "+groups"
+#: MLA and the Mamba2 families (the local heads of ``wuq`` / ``wukv``, the
+#: ``ssm_inner`` channels and heads, Zamba2's shared block)
+LATENT_SSM_ARCHS = ("minicpm3-4b", "mamba2-1.3b", "zamba2-2.7b")
 
 
 def step_config(arch: str, dp: int, tp: int = 1):
@@ -51,6 +54,24 @@ def step_config(arch: str, dp: int, tp: int = 1):
         cfg = dataclasses.replace(
             cfg, moe=dataclasses.replace(cfg.moe, num_groups=0))
     return dataclasses.replace(cfg, dtype="float32").resolve(tp=tp, dp=dp)
+
+
+def train_state(cfg, tcfg, rules=None) -> dict:
+    """``make_train_state`` from seed 0 on the CPU, Zamba2's LoRA ``qb`` /
+    ``ib`` seeded nonzero in the params and the master
+    (``testing.seed_lora``: at init they add exactly 0), then this
+    rank's shards under ``rules``."""
+    from repro_torch.parallel.sharding import place
+    from repro_torch.testing import seed_lora
+    state = make_train_state(cfg, tcfg, torch.Generator().manual_seed(0),
+                             "cpu")
+    if cfg.family == "hybrid":
+        seed_lora(state["params"], cfg)
+        for name in ("qb", "ib"):
+            state["opt"]["master"]["lora"][name].copy_(
+                state["params"]["lora"][name])
+    return state if rules is None else place(state,
+                                             state_shardings(cfg, rules))
 
 
 def _join(rank: int, world: int, store: str) -> None:
@@ -249,16 +270,17 @@ def remat_backward(rank, world, store, out_dir, archs):
 # ----------------------------------------------------------------------
 # tensor parallelism over the model axis
 def _record_kernel_shapes() -> dict:
-    """Wrap the models' flash attention and ``gmm`` to record the shapes
-    each is called with on this rank: {"flash": {(q, k)}, "gmm": {(x,
-    w)}}."""
-    from repro_torch.models import attention as A, moe
-    seen = {"flash": set(), "gmm": set(), "on": False}
-    flash, gmm = A.flash_attention, moe.gmm
+    """Wrap the models' flash attention, ``gmm`` and SSD to record the
+    shapes each is called with on this rank: {"flash": {(q, k, v)},
+    "gmm": {(x, w)}, "ssd": {(x, dt, A, B)}}."""
+    from repro_torch.models import attention as A, hybrid, moe, ssm
+    seen = {"flash": set(), "gmm": set(), "ssd": set(), "on": False}
+    flash, gmm, ssd = A.flash_attention, moe.gmm, ssm.ssd
 
     def rec_flash(q, k, v, **kw):
         if seen["on"]:
-            seen["flash"].add((tuple(q.shape), tuple(k.shape)))
+            seen["flash"].add((tuple(q.shape), tuple(k.shape),
+                               tuple(v.shape)))
         return flash(q, k, v, **kw)
 
     def rec_gmm(x, w):
@@ -266,7 +288,13 @@ def _record_kernel_shapes() -> dict:
             seen["gmm"].add((tuple(x.shape), tuple(w.shape)))
         return gmm(x, w)
 
-    A.flash_attention, moe.gmm = rec_flash, rec_gmm
+    def rec_ssd(x, dt, A_, Bm, Cm, **kw):
+        if seen["on"]:
+            seen["ssd"].add(tuple(tuple(t.shape) for t in (x, dt, A_, Bm)))
+        return ssd(x, dt, A_, Bm, Cm, **kw)
+
+    A.flash_attention = hybrid.flash_attention = rec_flash
+    moe.gmm, ssm.ssd = rec_gmm, rec_ssd
     return seen
 
 
@@ -344,7 +372,19 @@ def _tp_cases(rank, mesh, cases, out_dir) -> dict:
     every step so far).  Returns, a case: the gradients' and each
     step's drift (rank 0), every rank's metrics (rank 0's beside the
     single-device step's), its leaves' local shapes and the shapes its
-    flash attention and ``gmm`` calls took."""
+    flash attention, ``gmm`` and SSD calls took (in the gradients' pass
+    and the steps').  For LATENT_SSM_ARCHS the master and params of
+    the leaves that start at zero (Mamba2's conv biases) are left out of
+    ``drift``: such a master is nothing but the sum of AdamW's updates
+    m / (sqrt(v) + eps), which turn TP's last-bit gradient differences
+    into up to 1.5e-5 of its largest where an element's |g| is a few
+    eps or its m nearly cancels (ROADMAP Queue 3 item 29).  Their report
+    adds ``exempt``, those leaves' names, ``exempt_drift``, each step's
+    master and params drift over them alone (their m and v stay in
+    ``drift``), and
+    ``parity``: ``testing.sharded_step_parity``'s two steps of the step
+    on the mesh handed the single-device step's gradients, from the same
+    first state."""
     seen = _record_kernel_shapes()
     axes = tuple(mesh.mesh_dim_names)
     sizes = dict(zip(axes, mesh.shape))
@@ -358,18 +398,16 @@ def _tp_cases(rank, mesh, cases, out_dir) -> dict:
         rules = make_rules(mesh, mode="train", fsdp=fsdp, zero1=True,
                            dp_axes=dp_axes)
         sh = state_shardings(cfg, rules)
-        state = make_train_state(cfg, tcfg,
-                                 torch.Generator().manual_seed(0), "cpu",
-                                 rules=rules)
+        state = train_state(cfg, tcfg, rules)
         shapes = {keystr(p): list(x.shape)
                   for p, x in leaves_with_path(state)}
         batch = step_batch(cfg, S=S)
         sharded = _recording(seen, make_train_step(cfg, tcfg, rules))
         plain = make_train_step(cfg, tcfg)
-        seen["flash"].clear()
-        seen["gmm"].clear()
+        for k in ("flash", "gmm", "ssd"):
+            seen[k].clear()
         rep = {"shapes": shapes, "metrics": [], "drift": []}
-        rep["grads"] = _grad_drift(cfg, rules, state, sh, batch, rank)
+        rep["grads"] = _grad_drift(cfg, rules, state, sh, batch, rank, seen)
         for _ in range(steps):
             # a copy: a leaf no rank splits is gathered as itself, and
             # both steps write their state in place
@@ -380,24 +418,41 @@ def _tp_cases(rank, mesh, cases, out_dir) -> dict:
             if rank == 0:
                 big = [x.abs() > 1e-3 * x.abs().max()
                        for x in _step_grads(cfg, whole, batch, nmb)]
+                if not rep["drift"]:
+                    zero = [arch in LATENT_SSM_ARCHS and not x.any()
+                            for x in leaves(whole["opt"]["master"])]
                 keep = big if not rep["drift"] else [
                     a & b for a, b in zip(keep, big)]
                 ref, m0 = plain(whole, batch)
                 for k in row:
                     row[k][0] = float(m0[k])
-                rep["drift"].append(_state_drift(after, ref, keep))
+                rep["drift"].append(_state_drift(
+                    after, ref, [k & (not z) for k, z in zip(keep, zero)]))
+                if any(zero):
+                    rep["exempt"] = [keystr(p) for (p, _), z in zip(
+                        leaves_with_path(ref["params"]), zero) if z]
+                    rep.setdefault("exempt_drift", []).append({
+                        kind: _state_drift(after, ref, [
+                            k & z for k, z in zip(keep, zero)])[kind]
+                        for kind in ("master", "params")})
             rep["metrics"].append(row)
-        rep["kernels"] = {k: sorted(seen[k]) for k in ("flash", "gmm")}
+        rep["kernels"] = {k: sorted(seen[k]) for k in ("flash", "gmm",
+                                                        "ssd")}
+        if arch in LATENT_SSM_ARCHS:
+            from repro_torch.testing import sharded_step_parity
+            rep["parity"] = sharded_step_parity(
+                cfg, tcfg, rules, train_state(cfg, tcfg), batch)
         report[name] = rep
     return report
 
 
-def _grad_drift(cfg, rules, state, sh, batch, rank):
+def _grad_drift(cfg, rules, state, sh, batch, rank, seen=None):
     """Rank 0: the largest difference of one microbatch's gradient on the
     mesh (this rank's rows; each leaf summed over the data-parallel ranks
     and, replicated over ``model``, over it, or gathered over it) from
     the single-device gradient of the global batch at the same params,
-    over the leaf's largest: {leaf: drift}."""
+    over the leaf's largest: {leaf: drift}.  With ``seen`` the mesh's
+    pass records its kernels' shapes (:func:`_record_kernel_shapes`)."""
     from repro_torch.parallel.sharding import MODEL, axis_group
     p_sh = sh["params"]
     params = gather(state["params"], p_sh)
@@ -407,7 +462,8 @@ def _grad_drift(cfg, rules, state, sh, batch, rank):
     mb = {k: v.narrow(0, r * per, per) for k, v in batch.items()}
     mine = tree_map(lambda x, s: s.without(dp_axes).local(x), params, p_sh)
     with axis_rules(rules):
-        g = value_and_grad(cfg, mine, mb)[2]
+        g = (value_and_grad if seen is None
+             else _recording(seen, value_and_grad))(cfg, mine, mb)[2]
     want = value_and_grad(cfg, params, batch)[2]
     out = {}
     for (p, x), s, w in zip(leaves_with_path(g), leaves(p_sh),
@@ -493,17 +549,23 @@ REF_STEPS = {
                                   microbatches=2, steps=4, S=32),
     "qwen2-vl-7b-zero1-mb1": dict(arch="qwen2-vl-7b", mesh=(1, 8),
                                   axes=("data", "model"), fsdp=False,
-                                  microbatches=1, steps=2, S=16)}
+                                  microbatches=1, steps=2, S=16),
+    **{f"{a}-zero1-mb1": dict(arch=a, mesh=(1, 4), axes=("data", "model"),
+                              fsdp=False, microbatches=1, steps=2, S=16)
+       for a in LATENT_SSM_ARCHS}}
 
 
-def start_reference_steps(ref_dir: str):
-    """Start the reference's steps of REF_STEPS in a child process with 8
-    host devices (``tests/_torch_reference_tp_steps.py``), each case
-    writing into ``ref_dir/<name>``, where its batch (``step_batch``) is
-    written first.  Returns (the process, the JSON its stdin takes)."""
+def start_reference_steps(ref_dir: str, names=None):
+    """Start the reference's steps of the cases ``names`` of REF_STEPS
+    (all by default) in a child process with 8 host devices
+    (``tests/_torch_reference_tp_steps.py``), each case writing into
+    ``ref_dir/<name>``, where its batch (``step_batch``) is written
+    first.  The child reads its requests from a file and writes its
+    output to another.  Returns (the process, its log's path)."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     reqs = []
-    for name, c in REF_STEPS.items():
+    for name in names or REF_STEPS:
+        c = REF_STEPS[name]
         out = os.path.join(ref_dir, name)
         os.makedirs(out)
         sizes = dict(zip(c["axes"], c["mesh"]))
@@ -518,15 +580,20 @@ def start_reference_steps(ref_dir: str):
     env = dict(os.environ, JAX_PLATFORMS="cpu",
                XLA_FLAGS="--xla_force_host_platform_device_count=8",
                PYTHONPATH=os.path.join(root, "src"))
-    p = subprocess.Popen(
-        [sys.executable, os.path.join(root, "tests",
-                                      "_torch_reference_tp_steps.py")],
-        stdin=subprocess.PIPE, stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True, env=env, cwd=root)
-    return p, json.dumps(reqs)
+    base = os.path.join(ref_dir, "_".join(names or REF_STEPS))
+    with open(base + ".json", "w") as f:
+        json.dump(reqs, f)
+    with open(base + ".json") as fin, open(base + ".log", "w") as flog:
+        p = subprocess.Popen(
+            [sys.executable, os.path.join(root, "tests",
+                                          "_torch_reference_tp_steps.py")],
+            stdin=fin, stdout=flog, stderr=subprocess.STDOUT, env=env,
+            cwd=root)
+    return p, base + ".log"
 
 
-def tp_against_reference(rank, world, store, ref_dir, out_dir):
+def tp_against_reference(rank, world, store, ref_dir, out_dir,
+                         cases=None):
     """Eight ranks: the port's step with a model axis against the
     reference's GSPMD step for each case of REF_STEPS
     (:func:`start_reference_steps` wrote the reference's states before
@@ -536,10 +603,13 @@ def tp_against_reference(rank, world, store, ref_dir, out_dir):
     it to the reference's (:func:`_state_drift`, master and params on the
     elements whose gradient, the port's single-device step's, stayed
     above 1e-3 of the leaf's largest at every step so far).  Every rank
-    writes its metrics a step (``ref<r>.json``), rank 0 the drifts."""
+    writes its metrics a step (``ref<r>.json``), rank 0 the drifts.
+    ``cases`` names the cases (their meshes of ``world`` ranks; all of
+    REF_STEPS by default)."""
     _join(rank, world, store)
     report = {}
-    for name, case in REF_STEPS.items():
+    for name in cases or REF_STEPS:
+        case = REF_STEPS[name]
         ref = os.path.join(ref_dir, name)
         shape, axes = tuple(case["mesh"]), tuple(case["axes"])
         mesh = make_mesh(shape, axes, "cpu")
@@ -733,6 +803,125 @@ def tp_pieces(rank, world, store, out_dir):
             out["uneven sequence"] = "no error"
         except ValueError as e:
             out["uneven sequence"] = str(e)
+    out.update(_latent_ssm_pieces(mesh4, rules4))
     with open(os.path.join(out_dir, f"pieces{rank}.json"), "w") as f:
         json.dump(out, f)
     dist.destroy_process_group()
+
+
+def _latent_ssm_pieces(mesh, rules) -> dict:
+    """On a (1, tp) data x model mesh, MLA's and Mamba2's model-axis pieces
+    against their unsplit forms (the largest difference over the unsplit
+    value's largest):
+
+    - ``gated norm``: ``ssm.gated_rmsnorm`` on this rank's block of the
+      ``d_inner`` channels, its value and the gradients of its input and
+      scale (a loss weighing each channel differently), against the
+      unsplit norm: the rank's mean of squares goes through
+      ``sum_over_model``, whose backward sums the ranks' cotangents;
+    - ``mamba heads``: ``mamba2_fwd`` / ``mamba2_decode`` on the rank's
+      blocks of ``in_z``, ``in_x``, ``conv_x_*``, ``norm`` and
+      ``out_proj`` (the per-head ``dt_bias``, ``A_log`` and ``Dskip``
+      drawn apart per head and cut by the layer itself): the output's
+      partial sums summed, the SSD state and the ``x`` conv tail equal
+      the unsplit layer's at the rank's heads and channels, with one
+      group and with four (a rank's heads reading their own group);
+    - ``mla combine``: ``mla_decode`` on the rank's block of both latent
+      caches and its heads, the partial outputs summed, against the
+      whole-cache decode, rows whose new position leaves later blocks
+      empty among them; the blocks' written rows against the whole
+      cache's."""
+    from repro_torch.models.attention import decode_block, init_mla, \
+        mla_decode
+    from repro_torch.models.ssm import (gated_rmsnorm, init_mamba2,
+                                        mamba2_decode, mamba2_fwd)
+    from repro_torch.parallel.sharding import reduce_from_model
+    out = {}
+    tp, r = mesh.shape[-1], axis_index(mesh, ("model",))
+    g = torch.Generator().manual_seed(11)
+    d = 16 * tp
+    x = torch.randn((2, 5, d), generator=g)
+    scale = 1 + 0.3 * torch.randn((d,), generator=g)
+    w = torch.randn((2, 5, d), generator=g)
+    blk = slice(r * d // tp, (r + 1) * d // tp)
+    res = {}
+    for split in (False, True):
+        xs = (x[..., blk] if split else x).clone().requires_grad_()
+        ss = (scale[blk] if split else scale).clone().requires_grad_()
+        with axis_rules(rules if split else None):
+            y = gated_rmsnorm(ss, xs, 1e-6, d)
+            (y * (w[..., blk] if split else w)).sum().backward()
+        res[split] = (y.detach(), xs.grad, ss.grad)
+    (yw, xw, sw), (yg, xg, sg) = res[False], res[True]
+    out["gated norm"] = _rel(yg, yw[..., blk])
+    out["gated norm grad x"] = _rel(xg, xw[..., blk])
+    out["gated norm grad scale"] = _rel(sg, sw[blk])
+
+    for G in (1, 4):
+        cfg = step_config("mamba2-1.3b", 1, tp)
+        cfg = dataclasses.replace(cfg, ssm=dataclasses.replace(
+            cfg.ssm, n_groups=G))
+        p = init_mamba2(cfg, torch.Generator().manual_seed(12), "cpu")
+        H = cfg.ssm.n_heads(cfg.d_model)
+        p["Dskip"] = torch.randn((H,), generator=g)
+        p["norm"] = 1 + 0.3 * torch.randn(p["norm"].shape, generator=g)
+        di = p["in_x"].shape[1]
+        cb = slice(r * di // tp, (r + 1) * di // tp)
+        hb = slice(r * H // tp, (r + 1) * H // tp)
+        mine = dict(p)
+        for k in ("in_z", "in_x", "conv_x_w"):
+            mine[k] = p[k][:, cb]
+        for k in ("conv_x_b", "norm"):
+            mine[k] = p[k][cb]
+        mine["out_proj"] = p["out_proj"][cb]
+        xin = torch.randn((2, 32, cfg.d_model), generator=g)
+        y, ((tx, tb, tc), st) = mamba2_fwd(p, cfg, xin)
+        with axis_rules(rules):
+            yl, ((lx, lb, lc), sl) = mamba2_fwd(mine, cfg, xin)
+            yl = reduce_from_model(yl)
+        tag = f"mamba heads G{G}"
+        out[f"{tag} y"] = _rel(yl, y)
+        out[f"{tag} state"] = _rel(sl, st[:, hb])
+        out[f"{tag} conv tails"] = max(_rel(lx, tx[..., cb]), _rel(lb, tb),
+                                       _rel(lc, tc))
+        xt = torch.randn((2, 1, cfg.d_model), generator=g)
+        conv = {"x": tx.clone(), "B": tb.clone(), "C": tc.clone()}
+        yd, conv, sd = mamba2_decode(p, cfg, xt, conv, st.clone())
+        lconv = {"x": lx.clone(), "B": lb.clone(), "C": lc.clone()}
+        with axis_rules(make_rules(mesh, mode="decode", fsdp=False)):
+            ydl, lconv, sdl = mamba2_decode(mine, cfg, xt, lconv, sl.clone())
+            ydl = reduce_from_model(ydl)
+        out[f"mamba decode G{G} y"] = _rel(ydl, yd)
+        out[f"mamba decode G{G} state"] = _rel(sdl, sd[:, hb])
+        out[f"mamba decode G{G} conv x"] = _rel(lconv["x"],
+                                                 conv["x"][..., cb])
+
+    cfg = step_config("minicpm3-4b", 1, tp)
+    m = cfg.mla
+    p = init_mla(cfg, torch.Generator().manual_seed(13), "cpu")
+    H = cfg.padded_heads
+    hb = slice(r * H // tp, (r + 1) * H // tp)
+    mine = {**p, "wuq": p["wuq"][:, hb], "wukv": p["wukv"][:, hb],
+            "wo": p["wo"][hb]}
+    B, n = 4, 8
+    S = n * tp
+    xt = torch.randn((B, 1, cfg.d_model), generator=g)
+    ckv = torch.randn((B, S, m.kv_lora_rank), generator=g)
+    kpe = torch.randn((B, S, m.qk_rope_head_dim), generator=g)
+    # row 0's new row lands in the first block and leaves the rest empty;
+    # row 1's opens the second block; the last row fills the cache
+    lens = torch.tensor([2, n, S // 2 + 1, S - 1], dtype=torch.int32)
+    want, wc, wk = mla_decode(p, cfg, xt, lens, ckv.clone(), kpe.clone(),
+                              lens)
+    with axis_rules(make_rules(mesh, mode="decode", fsdp=False)):
+        block = decode_block(lens, n)
+        got, gc, gk = mla_decode(mine, cfg, xt, lens,
+                                 ckv[:, r * n:(r + 1) * n].clone(),
+                                 kpe[:, r * n:(r + 1) * n].clone(), lens,
+                                 block=block)
+        got = reduce_from_model(got)
+    out["mla combine"] = _rel(got, want)
+    out["mla combine cache"] = max(
+        float((gc - wc[:, r * n:(r + 1) * n]).abs().max()),
+        float((gk - wk[:, r * n:(r + 1) * n]).abs().max()))
+    return out

@@ -25,7 +25,7 @@ from repro_torch.launch.specs import (batch_logical, cache_shardings,
 from repro_torch.models import model as M
 from repro_torch.parallel.sharding import (_axes, axis_index, axis_rules,
                                            combine_over_model, place)
-from repro_torch.testing import serve_wave, tp_serve_parity
+from repro_torch.testing import seed_lora, serve_wave, tp_serve_parity
 from repro_torch.tree import keystr, leaves_with_path, unflatten
 
 #: a wave: SERVE_B prompts of each length in SERVE_S (14 splits unevenly
@@ -34,21 +34,27 @@ from repro_torch.tree import keystr, leaves_with_path, unflatten
 SERVE_B, SERVE_CACHE, SERVE_STEPS = 4, 32, 8
 SERVE_S = (14, 16)
 ARCHS = ("deepseek-67b", "qwen1.5-32b", "qwen2-vl-7b", "qwen3-moe-30b-a3b")
+#: MLA (its latent caches) and the Mamba2 families (conv tails and SSD
+#: states on the rank's channels and heads; Zamba2's shared k / v), Zamba2
+#: with its LoRA seeded nonzero
+LATENT_SSM_ARCHS = ("minicpm3-4b", "mamba2-1.3b", "zamba2-2.7b")
 #: an arch name with this suffix keeps an int8 cache and decodes from
 #: ``init_cache``, fed the prompt a token a step (the reference's only
 #: start for it)
 INT8 = "+int8"
-CASES = [(a, s) for a in ARCHS for s in SERVE_S] + [("qwen2-vl-7b" + INT8,
-                                                     14)]
+CASES = [(a, s) for a in ARCHS for s in SERVE_S] \
+    + [(a, SERVE_S[0]) for a in LATENT_SSM_ARCHS] \
+    + [("qwen2-vl-7b" + INT8, 14)]
 #: the waves held against the reference's own GSPMD prefill and decode
 REF_SERVE = {"deepseek-67b": dict(mesh=(2, 4), axes=("data", "model")),
-             "qwen2-vl-7b": dict(mesh=(1, 8), axes=("data", "model"))}
+             "qwen2-vl-7b": dict(mesh=(1, 8), axes=("data", "model")),
+             **{a: dict(mesh=(1, 4), axes=("data", "model"))
+                for a in LATENT_SSM_ARCHS}}
 REF_S = 14
 #: the prompt length of the wave under the serving FSDP rules
 FSDP_S = 14
-#: the families and attention that tensor-parallel serving refuses
-REFUSED = ("minicpm3-4b", "mamba2-1.3b", "zamba2-2.7b",
-           "seamless-m4t-medium")
+#: the family that tensor-parallel serving refuses
+REFUSED = ("seamless-m4t-medium",)
 #: the reference helper's decode cache (``_torch_reference_sharding.py``)
 LAYOUT_B, LAYOUT_S = 8, 64
 
@@ -95,12 +101,15 @@ def _mesh(shape, axes):
 
 def _recording_decode():
     """Wrap the models' decode kernel to record the (q, k) shapes of its
-    calls with ``return_lse`` (the sequence-parallel cache's)."""
+    calls on the sequence-parallel cache: under rules that split
+    ``kv_seq`` (the single-device wave's calls, with ``return_lse`` too
+    where a family's decode takes ``decode_block``'s path, are not)."""
     from repro_torch.models import attention as A
+    from repro_torch.parallel.sharding import kv_split
     seen, decode = set(), A.decode_attention
 
     def rec(q, k, v, kv_len, **kw):
-        if kw.get("return_lse"):
+        if kv_split():
             seen.add((tuple(q.shape), tuple(k.shape)))
         return decode(q, k, v, kv_len, **kw)
 
@@ -121,6 +130,8 @@ def tp_serve_cases(rank, world, store, shape, axes, cases, out_dir):
     for arch, S in cases:
         cfg = serve_config(arch, dp, tp)
         params = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        if cfg.family == "hybrid":
+            seed_lora(params, cfg)
         seen.clear()
         rep = tp_serve_parity(cfg, mesh, params, serve_batch(cfg, S),
                               SERVE_CACHE, SERVE_STEPS,
@@ -128,19 +139,22 @@ def tp_serve_cases(rank, world, store, shape, axes, cases, out_dir):
         rep["decode"] = sorted([list(q), list(k)] for q, k in seen)
         report[case_name(arch, S)] = rep
     layouts = {}
-    for arch in ARCHS:
+    for arch in ARCHS + LATENT_SSM_ARCHS:
         cfg = serve_config(arch, dp, tp)
         rules = rules_for(cfg, mesh, "decode")
         sh = cache_shardings(cfg, rules, LAYOUT_B, LAYOUT_S)
         with axis_rules(rules):
             local = M.init_cache(cfg, LAYOUT_B, LAYOUT_S, device="meta")
         whole = M.init_cache(cfg, LAYOUT_B, LAYOUT_S, device="meta")
-        layouts[arch] = {
-            keystr((k,)): {"spec": [list(e) if isinstance(e, tuple) else e
-                                    for e in sh[k].spec],
-                           "shape": list(sh[k].shard_shape(whole[k].shape)),
-                           "local": list(local[k].shape)}
-            for k in whole}
+        layouts[arch] = {}
+        for (path, w), (_, s), (_, x) in zip(leaves_with_path(whole),
+                                             leaves_with_path(sh),
+                                             leaves_with_path(local)):
+            layouts[arch][keystr(path)] = {
+                "spec": [list(e) if isinstance(e, tuple) else e
+                         for e in s.spec],
+                "shape": list(s.shard_shape(w.shape)),
+                "local": list(x.shape)}
     report["layouts"] = layouts
     report["fsdp"] = _fsdp_rules(mesh, dp, tp)
     if math.prod(shape[:-1]) == 1:
@@ -188,9 +202,9 @@ def _fsdp_rules(mesh, dp: int, tp: int) -> dict:
 def _pieces(mesh, tp: int) -> dict:
     """On a (1, tp) mesh: ``combine_over_model`` of each rank's block of a
     cache against one softmax over the whole cache (a row whose length
-    leaves every block past the first empty); the refusals of MLA,
-    ``ssm``, ``hybrid`` and ``encdec`` under a model axis; a cache length
-    that does not split over it."""
+    leaves every block past the first empty); the refusal of ``encdec``
+    under a model axis, and of a Zamba2 shared block whose 3 heads do
+    not split over it; a cache length that does not split over it."""
     from repro_torch.kernels.decode_attention import decode_attention
     out = {}
     g = torch.Generator().manual_seed(5)
@@ -229,6 +243,22 @@ def _pieces(mesh, tp: int) -> dict:
                     got.append(f"{kind}: {e}")
         refused[arch] = got
     out["refused"] = refused
+    cfg = get_config("zamba2-2.7b", smoke=True)
+    cfg = dataclasses.replace(cfg, hybrid=dataclasses.replace(
+        cfg.hybrid, shared_num_heads=3, shared_kv_heads=3)).resolve(tp=tp)
+    heads = []
+    for kind, call in (
+            ("prefill", lambda: M.prefill(None, cfg, {}, 32)),
+            ("decode", lambda: M.decode_step(None, cfg, None, None)),
+            ("init_cache", lambda: M.init_cache(cfg, 2, 32, device="cpu"))):
+        with axis_rules(rules_for(cfg, mesh, kind.replace("init_cache",
+                                                          "decode"))):
+            try:
+                call()
+                heads.append(f"{kind}: no error")
+            except ValueError as e:
+                heads.append(f"{kind}: {e}")
+    out["shared heads"] = heads
     cfg = serve_config("deepseek-67b", 1, tp)
     params = place(M.init_params(cfg, torch.Generator().manual_seed(0),
                                  "cpu"), serve_param_shardings(
@@ -262,14 +292,17 @@ def reference_template(arch: str):
     return cfg, M.init_params(cfg, torch.Generator(), "meta")
 
 
-def tp_against_reference_serve(rank, world, store, ref_dir, out_dir):
-    """Eight ranks: each REF_SERVE wave with the reference's params
+def tp_against_reference_serve(rank, world, store, ref_dir, out_dir,
+                               archs=None):
+    """Each REF_SERVE wave of ``archs`` (whose meshes hold ``world``
+    ranks; all of them by default) with the reference's params
     (``ref_dir/<arch>/params.npz``, carried across by
     ``interop.params_from_reference``) on the port's tensor-parallel path
     over the case's mesh; every rank writes its logits a step, its greedy
     tokens and its first row of the batch (``<arch>-rank<r>.npz``)."""
     _join(rank, world, store)
-    for arch, c in REF_SERVE.items():
+    for arch in archs or REF_SERVE:
+        c = REF_SERVE[arch]
         mesh = make_mesh(tuple(c["mesh"]), tuple(c["axes"]), "cpu")
         cfg, template = reference_template(arch)
         with np.load(os.path.join(ref_dir, arch, "params.npz")) as f:

@@ -1389,14 +1389,126 @@ def test_gmm_at_tp_local_experts(cuda, dtype):
         assert g.shape == w_.shape and _bwd_err(g, w_) < tol
 
 
+@pytest.mark.parametrize("dt_form", ["own", "sliced"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("arch,tp", [("mamba2-1.3b", 4),
+                                     ("zamba2-2.7b", 8)])
+def test_ssd_at_tp_local_heads(cuda, arch, tp, dtype, dt_form):
+    """The SSD kernel forward and backward at a TP rank's Mamba2 heads
+    (16 of mamba2-1.3b's 64, N 128; 10 of zamba2-2.7b's 80, N 64; one
+    group, chunk 256) at a shorter sequence, against the plain versions;
+    bf16 on the tensor-core kernels.  ``sliced``: dt is the rank's heads
+    cut from every head's dt, a strided view the kernels read in
+    place."""
+    from repro_torch.kernels.ssd import _ssd_forward, ssd_bwd, ssd_bwd_plain
+    cfg = get_config(arch)
+    s = cfg.ssm
+    Hw = s.n_heads(cfg.d_model)
+    B, L, H, P, N, Q = 2, 512, Hw // tp, s.head_dim, s.d_state, s.chunk_size
+    x = _randn((B, L, H, P), dtype, cuda, 21)
+    Bm = _randn((B, L, 1, N), dtype, cuda, 22)
+    Cm = _randn((B, L, 1, N), dtype, cuda, 23)
+    dt_all = torch.nn.functional.softplus(_randn((B, L, Hw), torch.float32,
+                                                 cuda, 24))
+    dt = dt_all[..., :H].contiguous() if dt_form == "own" \
+        else dt_all[..., (tp - 1) * H:]
+    A = -_randn((H,), torch.float32, cuda, 25).exp()
+    dy = _randn((B, L, H, P), torch.float32, cuda, 26)
+    variant = "tc" if dtype == torch.bfloat16 else "fma"
+    before = (getattr(ssd, f"{variant}_launches"),
+              getattr(ssd_bwd, f"{variant}_launches"))
+    y, state, states = _ssd_forward(x, dt, A, Bm, Cm, Q, True)
+    got = ssd_bwd(x, dt, A, Bm, Cm, states, dy, None, Q)
+    torch.cuda.synchronize()
+    assert (getattr(ssd, f"{variant}_launches") - before[0],
+            getattr(ssd_bwd, f"{variant}_launches") - before[1]) == (1, 1)
+    want_y, want_state = ssd_plain(x, dt, A, Bm, Cm, Q)
+    tol = SSD_TOL[dtype]
+    torch.testing.assert_close(y, want_y, rtol=tol, atol=tol)
+    torch.testing.assert_close(state, want_state, rtol=tol, atol=tol)
+    want = ssd_bwd_plain(x, dt, A, Bm, Cm, states, dy, None, Q)
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all() and _bwd_err(g, w) < SSD_BWD_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "minicpm3-4b"])
+def test_flash_at_tp_local_latent_and_shared_heads(cuda, arch, dtype):
+    """Flash attention forward and backward at a tp 4 rank's heads:
+    Zamba2's shared block (8 of 32 heads, MHA, D 160) and MLA's (10 of
+    40, D 96 / Dv 64 with v a view of the expanded latent), at a short
+    sequence, against the plain versions; bf16 on the tensor-core
+    kernels."""
+    from repro_torch.kernels.flash_attention import (
+        _flash_forward, flash_attention_bwd, flash_attention_bwd_plain)
+    tp, B, S = 4, 2, 300
+    cfg = get_config(arch).resolve(tp=tp)
+    if cfg.mla is not None:
+        m = cfg.mla
+        H, D, Dv = cfg.padded_heads // tp, m.qk_nope_head_dim \
+            + m.qk_rope_head_dim, m.v_head_dim
+        q, k = (_randn((B, S, H, D), dtype, cuda, i) for i in range(2))
+        v = _randn((B, S, H, m.qk_nope_head_dim + Dv), dtype, cuda,
+                   2)[..., m.qk_nope_head_dim:]
+    else:
+        H, D = cfg.hybrid.shared_num_heads // tp, cfg.head_dim
+        Dv = D
+        q, k, v = (_randn((B, S, H, D), dtype, cuda, i) for i in range(3))
+    do = _randn((B, S, H, Dv), dtype, cuda, 3)
+    variant = "tc" if dtype == torch.bfloat16 else "fma"
+    before = _flash_counts()
+    out = flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    _assert_one_launch(before, variant)
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(out.float(),
+                               flash_attention_plain(q, k, v, True).float(),
+                               rtol=tol, atol=tol)
+    o, lse = _flash_forward(q, k, v, True, True)
+    for g, w in zip(flash_attention_bwd(q, k, v, o, do, lse, True),
+                    flash_attention_bwd_plain(q, k, v, o, do, lse, True)):
+        assert g.shape == w.shape and _bwd_err(g, w) < tol
+
+
+@pytest.mark.parametrize("dtype,variant", [(torch.float32, "fma"),
+                                           (torch.bfloat16, "mma")])
+def test_decode_lse_at_zamba2_tp_block(cuda, dtype, variant):
+    """The decode kernel with ``lse`` on a Zamba2 tp 4 rank's block of a
+    2048-row cache (8 rows of the batch, 512 positions, 32 heads of 160,
+    MHA): full, partial and empty blocks, against the plain version."""
+    B, n, H, D = 8, 512, 32, 160
+    q = _randn((B, 1, H, D), dtype, cuda, 31)
+    k = _randn((B, n, H, D), dtype, cuda, 32)
+    v = _randn((B, n, H, D), dtype, cuda, 33)
+    lens = torch.tensor([n, n // 3, 0, 1, 17, 255, 256, 511],
+                        dtype=torch.int32, device=cuda)
+    before = (decode_attention.launches,
+              getattr(decode_attention, f"{variant}_launches"))
+    out, lse = decode_attention(q, k, v, lens, return_lse=True)
+    torch.cuda.synchronize()
+    assert (decode_attention.launches - before[0],
+            getattr(decode_attention, f"{variant}_launches") - before[1]) \
+        == (1, 1)
+    p_out, p_lse = decode_attention_plain(q, k, v, lens, return_lse=True)
+    live = lens > 0
+    assert torch.isinf(lse[~live]).all() and (lse[~live] < 0).all()
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(lse[live], p_lse[live], rtol=tol, atol=tol)
+    torch.testing.assert_close(out[live].float(), p_out[live].float(),
+                               rtol=tol, atol=tol)
+
+
 @pytest.mark.parametrize("arch", ["deepseek-67b", "qwen2-vl-7b",
-                                  "qwen3-moe-30b-a3b"])
+                                  "qwen3-moe-30b-a3b", "minicpm3-4b",
+                                  "mamba2-1.3b", "zamba2-2.7b"])
 def test_tp_path_one_rank_nccl_matches_plain(cuda, nccl_rank, arch):
     """``value_and_grad`` on the tensor-parallel path (a (1, 1) data x
     model mesh on NCCL: the sequence-split residual and the vocab-parallel
-    loss over one-rank groups) against the single-device one on the card
-    at the f32 smoke config (``testing.tp_grad_parity``: TRAIN_GRAD_TOL,
-    a MoE arch's upstream leaves MOE_UPSTREAM_TOL)."""
+    loss over one-rank groups; MLA's local heads, the Mamba2 layers'
+    channels and heads and the gated norm's sum for the last three)
+    against the single-device one on the card at the f32 smoke config
+    (``testing.tp_grad_parity``, Zamba2's LoRA seeded nonzero:
+    TRAIN_GRAD_TOL, a MoE arch's upstream leaves MOE_UPSTREAM_TOL)."""
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.parallel.sharding import make_rules
     from repro_torch.testing import TRAIN_GRAD_TOL, tp_grad_parity
@@ -1482,14 +1594,18 @@ def test_decode_blocks_merged_match_whole_cache(cuda, tp, dtype):
 
 @pytest.mark.parametrize("arch,int8", [("qwen2-vl-7b", False),
                                        ("qwen2-vl-7b", True),
-                                       ("qwen3-moe-30b-a3b", False)])
+                                       ("qwen3-moe-30b-a3b", False),
+                                       ("minicpm3-4b", False),
+                                       ("mamba2-1.3b", False),
+                                       ("zamba2-2.7b", False)])
 def test_tp_wave_one_rank_nccl_bit_for_bit(cuda, nccl_rank, arch, int8):
     """A serving wave on the tensor-parallel path (a (1, 1) data x model
     mesh on NCCL: the prefill and decode rules, the sequence-parallel
-    cache, the decode kernel's ``lse`` and the combine over one-rank
-    groups) against the single-device wave at the f32 smoke config
-    (``testing.tp_serve_parity``; the int8 cache from ``init_cache``):
-    tokens equal, logits and cache bit for bit."""
+    cache, the decode kernel's ``lse`` (MLA's latent softmax) and the
+    combine over one-rank groups; the Mamba2 layers' sums) against the
+    single-device wave at the f32 smoke config (``testing.
+    tp_serve_parity``; the int8 cache from ``init_cache``; Zamba2's LoRA
+    seeded nonzero): tokens equal, logits and cache bit for bit."""
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.testing import tp_serve_parity
     cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
@@ -1498,6 +1614,8 @@ def test_tp_wave_one_rank_nccl_bit_for_bit(cuda, nccl_rank, arch, int8):
     cfg = cfg.resolve(tp=1, dp=1)
     params = model.init_params(cfg, torch.Generator(cuda).manual_seed(0),
                                cuda)
+    if cfg.family == "hybrid":
+        seed_lora(params, cfg)
     rng = np.random.default_rng(0)
     batch = {"tokens": torch.as_tensor(
         rng.integers(0, cfg.vocab_size, (3, 14)), dtype=torch.int32,

@@ -159,8 +159,9 @@ def test_two_rank_train_and_elastic_restore(tmp_path):
 def test_two_rank_tensor_parallel_train(tmp_path):
     """``--mesh 1x2`` on two gloo ranks: deepseek-67b's smoke config,
     resolved for tp 2, trains with its heads, MLP and vocabulary split
-    over the model axis and checkpoints whole leaves; mamba2-1.3b is
-    refused by name."""
+    over the model axis and checkpoints whole leaves; mamba2-1.3b trains
+    with its ``ssm_inner`` channels and heads split; seamless-m4t-medium
+    (``encdec``) is refused by name."""
     ck = str(tmp_path / "ck")
     args = ["--arch", "deepseek-67b", "--smoke", "--device", "cpu",
             "--batch", "4", "--seq", "16", "--mesh", "1x2", "--ckpt-dir",
@@ -174,7 +175,15 @@ def test_two_rank_tensor_parallel_train(tmp_path):
                   [*SMOKE, "--mesh", "1x2", "--steps", "2", "--ckpt-dir",
                    str(tmp_path / "ck2")], 2, tmp_path / "s2")
     for rc, out, err in runs:
-        assert rc != 0 and "'ssm' family" in err and "step 1b" in err, \
+        assert rc == 0, err[-3000:]
+    assert "[train] done at step 2" in runs[0][1]
+    runs = _ranks("repro_torch.launch.train",
+                  ["--arch", "seamless-m4t-medium", "--smoke", "--device",
+                   "cpu", "--batch", "4", "--seq", "16", "--mesh", "1x2",
+                   "--steps", "2", "--ckpt-dir", str(tmp_path / "ck3")], 2,
+                  tmp_path / "s3")
+    for rc, out, err in runs:
+        assert rc != 0 and "'encdec' family" in err and "step 1b" in err, \
             err[-3000:]
 
 

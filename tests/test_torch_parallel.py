@@ -275,6 +275,24 @@ def test_shard_checks_rank_only_under_rules():
             TS.shard(x, "batch")
 
 
+REFUSAL_MESHES = {"1x2": ((1, 2), ("data", "model")),
+                  "2x2x4": ((2, 2, 4), ("pod", "data", "model"))}
+
+
+@pytest.fixture(scope="module")
+def refusal_layouts():
+    """The reference's train-state layouts of the smoke configs that a
+    model axis above 1 once refused, on REFUSAL_MESHES (a child
+    process)."""
+    keys = [(m, a) for m in REFUSAL_MESHES
+            for a in ("minicpm3-4b", "mamba2-1.3b", "zamba2-2.7b")]
+    got = reference_layouts([
+        {"arch": a, "smoke": True, "dtype": None,
+         "mesh": REFUSAL_MESHES[m][0], "axes": REFUSAL_MESHES[m][1],
+         "fsdp": False, "what": "state"} for m, a in keys])
+    return dict(zip(keys, got))
+
+
 @pytest.mark.parametrize("arch,what", [
     ("minicpm3-4b", "MLA"), ("mamba2-1.3b", "'ssm' family"),
     ("zamba2-2.7b", "'hybrid' family"),
@@ -282,15 +300,27 @@ def test_shard_checks_rank_only_under_rules():
 @pytest.mark.parametrize("shape,axes", [((1, 2), ("data", "model")),
                                         ((2, 2, 4), ("pod", "data",
                                                      "model"))])
-def test_model_axis_above_one_is_refused(shape, axes, arch, what):
-    """Tensor parallelism covers the decoder-only families without MLA;
-    the step refuses the others by name, and names where they go next."""
+def test_model_axis_above_one_is_refused(refusal_layouts, shape, axes, arch,
+                                         what):
+    """Tensor parallelism covers every family but ``encdec``: the step of
+    MLA (minicpm3-4b), the ``ssm`` family (mamba2-1.3b) and the
+    ``hybrid`` family (zamba2-2.7b) is made under a model axis, its state
+    in the reference's layouts (every leaf's spec and shard shape); the
+    ``encdec`` family is refused by name, naming where it goes next."""
     cfg = TB.get_config(arch, smoke=True).resolve(tp=shape[-1])
-    rules = TS.make_rules(TS.AbstractMesh(shape, axes), mode="train",
-                          fsdp=False)
-    with pytest.raises(NotImplementedError,
-                       match=f"{what}.*item 9, step 1b"):
-        make_train_step(cfg, TB.TrainConfig(), rules)
+    mesh = TS.AbstractMesh(shape, axes)
+    rules = TS.make_rules(mesh, mode="train", fsdp=False,
+                          dp_axes=tuple(a for a in axes if a != "model"))
+    if arch == "seamless-m4t-medium":
+        with pytest.raises(NotImplementedError,
+                           match=f"{what}.*item 9, step 1b"):
+            make_train_step(cfg, TB.TrainConfig(), rules)
+        return
+    make_train_step(cfg, TB.TrainConfig(), rules)
+    name = "1x2" if shape == (1, 2) else "2x2x4"
+    assert port_layouts({"arch": arch, "smoke": True, "dtype": None,
+                         "mesh": shape, "axes": axes, "fsdp": False,
+                         "what": "state"}) == refusal_layouts[(name, arch)]
 
 
 def test_production_mesh_needs_its_ranks():

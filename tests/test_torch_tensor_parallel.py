@@ -1,18 +1,21 @@
 """Tensor parallelism over the ``model`` axis on gloo, against the
 single-device step of the same resolved config and the reference's
-layouts: the decoder-only families without MLA (deepseek-67b,
-qwen1.5-32b with MHA and its qkv bias, qwen2-vl-7b with its loss mask,
-qwen3-moe-30b-a3b with one dispatch group and with one a data-parallel
-rank) on (1, 2), (2, 2) and (1, 4) data x model meshes and a (1, 2, 2)
-pod x data x model mesh, ZeRO-1 and FSDP, one and two microbatches; the
-reference's own multi-device case (deepseek-67b resolved for tp 4, dp 2
-on (2, 4), FSDP, two microbatches, four steps); the step against the
-reference's own GSPMD step on the same meshes (that case, and
-qwen2-vl-7b at tp 8, whose padded heads regroup the kv heads; the
+layouts: the decoder-only families (deepseek-67b, qwen1.5-32b with MHA
+and its qkv bias, qwen2-vl-7b with its loss mask, qwen3-moe-30b-a3b with
+one dispatch group and with one a data-parallel rank) on (1, 2), (2, 2)
+and (1, 4) data x model meshes and a (1, 2, 2) pod x data x model mesh,
+ZeRO-1 and FSDP, one and two microbatches; MLA and the Mamba2 families
+(minicpm3-4b, mamba2-1.3b, zamba2-2.7b with its LoRA seeded nonzero) on
+(1, 2), (2, 2) and (1, 4), ZeRO-1 and FSDP; the reference's own
+multi-device case (deepseek-67b resolved for tp 4, dp 2 on (2, 4), FSDP,
+two microbatches, four steps); the step against the reference's own
+GSPMD step on the same meshes (that case, qwen2-vl-7b at tp 8, whose
+padded heads regroup the kv heads, and each of the three at (1, 4); the
 reference runs in a child process with 8 host devices,
 ``tests/_torch_reference_tp_steps.py``); and the model-axis pieces one by
-one (``tests/_torch_dist.py::tp_pieces``, and the MoE aux loss alone on
-(1, 2) and (1, 4)).
+one (``tests/_torch_dist.py::tp_pieces``: the gated norm's sum over the
+split ``d_inner``, Mamba2 on a rank's heads, MLA's latent combine; the
+MoE aux loss alone on (1, 2) and (1, 4)).
 
 The ranks run in ``torch.multiprocessing`` spawns, all at once
 (``tests/_torch_dist.py``; a ``file://`` store under ``tmp_path``, one
@@ -50,12 +53,21 @@ ARCHS = ("deepseek-67b", "qwen1.5-32b", "qwen2-vl-7b", "qwen3-moe-30b-a3b")
 STEP_ARCHS = ARCHS + ("qwen3-moe-30b-a3b" + _torch_dist.GROUPS,)
 CASES = [(a, f, n, 2, _torch_dist.STEP_S) for a in STEP_ARCHS
          for f in (False, True) for n in (1, 2)]
+#: MLA and the Mamba2 families, one microbatch, on LATENT_MESHES: two
+#: steps, and two on the single-device step's gradients
+#: (``testing.sharded_step_parity``)
+LATENT_ARCHS = _torch_dist.LATENT_SSM_ARCHS
+LATENT_MESHES = ("1x2", "2x2", "1x4")
+LATENT_CASES = [(a, f, 1, 2, _torch_dist.STEP_S) for a in LATENT_ARCHS
+                for f in (False, True)]
 #: the reference's own case: (2, 4), deepseek-67b, FSDP, 2 microbatches
 REF_MESH = ((2, 4), ("data", "model"))
 REF_CASE = "deepseek-67b-fsdp-mb2"
 REF_STEPS = _torch_dist.REF_STEPS
 TOL = 1e-5
 MOE_TOL = 1e-2
+#: MLA and the Mamba2 families against the reference's GSPMD step
+REF_TOL = 1e-4
 
 
 def _name(arch, fsdp, nmb):
@@ -74,12 +86,19 @@ def runs(tmp_path_factory):
     "refsteps": the reference's dir, "against": out_dir}."""
     out, ctxs = {"step": {}}, []
     out["refsteps"] = tmp_path_factory.mktemp("tprefsteps")
-    child, reqs = _torch_dist.start_reference_steps(str(out["refsteps"]))
+    # two children at once: the eight-device cases, and the four-device
+    # ones of LATENT_ARCHS
+    by_ranks = {n: [k for k, c in REF_STEPS.items()
+                    if int(np.prod(c["mesh"])) == n] for n in (8, 4)}
+    children = {n: _torch_dist.start_reference_steps(str(out["refsteps"]),
+                                                     names)
+                for n, names in by_ranks.items()}
     for mesh, (shape, axes) in MESHES.items():
         d = tmp_path_factory.mktemp(f"tp{mesh}")
         n = int(np.prod(shape))
+        cases = CASES + (LATENT_CASES if mesh in LATENT_MESHES else [])
         ctxs.append(_start(_torch_dist.tp_step_cases, n,
-                           (n, str(d / "store"), shape, axes, CASES,
+                           (n, str(d / "store"), shape, axes, cases,
                             str(d))))
         out["step"][mesh] = d
     d = tmp_path_factory.mktemp("tpref")
@@ -90,12 +109,14 @@ def runs(tmp_path_factory):
     ctxs.append(_start(_torch_dist.tp_pieces, 4,
                        (4, str(d / "store"), str(d))))
     out["pieces"] = d
-    _, err = child.communicate(reqs, timeout=600)
-    assert child.returncode == 0, err[-4000:]
-    d = tmp_path_factory.mktemp("tpagainst")
-    ctxs.append(_start(_torch_dist.tp_against_reference, 8,
-                       (8, str(d / "store"), str(out["refsteps"]), str(d))))
-    out["against"] = d
+    out["against"] = {}
+    for n, (child, log) in children.items():
+        assert child.wait(timeout=600) == 0, open(log).read()[-4000:]
+        d = tmp_path_factory.mktemp(f"tpagainst{n}")
+        ctxs.append(_start(_torch_dist.tp_against_reference, n,
+                           (n, str(d / "store"), str(out["refsteps"]),
+                            str(d), by_ranks[n])))
+        out["against"][n] = d
     for ctx in ctxs:
         while not ctx.join():
             pass
@@ -142,6 +163,85 @@ def test_tp_step_matches_single_device(runs, mesh, arch, fsdp, nmb):
                 MOE_TOL if "moe" in arch else TOL)
 
 
+@pytest.mark.parametrize("fsdp", [False, True], ids=["zero1", "fsdp"])
+@pytest.mark.parametrize("arch", LATENT_ARCHS)
+@pytest.mark.parametrize("mesh", LATENT_MESHES)
+def test_tp_step_matches_single_device_mla_and_mamba2(runs, mesh, arch,
+                                                      fsdp):
+    """MLA (minicpm3-4b: ``wuq`` / ``wukv`` / ``wo`` on local heads, the
+    latent replicated), mamba2-1.3b (``ssm_inner`` split, the SSD on the
+    rank's heads, the gated norm's sum over the model ranks) and
+    zamba2-2.7b (its Mamba2 layers so, and the shared block on local
+    heads with its LoRA seeded nonzero), all three with tied embeddings
+    under the vocabulary split, against the single-device step of the
+    same resolved config: two steps on the mesh as
+    :func:`test_tp_step_matches_single_device` holds them, but for the
+    master and params of the leaves that start at zero (Mamba2's conv
+    biases, whose m and v are held: AdamW's update of an element whose
+    |g| is a few eps or whose m nearly cancels turns last-bit gradient
+    differences into 1.1-1.5e-5 of such a master, zamba2-2.7b's
+    ``conv_B_b`` and ``conv_x_b``; ROADMAP Queue 3 item 29); and two
+    steps handed the
+    single-device step's gradients (``testing.sharded_step_parity``)
+    within STATE_TOL (master, m, v) and one ulp (params) of the
+    single-device step, every microbatch the same rows, the mesh's
+    forward loss within 1e-5."""
+    from repro_torch.testing import STATE_TOL
+    d = runs["step"][mesh]
+    nranks = int(np.prod(MESHES[mesh][0]))
+    reports = _check_case(d, _name(arch, fsdp, 1), nranks, TOL)
+    assert len(reports[0]["drift"]) == 2
+    exempt = sorted(reports[0].get("exempt", []))
+    stack = "layers" if arch == "mamba2-1.3b" else "mamba"
+    assert exempt == ([] if arch == "minicpm3-4b" else sorted(
+        f"['{stack}']['mixer']['conv_{c}_b']" for c in "xBC")), exempt
+    for r in reports:
+        steps = r["parity"]
+        assert len(steps) == 2 and steps[0]["params_equal"], steps
+        for p in steps:
+            assert p["batch_equal"] and p["loss_drift"] <= TOL, p
+            for kind in ("master", "m", "v"):
+                assert p["drift"][kind] <= STATE_TOL, (kind, p)
+            assert p["drift"]["params"] <= 1.0, p
+
+
+@pytest.mark.parametrize("mesh", LATENT_MESHES)
+def test_tp_ssd_and_latent_attention_run_on_local_heads(runs, mesh):
+    """A model rank's SSD kernel takes its H / tp Mamba2 heads (dt and A
+    cut to them, B and C the one group), MLA's flash kernel its H / tp
+    heads at D qk_nope + qk_rope and Dv v_head_dim, and Zamba2's its H /
+    tp shared heads with the kv heads those read."""
+    shape, _ = MESHES[mesh]
+    tp, B, S = shape[-1], _torch_dist.STEP_B // shape[0], \
+        _torch_dist.STEP_S
+    for arch in LATENT_ARCHS:
+        cfg = get_config(arch, smoke=True).resolve(tp=tp)
+        rep = json.loads((runs["step"][mesh] / "rank0.json").read_text())[
+            _name(arch, False, 1)]["kernels"]
+        assert rep["gmm"] == [], rep
+        if cfg.ssm is not None:
+            s = cfg.ssm
+            H = s.n_heads(cfg.d_model) // tp
+            assert rep["ssd"] == [[[B, S, H, s.head_dim], [B, S, H], [H],
+                                   [B, S, 1, s.d_state]]], (arch, rep)
+        else:
+            assert rep["ssd"] == [], rep
+        if cfg.mla is not None:
+            m, H = cfg.mla, cfg.padded_heads // tp
+            qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+            assert rep["flash"] == [[[B, S, H, qk], [B, S, H, qk],
+                                     [B, S, H, m.v_head_dim]]], rep
+        elif cfg.hybrid is not None:
+            hb, dh = cfg.hybrid, cfg.head_dim
+            H = hb.shared_num_heads // tp
+            kv = local_kv_heads(H, hb.shared_kv_heads, tp, 0)
+            KV = kv.stop - kv.start
+            assert rep["flash"] == [[[B, S, H, dh], [B, S, KV, dh],
+                                     [B, S, KV, dh]]], rep
+        else:
+            assert rep["flash"] == [], rep
+
+
 def test_reference_case_four_steps(runs):
     """The reference's own case on a (2, 4) mesh: in f32 each of four
     steps equals the single-device step of the config resolved for tp 4,
@@ -163,21 +263,25 @@ def test_tp_step_matches_reference_gspmd_step(runs, case):
     every rank's metrics within 1e-5, and the state gathered after it
     (m, v; master and params on the elements whose gradient stayed above
     1e-3 of the leaf's largest at every step) within 1e-5 of each leaf's
-    largest value.  The reference's loss falls over the steps."""
+    largest value; MLA and the Mamba2 families at (1, 4) within REF_TOL
+    (the reference's compiled step sums in another order again).  The
+    reference's loss falls over the steps."""
     c = REF_STEPS[case]
+    tol = REF_TOL if c["arch"] in LATENT_ARCHS else TOL
     want = json.loads((runs["refsteps"] / case / "metrics.json").read_text())
     assert len(want) == c["steps"]
-    reports = [json.loads((runs["against"] / f"ref{r}.json").read_text())[
-        case] for r in range(int(np.prod(c["mesh"])))]
+    n = int(np.prod(c["mesh"]))
+    reports = [json.loads((runs["against"][n] / f"ref{r}.json")
+                          .read_text())[case] for r in range(n)]
     assert len(reports[0]["drift"]) == c["steps"]
     for i, step in enumerate(reports[0]["drift"]):
         for kind, (drift, leaf) in step.items():
-            assert drift <= TOL, (i, kind, leaf, drift)
+            assert drift <= tol, (i, kind, leaf, drift)
     for r in reports:
         for i, (got, w) in enumerate(zip(r["metrics"], want)):
             assert set(got) == set(w), (set(got), set(w))
             for key, v in w.items():
-                assert abs(got[key] - v) <= TOL * max(abs(v), 1.0), \
+                assert abs(got[key] - v) <= tol * max(abs(v), 1.0), \
                     (i, key, got[key], v)
     assert want[-1]["total_loss"] < want[0]["total_loss"], want
 
@@ -214,6 +318,7 @@ def test_tp_kernels_run_on_local_heads_and_experts(runs, mesh):
         B = _torch_dist.STEP_B // int(np.prod(shape[:-1]))
         S = _torch_dist.STEP_S
         assert rep["flash"] == [[[B, S, H, cfg.head_dim],
+                                 [B, S, KV, cfg.head_dim],
                                  [B, S, KV, cfg.head_dim]]], (arch, rep)
         if cfg.moe is not None:
             E = cfg.moe.num_experts // tp
@@ -228,7 +333,8 @@ def ref_shapes():
     meshes = dict(MESHES, ref=REF_MESH)
     reqs = [{"arch": a, "smoke": True, "dtype": "float32",
              "mesh": meshes[m][0], "axes": meshes[m][1], "fsdp": f,
-             "what": "state"} for m in meshes for a in ARCHS
+             "what": "state"} for m in meshes
+            for a in ARCHS + (LATENT_ARCHS if m in LATENT_MESHES else ())
             for f in (False, True) if m != "ref" or (a, f) == (
                 "deepseek-67b", True)]
     got = reference_layouts(reqs)
@@ -238,12 +344,15 @@ def ref_shapes():
 
 @pytest.mark.parametrize("mesh,arch,fsdp", [
     (m, a, f) for m in MESHES for a in ARCHS for f in (False, True)]
-    + [("ref", "deepseek-67b", True)])
+    + [("ref", "deepseek-67b", True)]
+    + [(m, a, f) for m in LATENT_MESHES for a in LATENT_ARCHS
+       for f in (False, True)])
 def test_tp_rank_shards_have_reference_shapes(runs, ref_shapes, mesh, arch,
                                               fsdp):
     """Each rank's local leaves have the reference's ``arg_sharding``
-    shard shapes at the mesh: heads, mlp, vocab and experts split over
-    ``model``, the kv projections and norms whole."""
+    shard shapes at the mesh: heads, mlp, vocab, experts and
+    ``ssm_inner`` split over ``model``, the kv projections, MLA's latent,
+    Mamba2's B / C / dt projections, per-head vectors and norms whole."""
     if mesh == "ref":
         shape, d, nmb = REF_MESH[0], runs["ref"], 2
     else:
@@ -266,7 +375,8 @@ def pieces(runs):
 
 
 PIECES = ["sum_into", "reshard", "global_norm", "reduce_from_model", "gather_seq", "scatter_seq", "logits",
-          "loss", "h grad", "head grad", "embedding rows"]
+          "loss", "h grad", "head grad", "embedding rows", "gated norm",
+          "mamba heads", "mamba decode", "mla combine"]
 
 
 @pytest.mark.parametrize("piece", PIECES)
@@ -277,7 +387,11 @@ def test_model_axis_pieces_match_unsplit(pieces, piece):
     a model-split leaf's shards once each and a replicated leaf once; the
     collectives' forward and backward; the vocab-parallel logits, loss,
     gradients and embedding rows with labels in every rank's block and
-    in the padded tail."""
+    in the padded tail; the gated norm over a split ``d_inner`` (value
+    and both gradients), Mamba2's prefill and decode on a rank's heads
+    (one group and four) and MLA's latent decode on a rank's blocks of
+    the caches, an empty block among them
+    (``_torch_dist._latent_ssm_pieces``)."""
     n = 0
     for got in pieces:
         for k, v in got.items():
@@ -391,3 +505,49 @@ def test_config_not_resolved_for_tp_is_refused():
     # resolved for tp 8, the heads pad to 32 and the step is made
     make_train_step(get_config("qwen2-vl-7b").resolve(tp=8), TrainConfig(),
                     rules)
+
+
+@pytest.mark.parametrize("G,tp,ok", [(1, 2, True), (1, 8, True),
+                                     (4, 2, True), (4, 4, True),
+                                     (2, 4, False), (4, 8, False)])
+def test_mamba2_groups_must_be_whole_on_a_rank(G, tp, ok):
+    """With one group every rank's heads read it; with more, a rank's
+    heads must cover whole groups (mamba2-1.3b's smoke config has 8
+    heads), else ``ValueError`` naming the heads, the groups and tp."""
+    import dataclasses
+    from repro_torch.models import model as M
+    cfg = get_config("mamba2-1.3b", smoke=True)
+    cfg = dataclasses.replace(cfg, ssm=dataclasses.replace(
+        cfg.ssm, n_groups=G)).resolve(tp=tp)
+    rules = make_rules(AbstractMesh((1, tp), ("data", "model")),
+                       mode="train", fsdp=False)
+    if ok:
+        M.check_tp(cfg, tp)
+        make_train_step(cfg, TrainConfig(), rules)
+        return
+    for call in (lambda: M.check_tp(cfg, tp),
+                 lambda: make_train_step(cfg, TrainConfig(), rules)):
+        with pytest.raises(ValueError, match=f"8 Mamba2 heads in {G} "
+                                             f"groups over {tp} model"):
+            call()
+
+
+def test_zamba2_shared_heads_must_split():
+    """zamba2-2.7b's smoke shared block has 4 heads: at tp 8 the step and
+    ``models.model.check_tp`` (which prefill, decode and ``init_cache``
+    call) raise ``ValueError`` naming them (``resolve`` pads
+    ``num_heads``, never the shared block's); at tp 4 the step is made.
+    The serving refusal on live ranks is ``test_torch_tp_serving``'s."""
+    from repro_torch.models import model as M
+    cfg = get_config("zamba2-2.7b", smoke=True).resolve(tp=8)
+    assert cfg.hybrid.shared_num_heads == 4 and cfg.padded_heads == 8
+    with pytest.raises(ValueError, match="shared block's 4 heads"):
+        make_train_step(cfg, TrainConfig(), make_rules(
+            AbstractMesh((1, 8), ("data", "model")), mode="train",
+            fsdp=False))
+    with pytest.raises(ValueError, match="shared block's 4 heads"):
+        M.check_tp(cfg, 8)
+    make_train_step(get_config("zamba2-2.7b", smoke=True).resolve(tp=4),
+                    TrainConfig(), make_rules(AbstractMesh(
+                        (1, 4), ("data", "model")), mode="train",
+                        fsdp=False))

@@ -7,19 +7,23 @@ decode steps under ``launch.specs.rules_for(cfg, mesh, "prefill" |
 "decode")``, held against the single-device wave of the same resolved
 config (never ``resolve(tp=1)``): deepseek-67b, qwen1.5-32b (MHA, qkv
 bias), qwen2-vl-7b (M-RoPE, the vision stub; and with the int8 cache from
-``init_cache``) and qwen3-moe-30b-a3b at their f32 smoke configs, on
-(1, 2), (2, 2) and (1, 4) data x model meshes, prompts of 14 tokens (an
-uneven split over 4 model ranks) and 16, a cache of 32 rows.  Logits and
-the gathered cache within 1e-5 of their largest value (MoE 1e-2: its
-layer rounds the dispatched tokens to bf16), greedy tokens equal.  Two
-waves are held against the reference's own GSPMD prefill and decode on
-8 host devices (``tests/_torch_reference_tp_serve.py``): deepseek-67b on
-(2, 4), qwen2-vl-7b on (1, 8) with padded heads, the reference's params
-carried across by ``interop.params_from_reference``; logits within 1e-4,
-tokens equal.  Then the pieces: ``combine_over_model`` against one
-softmax over the whole cache, the plain decode's ``lse`` against the
-reference's scores, each rank's cache block against the reference's
-shard shapes, and the refusals.
+``init_cache``), qwen3-moe-30b-a3b, minicpm3-4b (MLA: the latent caches'
+blocks, the latent combine), mamba2-1.3b (the conv tails and SSD states
+on a rank's channels and heads) and zamba2-2.7b (those, and the shared
+block's cache blocks; its LoRA seeded nonzero) at their f32 smoke
+configs, on (1, 2), (2, 2) and (1, 4) data x model meshes, prompts of 14
+tokens (an uneven split over 4 model ranks) and 16, a cache of 32 rows.
+Logits and the gathered cache within 1e-5 of their largest value (MoE
+1e-2: its layer rounds the dispatched tokens to bf16), greedy tokens
+equal.  Waves are held against the reference's own GSPMD prefill and
+decode on 8 host devices (``tests/_torch_reference_tp_serve.py``):
+deepseek-67b on (2, 4), qwen2-vl-7b on (1, 8) with padded heads, and
+minicpm3-4b, mamba2-1.3b and zamba2-2.7b on (1, 4), the reference's
+params carried across by ``interop.params_from_reference``; logits
+within 1e-4, tokens equal.  Then the pieces: ``combine_over_model``
+against one softmax over the whole cache, the plain decode's ``lse``
+against the reference's scores, each rank's cache block against the
+reference's shard shapes, and the refusals.
 
 The ranks run in ``torch.multiprocessing`` spawns, all at once
 (``tests/_torch_dist_serve.py``), beside the reference's child process;
@@ -79,9 +83,17 @@ def _reference_inputs(ref_dir) -> list:
             tp=sizes["model"], dp=sizes["data"])
         params = JM.init_params(jax.random.PRNGKey(0), cfg)
         flat = jax.tree_util.tree_flatten_with_path(params)[0]
-        np.savez(os.path.join(d, "params.npz"), **{
-            "".join(f"[{getattr(p, 'key', p)!r}]" for p in path):
-            np.asarray(x) for path, x in flat})
+        arrays = {"".join(f"[{getattr(p, 'key', p)!r}]" for p in path):
+                  np.asarray(x) for path, x in flat}
+        if cfg.family == "hybrid":
+            # the LoRA's qb / ib start at zeros: seed them, as
+            # testing.seed_lora does, so the wave reads them
+            rng = np.random.default_rng(0)
+            for k in ("['lora']['qb']", "['lora']['ib']"):
+                arrays[k] = (rng.standard_normal(arrays[k].shape)
+                             * cfg.hybrid.lora_rank ** -0.5).astype(
+                    arrays[k].dtype)
+        np.savez(os.path.join(d, "params.npz"), **arrays)
         tcfg = DS.serve_config(arch, sizes["data"], sizes["model"])
         np.savez(os.path.join(d, "batch.npz"), **{
             k: v.numpy() for k, v in DS.serve_batch(tcfg, DS.REF_S).items()})
@@ -93,7 +105,7 @@ def _reference_inputs(ref_dir) -> list:
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """Every spawn at once, beside the reference's child:
+    """Every spawn at once, beside the reference's children:
     {"wave": {mesh: out_dir}, "ref": the reference's dir, "against":
     out_dir}."""
     out, ctxs = {"wave": {}}, []
@@ -102,11 +114,20 @@ def runs(tmp_path_factory):
     env = dict(os.environ, JAX_PLATFORMS="cpu",
                XLA_FLAGS="--xla_force_host_platform_device_count=8",
                PYTHONPATH=os.path.join(ROOT, "src"))
-    child = subprocess.Popen(
-        [sys.executable, os.path.join(ROOT, "tests",
-                                      "_torch_reference_tp_serve.py")],
-        stdin=subprocess.PIPE, stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True, env=env, cwd=ROOT)
+    # two children at once, the earlier archs' waves and LATENT_SSM_ARCHS',
+    # each reading its requests from a file and writing its log to one
+    children = []
+    for latent in (False, True):
+        base = out["ref"] / f"child{int(latent)}"
+        base.with_suffix(".json").write_text(json.dumps(
+            [r for r in reqs if (r["arch"] in DS.LATENT_SSM_ARCHS) == latent]))
+        with open(base.with_suffix(".json")) as fin, \
+                open(base.with_suffix(".log"), "w") as flog:
+            children.append((subprocess.Popen(
+                [sys.executable, os.path.join(
+                    ROOT, "tests", "_torch_reference_tp_serve.py")],
+                stdin=fin, stdout=flog, stderr=subprocess.STDOUT, env=env,
+                cwd=ROOT), base.with_suffix(".log")))
     for mesh, (shape, axes) in MESHES.items():
         d = tmp_path_factory.mktemp(f"tpserve{mesh}")
         n = int(np.prod(shape))
@@ -114,12 +135,17 @@ def runs(tmp_path_factory):
                            (n, str(d / "store"), shape, axes, DS.CASES,
                             str(d))))
         out["wave"][mesh] = d
-    d = tmp_path_factory.mktemp("tpserveagainst")
-    ctxs.append(_start(DS.tp_against_reference_serve, 8,
-                       (8, str(d / "store"), str(out["ref"]), str(d))))
-    out["against"] = d
-    _, err = child.communicate(json.dumps(reqs), timeout=600)
-    assert child.returncode == 0, err[-4000:]
+    out["against"] = {}
+    for n in (8, 4):
+        d = tmp_path_factory.mktemp(f"tpserveagainst{n}")
+        archs = [a for a, c in DS.REF_SERVE.items()
+                 if int(np.prod(c["mesh"])) == n]
+        ctxs.append(_start(DS.tp_against_reference_serve, n,
+                           (n, str(d / "store"), str(out["ref"]), str(d),
+                            archs)))
+        out["against"][n] = d
+    for child, log in children:
+        assert child.wait(timeout=600) == 0, log.read_text()[-4000:]
     for ctx in ctxs:
         while not ctx.join():
             pass
@@ -151,30 +177,66 @@ def test_tp_wave_matches_single_device(runs, mesh, arch, S):
         # the int8 rows: rounding moves a row's element one step where a
         # last-bit difference of the row puts it across a half step
         assert got["int8_steps"] <= int(int8), got
-        assert got["int8_off"] <= INT8_OFF * np.prod(
-            got["cache_shapes"]["k"]) * 2 * int8, got
+        assert got["int8_off"] <= (INT8_OFF * np.prod(
+            got["cache_shapes"]["k"]) * 2 if int8 else 0), got
 
 
 @pytest.mark.parametrize("mesh", list(MESHES))
 def test_tp_rank_holds_its_cache_block(runs, mesh):
     """Each rank's cache is its block: its rows of the batch, SERVE_CACHE /
-    tp positions, every kv head (and the int8 cache's scales alike); the
-    decode kernel runs on that block with all H q heads."""
+    tp positions, every kv head (and the int8 cache's scales alike; MLA's
+    two latent caches alike); a Mamba2 cache its rows, its ``ssm_inner``
+    channels of the ``x`` conv tail and its heads of the SSD state, the
+    ``B`` / ``C`` tails whole; the decode kernel runs on the kv block
+    with all H q heads."""
     (dp, tp), _ = MESHES[mesh]
     for rep in _reports(runs, mesh):
         for arch, S in DS.CASES:
             cfg = DS.serve_config(arch, dp, tp)
             got = rep[DS.case_name(arch, S)]
-            B = DS.SERVE_B // dp
-            rows = [cfg.num_layers, B, DS.SERVE_CACHE // tp, cfg.padded_kv]
-            want = {"k": rows + [cfg.head_dim], "v": rows + [cfg.head_dim],
-                    "len": [B]}
-            if arch.endswith(DS.INT8):
-                want.update(k_scale=rows, v_scale=rows)
+            want, decode = _cache_block(cfg, DS.SERVE_B // dp, tp)
             assert got["cache_shapes"] == want, (arch, got["cache_shapes"])
-            assert got["decode"] == [
-                [[B, 1, cfg.padded_heads, cfg.head_dim], rows[1:] +
-                 [cfg.head_dim]]], (arch, got["decode"])
+            assert got["decode"] == decode, (arch, got["decode"])
+
+
+def _cache_block(cfg, B: int, tp: int):
+    """A rank's cache leaves' shapes (by dotted path) for B rows of the
+    batch at ``tp``, and the (q, k) shapes of its decode kernel calls
+    with ``lse``: every q head over the rank's block of SERVE_CACHE / tp
+    positions of every kv head (none for MLA, which attends in PyTorch
+    ops, and for Mamba2)."""
+    n = DS.SERVE_CACHE // tp
+    if cfg.mla is not None:
+        m = cfg.mla
+        return {"ckv": [cfg.num_layers, B, n, m.kv_lora_rank],
+                "kpe": [cfg.num_layers, B, n, m.qk_rope_head_dim],
+                "len": [B]}, []
+    if cfg.ssm is not None:
+        s = cfg.ssm
+        lead = [cfg.num_layers] if cfg.family == "ssm" else [
+            cfg.num_layers // cfg.hybrid.shared_every,
+            cfg.hybrid.shared_every]
+        di, gn = s.d_inner(cfg.d_model), s.n_groups * s.d_state
+        want = {"conv.x": lead + [B, s.d_conv - 1, di // tp],
+                "conv.B": lead + [B, s.d_conv - 1, gn],
+                "conv.C": lead + [B, s.d_conv - 1, gn],
+                "ssm": lead + [B, s.n_heads(cfg.d_model) // tp, s.head_dim,
+                               s.d_state],
+                "len": [B]}
+        if cfg.family == "ssm":
+            return want, []
+        hb = cfg.hybrid
+        rows = [lead[0], B, n, hb.shared_kv_heads, cfg.head_dim]
+        want.update(k=rows, v=rows)
+        return want, [[[B, 1, hb.shared_num_heads, cfg.head_dim],
+                       rows[1:]]]
+    rows = [cfg.num_layers, B, n, cfg.padded_kv]
+    want = {"k": rows + [cfg.head_dim], "v": rows + [cfg.head_dim],
+            "len": [B]}
+    if cfg.kv_cache_dtype == "int8":
+        want.update(k_scale=rows, v_scale=rows)
+    return want, [[[B, 1, cfg.padded_heads, cfg.head_dim],
+                   rows[1:] + [cfg.head_dim]]]
 
 
 @pytest.mark.parametrize("mesh", list(MESHES))
@@ -194,21 +256,33 @@ def test_tp_wave_unchanged_under_serving_fsdp(runs, mesh):
 def ref_cache_layouts():
     reqs = [{"arch": a, "smoke": True, "dtype": "float32",
              "mesh": MESHES[m][0], "axes": MESHES[m][1], "fsdp": False,
-             "what": "cache"} for m in MESHES for a in DS.ARCHS]
+             "what": "cache"} for m in MESHES
+            for a in DS.ARCHS + DS.LATENT_SSM_ARCHS]
     got = reference_layouts(reqs)
     return {(tuple(r["mesh"]), r["arch"]): g for r, g in zip(reqs, got)}
 
 
-@pytest.mark.parametrize("arch", DS.ARCHS)
+#: each family's leaves that split over ``model`` (the others are whole)
+ON_MODEL = {"deepseek-67b": ("['k']", "['v']"),
+            "qwen1.5-32b": ("['k']", "['v']"),
+            "qwen2-vl-7b": ("['k']", "['v']"),
+            "qwen3-moe-30b-a3b": ("['k']", "['v']"),
+            "minicpm3-4b": ("['ckv']", "['kpe']"),
+            "mamba2-1.3b": ("['conv']['x']", "['ssm']"),
+            "zamba2-2.7b": ("['conv']['x']", "['ssm']", "['k']", "['v']")}
+
+
+@pytest.mark.parametrize("arch", DS.ARCHS + DS.LATENT_SSM_ARCHS)
 @pytest.mark.parametrize("mesh", list(MESHES))
 def test_cache_block_matches_reference_layout(runs, ref_cache_layouts,
                                               mesh, arch):
     """``launch.specs.cache_shardings`` at the reference helper's decode
-    cache (B 8 x S 64): k and v take the reference's ``build_cell``
-    spec and shard shape, and ``init_cache`` under the decode rules
-    allocates exactly that block on every rank; ``len`` splits like the
-    rows (a rank holds its rows' lengths, the reference replicates
-    them)."""
+    cache (B 8 x S 64): every leaf takes the reference's ``build_cell``
+    spec and shard shape (k and v, MLA's latent caches, the Mamba2 ``x``
+    conv tail and SSD state split over ``model``, the ``B`` / ``C`` tails
+    whole), and ``init_cache`` under the decode rules allocates exactly
+    that block on every rank; ``len`` splits like the rows (a rank holds
+    its rows' lengths, the reference replicates them)."""
     want = ref_cache_layouts[(MESHES[mesh][0], arch)]
     for rep in _reports(runs, mesh):
         got = rep["layouts"][arch]
@@ -217,10 +291,19 @@ def test_cache_block_matches_reference_layout(runs, ref_cache_layouts,
             g = got[leaf]
             assert g["shape"] == g["local"], (leaf, g)
             if leaf == "['len']":
-                assert g["spec"] == [got["['k']"]["spec"][1]], g
+                assert g["spec"] == [_batch_spec(got)], g
                 continue
             assert {"spec": g["spec"], "shape": g["shape"]} == w, (leaf, g)
-            assert "model" in g["spec"], g
+            assert ("model" in json.dumps(g["spec"])) == (
+                leaf in ON_MODEL[arch]), (leaf, g)
+
+
+def _batch_spec(layout: dict):
+    """The spec entry of the cache rows' batch dim (the ``ssm`` state's
+    or the kv cache's)."""
+    leaf = next(k for k in ("['k']", "['ckv']", "['ssm']") if k in layout)
+    dim = 2 if leaf == "['ssm']" and len(layout[leaf]["spec"]) == 6 else 1
+    return layout[leaf]["spec"][dim]
 
 
 @pytest.mark.parametrize("mesh", ["1x2", "1x4"])
@@ -237,11 +320,12 @@ def test_combine_over_model_matches_whole_cache(runs, mesh):
 
 @pytest.mark.parametrize("mesh", ["1x2", "1x4"])
 def test_tp_serving_refuses_what_it_lacks(runs, mesh):
-    """Under a model axis above 1, MLA, ``ssm``, ``hybrid`` and ``encdec``
-    raise NotImplementedError naming TP_NEXT from prefill, decode_step and
-    init_cache; a cache length that does not split over the model ranks
-    raises ValueError naming both sizes (the reference would replicate
-    the cache)."""
+    """Under a model axis above 1, ``encdec`` raises NotImplementedError
+    naming TP_NEXT from prefill, decode_step and init_cache, and a Zamba2
+    shared block whose heads do not split over the model ranks
+    ValueError naming them; a cache length that does not split over the
+    model ranks raises ValueError naming both sizes (the reference would
+    replicate the cache)."""
     tp = MESHES[mesh][0][1]
     for rep in _reports(runs, mesh):
         p = rep["pieces"]
@@ -253,6 +337,10 @@ def test_tp_serving_refuses_what_it_lacks(runs, mesh):
                 assert TP_NEXT in m, (arch, m)
         for m in p["uneven cache"]:
             assert f"{8 * tp + 1} rows" in m and str(tp) in m, m
+        assert [m.split(":")[0] for m in p["shared heads"]] == [
+            "prefill", "decode", "init_cache"], p["shared heads"]
+        for m in p["shared heads"]:
+            assert f"shared block's 3 heads do not split over {tp}" in m, m
 
 
 @pytest.mark.parametrize("arch", list(DS.REF_SERVE))
@@ -268,7 +356,8 @@ def test_tp_wave_matches_reference_gspmd(runs, arch):
     V = DS.serve_config(arch, 1, 1).vocab_size
     assert want.shape[0] == DS.SERVE_STEPS + 1
     for r in range(int(np.prod(c["mesh"]))):
-        with np.load(runs["against"] / f"{arch}-rank{r}.npz") as f:
+        with np.load(runs["against"][int(np.prod(c["mesh"]))]
+                     / f"{arch}-rank{r}.npz") as f:
             got, tok, r0 = f["logits"], f["tokens"], int(f["row0"])
         n = got.shape[1]
         w = want[:, r0:r0 + n, :V]
