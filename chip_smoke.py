@@ -216,7 +216,25 @@ Phases (any failure raises and exits non-zero, with no result line):
    attention forward and backward at Zamba2's and MLA's local heads
    (TP_LOCAL_LATENT_FLASH) and the decode kernel with ``lse`` on a
    Zamba2 rank's cache block (TP_LOCAL_DECODE), against their plain
-   versions, timed beside them, SDPA and their bounds;
+   versions, timed beside them, SDPA and their bounds; (h) tensor
+   parallelism for the encoder-decoder family (its own main path: the
+   counts reset just before its step and read just after its wave, each
+   kernel's launches and variant asserted against the count predicted
+   from the config, nothing outside them): on a one-rank NCCL group,
+   mesh (1, 1) data x model, seamless-m4t-medium at full width, bf16,
+   one TP train step (TP_ENCDEC_TRAIN_LAYERS encoder and decoder layers,
+   phase 11's B x S, as many nonzero encoder frames) handed the
+   single-device step's gradients and one wave at full depth
+   (TP_ENCDEC_FRAMES nonzero frames, phase 5's first prompts prefilled
+   into TP_SERVE_CACHE rows, TP_SERVE_STEPS greedy steps) beside one
+   device, all bit for bit; then flash attention forward and backward,
+   non-causal, at a tp TP_LOCAL_ENCDEC rank's encoder heads and its
+   cross-attention (Sq != Skv), and the decode kernel with ``lse`` on a
+   read-only cross block, against their plain versions, timed beside
+   them, SDPA and their bounds.  Phases 12g (a) and 12h (a) print both
+   train steps' gradient norms and clip scales as f32 hex, and on a
+   mismatch each gradient leaf's sum of squares on both sides and the
+   first leaf that differs, before the check fails;
 13. a ``kernels`` JSON line, the card's line, then the result line.
 """
 from __future__ import annotations
@@ -410,6 +428,17 @@ TP_LATENT_SSM = (("minicpm3-4b", 2), ("mamba2-1.3b", 4), ("zamba2-2.7b", 6))
 TP_LOCAL_SSD = (("mamba2-1.3b", 4), ("zamba2-2.7b", 8))
 TP_LOCAL_LATENT_FLASH = (("zamba2-2.7b", 4), ("minicpm3-4b", 4))
 TP_LOCAL_DECODE = 4
+#: phase 12h (a): seamless-m4t-medium's train step on the tensor-parallel
+#: path at full width, its depth cut 12 + 12 -> 4 + 4 encoder and decoder
+#: layers (two f32 states beside the step); its wave at full depth reads
+#: TP_ENCDEC_FRAMES encoder frames
+TP_ENCDEC_TRAIN_LAYERS = 4
+TP_ENCDEC_FRAMES = 512
+#: phase 12h (b): the model axis of the encoder's and the
+#: cross-attention's local heads (16 -> 4; the cross-attention's keys
+#: TP_ENCDEC_FRAMES rows), and the cross block the decode kernel reads
+#: (B 8 x 128 rows, all 16 heads: TP_ENCDEC_FRAMES / 4)
+TP_LOCAL_ENCDEC = 4
 TRAIN_PARITY_ARCHS = ("qwen2-vl-7b", "qwen3-moe-30b-a3b", "minicpm3-4b",
                       "seamless-m4t-medium", "mamba2-1.3b", "zamba2-2.7b")
 #: the SSD backward kernel against its plain version, relative to the
@@ -1757,8 +1786,14 @@ def _train_launches(cfg) -> dict:
     the SSD scan (on the tensor cores at full width), Zamba2's shared
     block flash attention once a group.  Every bf16 forward and backward
     of flash attention and SSD takes its tensor-core kernel (``.tc``),
-    every ``gmm`` forward and backward its ``wgmma`` kernel."""
+    every ``gmm`` forward and backward its ``wgmma`` kernel.  An
+    encoder-decoder runs flash attention once an encoder layer and twice
+    a decoder layer (self, cross)."""
     L = cfg.num_layers
+    if cfg.family == "encdec":
+        n = cfg.enc_layers + 2 * L
+        return {"flash_attention": 2 * n, "flash_attention.tc": 2 * n,
+                "flash_attention_bwd": n, "flash_attention_bwd.tc": n}
     if cfg.family in ("ssm", "hybrid"):
         attn = L // cfg.hybrid.shared_every if cfg.family == "hybrid" else 0
         return {"flash_attention": 2 * attn, "flash_attention.tc": 2 * attn,
@@ -2075,13 +2110,14 @@ def launch_multi_device_phase(dev, cfg, state, card: str) -> None:
 
 def _flash_work(q, k, v, causal: bool) -> tuple:
     """(forward bytes, forward ops, backward bytes, backward ops) of flash
-    attention on q (B, S, H, D), k (B, S, KV, D), v (B, S, KV, Dv): each
-    input read and each output written once (the backward's f32
-    log-sum-exp too), the products over the causal pairs: S = QK^T and
-    PV forward; S again, dV, dP, dQ and dK backward."""
+    attention on q (B, S, H, D), k (B, Skv, KV, D), v (B, Skv, KV, Dv):
+    each input read and each output written once (the backward's f32
+    log-sum-exp too), the products over the pairs the mask keeps (causal:
+    S = Skv): S = QK^T and PV forward; S again, dV, dP, dQ and dK
+    backward."""
     B, S, H, D = q.shape
     Dv = v.shape[3]
-    pairs = B * H * (S * (S + 1) // 2 if causal else S * S)
+    pairs = B * H * (S * (S + 1) // 2 if causal else S * k.shape[1])
     e = q.element_size()
     o = B * S * H * Dv
     fb = e * (q.numel() + k.numel() + v.numel() + o)
@@ -2089,9 +2125,11 @@ def _flash_work(q, k, v, causal: bool) -> tuple:
     return fb, 2 * pairs * (D + Dv), bb, 2 * pairs * (3 * D + 2 * Dv)
 
 
-def _flash_at(q, k, v, do, label: str, card: str) -> tuple:
-    """Flash attention forward and backward (causal, bf16) on ``q``, ``k``,
-    ``v`` with the cotangent ``do``: both on their tensor-core kernels,
+def _flash_at(q, k, v, do, label: str, card: str,
+              causal: bool = True) -> tuple:
+    """Flash attention forward and backward (bf16, causal or not) on
+    ``q``, ``k``, ``v`` with the cotangent ``do``: both on their
+    tensor-core kernels,
     against the plain versions at ATTN_TOL, each timed (device ms by
     CUDA-graph replay; SDPA's backward eager, by CUDA events) beside its
     plain version, SDPA and its bound (:func:`_flash_work`), one line
@@ -2104,43 +2142,44 @@ def _flash_at(q, k, v, do, label: str, card: str) -> tuple:
         flash_attention_bwd_plain, flash_attention_plain)
     bf16 = q.dtype
     before = (flash_attention.tc_launches, flash_attention_bwd.tc_launches)
-    o = flash_attention(q, k, v, causal=True)
-    o2, lse = _flash_forward(q, k, v, True, True)
-    grads = flash_attention_bwd(q, k, v, o2, do, lse, True)
+    o = flash_attention(q, k, v, causal=causal)
+    o2, lse = _flash_forward(q, k, v, causal, True)
+    grads = flash_attention_bwd(q, k, v, o2, do, lse, causal)
     torch.cuda.synchronize()
     assert (flash_attention.tc_launches - before[0],
             flash_attention_bwd.tc_launches - before[1]) == (2, 1), \
         f"flash {label} missed its tensor-core kernels"
-    err = _attn_err(o, flash_attention_plain(q, k, v, True), bf16)
-    want = flash_attention_bwd_plain(q, k, v, o2, do, lse, True)
+    err = _attn_err(o, flash_attention_plain(q, k, v, causal), bf16)
+    want = flash_attention_bwd_plain(q, k, v, o2, do, lse, causal)
     err_b = max(_rel_err(g, w, bf16, f"flash bwd {label} d{n}")
                 for g, w, n in zip(grads, want, "qkv"))
     del o, grads, want
-    ms = {"fwd": device_ms(lambda: flash_attention(q, k, v, causal=True),
+    ms = {"fwd": device_ms(lambda: flash_attention(q, k, v, causal=causal),
                            repeats=7, inner=10),
           "fwd plain": device_ms(
-              lambda: flash_attention_plain(q, k, v, True), repeats=5,
+              lambda: flash_attention_plain(q, k, v, causal), repeats=5,
               inner=3),
           "bwd": device_ms(
-              lambda: flash_attention_bwd(q, k, v, o2, do, lse, True),
+              lambda: flash_attention_bwd(q, k, v, o2, do, lse, causal),
               repeats=7, inner=5),
           "bwd plain": device_ms(
-              lambda: flash_attention_bwd_plain(q, k, v, o2, do, lse, True),
+              lambda: flash_attention_bwd_plain(q, k, v, o2, do, lse,
+                                                causal),
               repeats=5, inner=3)}
     qn, kn, vn = (t.transpose(1, 2) for t in (q, k, v))
     ms["fwd library"] = device_ms(
         lambda: F.scaled_dot_product_attention(
-            qn, kn, vn, is_causal=True, enable_gqa=True), repeats=7,
+            qn, kn, vn, is_causal=causal, enable_gqa=True), repeats=7,
         inner=10)
     qt, kt, vt = (t.detach().requires_grad_() for t in (qn, kn, vn))
-    sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+    sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
                                           enable_gqa=True)
     ms["bwd library"] = call_ms(
         lambda: torch.autograd.grad(sdpa, (qt, kt, vt), do.transpose(1, 2),
                                     retain_graph=True),
         repeats=7, inner=10)
     del sdpa, qt, kt, vt
-    fbytes, fops, bbytes, bops = _flash_work(q, k, v, True)
+    fbytes, fops, bbytes, bops = _flash_work(q, k, v, causal)
     fb, fby = _bound(fbytes, fops, bf16)
     bb, bby = _bound(bbytes, bops, bf16)
     print(f"{label}: forward max_abs_err {err:.3e}, "
@@ -2589,9 +2628,14 @@ def _serve_launches(cfg, steps: int) -> dict:
     layer's prefill (a Zamba2 group's shared block), SSD once a Mamba2
     layer's prefill, the decode kernel once a step of a GQA layer or a
     shared block (MLA and Mamba2 decode in PyTorch ops, no kernel),
-    ``gmm`` three times a MoE layer's forward."""
+    ``gmm`` three times a MoE layer's forward; an encoder-decoder's
+    flash once an encoder layer and twice a decoder layer's prefill, its
+    decode kernel twice a decoder layer's step (self, cross)."""
     L = cfg.num_layers
-    if cfg.family in ("ssm", "hybrid"):
+    if cfg.family == "encdec":
+        out = {"flash_attention": cfg.enc_layers + 2 * L,
+               "decode_attention": 2 * L * steps}
+    elif cfg.family in ("ssm", "hybrid"):
         attn = L // cfg.hybrid.shared_every if cfg.family == "hybrid" else 0
         out = {"ssd": L, "flash_attention": attn,
                "decode_attention": attn * steps}
@@ -2604,6 +2648,23 @@ def _serve_launches(cfg, steps: int) -> dict:
     for k in list(out):
         out[f"{k}.{variant[k]}"] = out[k]
     return {k: v for k, v in out.items() if v}
+
+
+def _norms_line(label: str, d: dict, card: str) -> None:
+    """Print a one-rank TP train check's gradient norms and clip scales
+    (single-device, TP) as f32 hex, and where the state or the norms
+    differ each gradient leaf's sum of squares on both sides and the
+    first leaf that differs (``testing.sharded_step_parity``; ROADMAP
+    Queue 3 item 30), before the caller's check fails."""
+    print(f"{label} grad norm single / TP {' / '.join(d['norms'])}, clip "
+          f"scale {' / '.join(d['clip_scales'])} (f32 hex) [{card}]")
+    if "leaf_sq" in d:
+        print(f"{label} MISMATCH: first differing sum of squares "
+              f"{d['first_sq_leaf']}, first differing state leaf "
+              f"{d['first_state_leaf']}; each leaf's sum of squares "
+              f"single / TP (f32 hex):")
+        for leaf, (a, b) in d["leaf_sq"].items():
+            print(f"{label}   {leaf} {a} / {b}{'' if a == b else ' *'}")
 
 
 def _assert_launches(got: dict, expect: dict, label: str) -> None:
@@ -2685,6 +2746,7 @@ def tp_latent_ssm_phase(dev, wrappers, card: str) -> tuple:
                                     steps=1)[0]
             torch.cuda.synchronize()
             t_train = time.perf_counter() - t0
+            _norms_line(f"phase 12g (a) {cfg.name}", d, card)
             del state
             free_card_memory()
             for n, c in _parity_launches(cfg, 1, 1).items():
@@ -2758,8 +2820,6 @@ def check_tp_latent_ssm_kernels(dev, card: str) -> dict:
     import torch
     import torch.nn.functional as F
     from repro_torch.configs.base import get_config
-    from repro_torch.kernels.decode_attention import (decode_attention,
-                                                      decode_attention_plain)
     from repro_torch.kernels.ssd import (_ssd_forward, ssd, ssd_bwd,
                                          ssd_bwd_plain, ssd_plain)
     bf16 = torch.bfloat16
@@ -2860,20 +2920,43 @@ def check_tp_latent_ssm_kernels(dev, card: str) -> dict:
     cfg = get_config(HYBRID_ARCH)
     hb = cfg.hybrid
     Bd, n = SERVE["max_batch"], TP_SERVE_CACHE // TP_LOCAL_DECODE
-    H, KV, D = hb.shared_num_heads, hb.shared_kv_heads, cfg.head_dim
-    q = _randn((Bd, 1, H, D), bf16, dev, 90)
-    k = _randn((Bd, n, KV, D), bf16, dev, 91)
-    v = _randn((Bd, n, KV, D), bf16, dev, 92)
     # one full block, one a third full, one empty (a row still in an
     # earlier rank's block), the rest at random lengths
-    lens = torch.tensor([n, n // 3, 0] + [int(t) for t in torch.randint(
-        1, n + 1, (Bd - 3,), generator=torch.Generator().manual_seed(9))],
-        dtype=torch.int32, device=dev)
+    lens = [n, n // 3, 0] + [int(t) for t in torch.randint(
+        1, n + 1, (Bd - 3,), generator=torch.Generator().manual_seed(9))]
+    out["decode_attention"].append(_decode_lse_at(
+        dev, (Bd, n, hb.shared_num_heads, hb.shared_kv_heads, cfg.head_dim),
+        lens, 90, f"phase 12g (b) decode lse, {HYBRID_ARCH} tp "
+        f"{TP_LOCAL_DECODE} block", card))
+    out["decode_attention"][-1].update(arch=HYBRID_ARCH, tp=TP_LOCAL_DECODE)
+    return out
+
+
+def _decode_lse_at(dev, shape, lens, seed: int, label: str,
+                   card: str) -> dict:
+    """The decode kernel with ``lse`` on a rank's block of a cache, bf16,
+    q (B, 1, H, D) over k / v (B, n, KV, D) of ``shape`` = (B, n, H, KV,
+    D) with ``lens`` valid rows a sequence (0: an empty block, whose
+    ``lse`` is -inf): on its ``mma`` kernel, against the plain version at
+    ATTN_TOL on the live rows, timed (device ms by CUDA-graph replay)
+    beside it, SDPA with the length mask and its bound (the valid rows
+    read once), one line printed under ``label``.  Returns the row's
+    measured fields for the kernels line."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      decode_attention_plain)
+    bf16 = torch.bfloat16
+    Bd, n, H, KV, D = shape
+    q = _randn((Bd, 1, H, D), bf16, dev, seed)
+    k = _randn((Bd, n, KV, D), bf16, dev, seed + 1)
+    v = _randn((Bd, n, KV, D), bf16, dev, seed + 2)
+    lens = torch.tensor(lens, dtype=torch.int32, device=dev)
     before = decode_attention.mma_launches
     o, lse = decode_attention(q, k, v, lens, return_lse=True)
     torch.cuda.synchronize()
     assert decode_attention.mma_launches == before + 1, \
-        "decode at the Zamba2 block missed its mma kernel"
+        f"{label} missed its mma kernel"
     po, pl = decode_attention_plain(q, k, v, lens, return_lse=True)
     live = lens > 0
     err = _attn_err(o[live], po[live], bf16)
@@ -2884,7 +2967,7 @@ def check_tp_latent_ssm_kernels(dev, card: str) -> dict:
     mask = (torch.arange(n, device=dev)[None, :] < lens[:, None])
     mask = mask[:, None, None, :]
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    ms = _timed("phase 12g (b) decode lse", {
+    ms = _timed(label, {
         "kernel": lambda: decode_attention(q, k, v, lens, return_lse=True),
         "plain": lambda: decode_attention_plain(q, k, v, lens,
                                                 return_lse=True),
@@ -2894,17 +2977,178 @@ def check_tp_latent_ssm_kernels(dev, card: str) -> dict:
     nbytes = 2 * (q.numel() + used * KV * 2 * D + Bd * H * D) \
         + 4 * (Bd + Bd * H)
     bound_ms, bound_by = _bound(nbytes, 2 * H * used * 2 * D, bf16)
-    print(f"phase 12g (b) decode lse ({Bd},{n},{H}/{KV},{D}) bf16, "
-          f"{HYBRID_ARCH} tp {TP_LOCAL_DECODE} block, kv_len "
-          f"{lens.tolist()}: out max_abs_err {err:.3e}, lse {lse_err:.3e} "
-          f"(tol {ATTN_TOL[str(bf16)]}), {ms['kernel'] * 1e3:.2f} us (plain "
+    print(f"{label} ({Bd},{n},{H}/{KV},{D}) bf16, kv_len {lens.tolist()}: "
+          f"out max_abs_err {err:.3e}, lse {lse_err:.3e} (tol "
+          f"{ATTN_TOL[str(bf16)]}), {ms['kernel'] * 1e3:.2f} us (plain "
           f"{ms['plain'] * 1e3:.2f} us, SDPA {ms['sdpa'] * 1e3:.2f} us, "
           f"bound {bound_ms * 1e3:.2f} us, {bound_by}) [{card}]")
-    out["decode_attention"].append(
-        {"shape": [Bd, n, H, KV, D], "arch": HYBRID_ARCH,
-         "tp": TP_LOCAL_DECODE, "max_abs_err": max(err, lse_err),
-         "ms": ms["kernel"], "plain_ms": ms["plain"], "bound_ms": bound_ms,
-         "bound_by": bound_by, "library_ms": ms["sdpa"]})
+    return {"shape": list(shape), "max_abs_err": max(err, lse_err),
+            "ms": ms["kernel"], "plain_ms": ms["plain"],
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": ms["sdpa"]}
+
+
+def tp_encdec_phase(dev, wrappers, card: str) -> tuple:
+    """Phase 12h (a): tensor parallelism for the encoder-decoder family on
+    a one-rank NCCL group, mesh (1, 1) data x model (every model-axis
+    collective of the path runs, over one-rank groups: the frames' block,
+    the encoder output's gather, the read-only cross block's merge), with
+    seamless-m4t-medium at full width, bf16: one train step, remat full,
+    at TP_ENCDEC_TRAIN_LAYERS encoder and decoder layers on phase 11's B
+    x S and as many nonzero encoder frames, the TP step handed the
+    single-device step's gradients (``testing.sharded_step_parity``: the
+    state, the microbatch, the params and the TP forward's loss equal bit
+    for bit, the norms printed, :func:`_norms_line`); then one wave at
+    full depth, phase 5's first prompts and TP_ENCDEC_FRAMES nonzero
+    frames prefilled into a TP_SERVE_CACHE-row cache and TP_SERVE_STEPS
+    greedy steps, on the TP path beside one device
+    (``testing.tp_serve_parity``: tokens, logits and cache bit for bit).
+    The counts are reset just before the step and read just after the
+    wave: each kernel's launches the count predicted from the config
+    (``_parity_launches``, ``_serve_launches``), all on the tensor cores
+    (``tc``, ``mma``), none outside them.  Returns (the launches, the
+    peak GB)."""
+    import dataclasses
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.base import TrainConfig, get_config
+    from repro_torch.data.pipeline import SyntheticLMData, make_batch_iterator
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model
+    from repro_torch.parallel.sharding import make_rules
+    from repro_torch.testing import (STATE_TOL, sharded_step_parity,
+                                     tp_serve_parity)
+    from repro_torch.training.train_step import make_train_state
+    held = free_card_memory()
+    assert held < 1.0, f"{held:.2f} GB still held before phase 12h"
+    store = os.path.join(ROOT, "build", "nccl_store_tp_encdec")
+    if os.path.exists(store):
+        os.remove(store)
+    B, S = LM_TRAIN["batch"], LM_TRAIN["seq"]
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0,
+                            world_size=1)
+    expect, got, peak = {}, {}, 0.0
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), dev)
+        rules = make_rules(mesh, mode="train", fsdp=False)
+        full = dataclasses.replace(get_config(ENCDEC_ARCH), dtype="bfloat16",
+                                   remat="full").resolve(tp=1, dp=1)
+        cfg = dataclasses.replace(full, num_layers=TP_ENCDEC_TRAIN_LAYERS,
+                                  enc_layers=TP_ENCDEC_TRAIN_LAYERS)
+        tcfg = TrainConfig(learning_rate=3e-4, warmup_steps=2,
+                           total_steps=100)
+        it = make_batch_iterator(SyntheticLMData(cfg.vocab_size, seed=0),
+                                 B, S, seed=2, device=dev)
+        batch = next(it)
+        it.close()
+        batch["enc_frames"] = _randn((B, S, cfg.d_model), torch.bfloat16,
+                                     dev, 100)
+        torch.cuda.synchronize()
+        reset_counts(wrappers)
+        torch.cuda.reset_peak_memory_stats()
+        state = make_train_state(cfg, tcfg,
+                                 torch.Generator(dev).manual_seed(0), dev)
+        t0 = time.perf_counter()
+        d = sharded_step_parity(cfg, tcfg, rules, state, batch, steps=1)[0]
+        torch.cuda.synchronize()
+        t_train = time.perf_counter() - t0
+        _norms_line(f"phase 12h (a) {cfg.name}", d, card)
+        del state, batch
+        free_card_memory()
+        for n, c in _parity_launches(cfg, 1, 1).items():
+            expect[n] = expect.get(n, 0) + c
+        params = model.init_params(
+            full, torch.Generator(device=dev).manual_seed(0), device=dev)
+        prompts = wave_prompts(full.vocab_size)[0]
+        wave = _batch(full, prompts, dev)
+        wave["enc_frames"] = _randn((len(prompts), TP_ENCDEC_FRAMES,
+                                     full.d_model), torch.bfloat16, dev, 101)
+        t0 = time.perf_counter()
+        w = tp_serve_parity(full, mesh, params, wave, TP_SERVE_CACHE,
+                            TP_SERVE_STEPS)
+        torch.cuda.synchronize()
+        t_serve = time.perf_counter() - t0
+        del params
+        free_card_memory()
+        for n, c in _serve_launches(full, TP_SERVE_STEPS).items():
+            expect[n] = expect.get(n, 0) + 2 * c
+        print(f"phase 12h (a) {full.name} full width, bf16: TP train step "
+              f"({TP_ENCDEC_TRAIN_LAYERS} + {TP_ENCDEC_TRAIN_LAYERS} of "
+              f"{full.enc_layers} + {full.num_layers} layers, one-rank "
+              f"NCCL (1, 1) data x model, B {B} x S {S}, {S} frames, on "
+              f"the single-device step's gradients) drift "
+              f"{_drift_line(d['drift'])}, state bit for bit {d['exact']}, "
+              f"microbatch / params / loss bit for bit {d['batch_equal']} "
+              f"/ {d['params_equal']} / {d['loss_equal']}, {t_train:.1f} "
+              f"s; TP wave at full depth of {len(prompts)} prompts padded "
+              f"to {wave['tokens'].shape[1]}, {TP_ENCDEC_FRAMES} frames, "
+              f"cache {TP_SERVE_CACHE}, {TP_SERVE_STEPS} greedy steps: "
+              f"tokens equal {w['tokens_equal']}, logits bit for bit "
+              f"{w['logits_exact']}, cache bit for bit {w['cache_exact']}, "
+              f"{t_serve:.1f} s for both paths [{card}]")
+        assert d["exact"] and d["batch_equal"] and d["params_equal"] \
+            and d["loss_equal"], d
+        for kind in ("master", "m", "v"):
+            assert d["drift"][kind] <= STATE_TOL, (kind, d)
+        assert w["tokens_equal"] and w["logits_exact"] \
+            and w["cache_exact"], w
+        torch.cuda.synchronize()
+        got = counts(wrappers)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+    finally:
+        dist.destroy_process_group()
+        if os.path.exists(store):
+            os.remove(store)
+    _assert_launches(got, expect, "phase 12h (a)")
+    print(f"phase 12h (a) launches, predicted {expect}, counted "
+          f"{ {n: c for n, c in got.items() if c} }; peak {peak:.2f} GB "
+          f"[{card}]")
+    return got, peak
+
+
+def check_tp_encdec_kernels(dev, card: str) -> dict:
+    """Phase 12h (b): the kernels of the encoder-decoder's tensor-parallel
+    path at a tp TP_LOCAL_ENCDEC rank's local full-width shapes, bf16,
+    against their plain versions at tests/test_torch_cuda.py's
+    tolerances, each timed (device ms by CUDA-graph replay; SDPA's
+    backward eager, by CUDA events) beside its plain version, SDPA and
+    its bound: flash attention forward and backward, non-causal, at the
+    encoder's heads over phase 11's B x S frames and at the
+    cross-attention's (q over S tokens, k / v over TP_ENCDEC_FRAMES
+    frames); the decode kernel with ``lse`` on a read-only cross block
+    (B 8 x TP_ENCDEC_FRAMES / TP_LOCAL_ENCDEC rows, every head, every row
+    valid).  Every call takes its tensor-core kernel.  Returns {kernel:
+    [rows]} for the kernels line."""
+    import torch
+    from repro_torch.configs.base import get_config
+    bf16 = torch.bfloat16
+    out = {k: [] for k in ("flash_attention", "flash_attention_bwd",
+                           "decode_attention")}
+    cfg = get_config(ENCDEC_ARCH).resolve(tp=TP_LOCAL_ENCDEC)
+    tp, D = TP_LOCAL_ENCDEC, cfg.head_dim
+    H, KV = cfg.padded_heads // tp, cfg.padded_kv // tp
+    B, S = LM_TRAIN["batch"], LM_TRAIN["seq"]
+    for what, Skv in (("encoder", S), ("cross", TP_ENCDEC_FRAMES)):
+        q = _randn((B, S, H, D), bf16, dev, 110)
+        k, v = (_randn((B, Skv, KV, D), bf16, dev, 111 + i)
+                for i in range(2))
+        do = _randn((B, S, H, D), bf16, dev, 113)
+        fwd, bwd = _flash_at(
+            q, k, v, do, f"phase 12h (b) flash {what} q ({B},{S},{H},{D}) "
+            f"k/v ({B},{Skv},{KV},{D}) bf16 non-causal, {ENCDEC_ARCH} tp "
+            f"{tp}", card, causal=False)
+        row = {"shape": [B, S, Skv, H, KV, D], "arch": ENCDEC_ARCH,
+               "tp": tp, "what": what}
+        out["flash_attention"].append({**row, **fwd})
+        out["flash_attention_bwd"].append({**row, **bwd})
+        del q, k, v, do
+    Bd, n = SERVE["max_batch"], TP_ENCDEC_FRAMES // tp
+    row = _decode_lse_at(
+        dev, (Bd, n, cfg.padded_heads, cfg.padded_kv, D), [n] * Bd, 120,
+        f"phase 12h (b) decode lse, {ENCDEC_ARCH} tp {tp} read-only cross "
+        f"block", card)
+    out["decode_attention"].append({**row, "arch": ENCDEC_ARCH, "tp": tp,
+                                    "what": "cross block"})
     return out
 
 
@@ -4774,6 +5018,21 @@ def main() -> int:
         by_name[name].setdefault("tp_local_shapes", []).extend(rows)
     print(f"phase 12g: {time.perf_counter() - t0:.1f} s (peak "
           f"{latent_peak:.2f} GB) [{card}]")
+    # phase 12h: tensor parallelism for the encoder-decoder family (its
+    # own main path: the counts are reset just before its step and read
+    # just after its wave)
+    t0 = time.perf_counter()
+    encdec_got, encdec_peak = tp_encdec_phase(dev, wrappers, card)
+    for name in ("flash_attention", "flash_attention_bwd",
+                 "decode_attention"):
+        n = encdec_got.get(name, 0)
+        assert n > 0, f"{name} never launched in phase 12h"
+        by_name[name]["tp_encdec_launches"] = n
+        by_name[name]["launches"] += n
+    for name, rows in check_tp_encdec_kernels(dev, card).items():
+        by_name[name].setdefault("tp_local_shapes", []).extend(rows)
+    print(f"phase 12h: {time.perf_counter() - t0:.1f} s (peak "
+          f"{encdec_peak:.2f} GB) [{card}]")
     print(f"phase 12: {time.perf_counter() - t_phase:.1f} s [{card}]")
 
     print(f"chip_smoke: whole run {time.perf_counter() - t_start:.1f} s, "

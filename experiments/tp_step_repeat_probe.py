@@ -5,11 +5,17 @@ with the single-device step when repeated, on one card.
 ``chip_smoke.py`` phase 12g's train check, alone and ``--repeats`` times
 in one process: the arch at full width and ``--layers`` layers, bf16,
 remat full, B 4 x S 1024, on a one-rank NCCL (1, 1) data x model group;
-each repeat a new seeded state (Zamba2's LoRA seeded nonzero) and
-``testing.sharded_step_parity`` (the TP step handed the single-device
-step's gradients).  Both steps' optimizer inputs are recorded: each
-repeat prints whether the states are bit for bit, the drift, both steps'
-gradient norms and the gradient leaves that differ between them::
+each repeat a new seeded state (Zamba2's LoRA seeded nonzero; an
+encoder-decoder's ``--layers`` encoder layers too and 1024 nonzero
+encoder frames) and ``testing.sharded_step_parity`` (the TP step handed
+the single-device step's gradients).  Both steps' optimizer inputs are
+recorded: each repeat prints whether the states are bit for bit, the
+drift, both steps' gradient norms, the gradient leaves that differ
+between them, the single-device step's leaves that are not contiguous,
+and the leaves whose f32 sum of squares differs between the two steps
+when each is summed in its own memory order (``layout sums differ``)
+and in row-major order (``row-major sums differ``, what
+``optim.adamw.leaf_square_sums`` adds)::
 
     python3 experiments/tp_step_repeat_probe.py [--arch A] [--layers N] \\
         [--repeats K]
@@ -51,16 +57,23 @@ def main() -> int:
         cfg = dataclasses.replace(
             get_config(args.arch), num_layers=args.layers, dtype="bfloat16",
             remat="full").resolve(tp=1, dp=1)
+        if cfg.family == "encdec":
+            cfg = dataclasses.replace(cfg, enc_layers=args.layers)
         tcfg = TrainConfig(learning_rate=3e-4, warmup_steps=2,
                            total_steps=100)
         it = make_batch_iterator(SyntheticLMData(cfg.vocab_size, seed=0),
                                  4, 1024, seed=2, device=dev)
         batch = next(it)
         it.close()
+        if cfg.family == "encdec":
+            batch["enc_frames"] = torch.randn(
+                (4, 1024, cfg.d_model), generator=torch.Generator(
+                    dev).manual_seed(100), device=dev).to(torch.bfloat16)
         calls = []
         update = TS.adamw_update
 
         def recorded(params, grads, opt, tcfg, **kw):
+            # each leaf in f32 with its own strides
             g = [x.detach().to(torch.float32).clone() for x in leaves(grads)]
             out = update(params, grads, opt, tcfg, **kw)
             calls.append(([keystr(p) for p, _ in leaves_with_path(grads)],
@@ -83,9 +96,17 @@ def main() -> int:
             (names, g0, n0), (_, g1, n1) = calls
             differ = [n for n, a, b in zip(names, g0, g1)
                       if not torch.equal(a, b)]
+            strided = [n for n, a in zip(names, g0) if not a.is_contiguous()]
+            layout = [n for n, a, b in zip(names, g0, g1) if not torch.equal(
+                a.square().sum(), b.square().sum())]
+            row_major = [n for n, a, b in zip(names, g0, g1)
+                         if not torch.equal(a.contiguous().square().sum(),
+                                            b.contiguous().square().sum())]
             print(f"repeat {k}: state bit for bit {d['exact']}, drift "
                   f"{d['drift']}; grad norm single {n0.item()!r}, TP "
-                  f"{n1.item()!r}; gradient leaves that differ: {differ}",
+                  f"{n1.item()!r}; gradient leaves that differ: {differ}; "
+                  f"not contiguous (single): {strided}; layout sums "
+                  f"differ: {layout}; row-major sums differ: {row_major}",
                   flush=True)
             del state
             calls.clear()

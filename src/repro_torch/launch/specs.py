@@ -14,7 +14,7 @@ counterpart yet.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -74,19 +74,22 @@ def tree_arg_shardings(tree, logical_tree, rules: AxisRules):
                        logical_tree, tree)
 
 
-def cache_shardings(cfg: ModelConfig, rules: AxisRules, B: int,
-                    S: int) -> Dict[str, Sharding]:
+def cache_shardings(cfg: ModelConfig, rules: AxisRules, B: int, S: int,
+                    enc_len: Optional[int] = None) -> Dict[str, Sharding]:
     """The layouts of a serving cache of ``B`` sequences and ``S``
     positions under ``rules``: :func:`tree_arg_shardings` of the cache's
     leaves by ``cache_logical`` (the reference's ``build_cell`` decode
     cache sharding: rows over the data-parallel axes where ``B`` splits,
     ``kv_seq`` and ``ssm_inner -> model``), which ``models.model``'s
     ``init_cache``, ``prefill`` and ``decode_step`` hold each rank's block
-    of.  Two departures: ``len`` splits like the cache's rows (a rank
-    holds its rows' lengths; the reference's is replicated), and a cache
-    with rows (``kv_seq``) whose ``S`` does not split over the model axis
-    raises ``ValueError`` where the reference would replicate the cache
-    (the ``ssm`` family's cache has no rows, and any ``S``)."""
+    of.  An ``encdec`` cache's cross rows ``ck`` / ``cv`` number
+    ``enc_len`` (the encoder's frames; default ``enc_len_for(S)``).  Two
+    departures: ``len`` splits like the cache's rows (a rank holds its
+    rows' lengths; the reference's is replicated), and a cache with rows
+    (``kv_seq``) whose ``S`` (or ``enc_len``) does not split over the
+    model axis raises ``ValueError`` where the reference would replicate
+    the cache (the ``ssm`` family's cache has no rows, and any ``S``)."""
+    from repro_torch.models import encdec
     from repro_torch.models import model as M
     sizes = mesh_axes(rules.mesh)
     tp = sizes.get(MODEL, 1)
@@ -94,11 +97,16 @@ def cache_shardings(cfg: ModelConfig, rules: AxisRules, B: int,
     logical = M.cache_logical(cfg)
     has_rows = any("kv_seq" in v for v in logical.values()
                    if isinstance(v, tuple))
-    if has_rows and rules.physical("kv_seq") == MODEL and S % tp:
-        raise ValueError(f"a KV cache of {S} rows does not split over "
-                         f"{tp} model ranks (kv_seq -> model)")
+    rows = (S, enc_len_for(S) if enc_len is None else enc_len) \
+        if cfg.family == "encdec" else (S,)
+    for n in rows if has_rows and rules.physical("kv_seq") == MODEL else ():
+        if n % tp:
+            raise ValueError(f"a KV cache of {n} rows does not split over "
+                             f"{tp} model ranks (kv_seq -> model)")
     with axis_rules(None):
-        shapes = M.init_cache(cfg, B, S, device="meta")
+        shapes = (encdec.init_cache(cfg, B, S, device="meta", enc_len=rows[1])
+                  if cfg.family == "encdec"
+                  else M.init_cache(cfg, B, S, device="meta"))
     sh = tree_arg_shardings(shapes, logical, rules)
     if "len" in sh:
         sh["len"] = arg_sharding((B,), ("batch",), rules)

@@ -8,8 +8,9 @@ Translated from the reference's ``launch/train.py``.  On one card
 ``torchrun`` sets (NCCL on cards, one a rank; gloo with ``--device cpu``),
 and the step is the ZeRO-1 / FSDP one of ``training.train_step`` under
 ``launch.specs.rules_for``'s rules.  A ``model`` axis above 1 is tensor
-parallelism, for every family but ``encdec`` (the config is resolved for
-it); the step refuses it for ``encdec``.
+parallelism, for every family (the config is resolved for it); a
+sequence, or an ``encdec`` model's 16 encoder frames, that does not split
+over it is refused.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-1.3b \\
       --smoke --steps 50 --mesh 1x1

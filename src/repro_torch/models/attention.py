@@ -189,14 +189,14 @@ def attention_fwd(p, cfg, x: torch.Tensor, positions, *, causal=True,
     (non-causal, ``use_rope=False``).
 
     Returns (out (B, S, D), (k, v)) with k, v (B, Skv, KV, dh) as the
-    layer's cache rows; ``kv_rows = (lo, hi)`` gives instead the rows of
-    positions [lo, hi) for every kv head (a prefill's block of the
-    sequence-parallel cache).  Under tensor parallelism the flash kernel
-    runs on this rank's heads and ``out`` is the row-parallel
-    o-projection's partial sum over the model ranks (the caller
-    reduce-scatters it); ``x`` is the whole sequence (gathered), so the
-    cache block's rows come from it and the replicated ``wk`` / ``wv``
-    with no collective of their own."""
+    layer's cache rows; ``kv_rows = (lo, hi)`` gives instead the rows
+    [lo, hi) of the keys' sequence (``x_kv``'s, else ``x``'s) for every
+    kv head (a prefill's block of the sequence-parallel cache).  Under
+    tensor parallelism the flash kernel runs on this rank's heads and
+    ``out`` is the row-parallel o-projection's partial sum over the model
+    ranks (the caller reduce-scatters it); ``x`` and ``x_kv`` are whole
+    sequences (gathered), so the cache block's rows come from them and
+    the replicated ``wk`` / ``wv`` with no collective of their own."""
     q, k, v = _project_qkv(p, cfg, x, x_kv)
     if use_rope:
         q, k = _rope_qk(cfg, q, k, positions)
@@ -206,8 +206,9 @@ def attention_fwd(p, cfg, x: torch.Tensor, positions, *, causal=True,
         if _all_kv(p):
             k, v = k[:, lo:hi], v[:, lo:hi]
         else:
-            k, v = _project_kv(p, cfg, x[:, lo:hi])
-            if use_rope:
+            src = x if x_kv is None else x_kv
+            k, v = _project_kv(p, cfg, src[:, lo:hi])
+            if use_rope and positions is not None:
                 k = _rope(cfg, k, positions[:, lo:hi])
     return _out_proj(out, p["wo"]), (k, v)
 
@@ -243,6 +244,9 @@ def attention_decode(p, cfg, x: torch.Tensor, pos: torch.Tensor,
     ``cache_len + 1`` rows.  Returns (out (B, 1, D), k_cache, v_cache):
     the same cache tensors.
 
+    Without ``update_cache`` (cross-attention over the encoder's k / v)
+    no row is written and k / v of ``x`` are not computed.
+
     Under rules that split ``kv_seq`` over a model axis the caches are
     this rank's block of ``S`` rows (``parallel.sharding.kv_block``, from
     row ``r * S``) for every kv head, and ``x`` is whole on every rank.
@@ -256,33 +260,45 @@ def attention_decode(p, cfg, x: torch.Tensor, pos: torch.Tensor,
     ``wo``: its partial sum over the model ranks, which the caller
     all-reduces (``parallel.sharding.scatter_seq`` under decode rules).
     ``block`` is :func:`decode_block`'s for this step, which a model's
-    layers share (found here when not given)."""
+    layers share (found here when not given).  Without ``update_cache``
+    the block is read only: the kernel attends over all its rows on
+    every rank (``cache_len`` is not read), and the ranks' results are
+    merged the same way."""
     q = _proj(x, p["wq"])
     if cfg.qkv_bias:
         q = q + p["bq"]
-    k, v = _project_kv(p, cfg, x)
     if use_rope:
         pos_r = (pos[:, None, None].expand(pos.shape[0], 1, 3) if cfg.mrope
                  else pos[:, None])
-        q, k = _rope(cfg, q, pos_r), _rope(cfg, k, pos_r)
-    if update_cache and kv_split():
+        q = _rope(cfg, q, pos_r)
+    if not update_cache:
+        kf, vf = _dequant(k_cache, v_cache, scales, q.dtype)
+        if kv_split():
+            rows = torch.full((q.shape[0],), k_cache.shape[1],
+                              dtype=torch.int32, device=q.device)
+            return _attend_blocks(p, q, kf, vf, rows), k_cache, v_cache
+        return (_out_proj(decode_attention(q, kf, vf, cache_len + 1),
+                          p["wo"]), k_cache, v_cache)
+    k, v = _project_kv(p, cfg, x)
+    if use_rope:
+        k = _rope(cfg, k, pos_r)
+    if kv_split():
         if block is None:
             block = decode_block(cache_len, k_cache.shape[1])
         return _decode_block(p, q, k, v, k_cache, v_cache, block,
                              scales), k_cache, v_cache
-    if update_cache:
-        # In place: the reference updates the cache functionally
-        # (``k_cache.at[b, cache_len].set``) and returns a new array;
-        # writing the one row per sequence here saves copying the cache.
-        b_idx = torch.arange(k_cache.shape[0], device=k_cache.device)
-        idx = cache_len.long()
-        if scales is not None:
-            (kq, ks), (vq, vs) = quantize_rows(k[:, 0]), quantize_rows(v[:, 0])
-            k_cache[b_idx, idx], v_cache[b_idx, idx] = kq, vq
-            scales[0][b_idx, idx], scales[1][b_idx, idx] = ks, vs
-        else:
-            k_cache[b_idx, idx] = k[:, 0].to(k_cache.dtype)
-            v_cache[b_idx, idx] = v[:, 0].to(v_cache.dtype)
+    # In place: the reference updates the cache functionally
+    # (``k_cache.at[b, cache_len].set``) and returns a new array; writing
+    # the one row per sequence here saves copying the cache.
+    b_idx = torch.arange(k_cache.shape[0], device=k_cache.device)
+    idx = cache_len.long()
+    if scales is not None:
+        (kq, ks), (vq, vs) = quantize_rows(k[:, 0]), quantize_rows(v[:, 0])
+        k_cache[b_idx, idx], v_cache[b_idx, idx] = kq, vq
+        scales[0][b_idx, idx], scales[1][b_idx, idx] = ks, vs
+    else:
+        k_cache[b_idx, idx] = k[:, 0].to(k_cache.dtype)
+        v_cache[b_idx, idx] = v[:, 0].to(v_cache.dtype)
     kf, vf = _dequant(k_cache, v_cache, scales, q.dtype)
     out = decode_attention(q, kf, vf, cache_len + 1)
     return _out_proj(out, p["wo"]), k_cache, v_cache
@@ -314,8 +330,6 @@ def _decode_block(p, q, k, v, k_cache, v_cache, block, scales):
     sequence-parallel cache: q (B, 1, H_local, dh) on the rank's heads, k
     and v (B, 1, KV, dh) the new row of every kv head.  Returns the
     row-parallel o-projection's partial (B, 1, D)."""
-    Hl = q.shape[2]
-    q = gather_model(q, 2)                                 # all H heads
     # the row goes to the block that holds it; a write elsewhere puts the
     # row's old value back (no host sync to find the owner)
     rows, mine = block["rows"], block["mine"]
@@ -330,7 +344,20 @@ def _decode_block(p, q, k, v, k_cache, v_cache, block, scales):
         keep = mine if new.ndim == 3 else mine[..., 0]
         cache[rows] = torch.where(keep, new, cache[rows])
     kf, vf = _dequant(k_cache, v_cache, scales, q.dtype)
-    out, lse = decode_attention(q, kf, vf, block["kv_len"], return_lse=True)
+    return _attend_blocks(p, q, kf, vf, block["kv_len"])
+
+
+def _attend_blocks(p, q, kf, vf, kv_len):
+    """Attention of q (B, 1, H_local, dh), this model rank's heads, over
+    every rank's block of the cache: q all-gathered to all H heads, the
+    decode kernel over the first ``kv_len`` rows of this rank's block
+    (``kf`` / ``vf``) with its log-sum-exp, the ranks' results merged by
+    ``combine_over_model``.  Returns this rank's heads through the
+    row-parallel ``wo``: its partial sum (B, 1, D) over the model
+    ranks."""
+    Hl = q.shape[2]
+    q = gather_model(q, 2)                                 # all H heads
+    out, lse = decode_attention(q, kf, vf, kv_len, return_lse=True)
     out = combine_over_model(out, lse)
     r = tp_index()
     return _out_proj(out[:, :, r * Hl:(r + 1) * Hl], p["wo"])

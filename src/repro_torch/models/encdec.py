@@ -29,6 +29,15 @@ changes dtype.)
 ``train_forward`` is the reference's: the decoder's chunked
 cross-entropy (no aux loss), every encoder and decoder layer under
 ``maybe_remat`` as the reference's bodies are.
+
+Under the rules of a mesh with a model axis (``launch.specs.rules_for``;
+the reference's ``src/repro/parallel/sharding.py:124-146``) the family
+runs with tensor parallelism in training, prefill and decode: the
+encoder's and decoder's residuals are sequence-parallel in train and
+prefill (``residual_seq -> model``), heads, ``mlp`` and the vocabulary
+split over the model ranks, the cross cache ``ck`` / ``cv`` each rank's
+``kv_seq`` block of the encoder's rows, as the self cache is of the
+prompt's (:func:`encode`, :func:`_decoder`, :func:`decode_step`).
 """
 from __future__ import annotations
 
@@ -38,7 +47,8 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import (attention_decode, attention_fwd,
-                                          attention_logical, init_attention)
+                                          attention_logical, decode_block,
+                                          init_attention)
 from repro_torch.models.common import (chunked_cross_entropy,
                                        default_positions, dtype_of,
                                        embed_tokens, embedding_logical,
@@ -46,7 +56,12 @@ from repro_torch.models.common import (chunked_cross_entropy,
                                        init_rmsnorm, layer_slice,
                                        logits_from_hidden, maybe_remat, mlp,
                                        mlp_logical, rmsnorm, rmsnorm_logical,
-                                       stacked_init, stacked_logical)
+                                       stacked_init, stacked_logical,
+                                       whole_logits)
+from repro_torch.parallel.sharding import (check_seq_split, gather_seq,
+                                           kv_block, kv_offset, kv_split,
+                                           scatter_seq, seq_row,
+                                           take_seq_block)
 
 #: the encoder (audio-context) length bound of the reference
 ENC_MAX = 4096
@@ -116,26 +131,47 @@ def init_params(cfg, generator: torch.Generator, device=None) -> dict:
 
 
 # ----------------------------------------------------------------------
+def _sublayer(cfg, ln, fn, h: torch.Tensor, S: Optional[int]):
+    """``h + fn(rmsnorm(h))``, pre-normed and residual, in
+    ``models.model._dec_layer``'s form under tensor parallelism: the
+    normed input gathered along the sequence (``length`` ``S`` trims an
+    uneven split's padding) and ``fn``'s row-parallel output summed back
+    into this rank's block (``scatter_seq``; under decode rules the
+    identity and an all-reduce).  ``fn`` returns (out, extra); returns
+    (h, extra)."""
+    out, extra = fn(gather_seq(rmsnorm(ln, h, cfg.norm_eps), length=S))
+    return h + scatter_seq(out), extra
+
+
 def encode(params, cfg, frames: torch.Tensor) -> torch.Tensor:
     """frames: (B, S_enc, D) precomputed frontend embeddings -> the
-    encoder's normed output (B, S_enc, D)."""
+    encoder's normed output (B, S_enc, D).
+
+    Under tensor parallelism (train and prefill rules) the frames, whole
+    on every rank, enter the sequence-parallel residual as this rank's
+    block (``take_seq_block``, padded past an uneven ``S_enc``); each
+    layer's attention runs non-causal on the rank's heads and its GELU
+    MLP on the rank's ``mlp`` block (:func:`_sublayer`); the output is
+    gathered whole (its padding trimmed) before ``enc_norm``, so its
+    gradient is reduce-scattered once, after every decoder layer's
+    cross-attention has added its part."""
     B, S, _ = frames.shape
     dt = dtype_of(cfg)
     positions = default_positions(cfg, B, S, device=frames.device)
 
+    def attn(p, x):
+        return attention_fwd(p, cfg, x.to(dt), positions, causal=False)
+
     def body(lp, h):
-        a, _ = attention_fwd(lp["attn"], cfg,
-                             rmsnorm(lp["ln1"], h, cfg.norm_eps).to(dt),
-                             positions, causal=False)
-        h = h + a
-        return h + mlp(lp["mlp"], rmsnorm(lp["ln2"], h, cfg.norm_eps).to(dt),
-                       swiglu=False)
+        h, _ = _sublayer(cfg, lp["ln1"], lambda x: attn(lp["attn"], x), h, S)
+        return _sublayer(cfg, lp["ln2"], lambda x: (
+            mlp(lp["mlp"], x.to(dt), swiglu=False), None), h, S)[0]
 
     body = maybe_remat(cfg, body)
-    h = frames
+    h = take_seq_block(frames)
     for i in range(cfg.enc_layers):
         h = body(layer_slice(params["enc_layers"], i), h)
-    return rmsnorm(params["enc_norm"], h, cfg.norm_eps)
+    return rmsnorm(params["enc_norm"], gather_seq(h, length=S), cfg.norm_eps)
 
 
 def _decoder(params, cfg, tokens: torch.Tensor, enc_out: torch.Tensor,
@@ -143,24 +179,37 @@ def _decoder(params, cfg, tokens: torch.Tensor, enc_out: torch.Tensor,
     """The final-normed decoder states (B, S, D); each layer's self k/v
     go to rows [0, S) of ``cache["k"]`` / ``["v"]`` and its cross k/v to
     ``cache["ck"]`` / ``["cv"]`` when a cache is given, else each layer
-    runs under ``maybe_remat``."""
+    runs under ``maybe_remat``.
+
+    Under tensor parallelism the states are this rank's block of the
+    ``S`` positions (``seq_block``; the embedding's vocab-parallel rows
+    reduce-scattered into it), each sublayer in :func:`_sublayer`'s form:
+    the self-attention causal on the rank's heads, the cross-attention
+    non-causal with q from the gathered normed residual on the rank's
+    heads and k / v from the whole ``enc_out`` on the kv heads those
+    read.  The cache is this rank's block of rows (``kv_block``) of each:
+    the self rows of [0, S) that fall in it, and its ``S_enc / tp`` rows
+    of the encoder's k / v."""
     B, S = tokens.shape
-    h = embed_tokens(params["embed"], cfg, tokens)
+    h = scatter_seq(embed_tokens(params["embed"], cfg, tokens))
     positions = default_positions(cfg, B, S, device=h.device)
     enc_out = enc_out.to(dtype_of(cfg))
+    self_kw, cross_kw = {}, {}
+    if cache is not None:
+        n = cache["k"].shape[2]
+        lo = kv_offset(n)
+        self_kw["kv_rows"] = (min(lo, S), min(lo + n, S))
+        lo = kv_offset(cache["ck"].shape[2])
+        cross_kw["kv_rows"] = (lo, lo + cache["ck"].shape[2])
 
     def layer(lp, h, enc_out):
-        a, kv = attention_fwd(lp["self"], cfg,
-                              rmsnorm(lp["ln1"], h, cfg.norm_eps),
-                              positions, causal=True)
-        h = h + a
-        c, ckv = attention_fwd(lp["cross"], cfg,
-                               rmsnorm(lp["ln2"], h, cfg.norm_eps),
-                               None, causal=False, x_kv=enc_out,
-                               use_rope=False)
-        h = h + c
-        h = h + mlp(lp["mlp"], rmsnorm(lp["ln3"], h, cfg.norm_eps),
-                    swiglu=False)
+        h, kv = _sublayer(cfg, lp["ln1"], lambda x: attention_fwd(
+            lp["self"], cfg, x, positions, causal=True, **self_kw), h, S)
+        h, ckv = _sublayer(cfg, lp["ln2"], lambda x: attention_fwd(
+            lp["cross"], cfg, x, None, causal=False, x_kv=enc_out,
+            use_rope=False, **cross_kw), h, S)
+        h, _ = _sublayer(cfg, lp["ln3"], lambda x: (
+            mlp(lp["mlp"], x, swiglu=False), None), h, S)
         return h, kv, ckv
 
     body = maybe_remat(cfg, lambda lp, h, enc_out: layer(lp, h, enc_out)[0])
@@ -170,7 +219,7 @@ def _decoder(params, cfg, tokens: torch.Tensor, enc_out: torch.Tensor,
             h = body(lp, h, enc_out)
             continue
         h, (k, v), (ck, cv) = layer(lp, h, enc_out)
-        cache["k"][i, :, :S], cache["v"][i, :, :S] = k, v
+        cache["k"][i, :, :k.shape[1]], cache["v"][i, :, :v.shape[1]] = k, v
         cache["ck"][i], cache["cv"][i] = ck, cv
     return rmsnorm(params["final_norm"], h, cfg.norm_eps)
 
@@ -178,10 +227,15 @@ def _decoder(params, cfg, tokens: torch.Tensor, enc_out: torch.Tensor,
 def train_forward(params, cfg, batch):
     """batch: ``tokens``, ``labels`` (B, S) int, ``enc_frames`` (B,
     S_enc, D) and optional ``loss_mask``.  Returns (loss, metrics
-    ``loss``, ``aux_loss`` (0), ``tokens``)."""
+    ``loss``, ``aux_loss`` (0), ``tokens``).  Under tensor parallelism S
+    and S_enc must split over the model ranks (``ValueError``), and the
+    loss is the vocab-parallel cross-entropy of the decoder's states
+    gathered along the sequence."""
     _check_family(cfg)
+    check_seq_split(batch["tokens"].shape[1])
+    check_seq_split(batch["enc_frames"].shape[1], "encoder frames")
     enc_out = encode(params, cfg, batch["enc_frames"])
-    h = _decoder(params, cfg, batch["tokens"], enc_out)
+    h = gather_seq(_decoder(params, cfg, batch["tokens"], enc_out))
     loss, cnt = chunked_cross_entropy(
         lambda hc: logits_from_hidden(params["embed"], cfg, hc),
         h, batch["labels"], cfg, batch.get("loss_mask"))
@@ -192,16 +246,23 @@ def train_forward(params, cfg, batch):
 def prefill(params, cfg, batch, cache_len: Optional[int] = None):
     """batch: ``tokens`` (B, S) int and ``enc_frames`` (B, S_enc, D) on
     the parameters' device.  Returns the last position's logits (B,
-    V_padded) f32 and the cache, the self rows padded to ``cache_len``."""
+    V_padded) f32 and the cache, the self rows padded to ``cache_len``.
+
+    Under prefill rules with a model axis (``tokens`` and ``enc_frames``
+    this rank's rows of the batch, whole along the sequence): the cache
+    is this rank's block (:func:`init_cache`; ``ValueError`` where the
+    cache length or S_enc does not split), the prompt may not split
+    evenly (its last block is padded, as ``models.model``'s), and the
+    logits are whole on every rank."""
     _check_family(cfg)
     B, S = batch["tokens"].shape
     frames = batch["enc_frames"]
     tok = params["embed"]["tok"]
-    enc_out = encode(params, cfg, frames)
     cache = init_cache(cfg, B, max(S, cache_len or 0), tok.dtype, tok.device,
                        enc_len=frames.shape[1])
+    enc_out = encode(params, cfg, frames)
     h = _decoder(params, cfg, batch["tokens"], enc_out, cache)
-    logits = logits_from_hidden(params["embed"], cfg, h[:, -1:, :])[:, 0]
+    logits = whole_logits(params["embed"], cfg, seq_row(h, S - 1))
     cache["len"].fill_(S)
     return logits, cache
 
@@ -209,42 +270,53 @@ def prefill(params, cfg, batch, cache_len: Optional[int] = None):
 def decode_step(params, cfg, cache, tokens: torch.Tensor):
     """tokens (B, 1) -> (logits (B, V_padded) f32, cache).  The returned
     cache holds the same tensors, the self rows written in place, and
-    ``len + 1``."""
+    ``len + 1``.
+
+    Under decode rules with a model axis the residual is whole on every
+    rank and the cache this rank's block of rows: the self-attention
+    writes its row on the owner only and attends over the blocks
+    (``attention.decode_block``, shared by the layers), the
+    cross-attention over every row of the rank's block of the encoder's
+    k / v, read only; each merged over the ranks by the log-sum-exp, the
+    row-parallel outputs and the embedding's rows summed
+    (``scatter_seq``, an all-reduce here), the logits whole."""
     _check_family(cfg)
     B = tokens.shape[0]
-    h = embed_tokens(params["embed"], cfg, tokens)
+    h = scatter_seq(embed_tokens(params["embed"], cfg, tokens))
     pos = cache["len"]
-    # attention_decode attends over cache_len + 1 rows: all S_enc of the
-    # encoder's (the reference passes S_enc, which its mask reads as all
-    # rows as well)
+    block = decode_block(pos, cache["k"].shape[2]) if kv_split() else None
+    # without a split the cross-attention attends over cache_len + 1
+    # rows: all S_enc of the encoder's (the reference passes S_enc, which
+    # its mask reads as all rows as well)
     enc_last = torch.full((B,), cache["ck"].shape[2] - 1, dtype=torch.int32,
                           device=h.device)
     for i in range(cfg.num_layers):
         lp = layer_slice(params["dec_layers"], i)
-        a, _, _ = attention_decode(lp["self"], cfg,
-                                   rmsnorm(lp["ln1"], h, cfg.norm_eps), pos,
-                                   cache["k"][i], cache["v"][i], cache["len"])
-        h = h + a
-        c, _, _ = attention_decode(lp["cross"], cfg,
-                                   rmsnorm(lp["ln2"], h, cfg.norm_eps), pos,
-                                   cache["ck"][i], cache["cv"][i], enc_last,
-                                   update_cache=False, use_rope=False)
-        h = h + c
-        h = h + mlp(lp["mlp"], rmsnorm(lp["ln3"], h, cfg.norm_eps),
-                    swiglu=False)
+        h, _ = _sublayer(cfg, lp["ln1"], lambda x: attention_decode(
+            lp["self"], cfg, x, pos, cache["k"][i], cache["v"][i],
+            cache["len"], block=block)[:2], h, None)
+        h, _ = _sublayer(cfg, lp["ln2"], lambda x: attention_decode(
+            lp["cross"], cfg, x, pos, cache["ck"][i], cache["cv"][i],
+            enc_last, update_cache=False, use_rope=False)[:2], h, None)
+        h, _ = _sublayer(cfg, lp["ln3"], lambda x: (
+            mlp(lp["mlp"], x, swiglu=False), None), h, None)
     h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
-    logits = logits_from_hidden(params["embed"], cfg, h)[:, 0]
-    return logits, {**cache, "len": cache["len"] + 1}
+    return (whole_logits(params["embed"], cfg, h),
+            {**cache, "len": cache["len"] + 1})
 
 
 def init_cache(cfg, B: int, S: int, dtype=torch.bfloat16, device=None,
                enc_len: Optional[int] = None):
     """The zeroed cache on ``device`` (None: the CUDA card); the cross
-    rows number ``enc_len`` (default: ``enc_len_for(S)``)."""
+    rows number ``enc_len`` (default: ``enc_len_for(S)``).  Under rules
+    that split ``kv_seq`` over a model axis this rank's block of each:
+    ``S / tp`` self rows and ``enc_len / tp`` cross rows (``kv_block``:
+    ``ValueError`` where either does not split)."""
     _check_family(cfg)
     device = resolve_device(device)
     L, KV, dh = cfg.num_layers, cfg.padded_kv, cfg.head_dim
-    Se = enc_len if enc_len is not None else enc_len_for(S)
+    Se = kv_block(enc_len if enc_len is not None else enc_len_for(S))[1]
+    S = kv_block(S)[1]
 
     def zeros(*shape, dt=dtype):
         return torch.zeros(shape, dtype=dt, device=device)

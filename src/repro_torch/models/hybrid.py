@@ -78,8 +78,9 @@ from repro_torch.models.common import (apply_rope, chunked_cross_entropy,
                                        stacked_logical, whole_logits)
 from repro_torch.models.ssm import (init_mamba2, mamba2_decode, mamba2_fwd,
                                     mamba2_logical)
-from repro_torch.parallel.sharding import (gather_seq, kv_block, kv_offset,
-                                           scatter_seq, seq_row, tp_size)
+from repro_torch.parallel.sharding import (check_seq_split, gather_seq,
+                                           kv_block, kv_offset, scatter_seq,
+                                           seq_row, tp_size)
 
 _FAMILIES = ("ssm", "hybrid")
 
@@ -277,10 +278,8 @@ def _backbone(params, cfg, batch, cache: Optional[dict] = None):
     rank's block of rows (``kv_block``)."""
     tokens = batch["tokens"]
     B, S = tokens.shape
-    tp = tp_size()
-    if S % tp and cache is None:
-        raise ValueError(f"a sequence of {S} tokens does not split over "
-                         f"{tp} tensor-parallel ranks")
+    if cache is None:
+        check_seq_split(S)
     emb = scatter_seq(embed_tokens(params["embed"], cfg, tokens))
     h = emb
     if cfg.family == "ssm":

@@ -42,15 +42,15 @@ the SwiGLU MLP; prefill and decode drop its aux loss, as the reference's
 do.
 
 Under ``launch.specs.rules_for(cfg, mesh, "prefill" | "decode")`` with a
-model axis (every family but ``encdec``; the config resolved with ``tp``)
-``prefill``, ``decode_step`` and ``init_cache`` serve with tensor
-parallelism: the params are each rank's model blocks
-(``launch.specs.serve_param_shardings``), the cache each rank's
-``kv_seq`` block of rows for every kv head (MLA: of both latent caches)
-and its rows of the batch (``launch.specs.cache_shardings``; a Mamba2
-cache its ``ssm_inner`` channels and heads), the logits whole on every
-rank; ``encdec`` raises ``NotImplementedError`` naming ``TP_NEXT``
-(:func:`check_tp`).
+model axis (every family; the config resolved with ``tp``) ``prefill``,
+``decode_step`` and ``init_cache`` serve with tensor parallelism: the
+params are each rank's model blocks (``launch.specs.
+serve_param_shardings``), the cache each rank's ``kv_seq`` block of rows
+for every kv head (MLA: of both latent caches; ``encdec``: of the self
+and the cross caches) and its rows of the batch (``launch.specs.
+cache_shardings``; a Mamba2 cache its ``ssm_inner`` channels and heads),
+the logits whole on every rank; shapes that do not split raise
+``ValueError`` (:func:`check_tp`, ``parallel.sharding.kv_block``).
 
 ``train_forward`` is the reference's: the loss is the chunked
 cross-entropy of the labels plus, for ``moe``, the layers' mean aux
@@ -83,30 +83,25 @@ from repro_torch.models.common import (chunked_cross_entropy,
                                        stacked_init, stacked_logical,
                                        whole_logits)
 from repro_torch.models.moe import init_moe, moe_ffn, moe_logical
-from repro_torch.parallel.sharding import (dp_size, gather_seq, kv_block,
-                                           kv_offset, kv_split, scatter_seq,
-                                           seq_block, seq_row, tp_size)
+from repro_torch.parallel.sharding import (check_seq_split, dp_size,
+                                           gather_seq, kv_block, kv_offset,
+                                           kv_split, scatter_seq, seq_block,
+                                           seq_row, tp_size)
 
 #: the decoder-only families (``_dec_*``)
 DEC_FAMILIES = ("dense", "moe", "vlm")
-#: where tensor parallelism goes next (the refusals name it)
-TP_NEXT = "ROADMAP Queue 1 item 9, step 1b: encdec"
 
 
 def check_tp(cfg, tp: int) -> None:
-    """For a model axis of ``tp`` > 1: ``NotImplementedError`` for the
-    ``encdec`` family, which has no tensor parallelism yet; ``ValueError``
-    where Mamba2's heads do not split (``ssm.check_tp``) or Zamba2's
-    shared block's heads do not divide ``tp`` (``resolve`` pads
-    ``num_heads``, never ``hybrid.shared_num_heads``).  The train step,
-    prefill, decode and ``init_cache`` share this check."""
+    """For a model axis of ``tp`` > 1, every family runs with tensor
+    parallelism: ``ValueError`` where Mamba2's heads do not split
+    (``ssm.check_tp``) or Zamba2's shared block's heads do not divide
+    ``tp`` (``resolve`` pads ``num_heads``, never
+    ``hybrid.shared_num_heads``).  The train step, prefill, decode and
+    ``init_cache`` share this check; a sequence or a cache length that
+    does not split is refused where it is read."""
     if tp == 1:
         return
-    if cfg.family == "encdec":
-        raise NotImplementedError(
-            f"a 'model' axis of {tp} is tensor parallelism, which the port "
-            f"has for every family but encdec; the 'encdec' family "
-            f"({cfg.name}) is {TP_NEXT}")
     if cfg.family in ("ssm", "hybrid"):
         ssm.check_tp(cfg, tp)
     if cfg.family == "hybrid" and cfg.hybrid.shared_num_heads % tp:
@@ -202,10 +197,8 @@ def _dec_backbone(params, cfg, batch, cache: Optional[dict] = None):
     [0, S) that fall in it."""
     tokens = batch["tokens"]
     B, S = tokens.shape
-    tp = tp_size()
-    if S % tp and cache is None:
-        raise ValueError(f"a sequence of {S} tokens does not split over "
-                         f"{tp} tensor-parallel ranks")
+    if cache is None:
+        check_seq_split(S)
     h = scatter_seq(embed_tokens(params["embed"], cfg, tokens))
     if cfg.family == "vlm":
         h = _merge_vision(cfg, h, batch, S, seq_block(S)[0])
@@ -439,12 +432,11 @@ def prefill(params, cfg, batch, cache_len: Optional[int] = None):
     ``cache_len`` rows (the ``ssm`` family's cache has no rows).
 
     Under ``launch.specs.rules_for(cfg, mesh, "prefill")`` with a model
-    axis (every family but ``encdec``, ``cfg`` resolved with ``tp``;
-    ``params`` each rank's blocks, ``launch.specs.
-    serve_param_shardings``; ``batch`` this rank's rows): the cache is
-    this rank's block in ``launch.specs.cache_shardings``' layout and the
-    logits are whole on every rank (:func:`_dec_prefill`,
-    ``hybrid.prefill``)."""
+    axis (``cfg`` resolved with ``tp``; ``params`` each rank's blocks,
+    ``launch.specs.serve_param_shardings``; ``batch`` this rank's rows):
+    the cache is this rank's block in ``launch.specs.cache_shardings``'
+    layout and the logits are whole on every rank (:func:`_dec_prefill`,
+    ``hybrid.prefill``, ``encdec.prefill``)."""
     fam = _serving_family(cfg)
     if fam is not None:
         return fam.prefill(params, cfg, batch, cache_len)

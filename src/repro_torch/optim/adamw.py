@@ -63,12 +63,30 @@ def lr_schedule(tcfg) -> Callable[[torch.Tensor], torch.Tensor]:
 
 
 def global_norm(tree, shardings=None) -> torch.Tensor:
-    """sqrt of the sum over leaves of each leaf's f32 sum of squares.
-    With ``shardings`` the leaves are shards: the sums of the leaves split
-    over the same mesh axes are all-reduced together over those axes, a
-    leaf split over none is counted once, and the leaves' sums are added
-    in the tree's order, as without shardings."""
-    sq = [x.to(torch.float32).square().sum() for x in leaves(tree)]
+    """sqrt of the sum over leaves of each leaf's f32 sum of squares
+    (:func:`leaf_square_sums`), the leaves' sums added in the tree's
+    order."""
+    return torch.stack(leaf_square_sums(tree, shardings)).sum().sqrt()
+
+
+def clip_scale(gnorm: torch.Tensor, grad_clip: float) -> torch.Tensor:
+    """The factor the gradients are clipped by: ``grad_clip / gnorm``,
+    at most 1."""
+    return torch.clamp(grad_clip / torch.clamp(gnorm, min=1e-12), max=1.0)
+
+
+def leaf_square_sums(tree, shardings=None) -> list:
+    """Each leaf's f32 sum of squares (f32 scalars, in the tree's order),
+    summed in the leaf's row-major order whatever its strides: a sum
+    adds in memory order, and a gradient may come back transposed (on
+    the card the logits product's, ``models.common._MatmulF32``) where
+    the sharded step's is contiguous (``Sharding.sum_into``), which put
+    the two steps' norms one ulp apart in some runs.  With ``shardings``
+    the leaves are shards: the sums of the leaves split over the same
+    mesh axes are all-reduced together over those axes, and a leaf split
+    over none is counted once."""
+    sq = [x.to(torch.float32, memory_format=torch.contiguous_format)
+          .square().sum() for x in leaves(tree)]
     if shardings is not None:
         import torch.distributed as dist
         from repro_torch.parallel.sharding import axis_group
@@ -82,7 +100,7 @@ def global_norm(tree, shardings=None) -> torch.Tensor:
             dist.all_reduce(t, group=axis_group(mesh, axes))
             for j, i in enumerate(idx):
                 sq[i] = t[j]
-    return torch.stack(sq).sum().sqrt()
+    return sq
 
 
 def adamw_init(params, master_fp32: bool = True,
@@ -118,8 +136,7 @@ def adamw_update(params, grads, opt: dict, tcfg, eps: float = 1e-8, *,
     step = opt["step"] + 1
     lr = lr_schedule(tcfg)(step)
     gnorm = global_norm(grads, opt_shardings)  # f32 sums of the f32 grads
-    scale = torch.clamp(tcfg.grad_clip / torch.clamp(gnorm, min=1e-12),
-                        max=1.0)
+    scale = clip_scale(gnorm, tcfg.grad_clip)
 
     b1, b2, wd = tcfg.beta1, tcfg.beta2, tcfg.weight_decay
     stepf = step.to(torch.float32)

@@ -43,13 +43,16 @@ Here a rank holds local shards and the collectives are explicit:
   :func:`gather_seq` / :func:`scatter_seq` (an all-gather along the
   sequence whose backward reduce-scatters, and the reverse: Megatron's
   ``f`` and ``g`` under its sequence-parallel residual; under the decode
-  rules, which keep the residual whole, the identity and an all-reduce)
-  :func:`reduce_from_model` (an all-reduce whose backward passes the
-  cotangent on) and :func:`sum_over_model` (an all-reduce whose backward
-  all-reduces too); :func:`model_block` cuts a replicated per-head vector
-  to the rank's heads.  Each captures its process group in its forward: a CUDA
-  backward (and ``maybe_remat``'s recompute with it) runs on autograd's
-  own thread, which does not see the caller's rules;
+  rules, which keep the residual whole, the identity and an all-reduce),
+  :func:`take_seq_block` (a rank's block of a sequence whole on every
+  rank, whose backward all-gathers), :func:`reduce_from_model` (an
+  all-reduce whose backward passes the cotangent on) and
+  :func:`sum_over_model` (an all-reduce whose backward all-reduces too);
+  :func:`model_block` cuts a replicated per-head vector to the rank's
+  heads, and :func:`check_seq_split` refuses a training sequence that
+  does not split.  Each captures its process group in its forward: a
+  CUDA backward (and ``maybe_remat``'s recompute with it) runs on
+  autograd's own thread, which does not see the caller's rules;
 - the serving cache is sequence-parallel (``kv_seq -> model``): a model
   rank holds the contiguous block :func:`kv_block` of the cache's rows for
   every kv head, attends over it alone, and :func:`combine_over_model`
@@ -636,6 +639,16 @@ def seq_block(S: int) -> Tuple[int, int]:
     return tp_index() * n, n
 
 
+def check_seq_split(S: int, what: str = "tokens") -> None:
+    """``ValueError`` where a training sequence of ``S`` ``what`` does not
+    split evenly over the tensor-parallel ranks (prefill pads the last
+    block instead)."""
+    tp = tp_size()
+    if S % tp:
+        raise ValueError(f"a sequence of {S} {what} does not split over "
+                         f"{tp} tensor-parallel ranks")
+
+
 def gather_seq(x: torch.Tensor, dim: int = 1,
                length: Optional[int] = None) -> torch.Tensor:
     """The whole sequence from each model rank's block of it (the
@@ -672,6 +685,44 @@ def scatter_seq(x: torch.Tensor, dim: int = 1) -> torch.Tensor:
         shape[dim] = pad
         x = torch.cat([x, x.new_zeros(shape)], dim)
     return _Scatter.apply(x, dim, *m)
+
+
+class _TakeBlock(torch.autograd.Function):
+    """This rank's block of a whole ``x`` along ``dim`` (zeros past its
+    end); the backward all-gathers the blocks' cotangents, trimmed to
+    ``x``'s length."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group, n, r):
+        ctx.dim, ctx.group, ctx.n, ctx.S = dim, group, n, x.shape[dim]
+        blk = -(-ctx.S // n)
+        pad = blk * n - ctx.S
+        if pad:
+            shape = list(x.shape)
+            shape[dim] = pad
+            x = torch.cat([x, x.new_zeros(shape)], dim)
+        return x.narrow(dim, r * blk, blk).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        g = _all_gather(g, ctx.dim, ctx.group, ctx.n)
+        return g.narrow(ctx.dim, 0, ctx.S), None, None, None, None
+
+
+def take_seq_block(x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+    """This model rank's block (:func:`seq_block`) of a sequence that is
+    whole on every rank (the encoder's frames entering the
+    sequence-parallel residual), padded with zeros past its end as
+    :func:`scatter_seq` pads.  :func:`scatter_seq` sums partial sums and
+    would add whole frames tp times.  The gradient is all-gathered, so a
+    replicated input's gradient is whole on every rank, as
+    :func:`reduce_from_model` leaves it.  ``x`` itself without a sequence
+    split."""
+    rules = current_rules()
+    m = _model(rules)
+    if m is None or not _seq_split(rules):
+        return x
+    return _TakeBlock.apply(x, dim, *m, tp_index())
 
 
 def seq_row(x: torch.Tensor, j: int, dim: int = 1) -> torch.Tensor:

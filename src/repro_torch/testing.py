@@ -13,6 +13,7 @@ way, with the reference's draws for its metrics and scalers.
 """
 from __future__ import annotations
 
+import struct
 from typing import Optional, Sequence
 
 import numpy as np
@@ -537,20 +538,28 @@ def _param_ulps(a: torch.Tensor, b: torch.Tensor) -> float:
     return float(((a - b).abs() / room).max()) if b.numel() else 0.0
 
 
+def f32_hex(x) -> str:
+    """The bits of an f32 scalar (a tensor or a float) as 8 hex digits."""
+    return struct.pack(">f", float(x)).hex()
+
+
 def _state_drift(got: dict, want: dict, shardings: dict) -> tuple:
     """Per kind, the largest difference of ``got``'s train state (this
     rank's shards in ``shardings``' layouts, gathered one leaf at a time
     so no second whole state is held) from ``want``'s: ``master``, ``m``
     and ``v`` over each leaf's largest value, ``params`` as
-    :func:`_param_ulps` gives it; and whether every leaf is equal bit for
-    bit."""
-    from repro_torch.tree import leaves, leaves_with_path
+    :func:`_param_ulps` gives it; whether every leaf is equal bit for
+    bit; and the first leaf that is not (its key path), or None."""
+    from repro_torch.tree import keystr, leaves, leaves_with_path
     out = {"master": 0.0, "m": 0.0, "v": 0.0, "params": 0.0}
-    exact = True
+    exact, first = True, None
     for (path, x), s, y in zip(leaves_with_path(got), leaves(shardings),
                                leaves(want)):
         x = s.gather(x)
-        exact &= torch.equal(x, y)
+        same = torch.equal(x, y)
+        exact &= same
+        if not same and first is None:
+            first = keystr(path)
         kind = path[1] if path[0] == "opt" else path[0]
         if kind == "step":
             continue
@@ -562,7 +571,7 @@ def _state_drift(got: dict, want: dict, shardings: dict) -> tuple:
         else:
             e = 0.0
         out[kind] = max(out[kind], e)
-    return out, exact
+    return out, exact, first
 
 
 def sharded_step_parity(cfg, tcfg, rules, state: dict, batch: dict,
@@ -595,14 +604,23 @@ def sharded_step_parity(cfg, tcfg, rules, state: dict, batch: dict,
     single-device step's bit for bit; ``loss_equal``, whether its
     forward's loss, summed over the data-parallel ranks, and token counts
     equal the single-device step's bit for bit, and ``loss_drift``, the
-    loss's relative difference."""
+    loss's relative difference; ``norms`` and ``clip_scales``, the two
+    steps' gradient norms and clip scales (single-device, sharded) as f32
+    hex (:func:`f32_hex`); and where the states differ or the norms do,
+    ``leaf_sq``, each gradient leaf's f32 sums of squares on both sides
+    (``optim.adamw.leaf_square_sums``, the sums the norm adds),
+    ``first_sq_leaf``, the first leaf whose sums differ, and
+    ``first_state_leaf``, the first state leaf that differs (ROADMAP
+    Queue 3 item 30)."""
     from repro_torch.models import model as M
+    from repro_torch.optim.adamw import clip_scale, leaf_square_sums
     from repro_torch.parallel.sharding import (MODEL, axis_index,
                                                axis_size, dp_sum)
     from repro_torch.training.train_step import (make_train_step,
                                                  state_shardings,
                                                  value_and_grad)
-    from repro_torch.tree import leaves, tree_map, unflatten
+    from repro_torch.tree import (keystr, leaves, leaves_with_path,
+                                  tree_map, unflatten)
     sh = state_shardings(cfg, rules)
     p_sh, dp_axes = sh["params"], rules.batch_axes
     mesh = rules.mesh
@@ -662,21 +680,41 @@ def sharded_step_parity(cfg, tcfg, rules, state: dict, batch: dict,
                  for k, v in metrics.items()},
                 tree_map(hand, grads, p_sh))
 
-    plain = make_train_step(cfg, tcfg, grad_fn=record)
-    sharded = make_train_step(cfg, tcfg, rules, grad_fn=replay)
+    def squares(side):
+        def on_grads(grads, shardings):
+            seen[side] = leaf_square_sums(grads, shardings)
+        return on_grads
+
+    plain = make_train_step(cfg, tcfg, grad_fn=record,
+                            on_grads=squares("plain_sq"))
+    sharded = make_train_step(cfg, tcfg, rules, grad_fn=replay,
+                              on_grads=squares("sharded_sq"))
+    names = [keystr(p) for p, _ in leaves_with_path(state["params"])]
     out = []
     for _ in range(steps):
         seen.update(batch=True, params=True, loss=True, loss_drift=0.0)
-        first, _ = plain(first, batch)
-        dp_state, _ = sharded(dp_state, batch)
+        first, m_plain = plain(first, batch)
+        dp_state, m_sharded = sharded(dp_state, batch)
         assert not recorded
         seen.pop("params_of"), seen.pop("params_copy")
-        drift, exact = _state_drift(dp_state, first, sh)
-        out.append({"drift": drift, "exact": exact,
-                    "batch_equal": seen["batch"],
-                    "params_equal": seen["params"],
-                    "loss_equal": seen["loss"],
-                    "loss_drift": seen["loss_drift"]})
+        drift, exact, first_leaf = _state_drift(dp_state, first, sh)
+        norms = [m["grad_norm"] for m in (m_plain, m_sharded)]
+        row = {"drift": drift, "exact": exact,
+               "batch_equal": seen["batch"],
+               "params_equal": seen["params"],
+               "loss_equal": seen["loss"],
+               "loss_drift": seen["loss_drift"],
+               "norms": [f32_hex(x) for x in norms],
+               "clip_scales": [f32_hex(clip_scale(x, tcfg.grad_clip))
+                               for x in norms]}
+        sq = [[f32_hex(x) for x in seen.pop(k)]
+              for k in ("plain_sq", "sharded_sq")]
+        if not exact or row["norms"][0] != row["norms"][1]:
+            row["leaf_sq"] = {n: [a, b] for n, a, b in zip(names, *sq)}
+            row["first_sq_leaf"] = next(
+                (n for n, a, b in zip(names, *sq) if a != b), None)
+            row["first_state_leaf"] = first_leaf
+        out.append(row)
     return out
 
 
@@ -741,7 +779,8 @@ def tp_serve_parity(cfg, mesh, params: dict, batch: dict, cache_len: int,
     global ``batch``.  The single-device wave takes them as they are,
     without rules; the tensor-parallel one each rank's blocks of the
     params (``launch.specs.serve_param_shardings``) and its rows of the
-    batch.  Returns ``logits``, the largest difference of this rank's
+    batch (an ``encdec`` batch's ``enc_frames`` give the cross cache's
+    rows).  Returns ``logits``, the largest difference of this rank's
     logits from the single-device wave's rows over the largest |logit| of
     the real vocabulary; ``logits_exact``, whether they are equal bit for
     bit; ``tokens_equal``; ``cache``, the largest difference of the
@@ -785,7 +824,9 @@ def tp_serve_parity(cfg, mesh, params: dict, batch: dict, cache_len: int,
         drift = max(drift, float((a[:, :V] - b[:, :V]).abs().max()
                                  / b[:, :V].abs().max()))
     tokens_equal = torch.equal(got["tokens"], single["tokens"][r0:r0 + n])
-    c_sh = cache_shardings(cfg, rules, B, cache_len)
+    frames = batch.get("enc_frames")
+    c_sh = cache_shardings(cfg, rules, B, cache_len, enc_len=None
+                           if frames is None else frames.shape[1])
     c_drift, c_exact, steps_off, n_off = 0.0, True, 0, 0
     for (path, x), (_, y) in zip(leaves_with_path(got["cache"]),
                                  leaves_with_path(single["cache"])):

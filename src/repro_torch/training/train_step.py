@@ -56,27 +56,31 @@ The metrics are the reference's and the same on every rank: ``loss``,
 mean, ``grad_norm`` and ``lr``, each of the global batch.
 
 The ``model`` axis is tensor parallelism (Megatron's, with the
-sequence-parallel residual), for every family but ``encdec``: a leaf
-whose layout splits a dim over ``model`` (heads, mlp, vocab, experts,
-``ssm_inner``) stays this rank's block, the models compute on their
-blocks with explicit collectives over the model axis
-(``models.model._dec_layer``, ``models.hybrid``), and the params are
-gathered over the data-parallel axes only.  A leaf replicated over
-``model`` has a partial gradient on each model rank (the norms under the
-sequence split, the kv projections that each rank slices to its q heads'
-kv heads, the router's combine part, MLA's latent projections and norms,
-Mamba2's ``in_B`` / ``in_C`` / ``in_dt``, ``conv_B`` / ``conv_C`` and its
+sequence-parallel residual), for every family: a leaf whose layout
+splits a dim over ``model`` (heads, mlp, vocab, experts, ``ssm_inner``)
+stays this rank's block, the models compute on their blocks with
+explicit collectives over the model axis (``models.model._dec_layer``,
+``models.hybrid``, ``models.encdec``), and the params are gathered over
+the data-parallel axes only.  A leaf replicated over ``model`` has a
+partial gradient on each model rank (the norms under the sequence split,
+the kv projections that each rank slices to its q heads' kv heads, the
+router's combine part, MLA's latent projections and norms, Mamba2's
+``in_B`` / ``in_C`` / ``in_dt``, ``conv_B`` / ``conv_C`` and its
 per-head ``A_log`` / ``Dskip`` / ``dt_bias`` cut to the rank's heads,
-Zamba2's LoRA ``qa`` / ``ia`` and ``down``; the aux loss enters each
-rank's backward at ``1 / tp``, ``parallel.sharding.replicated_term``), so
-it is summed over the model axis with the data-parallel ones.  With a
-model axis above 1, ``encdec`` raises ``NotImplementedError`` naming
-``TP_NEXT`` (``models.model.check_tp``, which prefill, decode and
-``init_cache`` share; ROADMAP Queue 1 item 9, step 1b), heads that do not
-split (Mamba2's, Zamba2's shared block's) ``ValueError``, and a config
-whose model-split dims do not divide the axis (resolve it with ``tp``)
-``ValueError``.  Serving under tensor parallelism (prefill and decode
-with the sequence-parallel KV cache) is ``models.model``'s.
+Zamba2's LoRA ``qa`` / ``ia`` and ``down``, the encoder-decoder's ``wk``
+/ ``wv`` of both stacks, its ``ln1``-``ln3``, ``enc_norm`` and
+``final_norm``; the aux loss enters each rank's backward at ``1 / tp``,
+``parallel.sharding.replicated_term``), so it is summed over the model
+axis with the data-parallel ones.  The encoder's output is gathered
+whole on every rank; its gradient, partial on each (the rank's kv heads
+of every cross-attention), is reduce-scattered once into the encoder's
+sequence blocks inside the model (``models.encdec.encode``).  Heads that
+do not split (Mamba2's, Zamba2's shared block's) raise ``ValueError``
+(``models.model.check_tp``, which prefill, decode and ``init_cache``
+share), and so does a config whose model-split dims do not divide the
+axis (resolve it with ``tp``), and a sequence (the encoder's frames too)
+that does not split over it.  Serving under tensor parallelism (prefill
+and decode with the sequence-parallel KV cache) is ``models.model``'s.
 
 ``tcfg.grad_compression`` raises ``NotImplementedError``: the
 reference's step never reads the flag (its int8 all-reduce,
@@ -148,10 +152,6 @@ def value_and_grad(cfg, params, batch):
     return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
 
-#: where tensor parallelism goes next (the refusals name it)
-TP_NEXT = M.TP_NEXT
-
-
 def _check_rules(cfg, rules: AxisRules) -> None:
     sizes = mesh_axes(rules.mesh)
     if set(sizes) - {"pod", "data", MODEL}:
@@ -173,12 +173,15 @@ def _check_rules(cfg, rules: AxisRules) -> None:
 
 
 def make_train_step(cfg, tcfg, rules: Optional[AxisRules] = None,
-                    grad_fn: Callable = value_and_grad) -> Callable:
+                    grad_fn: Callable = value_and_grad,
+                    on_grads: Optional[Callable] = None) -> Callable:
     """Returns ``train_step(state, batch) -> (state, metrics)``; with
     ``rules`` the data-parallel step over their mesh.  ``grad_fn(cfg,
     params, batch) -> (loss, metrics, grads)`` gives each microbatch's
     gradients (:func:`value_and_grad`; a test may hand two steps the
-    same ones)."""
+    same ones); ``on_grads(grads, shardings)``, where given, sees the
+    gradients AdamW takes (in the optimizer's layout, ``shardings`` None
+    without rules) before it takes them."""
     if tcfg.grad_compression:
         raise NotImplementedError(
             "grad_compression is read by no train step, the reference's "
@@ -247,6 +250,8 @@ def make_train_step(cfg, tcfg, rules: Optional[AxisRules] = None,
             acc = tree_map(lambda g: g / n, acc)
             loss_sum = loss_sum / n
         del params
+        if on_grads is not None:
+            on_grads(acc, o_sh)
         new_params, opt, opt_metrics = adamw_update(
             state["params"], acc, state["opt"], tcfg, opt_shardings=o_sh,
             param_shardings=p_sh)

@@ -34,8 +34,10 @@ from repro_torch.tree import (keystr, leaves, leaves_with_path, tree_map,
                               unflatten)
 
 #: the global batch of the step cases: 8 rows (one a rank and microbatch
-#: on four data-parallel ranks with two microbatches) of 16 tokens
-STEP_B, STEP_S = 8, 16
+#: on four data-parallel ranks with two microbatches) of 16 tokens; an
+#: ``encdec`` batch's STEP_ENC encoder frames (not STEP_S, which would hide
+#: a swapped sequence)
+STEP_B, STEP_S, STEP_ENC = 8, 16, 8
 STEP_TRAIN = dict(learning_rate=1e-3, warmup_steps=1)
 #: an arch name with this suffix takes one MoE dispatch group a
 #: data-parallel rank (``num_groups=0``, resolved to dp): each rank routes
@@ -83,7 +85,9 @@ def _join(rank: int, world: int, store: str) -> None:
 def step_batch(cfg, seed: int = 0, S: int = STEP_S) -> dict:
     """The global batch of STEP_B rows of ``S`` tokens: tokens and
     labels, for ``vlm`` vision embeds and a loss mask that keeps a
-    different share of each row."""
+    different share of each row, for ``encdec`` STEP_ENC normal f32
+    encoder frames (nonzero: zero frames make the cross-attention's
+    gradients vacuous)."""
     rng = np.random.default_rng(seed)
     toks = rng.integers(0, cfg.vocab_size, (STEP_B, S + 1))
     batch = {"tokens": torch.as_tensor(toks[:, :-1], dtype=torch.int32),
@@ -96,6 +100,10 @@ def step_batch(cfg, seed: int = 0, S: int = STEP_S) -> dict:
         keep = np.linspace(0.1, 0.9, STEP_B)[:, None]
         batch["loss_mask"] = torch.as_tensor(
             rng.random((STEP_B, S)) < keep, dtype=torch.float32)
+    if cfg.family == "encdec":
+        batch["enc_frames"] = torch.as_tensor(
+            rng.standard_normal((STEP_B, STEP_ENC, cfg.d_model)),
+            dtype=torch.float32)
     return batch
 
 
@@ -555,17 +563,21 @@ REF_STEPS = {
        for a in LATENT_SSM_ARCHS}}
 
 
-def start_reference_steps(ref_dir: str, names=None):
-    """Start the reference's steps of the cases ``names`` of REF_STEPS
-    (all by default) in a child process with 8 host devices
-    (``tests/_torch_reference_tp_steps.py``), each case writing into
-    ``ref_dir/<name>``, where its batch (``step_batch``) is written
-    first.  The child reads its requests from a file and writes its
-    output to another.  Returns (the process, its log's path)."""
+def start_reference_steps(ref_dir: str, names=None, table=None):
+    """Start the reference's steps of the cases ``names`` of ``table``
+    (REF_STEPS by default; all its cases by default) in a child process
+    with 8 host devices (``tests/_torch_reference_tp_steps.py``), each
+    case writing into ``ref_dir/<name>``, where its batch
+    (``step_batch``) is written first; a case's ``config`` entry changes
+    the reference's config (``scan_layers``).  The child reads its
+    requests from a file and writes its output to another.  Returns (the
+    process, its log's path)."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    table = table or REF_STEPS
+    names = names or list(table)
     reqs = []
-    for name in names or REF_STEPS:
-        c = REF_STEPS[name]
+    for name in names:
+        c = table[name]
         out = os.path.join(ref_dir, name)
         os.makedirs(out)
         sizes = dict(zip(c["axes"], c["mesh"]))
@@ -576,11 +588,12 @@ def start_reference_steps(ref_dir: str, names=None):
                      "fsdp": c["fsdp"], "steps": c["steps"],
                      "train": dict(STEP_TRAIN,
                                    microbatches=c["microbatches"]),
+                     "config": c.get("config", {}),
                      "batch": os.path.join(out, "batch.npz"), "out": out})
     env = dict(os.environ, JAX_PLATFORMS="cpu",
                XLA_FLAGS="--xla_force_host_platform_device_count=8",
                PYTHONPATH=os.path.join(root, "src"))
-    base = os.path.join(ref_dir, "_".join(names or REF_STEPS))
+    base = os.path.join(ref_dir, "_".join(names))
     with open(base + ".json", "w") as f:
         json.dump(reqs, f)
     with open(base + ".json") as fin, open(base + ".log", "w") as flog:
@@ -593,7 +606,7 @@ def start_reference_steps(ref_dir: str, names=None):
 
 
 def tp_against_reference(rank, world, store, ref_dir, out_dir,
-                         cases=None):
+                         cases=None, table=None):
     """Eight ranks: the port's step with a model axis against the
     reference's GSPMD step for each case of REF_STEPS
     (:func:`start_reference_steps` wrote the reference's states before
@@ -604,12 +617,13 @@ def tp_against_reference(rank, world, store, ref_dir, out_dir,
     elements whose gradient, the port's single-device step's, stayed
     above 1e-3 of the leaf's largest at every step so far).  Every rank
     writes its metrics a step (``ref<r>.json``), rank 0 the drifts.
-    ``cases`` names the cases (their meshes of ``world`` ranks; all of
-    REF_STEPS by default)."""
+    ``cases`` names the cases of ``table`` (REF_STEPS by default; their
+    meshes of ``world`` ranks; all of them by default)."""
     _join(rank, world, store)
+    table = table or REF_STEPS
     report = {}
-    for name in cases or REF_STEPS:
-        case = REF_STEPS[name]
+    for name in cases or table:
+        case = table[name]
         ref = os.path.join(ref_dir, name)
         shape, axes = tuple(case["mesh"]), tuple(case["axes"])
         mesh = make_mesh(shape, axes, "cpu")

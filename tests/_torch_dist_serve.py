@@ -53,7 +53,9 @@ REF_SERVE = {"deepseek-67b": dict(mesh=(2, 4), axes=("data", "model")),
 REF_S = 14
 #: the prompt length of the wave under the serving FSDP rules
 FSDP_S = 14
-#: the family that tensor-parallel serving refuses
+#: the family whose cross cache's rows (the encoder's frames) must split
+#: over the model ranks too, and the frames and cache rows its refusals
+#: take (2 tp + 1 and 8 tp + 1: neither splits)
 REFUSED = ("seamless-m4t-medium",)
 #: the reference helper's decode cache (``_torch_reference_sharding.py``)
 LAYOUT_B, LAYOUT_S = 8, 64
@@ -202,9 +204,11 @@ def _fsdp_rules(mesh, dp: int, tp: int) -> dict:
 def _pieces(mesh, tp: int) -> dict:
     """On a (1, tp) mesh: ``combine_over_model`` of each rank's block of a
     cache against one softmax over the whole cache (a row whose length
-    leaves every block past the first empty); the refusal of ``encdec``
-    under a model axis, and of a Zamba2 shared block whose 3 heads do
-    not split over it; a cache length that does not split over it."""
+    leaves every block past the first empty); the refusal of an
+    ``encdec`` model's encoder frames (its cross cache's rows) and cache
+    length that do not split over the model axis, and of a Zamba2 shared
+    block whose 3 heads do not split over it; a cache length that does
+    not split over it."""
     from repro_torch.kernels.decode_attention import decode_attention
     out = {}
     g = torch.Generator().manual_seed(5)
@@ -227,19 +231,26 @@ def _pieces(mesh, tp: int) -> dict:
     out["empty block lse"] = [bool(x) for x in torch.isinf(lse[:, 0])]
     refused = {}
     for arch in REFUSED:
-        cfg = get_config(arch, smoke=True).resolve(tp=tp)
+        cfg = serve_config(arch, 1, tp)
+        enc = place(M.init_params(cfg, torch.Generator().manual_seed(0),
+                                  "cpu"), serve_param_shardings(
+            cfg, rules_for(cfg, mesh, "prefill")))
+        frames = {**serve_batch(cfg, 14), "enc_frames": torch.ones(
+            (SERVE_B, 2 * tp + 1, cfg.d_model))}
         got = []
         for kind, call in (
-                ("prefill", lambda: M.prefill(None, cfg, {}, 32)),
-                ("decode", lambda: M.decode_step(None, cfg, None, None)),
-                ("init_cache", lambda: M.init_cache(cfg, 2, 32,
-                                                    device="cpu"))):
+                ("prefill", lambda: M.prefill(enc, cfg, frames, 32)),
+                ("init_cache", lambda: M.init_cache(cfg, 2, 8 * tp + 1,
+                                                    device="cpu")),
+                ("cache_shardings", lambda: cache_shardings(
+                    cfg, rules_for(cfg, mesh, "decode"), 2, 32,
+                    enc_len=2 * tp + 1))):
             with axis_rules(rules_for(cfg, mesh, kind.replace(
                     "init_cache", "decode"))):
                 try:
                     call()
                     got.append(f"{kind}: no error")
-                except NotImplementedError as e:
+                except ValueError as e:
                     got.append(f"{kind}: {e}")
         refused[arch] = got
     out["refused"] = refused
@@ -283,28 +294,31 @@ def _pieces(mesh, tp: int) -> dict:
 
 # ----------------------------------------------------------------------
 # against the reference's GSPMD prefill and decode
-def reference_template(arch: str):
-    """The port's params tree of a REF_SERVE case on the meta device: the
-    key paths the reference's params were saved under."""
-    c = REF_SERVE[arch]
+def reference_template(arch: str, table=None):
+    """The port's params tree of a case of ``table`` (REF_SERVE by
+    default) on the meta device: the key paths the reference's params
+    were saved under."""
+    c = (table or REF_SERVE)[arch]
     sizes = dict(zip(c["axes"], c["mesh"]))
     cfg = serve_config(arch, sizes["data"], sizes["model"])
     return cfg, M.init_params(cfg, torch.Generator(), "meta")
 
 
 def tp_against_reference_serve(rank, world, store, ref_dir, out_dir,
-                               archs=None):
-    """Each REF_SERVE wave of ``archs`` (whose meshes hold ``world``
-    ranks; all of them by default) with the reference's params
+                               archs=None, table=None):
+    """Each wave of ``archs`` in ``table`` (REF_SERVE by default; their
+    meshes hold ``world`` ranks; all of them by default) with the
+    reference's params
     (``ref_dir/<arch>/params.npz``, carried across by
     ``interop.params_from_reference``) on the port's tensor-parallel path
     over the case's mesh; every rank writes its logits a step, its greedy
     tokens and its first row of the batch (``<arch>-rank<r>.npz``)."""
     _join(rank, world, store)
-    for arch in archs or REF_SERVE:
-        c = REF_SERVE[arch]
+    table = table or REF_SERVE
+    for arch in archs or table:
+        c = table[arch]
         mesh = make_mesh(tuple(c["mesh"]), tuple(c["axes"]), "cpu")
-        cfg, template = reference_template(arch)
+        cfg, template = reference_template(arch, table)
         with np.load(os.path.join(ref_dir, arch, "params.npz")) as f:
             tree = unflatten(template, [f[keystr(p)]
                                         for p, _ in leaves_with_path(

@@ -5,9 +5,11 @@ Run as a child process with ``XLA_FLAGS=--xla_force_host_platform_device_
 count=8`` set by the caller (jax fixes its device count when it starts),
 as ``tests/_torch_reference_tp_steps.py`` runs the reference's train
 steps.  Reads a JSON list of requests on stdin; a request: ``{"arch",
-"mesh": [sizes], "axes": [names], "cache_len", "steps", "dir"}``, where
-``dir`` holds ``params.npz`` (every leaf of the reference's params by its
-key path) and ``batch.npz`` (the prefill's global batch).
+"mesh": [sizes], "axes": [names], "cache_len", "steps", "dir"}`` and
+optionally ``"config": {ModelConfig fields}``, where ``dir`` holds
+``params.npz`` (every leaf of the reference's params by its key path) and
+``batch.npz`` (the prefill's global batch; an ``encdec`` wave's encoder
+frames in it).
 
 For each, the arch's f32 smoke config resolved with tp = the model axis
 and dp = the data axes' product, as ``build_cell`` resolves it; the
@@ -46,7 +48,7 @@ def run(req: dict) -> None:
     sizes = dict(zip(axes, shape))
     dp_axes = tuple(a for a in ("pod", "data") if a in sizes)
     cfg = dataclasses.replace(get_config(req["arch"], smoke=True),
-                              dtype="float32")
+                              dtype="float32", **req.get("config", {}))
     cfg = cfg.resolve(tp=sizes.get("model", 1),
                       dp=math.prod(sizes[a] for a in dp_axes))
     pre, dec = rules_for(cfg, mesh, "prefill"), rules_for(cfg, mesh, "decode")

@@ -6,7 +6,9 @@ count=8`` set by the caller (jax fixes its device count when it starts),
 as ``tests/test_distributed.py`` runs the reference's (2, 4) case.  Reads
 a JSON list of requests on stdin; a request: ``{"arch", "mesh": [sizes],
 "axes": [names], "fsdp", "train": {TrainConfig fields}, "steps",
-"batch": <npz of the global batch>, "out": <directory>}``.
+"batch": <npz of the global batch>, "out": <directory>}`` and optionally
+``"config": {ModelConfig fields}`` (``scan_layers``: the reference's
+scanned encoder refuses frames of another dtype than its carry).
 
 For each, the arch's f32 smoke config resolved with tp = the model axis
 and dp = the data axes' product, as ``build_cell`` resolves it, and the
@@ -50,7 +52,7 @@ def run(req: dict) -> None:
     sizes = dict(zip(axes, shape))
     dp_axes = tuple(a for a in ("pod", "data") if a in sizes)
     cfg = dataclasses.replace(get_config(req["arch"], smoke=True),
-                              dtype="float32")
+                              dtype="float32", **req.get("config", {}))
     cfg = cfg.resolve(tp=sizes.get("model", 1),
                       dp=math.prod(sizes[a] for a in dp_axes))
     tcfg = TrainConfig(**req["train"])

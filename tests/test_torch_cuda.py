@@ -1500,13 +1500,16 @@ def test_decode_lse_at_zamba2_tp_block(cuda, dtype, variant):
 
 @pytest.mark.parametrize("arch", ["deepseek-67b", "qwen2-vl-7b",
                                   "qwen3-moe-30b-a3b", "minicpm3-4b",
-                                  "mamba2-1.3b", "zamba2-2.7b"])
+                                  "mamba2-1.3b", "zamba2-2.7b",
+                                  "seamless-m4t-medium"])
 def test_tp_path_one_rank_nccl_matches_plain(cuda, nccl_rank, arch):
     """``value_and_grad`` on the tensor-parallel path (a (1, 1) data x
     model mesh on NCCL: the sequence-split residual and the vocab-parallel
     loss over one-rank groups; MLA's local heads, the Mamba2 layers'
-    channels and heads and the gated norm's sum for the last three)
-    against the single-device one on the card at the f32 smoke config
+    channels and heads and the gated norm's sum for minicpm3-4b to
+    zamba2-2.7b; the encoder's frames block, its output's gather and the
+    cross-attention for seamless-m4t-medium, its frames nonzero) against
+    the single-device one on the card at the f32 smoke config
     (``testing.tp_grad_parity``, Zamba2's LoRA seeded nonzero:
     TRAIN_GRAD_TOL, a MoE arch's upstream leaves MOE_UPSTREAM_TOL)."""
     from repro_torch.launch.mesh import make_mesh
@@ -1597,13 +1600,15 @@ def test_decode_blocks_merged_match_whole_cache(cuda, tp, dtype):
                                        ("qwen3-moe-30b-a3b", False),
                                        ("minicpm3-4b", False),
                                        ("mamba2-1.3b", False),
-                                       ("zamba2-2.7b", False)])
+                                       ("zamba2-2.7b", False),
+                                       ("seamless-m4t-medium", False)])
 def test_tp_wave_one_rank_nccl_bit_for_bit(cuda, nccl_rank, arch, int8):
     """A serving wave on the tensor-parallel path (a (1, 1) data x model
     mesh on NCCL: the prefill and decode rules, the sequence-parallel
     cache, the decode kernel's ``lse`` (MLA's latent softmax) and the
-    combine over one-rank groups; the Mamba2 layers' sums) against the
-    single-device wave at the f32 smoke config (``testing.
+    combine over one-rank groups; the Mamba2 layers' sums; the
+    encoder-decoder's read-only cross block, its 8 frames nonzero)
+    against the single-device wave at the f32 smoke config (``testing.
     tp_serve_parity``; the int8 cache from ``init_cache``; Zamba2's LoRA
     seeded nonzero): tokens equal, logits and cache bit for bit."""
     from repro_torch.launch.mesh import make_mesh
@@ -1620,6 +1625,86 @@ def test_tp_wave_one_rank_nccl_bit_for_bit(cuda, nccl_rank, arch, int8):
     batch = {"tokens": torch.as_tensor(
         rng.integers(0, cfg.vocab_size, (3, 14)), dtype=torch.int32,
         device=cuda)}
+    if cfg.family == "encdec":
+        batch["enc_frames"] = _randn((3, 8, cfg.d_model), torch.float32,
+                                     cuda, 5)
     d = tp_serve_parity(cfg, make_mesh((1, 1), ("data", "model")), params,
                         batch, 32, 8, from_init=int8)
     assert d["tokens_equal"] and d["logits_exact"] and d["cache_exact"], d
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Skv", [1024, 512], ids=["encoder", "cross"])
+def test_flash_non_causal_at_tp_local_encdec_heads(cuda, Skv, dtype):
+    """Flash attention forward and backward, non-causal, at a tp 4 rank's
+    heads of seamless-m4t-medium (4 of 16, MHA, D 64), B 4 x 1024
+    queries: the encoder's self-attention (1024 keys) and the
+    cross-attention over 512 encoder frames (Sq != Skv), against the
+    plain versions; bf16 on the tensor-core kernels."""
+    from repro_torch.kernels.flash_attention import (
+        _flash_forward, flash_attention_bwd, flash_attention_bwd_plain)
+    B, S, H, D = 4, 1024, 4, 64
+    q = _randn((B, S, H, D), dtype, cuda, 40)
+    k, v = (_randn((B, Skv, H, D), dtype, cuda, 41 + i) for i in range(2))
+    do = _randn((B, S, H, D), dtype, cuda, 43)
+    variant = "tc" if dtype == torch.bfloat16 else "fma"
+    before = _flash_counts()
+    out = flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    _assert_one_launch(before, variant)
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(out.float(),
+                               flash_attention_plain(q, k, v, False).float(),
+                               rtol=tol, atol=tol)
+    o, lse = _flash_forward(q, k, v, False, True)
+    for g, w in zip(flash_attention_bwd(q, k, v, o, do, lse, False),
+                    flash_attention_bwd_plain(q, k, v, o, do, lse, False)):
+        assert g.shape == w.shape and _bwd_err(g, w) < tol
+
+
+@pytest.mark.parametrize("dtype,variant", [(torch.float32, "fma"),
+                                           (torch.bfloat16, "mma")])
+def test_decode_lse_on_read_only_cross_block(cuda, nccl_rank, dtype,
+                                             variant):
+    """The decode kernel with ``lse`` on a tp 4 rank's read-only block of
+    seamless-m4t-medium's cross cache (8 rows of the batch, 128 of 512
+    encoder frames, 16 heads of 64, MHA), every row valid, against the
+    plain version; and ``attention_decode``'s read-only block path on it
+    (one model rank) equal to the unsplit cross-attention bit for bit,
+    the block left as it was."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.specs import rules_for
+    from repro_torch.models.attention import attention_decode, init_attention
+    from repro_torch.parallel.sharding import axis_rules
+    B, n, H, D = 8, 128, 16, 64
+    q = _randn((B, 1, H, D), dtype, cuda, 50)
+    k = _randn((B, n, H, D), dtype, cuda, 51)
+    v = _randn((B, n, H, D), dtype, cuda, 52)
+    lens = torch.full((B,), n, dtype=torch.int32, device=cuda)
+    before = getattr(decode_attention, f"{variant}_launches")
+    out, lse = decode_attention(q, k, v, lens, return_lse=True)
+    torch.cuda.synchronize()
+    assert getattr(decode_attention, f"{variant}_launches") == before + 1
+    p_out, p_lse = decode_attention_plain(q, k, v, lens, return_lse=True)
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(lse, p_lse, rtol=tol, atol=tol)
+    torch.testing.assert_close(out.float(), p_out.float(), rtol=tol,
+                               atol=tol)
+    cfg = dataclasses.replace(get_config("seamless-m4t-medium", smoke=True),
+                              dtype=str(dtype).split(".")[1]).resolve(tp=1)
+    p = init_attention(cfg, torch.Generator(cuda).manual_seed(0), cuda)
+    x = _randn((B, 1, cfg.d_model), dtype, cuda, 53)
+    ck = _randn((B, 12, cfg.padded_kv, cfg.head_dim), dtype, cuda, 54)
+    cv = _randn((B, 12, cfg.padded_kv, cfg.head_dim), dtype, cuda, 55)
+    pos = torch.arange(B, dtype=torch.int32, device=cuda)
+    last = torch.full((B,), 11, dtype=torch.int32, device=cuda)
+    want = attention_decode(p, cfg, x, pos, ck, cv, last,
+                            update_cache=False, use_rope=False)[0]
+    kept = (ck.clone(), cv.clone())
+    with axis_rules(rules_for(cfg, make_mesh((1, 1), ("data", "model")),
+                              "decode")):
+        got = attention_decode(p, cfg, x, pos, ck, cv, last,
+                               update_cache=False, use_rope=False)[0]
+    assert torch.equal(got, want)
+    assert torch.equal(ck, kept[0]) and torch.equal(cv, kept[1])
+

@@ -161,7 +161,9 @@ def test_two_rank_tensor_parallel_train(tmp_path):
     resolved for tp 2, trains with its heads, MLP and vocabulary split
     over the model axis and checkpoints whole leaves; mamba2-1.3b trains
     with its ``ssm_inner`` channels and heads split; seamless-m4t-medium
-    (``encdec``) is refused by name."""
+    (``encdec``) trains with its encoder and cross-attention on local
+    heads, and a sequence that does not split over the model axis is
+    refused with ValueError naming both sizes."""
     ck = str(tmp_path / "ck")
     args = ["--arch", "deepseek-67b", "--smoke", "--device", "cpu",
             "--batch", "4", "--seq", "16", "--mesh", "1x2", "--ckpt-dir",
@@ -177,13 +179,21 @@ def test_two_rank_tensor_parallel_train(tmp_path):
     for rc, out, err in runs:
         assert rc == 0, err[-3000:]
     assert "[train] done at step 2" in runs[0][1]
+    enc = ["--arch", "seamless-m4t-medium", "--smoke", "--device", "cpu",
+           "--batch", "4", "--mesh", "1x2", "--steps", "2"]
     runs = _ranks("repro_torch.launch.train",
-                  ["--arch", "seamless-m4t-medium", "--smoke", "--device",
-                   "cpu", "--batch", "4", "--seq", "16", "--mesh", "1x2",
-                   "--steps", "2", "--ckpt-dir", str(tmp_path / "ck3")], 2,
-                  tmp_path / "s3")
+                  [*enc, "--seq", "16", "--ckpt-dir", str(tmp_path / "ck3")],
+                  2, tmp_path / "s3")
     for rc, out, err in runs:
-        assert rc != 0 and "'encdec' family" in err and "step 1b" in err, \
+        assert rc == 0, err[-3000:]
+    assert "[train] done at step 2" in runs[0][1]
+    runs = _ranks("repro_torch.launch.train",
+                  [*enc, "--seq", "15", "--ckpt-dir", str(tmp_path / "ck4")],
+                  2, tmp_path / "s4")
+    for rc, out, err in runs:
+        assert rc != 0 and "ValueError" in err and ("a sequence of 15 "
+                                                    "tokens does not split "
+                                                    "over 2") in err, \
             err[-3000:]
 
 

@@ -285,7 +285,8 @@ def refusal_layouts():
     model axis above 1 once refused, on REFUSAL_MESHES (a child
     process)."""
     keys = [(m, a) for m in REFUSAL_MESHES
-            for a in ("minicpm3-4b", "mamba2-1.3b", "zamba2-2.7b")]
+            for a in ("minicpm3-4b", "mamba2-1.3b", "zamba2-2.7b",
+                      "seamless-m4t-medium")]
     got = reference_layouts([
         {"arch": a, "smoke": True, "dtype": None,
          "mesh": REFUSAL_MESHES[m][0], "axes": REFUSAL_MESHES[m][1],
@@ -302,20 +303,17 @@ def refusal_layouts():
                                                      "model"))])
 def test_model_axis_above_one_is_refused(refusal_layouts, shape, axes, arch,
                                          what):
-    """Tensor parallelism covers every family but ``encdec``: the step of
-    MLA (minicpm3-4b), the ``ssm`` family (mamba2-1.3b) and the
-    ``hybrid`` family (zamba2-2.7b) is made under a model axis, its state
-    in the reference's layouts (every leaf's spec and shard shape); the
-    ``encdec`` family is refused by name, naming where it goes next."""
+    """Tensor parallelism covers every family, and no model axis is
+    refused by family any more: the step of MLA (minicpm3-4b), the
+    ``ssm`` family (mamba2-1.3b), the ``hybrid`` family (zamba2-2.7b) and
+    the ``encdec`` family (seamless-m4t-medium) is made under a model
+    axis, its state in the reference's layouts (every leaf's spec and
+    shard shape)."""
     cfg = TB.get_config(arch, smoke=True).resolve(tp=shape[-1])
     mesh = TS.AbstractMesh(shape, axes)
     rules = TS.make_rules(mesh, mode="train", fsdp=False,
                           dp_axes=tuple(a for a in axes if a != "model"))
-    if arch == "seamless-m4t-medium":
-        with pytest.raises(NotImplementedError,
-                           match=f"{what}.*item 9, step 1b"):
-            make_train_step(cfg, TB.TrainConfig(), rules)
-        return
+    TM.check_tp(cfg, shape[-1])
     make_train_step(cfg, TB.TrainConfig(), rules)
     name = "1x2" if shape == (1, 2) else "2x2x4"
     assert port_layouts({"arch": arch, "smoke": True, "dtype": None,

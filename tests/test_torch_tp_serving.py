@@ -42,7 +42,6 @@ import torch.multiprocessing as mp
 
 import _torch_dist_serve as DS
 from repro_torch.kernels.decode_attention import decode_attention_plain
-from repro_torch.models.model import TP_NEXT
 from test_torch_parallel import reference_layouts
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -320,21 +319,25 @@ def test_combine_over_model_matches_whole_cache(runs, mesh):
 
 @pytest.mark.parametrize("mesh", ["1x2", "1x4"])
 def test_tp_serving_refuses_what_it_lacks(runs, mesh):
-    """Under a model axis above 1, ``encdec`` raises NotImplementedError
-    naming TP_NEXT from prefill, decode_step and init_cache, and a Zamba2
-    shared block whose heads do not split over the model ranks
-    ValueError naming them; a cache length that does not split over the
-    model ranks raises ValueError naming both sizes (the reference would
-    replicate the cache)."""
+    """Under a model axis above 1, ``encdec`` (whose tensor parallelism
+    ``tests/test_torch_tp_encdec.py`` holds) raises ValueError naming
+    both sizes where its encoder frames, the cross cache's rows, do not
+    split over the model ranks (prefill and ``cache_shardings``) or its
+    cache length does not (``init_cache``); a Zamba2 shared block whose
+    heads do not split over the model ranks ValueError naming them; a
+    cache length that does not split over the model ranks raises
+    ValueError naming both sizes (the reference would replicate the
+    cache)."""
     tp = MESHES[mesh][0][1]
     for rep in _reports(runs, mesh):
         p = rep["pieces"]
         assert set(p["refused"]) == set(DS.REFUSED)
         for arch, msgs in p["refused"].items():
             assert [m.split(":")[0] for m in msgs] == [
-                "prefill", "decode", "init_cache"], msgs
-            for m in msgs:
-                assert TP_NEXT in m, (arch, m)
+                "prefill", "init_cache", "cache_shardings"], msgs
+            for m, rows in zip(msgs, (2 * tp + 1, 8 * tp + 1, 2 * tp + 1)):
+                assert f"{rows} rows does not split over {tp} model" in m, \
+                    (arch, m)
         for m in p["uneven cache"]:
             assert f"{8 * tp + 1} rows" in m and str(tp) in m, m
         assert [m.split(":")[0] for m in p["shared heads"]] == [
