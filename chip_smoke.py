@@ -191,9 +191,9 @@ Phases (any failure raises and exits non-zero, with no result line):
    count predicted from the configs): on a one-rank NCCL group, mesh
    (1, 1) data x model, a wave (prefill and TP_SERVE_STEPS greedy decode
    steps into a TP_SERVE_CACHE-row cache, ``testing.tp_serve_parity``)
-   of qwen2-vl-7b at full width and depth, bf16, phase 5's first 8
-   prompts, and of qwen3-moe-30b-a3b at full width cut to
-   TP_SERVE_MOE_LAYERS layers, each under the prefill / decode rules
+   of qwen2-vl-7b at full width cut to TP_SERVE_LAYERS layers, bf16,
+   phase 5's first 8 prompts, and of qwen3-moe-30b-a3b at full width cut
+   to TP_SERVE_MOE_LAYERS layers, each under the prefill / decode rules
    beside the single-device wave: tokens equal and logits and cache bit
    for bit, then TP_SERVE_ROUNDS interleaved waves of each path timing a
    decode step (median and range), the NCCL flight recorder's setting
@@ -235,7 +235,20 @@ Phases (any failure raises and exits non-zero, with no result line):
    train steps' gradient norms and clip scales as f32 hex, and on a
    mismatch each gradient leaf's sum of squares on both sides and the
    first leaf that differs, before the check fails;
-13. a ``kernels`` JSON line, the card's line, then the result line.
+13. the dry-run on the card (its own main path: the counts reset just
+   before each cell and read just after): in a child process (``python3
+   chip_smoke.py --dryrun-child OUT``: the fake process group is never
+   the default group of a process that runs NCCL), rank 0 of a fake
+   256-rank group on the (16, 16) production mesh runs
+   ``launch.dryrun_lib.run_cell`` on DRYRUN_CELLS at full width, the
+   real step at the rank's local shapes on the card, collectives called
+   on the fake group; each cell's memory (the arguments and the card's
+   own peak a rank), flops, bytes and collective bytes by op type
+   printed, every launch asserted on its kernel's tensor-core variant;
+   then each kernel at the shapes those cells gave it (recorded on the
+   way) against its plain version, timed beside it, its library call
+   and its bound (``kernels/*.py::work``);
+14. a ``kernels`` JSON line, the card's line, then the result line.
 """
 from __future__ import annotations
 
@@ -409,9 +422,12 @@ TP_PARITY_ARCHS = ("deepseek-67b", "qwen2-vl-7b", "qwen3-moe-30b-a3b")
 TP_LOCAL_FLASH = (("qwen3-moe-30b-a3b", 4), ("mistral-large-123b", 8))
 TP_LOCAL_GMM = 4
 #: phase 12f: the tensor-parallel serving waves' cache, greedy steps and
-#: the MoE arch's depth (48 -> 2 layers), and the model axes whose
+#: depths at full width: qwen2-vl-7b 28 -> 4 layers (its full depth's
+#: waves took 35 of 43 s on a slow host: cut to keep the run under ~600 s
+#: with phase 13), the MoE arch 48 -> 2; and the model axes whose
 #: sequence-parallel cache blocks the decode kernel is held at
-TP_SERVE_CACHE, TP_SERVE_STEPS, TP_SERVE_MOE_LAYERS = 2048, 32, 2
+TP_SERVE_CACHE, TP_SERVE_STEPS = 2048, 32
+TP_SERVE_LAYERS, TP_SERVE_MOE_LAYERS = 4, 2
 TP_SERVE_BLOCKS = (4, 8)
 #: phase 12f (a): the timed waves of each path after the parity waves,
 #: interleaved (``testing.tp_serve_parity``'s ``rounds``)
@@ -439,6 +455,26 @@ TP_ENCDEC_FRAMES = 512
 #: TP_ENCDEC_FRAMES rows), and the cross block the decode kernel reads
 #: (B 8 x 128 rows, all 16 heads: TP_ENCDEC_FRAMES / 4)
 TP_LOCAL_ENCDEC = 4
+#: phase 13: the dry-run's cells, each run by ``launch.dryrun_lib.
+#: run_cell`` as rank 0 of the fake (16, 16) production group at full
+#: width: (arch, shape, full depth, the depth-1 and depth-2 runs).  The MoE
+#: and Mamba2 train cells at depth 1 and 2 (flash and ``gmm`` forward and
+#: backward on a rank's 2 of 32 heads and 8 of 128 experts; SSD and its
+#: backward on 4 of 64 heads), qwen2-vl-7b's decode at full depth (the
+#: decode kernel with ``lse`` on the rank's 2048-row ``kv_seq`` block of 8
+#: sequences)
+DRYRUN_CELLS = (("qwen3-moe-30b-a3b", "train_4k", False, True),
+                ("qwen2-vl-7b", "decode_32k", True, False),
+                ("mamba2-1.3b", "train_4k", False, True))
+#: each phase 13 cell's kernels and the tensor-core variant every launch
+#: takes
+DRYRUN_KERNELS = {
+    ("qwen3-moe-30b-a3b", "train_4k"): {
+        "flash_attention": "tc", "flash_attention_bwd": "tc",
+        "gmm": "wgmma", "gmm_bwd": "wgmma"},
+    ("qwen2-vl-7b", "decode_32k"): {"decode_attention": "mma"},
+    ("mamba2-1.3b", "train_4k"): {"ssd": "tc", "ssd_bwd": "tc"}}
+DRYRUN_CHILD_TIMEOUT = 240
 TRAIN_PARITY_ARCHS = ("qwen2-vl-7b", "qwen3-moe-30b-a3b", "minicpm3-4b",
                       "seamless-m4t-medium", "mamba2-1.3b", "zamba2-2.7b")
 #: the SSD backward kernel against its plain version, relative to the
@@ -662,17 +698,14 @@ def check_segment_sum(dev) -> dict:
           + ", ".join(f"{k} {v * 1e3:.2f} us" for k, v in eager_ms.items()))
     ms, plain_ms, library_ms = (dev_ms[k]
                                 for k in ("kernel", "plain", "library"))
-    nbytes = T * R * (busy.element_size() + ids.element_size()) \
-        + T * B * busy.element_size()
-    t_bytes = nbytes / PEAK_BYTES_S * 1e3
-    t_ops = T * R / PEAK_OPS_S[str(busy.dtype)] * 1e3
+    from repro_torch.kernels.segment_sum import work
+    bound_ms, bound_by = _bound(*work(busy, ids, B), busy.dtype)
     return {"name": "segment_sum", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/segment_sum.cu",
             "replaces": "src/repro/kernels/segment_sum.py:58",
             "launches": 0, "max_abs_err": path_err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": library_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms,
             "launch_floor_ms": dev_ms["launch floor"]}
 
 
@@ -736,8 +769,8 @@ def check_segment_sum_training(dev) -> dict:
     print(f"segment_sum tree shape ({T},{R})->{B} device time per call "
           f"(CUDA graph replay): " + ", ".join(
               f"{k} {ms * 1e3:.3f} us" for k, ms in dev_ms.items()))
-    bound_ms, bound_by = _bound(T * R * (8 + 4) + T * B * 8, T * R,
-                                torch.float64)
+    from repro_torch.kernels.segment_sum import work
+    bound_ms, bound_by = _bound(*work(v, ids, B), v.dtype)
     return {"tree_shape": [T, R, B], "tree_max_abs_err": err,
             "tree_ms": dev_ms["kernel"], "tree_plain_ms": dev_ms["plain"],
             "tree_library_ms": dev_ms["library"], "tree_bound_ms": bound_ms,
@@ -845,8 +878,8 @@ def check_flash(dev, S: int) -> dict:
     print(f"flash library (SDPA) vs kernel at the path shape: max_abs_diff "
           f"{float((lib.float() - flash_attention(q, k, v).float()).abs().max()):.3e}")
     dev_ms = _timed("flash_attention", timed, inner=10)
-    nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
-    ops = 2 * B * H * (S * (S + 1) // 2) * (D + D)
+    from repro_torch.kernels.flash_attention import work
+    nbytes, ops = work(q, k, v, True)
     bound_ms, bound_by = _bound(nbytes, ops, q.dtype)
     print(f"flash at the path shape ({B},{S},{H}/{KV},{D}) bf16 causal "
           f"[tc]: {ops / 1e9:.2f} GFLOP, {ops / dev_ms['kernel'] / 1e9:.1f} "
@@ -876,7 +909,7 @@ def check_flash(dev, S: int) -> dict:
         "kernel": lambda: flash_attention(qm, km, vm, causal=True),
         "library": lambda: F.scaled_dot_product_attention(
             qmt, kmt, vmt, is_causal=True, enable_gqa=True)}, inner=10)
-    ops_m = 2 * B * Hm * (Sm * (Sm + 1) // 2) * (D + D)
+    ops_m = work(qm, km, vm, True)[1]
     print(f"flash at (8,910,32/4,128) bf16 causal [tc]: "
           f"{ops_m / moe_ms['kernel'] / 1e9:.1f} TFLOP/s, SDPA "
           f"{ops_m / moe_ms['library'] / 1e9:.1f} TFLOP/s")
@@ -1027,10 +1060,8 @@ def check_decode(dev, plen: int) -> dict:
     ran = {e.key: e.count for e in events if not e.key.startswith("Mem")}
     assert sum(ran.values()) == 1, f"decode ran {ran}, not one kernel"
     print(f"decode: one call ran one kernel on the device: {ran}")
-    used = int(lens.sum())
-    nbytes = (2 * (q.numel() * 2 + used * KV * (D + D))
-              + 4 * lens.numel())
-    ops = 2 * H * used * (D + D)
+    from repro_torch.kernels.decode_attention import work
+    nbytes, ops = work(q, k, v, int(lens.sum()))
     bound_ms, bound_by = _bound(nbytes, ops, q.dtype)
     print(f"decode at the path shape ({B},{S},{H}/{KV},{D}) bf16 kv_len "
           f"{kv} [mma]: {nbytes / dev_ms['kernel'] / 1e6:.1f} GB/s, "
@@ -1159,21 +1190,10 @@ def check_ssd(dev, L: int) -> dict:
 
 
 def ssd_work(args, Q: int) -> tuple:
-    """The bytes (x, dt, A, B, C read once, y and the state written once)
-    and the operations of one SSD call on ``args`` at chunk ``Q``: the
-    causal half of C B^T once per (batch, group, chunk); per (batch, head,
-    chunk) the causal half of S xd, the incoming-state term and the state
-    update."""
-    x, dt, A, Bm, _ = args
-    B, L, H, P = x.shape
-    G, N = Bm.shape[2:]
-    nc = -(-L // Q)
-    nbytes = (x.numel() * x.element_size() + 4 * (dt.numel() + A.numel())
-              + 2 * Bm.numel() * Bm.element_size()
-              + 4 * (x.numel() + B * H * P * N))
-    ops = (B * G * nc * Q * (Q + 1) // 2 * 2 * N
-           + B * H * nc * (Q * (Q + 1) // 2 * 2 * P + 4 * Q * N * P))
-    return nbytes, ops
+    """The bytes and operations of one SSD call on ``args`` (x, dt, A, Bm,
+    Cm) at chunk ``Q`` (``kernels/ssd.py::work``)."""
+    from repro_torch.kernels.ssd import work
+    return work(args[0], args[3], Q)
 
 
 def check_catalogue_shapes(dev, hybrid_len: int, plen: int) -> dict:
@@ -1190,8 +1210,10 @@ def check_catalogue_shapes(dev, hybrid_len: int, plen: int) -> dict:
     from repro_torch.configs.base import get_config
     from repro_torch.kernels.decode_attention import (decode_attention,
                                                       decode_attention_plain)
+    from repro_torch.kernels.decode_attention import work as decode_work
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
+    from repro_torch.kernels.flash_attention import work as flash_work
     from repro_torch.kernels.ssd import ssd, ssd_plain
     wrappers = {"flash_attention": flash_attention,
                 "decode_attention": decode_attention, "ssd": ssd}
@@ -1227,16 +1249,12 @@ def check_catalogue_shapes(dev, hybrid_len: int, plen: int) -> dict:
         err = _attn_err(flash_attention(q, k, v, causal=causal),
                         flash_attention_plain(q, k, v, causal), bf16)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        Sq, H, D = q.shape[1:]
-        Skv, Dv = k.shape[1], v.shape[3]
-        pairs = Sq * (Sq + 1) // 2 if causal else Sq * Skv
         entry("flash_attention", label, "tc",
               lambda: flash_attention(q, k, v, causal=causal),
               lambda: flash_attention_plain(q, k, v, causal),
               lambda: F.scaled_dot_product_attention(qt, kt, vt,
                                                      is_causal=causal),
-              2 * (q.numel() + k.numel() + v.numel() + B * Sq * H * Dv),
-              2 * B * H * pairs * (D + Dv), err)
+              *flash_work(q, k, v, causal), err)
 
     def decode_case(label, S, H, D, kv):
         q = _randn((B, 1, H, D), bf16, dev, 40)
@@ -1251,8 +1269,7 @@ def check_catalogue_shapes(dev, hybrid_len: int, plen: int) -> dict:
               lambda: decode_attention_plain(q, k, v, lens),
               lambda: F.scaled_dot_product_attention(
                   qt, kt, vt, attn_mask=mask[:, None, None, :]),
-              2 * (2 * q.numel() + B * kv * H * 2 * D) + 4 * B,
-              2 * B * H * kv * 2 * D, err)
+              *decode_work(q, k, v, B * kv), err)
 
     hyb = get_config(HYBRID_ARCH)
     Hh, Dh = hyb.hybrid.shared_num_heads, hyb.head_dim
@@ -1323,6 +1340,7 @@ def check_gmm(dev, prefill_cs, decode_c: int) -> dict:
     import torch
     from repro_torch.configs.base import get_config
     from repro_torch.kernels.gmm import gmm, gmm_plain
+    from repro_torch.kernels.gmm import work as gmm_work
 
     def counts():
         return gmm.launches, gmm.wgmma_launches, gmm.fma_launches
@@ -1378,8 +1396,7 @@ def check_gmm(dev, prefill_cs, decode_c: int) -> dict:
         print(f"gmm library (torch.bmm) vs kernel at C = {C}: max_abs_diff "
               f"{lib:.3e}")
         dev_ms = _timed(f"gmm C={C}", timed, inner=10)
-        nbytes = 2 * (x.numel() + w.numel() + E * C * Fd)
-        ops = 2 * E * C * D * Fd
+        nbytes, ops = gmm_work(x, w)
         bound_ms, bound_by = _bound(nbytes, ops, x.dtype)
         print(f"gmm C={C}: bound {bound_ms * 1e3:.2f} us ({bound_by}), "
               f"{ops / dev_ms['kernel'] / 1e9:.1f} TFLOP/s, "
@@ -1513,11 +1530,7 @@ def check_backward(dev) -> list:
                                     retain_graph=True), repeats=7, inner=10)
     print(f"flash_attention_bwd library (SDPA backward, eager) "
           f"{flash_ms['library'] * 1e3:.2f} us")
-    pairs = B * H * (S * (S + 1) // 2)
-    ops = 2 * pairs * (3 * D + 2 * D)         # S, dP, dV, dK, dQ
-    # q, o, do read and dq written (H wide), k, v read and dk, dv
-    # written (KV wide), lse read
-    nbytes = 2 * (4 * q.numel() + 4 * k.numel()) + 4 * lse.numel()
+    nbytes, ops = fa.work(q, k, v, True, backward=True)
     bound_ms, bound_by = _bound(nbytes, ops, q.dtype)
     print(f"flash bwd at the training shape: {ops / 1e9:.1f} GFLOP, "
           f"{ops / flash_ms['kernel'] / 1e9:.1f} TFLOP/s, "
@@ -1571,8 +1584,7 @@ def check_backward(dev) -> list:
             "library": lambda: (torch.bmm(dy, w.transpose(1, 2)),
                                 torch.bmm(x.transpose(1, 2), dy))},
             inner=5)
-        ops = 2 * 2 * E * C * D * F
-        nbytes = 2 * 2 * (x.numel() + w.numel()) + 2 * dy.numel()
+        nbytes, ops = gmm_mod.work(x, w, backward=True)
         ms["bound"], ms["bound_by"] = _bound(nbytes, ops, x.dtype)
         print(f"gmm bwd ({E},{C},{D})x({D},{F}): {ops / 1e9:.1f} GFLOP, "
               f"{ops / ms['kernel'] / 1e9:.1f} TFLOP/s, "
@@ -1612,24 +1624,10 @@ def check_backward(dev) -> list:
 
 def ssd_bwd_work(args, Q: int, final: bool) -> tuple:
     """The bytes and operations of one SSD backward call on ``args`` (x,
-    dt, A, Bm, Cm) at chunk ``Q``: x, dt, A, B, C, the chunks' f32 states,
-    the f32 dy (and dstate when ``final``) read once, dx, ddt, dA, dB, dC
-    written once; the products counted once each: C B^T, and dC and dB
-    from the group's heads' summed tiles, once per (batch, group, chunk)
-    over the causal half; per (batch, head, chunk) dy xd^T and dxd over
-    the causal half and the four (Q, P, N) state terms."""
-    x, dt, A, Bm, _ = args
-    B, L, H, P = x.shape
-    G, N = Bm.shape[2:]
-    nc = -(-L // Q)
-    half = Q * (Q + 1) // 2
-    xb, bb = x.element_size(), Bm.element_size()
-    nbytes = (2 * xb * x.numel() + 2 * 4 * dt.numel() + 2 * 4 * A.numel()
-              + 4 * bb * Bm.numel() + 4 * B * nc * H * P * N
-              + 4 * x.numel() + (4 * B * H * P * N if final else 0))
-    ops = (B * G * nc * 3 * half * 2 * N
-           + B * H * nc * (2 * half * 2 * P + 4 * 2 * Q * P * N))
-    return nbytes, ops
+    dt, A, Bm, Cm) at chunk ``Q``, dstate read when ``final``
+    (``kernels/ssd.py::work``)."""
+    from repro_torch.kernels.ssd import work
+    return work(args[0], args[3], Q, backward=True, final=final)
 
 
 def check_ssd_backward(dev) -> dict:
@@ -2110,19 +2108,9 @@ def launch_multi_device_phase(dev, cfg, state, card: str) -> None:
 
 def _flash_work(q, k, v, causal: bool) -> tuple:
     """(forward bytes, forward ops, backward bytes, backward ops) of flash
-    attention on q (B, S, H, D), k (B, Skv, KV, D), v (B, Skv, KV, Dv):
-    each input read and each output written once (the backward's f32
-    log-sum-exp too), the products over the pairs the mask keeps (causal:
-    S = Skv): S = QK^T and PV forward; S again, dV, dP, dQ and dK
-    backward."""
-    B, S, H, D = q.shape
-    Dv = v.shape[3]
-    pairs = B * H * (S * (S + 1) // 2 if causal else S * k.shape[1])
-    e = q.element_size()
-    o = B * S * H * Dv
-    fb = e * (q.numel() + k.numel() + v.numel() + o)
-    bb = e * 2 * (q.numel() + k.numel() + v.numel() + o) + 4 * B * H * S
-    return fb, 2 * pairs * (D + Dv), bb, 2 * pairs * (3 * D + 2 * Dv)
+    attention on q, k, v (``kernels/flash_attention.py::work``)."""
+    from repro_torch.kernels.flash_attention import work
+    return (*work(q, k, v, causal), *work(q, k, v, causal, backward=True))
 
 
 def _flash_at(q, k, v, do, label: str, card: str,
@@ -2212,7 +2200,6 @@ def check_tp_local_kernels(dev, card: str) -> dict:
     line."""
     import torch
     from repro_torch.configs.base import get_config
-    from repro_torch.kernels.gmm import gmm, gmm_bwd, gmm_bwd_plain, gmm_plain
     from repro_torch.models.attention import local_kv_heads
     bf16 = torch.bfloat16
     out = {"flash_attention": [], "flash_attention_bwd": [], "gmm": [],
@@ -2236,18 +2223,36 @@ def check_tp_local_kernels(dev, card: str) -> dict:
     cfg = get_config(MOE_ARCH)
     E, Dm, Fd = cfg.moe.num_experts // TP_LOCAL_GMM, cfg.d_model, cfg.d_ff
     C = train_gmm_rows(cfg)
-    x = _randn((E, C, Dm), bf16, dev, 50) * Dm ** -0.25
-    w = _randn((E, Dm, Fd), bf16, dev, 51) * Dm ** -0.25
-    dy = _randn((E, C, Fd), bf16, dev, 52)
+    fwd, bwd = _gmm_at(dev, (E, C, Dm), (E, Dm, Fd),
+                       f"phase 12e (b) gmm ({E},{C},{Dm})x({E},{Dm},{Fd}) "
+                       f"bf16, {MOE_ARCH} tp {TP_LOCAL_GMM}", card)
+    row = {"shape": [E, C, Dm, Fd], "arch": MOE_ARCH, "tp": TP_LOCAL_GMM}
+    out["gmm"].append({**row, **fwd})
+    out["gmm_bwd"].append({**row, **bwd})
+    return out
+
+
+def _gmm_at(dev, xs, ws, label: str, card: str) -> tuple:
+    """``gmm`` forward and backward (bf16) on x of shape ``xs`` and w of
+    ``ws``: both on their ``wgmma`` kernels, against the plain versions at
+    GMM_TOL, each timed (device ms by CUDA-graph replay) beside its plain
+    version, ``torch.bmm`` and its bound (``kernels/gmm.py::work``), one
+    line printed under ``label``.  Returns the (forward, backward) rows'
+    measured fields for the kernels line."""
+    import torch
+    from repro_torch.kernels import gmm as gmm_mod
+    from repro_torch.kernels.gmm import gmm, gmm_bwd, gmm_bwd_plain, gmm_plain
+    bf16 = torch.bfloat16
+    x = _randn(xs, bf16, dev, 50) * xs[2] ** -0.25
+    w = _randn(ws, bf16, dev, 51) * xs[2] ** -0.25
+    dy = _randn((xs[0], xs[1], ws[2]), bf16, dev, 52)
     before = (gmm.wgmma_launches, gmm_bwd.wgmma_launches)
     y = gmm(x, w)
     dx, dw = gmm_bwd(x, w, dy)
     torch.cuda.synchronize()
     assert (gmm.wgmma_launches - before[0],
             gmm_bwd.wgmma_launches - before[1]) == (1, 1), \
-        "gmm at the tp rank's experts missed its wgmma kernels"
-    label = f"({E},{C},{Dm})x({E},{Dm},{Fd}) bf16, {MOE_ARCH} tp " \
-            f"{TP_LOCAL_GMM}"
+        f"gmm {label} missed its wgmma kernels"
     err = _rel_err(y, gmm_plain(x, w), bf16, f"gmm {label}")
     err_b = max(_rel_err(g, wt, bf16, f"gmm bwd {label} {n}")
                 for g, wt, n in zip((dx, dw), gmm_bwd_plain(x, w, dy),
@@ -2264,11 +2269,9 @@ def check_tp_local_kernels(dev, card: str) -> dict:
               lambda: (torch.bmm(dy, w.transpose(1, 2)),
                        torch.bmm(x.transpose(1, 2), dy)), repeats=7,
               inner=5)}
-    ops = 2 * E * C * Dm * Fd
-    fb, fby = _bound(2 * (x.numel() + w.numel() + y.numel()), ops, bf16)
-    bb, bby = _bound(2 * 2 * (x.numel() + w.numel()) + 2 * dy.numel(),
-                     2 * ops, bf16)
-    print(f"phase 12e (b) gmm {label}: forward max_abs_err {err:.3e}, "
+    fb, fby = _bound(*gmm_mod.work(x, w), bf16)
+    bb, bby = _bound(*gmm_mod.work(x, w, backward=True), bf16)
+    print(f"{label}: forward max_abs_err {err:.3e}, "
           f"{ms['fwd'] * 1e3:.2f} us (plain {ms['fwd plain'] * 1e3:.2f} us, "
           f"torch.bmm {ms['fwd library'] * 1e3:.2f} us, bound "
           f"{fb * 1e3:.2f} us, {fby}); backward max_abs_err {err_b:.3e} (tol "
@@ -2276,17 +2279,12 @@ def check_tp_local_kernels(dev, card: str) -> dict:
           f"(plain {ms['bwd plain'] * 1e3:.2f} us, two torch.bmm "
           f"{ms['bwd library'] * 1e3:.2f} us, bound {bb * 1e3:.2f} us, "
           f"{bby}) [{card}]")
-    out["gmm"].append({"shape": [E, C, Dm, Fd], "arch": MOE_ARCH,
-                       "tp": TP_LOCAL_GMM, "max_abs_err": err,
-                       "ms": ms["fwd"], "plain_ms": ms["fwd plain"],
-                       "bound_ms": fb, "bound_by": fby,
-                       "library_ms": ms["fwd library"]})
-    out["gmm_bwd"].append({"shape": [E, C, Dm, Fd], "arch": MOE_ARCH,
-                           "tp": TP_LOCAL_GMM, "max_abs_err": err_b,
-                           "ms": ms["bwd"], "plain_ms": ms["bwd plain"],
-                           "bound_ms": bb, "bound_by": bby,
-                           "library_ms": ms["bwd library"]})
-    return out
+    return ({"max_abs_err": err, "ms": ms["fwd"], "plain_ms": ms["fwd plain"],
+             "bound_ms": fb, "bound_by": fby,
+             "library_ms": ms["fwd library"]},
+            {"max_abs_err": err_b, "ms": ms["bwd"],
+             "plain_ms": ms["bwd plain"], "bound_ms": bb, "bound_by": bby,
+             "library_ms": ms["bwd library"]})
 
 
 def tensor_parallel_phase(dev, wrappers, card: str) -> tuple:
@@ -2415,8 +2413,9 @@ def tp_serve_phase(dev, wrappers, card: str) -> tuple:
     """Phase 12f (a): serving under tensor parallelism on a one-rank NCCL
     group, mesh (1, 1) data x model (every model-axis collective of the
     path runs, over one-rank groups): a wave of qwen2-vl-7b at full
-    width, bf16, phase 5's first 8 prompts (left-padded, the vision stub
-    zero), and one of qwen3-moe-30b-a3b at TP_SERVE_MOE_LAYERS layers,
+    width and TP_SERVE_LAYERS layers, bf16, phase 5's first 8 prompts
+    (left-padded, the vision stub zero), and one of qwen3-moe-30b-a3b at
+    TP_SERVE_MOE_LAYERS layers,
     each a prefill into a TP_SERVE_CACHE-row cache and TP_SERVE_STEPS
     greedy steps under ``rules_for(cfg, mesh, "prefill" | "decode")``
     beside the single-device wave (``testing.tp_serve_parity``): tokens
@@ -2449,10 +2448,9 @@ def tp_serve_phase(dev, wrappers, card: str) -> tuple:
         mesh = make_mesh((1, 1), ("data", "model"), dev)
         reset_counts(wrappers)
         torch.cuda.reset_peak_memory_stats()
-        for arch, layers in ((ARCH, None), (MOE_ARCH, TP_SERVE_MOE_LAYERS)):
-            cfg = get_config(arch)
-            if layers is not None:
-                cfg = dataclasses.replace(cfg, num_layers=layers)
+        for arch, layers in ((ARCH, TP_SERVE_LAYERS),
+                             (MOE_ARCH, TP_SERVE_MOE_LAYERS)):
+            cfg = dataclasses.replace(get_config(arch), num_layers=layers)
             cfg = cfg.resolve(tp=1, dp=1)
             prompts = wave_prompts(cfg.vocab_size)[0]
             batch = _batch(cfg, prompts, dev)
@@ -2802,6 +2800,83 @@ def tp_latent_ssm_phase(dev, wrappers, card: str) -> tuple:
     return got, peak
 
 
+def _ssd_at(dev, xs, G: int, N: int, Q: int, label: str, card: str,
+            heads: int = 0) -> tuple:
+    """The SSD forward and backward (bf16 x, B and C, f32 dt and dy) on x
+    of shape ``xs`` (B, L, H, P) with ``G`` groups of state size ``N`` at
+    chunk ``Q``: both on their tensor-core kernels, against the plain
+    versions at SSD_TOL / SSD_BWD_TOL (with ``heads`` > H, once more with
+    dt a strided view of a ``heads``-wide one: the kernels read it in
+    place), each timed (device ms by CUDA-graph replay) beside its plain
+    version and its bound (``kernels/ssd.py::work``; no single PyTorch
+    call computes it), one line printed under ``label``.  Returns the
+    (forward, backward) rows' measured fields for the kernels line."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.ssd import (_ssd_forward, ssd, ssd_bwd,
+                                         ssd_bwd_plain, ssd_plain)
+    bf16 = torch.bfloat16
+    B, S, H, P = xs
+    Hw = max(heads, H)
+    x = _randn((B, S, H, P), bf16, dev, 70)
+    Bm = _randn((B, S, G, N), bf16, dev, 71)
+    Cm = _randn((B, S, G, N), bf16, dev, 72)
+    dt_all = F.softplus(_randn((B, S, Hw), torch.float32, dev, 73))
+    A = -_randn((H,), torch.float32, dev, 74).exp()
+    dy = _randn((B, S, H, P), torch.float32, dev, 75)
+    errs = {}
+    cases = [("", dt_all[..., :H].contiguous())]
+    if Hw > H:
+        cases.append((" dt sliced", dt_all[..., Hw - H:]))
+    for tag, dt in cases:
+        args = (x, dt, A, Bm, Cm)
+        before = (ssd.tc_launches, ssd_bwd.tc_launches)
+        y, state, states = _ssd_forward(*args, Q, True)
+        grads = ssd_bwd(*args, states, dy, None, Q)
+        torch.cuda.synchronize()
+        assert (ssd.tc_launches - before[0],
+                ssd_bwd.tc_launches - before[1]) == (1, 1), \
+            f"ssd at {label}{tag} missed its tensor-core kernels"
+        want_y, want_state = ssd_plain(*args, Q)
+        tol = SSD_TOL[str(bf16)]
+        torch.testing.assert_close(y, want_y, rtol=tol, atol=tol)
+        torch.testing.assert_close(state, want_state, rtol=tol, atol=tol)
+        err = max(float((y - want_y).abs().max()),
+                  float((state - want_state).abs().max()))
+        want = ssd_bwd_plain(*args, states, dy, None, Q)
+        err_b = max(_rel_err(g, w, bf16, f"ssd bwd {label}{tag} {n}",
+                             SSD_BWD_TOL)
+                    for g, w, n in zip(grads, want,
+                                       ("dx", "ddt", "dA", "dB", "dC")))
+        errs[tag] = (err, err_b)
+        del y, state, grads, want
+    args = (x, dt_all[..., :H].contiguous(), A, Bm, Cm)
+    _, _, states = _ssd_forward(*args, Q, True)
+    ms = _timed(label, {
+        "fwd": lambda: ssd(*args, chunk=Q),
+        "fwd plain": lambda: ssd_plain(*args, Q),
+        "bwd": lambda: ssd_bwd(*args, states, dy, None, Q),
+        "bwd plain": lambda: ssd_bwd_plain(*args, states, dy, None, Q)},
+        inner=3)
+    fb, fby = _bound(*ssd_work(args, Q), bf16)
+    bb, bby = _bound(*ssd_bwd_work(args, Q, final=False), bf16)
+    err, err_b = errs[""]
+    sliced = (f" (dt sliced {errs[' dt sliced'][0]:.3e})" if Hw > H else "",
+              f" (dt sliced {errs[' dt sliced'][1]:.3e})" if Hw > H else "")
+    print(f"{label}: forward max_abs_err {err:.3e}{sliced[0]}, "
+          f"{ms['fwd'] * 1e3:.2f} us (plain {ms['fwd plain'] * 1e3:.2f} "
+          f"us, bound {fb * 1e3:.2f} us, {fby}); backward max_abs_err "
+          f"{err_b:.3e}{sliced[1]} (tol {SSD_BWD_TOL[str(bf16)]} of the "
+          f"largest), {ms['bwd'] * 1e3:.2f} us "
+          f"(plain {ms['bwd plain'] * 1e3:.2f} us, bound "
+          f"{bb * 1e3:.2f} us, {bby}); no single PyTorch call [{card}]")
+    return ({"max_abs_err": err, "ms": ms["fwd"], "plain_ms": ms["fwd plain"],
+             "bound_ms": fb, "bound_by": fby, "library_ms": None},
+            {"max_abs_err": err_b, "ms": ms["bwd"],
+             "plain_ms": ms["bwd plain"], "bound_ms": bb, "bound_by": bby,
+             "library_ms": None})
+
+
 def check_tp_latent_ssm_kernels(dev, card: str) -> dict:
     """Phase 12g (b): the kernels of the MLA and Mamba2 tensor-parallel
     paths at a TP rank's local full-width shapes, bf16, against their
@@ -2818,10 +2893,7 @@ def check_tp_latent_ssm_kernels(dev, card: str) -> dict:
     Every call takes its tensor-core kernel.  Returns {kernel: [rows]}
     for the kernels line."""
     import torch
-    import torch.nn.functional as F
     from repro_torch.configs.base import get_config
-    from repro_torch.kernels.ssd import (_ssd_forward, ssd, ssd_bwd,
-                                         ssd_bwd_plain, ssd_plain)
     bf16 = torch.bfloat16
     out = {k: [] for k in ("ssd", "ssd_bwd", "flash_attention",
                            "flash_attention_bwd", "decode_attention")}
@@ -2831,64 +2903,12 @@ def check_tp_latent_ssm_kernels(dev, card: str) -> dict:
         s = cfg.ssm
         Hw = s.n_heads(cfg.d_model)
         H, P, N, Q = Hw // tp, s.head_dim, s.d_state, s.chunk_size
-        x = _randn((B, S, H, P), bf16, dev, 70)
-        Bm = _randn((B, S, 1, N), bf16, dev, 71)
-        Cm = _randn((B, S, 1, N), bf16, dev, 72)
-        dt_all = F.softplus(_randn((B, S, Hw), torch.float32, dev, 73))
-        A = -_randn((H,), torch.float32, dev, 74).exp()
-        dy = _randn((B, S, H, P), torch.float32, dev, 75)
-        label = f"({B},{S},{H},{P}) N {N} chunk {Q} bf16, {arch} tp {tp}"
-        errs = {}
-        for tag, dt in (("", dt_all[..., :H].contiguous()),
-                        (" dt sliced", dt_all[..., Hw - H:])):
-            args = (x, dt, A, Bm, Cm)
-            before = (ssd.tc_launches, ssd_bwd.tc_launches)
-            y, state, states = _ssd_forward(*args, Q, True)
-            grads = ssd_bwd(*args, states, dy, None, Q)
-            torch.cuda.synchronize()
-            assert (ssd.tc_launches - before[0],
-                    ssd_bwd.tc_launches - before[1]) == (1, 1), \
-                f"ssd at {label}{tag} missed its tensor-core kernels"
-            want_y, want_state = ssd_plain(*args, Q)
-            tol = SSD_TOL[str(bf16)]
-            torch.testing.assert_close(y, want_y, rtol=tol, atol=tol)
-            torch.testing.assert_close(state, want_state, rtol=tol, atol=tol)
-            err = max(float((y - want_y).abs().max()),
-                      float((state - want_state).abs().max()))
-            want = ssd_bwd_plain(*args, states, dy, None, Q)
-            err_b = max(_rel_err(g, w, bf16, f"ssd bwd {label}{tag} {n}",
-                                 SSD_BWD_TOL)
-                        for g, w, n in zip(grads, want,
-                                           ("dx", "ddt", "dA", "dB", "dC")))
-            errs[tag] = (err, err_b)
-        args = (x, dt_all[..., :H].contiguous(), A, Bm, Cm)
-        _, _, states = _ssd_forward(*args, Q, True)
-        ms = _timed(f"phase 12g (b) ssd {label}", {
-            "fwd": lambda: ssd(*args, chunk=Q),
-            "fwd plain": lambda: ssd_plain(*args, Q),
-            "bwd": lambda: ssd_bwd(*args, states, dy, None, Q),
-            "bwd plain": lambda: ssd_bwd_plain(*args, states, dy, None, Q)},
-            inner=3)
-        fb, fby = _bound(*ssd_work(args, Q), bf16)
-        bb, bby = _bound(*ssd_bwd_work(args, Q, final=False), bf16)
-        err, err_b = errs[""]
-        print(f"phase 12g (b) ssd {label}: forward max_abs_err {err:.3e} "
-              f"(dt sliced {errs[' dt sliced'][0]:.3e}), "
-              f"{ms['fwd'] * 1e3:.2f} us (plain {ms['fwd plain'] * 1e3:.2f} "
-              f"us, bound {fb * 1e3:.2f} us, {fby}); backward max_abs_err "
-              f"{err_b:.3e} (dt sliced {errs[' dt sliced'][1]:.3e}; tol "
-              f"{SSD_BWD_TOL[str(bf16)]} of the largest), "
-              f"{ms['bwd'] * 1e3:.2f} us "
-              f"(plain {ms['bwd plain'] * 1e3:.2f} us, bound "
-              f"{bb * 1e3:.2f} us, {bby}); no single PyTorch call [{card}]")
+        fwd, bwd = _ssd_at(dev, (B, S, H, P), 1, N, Q,
+                           f"phase 12g (b) ssd ({B},{S},{H},{P}) N {N} chunk "
+                           f"{Q} bf16, {arch} tp {tp}", card, heads=Hw)
         row = {"shape": [B, S, H, P, N], "arch": arch, "tp": tp}
-        out["ssd"].append({**row, "max_abs_err": err, "ms": ms["fwd"],
-                           "plain_ms": ms["fwd plain"], "bound_ms": fb,
-                           "bound_by": fby, "library_ms": None})
-        out["ssd_bwd"].append({**row, "max_abs_err": err_b, "ms": ms["bwd"],
-                               "plain_ms": ms["bwd plain"], "bound_ms": bb,
-                               "bound_by": bby, "library_ms": None})
-        del x, Bm, Cm, dt_all, dy, args, states, y, grads, want
+        out["ssd"].append({**row, **fwd})
+        out["ssd_bwd"].append({**row, **bwd})
     for arch, tp in TP_LOCAL_LATENT_FLASH:
         cfg = get_config(arch).resolve(tp=tp)
         if cfg.mla is not None:
@@ -2973,10 +2993,9 @@ def _decode_lse_at(dev, shape, lens, seed: int, label: str,
                                                 return_lse=True),
         "sdpa": lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask, enable_gqa=True)}, inner=50)
-    used = int(lens.sum())
-    nbytes = 2 * (q.numel() + used * KV * 2 * D + Bd * H * D) \
-        + 4 * (Bd + Bd * H)
-    bound_ms, bound_by = _bound(nbytes, 2 * H * used * 2 * D, bf16)
+    from repro_torch.kernels.decode_attention import work
+    bound_ms, bound_by = _bound(*work(q, k, v, int(lens.sum()), lse=True),
+                                bf16)
     print(f"{label} ({Bd},{n},{H}/{KV},{D}) bf16, kv_len {lens.tolist()}: "
           f"out max_abs_err {err:.3e}, lse {lse_err:.3e} (tol "
           f"{ATTN_TOL[str(bf16)]}), {ms['kernel'] * 1e3:.2f} us (plain "
@@ -3195,6 +3214,158 @@ def launch_serve_phase(dev, wrappers, card: str) -> dict:
     del params, res
     free_card_memory()
     return got
+
+
+def _record_kernel_shapes() -> dict:
+    """Wrap the models' forward kernels to record the distinct shapes each
+    is called with (the backward kernels take the same): {"flash": {(q,
+    k, v, causal)}, "decode": {(q, k, lens)}, "gmm": {(x, w)}, "ssd":
+    {(x, B, chunk)}}."""
+    from repro_torch.models import attention as A, hybrid, moe, ssm
+    seen = {"flash": set(), "decode": set(), "gmm": set(), "ssd": set()}
+    flash, decode, gmm, ssd = (A.flash_attention, A.decode_attention,
+                               moe.gmm, ssm.ssd)
+
+    def rec_flash(q, k, v, causal=True):
+        seen["flash"].add((tuple(q.shape), tuple(k.shape), tuple(v.shape),
+                           causal))
+        return flash(q, k, v, causal=causal)
+
+    def rec_decode(q, k, v, kv_len, **kw):
+        seen["decode"].add((tuple(q.shape), tuple(k.shape),
+                            tuple(kv_len.tolist())))
+        return decode(q, k, v, kv_len, **kw)
+
+    def rec_gmm(x, w):
+        seen["gmm"].add((tuple(x.shape), tuple(w.shape)))
+        return gmm(x, w)
+
+    def rec_ssd(x, dt, A_, Bm, Cm, chunk=256):
+        seen["ssd"].add((tuple(x.shape), tuple(Bm.shape), chunk))
+        return ssd(x, dt, A_, Bm, Cm, chunk=chunk)
+
+    A.flash_attention = hybrid.flash_attention = rec_flash
+    A.decode_attention = rec_decode
+    moe.gmm, ssm.ssd = rec_gmm, rec_ssd
+    return seen
+
+
+def _dryrun_line(rec: dict, card: str) -> None:
+    """A phase 13 record's memory, flops, bytes and collectives, one line
+    a run."""
+    gb = 1e9
+    for tag in ("", "_L1", "_L2"):
+        cost = rec.get("cost_full" if not tag else f"cost{tag}")
+        if cost is None:
+            continue
+        mem = rec["memory" if not tag else f"memory{tag}"]
+        coll = rec["collectives_full" if not tag else f"collectives{tag}"]
+        depth = "full depth" if not tag else f"depth {tag[-1]}"
+        ops = ", ".join(f"{op} {b / gb:.4f} GB x{coll['_counts'][op]}"
+                        for op, b in sorted(coll.items())
+                        if not op.startswith("_"))
+        print(f"phase 13 {rec['arch']} {rec['shape']} {rec['mesh']} rank "
+              f"{rec['rank']}, {depth}: arguments "
+              f"{mem['argument_size_in_bytes'] / gb:.3f} GB, temp "
+              f"{mem['temp_size_in_bytes'] / gb:.3f} GB, output "
+              f"{mem['output_size_in_bytes'] / gb:.3f} GB (alias "
+              f"{mem['alias_size_in_bytes'] / gb:.3f}); "
+              f"{cost['flops'] / 1e12:.3f} TFLOP, "
+              f"{cost['bytes accessed'] / gb:.2f} GB accessed; collectives "
+              f"{coll['_total'] / gb:.4f} GB: {ops} [{card}]")
+
+
+def dryrun_child(out: str) -> None:
+    """Phase 13's child process: DRYRUN_CELLS through ``dryrun_lib.
+    run_cell`` (rank 0 of the fake (16, 16) group), each cell's launches
+    counted by variant (the counts reset just before the cell, read just
+    after), then each kernel at the shapes the cells gave it against its
+    plain version, timed; writes {"cells", "launches", "kernels"} to
+    ``out``."""
+    import torch
+    from repro_torch.launch import dryrun_lib
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = card_line()
+    wrappers = _kernel_wrappers()
+    seen = _record_kernel_shapes()
+    cells, launches = [], []
+    for arch, shape, full, extrapolate in DRYRUN_CELLS:
+        reset_counts(wrappers)
+        t0 = time.perf_counter()
+        rec = dryrun_lib.run_cell(arch, shape, False, extrapolate=extrapolate,
+                                  verbose=False, full=full)
+        got = {n: c for n, c in counts(wrappers).items() if c}
+        rec["wall_s"] = time.perf_counter() - t0
+        _dryrun_line(rec, card)
+        print(f"phase 13 {arch} {shape}: {rec['wall_s']:.1f} s, launches "
+              f"{got} [{card}]")
+        cells.append(rec)
+        launches.append(got)
+    rows = {k: [] for k in ("flash_attention", "flash_attention_bwd",
+                            "decode_attention", "gmm", "gmm_bwd", "ssd",
+                            "ssd_bwd")}
+    bf16 = torch.bfloat16
+    for qs, ks, vs, causal in sorted(seen["flash"]):
+        q = _randn(qs, bf16, dev, 90)
+        k, v = _randn(ks, bf16, dev, 91), _randn(vs, bf16, dev, 92)
+        do = _randn((*qs[:3], vs[3]), bf16, dev, 93)
+        fwd, bwd = _flash_at(q, k, v, do, f"phase 13 flash {qs}/{ks[2]} "
+                             f"bf16 causal={causal}", card, causal)
+        rows["flash_attention"].append({"shape": [qs, ks, vs], **fwd})
+        rows["flash_attention_bwd"].append({"shape": [qs, ks, vs], **bwd})
+        del q, k, v, do
+    for qs, ks, lens in sorted(seen["decode"]):
+        Bd, n, KV, D = ks
+        rows["decode_attention"].append({"shape": [qs, ks], **_decode_lse_at(
+            dev, (Bd, n, qs[2], KV, D), list(lens), 94,
+            "phase 13 decode lse", card)})
+    for xs, ws in sorted(seen["gmm"]):
+        fwd, bwd = _gmm_at(dev, xs, ws, f"phase 13 gmm {xs}x{ws} bf16", card)
+        rows["gmm"].append({"shape": [xs, ws], **fwd})
+        rows["gmm_bwd"].append({"shape": [xs, ws], **bwd})
+    for xs, bs, chunk in sorted(seen["ssd"]):
+        fwd, bwd = _ssd_at(dev, xs, bs[2], bs[3], chunk,
+                           f"phase 13 ssd {xs} G {bs[2]} N {bs[3]} chunk "
+                           f"{chunk} bf16", card)
+        rows["ssd"].append({"shape": [xs, bs], **fwd})
+        rows["ssd_bwd"].append({"shape": [xs, bs], **bwd})
+    with open(out, "w") as f:
+        json.dump({"cells": cells, "launches": launches, "kernels": rows}, f)
+
+
+def dryrun_phase(card: str) -> tuple:
+    """Phase 13: :func:`dryrun_child` in a child process, its output
+    passed on; every cell's kernels launched on their tensor-core
+    variants (DRYRUN_KERNELS) and nothing else.  Returns (the launches
+    summed over the cells, the kernel rows)."""
+    out = os.path.join(ROOT, "build", "dryrun_phase13.json")
+    if os.path.exists(out):
+        os.remove(out)
+    p = subprocess.run([sys.executable, os.path.abspath(__file__),
+                        "--dryrun-child", out], cwd=ROOT, text=True,
+                       stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                       timeout=DRYRUN_CHILD_TIMEOUT)
+    print(p.stdout, end="")
+    assert p.returncode == 0, f"phase 13's child failed: rc {p.returncode}"
+    with open(out) as f:
+        got = json.load(f)
+    total = {}
+    for (arch, shape, _, _), rec, n in zip(DRYRUN_CELLS, got["cells"],
+                                           got["launches"]):
+        assert rec["status"] == "ok", f"phase 13 {arch} {shape}: {rec}"
+        want = DRYRUN_KERNELS[arch, shape]
+        for name, variant in want.items():
+            assert n.get(name, 0) > 0, \
+                f"phase 13 {arch} {shape}: {name} never launched"
+            assert n.get(f"{name}.{variant}", 0) == n[name], \
+                f"phase 13 {arch} {shape}: {name} launched {n[name]} " \
+                f"times, {n.get(f'{name}.{variant}', 0)} on {variant}"
+        extra = {k for k in n if "." not in k} - set(want)
+        assert not extra, f"phase 13 {arch} {shape}: {extra} launched"
+        for name in want:
+            total[name] = total.get(name, 0) + n[name]
+    return total, got["kernels"]
 
 
 def sync_cost_us(dev) -> float:
@@ -5034,6 +5205,17 @@ def main() -> int:
     print(f"phase 12h: {time.perf_counter() - t0:.1f} s (peak "
           f"{encdec_peak:.2f} GB) [{card}]")
     print(f"phase 12: {time.perf_counter() - t_phase:.1f} s [{card}]")
+    # phase 13: the dry-run on the card, in a child process (its own main
+    # path: the child resets the counts just before each cell and reads
+    # them just after)
+    t0 = time.perf_counter()
+    dry_got, dry_rows = dryrun_phase(card)
+    for name, n in dry_got.items():
+        by_name[name]["dryrun_launches"] = n
+        by_name[name]["launches"] += n
+        by_name[name]["dryrun_shapes"] = dry_rows[name]
+    print(f"phase 13: {time.perf_counter() - t0:.1f} s; launches "
+          f"{dry_got} [{card}]")
 
     print(f"chip_smoke: whole run {time.perf_counter() - t_start:.1f} s, "
           f"the kernels' build included")
@@ -5045,4 +5227,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dryrun-child"]:
+        dryrun_child(sys.argv[2])
+        sys.exit(0)
     sys.exit(main())

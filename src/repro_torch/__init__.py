@@ -13,6 +13,10 @@ one slice at a time and imports nothing from it.  It runs:
 - the Morpheus router across serving replicas
   (``repro_torch.serving.router.MorpheusRouter``) over the policy engine
   (``repro_torch.core.balancer``) and the prediction plane.
+- the dry-run of every production cell as one rank of the production
+  mesh (``python -m repro_torch.launch.dryrun``: the reference's
+  ``launch/specs.py`` cells, ``launch/hlo.py``'s counts as
+  ``launch/counts.py``, ``launch/dryrun_lib.py``).
 
 Entry points take ``device=None``, which means the CUDA card; without one
 they raise unless the caller passes ``device="cpu"``.

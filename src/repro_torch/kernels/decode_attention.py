@@ -49,14 +49,16 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 
 from repro_torch.kernels.build import load
 from repro_torch.kernels.flash_attention import (check_attention_inputs,
                                                  strides_arg)
+from repro_torch.kernels.work import counting, record, uncounted
 
-__all__ = ["decode_attention", "decode_attention_plain"]
+__all__ = ["decode_attention", "decode_attention_plain", "work"]
 
 _ENTRY = {("fma", torch.float32): "decode_attention_f32",
           ("fma", torch.bfloat16): "decode_attention_bf16",
@@ -90,6 +92,22 @@ def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return out
     lse = torch.logsumexp(s, dim=-1).reshape(B, H)
     return out, torch.where(kv_len[:, None] > 0, lse, -torch.inf)
+
+
+def work(q, k, v, used: int, lse: bool = False) -> tuple:
+    """(bytes, operations) of one call on q (B, 1, H, D), k (B, S, KV, D),
+    v (B, S, KV, Dv) (anything with ``shape`` and ``dtype``) whose rows
+    hold ``used`` valid cache positions in all (the sum of ``kv_len``
+    clamped to [0, S]: the work depends on the data): q read, K and V read
+    up to each row's length, ``kv_len`` read, the output written (and the
+    (B, H) f32 log-sum-exp with ``lse``); q . k and p . v over the valid
+    positions of every head."""
+    B, _, H, D = q.shape
+    KV, Dv = k.shape[2], v.shape[3]
+    e = q.dtype.itemsize
+    nbytes = e * (math.prod(q.shape) + used * KV * (D + Dv) + B * H * Dv) \
+        + 4 * B + (4 * B * H if lse else 0)
+    return nbytes, 2 * H * used * (D + Dv)
 
 
 def _splits(B: int, KV: int, S: int, n_sm: int) -> int:
@@ -172,9 +190,15 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{tuple(kv_len.shape)} {kv_len.dtype}")
     if kv_len.device != q.device:
         raise ValueError(f"kv_len on {kv_len.device}, q on {q.device}")
+    if counting():
+        with uncounted():
+            used = int(kv_len.clamp(0, S).sum())
+        record("decode_attention", *work(q, k, v, used, return_lse))
     if q.device.type == "cpu":
         decode_attention.plain_calls += 1
-        return decode_attention_plain(q, k, v, kv_len, return_lse=return_lse)
+        with uncounted():
+            return decode_attention_plain(q, k, v, kv_len,
+                                          return_lse=return_lse)
     out = torch.empty((B, 1, H, Dv), dtype=q.dtype, device=q.device)
     lse = (torch.empty((B, H), dtype=torch.float32, device=q.device)
            if return_lse else None)

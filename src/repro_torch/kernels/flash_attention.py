@@ -68,13 +68,15 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 
 from repro_torch.kernels.build import load
+from repro_torch.kernels.work import counting, record, uncounted
 
 __all__ = ["FlashAttention", "flash_attention", "flash_attention_bwd",
-           "flash_attention_bwd_plain", "flash_attention_plain"]
+           "flash_attention_bwd_plain", "flash_attention_plain", "work"]
 
 _ENTRY = {("fma", torch.float32): "flash_attention_f32",
           ("fma", torch.bfloat16): "flash_attention_bf16",
@@ -238,6 +240,27 @@ def _bwd_variant(dtype: torch.dtype, D: int, Dv: int, strides,
     return "tc"
 
 
+def work(q, k, v, causal: bool, backward: bool = False,
+         lse: bool = False) -> tuple:
+    """(bytes, operations) of one call on q (B, Sq, H, D), k (B, Skv, KV,
+    D), v (B, Skv, KV, Dv) (anything with ``shape`` and ``dtype``): each
+    input read and each output written once, the products over the
+    (query, key) pairs the mask keeps (causal: Sq = Skv).  Forward: q, k,
+    v read, the output written (and the (B, H, Sq) f32 log-sum-exp with
+    ``lse``); S = QK^T and PV.  ``backward``: q, k, v, the output and its
+    cotangent and the log-sum-exp read, dq, dk, dv written; S again, dV,
+    dP, dQ and dK."""
+    B, Sq, H, D = q.shape
+    Skv, Dv = k.shape[1], v.shape[3]
+    pairs = B * H * (Sq * (Sq + 1) // 2 if causal else Sq * Skv)
+    e = q.dtype.itemsize
+    n = math.prod(q.shape) + math.prod(k.shape) + math.prod(v.shape) \
+        + B * Sq * H * Dv
+    if backward:
+        return e * 2 * n + 4 * B * H * Sq, 2 * pairs * (3 * D + 2 * Dv)
+    return e * n + (4 * B * H * Sq if lse else 0), 2 * pairs * (D + Dv)
+
+
 @functools.lru_cache(maxsize=None)
 def _bwd_entry(variant: str, dtype: torch.dtype):
     fn = getattr(load("flash_attention_bwd"), _BWD_ENTRY[variant, dtype])
@@ -277,11 +300,15 @@ def _flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"and {Skv}")
     if Skv == 0 and Sq > 0:
         raise ValueError("flash_attention needs at least one key")
+    if counting():
+        record("flash_attention", *work(q, k, v, causal, lse=with_lse))
     if q.device.type == "cpu":
         flash_attention.plain_calls += 1
-        if with_lse:
-            return flash_attention_plain(q, k, v, causal, return_lse=True)
-        return flash_attention_plain(q, k, v, causal), None
+        with uncounted():
+            if with_lse:
+                return flash_attention_plain(q, k, v, causal,
+                                             return_lse=True)
+            return flash_attention_plain(q, k, v, causal), None
     out = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device) \
         if with_lse else None
@@ -331,10 +358,13 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if causal and Sq != Skv:
         raise ValueError(f"causal flash_attention_bwd needs Sq == Skv, got "
                          f"{Sq} and {Skv}")
+    if counting():
+        record("flash_attention_bwd", *work(q, k, v, causal, backward=True))
     if q.device.type == "cpu":
         flash_attention_bwd.plain_calls += 1
-        return flash_attention_bwd_plain(q, k, v, o, do.to(q.dtype), lse,
-                                         causal)
+        with uncounted():
+            return flash_attention_bwd_plain(q, k, v, o, do.to(q.dtype), lse,
+                                             causal)
     # the kernel reads rows with a contiguous head dim, in q's dtype
     o, do = (t.to(q.dtype) if t.stride(3) == 1 or t.shape[3] == 1
              else t.to(q.dtype).contiguous() for t in (o, do))

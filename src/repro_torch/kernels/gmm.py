@@ -16,7 +16,7 @@ goes through the tensor cores (``wgmma``: persistent CTAs, a ring of
 TMA-loaded stages, f32 accumulators; for C <= 16 the operands swap so
 that the weights stream as wgmma's 64-row side), f32 through f32 FMAs.
 At qwen3-moe-30b-a3b's prefill shape (E = 128, C = 624, D = 2048,
-F = 768, bf16) a call is 251 GFLOP and 853 MB, ~0.254 ms at either of
+F = 768, bf16) a call is 251 GFLOP and 852 MB, ~0.254 ms at either of
 the H100's peaks; at the decode shape (C = 4) the 403 MB of weights bound
 it at ~0.120 ms.  Any C >= 1 is taken (the kernels mask the ragged
 edge); D and F must be multiples of 16.
@@ -49,8 +49,9 @@ import functools
 import torch
 
 from repro_torch.kernels.build import load
+from repro_torch.kernels.work import counting, record, uncounted
 
-__all__ = ["GMM", "gmm", "gmm_bwd", "gmm_bwd_plain", "gmm_plain"]
+__all__ = ["GMM", "gmm", "gmm_bwd", "gmm_bwd_plain", "gmm_plain", "work"]
 
 _ENTRY = {"fma": "gmm_f32", "wgmma": "gmm_bf16"}
 _BWD_ENTRY = {"fma": "gmm_bwd_f32", "wgmma": "gmm_bwd_bf16",
@@ -80,6 +81,21 @@ def _check(x: torch.Tensor, w: torch.Tensor) -> None:
     if max(x.shape) > _INT_MAX or F > _INT_MAX:
         raise ValueError(f"gmm: sizes out of range: {tuple(x.shape)}, "
                          f"{tuple(w.shape)}")
+
+
+def work(x, w, backward: bool = False) -> tuple:
+    """(bytes, operations) of one call on x (E, C, D) and w (E, D, F)
+    (anything with ``shape`` and ``dtype``): forward x and w read and the
+    (E, C, F) output written, one product; ``backward`` x, w and dy read
+    and dx, dw written, two products."""
+    E, C, D = x.shape
+    F = w.shape[2]
+    e = x.dtype.itemsize
+    nx, nw, ny = E * C * D, E * D * F, E * C * F
+    ops = 2 * E * C * D * F
+    if backward:
+        return e * (2 * nx + 2 * nw + ny), 2 * ops
+    return e * (nx + nw + ny), ops
 
 
 def _acc(t: torch.Tensor) -> torch.Tensor:
@@ -147,9 +163,12 @@ def gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def _gmm_forward(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     _check(x, w)
+    if counting():
+        record("gmm", *work(x, w))
     if x.device.type == "cpu":
         gmm.plain_calls += 1
-        return gmm_plain(x, w)
+        with uncounted():
+            return gmm_plain(x, w)
     if x.device.type != "cuda":
         raise ValueError(f"gmm runs on CUDA or CPU tensors, got {x.device}")
     E, C, D = x.shape
@@ -213,9 +232,12 @@ def gmm_bwd(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor):
     ``wgmma_launches`` or ``fma_launches``)."""
     dy = dy.contiguous()
     _check_bwd(x, w, dy)
+    if counting():
+        record("gmm_bwd", *work(x, w, backward=True))
     if x.device.type == "cpu":
         gmm_bwd.plain_calls += 1
-        return gmm_bwd_plain(x, w, dy)
+        with uncounted():
+            return gmm_bwd_plain(x, w, dy)
     E, C, D = x.shape
     F = w.shape[2]
     dx = torch.empty_like(x)

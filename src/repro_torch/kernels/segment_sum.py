@@ -36,8 +36,9 @@ import functools
 import torch
 
 from repro_torch.kernels.build import load
+from repro_torch.kernels.work import counting, record, uncounted
 
-__all__ = ["segment_sum", "segment_sum_plain", "launch_floor"]
+__all__ = ["segment_sum", "segment_sum_plain", "launch_floor", "work"]
 
 _ENTRY = {torch.float64: "segment_sum_f64", torch.float32: "segment_sum_f32"}
 _INT_MAX = 2 ** 31 - 1
@@ -61,6 +62,17 @@ def _check(values: torch.Tensor, seg_ids: torch.Tensor,
     if not 0 <= n_segments <= _INT_MAX or max(values.shape) > _INT_MAX:
         raise ValueError(f"sizes out of range: {tuple(values.shape)}, "
                          f"n_segments={n_segments}")
+
+
+def work(values, seg_ids, n_segments: int) -> tuple:
+    """(bytes, operations) of one call on (T, R) ``values`` and ``seg_ids``
+    (anything with ``shape`` and ``dtype``) into ``n_segments`` buckets:
+    values and ids read once, the (T, B) sums written once, one add a
+    value."""
+    T, R = values.shape
+    e = values.dtype.itemsize
+    i = seg_ids.dtype.itemsize
+    return T * R * (e + i) + T * n_segments * e, T * R
 
 
 def segment_sum_plain(values: torch.Tensor, seg_ids: torch.Tensor,
@@ -100,9 +112,12 @@ def segment_sum(values: torch.Tensor, seg_ids: torch.Tensor,
     ``segment_sum.plain_calls``); CUDA tensors launch the kernel on the
     current stream (counted in ``segment_sum.launches``)."""
     _check(values, seg_ids, n_segments)
+    if counting():
+        record("segment_sum", *work(values, seg_ids, n_segments))
     if values.device.type == "cpu":
         segment_sum.plain_calls += 1
-        return segment_sum_plain(values, seg_ids, n_segments)
+        with uncounted():
+            return segment_sum_plain(values, seg_ids, n_segments)
     if values.device.type != "cuda":
         raise ValueError(f"segment_sum runs on CUDA or CPU tensors, got "
                          f"{values.device}")

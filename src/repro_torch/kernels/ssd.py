@@ -74,8 +74,9 @@ import torch
 
 from repro_torch.kernels.build import load
 from repro_torch.kernels.flash_attention import _acc_dtype, strides_arg
+from repro_torch.kernels.work import counting, record, uncounted
 
-__all__ = ["SSD", "ssd", "ssd_bwd", "ssd_bwd_plain", "ssd_plain"]
+__all__ = ["SSD", "ssd", "ssd_bwd", "ssd_bwd_plain", "ssd_plain", "work"]
 
 _ENTRY = {("fma", torch.float32): "ssd_f32",
           ("fma", torch.bfloat16): "ssd_bf16",
@@ -330,6 +331,40 @@ def _bwd_entry(variant: str, dtype: torch.dtype):
     return fn
 
 
+def work(x, Bm, chunk: int, backward: bool = False, states: bool = False,
+         final: bool = False) -> tuple:
+    """(bytes, operations) of one call on x (B, L, H, P) and Bm / Cm (B, L,
+    G, N) (anything with ``shape`` and ``dtype``; dt (B, L, H) and A (H,)
+    read as f32) at chunk ``chunk``.  Forward: x, dt, A, B, C read once,
+    y (f32) and the final state written once (and each chunk's incoming
+    f32 state with ``states``); the causal half of C B^T once per (batch,
+    group, chunk), and per (batch, head, chunk) the causal half of S xd,
+    the incoming-state term and the state update.  ``backward``: x, dt,
+    A, B, C, the chunks' f32 states and the f32 dy (and dstate with
+    ``final``) read once, dx, ddt, dA, dB, dC written once; C B^T and dC,
+    dB from the group's heads' summed tiles once per (batch, group,
+    chunk) over the causal half, and per (batch, head, chunk) dy xd^T and
+    dxd over the causal half and the four (Q, P, N) state terms."""
+    B, L, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    Q = chunk
+    nc = -(-L // Q)
+    half = Q * (Q + 1) // 2
+    xb = x.dtype.itemsize
+    bb = Bm.dtype.itemsize
+    nx, ndt, nb, ns = B * L * H * P, B * L * H, B * L * G * N, B * H * P * N
+    if backward:
+        nbytes = (2 * xb * nx + 2 * 4 * ndt + 2 * 4 * H + 4 * bb * nb
+                  + 4 * B * nc * H * P * N + 4 * nx + (4 * ns if final
+                                                       else 0))
+        return nbytes, (B * G * nc * 3 * half * 2 * N
+                        + B * H * nc * (2 * half * 2 * P + 4 * 2 * Q * P * N))
+    nbytes = (xb * nx + 4 * (ndt + H) + 2 * bb * nb + 4 * (nx + ns)
+              + (4 * B * nc * H * P * N if states else 0))
+    return nbytes, (B * G * nc * half * 2 * N
+                    + B * H * nc * (half * 2 * P + 4 * Q * N * P))
+
+
 def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
         Cm: torch.Tensor, chunk: int = 256):
     """x (B, L, H, P), dt (B, L, H), A (H,), Bm / Cm (B, L, G, N) ->
@@ -352,11 +387,14 @@ def _ssd_forward(x, dt, A, Bm, Cm, chunk: int, with_states: bool):
     chunk's incoming state (B, nc, H, P, N) f32 too when
     ``with_states``."""
     Q = _check_inputs(x, dt, A, Bm, Cm, chunk)
+    if counting():
+        record("ssd", *work(x, Bm, Q, states=with_states))
     if x.device.type == "cpu":
         ssd.plain_calls += 1
-        if with_states:
-            return ssd_plain(x, dt, A, Bm, Cm, chunk, return_states=True)
-        return (*ssd_plain(x, dt, A, Bm, Cm, chunk), None)
+        with uncounted():
+            if with_states:
+                return ssd_plain(x, dt, A, Bm, Cm, chunk, return_states=True)
+            return (*ssd_plain(x, dt, A, Bm, Cm, chunk), None)
     Bsz, L, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
     dt = dt.float()
@@ -418,9 +456,14 @@ def ssd_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
            for t in (dy, states, dstate)):
         raise ValueError("ssd_bwd: dy, states and dstate must lie on x's "
                          "device")
+    if counting():
+        record("ssd_bwd", *work(x, Bm, Q, backward=True,
+                                final=dstate is not None))
     if x.device.type == "cpu":
         ssd_bwd.plain_calls += 1
-        return ssd_bwd_plain(x, dt, A, Bm, Cm, states, dy, dstate, chunk)
+        with uncounted():
+            return ssd_bwd_plain(x, dt, A, Bm, Cm, states, dy, dstate,
+                                 chunk)
     dt = dt.float()
     A = A.float().contiguous()
     variant = _bwd_variant(x.dtype, P, N, Q,
