@@ -248,7 +248,18 @@ Phases (any failure raises and exits non-zero, with no result line):
    then each kernel at the shapes those cells gave it (recorded on the
    way) against its plain version, timed beside it, its library call
    and its bound (``kernels/*.py::work``);
-14. a ``kernels`` JSON line, the card's line, then the result line.
+14. simcore's trial-axis sharding and the analysis linter (its own main
+   path: the counts reset just before the sharded campaign and read just
+   after): ``run_scenario`` on stale-predictions and churn at phase 6's
+   mid shape over a one-rank NCCL group (the shard path: the block, the
+   all-gather, the cut), every stat equal bit for bit to the run without
+   a group and the segment sum launched as often; the pad / block / cut
+   path at world 4 over 6 trials, each block run on the card in turn,
+   equal to the single-device run; ``python -m repro_torch.analysis`` in
+   a child process (exit 0); the step audit on CUDA tensors equal to the
+   CPU's (``python3 chip_smoke.py --audit-child OUT``) for every
+   distinct step;
+15. a ``kernels`` JSON line, the card's line, then the result line.
 """
 from __future__ import annotations
 
@@ -475,6 +486,16 @@ DRYRUN_KERNELS = {
     ("qwen2-vl-7b", "decode_32k"): {"decode_attention": "mma"},
     ("mamba2-1.3b", "train_4k"): {"ssd": "tc", "ssd_bwd": "tc"}}
 DRYRUN_CHILD_TIMEOUT = 240
+#: phase 14 (a): the campaign sharded over a one-rank NCCL group at
+#: phase 6's mid shape; (b) the dispatch's pad / block / cut path at
+#: world 4 over T = 6 trials, each block run on the card in turn
+SHARD_SCENARIOS = ("stale-predictions", "churn")
+PAD_WORLD, PAD_T = 4, 6
+PAD_CASES = (("baseline", "perf_aware"), ("stale-predictions", "perf_aware"),
+             ("retry-storm", "perf_aware"))
+#: phase 14 (c) and (d): the linter and the step audit's CPU half, each
+#: in a child process started when the phase starts
+ANALYSIS_CHILD_TIMEOUT = 240
 TRAIN_PARITY_ARCHS = ("qwen2-vl-7b", "qwen3-moe-30b-a3b", "minicpm3-4b",
                       "seamless-m4t-medium", "mamba2-1.3b", "zamba2-2.7b")
 #: the SSD backward kernel against its plain version, relative to the
@@ -3608,7 +3629,8 @@ def _summary_drift(a: dict, b: dict) -> float:
     worst = 0.0
     assert set(a) == set(b), set(a) ^ set(b)
     for k, v in b.items():
-        if k in ("loop_s", "capture_s", "backend", "device"):
+        if k in ("loop_s", "capture_s", "backend", "device",
+                 "simcore_backend"):
             continue
         if isinstance(v, dict):
             worst = max(worst, _summary_drift(a[k], v))
@@ -4733,6 +4755,170 @@ def predictor_training(dev, wrappers) -> int:
     return training_launches
 
 
+def audit_child(out: str) -> None:
+    """Phase 14 (d)'s child process: the step audit's record of every
+    distinct step on the CPU (``testing.step_records``), written to
+    ``out``."""
+    from repro_torch.testing import step_records
+    t0 = time.perf_counter()
+    recs = step_records("cpu")
+    with open(out, "w") as f:
+        json.dump({"records": recs, "seconds": time.perf_counter() - t0}, f)
+
+
+def _per_seed_equal(got: dict, want: dict, label: str) -> None:
+    import numpy as np
+    assert set(got) == set(want), label
+    for pol in want:
+        a, b = got[pol], want[pol]
+        assert a.n_hedged == b.n_hedged and a.n_fallback == b.n_fallback, \
+            f"{label}/{pol}"
+        for k in b.per_seed:
+            np.testing.assert_array_equal(a.per_seed[k], b.per_seed[k],
+                                          err_msg=f"{label}/{pol}/{k}")
+        assert a.inefficiency_pct == b.inefficiency_pct, f"{label}/{pol}"
+
+
+def shard_phase(wrappers, card: str) -> int:
+    """Phase 14: simcore's trial-axis sharding and the analysis linter.
+
+    (c) and (d)'s CPU half start first, in child processes: ``python -m
+    repro_torch.analysis --format json`` (exit 0 asserted, its counts
+    printed) and ``python3 chip_smoke.py --audit-child OUT``.  (a) On a
+    one-rank NCCL group (joined through a file store, as phase 12b),
+    ``run_scenario`` on SHARD_SCENARIOS at phase 6's mid shape for the
+    four default policies and the oracle: ``simcore_backend == "shard"``
+    and every stat equal bit for bit to the run without a group, the
+    segment sum launched as often (the counts reset just before the
+    group's runs and read just after: the phase's main path).  (b) The
+    pad / block / cut path at world PAD_WORLD over PAD_T trials
+    (``testing.blocks_summary``) on PAD_CASES, equal to the single-device
+    run.  (d) The step audit on CUDA tensors equal to the CPU child's:
+    every distinct step's ops, kernel calls and findings.  Returns the
+    segment sum's launches in (a)'s group runs."""
+    import numpy as np
+    import torch.distributed as dist
+    from repro_torch.core import simcore
+    from repro_torch.core.campaign import (RESILIENCE_STATS, SUMMARY_STATS,
+                                           run_scenario)
+    from repro_torch.core.scenarios import get_scenario
+    from repro_torch.core.simulator import _build_cluster
+    from repro_torch.kernels.segment_sum import segment_sum
+    from repro_torch.testing import blocks_summary, step_records
+    t_phase = time.perf_counter()
+    audit_out = os.path.join(ROOT, "build", "audit_phase14.json")
+    if os.path.exists(audit_out):
+        os.remove(audit_out)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    linter = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.analysis", "--format", "json"],
+        cwd=ROOT, env=env, text=True, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE)
+    auditor = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--audit-child",
+         audit_out], cwd=ROOT, text=True, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT)
+    try:
+        # (a) the campaign over a one-rank NCCL group
+        store = os.path.join(ROOT, "build", "nccl_store_shard")
+        if os.path.exists(store):
+            os.remove(store)
+        kw = dict(seeds=MID_SEEDS, n_trials=MID_TRIALS, **MID)
+        single, n_single = {}, 0
+        for scen in SHARD_SCENARIOS:
+            before = segment_sum.launches
+            single[scen] = run_scenario(scen, device="cuda", **kw)
+            n_single += segment_sum.launches - before
+        dist.init_process_group("nccl", init_method=f"file://{store}",
+                                rank=0, world_size=1)
+        try:
+            sharded, secs = {}, {}
+            reset_counts(wrappers)
+            for scen in SHARD_SCENARIOS:
+                t0 = time.perf_counter()
+                sharded[scen] = run_scenario(scen, device="cuda",
+                                             group=dist.group.WORLD, **kw)
+                secs[scen] = time.perf_counter() - t0
+            got = {n: c for n, c in counts(wrappers).items() if c}
+        finally:
+            dist.destroy_process_group()
+            if os.path.exists(store):
+                os.remove(store)
+        n_shard = got.get("segment_sum", 0)
+        for scen in SHARD_SCENARIOS:
+            for pol, r in sharded[scen].items():
+                assert (r.simcore_backend, r.ranks) == ("shard", 1), \
+                    f"phase 14 (a) {scen}/{pol}: {r.simcore_backend}"
+                assert single[scen][pol].simcore_backend == "single"
+            _per_seed_equal(sharded[scen], single[scen], f"phase 14 (a) {scen}")
+            print(f"phase 14 (a) {scen} sharded over a one-rank NCCL group "
+                  f"(T = {len(MID_SEEDS) * MID_TRIALS}, R = "
+                  f"{MID['n_replicas_per_app'] * 5}, J = {MID['n_requests']},"
+                  f" {len(sharded[scen])} policies): {secs[scen]:.2f} s, "
+                  f"every stat equal to the run without a group [{card}]")
+        assert n_shard == n_single > 0, \
+            f"phase 14 (a): segment sum {n_shard} launches sharded, " \
+            f"{n_single} without a group"
+        assert set(got) == {"segment_sum"}, f"phase 14 (a) launched {got}"
+        print(f"phase 14 (a) launches {got}, {n_single} without a group; "
+              f"NCCL flight recorder {nccl_recorder()}")
+        # (b) the pad / block / cut path at world 4 on the card
+        for scen, pol in PAD_CASES:
+            cluster = _build_cluster(get_scenario(scen).compile(
+                seed=0, n_trials=PAD_T, **MID))
+            t0 = time.perf_counter()
+            summary, n = blocks_summary(cluster, pol, PAD_WORLD, "cuda")
+            t1 = time.perf_counter()
+            want = simcore.run_compiled(cluster, pol, device="cuda")
+            assert n == PAD_WORLD
+            for k in SUMMARY_STATS + RESILIENCE_STATS:
+                np.testing.assert_array_equal(summary[k], want[k],
+                                              err_msg=f"phase 14 (b) {scen} {k}")
+            np.testing.assert_array_equal(summary["chosen"], want["chosen"])
+            assert summary["n_timeouts"] == want["n_timeouts"]
+            print(f"phase 14 (b) {scen}/{pol}: T = {PAD_T} padded to "
+                  f"{-(-PAD_T // PAD_WORLD) * PAD_WORLD}, {n} blocks run in "
+                  f"turn ({want['backend']}) in {t1 - t0:.2f} s, cut back: "
+                  f"equal to the single-device run [{card}]")
+        simcore.clear_cache()
+        # (d) the step audit on the card against the CPU child's
+        t0 = time.perf_counter()
+        on_card = step_records("cuda")
+        t1 = time.perf_counter()
+        out, _ = auditor.communicate(timeout=ANALYSIS_CHILD_TIMEOUT)
+        assert auditor.returncode == 0, \
+            f"phase 14 (d)'s child failed: rc {auditor.returncode}\n{out}"
+        with open(audit_out) as f:
+            child = json.load(f)
+        on_cpu = child["records"]
+        assert list(on_card) == list(on_cpu), "phase 14 (d): the statics"
+        for label in on_cpu:
+            assert on_card[label] == on_cpu[label], \
+                f"phase 14 (d) {label}: card {on_card[label]} cpu " \
+                f"{on_cpu[label]}"
+        n_ops = sum(sum(r["ops"].values()) for r in on_cpu.values())
+        n_find = sum(len(r["findings"]) for r in on_cpu.values())
+        print(f"phase 14 (d) step audit on the card: {len(on_card)} statics, "
+              f"{n_ops} ops and kernel calls, {n_find} findings (before the "
+              f"baseline), equal to the CPU's; card {t1 - t0:.1f} s, CPU "
+              f"child {child['seconds']:.1f} s [{card}]")
+        # (c) the linter
+        out, err = linter.communicate(timeout=ANALYSIS_CHILD_TIMEOUT)
+        assert linter.returncode == 0, \
+            f"phase 14 (c): the linter exited {linter.returncode}\n{out}{err}"
+        report = json.loads(out)
+        assert report["ok"] and report["counts"]["gating"] == 0, report
+        print(f"phase 14 (c) python -m repro_torch.analysis: rc 0, counts "
+              f"{report['counts']}")
+    finally:
+        for p in (linter, auditor):
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    print(f"phase 14: {time.perf_counter() - t_phase:.1f} s [{card}]")
+    return n_shard
+
+
 def finite_stats(res, stats) -> None:
     import numpy as np
     for pol, r in res.items():
@@ -5216,6 +5402,12 @@ def main() -> int:
         by_name[name]["dryrun_shapes"] = dry_rows[name]
     print(f"phase 13: {time.perf_counter() - t0:.1f} s; launches "
           f"{dry_got} [{card}]")
+    # phase 14: simcore's trial-axis sharding and the analysis linter (its
+    # own main path: the counts are reset just before the sharded
+    # campaign and read just after)
+    n = shard_phase(wrappers, card)
+    kernels[0]["shard_launches"] = n
+    kernels[0]["launches"] += n
 
     print(f"chip_smoke: whole run {time.perf_counter() - t_start:.1f} s, "
           f"the kernels' build included")
@@ -5229,5 +5421,8 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dryrun-child"]:
         dryrun_child(sys.argv[2])
+        sys.exit(0)
+    if sys.argv[1:2] == ["--audit-child"]:
+        audit_child(sys.argv[2])
         sys.exit(0)
     sys.exit(main())

@@ -121,6 +121,10 @@ class PolicyResult:
     #: how the core ran the pass: ``"graph"`` (replayed from CUDA
     #: graphs) or ``"eager"``
     backend: Optional[str] = None
+    #: ``"shard"`` (the stacked trial axis split over a process group's
+    #: ranks) or ``"single"``, and the ranks it was split over
+    simcore_backend: Optional[str] = None
+    ranks: int = 1
     #: the capacity plane's telemetry over the stacked trials (epochs,
     #: per-trial scale-ups / downs, wakes and final active counts,
     #: routings onto a drained replica, mean utilisation); None without
@@ -179,7 +183,7 @@ def _attach_inefficiency(res: PolicyResult, ora: PolicyResult,
 def run_scenario(scenario, policies: Sequence[str] = DEFAULT_POLICIES,
                  seeds: Sequence[int] = tuple(range(12)),
                  include_oracle: bool = True, device: DeviceLike = None,
-                 **overrides) -> Dict[str, PolicyResult]:
+                 group=None, **overrides) -> Dict[str, PolicyResult]:
     """One scenario's policy x seed grid in len(policies) batched passes.
 
     ``overrides`` patch the compiled SimConfigs (tests shrink sizes).
@@ -187,6 +191,9 @@ def run_scenario(scenario, policies: Sequence[str] = DEFAULT_POLICIES,
     oracle runs too and every result carries oracle-relative
     inefficiency / p99 / waste percentages.  ``device=None`` runs on the
     CUDA card (RuntimeError without one), ``device="cpu"`` on the CPU.
+    ``group`` (a ``torch.distributed`` process group) splits each pass's
+    stacked trial axis, every seed's trials, over its ranks
+    (:func:`simcore.run_compiled`); every rank returns the same results.
     Raises NotImplementedError, naming the feature, when the scenario
     needs one the port does not lower.
     """
@@ -212,7 +219,8 @@ def run_scenario(scenario, policies: Sequence[str] = DEFAULT_POLICIES,
     for pol_name in wanted:
         with timer.phase(f"run:{pol_name}"):
             summary = simcore.run_compiled(stacked, pol_name,
-                                           seed_blocks=blocks, device=dev)
+                                           seed_blocks=blocks, device=dev,
+                                           group=group)
         out[pol_name] = PolicyResult(
             scenario=spec.name, policy=pol_name, seeds=seeds,
             per_seed=_split_per_seed(summary, trials),
@@ -221,6 +229,8 @@ def run_scenario(scenario, policies: Sequence[str] = DEFAULT_POLICIES,
             wall_s=timer.wall[f"run:{pol_name}"],
             loop_s=summary["loop_s"], host_syncs=summary["host_syncs"],
             backend=summary["backend"],
+            simcore_backend=summary["simcore_backend"],
+            ranks=summary["ranks"],
             telemetry=summary.get("capacity"), trace=summary.get("trace"))
     if include_oracle:
         for pol_name in wanted:
@@ -235,14 +245,16 @@ def run_campaign(scenarios: Optional[Sequence] = None,
                  policies: Sequence[str] = DEFAULT_POLICIES,
                  seeds: Sequence[int] = tuple(range(12)),
                  include_oracle: bool = True, device: DeviceLike = None,
-                 **overrides) -> Dict[str, Dict[str, PolicyResult]]:
+                 group=None, **overrides
+                 ) -> Dict[str, Dict[str, PolicyResult]]:
     """The scenario x policy x seed grid: one :func:`run_scenario` per
-    scenario (every registered one by default), keyed by name."""
+    scenario (every registered one by default), keyed by name; ``group``
+    as there."""
     dev = resolve_device(device)
     names = scenario_names() if scenarios is None else list(scenarios)
     return {_resolve(n).name: run_scenario(n, policies, seeds,
                                            include_oracle, device=dev,
-                                           **overrides)
+                                           group=group, **overrides)
             for n in names}
 
 

@@ -44,3 +44,10 @@ def rng_from_key(key) -> np.random.Generator:
     """A ``Generator`` from an externally pinned key (the campaign's
     RandomChoice seed blocks replay a serial run's stream)."""
     return np.random.default_rng(key)
+
+
+def stream_identity(name: str) -> tuple:
+    """Stream ``name``'s generator identity on two independent probe
+    seeds: two names alias if and only if their identities agree (the
+    linter's ``rng-stream-uniqueness`` proof)."""
+    return rng_seed(0, name), rng_seed(12345, name)

@@ -78,11 +78,26 @@ are int32; the noise is the reference's own, drawn by numpy on the host,
 so the only divergence is rounding (sums reassociated, libm ulps).  The
 fleet mode draws its own noise and makes no parity claim.
 
-The reference's multi-device ``shard_map`` dispatch has no counterpart
-here yet.
+**Trial-axis sharding.**  :func:`run_compiled`, :func:`run_sim_compiled`
+and :func:`fleet_throughput` take ``group``, a ``torch.distributed``
+process group, as the reference's dispatch takes the visible devices.
+With a group and a shardable configuration (:func:`_shardable`: no
+capacity plane, no closed loop) the trial axis is split over the group's
+ranks: T is padded to a multiple of the world size by replicating the
+last trial, each rank runs its own block of every trial-axis tensor
+(:data:`_T_AXIS`) through the cached loop on its own device, the
+per-trial outputs are all-gathered along their trial axis and cut back
+to T, and every rank summarises the same result (``simcore_backend``
+``"shard"``, ``ranks`` the world size).  A configuration that is not
+shardable runs the whole trial axis on every rank (``"single"``), as the
+reference runs it on one device; so does every run without a group.
+:func:`prepare_compiled` is single-device, as in the reference.
 """
 from __future__ import annotations
 
+import functools
+import operator
+import os
 import time
 from collections import OrderedDict
 from dataclasses import dataclass, replace
@@ -90,6 +105,7 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.balancer import BUSY_PENALTY, POLICIES
 from repro_torch.core.capacity import (CapacityConfig, ElasticSet,
@@ -560,8 +576,8 @@ def _step_fn(st: _Static, c: Dict[str, torch.Tensor], plan, s: Dict,
     ``syncs`` (the completion folds' host reads), ``fallback`` (T,)
     (routings by the least_conn fallback), in the closed loop the
     ``fleet``, with a capacity plane the ``elastic`` replica set, with
-    breakers the ``breakers`` and with the flight recorder the ``trace``
-    buffer.
+    breakers their (T, R) trip counts ``trips`` and with the flight
+    recorder the ``trace`` buffer.
 
     One step body serves the eager loop and the graph: it reads its
     request (app, time), the app's candidate block and its noise from
@@ -1026,7 +1042,7 @@ def _step_fn(st: _Static, c: Dict[str, torch.Tensor], plan, s: Dict,
         return {"busy": busy, "ys": ys, "fallback": fallback,
                 "syncs": 0 if elastic is None else elastic.syncs,
                 "fleet": fleet, "elastic": elastic, "trace": trace,
-                "breakers": breakers}
+                "trips": None if breakers is None else breakers.trip_count}
 
     return block, finish
 
@@ -1170,6 +1186,194 @@ def clear_cache() -> None:
 
 
 # ----------------------------------------------------------------------
+# dispatch: the trial axis split over a process group, or one device
+#: the count carry's flat indices encode T: a block's are rebuilt from
+#: its own ``node_of`` (:func:`_count_index`)
+DERIVED = "derived"
+#: the trial axis of every tensor the lowering, the host plan, the carry,
+#: the outputs and ``finish()`` hold; None: one value for every trial (or,
+#: for ``syncs``, the rank's own count).  A key missing here raises: new
+#: state is not split by accident.
+_T_AXIS = {
+    # consts (``_lower``, ``_core_consts``, ``_fleet_inputs``)
+    "node_of": 0, "imat": 1, "speed": 1, "cand_node": 1, "mate_idx": 0,
+    "mate_app": 0, "mate_pad": 0, "app": None, "t": None,
+    "log_rbar": None, "mean_rtt": None, "exp_idx": DERIVED,
+    "cnt_base": DERIVED, "z": 1, "z_pred": 0, "zp_row": None, "draw": 1,
+    "na_key": 0, "down": 0, "gdown": 0, "zj": 1, "ev_rate": None, "hit": 0,
+    "gray_rep": 0, "imat_post": 1, "speed_post": 1, "log_rbar_post": None,
+    # the host plan (``_plan``): schedules every trial shares
+    "req_app": None, "req_t": None, "bump": None, "refresh": None,
+    "drift": None, "cold": None, "gray": None, "retrain": None,
+    "events": None,
+    # the carry (``_new_carry``) and its outputs ``ys`` (J, T)
+    "step": None, "busy": 0, "fallback": 0, "cursor": 0, "cnt": 1,
+    "counted": 0, "ys": None, "resp": 1, "rtt": 1, "rep": 1, "shed": 1,
+    "hmask": 1, "rtt2": 1, "tout": 1, "att": 1, "bwork": 1,
+    # ``finish()``: the flight recorder's (ceil(J / k), T, F) buffer and
+    # the breakers' (T, R) trip counts; the closed loop's fleet and the
+    # capacity plane's replica set exist only where ``_shardable`` is
+    # False
+    "syncs": None, "trace": 1, "trips": 0, "fleet": None, "elastic": None,
+}
+
+
+def _trial_axis(key: str):
+    try:
+        return _T_AXIS[key]
+    except KeyError:
+        raise KeyError(f"{key!r} has no entry in simcore._T_AXIS: "
+                       "unshardable state") from None
+
+
+def _shardable(st: _Static) -> bool:
+    """The reference's rule: the capacity plane's ledger and the closed
+    loop's fleet hold state across trials, so those configurations run
+    the whole trial axis on one device."""
+    return st.capacity is None and not st.closed_loop
+
+
+def _pad_index(T: int, Tp: int) -> np.ndarray:
+    """Trial indices of T padded to Tp by replicating the last trial
+    (replicas run the real code path; their outputs are cut off)."""
+    return np.minimum(np.arange(Tp), T - 1)
+
+
+def _block_index(T: int, world: int, rank: int) -> np.ndarray:
+    """The padded trials rank ``rank`` of ``world`` runs: its block of T
+    padded to a multiple of ``world``."""
+    B = -(-T // world)
+    return _pad_index(T, B * world)[rank * B:(rank + 1) * B]
+
+
+def _take_trials(st: _Static, consts: Dict[str, np.ndarray],
+                 idx: np.ndarray) -> Dict[str, np.ndarray]:
+    """The lowering's inputs at trials ``idx`` (a pad, a rank's block or
+    both), each along its trial axis; the count carry's flat indices
+    rebuilt for the block."""
+    out = {}
+    for k, v in consts.items():
+        ax = _trial_axis(k)
+        if ax is None or ax == DERIVED:
+            out[k] = v
+        else:
+            out[k] = np.take(v, idx, axis=ax)
+    if "exp_idx" in consts:
+        out["exp_idx"], out["cnt_base"] = _count_index(
+            out["node_of"], st.n_apps, st.k, st.n_nodes)
+    return out
+
+
+def _map_trials(tree: Dict, fn, path=()) -> Dict:
+    """``fn(value, axis, path)`` on every per-trial value of a
+    ``finish()`` state (``ys`` included); every other value as it is."""
+    out = {}
+    for k, v in tree.items():
+        ax = _trial_axis(k)
+        if isinstance(v, dict):
+            out[k] = _map_trials(v, fn, path + (k,))
+        elif ax is None or v is None:
+            out[k] = v
+        else:
+            out[k] = fn(v, ax, path + (k,))
+    return out
+
+
+def _cut_trials(tree: Dict, T: int) -> Dict:
+    """The first T trials of every per-trial value: the padding cut."""
+    def cut(v, ax, _):
+        if isinstance(v, np.ndarray):
+            return np.take(v, np.arange(T), axis=ax)
+        return v.narrow(ax, 0, T)
+    return _map_trials(tree, cut)
+
+
+def _join_trials(blocks) -> Dict:
+    """Ranks' ``finish()`` states concatenated along each value's trial
+    axis in rank order: what :func:`_gather_trials` gives every rank,
+    from blocks one process holds."""
+    def join(v, ax, path):
+        parts = [functools.reduce(operator.getitem, path, b)
+                 for b in blocks]
+        if isinstance(v, np.ndarray):
+            return np.concatenate(parts, axis=ax)
+        return torch.cat(parts, dim=ax)
+    return _map_trials(blocks[0], join)
+
+
+def _gather_trials(tree: Dict, group, dev: torch.device) -> Dict:
+    """Every rank's block of each per-trial value, all-gathered along its
+    trial axis in rank order (``all_gather_into_tensor``; masks go as
+    uint8, which every backend takes); a host array goes through the
+    rank's device and comes back to the host."""
+    world = dist.get_world_size(group)
+
+    def gather(v, ax, _):
+        host = isinstance(v, np.ndarray)
+        x = torch.as_tensor(v, device=dev) if host else v
+        mask = x.dtype == torch.bool
+        xm = x.movedim(ax, 0).contiguous()
+        if mask:
+            xm = xm.to(torch.uint8)
+        out = xm.new_empty((world * xm.shape[0], *xm.shape[1:]))
+        dist.all_gather_into_tensor(out, xm, group=group)
+        if mask:
+            out = out.bool()
+        out = out.movedim(0, ax).contiguous()
+        return out.cpu().numpy() if host else out
+    return _map_trials(tree, gather)
+
+
+def _rank_device(device: DeviceLike, group) -> torch.device:
+    """The device a rank runs on: ``device``, and for the card without an
+    index, ``cuda:{LOCAL_RANK}`` (else the rank modulo the cards)."""
+    dev = resolve_device(device)
+    if group is None or dev.type != "cuda" or dev.index is not None:
+        return dev
+    local = os.environ.get("LOCAL_RANK")
+    index = int(local) if local is not None \
+        else dist.get_rank() % torch.cuda.device_count()
+    return torch.device("cuda", index)
+
+
+def _execute(st: _Static, consts: Dict[str, np.ndarray], plan,
+             dev: torch.device, eager: bool, group=None,
+             noise_seed: int = 0):
+    """One pass of the loop over the lowered ``consts``: ``(final state,
+    dispatch facts)``.  Without a group, or for a configuration that is
+    not :func:`_shardable`, the whole trial axis runs on ``dev``; with a
+    group, this rank's block of the padded trials runs there, and every
+    per-trial value of the final state is gathered from every rank and
+    cut back to T.  The facts are the inputs' device, the loop's seconds
+    and capture seconds, ``backend`` (graph or eager), ``simcore_backend``
+    (shard or single) and ``ranks`` (the ranks the trials were split
+    over)."""
+    J = len(plan["req_t"])
+    T = consts["node_of"].shape[0]
+    shard = group is not None and _shardable(st)
+    world = dist.get_world_size(group) if shard else 1
+    if shard:
+        consts = _take_trials(st, consts,
+                              _block_index(T, world, dist.get_rank(group)))
+    c = {k: torch.as_tensor(v, device=dev) for k, v in consts.items()}
+    graph = dev.type == "cuda" and _graphable(st) and not eager
+    loop = _get_loop(st, c, J, graph)
+    final, loop_s, capture_s = loop.run(c, plan, noise_seed, adopt=True)
+    if shard:
+        final = _cut_trials(_gather_trials(final, group, dev), T)
+    return final, _facts(c, loop, loop_s, capture_s,
+                         "shard" if shard else "single", world)
+
+
+def _facts(c, loop, loop_s, capture_s, simcore_backend, ranks) -> Dict:
+    """The run's own summary keys, beside the result's."""
+    return {"device": str(c["node_of"].device), "loop_s": loop_s,
+            "capture_s": capture_s,
+            "backend": "graph" if loop.graph else "eager",
+            "simcore_backend": simcore_backend, "ranks": ranks}
+
+
+# ----------------------------------------------------------------------
 # host-side summary (the reference's _Metrics summary)
 def _summarize(cluster: _Cluster, st: _Static, final,
                plan) -> Dict[str, np.ndarray]:
@@ -1216,10 +1420,10 @@ def _summarize(cluster: _Cluster, st: _Static, final,
     if final["fleet"] is not None:
         summary["online"] = final["fleet"].stats(
             plan["req_app"], plan["req_t"], plan["retrain"])
-    br = final["breakers"]
+    trips = final["trips"]
     summary["breaker_trips_per_trial"] = \
-        np.zeros(len(m.fallback), np.int64) if br is None \
-        else br.trip_count.sum(1).cpu().numpy().astype(np.int64)
+        np.zeros(len(m.fallback), np.int64) if trips is None \
+        else trips.sum(1).cpu().numpy().astype(np.int64)
     if final["trace"] is not None:
         summary["trace"] = trace_block(final["trace"].cpu().numpy(),
                                        cluster.cfg.n_requests,
@@ -1229,33 +1433,34 @@ def _summarize(cluster: _Cluster, st: _Static, final,
 
 # ----------------------------------------------------------------------
 # public entry points
-def _compile(cluster: _Cluster, policy: str, seed_blocks, device,
-             eager: bool):
-    """Lower once, move the inputs to the device once and look the loop
-    up in the cache."""
-    dev = resolve_device(device)
+def _lowered(cluster: _Cluster, policy: str, seed_blocks):
     reason = supports(cluster.cfg, policy)
     if reason is not None:
         raise NotImplementedError(f"the port cannot run this config: "
                                   f"{reason}")
-    st, consts, plan = _lower(cluster, policy, seed_blocks)
+    return _lower(cluster, policy, seed_blocks)
+
+
+def _compile(cluster: _Cluster, policy: str, seed_blocks, device,
+             eager: bool):
+    """Lower once, move the inputs to the device once and look the loop
+    up in the cache (single-device)."""
+    dev = resolve_device(device)
+    st, consts, plan = _lowered(cluster, policy, seed_blocks)
     c = {k: torch.as_tensor(v, device=dev) for k, v in consts.items()}
     graph = dev.type == "cuda" and _graphable(st) and not eager
     return st, c, plan, _get_loop(st, c, cluster.cfg.n_requests, graph)
 
 
-def _run(cluster, st, c, plan, loop, adopt: bool) -> Dict[str, np.ndarray]:
-    final, loop_s, capture_s = loop.run(c, plan, 0, adopt)
+def _summary(cluster, st, final, plan, facts) -> Dict[str, np.ndarray]:
     summary = _summarize(cluster, st, final, plan)
-    summary.update(device=str(c["node_of"].device), loop_s=loop_s,
-                   capture_s=capture_s, host_syncs=final["syncs"],
-                   backend="graph" if loop.graph else "eager")
+    summary.update(host_syncs=final["syncs"], **facts)
     return summary
 
 
 def run_compiled(cluster: _Cluster, policy: str, *, seed_blocks=None,
-                 device: DeviceLike = None,
-                 eager: bool = False) -> Dict[str, np.ndarray]:
+                 device: DeviceLike = None, eager: bool = False,
+                 group=None) -> Dict[str, np.ndarray]:
     """Run one (cluster, policy) pass through the batched core.
 
     Drop-in for the reference's ``SimStepper(cluster, make_policy(...))
@@ -1265,18 +1470,25 @@ def run_compiled(cluster: _Cluster, policy: str, *, seed_blocks=None,
     included), ``capture_s`` (seconds spent capturing its graphs; 0 when
     a cached capture replays), ``backend`` (``"graph"``: a ``_graphable``
     configuration on the card, replayed from CUDA graphs; else
-    ``"eager"``), ``host_syncs`` (the completion folds' host reads),
-    ``fallback_per_trial``, ``timeouts_per_trial`` and
-    ``breaker_trips_per_trial`` (the breakers' trip events); a closed-loop
-    pass adds the fleet's ``online`` stats, a traced one the ``trace``
-    block.  ``seed_blocks`` mirrors RandomChoice's campaign blocks.
-    ``device=None`` runs on the CUDA card (RuntimeError without one);
+    ``"eager"``), ``host_syncs`` (the completion folds' host reads, this
+    rank's), ``simcore_backend`` (``"shard"``: the trial axis split over
+    ``group``; else ``"single"``), ``ranks`` (the ranks the trials were
+    split over, 1 when single), ``fallback_per_trial``,
+    ``timeouts_per_trial`` and ``breaker_trips_per_trial`` (the breakers'
+    trip events); a closed-loop pass adds the fleet's ``online`` stats, a
+    traced one the ``trace`` block.  ``seed_blocks`` mirrors
+    RandomChoice's campaign blocks.  ``device=None`` runs on the CUDA card
+    (RuntimeError without one; under a group ``cuda:{LOCAL_RANK}``);
     ``device="cpu"`` on the CPU.  ``eager`` steps a graphable
     configuration eagerly on the card too (to compare the two).
+    ``group`` (a ``torch.distributed`` process group) splits the trial
+    axis over its ranks where the configuration is shardable; every rank
+    returns the same summary.
     """
-    st, c, plan, loop = _compile(cluster, policy, seed_blocks, device,
-                                 eager)
-    return _run(cluster, st, c, plan, loop, adopt=True)
+    dev = _rank_device(device, group)
+    st, consts, plan = _lowered(cluster, policy, seed_blocks)
+    final, facts = _execute(st, consts, plan, dev, eager, group)
+    return _summary(cluster, st, final, plan, facts)
 
 
 def prepare_compiled(cluster: _Cluster, policy: str, *, seed_blocks=None,
@@ -1289,20 +1501,23 @@ def prepare_compiled(cluster: _Cluster, policy: str, *, seed_blocks=None,
     the loop (on the card, a ``_graphable`` configuration's CUDA graphs,
     captured by the first call that needs them) and returns the same
     summary as :func:`run_compiled`.  ``device`` and ``eager`` as
-    there."""
+    there; single-device, as the reference's."""
     st, c, plan, loop = _compile(cluster, policy, seed_blocks, device,
                                  eager)
 
     def run() -> Dict[str, np.ndarray]:
-        return _run(cluster, st, c, plan, loop, adopt=False)
+        final, loop_s, capture_s = loop.run(c, plan, 0, adopt=False)
+        return _summary(cluster, st, final, plan,
+                        _facts(c, loop, loop_s, capture_s, "single", 1))
 
     return run
 
 
 def run_sim_compiled(cfg: SimConfig, policy: str = "perf_aware",
-                     device: DeviceLike = None):
+                     device: DeviceLike = None, group=None):
     """Build ``cfg``'s cluster and run it through :func:`run_compiled`."""
-    return run_compiled(_build_cluster(cfg), policy, device=device)
+    return run_compiled(_build_cluster(cfg), policy, device=device,
+                        group=group)
 
 
 def _fleet_inputs(st: _Static, seed: int, n_requests: int, T: int,
@@ -1332,7 +1547,7 @@ def fleet_throughput(n_requests: int = 1_000_000, n_nodes: int = 250,
                      n_replicas_per_app: int = 200, n_apps: int = 5,
                      n_trials: int = 4, policy: str = "perf_aware",
                      seed: int = 0, arrival_rate: float = 2000.0, *,
-                     device: DeviceLike = None):
+                     device: DeviceLike = None, group=None):
     """Fleet-scale mode: million-request x thousand-replica runs with the
     noise drawn on the device (no (J, T) or (T, J, R) host tensors, no
     serial-parity claim: the same model with another random stream).
@@ -1345,24 +1560,28 @@ def fleet_throughput(n_requests: int = 1_000_000, n_nodes: int = 250,
     with the reference's keys (``mean_rtt``, ``p99_rtt``, ``n_requests``,
     ``n_replicas``, ``n_trials``, ``wall_s`` (inputs to the device, the
     capture and the loop, the outputs back), ``backend``,
-    ``events_per_s``) and ``loop_s`` and ``capture_s``.
-    ``device=None`` runs on the CUDA card, ``device="cpu"`` on the CPU.
+    ``events_per_s``) and ``loop_s``, ``capture_s``, ``simcore_backend``
+    and ``ranks`` (as :func:`run_compiled`'s).  ``device=None`` runs on
+    the CUDA card, ``device="cpu"`` on the CPU.  Under ``group`` every
+    rank seeds its generator alike, so each shard draws the same noise
+    for its block's trials, as the reference's shards each draw
+    ``fold_in(key, j)`` at their local shape.
     """
     noise_seed = int(rng_stream(seed, "fleet-demo-noise").integers(2 ** 62))
     stats, _ = _fleet(n_requests, n_nodes, n_replicas_per_app, n_apps,
                       n_trials, policy, seed, arrival_rate, noise_seed,
-                      device)
+                      device, group=group)
     return stats["events_per_s"], stats
 
 
 def _fleet(n_requests: int, n_nodes: int, n_replicas_per_app: int,
            n_apps: int, n_trials: int, policy: str, seed: int,
            arrival_rate: float, noise_seed: int, device: DeviceLike,
-           eager: bool = False):
+           eager: bool = False, group=None):
     """:func:`fleet_throughput`'s run with the noise generator seeded by
     ``noise_seed`` (``eager`` steps it eagerly on the card too): (stats,
     the (J, T) responses)."""
-    dev = resolve_device(device)
+    dev = _rank_device(device, group)
     apps = tuple(APPS)[:n_apps]
     cfg = SimConfig(n_nodes=n_nodes, n_replicas_per_app=n_replicas_per_app,
                     apps=apps, n_requests=n_requests, n_trials=n_trials,
@@ -1372,10 +1591,7 @@ def _fleet(n_requests: int, n_nodes: int, n_replicas_per_app: int,
     consts, plan = _fleet_inputs(st, seed, n_requests, n_trials,
                                  arrival_rate, mean_rtt)
     t0 = time.perf_counter()
-    c = {k: torch.as_tensor(v, device=dev) for k, v in consts.items()}
-    loop = _get_loop(st, c, n_requests,
-                     dev.type == "cuda" and _graphable(st) and not eager)
-    final, loop_s, capture_s = loop.run(c, plan, noise_seed, adopt=True)
+    final, facts = _execute(st, consts, plan, dev, eager, group, noise_seed)
     resp = final["ys"]["resp"].cpu().numpy()
     wall = time.perf_counter() - t0
     stats = {"mean_rtt": float(resp.mean()),
@@ -1383,7 +1599,5 @@ def _fleet(n_requests: int, n_nodes: int, n_replicas_per_app: int,
              "n_requests": n_requests,
              "n_replicas": n_apps * n_replicas_per_app,
              "n_trials": n_trials, "wall_s": wall,
-             "backend": "graph" if loop.graph else "eager",
-             "events_per_s": n_requests * n_trials / wall,
-             "loop_s": loop_s, "capture_s": capture_s}
+             "events_per_s": n_requests * n_trials / wall, **facts}
     return stats, resp

@@ -859,3 +859,48 @@ def tp_serve_parity(cfg, mesh, params: dict, batch: dict, cache_len: int,
             for k in (("tp", "single") if r % 2 == 0 else ("single", "tp")):
                 ms[k].append(waves[k]()["decode_s"] / max(steps, 1) * 1e3)
     return out
+
+
+def blocks_summary(cluster, policy: str, world: int,
+                   device: DeviceLike = None) -> dict:
+    """The sharded dispatch's pad, block and cut path at ``world`` ranks,
+    each rank's block run one after another on one device: the padded
+    trials' blocks (``simcore._block_index`` / ``_take_trials``), each
+    through the cached loop (its outputs copied before the next block
+    replays a captured loop over them), joined in rank order
+    (``_join_trials``, what the all-gather gives every rank), cut back
+    to T (``_cut_trials``) and summarised.  Returns ``(summary, blocks
+    run)``."""
+    from repro_torch.core import simcore
+    from repro_torch.device import resolve_device
+    dev = resolve_device(device)
+    st, consts, plan = simcore._lowered(cluster, policy, None)
+    T = consts["node_of"].shape[0]
+    finals = []
+    for r in range(world):
+        block = simcore._take_trials(st, consts,
+                                     simcore._block_index(T, world, r))
+        final, _ = simcore._execute(st, block, plan, dev, eager=False)
+        finals.append(simcore._map_trials(
+            final, lambda v, ax, _: v.copy() if isinstance(v, np.ndarray)
+            else v.clone()))
+    final = simcore._cut_trials(simcore._join_trials(finals), T)
+    return simcore._summarize(cluster, st, final, plan), len(finals)
+
+
+def step_records(device: DeviceLike = None) -> dict:
+    """The step audit's record of every distinct step on ``device`` (None:
+    the card) as plain data: label -> {ops, max_scatters, reads, carry,
+    missed, findings}, for a card run held against a CPU run."""
+    from repro_torch.analysis import step_audit
+    out = {}
+    for spec in step_audit.step_specs():
+        rec = step_audit.record_step(spec, device)
+        out[spec.label] = {
+            "ops": dict(sorted(rec.ops.items())),
+            "max_scatters": rec.max_scatters,
+            "reads": {k: list(v) for k, v in sorted(rec.reads.items())},
+            "carry": sorted([k, w, j] for (k, w), j in rec.carry.items()),
+            "missed": list(rec.missed),
+            "findings": sorted(f.key for f in step_audit.audit_record(rec))}
+    return out

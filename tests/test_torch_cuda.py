@@ -1708,3 +1708,71 @@ def test_decode_lse_on_read_only_cross_block(cuda, nccl_rank, dtype,
     assert torch.equal(got, want)
     assert torch.equal(ck, kept[0]) and torch.equal(cv, kept[1])
 
+
+# ----------------------------------------------------------------------
+# simcore's trial-axis sharding and the step audit on the card
+#: the sharded cases' shape: 2 seeds x 3 trials stacked (T = 6)
+SHARD_KW = dict(seeds=(0, 1), n_trials=3, n_requests=120)
+
+
+def _assert_results_equal(got, want, label):
+    assert set(got) == set(want), label
+    for pol in want:
+        a, b = got[pol], want[pol]
+        for k in b.per_seed:
+            np.testing.assert_array_equal(a.per_seed[k], b.per_seed[k],
+                                          err_msg=f"{label}/{pol}/{k}")
+        assert a.inefficiency_pct == b.inefficiency_pct, (label, pol)
+
+
+@pytest.mark.parametrize("scenario", ["stale-predictions", "churn",
+                                      "retry-storm"])
+def test_sharded_campaign_one_rank_nccl_equals_unsharded(cuda, nccl_rank,
+                                                         scenario):
+    """``run_scenario`` under a one-rank NCCL group takes the shard path
+    (the block, the all-gather, the cut) to every stat of the run without
+    a group, bit for bit, with as many segment-sum launches."""
+    import torch.distributed as dist
+    n0 = segment_sum.launches
+    want = run_scenario(scenario, device="cuda", **SHARD_KW)
+    n1 = segment_sum.launches
+    got = run_scenario(scenario, device="cuda", group=dist.group.WORLD,
+                       **SHARD_KW)
+    n2 = segment_sum.launches
+    assert n2 - n1 == n1 - n0
+    assert (n1 - n0 > 0) == (scenario != "retry-storm")
+    for pol in got:
+        assert (got[pol].simcore_backend, got[pol].ranks) == ("shard", 1)
+        assert want[pol].simcore_backend == "single"
+    _assert_results_equal(got, want, scenario)
+
+
+@pytest.mark.parametrize("scenario,policy", [
+    ("baseline", "perf_aware"), ("stale-predictions", "perf_aware"),
+    ("retry-storm", "round_robin")])
+def test_pad_and_cut_blocks_equal_one_device_on_card(cuda, scenario, policy):
+    """T = 6 at world 4 (padded to 8; the last block two replicas of
+    trial 5), each block run on the card through the dispatch's block,
+    join and cut functions: the single-device run's summary."""
+    from repro_torch.core import simcore
+    from repro_torch.core.scenarios import get_scenario
+    from repro_torch.core.simulator import _build_cluster
+    from repro_torch.testing import blocks_summary
+    cluster = _build_cluster(get_scenario(scenario).compile(
+        seed=0, n_trials=6, n_requests=120))
+    got, n = blocks_summary(cluster, policy, 4, cuda)
+    want = simcore.run_compiled(cluster, policy, device=cuda)
+    assert n == 4
+    for k in SUMMARY_STATS + RESILIENCE_STATS:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    np.testing.assert_array_equal(got["chosen"], want["chosen"])
+
+
+def test_step_audit_on_card_equals_cpu(cuda):
+    """Every distinct step run on CUDA tensors dispatches the CPU's ops
+    and kernel calls and gives the CPU's findings."""
+    from repro_torch.testing import step_records
+    got, want = step_records(cuda), step_records("cpu")
+    assert list(got) == list(want)
+    for label in want:
+        assert got[label] == want[label], label

@@ -57,6 +57,23 @@ def test_the_multi_device_layer_is_checked():
         assert m in _modules(), m
 
 
+def test_the_analysis_linter_is_checked():
+    """The linter's modules are among those the import checks walk, and
+    it reads the port's tree alone: no source of it names the
+    reference's package path."""
+    mods = [m for m in _modules() if m.startswith("repro_torch.analysis")]
+    assert sorted(mods) == sorted(
+        f"repro_torch.analysis{s}" for s in (
+            "", ".__main__", ".baseline", ".cli", ".contracts", ".findings",
+            ".registry", ".rng_audit", ".step_audit"))
+    for m in mods:
+        path = os.path.join(SRC, *m.split("."))
+        path = path + ".py" if os.path.exists(path + ".py") \
+            else os.path.join(path, "__init__.py")
+        with open(path) as fh:
+            assert "src/repro/" not in fh.read(), m
+
+
 @pytest.mark.parametrize("module", _modules())
 def test_source_names_no_jax_or_reference_import(module):
     path = os.path.join(SRC, *module.split("."))
