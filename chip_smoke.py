@@ -245,6 +245,10 @@ Phases (any failure raises and exits non-zero, with no result line):
    on the fake group; each cell's memory (the arguments and the card's
    own peak a rank), flops, bytes and collective bytes by op type
    printed, every launch asserted on its kernel's tensor-core variant;
+   qwen3-moe-235b-a22b's train cell at depth 1 and 2 in its production
+   FSDP layout (DRYRUN_FSDP: each layer's weights gathered inside its
+   body), its temp difference printed beside one layer's weights as the
+   step gathers them;
    then each kernel at the shapes those cells gave it (recorded on the
    way) against its plain version, timed beside it, its library call
    and its bound (``kernels/*.py::work``);
@@ -473,14 +477,25 @@ TP_LOCAL_ENCDEC = 4
 #: backward on a rank's 2 of 32 heads and 8 of 128 experts; SSD and its
 #: backward on 4 of 64 heads), qwen2-vl-7b's decode at full depth (the
 #: decode kernel with ``lse`` on the rank's 2048-row ``kv_seq`` block of 8
-#: sequences)
+#: sequences), and qwen3-moe-235b-a22b's FSDP train cell at depth 1 and 2
+#: (each layer's weights gathered over data inside its body; flash and
+#: ``gmm`` forward and backward on 4 of 64 heads and 8 of 128 experts at
+#: D 4096, F 1536)
 DRYRUN_CELLS = (("qwen3-moe-30b-a3b", "train_4k", False, True),
                 ("qwen2-vl-7b", "decode_32k", True, False),
-                ("mamba2-1.3b", "train_4k", False, True))
+                ("mamba2-1.3b", "train_4k", False, True),
+                ("qwen3-moe-235b-a22b", "train_4k", False, True))
+#: the phase 13 cells whose depth-1 and depth-2 runs keep the production
+#: cell's FSDP layout (``dryrun_lib.run_cell(fsdp=True)``; by the
+#: reference's rule a cut depth's few parameters would make them ZeRO-1)
+DRYRUN_FSDP = {("qwen3-moe-235b-a22b", "train_4k")}
 #: each phase 13 cell's kernels and the tensor-core variant every launch
 #: takes
 DRYRUN_KERNELS = {
     ("qwen3-moe-30b-a3b", "train_4k"): {
+        "flash_attention": "tc", "flash_attention_bwd": "tc",
+        "gmm": "wgmma", "gmm_bwd": "wgmma"},
+    ("qwen3-moe-235b-a22b", "train_4k"): {
         "flash_attention": "tc", "flash_attention_bwd": "tc",
         "gmm": "wgmma", "gmm_bwd": "wgmma"},
     ("qwen2-vl-7b", "decode_32k"): {"decode_attention": "mma"},
@@ -3296,6 +3311,50 @@ def _dryrun_line(rec: dict, card: str) -> None:
               f"{coll['_total'] / gb:.4f} GB: {ops} [{card}]")
 
 
+def layer_gather_bytes(arch: str, shape: str) -> tuple:
+    """(one layer's weights as a (16, 16) rank's FSDP train step gathers
+    them inside the layer's body, bytes: each layer-gathered leaf's model
+    block whole over data; the layer-gathered leaves)
+    (``training.train_step.layer_gathered``)."""
+    import math
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.dryrun_lib import production_shape
+    from repro_torch.launch.specs import rules_for
+    from repro_torch.models import model as M
+    from repro_torch.parallel.sharding import AbstractMesh
+    from repro_torch.training.train_step import (layer_gathered,
+                                                 state_shardings)
+    from repro_torch.tree import leaves_with_path
+    mesh = AbstractMesh(*production_shape(False))
+    cfg = get_config(arch).resolve(tp=16, dp=16)
+    rules = rules_for(cfg, mesh, "train" if "train" in shape else shape)
+    lay = layer_gathered(cfg, rules)
+    p_sh = dict(leaves_with_path(state_shardings(cfg, rules)["params"]))
+    total = 0
+    for path, x in leaves_with_path(M.init_params(cfg, torch.Generator(),
+                                                  "meta")):
+        if path in lay:
+            block = p_sh[path].without(rules.batch_axes).shard_shape(
+                tuple(x.shape))
+            total += math.prod(block[lay[path].k:]) * x.element_size()
+    return total, len(lay)
+
+
+def _layer_memory_line(rec: dict, card: str) -> None:
+    """A depth-1 and depth-2 record's temp(L2) - temp(L1), beside one
+    layer's weights as the FSDP step gathers them (:func:
+    `layer_gather_bytes`): a gather of whole stacks would put the
+    difference at that size or more."""
+    gb = 1e9
+    d = (rec["memory_L2"]["temp_size_in_bytes"]
+         - rec["memory_L1"]["temp_size_in_bytes"])
+    layer, n = layer_gather_bytes(rec["arch"], rec["shape"])
+    print(f"phase 13 {rec['arch']} {rec['shape']}: temp(L2) - temp(L1) "
+          f"{d / gb:.3f} GB beside one layer's gathered weights "
+          f"{layer / gb:.3f} GB ({n} layer-gathered leaves) [{card}]")
+
+
 def dryrun_child(out: str) -> None:
     """Phase 13's child process: DRYRUN_CELLS through ``dryrun_lib.
     run_cell`` (rank 0 of the fake (16, 16) group), each cell's launches
@@ -3314,11 +3373,14 @@ def dryrun_child(out: str) -> None:
     for arch, shape, full, extrapolate in DRYRUN_CELLS:
         reset_counts(wrappers)
         t0 = time.perf_counter()
-        rec = dryrun_lib.run_cell(arch, shape, False, extrapolate=extrapolate,
-                                  verbose=False, full=full)
+        rec = dryrun_lib.run_cell(
+            arch, shape, False, extrapolate=extrapolate, verbose=False,
+            full=full, fsdp=True if (arch, shape) in DRYRUN_FSDP else None)
         got = {n: c for n, c in counts(wrappers).items() if c}
         rec["wall_s"] = time.perf_counter() - t0
         _dryrun_line(rec, card)
+        if (arch, shape) in DRYRUN_FSDP:
+            _layer_memory_line(rec, card)
         print(f"phase 13 {arch} {shape}: {rec['wall_s']:.1f} s, launches "
               f"{got} [{card}]")
         cells.append(rec)

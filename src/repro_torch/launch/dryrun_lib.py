@@ -30,6 +30,7 @@ import math
 import os
 import time
 import traceback
+from typing import Optional
 
 import torch
 
@@ -121,13 +122,17 @@ def _one_run(arch, shape_name, mesh, dev, **kw):
 
 def run_cell(arch: str, shape_name: str, multi_pod: bool,
              extrapolate: bool = True, verbose: bool = True, device=None,
-             rank: int = 0, full: bool = True) -> dict:
+             rank: int = 0, full: bool = True,
+             fsdp: Optional[bool] = None) -> dict:
     """One cell's record: this process as rank ``rank`` of the production
     mesh on ``device`` (None: the card).  ``full`` runs the cell at its
     full depth (``memory``, ``cost_full``, ``collectives_full``,
     ``run_s``); ``extrapolate`` (single pod only) the depth-1 and depth-2
     runs (``cost_L1`` / ``cost_L2``, ``collectives_L*``, ``memory_L*``,
-    ``run_L*_s``)."""
+    ``run_L*_s``).  ``fsdp`` None lets each run's config choose its
+    layout, as the reference's (a train cell past 8 B parameters is FSDP
+    at full depth, ZeRO-1 at depth 1 and 2); True or False sets it for
+    every run (``fsdp`` is then recorded)."""
     dev = resolve_device(device)
     shape, axes = production_shape(multi_pod)
     rec = {"arch": arch, "shape": shape_name,
@@ -137,10 +142,12 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
     rec["n_blocks"] = _n_blocks(base_cfg)
     rec["params"] = base_cfg.param_count()
     rec["params_active"] = base_cfg.param_count(active_only=True)
+    if fsdp is not None:
+        rec["fsdp"] = fsdp
     with fake_group(shape, axes, rank, dev) as mesh:
         if full:
             t0 = time.perf_counter()
-            ran = _one_run(arch, shape_name, mesh, dev)
+            ran = _one_run(arch, shape_name, mesh, dev, fsdp=fsdp)
             rec["memory"] = _mem_dict(ran.memory)
             rec["cost_full"] = cost_dict(ran)
             rec["collectives_full"] = collective_bytes(ran)
@@ -156,7 +163,8 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
                 t1 = time.perf_counter()
                 ran = _one_run(arch, shape_name, mesh, dev,
                                overrides=_depth_override(base_cfg, n),
-                               tcfg_overrides={"unroll_microbatches": True})
+                               tcfg_overrides={"unroll_microbatches": True},
+                               fsdp=fsdp)
                 rec[f"memory_L{n}"] = _mem_dict(ran.memory)
                 rec[f"cost_L{n}"] = cost_dict(ran)
                 rec[f"collectives_L{n}"] = collective_bytes(ran)

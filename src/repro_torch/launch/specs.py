@@ -51,13 +51,18 @@ def use_fsdp(cfg: ModelConfig, kind: str) -> bool:
     return n * 2 / 16 > 8e9        # tp=16 fixed in the production mesh
 
 
-def rules_for(cfg: ModelConfig, mesh, kind: str) -> AxisRules:
+def rules_for(cfg: ModelConfig, mesh, kind: str,
+              fsdp: Optional[bool] = None) -> AxisRules:
+    """The cell's rules; ``fsdp`` None takes :func:`use_fsdp` of ``cfg``
+    (the reference's rule), a bool sets it."""
     mesh_axes_ = tuple(mesh.mesh_dim_names)
     dp_axes = tuple(a for a in ("pod", "data") if a in mesh_axes_)
     mode = "train" if kind == "train" else ("decode" if kind == "decode"
                                             else "prefill")
-    return make_rules(mesh, mode=mode, fsdp=use_fsdp(cfg, kind),
-                      zero1=True, dp_axes=dp_axes)
+    if fsdp is None:
+        fsdp = use_fsdp(cfg, kind)
+    return make_rules(mesh, mode=mode, fsdp=fsdp, zero1=True,
+                      dp_axes=dp_axes)
 
 
 def arg_sharding(shape: Tuple[int, ...], axes, rules: AxisRules) -> Sharding:
@@ -296,11 +301,15 @@ def build_cell(arch: str, shape_name: str, mesh,
                overrides: Optional[dict] = None,
                cfg: Optional[ModelConfig] = None,
                tcfg_overrides: Optional[dict] = None,
-               device=None, seed: int = 0) -> Cell:
+               device=None, seed: int = 0,
+               fsdp: Optional[bool] = None) -> Cell:
     """The cell ``arch`` x ``shape_name`` (a ``SHAPES`` name, or a
     ``ShapeSpec`` of its own) on ``mesh`` (a ``DeviceMesh`` or an
     ``AbstractMesh``), resolved as the reference's ``build_cell``:
-    ``cfg.resolve(tp, dp)``, :func:`rules_for`; train with 8
+    ``cfg.resolve(tp, dp)``, :func:`rules_for` (``fsdp`` None: the
+    reference's choice on the resolved config, which a depth override
+    can flip to ZeRO-1; a bool keeps a production cell's layout at a cut
+    depth); train with 8
     microbatches, a bf16 master and bf16 moments where 14 bytes a
     parameter over the chips reach 11 GB (else 4, f32 and f32), its state
     donated; decode donating its cache.  The arguments are this rank's
@@ -327,7 +336,7 @@ def build_cell(arch: str, shape_name: str, mesh,
         cfg = dataclasses.replace(cfg, **overrides)
     cfg = cfg.resolve(tp=tp, dp=dp)
     kind = shape.kind
-    rules = rules_for(cfg, mesh, kind)
+    rules = rules_for(cfg, mesh, kind, fsdp)
     dev = resolve_device(device)
     gen = None
     if dev.type != "meta":

@@ -20,9 +20,11 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from repro_torch.parallel.sharding import (axis_rules, current_rules, dp_sum,
-                                           gather_model, model_group,
-                                           reduce_from_model, tp_index)
+from repro_torch.parallel.sharding import (axis_rules, current_layer_gather,
+                                           current_rules, dp_sum,
+                                           gather_model, layer_gather,
+                                           model_group, reduce_from_model,
+                                           tp_index)
 
 #: logits of the padded vocabulary rows (as the reference's ``-1e30``)
 PAD_LOGIT = -1e30
@@ -78,10 +80,28 @@ def stacked_logical(lg: dict) -> dict:
             for k, v in lg.items()}
 
 
-def layer_slice(tree: dict, i: int) -> dict:
-    """Layer ``i`` of a stacked layer tree (views, no copies)."""
+def layer_slice(tree: dict, i) -> dict:
+    """Layer ``i`` (an int, or a tuple of leading indices) of a stacked
+    layer tree (views, no copies)."""
     return {k: layer_slice(v, i) if isinstance(v, dict) else v[i]
             for k, v in tree.items()}
+
+
+def layer_params(params: dict, stack: str, i) -> dict:
+    """Layer ``i`` of the stack ``params[stack]`` for a training layer's
+    body: :func:`layer_slice`'s views, but under the FSDP train step's
+    layer gather (``parallel.sharding.LayerGather``) each leaf the step
+    keeps as this rank's shard all-gathered over the data-parallel axes
+    for this layer alone, its gradient reduced into the step's
+    accumulator by the backward.  Called inside the layer's
+    :func:`maybe_remat` body, so the recompute gathers again and nothing
+    gathered outlives the layer's forward or its backward (under
+    ``remat="none"`` autograd keeps every layer's gathered weights for
+    the backward)."""
+    lg = current_layer_gather()
+    if lg is None:
+        return layer_slice(params[stack], i)
+    return lg.layer(params[stack], (stack,), i)
 
 
 # ----------------------------------------------------------------------
@@ -423,8 +443,9 @@ def maybe_remat(cfg, fn: Callable) -> Callable:
 
     The recompute runs in the backward pass, which for CUDA tensors runs
     on autograd's own thread, where the caller's context variables are
-    not set; so the sharding rules active at the forward are bound to it
-    and entered again around the recompute."""
+    not set; so the sharding rules and the FSDP layer gather active at
+    the forward are bound to it and entered again around the
+    recompute."""
     if cfg.remat == "none":
         return fn
     if cfg.remat not in ("full", "dots"):
@@ -437,10 +458,10 @@ def maybe_remat(cfg, fn: Callable) -> Callable:
     def wrapped(*args):
         if not torch.is_grad_enabled():
             return fn(*args)
-        rules = current_rules()
+        rules, layers = current_rules(), current_layer_gather()
 
         def under_rules(*a):
-            with axis_rules(rules):
+            with axis_rules(rules), layer_gather(layers):
                 return fn(*a)
 
         return checkpoint(under_rules, *args, use_reentrant=False, **kw)

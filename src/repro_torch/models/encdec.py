@@ -28,7 +28,9 @@ changes dtype.)
 
 ``train_forward`` is the reference's: the decoder's chunked
 cross-entropy (no aux loss), every encoder and decoder layer under
-``maybe_remat`` as the reference's bodies are.
+``maybe_remat`` as the reference's bodies are, its weights taken by
+``common.layer_params`` (under the FSDP train step gathered over the
+data-parallel axes inside the body, one layer at a time).
 
 Under the rules of a mesh with a model axis (``launch.specs.rules_for``;
 the reference's ``src/repro/parallel/sharding.py:124-146``) the family
@@ -53,8 +55,9 @@ from repro_torch.models.common import (chunked_cross_entropy,
                                        default_positions, dtype_of,
                                        embed_tokens, embedding_logical,
                                        init_embedding, init_mlp,
-                                       init_rmsnorm, layer_slice,
-                                       logits_from_hidden, maybe_remat, mlp,
+                                       init_rmsnorm, layer_params,
+                                       layer_slice, logits_from_hidden,
+                                       maybe_remat, mlp,
                                        mlp_logical, rmsnorm, rmsnorm_logical,
                                        stacked_init, stacked_logical,
                                        whole_logits)
@@ -162,7 +165,8 @@ def encode(params, cfg, frames: torch.Tensor) -> torch.Tensor:
     def attn(p, x):
         return attention_fwd(p, cfg, x.to(dt), positions, causal=False)
 
-    def body(lp, h):
+    def body(i, h):
+        lp = layer_params(params, "enc_layers", i)
         h, _ = _sublayer(cfg, lp["ln1"], lambda x: attn(lp["attn"], x), h, S)
         return _sublayer(cfg, lp["ln2"], lambda x: (
             mlp(lp["mlp"], x.to(dt), swiglu=False), None), h, S)[0]
@@ -170,7 +174,7 @@ def encode(params, cfg, frames: torch.Tensor) -> torch.Tensor:
     body = maybe_remat(cfg, body)
     h = take_seq_block(frames)
     for i in range(cfg.enc_layers):
-        h = body(layer_slice(params["enc_layers"], i), h)
+        h = body(i, h)
     return rmsnorm(params["enc_norm"], gather_seq(h, length=S), cfg.norm_eps)
 
 
@@ -212,13 +216,14 @@ def _decoder(params, cfg, tokens: torch.Tensor, enc_out: torch.Tensor,
             mlp(lp["mlp"], x, swiglu=False), None), h, S)
         return h, kv, ckv
 
-    body = maybe_remat(cfg, lambda lp, h, enc_out: layer(lp, h, enc_out)[0])
+    body = maybe_remat(cfg, lambda i, h, enc_out: layer(
+        layer_params(params, "dec_layers", i), h, enc_out)[0])
     for i in range(cfg.num_layers):
-        lp = layer_slice(params["dec_layers"], i)
         if cache is None:
-            h = body(lp, h, enc_out)
+            h = body(i, h, enc_out)
             continue
-        h, (k, v), (ck, cv) = layer(lp, h, enc_out)
+        h, (k, v), (ck, cv) = layer(layer_slice(params["dec_layers"], i), h,
+                                    enc_out)
         cache["k"][i, :, :k.shape[1]], cache["v"][i, :, :v.shape[1]] = k, v
         cache["ck"][i], cache["cv"][i] = ck, cv
     return rmsnorm(params["final_norm"], h, cfg.norm_eps)

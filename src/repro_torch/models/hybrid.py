@@ -31,7 +31,11 @@ carry).  The Mamba2 cache has no sequence axis, so the ``ssm`` family's
 prefill ignores ``cache_len``, as in the reference.
 
 ``train_forward`` is the reference's (the chunked cross-entropy, no aux
-loss; each ``ssm`` layer or ``hybrid`` group under ``maybe_remat``).
+loss; each ``ssm`` layer or ``hybrid`` group under ``maybe_remat``,
+its weights taken by ``common.layer_params``: under the FSDP train step
+each Mamba2 layer's and the group's LoRA gathered over the data-parallel
+axes inside the body, one layer at a time; the shared block, outside
+the stacks, is gathered once a step).
 Under grad the Mamba2 layer's scan goes through ``kernels.ssd.SSD``: on
 the card the SSD kernel forward and ``csrc/ssd_bwd.cu`` backward, on the
 CPU their plain versions.
@@ -71,8 +75,9 @@ from repro_torch.models.common import (apply_rope, chunked_cross_entropy,
                                        default_positions, dtype_of,
                                        embed_tokens, embedding_logical,
                                        init_embedding, init_mlp,
-                                       init_rmsnorm, layer_slice,
-                                       logits_from_hidden, maybe_remat,
+                                       init_rmsnorm, layer_params,
+                                       layer_slice, logits_from_hidden,
+                                       maybe_remat,
                                        mlp_logical, normal_init, rmsnorm,
                                        rmsnorm_logical, stacked_init,
                                        stacked_logical, whole_logits)
@@ -283,14 +288,14 @@ def _backbone(params, cfg, batch, cache: Optional[dict] = None):
     emb = scatter_seq(embed_tokens(params["embed"], cfg, tokens))
     h = emb
     if cfg.family == "ssm":
-        body = maybe_remat(cfg, lambda lp, hh: _mamba_layer_fwd(
-            cfg, lp, hh, S)[0])
+        body = maybe_remat(cfg, lambda i, hh: _mamba_layer_fwd(
+            cfg, layer_params(params, "layers", i), hh, S)[0])
         for i in range(cfg.num_layers):
-            lp = layer_slice(params["layers"], i)
             if cache is None:
-                h = body(lp, h)
+                h = body(i, h)
                 continue
-            h, states = _mamba_layer_fwd(cfg, lp, h, S)
+            h, states = _mamba_layer_fwd(cfg, layer_slice(params["layers"], i),
+                                         h, S)
             _write_layer_cache(cache, (i,), states)
         return rmsnorm(params["final_norm"], h, cfg.norm_eps)
     positions = batch.get("positions")
@@ -302,25 +307,26 @@ def _backbone(params, cfg, batch, cache: Optional[dict] = None):
         lo = kv_offset(n)
         kv_rows = (min(lo, S), min(lo + n, S))
 
-    def group(mp, lp, hh):
+    def group(g, hh):
         """One ``hybrid`` group: (h, each layer's states, the shared
-        block's (k, v))."""
+        block's (k, v)); under the FSDP train step each Mamba2 layer and
+        the group's LoRA are gathered on their own (``layer_params``)."""
         states = []
         for j in range(cfg.hybrid.shared_every):
-            hh, st = _mamba_layer_fwd(cfg, layer_slice(mp, j), hh, S)
+            hh, st = _mamba_layer_fwd(
+                cfg, layer_params(params, "mamba", (g, j)), hh, S)
             states.append(st)
-        blk, kv = _shared_block_fwd(cfg, params["shared"], lp, hh, emb,
+        blk, kv = _shared_block_fwd(cfg, params["shared"],
+                                    layer_params(params, "lora", g), hh, emb,
                                     positions, S, kv_rows)
         return hh + blk, states, kv
 
-    body = maybe_remat(cfg, lambda mp, lp, hh: group(mp, lp, hh)[0])
+    body = maybe_remat(cfg, lambda g, hh: group(g, hh)[0])
     for g in range(_n_groups(cfg)):
-        mp = layer_slice(params["mamba"], g)
-        lp = layer_slice(params["lora"], g)
         if cache is None:
-            h = body(mp, lp, h)
+            h = body(g, h)
             continue
-        h, states, (k, v) = group(mp, lp, h)
+        h, states, (k, v) = group(g, h)
         for j, st in enumerate(states):
             _write_layer_cache(cache, (g, j), st)
         cache["k"][g, :, :k.shape[1]] = k

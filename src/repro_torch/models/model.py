@@ -57,7 +57,9 @@ cross-entropy of the labels plus, for ``moe``, the layers' mean aux
 loss; metrics ``loss``, ``aux_loss`` and ``tokens``.  Each layer runs
 under ``maybe_remat`` (the config's ``remat``), so with ``"full"`` its
 forward, flash and ``gmm`` kernels included, runs again in the backward
-pass.  The gradients come from autograd: through the kernels'
+pass; it takes its weights by ``common.layer_params``, which under the
+FSDP train step all-gathers them over the data-parallel axes inside the
+body, for that layer alone (and again in the recompute).  The gradients come from autograd: through the kernels'
 ``autograd.Function``s (``FlashAttention``, ``GMM``), whose backward
 kernels run on CUDA tensors and plain versions on CPU ones.
 """
@@ -77,8 +79,9 @@ from repro_torch.models.attention import (attention_decode, attention_fwd,
 from repro_torch.models.common import (chunked_cross_entropy,
                                        default_positions, embed_tokens,
                                        embedding_logical, init_embedding,
-                                       init_mlp, init_rmsnorm, layer_slice,
-                                       logits_from_hidden, maybe_remat, mlp,
+                                       init_mlp, init_rmsnorm, layer_params,
+                                       layer_slice, logits_from_hidden,
+                                       maybe_remat, mlp,
                                        mlp_logical, rmsnorm, rmsnorm_logical,
                                        stacked_init, stacked_logical,
                                        whole_logits)
@@ -216,18 +219,19 @@ def _dec_backbone(params, cfg, batch, cache: Optional[dict] = None):
     def attn(p, x):
         return attn_fwd(p, cfg, x, positions, causal=cfg.causal, **kw)
 
-    def body(lp, hh):
-        hh, aux, _ = _dec_layer(cfg, attn, lp, hh, S)
+    def body(i, hh):
+        hh, aux, _ = _dec_layer(cfg, attn, layer_params(params, "layers", i),
+                                hh, S)
         return hh, aux
 
     body = maybe_remat(cfg, body)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(cfg.num_layers):
-        lp = layer_slice(params["layers"], i)
         if cache is None:
-            h, a = body(lp, h)
+            h, a = body(i, h)
         else:
-            h, a, kv = _dec_layer(cfg, attn, lp, h, S)
+            h, a, kv = _dec_layer(cfg, attn, layer_slice(params["layers"], i),
+                                  h, S)
             for name, rows in zip(names, kv):
                 cache[name][i, :, :rows.shape[1]] = rows
         if a is not None:

@@ -30,6 +30,10 @@ Here a rank holds local shards and the collectives are explicit:
   ``NamedSharding``: ``local`` slices a full tensor to this rank's shard,
   ``gather`` all-gathers a shard back to the full tensor, and
   :func:`place` / :func:`gather` do so over trees;
+- under FSDP the train step keeps each stacked layer leaf that a
+  data-parallel axis splits as this rank's shard: :class:`LayerGather`
+  all-gathers one layer of it inside the layer's body and reduces the
+  layer's gradient into the step's f32 accumulator from the backward;
 - :func:`dp_sum` sums a statistic over the data-parallel ranks (the ranks
   of the ``batch`` axes); without rules it is the identity.  The models
   use it where a loss or a router statistic is a mean over the *global*
@@ -72,7 +76,9 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import dataclasses
 import functools
+import itertools
 import math
 from typing import Dict, Optional, Sequence, Tuple, Union
 
@@ -443,6 +449,141 @@ def place(tree, shardings):
     """Each full leaf of ``tree`` cut to this rank's shard (the
     counterpart of ``jax.device_put`` with shardings)."""
     return tree_map(lambda x, s: s.local(x), tree, shardings)
+
+
+# ----------------------------------------------------------------------
+# FSDP: the stacked layers' weights gathered one layer at a time
+class _GatherLayer(torch.autograd.Function):
+    """One layer's shard of a stacked leaf all-gathered over the
+    data-parallel axes; the backward reduces the layer's gradient into
+    the step's accumulator (:meth:`LayerGather.reduce`) and passes
+    nothing on.  The gather, the accumulator and whether this is the
+    step's first microbatch are bound here, at the forward: a CUDA
+    backward runs on autograd's own thread, without the caller's
+    context."""
+
+    @staticmethod
+    def forward(ctx, x, lg, path, idx):
+        ctx.lg, ctx.path, ctx.idx, ctx.first = lg, path, idx, lg.first
+        return lg.layout(path, "param", idx).gather(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        ctx.lg.reduce(ctx.path, ctx.idx, g, ctx.first)
+        return None, None, None, None
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerLeaf:
+    """A stacked leaf the FSDP step gathers layer by layer: ``param``,
+    its layout as the forward takes it (the params' with the model axis
+    dropped, so a model-split dim stays this rank's block); ``opt``, the
+    optimizer's layout of its gradient (the model axis dropped too);
+    ``summed``, the mesh axes its gradient is summed over; ``k``, its
+    number of leading layer dims."""
+    param: "Sharding"
+    opt: "Sharding"
+    summed: Tuple[str, ...]
+    k: int
+
+
+class LayerGather:
+    """The FSDP train step's stacked leaves that a data-parallel axis
+    splits, kept as this rank's shards and gathered layer by layer, as
+    the reference's GSPMD gathers them inside its scanned, rematerialised
+    body (``training.train_step.make_train_step``).
+
+    ``leaves`` maps a leaf's key path to its :class:`LayerLeaf`, ``acc``
+    to its f32 accumulator in the optimizer's layout, stacked like the
+    leaf.  :meth:`layer` gathers one layer of a
+    stack (``models.common.layer_params``, inside the layer's
+    ``maybe_remat`` body: the recompute gathers again); each layer's
+    gradient is reduced as soon as autograd produces it (:meth:`reduce`):
+    cast to f32, reduce-scattered over the data-parallel axes that split
+    it and all-reduced over the rest of the summed axes
+    (:meth:`Sharding.sum_into`), then written into the layer's slot of
+    the accumulator on the step's first microbatch (``first``) and added
+    to it on the others: the arithmetic and the order of the sums of the
+    whole-stack reduction it replaces, element by element."""
+
+    def __init__(self, mesh, leaves: dict, acc: dict):
+        self.mesh = mesh
+        self.leaves = leaves
+        self.acc = acc
+        self.first = True
+        self._cut = {}
+
+    def layout(self, path, kind: str, idx) -> Sharding:
+        """The ``kind`` ("param" or "opt") layout of one layer of the leaf
+        at ``path``: its stacked layout without the ``len(idx)`` leading
+        (layer) dims, which no rule splits."""
+        k = 1 if isinstance(idx, int) else len(idx)
+        key = (path, kind, k)
+        if key not in self._cut:
+            s = getattr(self.leaves[path], kind)
+            if any(_axes(e) for e in s.spec[:k]):
+                raise ValueError(f"{path}: a layer dim is split ({s.spec})")
+            self._cut[key] = Sharding(self.mesh, s.spec[k:])
+        return self._cut[key]
+
+    def layer(self, tree: dict, path: tuple, idx) -> dict:
+        """Layer ``idx`` (an int, or a tuple of leading indices) of the
+        stacked ``tree`` at key path ``path``: each leaf this step keeps
+        as a shard all-gathered over the data-parallel axes, the others
+        as views."""
+        out = {}
+        for k, v in tree.items():
+            p = path + (k,)
+            if isinstance(v, dict):
+                out[k] = self.layer(v, p, idx)
+            elif p in self.leaves:
+                out[k] = _GatherLayer.apply(v[idx], self, p, idx)
+            else:
+                out[k] = v[idx]
+        return out
+
+    def reduce(self, path: tuple, idx, g: torch.Tensor, first: bool) -> None:
+        """One layer's gradient ``g`` (this rank's term, whole over the
+        data-parallel axes) summed into layer ``idx``'s slot of the
+        accumulator of the leaf at ``path``; on the step's ``first``
+        microbatch written into the slot instead of added to it."""
+        s = self.layout(path, "opt", idx)
+        r = s.sum_into(g.to(torch.float32), self.leaves[path].summed)
+        slot = self.acc[path][idx]
+        if first:
+            slot.copy_(r)
+        else:
+            slot.add_(r)
+
+    def reduce_stack(self, path: tuple, g: torch.Tensor) -> None:
+        """A whole stack's gradient ``g`` of the leaf at ``path`` (this
+        rank's term, whole over the data-parallel axes) reduced layer by
+        layer, as the backward reduces each layer's: for a caller that
+        hands the step gradients it computed itself
+        (``testing.sharded_step_parity``)."""
+        k = self.leaves[path].k
+        for idx in itertools.product(*map(range, g.shape[:k])):
+            self.reduce(path, idx[0] if k == 1 else idx, g[idx],
+                        self.first)
+
+
+_LAYERS: contextvars.ContextVar[Optional[LayerGather]] = \
+    contextvars.ContextVar("layer_gather", default=None)
+
+
+@contextlib.contextmanager
+def layer_gather(lg: Optional[LayerGather]):
+    """``lg`` active inside: the models gather their layers through it
+    (``models.common.layer_params``)."""
+    token = _LAYERS.set(lg)
+    try:
+        yield lg
+    finally:
+        _LAYERS.reset(token)
+
+
+def current_layer_gather() -> Optional[LayerGather]:
+    return _LAYERS.get()
 
 
 def gather(tree, shardings):

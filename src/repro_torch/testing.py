@@ -589,8 +589,10 @@ def sharded_step_parity(cfg, tcfg, rules, state: dict, batch: dict,
     and the whole of the others, on the first data-parallel rank (and,
     for a leaf replicated over the model axis, the first model rank)
     only, zeros on the rest, so the step's sums over the ranks give them
-    back exactly.  What differs is the step's own logic: the microbatch
-    split, the params' gather, the optimizer's layout and collectives,
+    back exactly; a leaf the step gathers layer by layer goes through its
+    ``LayerGather.reduce_stack``, the per-layer reduction its backward
+    runs.  What differs is the step's own logic: the microbatch
+    split, the params' gathers, the optimizer's layout and collectives,
     the norm and the write-back; on one rank each collective is the
     identity, and the state comes out bit for bit (on more, the clip's
     norm sums the shards in another order).  The sharded step's forward
@@ -600,7 +602,8 @@ def sharded_step_parity(cfg, tcfg, rules, state: dict, batch: dict,
     STATE_TOL, ``params`` to 1); ``exact``, whether the two states are
     equal bit for bit; ``batch_equal`` and ``params_equal``, whether
     every microbatch the sharded step took (this rank's rows), and the
-    params it took them with (this rank's blocks), equal the
+    params it took them with (this rank's blocks; a layer-gathered
+    leaf's shard), equal the
     single-device step's bit for bit; ``loss_equal``, whether its
     forward's loss, summed over the data-parallel ranks, and token counts
     equal the single-device step's bit for bit, and ``loss_drift``, the
@@ -615,7 +618,8 @@ def sharded_step_parity(cfg, tcfg, rules, state: dict, batch: dict,
     from repro_torch.models import model as M
     from repro_torch.optim.adamw import clip_scale, leaf_square_sums
     from repro_torch.parallel.sharding import (MODEL, axis_index,
-                                               axis_size, dp_sum)
+                                               axis_size,
+                                               current_layer_gather, dp_sum)
     from repro_torch.training.train_step import (make_train_step,
                                                  state_shardings,
                                                  value_and_grad)
@@ -637,6 +641,9 @@ def sharded_step_parity(cfg, tcfg, rules, state: dict, batch: dict,
         return tree_map(lambda x, s: s.without(dp_axes).local(x), tree,
                         p_sh)
 
+    # a model block's layout split over the data-parallel axes alone
+    dp_only = tree_map(lambda s: s.without((MODEL,)), p_sh)
+
     def hand(g, s):
         lead = dp_r == 0 and (MODEL in s.axes() or tp_r == 0)
         g = own(g, s.without(dp_axes))
@@ -657,11 +664,18 @@ def sharded_step_parity(cfg, tcfg, rules, state: dict, batch: dict,
 
     def replay(cfg, params, mb):
         want_mb, want_params, (loss, metrics, grads) = recorded.pop(0)
+        lg = current_layer_gather()
+        held = [lg is not None and p in lg.leaves
+                for p, _ in leaves_with_path(params)]
         per = next(iter(want_mb.values())).shape[0] // dp
         seen["batch"] &= all(torch.equal(
             mb[k], want_mb[k].narrow(0, dp_r * per, per)) for k in mb)
-        seen["params"] &= all(torch.equal(a, b) for a, b in zip(
-            leaves(params), leaves(blocks(want_params))))
+        # a layer-gathered leaf is this rank's shard, the others its
+        # model block whole over the data-parallel axes
+        seen["params"] &= all(torch.equal(a, s.local(b) if h else b)
+                              for a, b, s, h in zip(
+                                  leaves(params), leaves(blocks(want_params)),
+                                  leaves(dp_only), held))
         xs = [p.detach().requires_grad_() for p in leaves(params)]
         with torch.enable_grad():
             got, got_metrics = M.train_forward(unflatten(params, xs), cfg, mb)
@@ -675,10 +689,19 @@ def sharded_step_parity(cfg, tcfg, rules, state: dict, batch: dict,
         def first_rank(v):
             return v if dp_r == 0 else torch.zeros_like(v)
 
+        handed = []
+        for (path, g), s, h in zip(leaves_with_path(grads), leaves(p_sh),
+                                   held):
+            g = hand(g, s)
+            if h:
+                # reduced layer by layer, as the backward reduces it
+                lg.reduce_stack(path, g)
+                g = None
+            handed.append(g)
         return (first_rank(loss),
                 {k: v if k == "tokens" else first_rank(v)
                  for k, v in metrics.items()},
-                tree_map(hand, grads, p_sh))
+                unflatten(grads, handed))
 
     def squares(side):
         def on_grads(grads, shardings):

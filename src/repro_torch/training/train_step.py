@@ -31,8 +31,19 @@ calls it with the same *global* batch:
   data`` under FSDP), master / m / v with ``embed -> opt_embed`` (ZeRO-1);
   :func:`make_train_state` places a new state, and
   ``parallel.sharding.gather`` gathers one back;
-- the params are all-gathered over the data-parallel axes for the forward
-  and backward;
+- the params the forward takes are whole over the data-parallel axes,
+  layer by layer under FSDP, as the reference's GSPMD schedules its
+  scanned body: each stacked layer leaf that a data-parallel axis splits
+  (:func:`layer_gathered`) stays this rank's shard and is all-gathered
+  for one layer inside that layer's ``maybe_remat`` body
+  (``models.common.layer_params``, ``parallel.sharding.LayerGather``), in
+  the forward and again in the recompute, per microbatch, and freed
+  after use; its gradient is reduced into the f32 accumulator as soon
+  as autograd produces it (below).  Under ``remat="none"`` autograd
+  keeps every layer's gathered weights from the forward to the
+  backward.  The other leaves (the embedding, ``final_norm``, Zamba2's
+  ``shared`` block, the norms, and everything under ZeRO-1) are
+  all-gathered once a step, before the first microbatch;
 - microbatches are split from the global batch first and then over the
   data-parallel ranks, as the reference reshapes the global batch to
   ``(n, B/n, ...)`` and shards each microbatch: rank ``r`` takes rows
@@ -43,7 +54,10 @@ calls it with the same *global* batch:
 - each microbatch's f32 gradients are reduce-scattered into the
   optimizer's layout and all-reduced over the other data-parallel axes
   (``pod``), and over ``model`` where the leaf is replicated there, as
-  the reference's ``c_opt`` places them;
+  the reference's ``c_opt`` places them, and summed into an f32
+  accumulator in that layout: a layer-gathered leaf's layer by layer
+  from the backward (``LayerGather.reduce``), the others after the
+  microbatch's backward;
 - AdamW updates the local shard (the clip's norm global), and the params
   keep their shard under FSDP or are all-gathered from the new master
   (ZeRO-1).
@@ -95,9 +109,11 @@ import torch
 
 from repro_torch.models import model as M
 from repro_torch.optim.adamw import adamw_init, adamw_update
-from repro_torch.parallel.sharding import (MODEL, AxisRules, Sharding,
-                                           axis_index, axis_rules, axis_size,
-                                           dp_sum, gather, map_logical,
+from repro_torch.parallel.sharding import (MODEL, AxisRules, LayerGather,
+                                           LayerLeaf, Sharding, axis_index,
+                                           axis_rules, axis_size,
+                                           current_layer_gather, dp_sum,
+                                           layer_gather, map_logical,
                                            mesh_axes, place)
 from repro_torch.tree import (keystr, leaves, leaves_with_path, tree_map,
                               unflatten)
@@ -142,14 +158,60 @@ def make_train_state(cfg, tcfg, generator: torch.Generator,
 
 def value_and_grad(cfg, params, batch):
     """(loss, metrics, grads in the params' dtypes) of one batch; a leaf
-    the loss does not reach gets zeros."""
+    the loss does not reach gets zeros.  Under the FSDP step's layer
+    gather (``parallel.sharding.LayerGather``) a leaf it gathers layer by
+    layer gets None: the backward reduced its gradient into the step's
+    accumulator."""
+    lg = current_layer_gather()
+    paths = [p for p, _ in leaves_with_path(params)]
     xs = [p.detach().requires_grad_() for p in leaves(params)]
     with torch.enable_grad():
         loss, metrics = M.train_forward(unflatten(params, xs), cfg, batch)
         gs = torch.autograd.grad(loss, xs, allow_unused=True)
-    grads = unflatten(params, [torch.zeros_like(x) if g is None else g
-                               for x, g in zip(xs, gs)])
-    return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
+    out = []
+    for path, x, g in zip(paths, xs, gs):
+        if lg is not None and path in lg.leaves:
+            if g is not None:
+                raise RuntimeError(f"{keystr(path)} was read outside its "
+                                   f"layer's gather (models.common."
+                                   f"layer_params)")
+            out.append(None)
+        else:
+            out.append(torch.zeros_like(x) if g is None else g)
+    return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
+            unflatten(params, out))
+
+
+def _summed_axes(rules: AxisRules, s: Sharding) -> tuple:
+    """The mesh axes a gradient in the optimizer's layout ``s`` is summed
+    over: the data-parallel ones and, where the leaf is replicated over
+    the model axis (its gradient partial on each model rank), that."""
+    if MODEL in s.axes():
+        return rules.batch_axes
+    return tuple(a for a in rules.mesh.mesh_dim_names
+                 if a in rules.batch_axes or a == MODEL)
+
+
+def layer_gathered(cfg, rules: AxisRules) -> dict:
+    """{key path: ``parallel.sharding.LayerLeaf``} of the stacked leaves
+    that the FSDP step keeps as this rank's shards and gathers layer by
+    layer: those whose params' layout splits a dim over a data-parallel
+    axis (none under ZeRO-1).  Both layouts drop the model axis (a
+    model-split dim stays this rank's block)."""
+    sh = state_shardings(cfg, rules)
+
+    def entry(axes, p, o):
+        k = 0
+        while k < len(axes) and axes[k] == "layers":
+            k += 1
+        if not k or not set(p.axes()) & set(rules.batch_axes):
+            return None
+        return LayerLeaf(p.without((MODEL,)), o.without((MODEL,)),
+                         _summed_axes(rules, o), k)
+
+    tree = map_logical(entry, M.params_logical(cfg), sh["params"],
+                       sh["opt"]["master"])
+    return {p: e for p, e in leaves_with_path(tree) if e is not None}
 
 
 def _check_rules(cfg, rules: AxisRules) -> None:
@@ -179,7 +241,14 @@ def make_train_step(cfg, tcfg, rules: Optional[AxisRules] = None,
     ``rules`` the data-parallel step over their mesh.  ``grad_fn(cfg,
     params, batch) -> (loss, metrics, grads)`` gives each microbatch's
     gradients (:func:`value_and_grad`; a test may hand two steps the
-    same ones); ``on_grads(grads, shardings)``, where given, sees the
+    same ones): with ``rules``, ``params`` holds the leaves the step
+    gathers layer by layer (:func:`layer_gathered`) as this rank's shards
+    and every other leaf whole over the data-parallel axes, and ``grads``
+    is each leaf's gradient in that whole layout, or None for a
+    layer-gathered leaf, whose gradient goes into the step's accumulator
+    through the active ``parallel.sharding.LayerGather`` (by the
+    backward, or by hand: ``LayerGather.reduce_stack``);
+    ``on_grads(grads, shardings)``, where given, sees the
     gradients AdamW takes (in the optimizer's layout, ``shardings`` None
     without rules) before it takes them."""
     if tcfg.grad_compression:
@@ -197,14 +266,32 @@ def make_train_step(cfg, tcfg, rules: Optional[AxisRules] = None,
         # the params are gathered over the data-parallel axes only (a
         # model-split dim stays this rank's block), and each gradient is
         # summed over them and, where the leaf is replicated over the
-        # model axis (its gradient partial on each model rank), over it
+        # model axis (its gradient partial on each model rank), over it;
+        # the stacked leaves FSDP splits stay shards, gathered layer by
+        # layer inside the models (``LayerGather``)
+        layered = layer_gathered(cfg, rules)
         g_sh = tree_map(lambda s: s.without((MODEL,)), p_sh)
-        with_model = tuple(a for a in rules.mesh.mesh_dim_names
-                           if a in rules.batch_axes or a == MODEL)
 
         def reduce(g, s):
-            axes = rules.batch_axes if MODEL in s.axes() else with_model
-            return s.without((MODEL,)).sum_into(g, axes)
+            return s.without((MODEL,)).sum_into(g, _summed_axes(rules, s))
+
+        def forward_params(params):
+            """The params the forward takes: every leaf gathered over the
+            data-parallel axes but the layer-gathered ones."""
+            return unflatten(params, [
+                x if path in layered else s.gather(x)
+                for (path, x), s in zip(leaves_with_path(params),
+                                        leaves(g_sh))])
+
+        def accumulator(state):
+            """A new step's ``LayerGather``: its f32 accumulators in the
+            optimizer's layout (the master's shard shapes), zeros."""
+            if not layered:
+                return None
+            master = dict(leaves_with_path(state["opt"]["master"]))
+            return LayerGather(rules.mesh, layered, {
+                p: torch.zeros(master[p].shape, dtype=torch.float32,
+                               device=master[p].device) for p in layered})
 
     def rows(batch, i, dp, r):
         out = {}
@@ -221,34 +308,47 @@ def make_train_step(cfg, tcfg, rules: Optional[AxisRules] = None,
     def to_opt(grads):
         """One microbatch's gradients in the optimizer's layout: as they
         are for one microbatch on one device, else in f32 (and under
-        rules summed over the ranks, ``reduce``)."""
+        rules summed over the ranks, ``reduce``); a None (a leaf the
+        backward already reduced) stays None."""
         if rules is None:
             return grads if n == 1 else tree_map(
                 lambda g: g.to(torch.float32), grads)
-        return tree_map(lambda g, s: reduce(g.to(torch.float32), s),
-                        grads, o_sh)
+        return tree_map(lambda g, s: None if g is None
+                        else reduce(g.to(torch.float32), s), grads, o_sh)
 
     def train_step(state, batch):
         if rules is None:
-            dp, r, params = 1, 0, state["params"]
+            dp, r, params, lg = 1, 0, state["params"], None
         else:
             dp = axis_size(rules.mesh, rules.batch_axes)
             r = axis_index(rules.mesh, rules.batch_axes)
-            params = gather(state["params"], g_sh)
+            params, lg = forward_params(state["params"]), accumulator(state)
         acc, loss_sum = None, 0.0
         for i in range(n):
-            with axis_rules(rules):
+            if lg is not None:
+                lg.first = i == 0
+            with axis_rules(rules), layer_gather(lg):
                 loss, metrics, grads = grad_fn(cfg, params,
                                                rows(batch, i, dp, r))
                 loss = dp_sum(loss)
                 metrics = {k: v if k == "tokens" else dp_sum(v)
                            for k, v in metrics.items()}
             grads = to_opt(grads)
-            acc = grads if acc is None else tree_map(torch.add, acc, grads)
+            acc = grads if acc is None else tree_map(
+                lambda a, g: a if g is None else torch.add(a, g), acc, grads)
             loss_sum = loss_sum + loss
         if n > 1:
-            acc = tree_map(lambda g: g / n, acc)
+            acc = tree_map(lambda g: None if g is None else g / n, acc)
+            if lg is not None:
+                # the layer-gathered leaves' accumulators, divided in
+                # place (no second copy of them)
+                for t in lg.acc.values():
+                    t.div_(n)
             loss_sum = loss_sum / n
+        if lg is not None:
+            acc = unflatten(acc, [lg.acc[p] if g is None else g
+                                  for p, g in leaves_with_path(acc)])
+            del lg
         del params
         if on_grads is not None:
             on_grads(acc, o_sh)
